@@ -1,0 +1,145 @@
+"""Averaging agreement (paper Def. 3, App. A.3): MDA and GDA over gossip
+graphs, the port of the JAX package's ``core/agreement.py``.
+
+``avg_agree`` runs κ rounds of message passing. In each, every receiver
+gathers the messages along its in-edges (the padded ``nbr_idx`` table,
+:mod:`repro_torch.topology`), selects a large low-diameter subset and
+averages it. All K receivers select in one batched pass: MDA's pairwise
+distances are one ``gram`` launch over (K, P, d) per round. Byzantine
+senders may equivocate per receiver: receiver r then sees its own slice of
+a (K, K, d) attack tensor, along its in-edges only.
+
+The coordinate-wise methods (``cwmean``, ``cwmed``, ``cwtm``) wait for the
+``gossip_reduce`` kernel and are not registered yet.
+"""
+from __future__ import annotations
+
+import functools
+import itertools
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.registry import REGISTRY, Spec, register, resolve
+from repro_torch.kernels.pairwise_dist import pairwise_sq_dists
+from repro_torch.topology import resolve_topology
+
+#: Largest neighbor-multiset size ``mda_mean`` enumerates subsets for;
+#: C(n, n_keep) grows combinatorially beyond it. The limit applies to the
+#: neighborhood, not K.
+MDA_MAX_AGENTS = 16
+
+
+@functools.lru_cache(maxsize=16)
+def _subsets(n: int, size: int, device: torch.device) -> torch.Tensor:
+    """All index subsets of [n] of the given size, (n_subsets, size), in
+    ``itertools.combinations`` order, built once per device."""
+    return torch.as_tensor(
+        np.array(list(itertools.combinations(range(n), size)),
+                 dtype=np.int64), device=device)
+
+
+def mda_mean(received: torch.Tensor, n_keep: int) -> torch.Tensor:
+    """Exact Minimum-Diameter Averaging: received (B, n, d) -> (B, d), the
+    mean of the n_keep-subset of least diameter (the first on ties)."""
+    B, n, d = received.shape
+    if n > MDA_MAX_AGENTS:
+        raise ValueError(
+            f"mda_mean enumerates C(n, n_keep) subsets and received a "
+            f"multiset of size {n} > MDA_MAX_AGENTS={MDA_MAX_AGENTS}; use "
+            f"method='gda' or a sparser topology (the limit applies to the "
+            f"neighborhood size, not K)")
+    subs = _subsets(n, n_keep, received.device)          # (S, n_keep)
+    d2 = pairwise_sq_dists(received)                     # (B, n, n)
+    sub_d = d2[:, subs[:, :, None], subs[:, None, :]]    # (B, S, nk, nk)
+    diam = sub_d.reshape(B, subs.shape[0], -1).amax(-1)
+    best = subs[torch.argmin(diam, dim=1)]               # (B, n_keep)
+    rows = torch.arange(B, device=received.device)[:, None]
+    return received[rows, best].mean(1)
+
+
+def gda_mean(received: torch.Tensor, own: torch.Tensor,
+             n_keep: int) -> torch.Tensor:
+    """Greedy Diameter Averaging: received (B, n, d), own (B, d) -> (B, d),
+    the mean of the n_keep vectors closest to the agent's own (the lower
+    index first on ties, as ``lax.top_k``)."""
+    d2 = ((received - own[:, None, :]) ** 2).sum(-1)
+    idx = torch.sort(d2, dim=1, stable=True).indices[:, :n_keep]
+    rows = torch.arange(received.shape[0], device=received.device)[:, None]
+    return received[rows, idx].mean(1)
+
+
+class AgreementMethod(NamedTuple):
+    """A resolved selection rule ``select(received, own, n_keep)`` and the
+    tolerated ``alpha_bar``."""
+    select: Callable
+    alpha_bar: float
+
+
+@register("agreement", "mda", max_agents=MDA_MAX_AGENTS)
+def _mda_factory(alpha_bar: float = 0.25):
+    return AgreementMethod(lambda recv, own, n_keep: mda_mean(recv, n_keep),
+                           alpha_bar)
+
+
+@register("agreement", "gda")
+def _gda_factory(alpha_bar: float = 0.2):
+    return AgreementMethod(gda_mean, alpha_bar)
+
+
+def avg_agree(theta: torch.Tensor, kappa: int, n_byz: int,
+              byz_mask: Optional[torch.Tensor] = None, method="gda",
+              attack: Optional[Callable] = None,
+              noise: Optional[torch.Tensor] = None,
+              topology=None) -> torch.Tensor:
+    """Simulate Avg-Agree_κ over K agents (paper Algorithm 3 on a gossip
+    graph).
+
+    theta: (K, d) current parameters. attack: ``fn(broadcast (K, d),
+    byz_mask, noise) -> (K_send, d)`` or, per receiver, ``(K_recv, K_send,
+    d)``; None is an honest broadcast. noise: the attack's draws for all
+    rounds, (κ, ...) with the attack's own noise shape per round, or None
+    when it draws none. Returns the (K, d) parameters after κ rounds
+    (Byzantine rows carry what an honest agent in that slot would compute;
+    callers mask them).
+    """
+    K, d = theta.shape
+    m = resolve("agreement", method, n_byz=n_byz)
+    topo = resolve_topology(topology, K)
+    nbr = torch.as_tensor(topo.nbr_idx, dtype=torch.int64,
+                          device=theta.device)           # (K, P)
+    P = topo.deg_max
+    # never forced to include a Byzantine: n_keep <= P - n_byz
+    n_keep = max(min(int(np.ceil((1.0 - m.alpha_bar) * P)), P - n_byz), 1)
+    limit = REGISTRY.meta("agreement", method).get("max_agents")
+    if limit is not None and P > limit:
+        raise ValueError(
+            f"agreement method {Spec.of(method).name!r} supports neighbor "
+            f"multisets up to {limit}, but topology {topo.name!r} has "
+            f"deg_max={P}; use 'gda' or a sparser topology")
+    if byz_mask is None:
+        byz_mask = torch.zeros(K, dtype=torch.bool, device=theta.device)
+    rows = torch.arange(K, device=theta.device)[:, None]
+    for r in range(kappa):
+        if attack is None:
+            recv = theta[nbr]                                # (K, P, d)
+        else:
+            a = attack(theta, byz_mask, None if noise is None else noise[r])
+            if a.dim() == 3:
+                # receiver r sees its own adversarial slice a[r] along its
+                # in-edges; honest senders deliver their true value
+                recv = torch.where(byz_mask[nbr][:, :, None], a[rows, nbr],
+                                   theta[nbr])
+            else:
+                recv = torch.where(byz_mask[:, None], a, theta)[nbr]
+        theta = m.select(recv, theta, n_keep)
+    return theta
+
+
+def honest_diameter(theta: torch.Tensor,
+                    honest_mask: torch.Tensor) -> torch.Tensor:
+    """max_{i,l honest} ||θ_i - θ_l||, the paper's Δ₂ diagnostic."""
+    d2 = pairwise_sq_dists(theta[None])[0]
+    m = honest_mask[:, None] & honest_mask[None, :]
+    return torch.sqrt(torch.where(m, d2, 0.0).amax())
