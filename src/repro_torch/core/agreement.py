@@ -9,8 +9,12 @@ distances are one ``gram`` launch over (K, P, d) per round. Byzantine
 senders may equivocate per receiver: receiver r then sees its own slice of
 a (K, K, d) attack tensor, along its in-edges only.
 
-The coordinate-wise methods (``cwmean``, ``cwmed``, ``cwtm``) wait for the
-``gossip_reduce`` kernel and are not registered yet.
+The coordinate-wise methods (``cwmean``, ``cwmed``, ``cwtm``) reduce each
+neighbour multiset instead of selecting from it: one ``gossip_reduce``
+launch per round gathers and reduces for all receivers when one message
+matrix is shared (an honest round, or a consistent attack), and
+``neighbor_reduce`` reduces the gathered (K, P, d) tensor when the
+Byzantine senders equivocate per receiver.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.registry import REGISTRY, Spec, register, resolve
+from repro_torch.kernels.gossip_reduce import gossip_reduce, neighbor_reduce
 from repro_torch.kernels.pairwise_dist import pairwise_sq_dists
 from repro_torch.topology import resolve_topology
 
@@ -71,10 +76,14 @@ def gda_mean(received: torch.Tensor, own: torch.Tensor,
 
 
 class AgreementMethod(NamedTuple):
-    """A resolved selection rule ``select(received, own, n_keep)`` and the
-    tolerated ``alpha_bar``."""
-    select: Callable
+    """A resolved agreement rule. Selection methods (MDA/GDA) carry
+    ``select(received, own, n_keep)`` and the tolerated ``alpha_bar``;
+    coordinate-wise methods carry ``reduce`` (a gossip-reduce mode) and
+    ``n_trim`` instead."""
+    select: Optional[Callable]
     alpha_bar: float
+    reduce: Optional[str] = None
+    n_trim: int = 0
 
 
 @register("agreement", "mda", max_agents=MDA_MAX_AGENTS)
@@ -86,6 +95,27 @@ def _mda_factory(alpha_bar: float = 0.25):
 @register("agreement", "gda")
 def _gda_factory(alpha_bar: float = 0.2):
     return AgreementMethod(gda_mean, alpha_bar)
+
+
+@register("agreement", "cwmean")
+def _cwmean_factory():
+    """Plain gossip averaging: no Byzantine tolerance."""
+    return AgreementMethod(None, 0.0, reduce="mean")
+
+
+@register("agreement", "cwmed")
+def _cwmed_factory():
+    """Coordinate-wise median over each neighbour multiset."""
+    return AgreementMethod(None, 0.5, reduce="median")
+
+
+@register("agreement", "cwtm")
+def _cwtm_factory(n_byz: int = 0, n_trim: Optional[int] = None):
+    """Coordinate-wise trimmed mean over each neighbour multiset, trimming
+    ``n_trim`` (default: the config's ``n_byz``) from each tail; needs
+    ``deg_max > 2·n_trim``."""
+    nt = n_byz if n_trim is None else n_trim
+    return AgreementMethod(None, 0.25, reduce="trimmed", n_trim=nt)
 
 
 def avg_agree(theta: torch.Tensor, kappa: int, n_byz: int,
@@ -122,9 +152,8 @@ def avg_agree(theta: torch.Tensor, kappa: int, n_byz: int,
         byz_mask = torch.zeros(K, dtype=torch.bool, device=theta.device)
     rows = torch.arange(K, device=theta.device)[:, None]
     for r in range(kappa):
-        if attack is None:
-            recv = theta[nbr]                                # (K, P, d)
-        else:
+        sent, recv = theta, None
+        if attack is not None:
             a = attack(theta, byz_mask, None if noise is None else noise[r])
             if a.dim() == 3:
                 # receiver r sees its own adversarial slice a[r] along its
@@ -132,8 +161,15 @@ def avg_agree(theta: torch.Tensor, kappa: int, n_byz: int,
                 recv = torch.where(byz_mask[nbr][:, :, None], a[rows, nbr],
                                    theta[nbr])
             else:
-                recv = torch.where(byz_mask[:, None], a, theta)[nbr]
-        theta = m.select(recv, theta, n_keep)
+                sent = torch.where(byz_mask[:, None], a, theta)
+        if m.reduce is None:
+            theta = m.select(sent[nbr] if recv is None else recv, theta,
+                             n_keep)
+        elif recv is None:
+            # one message matrix for all receivers: gather + reduce fused
+            theta = gossip_reduce(sent, nbr, m.reduce, m.n_trim)
+        else:
+            theta = neighbor_reduce(recv, m.reduce, m.n_trim)
     return theta
 
 

@@ -9,9 +9,11 @@ Per iteration t, every agent k:
   3. forms ṽ_t^(k): the plain estimate (c=1) or the PAGE correction with
      its realized previous step (θ_t − θ_{t−1})/η and an importance-weighted
      estimate at θ_{t−1} (c=0);
-  4. robustly aggregates everyone's (possibly Byzantine) messages;
+  4. robustly aggregates everyone's (possibly Byzantine) messages
+     (bucketing ∘ RFA or Krum, the trimmed mean, ...);
   5. takes the optimizer step θ̃_{t+1} = θ_t + η v_t;
-  6. runs Avg-Agree_κ (MDA/GDA) to contract the parameter diameter.
+  6. runs Avg-Agree_κ (MDA/GDA, or the coordinate-wise cwmean, cwmed,
+     cwtm) to contract the parameter diameter.
 
 All K agents run together on (K, ...) tensors. The T iterations are a
 Python loop; each step's randomness arrives as a

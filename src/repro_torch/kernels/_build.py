@@ -38,6 +38,12 @@ _SIGNATURES = {
     "repro_gram_f32": (_VP, _VP, _INT, _INT, _I64, _VP),
     "repro_weiszfeld_f32": (_VP, _VP, _INT, _INT, _F32, _INT, _VP),
     "repro_wsum_f32": (_VP, _VP, _VP, _INT, _INT, _I64, _VP),
+    "repro_trimmed_mean_f32": (_VP, _VP, _INT, _INT, _I64, _INT, _VP),
+    "repro_gossip_reduce_f32": (_VP, _VP, _VP, _INT, _INT, _I64, _INT, _INT,
+                                _VP),
+    "repro_neighbor_reduce_f32": (_VP, _VP, _INT, _INT, _I64, _INT, _INT,
+                                  _VP),
+    "repro_krum_score_f32": (_VP, _VP, _I64, _INT, _INT, _VP),
 }
 
 _LIB = None

@@ -56,10 +56,11 @@ def test_registered_names_are_the_reference_names():
                "optimizer", "env", "topology", "policy"):
         ours = set(REGISTRY.names(ns))
         assert ours and ours <= set(JREGISTRY.names(ns)), ns
-    # krum and trimmed_mean wait for their kernels: resolve names what is
-    # registered instead of failing silently
-    with pytest.raises(KeyError, match="registered: .*rfa"):
-        resolve("aggregator", "krum", K=5, n_byz=1)
+    # every robust aggregator and agreement rule of the reference is ported
+    for ns in ("aggregator", "agreement"):
+        assert REGISTRY.names(ns) == JREGISTRY.names(ns), ns
+    with pytest.raises(KeyError, match="registered: .*krum"):
+        resolve("aggregator", "bogus", K=5, n_byz=1)
     with pytest.raises(TypeError, match="unexpected"):
         resolve("aggregator", "rfa(bogus=1)", K=5, n_byz=1)
 

@@ -20,7 +20,9 @@ from repro.kernels import dispatch  # noqa: E402
 from repro.rl.envs import make_cartpole as jax_cartpole  # noqa: E402
 from repro.rl.policy import resolve_policy  # noqa: E402
 
+from repro_torch.core import aggregators as tagg  # noqa: E402
 from repro_torch.core import decbyzpg as tdb  # noqa: E402
+from repro_torch.kernels.krum_score import krum_scores  # noqa: E402
 from repro_torch.rl.envs import make_cartpole  # noqa: E402
 
 from torch_parity import replay_step_noise  # noqa: E402
@@ -38,6 +40,14 @@ BASE = dict(K=6, n_byz=1, attack="sign_flip", aggregator="rfa",
             seed=3)
 BUCKETED = dict(BASE, K=7, attack="large_noise(sigma=10)",
                 per_receiver=True, topology="ring(k=4)")
+# Krum (K=6, n_byz=1: Lemma 3 gives buckets of int(0.25 / (1/6)) = 1, so
+# no bucketing, n_near = 3) with cwtm (n_trim = 1 of 6) under a consistent
+# attack: the fused gossip_reduce path; and the trimmed mean with cwmed
+# under per-receiver noise on a ring: the neighbor_reduce path
+KRUM_CWTM = dict(BASE, aggregator="krum", agreement="cwtm")
+TM_CWMED = dict(BUCKETED, aggregator="trimmed_mean", agreement="cwmed")
+#: Krum's scores agree with the reference's to this share of the largest
+SCORE_RTOL = 1e-5
 
 
 def _jax_run(env, cfg):
@@ -53,15 +63,31 @@ def _jax_run(env, cfg):
     return jax.device_get(hist), theta0
 
 
-@pytest.mark.parametrize("kw", [BASE, BUCKETED], ids=["mda", "bucketing"])
-def test_run_decbyzpg_matches_jax(kw):
+@pytest.mark.parametrize("kw", [BASE, BUCKETED, KRUM_CWTM, TM_CWMED],
+                         ids=["mda", "bucketing", "krum_cwtm",
+                              "tm_cwmed_per_receiver"])
+def test_run_decbyzpg_matches_jax(kw, monkeypatch):
     jenv = jax_cartpole(horizon=32)
     jcfg = jdb.DecByzPGConfig(**kw)
     hist, theta0 = _jax_run(jenv, jcfg)
     tcfg = tdb.DecByzPGConfig(**kw)
     noise = replay_step_noise(jenv, jcfg, theta0.shape[0], T)
+    scores = []
+
+    def recording_scores(x, n_near):
+        scores.append(krum_scores(x, n_near))
+        return scores[-1]
+
+    monkeypatch.setattr(tagg, "krum_scores", recording_scores)
     out = tdb.run_decbyzpg(make_cartpole(horizon=32), tcfg, T,
                            device="cpu", theta0=theta0, noise=noise)
+    # Krum's argmin is discontinuous: each step's winner must beat the
+    # runner-up by more than the scores' tolerance, or rounding could swap
+    # them and θ would differ by a whole gradient
+    assert len(scores) == (T if kw["aggregator"] == "krum" else 0)
+    for s in scores:
+        top = torch.sort(s, dim=1).values
+        assert (top[:, 1] - top[:, 0]).min() > SCORE_RTOL * top.abs().max()
     # the same draws and θ₀: the coins are the same bits and the rollouts
     # pick the same actions; what differs is f32 summation order (the
     # gradients' sums over M·H terms, the Gram products, the Weiszfeld

@@ -107,8 +107,11 @@ def test_cpu_tensors_take_the_plain_route():
     assert torch.equal(g, gram_plain(x))
     assert torch.equal(w, weiszfeld_plain(g, 1e-6, 8))
     assert torch.equal(z, weighted_sum_plain(x, w))
-    assert dispatch.launch_counts() == {"gram": 0, "weiszfeld": 0,
-                                        "wsum": 0}
+    # only the kernels called here: other test files on the same worker
+    # may have registered more
+    counts = dispatch.launch_counts()
+    assert {k: counts[k] for k in ("gram", "weiszfeld", "wsum")} == {
+        "gram": 0, "weiszfeld": 0, "wsum": 0}
 
 
 def test_other_devices_have_no_route():

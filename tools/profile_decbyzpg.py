@@ -2,10 +2,13 @@
 """Where one iteration of the port's DecByzPG spends its time on the GPU.
 
     python3 tools/profile_decbyzpg.py [--env cartpole|lunarlander]
-                                      [--iters N]
+                                      [--iters N] [--aggregator SPEC]
+                                      [--agreement SPEC]
 
 Runs ``repro_torch.core.decbyzpg.run_decbyzpg`` at ``chip_smoke.py``'s
-full-width configurations: one warm iteration, then N iterations timed by
+full-width configurations (bucketing ∘ RFA and MDA unless
+``--aggregator`` / ``--agreement`` name other rules, e.g. ``--aggregator
+krum --agreement cwtm``): one warm iteration, then N iterations timed by
 the host clock around a synchronised run, then N more under
 ``torch.profiler``. Prints the card, ms per iteration, and for each phase
 range of the step (``decbyzpg.rollout`` ...) its host ms and the kernel
@@ -17,6 +20,7 @@ from __future__ import annotations
 
 import argparse
 import bisect
+import dataclasses
 import subprocess
 import sys
 import time
@@ -41,6 +45,10 @@ def main(argv=None) -> int:
     ap.add_argument("--env", choices=("cartpole", "lunarlander"),
                     default="cartpole")
     ap.add_argument("--iters", type=int, default=4)
+    ap.add_argument("--aggregator", default=None,
+                    help="aggregator spec, e.g. krum or trimmed_mean")
+    ap.add_argument("--agreement", default=None,
+                    help="agreement spec, e.g. cwtm or cwmed")
     args = ap.parse_args(argv)
 
     import torch
@@ -58,6 +66,9 @@ def main(argv=None) -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card)
     env, cfg = _configs()[args.env]
+    rules = {k: v for k, v in (("aggregator", args.aggregator),
+                               ("agreement", args.agreement)) if v}
+    cfg = dataclasses.replace(cfg, **rules)
     n = args.iters
     run_decbyzpg(env, cfg, 1)                    # build kernels, warm up
     torch.cuda.synchronize()
@@ -67,7 +78,8 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / n
     d = out["theta"].shape[1]
-    print(f"[profile] {args.env} d={d} K={cfg.K} horizon={env.horizon} "
+    print(f"[profile] {args.env} aggregator={cfg.aggregator} "
+          f"agreement={cfg.agreement} d={d} K={cfg.K} horizon={env.horizon} "
           f"M={max(cfg.N, cfg.B)}: {wall:.3f} ms/iter over {n} iterations "
           f"(host clock, synchronised)")
     print(f"[profile] our kernels per iteration: "
