@@ -6,7 +6,8 @@
 Phases, each of which raises on failure (so the exit code is non-zero):
 
 1. Card: the GPU's name and power limit, as ``nvidia-smi`` reports them.
-2. Build: ``kernels/csrc/aggregation.cu`` with ``nvcc`` for ``sm_90a``.
+2. Build: every ``kernels/csrc/*.cu`` with ``nvcc`` for ``sm_90a``, one
+   compile per source in parallel, linked into one library.
 3. Kernels: ``gram``, ``weiszfeld`` and ``wsum``, then ``krum_score``,
    ``trimmed_mean``, ``gossip_reduce`` and ``neighbor_reduce`` (each mode)
    against their plain PyTorch versions on the card, at the main path's
@@ -26,7 +27,17 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    configurations (RFA/MDA, Krum/cwtm, trimmed mean/cwmed per receiver)
    then run on the card and, with the same draws, on the CPU through the
    plain versions, and the two must agree.
-5. The kernel table as one JSON line, then
+5. Serving (``serving_runs()``): the port's continuous-batching engine
+   serves Llama-3.2-1B at full width and depth (24 requests, prompts up to
+   512 tokens), Qwen2.5-3B at full width cut to 4 layers, and the default
+   transformer policy through ``serve()``; each run must launch flash
+   attention exactly once per layer per prefill (warmup included) and
+   give every request exactly its budget of in-range tokens. Then
+   Llama-3.2-1B's width at 2 layers serves the same requests with the
+   same weights on the card and on the CPU: prefill logits must agree,
+   and greedy streams wherever the top-1 margin exceeds the tolerance.
+   Every registered kernel must launch on some run of phases 4 and 5.
+6. The kernel table as one JSON line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports nothing of JAX or of the JAX package ``repro``. Without a CUDA
@@ -57,6 +68,7 @@ LARGE_SHAPE = (1, 13, 1 << 24)
 LARGE_CW = {"krum_bt": 1 << 20, "trimmed_d": 1 << 24, "gossip_d": 1 << 22,
             "neighbor_d": 1 << 20}
 SOURCE = "src/repro_torch/kernels/csrc/aggregation.cu"
+SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/attention.cu"}
 REPLACES = {
     "gram": "src/repro/kernels/pairwise_dist/pairwise_dist.py:30",
     "weiszfeld": "src/repro/kernels/rfa/rfa.py:76",
@@ -66,6 +78,8 @@ REPLACES = {
     "gossip_reduce": "src/repro/kernels/gossip_reduce/gossip_reduce.py:50",
     "neighbor_reduce":
         "src/repro/kernels/gossip_reduce/gossip_reduce.py:80",
+    "flash_attention":
+        "src/repro/kernels/flash_attention/flash_attention.py:68",
 }
 # the input each kernel sees most on the main path: gram from MDA's rounds
 # and weiszfeld and wsum on the 7 bucket means (CartPole, n_byz=3); the
@@ -75,7 +89,17 @@ HEADLINE = {"gram": (13, 13, 386), "weiszfeld": (13, 7, 386),
             "krum_score": "x (1, 13, 386) n_near=8",
             "trimmed_mean": "(1, 13, 386) n_trim=3",
             "gossip_reduce": "(13, 386) P=13 trimmed n_trim=3",
-            "neighbor_reduce": "(13, 13, 386) median"}
+            "neighbor_reduce": "(13, 13, 386) median",
+            "flash_attention": "q (32, 512, 64) kv (8, 512, 64)"}
+# flash inputs (B, H, Hkv, S, hd, window): Llama-3.2-1B's 512-token
+# prefill (G = 4) with and without windows, Qwen2.5-3B's (hd 128, G = 8),
+# the policy's 9-position prefill (hd 32, G = 1) and ragged grouped ones
+FLASH_CASES = [(1, 32, 8, 512, 64, None), (1, 32, 8, 512, 64, 1),
+               (1, 32, 8, 512, 64, 7), (1, 32, 8, 512, 64, 128),
+               (1, 16, 2, 256, 128, None), (1, 2, 2, 9, 32, None),
+               (1, 4, 1, 9, 32, None), (1, 4, 1, 100, 64, None),
+               (2, 4, 2, 130, 32, None)]
+FLASH_LARGE = (1, 32, 8, 8192, 64, None)
 N_ITER, NU = 32, 1e-6
 F32_EPS = 2.0 ** -23
 
@@ -120,6 +144,7 @@ def phase_build():
     t0 = time.perf_counter()
     _build.library()
     info = _build.BUILD_INFO
+    log(f"[build] sources {[p.name for p in _build.sources()]}")
     log(f"[build] {_build.library_path().name} in "
         f"{time.perf_counter() - t0:.2f} s (nvcc {info['seconds']:.2f} s)")
     for line in info["ptxas"].splitlines():
@@ -355,6 +380,85 @@ def phase_cw_kernels(dev):
     return rows
 
 
+def _flash_pairs(S: int, window) -> int:
+    """Unmasked (query, key) pairs of one head's causal attention."""
+    if window is None:
+        return S * (S + 1) // 2
+    w = min(window, S)
+    return w * (w + 1) // 2 + (S - w) * w
+
+
+def phase_flash(dev):
+    """The flash-attention kernel against its plain version. Both sum in
+    f32 in other orders (FMA chains against matmul blockings), so the
+    stated tolerance is 2e-5·max|v|, the reference's own for its f32
+    kernel tests; reruns must be bit-identical. SDPA (f32, GQA, causal,
+    a boolean mask for the windows) is timed as the yardstick and its
+    distance from the kernel reported; the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        KERNEL_HEAD_DIMS, kernel_shared_bytes)
+    log(f"[flash] dynamic shared memory per block: "
+        f"{ {hd: kernel_shared_bytes(hd) for hd in KERNEL_HEAD_DIMS} } "
+        f"bytes (registers and spills: the build's ptxas lines)")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    rows = {}
+    for case in FLASH_CASES + [FLASH_LARGE]:
+        B, H, Hkv, S, hd, window = case
+        large = case == FLASH_LARGE
+        q = torch.randn((B * H, S, hd), generator=gen, device=dev)
+        k = torch.randn((B * Hkv, S, hd), generator=gen, device=dev)
+        v = torch.randn((B * Hkv, S, hd), generator=gen, device=dev)
+        out = flash_attention_kernel(q, k, v, H, window)
+        if not torch.equal(out, flash_attention_kernel(q, k, v, H, window)):
+            raise AssertionError(f"flash_attention {case}: rerun is not "
+                                 f"bit-identical")
+        ref = flash_attention_plain(q, k, v, H, window)
+        scale = v.abs().max().item()
+        err = (out - ref).abs().max().item()
+        tol = 2e-5 * scale
+        if not err <= tol:
+            raise AssertionError(f"flash_attention {case}: max abs err "
+                                 f"{err} > {tol}")
+        q4 = q.reshape(B, H, S, hd)
+        k4 = k.reshape(B, Hkv, S, hd)
+        v4 = v.reshape(B, Hkv, S, hd)
+        if window is None:
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=True, enable_gqa=True)
+        else:
+            pos = torch.arange(S, device=dev)
+            mask = (pos[None, :] <= pos[:, None]) \
+                & ((pos[:, None] - pos[None, :]) < window)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=mask, enable_gqa=True)
+        lib_err = (sdpa().reshape(B * H, S, hd) - out).abs().max().item()
+        pairs = B * H * _flash_pairs(S, window)
+        b = bound(4 * (2 * B * H * S * hd + 2 * B * Hkv * S * hd),
+                  4 * hd * pairs)
+        reps = 5 if large else 100
+        label = f"q {tuple(q.shape)} kv {tuple(k.shape)}" + (
+            f" window={window}" if window is not None else "")
+        rows[("flash_attention", label)] = dict(
+            err=err, rel=err / scale, tol=tol, large=large, lib_err=lib_err,
+            ms=time_ms(lambda: flash_attention_kernel(q, k, v, H, window),
+                       reps),
+            plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, H,
+                                                           window),
+                             2 if large else 10, 1),
+            library_ms=time_ms(sdpa, reps), bound_ms=b[0], bound_by=b[1])
+        del q, k, v, out, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
 def log_kernel_rows(rows):
     log("[kernels] name            input                                   "
         "max_abs_err  max_rel_err  tol          ms         plain_ms   "
@@ -395,8 +499,8 @@ def main_runs():
 
 def phase_main_path(dev):
     """Drive ``run_decbyzpg`` as a user would, counting launches: each run
-    must launch exactly the kernels of its row, and every kernel must
-    launch on some run."""
+    must launch exactly the kernels of its row. Returns the launches per
+    kernel over the runs."""
     import numpy as np
     import torch
     from repro_torch.core.decbyzpg import run_decbyzpg
@@ -432,12 +536,219 @@ def phase_main_path(dev):
             f"launches/iter={per_iter} returns={out['returns'].tolist()} "
             f"diameter={out['diameter'].tolist()} "
             f"coins={out['coins'].astype(int).tolist()}")
-    missing = [name for name in dispatch.kernels()
-               if totals.get(name, 0) <= 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
     return totals
+
+
+def serving_runs():
+    """(label, model config, engine kwargs, requests, prompt lengths,
+    flash launches) of phase 5; the config is None for the run through
+    ``serve()`` with its defaults (the transformer policy on
+    ``cartpole(horizon=32)``, 16 new tokens, prompts of 8 at most)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.serving import default_buckets
+    qwen_4l = dataclasses.replace(get_config("qwen2.5-3b"), n_layers=4)
+    return [
+        ("llama3.2-1b_serve", get_config("llama3.2-1b"),
+         dict(slots=8, max_prompt=512, max_new=32), 24, (1, 16, 128, 512),
+         16 * (len(default_buckets(512)) + 24)),
+        ("qwen2.5-3b_4l_serve", qwen_4l,
+         dict(slots=4, max_prompt=256, max_new=16), 8, (1, 16, 128, 256),
+         4 * (len(default_buckets(256)) + 8)),
+        ("policy_serve", None, dict(slots=4, max_new=16), 16, None,
+         2 * (len(default_buckets(8)) + 16)),
+    ]
+
+
+class _PhaseTimes:
+    """Host ms of every prefill (by bucket, the warmup's left out) and tick
+    of the engines built while it is active: it wraps ``DecodeEngine``'s
+    two methods, each of which ends in a device-to-host copy, so the host
+    clock covers the device work."""
+
+    def __init__(self):
+        from repro_torch.serving import engine
+        self.cls = engine.DecodeEngine
+        self.prefill, self.tick = {}, []
+
+    def __enter__(self):
+        cls, times = self.cls, self
+        self.orig = (cls.prefill_request, cls.tick)
+        orig_prefill, orig_tick = self.orig
+
+        def prefill_request(eng, req):
+            t0 = time.perf_counter()
+            out = orig_prefill(eng, req)
+            if req.uid < 0:                     # the engine's warmup
+                return out
+            bucket = eng.bucket_for(len(req.tokens) if req.tokens is not None
+                                    else 1)
+            times.prefill.setdefault(bucket, []).append(
+                (time.perf_counter() - t0) * 1e3)
+            return out
+
+        def tick(eng, state):
+            t0 = time.perf_counter()
+            out = orig_tick(eng, state)
+            times.tick.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        cls.prefill_request, cls.tick = prefill_request, tick
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.prefill_request, self.cls.tick = self.orig
+
+    def reset(self):
+        self.prefill, self.tick = {}, []
+
+    def summary(self) -> str:
+        by_bucket = {b: round(sum(t) / len(t), 3)
+                     for b, t in sorted(self.prefill.items())}
+        per_tick = sum(self.tick) / max(len(self.tick), 1)
+        return (f"ticks={len(self.tick)} ms/tick={per_tick:.3f} "
+                f"ms/prefill by bucket={by_bucket}")
+
+
+def _check_served(label, report, traffic, vocab):
+    budgets = {r.uid: r.max_new for r in traffic}
+    if sorted(r.uid for r in report.results) != sorted(budgets):
+        raise AssertionError(f"{label}: served {report.n_requests} of "
+                             f"{len(budgets)} requests")
+    for r in report.results:
+        if len(r.tokens) != budgets[r.uid]:
+            raise AssertionError(f"{label}: request {r.uid} got "
+                                 f"{len(r.tokens)} tokens, budget "
+                                 f"{budgets[r.uid]}")
+        if not all(0 <= t < vocab for t in r.tokens):
+            raise AssertionError(f"{label}: request {r.uid} has tokens "
+                                 f"outside [0, {vocab})")
+
+
+def phase_serving(dev):
+    """Serve through the port's front doors, counting launches: flash
+    attention must launch once per layer for every prefill, the engine's
+    warmup (one prefill per bucket) included, and nothing else may
+    launch. Returns the launches per kernel over the runs."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import (DecodeEngine, PolicyServer,
+                                     make_traffic, serve)
+
+    totals = {}
+    with _PhaseTimes() as times:
+        for label, cfg, kw, n, lens, want_flash in serving_runs():
+            torch.cuda.synchronize()
+            dispatch.reset_launches()
+            times.reset()
+            extra = ""
+            if cfg is None:
+                # cartpole's observations have 4 entries and 2 actions
+                report = serve(key=0, n_requests=n, realtime=False,
+                               device=dev, **kw)
+                traffic = make_traffic(n, seed=0, rate_rps=50.0,
+                                       max_new=kw["max_new"], obs_dim=4)
+                _check_served(label, report, traffic, 2)
+            else:
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(0)
+                engine = DecodeEngine(cfg, init_params(cfg, gen, device=dev),
+                                      device=dev, **kw)
+                t0 = time.perf_counter()
+                server = PolicyServer(engine)           # runs the warmup
+                extra = f" warmup_s={time.perf_counter() - t0:.3f}"
+                times.reset()
+                traffic = make_traffic(n, seed=0, vocab=cfg.vocab_size,
+                                       prompt_lens=lens,
+                                       max_new=kw["max_new"])
+                report = server.run_offline(traffic)
+                _check_served(label, report, traffic, cfg.vocab_size)
+            torch.cuda.synchronize()
+            counts = dispatch.launch_counts()
+            want = {name: 0 for name in counts}
+            want["flash_attention"] = want_flash
+            if counts != want:
+                raise AssertionError(f"{label}: launches {counts}, "
+                                     f"expected {want}")
+            for name, c in counts.items():
+                totals[name] = totals.get(name, 0) + c
+            log(f"[serve] {label}: {report.summary()} {times.summary()}"
+                f"{extra} flash_launches={counts['flash_attention']}")
+            log(f"[serve] {label}: first streams "
+                f"{[r.tokens[:8] for r in report.results[:3]]}")
+            del report
+            torch.cuda.empty_cache()
+    return totals
+
+
+def phase_serving_cpu_agreement(dev):
+    """Llama-3.2-1B's width at 2 layers (depth cut only), the same weights
+    on the card and on the CPU: prefill logits within 1e-4 (f32 sums in
+    other orders over d_model 2048 and d_ff 8192, logits of O(1)), and
+    the served greedy streams equal up to each request's first step whose
+    top-1 margin (on the CPU) is within that tolerance."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import (decode_step, init_params, prefill,
+                                          tree_map)
+    from repro_torch.serving import (DecodeEngine, PolicyServer,
+                                     make_traffic)
+    tol = 1e-4
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), n_layers=2)
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    cpu_params = init_params(cfg, gen, device="cpu")
+    card_params = tree_map(lambda t: t.to(dev), cpu_params)
+    traffic = make_traffic(4, seed=1, vocab=cfg.vocab_size,
+                           prompt_lens=(1, 16, 77, 128), max_new=8,
+                           jitter_budget=False)
+    worst = 0.0
+    for req in traffic:
+        toks = torch.as_tensor(req.tokens[None], dtype=torch.long)
+        lc, _ = prefill(cfg, cpu_params, toks, last_only=False)
+        lg, _ = prefill(cfg, card_params, toks.to(dev), last_only=False)
+        err = (lg.cpu() - lc).abs().max().item()
+        worst = max(worst, err)
+        if not err <= tol:
+            raise AssertionError(f"card/CPU prefill logits of request "
+                                 f"{req.uid} differ by {err} > {tol}")
+    streams = {}
+    for d, params in (("cpu", cpu_params), (dev, card_params)):
+        engine = DecodeEngine(cfg, params, slots=4, max_new=8,
+                              max_prompt=128, device=d)
+        report = PolicyServer(engine, warmup=False).run_offline(traffic)
+        streams[str(d)] = {r.uid: r.tokens for r in report.results}
+    compared = 0
+    for req in traffic:
+        # the CPU's unbatched greedy stream and each step's top-1 margin
+        W = len(req.tokens) + req.max_new
+        logits, cache = prefill(cfg, cpu_params, torch.as_tensor(
+            req.tokens[None], dtype=torch.long), cache_len=W)
+        row, margins, want = logits[0, -1], [], []
+        for i in range(req.max_new):
+            top = torch.topk(row, 2).values
+            margins.append((top[0] - top[1]).item())
+            tok = torch.argmax(row)
+            want.append(int(tok))
+            if i + 1 < req.max_new:
+                logits, cache = decode_step(cfg, cpu_params, tok[None],
+                                            cache)
+                row = logits[0, 0]
+        n = next((i for i, m in enumerate(margins) if m <= tol),
+                 len(margins))
+        cpu_s, card_s = streams["cpu"][req.uid], streams[str(dev)][req.uid]
+        if cpu_s != want or card_s[:n] != want[:n] \
+                or len(card_s) != len(want):
+            raise AssertionError(f"request {req.uid}: card {card_s}, CPU "
+                                 f"{cpu_s}, unbatched {want}, margins "
+                                 f"{margins}")
+        compared += n
+    log(f"[check] card vs CPU, Llama-3.2-1B width at 2 layers (4 requests, "
+        f"prompts <= 128, 8 new tokens): prefill logits max abs err "
+        f"{worst:.3e} (tol {tol}); streams equal over {compared} of "
+        f"{sum(r.max_new for r in traffic)} tokens under the margin rule")
 
 
 def phase_cpu_agreement(dev):
@@ -509,9 +820,19 @@ def main() -> int:
     phase_build()
     rows = phase_kernels(dev)
     rows.update(phase_cw_kernels(dev))
+    rows.update(phase_flash(dev))
     log_kernel_rows(rows)
     totals = phase_main_path(dev)
     phase_cpu_agreement(dev)
+    for name, n in phase_serving(dev).items():
+        totals[name] = totals.get(name, 0) + n
+    phase_serving_cpu_agreement(dev)
+    from repro_torch.kernels import dispatch
+    missing = [name for name in dispatch.kernels()
+               if totals.get(name, 0) <= 0]
+    if missing or set(dispatch.kernels()) != set(REPLACES):
+        raise AssertionError(f"kernels never launched on a path: {missing}; "
+                             f"registered {sorted(dispatch.kernels())}")
     for m in ("jax", "repro"):
         if m in sys.modules:
             raise AssertionError(f"{m} was imported")
@@ -519,7 +840,8 @@ def main() -> int:
     for name in REPLACES:
         head = rows[(name, HEADLINE[name])]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda",
+            "source": SOURCES.get(name, SOURCE),
             "replaces": REPLACES[name], "launches": totals[name],
             "max_abs_err": max(r["err"] for (n, _), r in rows.items()
                                if n == name and not r["large"]),

@@ -1,7 +1,8 @@
 """PyTorch and CUDA port of the DecByzPG reproduction.
 
 The JAX package ``repro`` is the reference; this package mirrors its layout
-(``core/``, ``rl/``, ``optim/``, ``topology/``, ``kernels/``) and imports
+(``core/``, ``rl/``, ``optim/``, ``topology/``, ``kernels/``, ``configs/``,
+``models/``, ``distributed/``, ``serving/``, ``launch/``) and imports
 neither ``jax`` nor anything of ``repro``. Its entry points run on the CUDA
 device unless the caller asks for the CPU (:func:`resolve_device`).
 """

@@ -1,0 +1,12 @@
+"""Llama-3.2-1B. [dense] 16L d_model=2048 32H (GQA kv=8) d_ff=8192
+vocab=128256 [hf:meta-llama/Llama-3.2-1B]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="llama3.2-1b", family="dense",
+    n_layers=16, d_model=2048, n_heads=32, n_kv_heads=8,
+    d_ff=8192, vocab_size=128256, head_dim=64,
+    rope_theta=500_000.0, tie_embeddings=True,
+    fed_axis="data",
+    source="hf:meta-llama/Llama-3.2-1B",
+)

@@ -158,7 +158,8 @@ _PROVIDERS: Dict[str, Tuple[str, ...]] = {  # analysis: not-a-spec
     "optimizer": ("repro_torch.optim.optimizers",),
     "env": ("repro_torch.rl.envs",),
     "topology": ("repro_torch.topology.graphs",),
-    "policy": ("repro_torch.rl.policy",),
+    "policy": ("repro_torch.rl.policy",
+               "repro_torch.rl.transformer_policy"),
 }
 
 

@@ -4,8 +4,10 @@ The reference flattens a policy's parameters with
 ``jax.flatten_util.ravel_pytree``: list entries in order and, inside each
 dict, keys sorted. An MLP layer ``{"w": (din, dout), "b": (dout,)}`` is
 therefore ``b`` before ``w``, and θ is ``[b0, w0, b1, w1, ...]`` with each
-``w`` row-major. These helpers keep that order, so a θ carried over from
-JAX means the same weights here.
+``w`` row-major. A transformer's nested parameter dict ravels with keys
+sorted at every level (``unravel_tree``).
+These helpers keep that order, so a θ carried over from JAX means the
+same weights here.
 """
 from __future__ import annotations
 
@@ -44,3 +46,33 @@ def unravel(vec: torch.Tensor,
 
 def size(shapes: Shapes) -> int:
     return sum(math.prod(s) for layer in shapes for s in layer.values())
+
+
+def tree_size(shapes) -> int:
+    """Entries of a nested dict of shapes."""
+    if isinstance(shapes, dict):
+        return sum(tree_size(v) for v in shapes.values())
+    return math.prod(shapes)
+
+
+def unravel_tree(vec: torch.Tensor, shapes):
+    """Flat (d,) -> a nested dict of tensors shaped like ``shapes`` (a
+    nested dict of shapes), filled in ``ravel_pytree``'s order: keys
+    sorted at every level, each leaf row-major."""
+    off = 0
+
+    def fill(node):
+        nonlocal off
+        if isinstance(node, dict):
+            return {key: fill(node[key]) for key in sorted(node)}
+        shape = tuple(node)
+        n = math.prod(shape)
+        out = vec[off:off + n].reshape(shape)
+        off += n
+        return out
+
+    out = fill(shapes)
+    if off != vec.shape[-1]:
+        raise ValueError(f"flat vector has {vec.shape[-1]} entries, the "
+                         f"shapes need {off}")
+    return out

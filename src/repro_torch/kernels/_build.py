@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/aggregation.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, at first use, into ``build/``
-beside this file (listed in ``.gitignore``). The library's name carries a
-hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. It is loaded with :mod:`ctypes`; every
-pointer and the stream pass as ``c_void_p``.
+Every ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` into an
+object, one ``nvcc`` per source, all started together, and the objects are
+linked into one shared library with a plain C interface, at first use,
+into ``build/`` beside this file (listed in ``.gitignore``). The library's
+name carries a hash of all the sources and the flags, so an edited source
+is rebuilt and an unchanged set is loaded as it is. It is loaded with
+:mod:`ctypes`; every pointer and the stream pass as ``c_void_p``.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no ``nvcc``. A failed build raises; nothing falls back to
@@ -22,10 +23,10 @@ import tempfile
 import time
 from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "aggregation.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 #: largest stack (K) the kernels take: their register and shared-memory
@@ -44,6 +45,9 @@ _SIGNATURES = {
     "repro_neighbor_reduce_f32": (_VP, _VP, _INT, _INT, _I64, _INT, _INT,
                                   _VP),
     "repro_krum_score_f32": (_VP, _VP, _I64, _INT, _INT, _VP),
+    "repro_flash_attention_f32": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
+                                  _INT, _INT, _INT, _F32, _VP),
+    "repro_flash_attention_shared_bytes": (_INT,),
 }
 
 _LIB = None
@@ -66,35 +70,56 @@ def _nvcc() -> str:
     return found
 
 
+def sources() -> list:
+    """The kernel sources, in a fixed order."""
+    return sorted(CSRC.glob("*.cu"))
+
+
 def library_path() -> Path:
-    """Where the library for the current source and flags lives."""
-    h = hashlib.sha256(SOURCE.read_bytes())
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256()
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libaggregation-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libkernels-{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile the source unless a library for it exists; return its path."""
+    """Compile the sources unless a library for them exists; return its
+    path. The per-source compiles run in parallel; ``ptxas -v`` reports
+    (registers, shared memory, spills) land in :data:`BUILD_INFO`."""
     out = library_path()
     if out.is_file():
         BUILD_INFO.update(seconds=0.0, ptxas="(cached)")
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in sources()]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for src, obj in zip(sources(), objs)]
+        reports = []
+        for src, proc in zip(sources(), procs):
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} "
+                                   f"({proc.returncode}):\n{stdout}\n"
+                                   f"{stderr}")
+            reports.append(stderr.strip())
+        lib = Path(tmp) / out.name
+        proc = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(lib),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)       # atomic: a concurrent loader sees all
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        os.replace(lib, out)       # atomic: a concurrent loader sees all
     BUILD_INFO.update(seconds=time.perf_counter() - t0,
-                      ptxas=proc.stderr.strip())
+                      ptxas="\n".join(reports))
     return out
 
 

@@ -85,7 +85,16 @@ def _mlp_policy_factory(env, hidden=None, activation=None,
 
 def resolve_policy(cfg, env) -> MLPPolicy:
     """Resolve a config's ``policy`` spec, feeding ``cfg.hidden`` and
-    ``cfg.activation`` as the MLP defaults."""
-    return resolve("policy", cfg.policy, env=env,
-                   cfg_hidden=tuple(cfg.hidden),
-                   cfg_activation=cfg.activation)
+    ``cfg.activation`` as the MLP defaults. DecByzPG trains MLP policies
+    only: the transformer policy is served (``repro_torch.serving``), and
+    training through it waits for a backward of the flash-attention op
+    (ROADMAP Queue 1)."""
+    policy = resolve("policy", cfg.policy, env=env,
+                     cfg_hidden=tuple(cfg.hidden),
+                     cfg_activation=cfg.activation)
+    if not isinstance(policy, MLPPolicy):
+        raise NotImplementedError(
+            f"DecByzPG with policy {cfg.policy} is not ported yet: training "
+            f"a transformer policy needs a backward for flash attention "
+            f"(ROADMAP Queue 1)")
+    return policy

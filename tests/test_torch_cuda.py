@@ -11,6 +11,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import dispatch  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_kernel, flash_attention_plain)
 from repro_torch.kernels.gossip_reduce import (  # noqa: E402
     gossip_reduce, gossip_reduce_plain, neighbor_reduce,
     neighbor_reduce_plain)
@@ -170,3 +172,73 @@ def test_cuda_cw_wrappers_reject_what_the_kernels_do_not_take(cuda):
                                dtype=torch.float64), 2)
     with pytest.raises(ValueError, match="contiguous"):
         krum_score(torch.zeros((4, 4, 1), device=cuda).transpose(0, 2), 2)
+
+
+def _qkv(B, H, Hkv, Sq, Sk, hd, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            for shape in ((B * H, Sq, hd), (B * Hkv, Sk, hd),
+                          (B * Hkv, Sk, hd))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,S,hd", [
+    (1, 32, 8, 512, 64),            # Llama-3.2-1B's prefill, G = 4
+    (1, 16, 2, 256, 128),           # Qwen2.5-3B's, G = 8
+    (2, 2, 2, 9, 32),               # the policy's, ragged
+    (1, 4, 1, 100, 64),             # ragged, G = 4
+    (2, 4, 2, 130, 32),             # G = 2
+])
+@pytest.mark.parametrize("window", [None, 1, 7, 128])
+def test_cuda_flash_attention_matches_plain(cuda, B, H, Hkv, S, hd, window):
+    q, k, v = (t.to(cuda) for t in _qkv(B, H, Hkv, S, S, hd, 11))
+    before = dispatch.launch_counts()["flash_attention"]
+    out = flash_attention_kernel(q, k, v, H, window)
+    assert torch.equal(out, flash_attention_kernel(q, k, v, H, window))
+    # f32 sums in another order than the plain version's matmuls: the
+    # tolerance of the reference's own kernel tests, relative to max|v|
+    torch.testing.assert_close(
+        out, flash_attention_plain(q, k, v, H, window), rtol=0,
+        atol=2e-5 * v.abs().max().item())
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["flash_attention"] - before == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Sk,window", [(100, 70, None), (70, 100, 30)])
+def test_cuda_flash_attention_unequal_lengths(cuda, Sq, Sk, window):
+    q, k, v = (t.to(cuda) for t in _qkv(2, 4, 2, Sq, Sk, 64, 13))
+    out = flash_attention_kernel(q, k, v, 4, window)
+    torch.testing.assert_close(
+        out, flash_attention_plain(q, k, v, 4, window), rtol=0,
+        atol=2e-5 * v.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_model_layout_and_rejects(cuda):
+    rng = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)
+                                ).to(cuda)
+               for s in ((2, 40, 4, 64), (2, 40, 2, 64), (2, 40, 2, 64)))
+    out = flash_attention(q, k, v)
+    want = flash_attention(q.cpu(), k.cpu(), v.cpu())
+    torch.testing.assert_close(out.cpu(), want, rtol=0,
+                               atol=2e-5 * v.abs().max().item())
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_kernel(torch.zeros((2, 8, 48), device=cuda),
+                               torch.zeros((2, 8, 48), device=cuda),
+                               torch.zeros((2, 8, 48), device=cuda), 2)
+    with pytest.raises(TypeError, match="float32"):
+        flash_attention_kernel(torch.zeros((2, 8, 64), device=cuda,
+                                           dtype=torch.float64),
+                               torch.zeros((2, 8, 64), device=cuda),
+                               torch.zeros((2, 8, 64), device=cuda), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_kernel(torch.zeros((2, 64, 8), device=cuda
+                                           ).transpose(1, 2),
+                               torch.zeros((2, 8, 64), device=cuda),
+                               torch.zeros((2, 8, 64), device=cuda), 2)
+    with pytest.raises(ValueError, match="window"):
+        flash_attention_kernel(torch.zeros((2, 8, 64), device=cuda),
+                               torch.zeros((2, 8, 64), device=cuda),
+                               torch.zeros((2, 8, 64), device=cuda), 2, 0)

@@ -137,7 +137,20 @@ def test_default_device_is_cuda():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports without ``jax`` or ``repro``."""
+    """Every module of the port imports without ``jax`` or ``repro``, the
+    serving slice's among them, and no import statement in the port, in
+    ``chip_smoke.py`` or in ``tools/`` names either (the smoke script and
+    the profilers import the port inside their functions)."""
+    serving = ["repro_torch.configs.base", "repro_torch.configs.qwen2_7b",
+               "repro_torch.models.layers", "repro_torch.models.attention",
+               "repro_torch.models.model",
+               "repro_torch.kernels.flash_attention.flash_attention",
+               "repro_torch.kernels.flash_attention.ops",
+               "repro_torch.distributed.serving",
+               "repro_torch.serving.engine", "repro_torch.serving.server",
+               "repro_torch.serving.scheduler", "repro_torch.serving.traffic",
+               "repro_torch.rl.transformer_policy",
+               "repro_torch.launch.serve"]
     code = (
         "import pkgutil, importlib, sys, repro_torch\n"
         "names = [m.name for m in pkgutil.walk_packages("
@@ -146,9 +159,28 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 20, names\n"
+        f"missing = set({serving!r}) - set(names)\n"
+        "assert not missing, missing\n"
+        "assert len(names) >= 50, names\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, timeout=120)
     assert proc.returncode == 0, proc.stderr
+    import ast
+    import glob
+    files = (glob.glob(os.path.join(REPO, "src", "repro_torch", "**",
+                                    "*.py"), recursive=True)
+             + [os.path.join(REPO, "chip_smoke.py")]
+             + glob.glob(os.path.join(REPO, "tools", "*.py")))
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            mods = ([a.name for a in node.names]
+                    if isinstance(node, ast.Import)
+                    else [node.module or ""]
+                    if isinstance(node, ast.ImportFrom) else [])
+            for m in mods:
+                top = m.split(".")[0]
+                assert top not in ("jax", "jaxlib", "repro"), (path, m)

@@ -124,5 +124,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):
         _build._nvcc()
-    # the library name follows the source, so an edit rebuilds
-    assert _build.library_path().name.startswith("libaggregation-")
+    # one library for every source; its name follows all of them, so an
+    # edit of any source rebuilds
+    assert _build.library_path().name.startswith("libkernels-")
+    assert [p.name for p in _build.sources()] == ["aggregation.cu",
+                                                  "attention.cu"]
