@@ -10,12 +10,18 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    compile per source in parallel, linked into one library.
 3. Kernels: ``gram``, ``weiszfeld`` and ``wsum``, then ``krum_score``,
    ``trimmed_mean``, ``gossip_reduce`` and ``neighbor_reduce`` (each mode)
-   against their plain PyTorch versions on the card, at the main path's
-   shapes and one large input each; every kernel is rerun for
-   bit-identity, and one integer-grid input per kernel must match its
-   plain version bit for bit; mean times of the kernel, the plain version
-   and a library yardstick (``torch.bmm``, or ``torch.sort`` plus a slice
-   mean or sum; timed only, never called by the port).
+   and ``flash_attention`` against their plain PyTorch versions on the
+   card, at the main path's shapes and large inputs (``gram``, ``wsum``:
+   three large stacks, ``LARGE_SHAPES``); every kernel is rerun for
+   bit-identity, ``gram`` must be exactly symmetric, and one integer-grid
+   input per cw kernel must match its plain version bit for bit. Two
+   times per kernel and per library yardstick (``torch.bmm``, ``torch.sort``
+   plus a slice mean or sum, SDPA; timed only, never called by the port),
+   taken in turns (kernel, library, library, kernel), medians of
+   ``ROUNDS``: the issue-bound time (``ms``: a Python loop of calls, the
+   host's cost of issuing one call for a small kernel) and the device
+   time (``device_ms``: the same calls replayed from one CUDA graph), the
+   latter at every headline input and every shape of the first three.
 4. Main path: ``run_decbyzpg`` at full width, five runs (``main_runs()``):
    the paper's CartPole configuration (K=13, n_byz=3
    ``large_noise(sigma=10)``, bucketing ∘ RFA, MDA κ=6, horizon 200,
@@ -37,7 +43,9 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    same weights on the card and on the CPU: prefill logits must agree,
    and greedy streams wherever the top-1 margin exceeds the tolerance.
    Every registered kernel must launch on some run of phases 4 and 5.
-6. The kernel table as one JSON line, then
+6. The kernel table as one JSON line (``device_ms`` and
+   ``library_device_ms`` beside the issue-bound ``ms`` and
+   ``library_ms``), then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports nothing of JAX or of the JAX package ``repro``. Without a CUDA
@@ -61,7 +69,9 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
 MAIN_SHAPES = [(13, 13, 386), (13, 7, 386), (13, 13, 4868), (13, 7, 4868)]
-LARGE_SHAPE = (1, 13, 1 << 24)
+# large stacks: one model-size stack of 13 agents, 32 agents, and a batch
+# of 13 stacks (MDA's receivers) of 2^20 coordinates
+LARGE_SHAPES = [(1, 13, 1 << 24), (1, 32, 1 << 22), (13, 13, 1 << 20)]
 # the large input of each cw kernel, a few hundred MB: Krum's scoring over
 # 2^20 Gram matrices of 13 agents, the trimmed mean of 13 stacks of 2^24,
 # the gossip reduces of 13 agents' messages of 2^22 and 2^20 coordinates
@@ -108,8 +118,13 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+ROUNDS = 5            # repetitions of every paired timing; medians kept
+
+
 def time_ms(fn, reps: int, warm: int = 3) -> float:
-    """Mean ms per call over ``reps`` launches, by CUDA events."""
+    """Issue-bound time: mean ms per call of a Python loop of ``reps``
+    calls, by CUDA events. For a small kernel this is the host's cost of
+    issuing one call."""
     import torch
     for _ in range(warm):
         fn()
@@ -122,6 +137,76 @@ def time_ms(fn, reps: int, warm: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _median(xs):
+    xs = sorted(xs)
+    n = len(xs)
+    return xs[n // 2] if n % 2 else 0.5 * (xs[n // 2 - 1] + xs[n // 2])
+
+
+class GraphTimer:
+    """Device time: ``reps`` calls of ``fn`` captured once in a CUDA graph;
+    :meth:`ms` replays it and returns ms per call by CUDA events, without
+    the host's cost of issuing the calls."""
+
+    def __init__(self, fn, reps: int):
+        import torch
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            for _ in range(reps):
+                fn()
+        self.reps = reps
+        self.graph.replay()
+        torch.cuda.synchronize()
+
+    def ms(self) -> float:
+        import torch
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        self.graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / self.reps
+
+
+def paired_ms(fn, lib, reps: int, device: bool = True) -> dict:
+    """The kernel and its library call timed in turns (kernel, library,
+    library, kernel), ``ROUNDS`` times, medians: the issue-bound time
+    (``ms``, ``library_ms``) and, when ``device``, the device time by
+    graph replay (``device_ms``, ``library_device_ms``). ``lib`` may be
+    None; absent numbers are None."""
+    out = dict(ms=None, library_ms=None, device_ms=None,
+               library_device_ms=None)
+    issue = {"k": [], "l": []}
+    for _ in range(ROUNDS):
+        for who in ("k", "l", "l", "k"):
+            if who == "k" or lib is not None:
+                issue[who].append(time_ms(fn if who == "k" else lib, reps))
+    out["ms"] = _median(issue["k"])
+    if lib is not None:
+        out["library_ms"] = _median(issue["l"])
+    if device:
+        timers = {"k": GraphTimer(fn, reps)}
+        if lib is not None:
+            timers["l"] = GraphTimer(lib, reps)
+        dev = {"k": [], "l": []}
+        for _ in range(ROUNDS):
+            for who in ("k", "l", "l", "k"):
+                if who in timers:
+                    dev[who].append(timers[who].ms())
+        out["device_ms"] = _median(dev["k"])
+        if lib is not None:
+            out["library_device_ms"] = _median(dev["l"])
+        del timers
+    return out
 
 
 def bound(nbytes: float, flops: float):
@@ -152,6 +237,9 @@ def phase_build():
 
 
 def phase_kernels(dev):
+    """gram, weiszfeld and wsum against their plain versions at the main
+    path's shapes and the large stacks, with issue-bound and device times
+    beside ``torch.bmm``'s, measured the same way in turns."""
     import torch
     from repro_torch.kernels.pairwise_dist import gram, gram_plain
     from repro_torch.kernels.rfa import (weighted_sum, weighted_sum_plain,
@@ -159,14 +247,15 @@ def phase_kernels(dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     rows = {}
-    for shape in MAIN_SHAPES + [LARGE_SHAPE]:
+    for shape in MAIN_SHAPES + LARGE_SHAPES:
         bt, k, d = shape
-        large = shape == LARGE_SHAPE
+        large = shape in LARGE_SHAPES
         reps = 5 if large else 200
         x = torch.randn(shape, generator=gen, device=dev) + 1.5
 
-        # gram: each thread sums up to d/256 products in sequence, the
-        # plain version sums pairwise: f32 error relative to max|G|
+        # gram: the kernel sums each chunk's products per thread, then
+        # over threads and chunks in fixed orders; the plain version sums
+        # each chunk with PyTorch's reduction: f32 error relative to max|G|
         g = gram(x)
         g_plain = gram_plain(x)
         scale = g_plain.abs().max().item()
@@ -174,15 +263,17 @@ def phase_kernels(dev):
         tol = 2e-5 * scale
         if not torch.equal(g, gram(x)):
             raise AssertionError(f"gram {shape}: rerun is not bit-identical")
+        if not torch.equal(g, g.transpose(1, 2)):
+            raise AssertionError(f"gram {shape}: G is not exactly "
+                                 f"symmetric")
         if not err <= tol:
             raise AssertionError(f"gram {shape}: max abs err {err} > {tol}")
         b = bound(4 * (bt * k * d + bt * k * k), 2 * bt * k * k * d)
         xt = x.transpose(1, 2)
         rows[("gram", shape)] = dict(
             err=err, rel=err / scale, tol=tol, large=large,
-            ms=time_ms(lambda: gram(x), reps),
+            **paired_ms(lambda: gram(x), lambda: torch.bmm(x, xt), reps),
             plain_ms=time_ms(lambda: gram_plain(x), max(reps // 10, 2), 1),
-            library_ms=time_ms(lambda: torch.bmm(x, xt), reps),
             bound_ms=b[0], bound_by=b[1])
 
         # weiszfeld on the kernel's Gram matrices: weights lie in [0, 1]
@@ -196,10 +287,11 @@ def phase_kernels(dev):
         b = bound(4 * (bt * k * k + bt * k), N_ITER * bt * (2 * k * k + 8 * k))
         rows[("weiszfeld", shape)] = dict(
             err=err, rel=err, tol=tol, large=large,
-            ms=time_ms(lambda: weiszfeld_weights(g, NU, N_ITER), reps),
+            **paired_ms(lambda: weiszfeld_weights(g, NU, N_ITER), None,
+                        reps),
             plain_ms=time_ms(lambda: weiszfeld_plain(g, NU, N_ITER),
                              max(reps // 10, 2), 1),
-            library_ms=None, bound_ms=b[0], bound_by=b[1])
+            bound_ms=b[0], bound_by=b[1])
 
         # wsum: one fused multiply-add chain per coordinate
         z = weighted_sum(x, w)
@@ -207,18 +299,20 @@ def phase_kernels(dev):
         scale = x.abs().max().item()
         err = (z - z_plain).abs().max().item()
         tol = 1e-5 * scale
+        if not torch.equal(z, weighted_sum(x, w)):
+            raise AssertionError(f"wsum {shape}: rerun is not bit-identical")
         if not err <= tol:
             raise AssertionError(f"wsum {shape}: max abs err {err} > {tol}")
         b = bound(4 * (bt * k * d + bt * k + bt * d), 2 * bt * k * d)
         wv = w[:, None, :]
         rows[("wsum", shape)] = dict(
             err=err, rel=err / scale, tol=tol, large=large,
-            ms=time_ms(lambda: weighted_sum(x, w), reps),
+            **paired_ms(lambda: weighted_sum(x, w), lambda: torch.bmm(wv, x),
+                        reps),
             plain_ms=time_ms(lambda: weighted_sum_plain(x, w),
                              max(reps // 10, 2), 1),
-            library_ms=time_ms(lambda: torch.bmm(wv, x), reps),
             bound_ms=b[0], bound_by=b[1])
-        del x, xt, g, g_plain
+        del x, xt, g, g_plain, z, z_plain
         torch.cuda.empty_cache()
     return rows
 
@@ -293,9 +387,10 @@ def phase_cw_kernels(dev):
         b = bound(nbytes, ops)
         rows[(name, label)] = dict(
             err=err, rel=err / max(scale, 1e-30), tol=tol, large=large,
-            lib_err=lib_err, ms=time_ms(lambda: fn(*args), reps),
+            lib_err=lib_err,
+            **paired_ms(lambda: fn(*args), lambda: library(*args), reps,
+                        device=label == HEADLINE[name]),
             plain_ms=time_ms(lambda: plain(*args), max(reps // 10, 2), 1),
-            library_ms=time_ms(lambda: library(*args), reps),
             bound_ms=b[0], bound_by=b[1])
 
     # krum_score on the Gram matrices of the main path's stacks: CartPole
@@ -448,28 +543,40 @@ def phase_flash(dev):
             f" window={window}" if window is not None else "")
         rows[("flash_attention", label)] = dict(
             err=err, rel=err / scale, tol=tol, large=large, lib_err=lib_err,
-            ms=time_ms(lambda: flash_attention_kernel(q, k, v, H, window),
-                       reps),
+            **paired_ms(lambda: flash_attention_kernel(q, k, v, H, window),
+                        sdpa, reps,
+                        device=label == HEADLINE["flash_attention"]),
             plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, H,
                                                            window),
                              2 if large else 10, 1),
-            library_ms=time_ms(sdpa, reps), bound_ms=b[0], bound_by=b[1])
+            bound_ms=b[0], bound_by=b[1])
         del q, k, v, out, ref
         torch.cuda.empty_cache()
     return rows
 
 
 def log_kernel_rows(rows):
+    def num(v):
+        return "null" if v is None else f"{v:.6f}"
     log("[kernels] name            input                                   "
-        "max_abs_err  max_rel_err  tol          ms         plain_ms   "
-        "library_ms bound_ms  bound_by   library_vs_kernel")
+        "max_abs_err  max_rel_err  tol          ms         device_ms  "
+        "plain_ms   library_ms lib_dev_ms bound_ms  bound_by   "
+        "library_vs_kernel")
     for (name, shape), r in rows.items():
-        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.6f}"
         lib_err = f"{r['lib_err']:.3e}" if "lib_err" in r else "-"
         log(f"[kernels] {name:15s} {str(shape):39s} {r['err']:.3e}    "
-            f"{r['rel']:.3e}    {r['tol']:.3e}    {r['ms']:.6f}   "
-            f"{r['plain_ms']:.6f}   {lib:10s} {r['bound_ms']:.6f}  "
-            f"{r['bound_by']:10s} {lib_err}")
+            f"{r['rel']:.3e}    {r['tol']:.3e}    {num(r['ms']):10s} "
+            f"{num(r['device_ms']):10s} {num(r['plain_ms']):10s} "
+            f"{num(r['library_ms']):10s} {num(r['library_device_ms']):10s} "
+            f"{r['bound_ms']:.6f}  {r['bound_by']:10s} {lib_err}")
+    for shape in LARGE_SHAPES:
+        for name in ("gram", "wsum"):
+            r = rows[(name, shape)]
+            log(f"[large] {name} {shape}: device {r['device_ms']:.6f} ms, "
+                f"issue {r['ms']:.6f} ms, bound {r['bound_ms']:.6f} ms "
+                f"({r['bound_by']}), {r['bound_ms'] / r['device_ms']:.1%} "
+                f"of the bound; torch.bmm device "
+                f"{r['library_device_ms']:.6f} ms")
 
 
 def main_runs():
@@ -845,9 +952,11 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": totals[name],
             "max_abs_err": max(r["err"] for (n, _), r in rows.items()
                                if n == name and not r["large"]),
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "ms": head["ms"], "device_ms": head["device_ms"],
+            "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": head["library_ms"]})
+            "library_ms": head["library_ms"],
+            "library_device_ms": head["library_device_ms"]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

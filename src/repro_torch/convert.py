@@ -13,6 +13,7 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import tree
 from repro_torch.core.decbyzpg import Carry
@@ -25,16 +26,20 @@ def _tensor(x, device) -> torch.Tensor:
 
 
 def theta_from_jax_params(params: Sequence[Mapping[str, np.ndarray]],
-                          device="cpu") -> torch.Tensor:
+                          device=None) -> torch.Tensor:
     """A JAX MLP's ``[{"w": (din, dout), "b": (dout,)}, ...]`` -> flat
-    θ (d,) in ``ravel_pytree`` order (``[b0, w0, b1, w1, ...]``)."""
+    θ (d,) in ``ravel_pytree`` order (``[b0, w0, b1, w1, ...]``), on
+    ``resolve_device(device)``: CUDA unless the caller asks for the CPU."""
+    device = resolve_device(device)
     return tree.ravel([{k: _tensor(v, device) for k, v in layer.items()}
                        for layer in params])
 
 
-def carry_from_jax(theta, theta_prev, adam_state, device="cpu") -> Carry:
+def carry_from_jax(theta, theta_prev, adam_state, device=None) -> Carry:
     """A JAX DecByzPG carry ``(θ (K, d), θ_prev (K, d), AdamState(step (K,),
-    m (K, d), v (K, d)))`` -> the port's :class:`Carry`."""
+    m (K, d), v (K, d)))`` -> the port's :class:`Carry` on
+    ``resolve_device(device)``."""
+    device = resolve_device(device)
     step, m, v = adam_state
     return Carry(_tensor(theta, device), _tensor(theta_prev, device),
                  AdamState(torch.tensor(np.asarray(step, dtype=np.int32),
@@ -43,11 +48,12 @@ def carry_from_jax(theta, theta_prev, adam_state, device="cpu") -> Carry:
 
 
 def model_params_from_jax(params: Mapping, cfg: ModelConfig,
-                          device="cpu") -> dict:
+                          device=None) -> dict:
     """A JAX model's nested parameter dict (``repro.models.init_params``,
     leaves as numpy arrays, blocks stacked ``(L, ...)``) -> the port's
-    parameters on ``device``. Raises if the tree or a shape differs from
-    what ``cfg`` gives."""
+    parameters on ``resolve_device(device)``. Raises if the tree or a shape
+    differs from what ``cfg`` gives."""
+    device = resolve_device(device)
     shapes = param_shapes(cfg)
 
     def conv(node, want, path):

@@ -36,7 +36,8 @@ KMAX = 32
 _VP, _INT, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_float)
 _SIGNATURES = {
-    "repro_gram_f32": (_VP, _VP, _INT, _INT, _I64, _VP),
+    "repro_gram_f32": (_VP, _VP, _VP, _INT, _INT, _I64, _VP),
+    "repro_gram_chunk": (),
     "repro_weiszfeld_f32": (_VP, _VP, _INT, _INT, _F32, _INT, _VP),
     "repro_wsum_f32": (_VP, _VP, _VP, _INT, _INT, _I64, _VP),
     "repro_trimmed_mean_f32": (_VP, _VP, _INT, _INT, _I64, _INT, _VP),
@@ -144,3 +145,22 @@ def check(status: int, name: str) -> None:
         msg = library().repro_error_string(status).decode()
         raise RuntimeError(f"{name}: CUDA launch failed with error "
                            f"{status}: {msg}")
+
+
+class CFunction:
+    """One C entry point of the library, looked up once at its first call
+    (which builds the library). A call passes its arguments through and
+    raises through :func:`check` when the returned status is not 0."""
+
+    __slots__ = ("symbol", "name", "_fn")
+
+    def __init__(self, symbol: str, name: str):
+        self.symbol, self.name, self._fn = symbol, name, None
+
+    def __call__(self, *args) -> None:
+        fn = self._fn
+        if fn is None:
+            fn = self._fn = getattr(library(), self.symbol)
+        status = fn(*args)
+        if status:
+            check(status, self.name)

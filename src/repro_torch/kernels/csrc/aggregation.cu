@@ -21,76 +21,358 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <utility>
+
 namespace {
 
 constexpr int KMAX = 32;          // largest stack the kernels take
-constexpr int GRAM_THREADS = 256;
 
 // ---------------------------------------------------------------------------
 // gram: x (bt, k, d) -> g (bt, k, k), g[b, i, j] = sum_c x[b, i, c] x[b, j, c]
 //
 // Replaces src/repro/kernels/pairwise_dist/pairwise_dist.py::gram
-// (_gram_kernel), the d-tiled MXU accumulation with K padded to 8.
+// (_gram_kernel), the d-tiled MXU accumulation with K padded to 8, whose
+// sequential grid carries the (K, K) sum across the d tiles.
 //
-// Design: one block per (batch, row i). Each thread strides over d and keeps
-// k running sums in registers (the loop over j is unrolled to KMAX with a
-// uniform guard, so acc[] stays in registers); the block then reduces with
-// warp shuffles and a fixed-order pass over the per-warp partials in shared
-// memory. g[i, j] and g[j, i] see the same products in the same order, so
-// the result is exactly symmetric.
+// Bound on the H100: bytes. The stack is read once (4 bt k d bytes) for
+// k(k+1)/2 FMA per coordinate: 4.1 FMA per byte read at k = 32 against
+// the card's FP32 ratio of about 10 (67 TFLOP/s over 3.35 TB/s), so a
+// kernel that reads each byte once and computes each pair once stays
+// bound by bytes for every k <= 32. At the main path's (13, 13, 386) the
+// whole call moves 260 KB, so the launch bounds it.
 //
-// Bound on the H100: at the main path's d = 386 the whole call moves a few
-// tens of KB, so launch latency bounds it. At large d it is bytes: the block
-// for row i reads all k rows, so the stack is read k times (from L2 while
-// it fits in 50 MB), and with only bt*k blocks a single stack (bt = 1)
-// leaves most of the 132 SMs idle. Splitting d across blocks with a second
-// fixed-order reduction pass is later work.
+// Design. d is cut into chunks of GRAM_CHUNK coordinates, the last one
+// ragged; the plan depends on d alone (never on the SM count), so a
+// result's bits depend only on the input, and gram_plain follows the same
+// plan. One block per (batch, chunk) reads its chunk of all k rows once:
+//   * bulk route (d % 4 == 0 and a 16-byte aligned base): one warp keeps a
+//     ring of shared-memory stages filled with 1-D bulk async copies
+//     (cp.async.bulk, one per row segment, one lane per row, completing on
+//     an mbarrier), so bytes stay in flight without spending registers;
+//     3 stages deep where two blocks share an SM, 6 where one block does;
+//   * direct route (any other d, e.g. 386, whose rows start 8 bytes off a
+//     16-byte boundary): threads load their coordinates' k values straight
+//     from device memory, coalesced across the warp.
+// Each pair (i <= j) is computed once and written to g[i, j] and g[j, i],
+// so G is exactly symmetric. Threads hold their pairs in registers
+// (GramPairs<k>: all pairs for k <= 16, one of four parts of the triangle
+// for k <= 32), and every warp reads the same staged tile, so device memory
+// still sees each byte once. Both routes visit a thread's coordinates in the
+// same order, so they give the same bits. A block reduces its threads' sums
+// with xor butterflies and a fixed-order pass over its warps. With one chunk
+// (d <= GRAM_CHUNK, the main path) the block writes G itself: one launch.
+// With more, blocks write a (bt, k(k+1)/2, n_chunks) workspace and
+// gram_reduce_kernel sums it in one fixed order: lane l of a warp sums
+// chunks l, l + 32, ... in sequence, then a xor butterfly over the lanes.
+// No atomics anywhere, so a rerun is bit-identical.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(GRAM_THREADS)
-gram_kernel(const float* __restrict__ x, float* __restrict__ g, int k,
-            long long d) {
-    const int i = blockIdx.x;
-    const long long b = blockIdx.y;
-    const float* xb = x + b * k * d;
-    const float* xi = xb + (long long)i * d;
+constexpr int GRAM_CHUNK = 8192;         // coordinates per first-pass block
+constexpr int GRAM_MAX_STAGES = 6;       // shared-memory ring of the bulk route
+constexpr int GRAM_REDUCE_WARPS = 8;     // pairs per block of the second pass
 
-    float acc[KMAX];
-#pragma unroll
-    for (int j = 0; j < KMAX; ++j) acc[j] = 0.0f;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-    for (long long c = threadIdx.x; c < d; c += GRAM_THREADS) {
-        const float a = xi[c];
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                 :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    asm volatile(
+        "{\n\t"
+        ".reg .pred p;\n\t"
+        "LAB_WAIT:\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n\t"
+        "@!p bra LAB_WAIT;\n\t"
+        "}"
+        :: "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];"
+        :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+        : "memory");
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-        for (int j = 0; j < KMAX; ++j) {
-            if (j < k) acc[j] = fmaf(a, xb[(long long)j * d + c], acc[j]);
+    for (int off = 16; off > 0; off >>= 1)
+        v += __shfl_xor_sync(0xffffffffu, v, off);
+    return v;
+}
+
+// pair index of (i, j), i <= j < k, row-major over the upper triangle
+__device__ __forceinline__ int pair_index(int i, int j, int k) {
+    return i * k - i * (i - 1) / 2 + (j - i);
+}
+
+// The pairs of K rows and the threads that sum them. For K <= 16 one role:
+// every thread holds all K(K+1)/2 pairs of its coordinates (at most 136
+// accumulators) and the 8 warps split the coordinates. For K > 16 the rows
+// split into A = [0, H) and B = [H, K), H = ceil(K/2), B into B1 and B2, and
+// four roles of two warps each take the triangles AxA and BxB and the
+// rectangles AxB1 and AxB2: each pair is computed once, every role holds at
+// most 136 accumulators and loads at most 24 rows, and the roles' work
+// differs by a few pairs. A role's two warps split the coordinates.
+template <int K>
+struct GramPairs {
+    static constexpr bool SPLIT = K > 16;
+    static constexpr int ROLES = SPLIT ? 4 : 1;
+    static constexpr int THREADS = 256;
+    static constexpr int ROLE_THREADS = THREADS / ROLES;
+    static constexpr int H = (K + 1) / 2, B = K - H, B1 = (B + 1) / 2,
+                         B2 = B - B1;
+    static constexpr int MAXP = SPLIT ? H * (H + 1) / 2 : K * (K + 1) / 2;
+    static constexpr int ROLE_ROWS = SPLIT ? H + B1 : K;
+    static constexpr int MIN_BLOCKS = MAXP + ROLE_ROWS <= 104 ? 2 : 1;
+    static constexpr int TILE = SPLIT ? 256 : 512;   // coordinates a stage
+    // ring depth: a block alone on its SM keeps more bytes in flight
+    static constexpr int STAGES = MIN_BLOCKS == 1 ? GRAM_MAX_STAGES : 3;
+    static constexpr int SCRATCH_BYTES = (THREADS / 32) * MAXP * 4;
+    float acc[MAXP];
+
+    __device__ GramPairs() {
+#pragma unroll
+        for (int p = 0; p < MAXP; ++p) acc[p] = 0.0f;
+    }
+
+    // rows [i0, i0 + N) against themselves (TRI) or against [j0, j0 + M)
+    template <int N, int M, bool TRI, class Src>
+    __device__ void run(const Src& src, int i0, int j0, int len) {
+        for (int c = threadIdx.x % ROLE_THREADS; c < len;
+             c += ROLE_THREADS) {
+            float a[N], b[TRI ? 1 : M];
+#pragma unroll
+            for (int r = 0; r < N; ++r) a[r] = src(i0 + r, c);
+            if constexpr (TRI) {
+                int p = 0;
+#pragma unroll
+                for (int i = 0; i < N; ++i) {
+#pragma unroll
+                    for (int j = i; j < N; ++j, ++p)
+                        acc[p] = fmaf(a[i], a[j], acc[p]);
+                }
+            } else {
+#pragma unroll
+                for (int r = 0; r < M; ++r) b[r] = src(j0 + r, c);
+#pragma unroll
+                for (int i = 0; i < N; ++i) {
+#pragma unroll
+                    for (int j = 0; j < M; ++j)
+                        acc[i * M + j] = fmaf(a[i], b[j], acc[i * M + j]);
+                }
+            }
         }
     }
 
+    template <class Src>
+    __device__ void consume(const Src& src, int len) {
+        if constexpr (!SPLIT) {
+            run<K, K, true>(src, 0, 0, len);
+        } else {
+            switch (threadIdx.x / ROLE_THREADS) {
+                case 0: run<H, H, true>(src, 0, 0, len); break;
+                case 1: run<B, B, true>(src, H, H, len); break;
+                case 2: run<H, B1, false>(src, 0, H, len); break;
+                default: run<H, B2, false>(src, 0, H + B1, len); break;
+            }
+        }
+    }
+
+    // warp sums (a fixed shuffle tree), then a fixed-order sum over each
+    // role's warps; out(i, j, pair index, value) for every pair
+    template <class Out>
+    __device__ void finish(float* scratch, const Out& out) {
+        const int lane = threadIdx.x & 31;
+        const int warp = threadIdx.x >> 5;
+        // one pair at a time, so the sums need no registers beyond acc
 #pragma unroll
-    for (int j = 0; j < KMAX; ++j) {
-        if (j < k) {
-            float v = acc[j];
+        for (int p = 0; p < MAXP; ++p) {
+            float v = acc[p];
 #pragma unroll
             for (int off = 16; off > 0; off >>= 1)
                 v += __shfl_down_sync(0xffffffffu, v, off);
-            acc[j] = v;
+            if (lane == 0) scratch[warp * MAXP + p] = v;
+            __syncwarp();
+        }
+        __syncthreads();
+        constexpr int WARPS = ROLE_THREADS / 32;
+        for (int idx = threadIdx.x; idx < ROLES * MAXP; idx += THREADS) {
+            const int role = idx / MAXP, p = idx - role * MAXP;
+            // the role's rows [i0, i0 + n) and columns [j0, j0 + m)
+            const int i0 = role == 1 ? H : 0;
+            const int n = !SPLIT ? K : role == 1 ? B : H;
+            const int j0 = role == 2 ? H : role == 3 ? H + B1 : i0;
+            const int m = !SPLIT ? K : role == 2 ? B1 : role == 3 ? B2 : n;
+            const bool tri = role < 2;
+            if (p >= (tri ? n * (n + 1) / 2 : n * m)) continue;
+            float s = 0.0f;
+#pragma unroll
+            for (int w = 0; w < WARPS; ++w)
+                s += scratch[(role * WARPS + w) * MAXP + p];
+            int i, j;
+            if (tri) {
+                int rem = p;
+                i = 0;
+                while (rem >= n - i) { rem -= n - i; ++i; }
+                j = i + rem;
+                i += i0;
+                j += i0;
+            } else {
+                i = i0 + p / m;
+                j = j0 + p % m;
+            }
+            out(i, j, pair_index(i, j, K), s);
         }
     }
+};
 
-    __shared__ float part[GRAM_THREADS / 32][KMAX];
+// First pass: block (chunk, b) sums its chunk's products. `bulk` picks the
+// route (the launcher checks alignment); `ws` is null when n_chunks == 1.
+template <int K>
+__global__ void __launch_bounds__(GramPairs<K>::THREADS,
+                                  GramPairs<K>::MIN_BLOCKS)
+gram_chunk_kernel(const float* __restrict__ x, float* __restrict__ g,
+                  float* __restrict__ ws, long long d, int n_chunks,
+                  int bulk) {
+    using Acc = GramPairs<K>;
+    extern __shared__ __align__(128) float smem[];
+    __shared__ __align__(8) uint64_t full[GRAM_MAX_STAGES];
+    constexpr int TILE = Acc::TILE, STAGES = Acc::STAGES;
+    constexpr int STAGE = K * TILE;              // floats per stage
+    const int chunk = blockIdx.x;
+    const long long b = blockIdx.y;
+    const long long c0 = (long long)chunk * GRAM_CHUNK;
+    const int len = (int)min((long long)GRAM_CHUNK, d - c0);
+    const float* xb = x + b * K * d + c0;
+    Acc acc;
+
+    if (bulk) {
+        const int n_tiles = (len + TILE - 1) / TILE;
+        if (threadIdx.x == 0) {
+            for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
+            asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+        }
+        __syncthreads();
+        // warp 0 fills a stage: lane 0 arms the barrier with the stage's
+        // bytes, then lane r copies row r (K <= 32)
+        const int lane = threadIdx.x & 31;
+        auto issue = [&](int t) {
+            const int s = t % STAGES;
+            const int tlen = min(TILE, len - t * TILE);
+            asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+            if (lane == 0) mbar_expect_tx(&full[s], (uint32_t)(K * tlen * 4));
+            __syncwarp();
+            if (lane < K)
+                bulk_load(smem + s * STAGE + lane * TILE,
+                          xb + (long long)lane * d + (long long)t * TILE,
+                          (uint32_t)(tlen * 4), &full[s]);
+        };
+        if (threadIdx.x < 32) {
+            for (int t = 0; t < STAGES && t < n_tiles; ++t) issue(t);
+        }
+        for (int t = 0; t < n_tiles; ++t) {
+            const int s = t % STAGES;
+            mbar_wait(&full[s], (uint32_t)((t / STAGES) & 1));
+            const float* xs = smem + s * STAGE;
+            acc.consume([xs](int r, int c) { return xs[r * TILE + c]; },
+                        min(TILE, len - t * TILE));
+            __syncthreads();                     // stage s is free again
+            if (threadIdx.x < 32 && t + STAGES < n_tiles)
+                issue(t + STAGES);
+        }
+    } else {
+        acc.consume([xb, d](int r, int c) {
+            return __ldg(xb + (long long)r * d + c);
+        }, len);
+    }
+
+    constexpr int n_pairs = K * (K + 1) / 2;
+    acc.finish(smem, [=](int i, int j, int p, float v) {
+        if (n_chunks == 1) {
+            g[(b * K + i) * K + j] = v;
+            g[(b * K + j) * K + i] = v;
+        } else {
+            ws[(b * n_pairs + p) * n_chunks + chunk] = v;
+        }
+    });
+}
+
+// Second pass: warp (pair p, batch b) sums the n_chunks partials of p in
+// one fixed order and writes both triangles.
+__global__ void __launch_bounds__(32 * GRAM_REDUCE_WARPS)
+gram_reduce_kernel(const float* __restrict__ ws, float* __restrict__ g,
+                   int k, int n_chunks) {
+    const int n_pairs = k * (k + 1) / 2;
+    const int p = blockIdx.x * GRAM_REDUCE_WARPS + (threadIdx.x >> 5);
+    if (p >= n_pairs) return;                    // the whole warp leaves
     const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
+    const long long b = blockIdx.y;
+    const float* row = ws + (b * n_pairs + p) * n_chunks;
+    float s = 0.0f;
+    for (int c = lane; c < n_chunks; c += 32) s += row[c];
+    s = warp_sum(s);
     if (lane == 0) {
-#pragma unroll
-        for (int j = 0; j < KMAX; ++j) part[warp][j] = acc[j];
+        int i = 0, rem = p;
+        while (rem >= k - i) { rem -= k - i; ++i; }
+        const int j = i + rem;
+        g[(b * k + i) * k + j] = s;
+        g[(b * k + j) * k + i] = s;
     }
-    __syncthreads();
-    if (threadIdx.x < k) {
-        float s = 0.0f;
-#pragma unroll
-        for (int w = 0; w < GRAM_THREADS / 32; ++w) s += part[w][threadIdx.x];
-        g[(b * k + i) * k + threadIdx.x] = s;
+}
+
+template <int K>
+int launch_gram(const float* x, float* g, float* ws, int bt, long long d,
+                cudaStream_t stream) {
+    using Acc = GramPairs<K>;
+    const long long n_chunks = (d + GRAM_CHUNK - 1) / GRAM_CHUNK;
+    const int bulk = d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+    const int bulk_bytes = Acc::STAGES * K * Acc::TILE * 4;
+    static bool attr_set[64] = {};   // per instantiation and device
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    if (dev >= 64) return (int)cudaErrorInvalidDevice;
+    if (!attr_set[dev]) {
+        e = cudaFuncSetAttribute(gram_chunk_kernel<K>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 bulk_bytes);
+        if (e != cudaSuccess) return (int)e;
+        attr_set[dev] = true;
     }
+    gram_chunk_kernel<K><<<dim3((unsigned)n_chunks, bt), Acc::THREADS,
+                           bulk ? bulk_bytes : Acc::SCRATCH_BYTES, stream>>>(
+        x, g, ws, d, (int)n_chunks, bulk);
+    e = cudaGetLastError();
+    if (e != cudaSuccess || n_chunks == 1) return (int)e;
+    const int n_pairs = K * (K + 1) / 2;
+    gram_reduce_kernel<<<dim3((n_pairs + GRAM_REDUCE_WARPS - 1)
+                              / GRAM_REDUCE_WARPS, bt),
+                         32 * GRAM_REDUCE_WARPS, 0, stream>>>(
+        ws, g, K, (int)n_chunks);
+    return (int)cudaGetLastError();
+}
+
+template <int... Ks>
+int gram_for_k(int k, const float* x, float* g, float* ws, int bt,
+               long long d, cudaStream_t stream,
+               std::integer_sequence<int, Ks...>) {
+    int status = (int)cudaErrorInvalidValue;      // k outside [1, KMAX]
+    ((k == Ks + 1
+      ? (status = launch_gram<Ks + 1>(x, g, ws, bt, d, stream), 0) : 0), ...);
+    return status;
 }
 
 // ---------------------------------------------------------------------------
@@ -155,24 +437,103 @@ weiszfeld_kernel(const float* __restrict__ g, float* __restrict__ w_out,
 // Replaces src/repro/kernels/rfa/rfa.py::rfa_pallas, second pallas_call
 // (_wsum_kernel), the d-tiled (1, Kp) x (Kp, block_d) product.
 //
-// Design: one thread per coordinate, summing over j in a fixed order; the
-// d-tiling of the TPU kernel does not carry over. Neighbouring threads read
-// neighbouring addresses, so every row is read once, coalesced.
+// Bound on the H100: bytes, (k + 1) floats moved per 2k FLOP; the launch at
+// the main path's d = 386.
 //
-// Bound on the H100: bytes (k + 1 floats moved per 2k FLOP); launch latency
-// at the main path's d = 386. Wider loads per thread are later work.
+// Design: each thread owns 4 neighbouring coordinates and reads them as one
+// 16-byte load per row (vector route: d % 4 == 0, 16-byte aligned x and z,
+// and at least WSUM_VEC_MIN coordinates in all), or one coordinate with
+// 4-byte loads (scalar route, any other stack). Rows are read in groups
+// whose loads are issued together (16 rows on the scalar route, 8 on the
+// vector route), and the sum over j keeps one fixed order, j = 0 .. k-1,
+// so every route gives the same bits. The weights are read through the
+// read-only cache, in the same group as the rows, so no load waits for
+// them. The grid covers a large d in
+// about two waves of resident blocks and threads stride over the rest; the
+// result does not depend on the grid.
 // ---------------------------------------------------------------------------
-__global__ void wsum_kernel(const float* __restrict__ x,
-                            const float* __restrict__ w,
-                            float* __restrict__ z, int k, long long d) {
-    const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+constexpr int WSUM_THREADS = 256;
+// smallest stack (bt * d) for the vector route: from here a quarter as many
+// threads still fill every SM; below it, one coordinate a thread spreads a
+// small stack over more SMs (the vector route ran 10% slower at
+// (13, 13, 4868) on the H100)
+constexpr long long WSUM_VEC_MIN = 1LL << 20;
+
+template <class V>
+__device__ __forceinline__ void fma_into(V& s, float w, const V& v);
+
+template <>
+__device__ __forceinline__ void fma_into<float>(float& s, float w,
+                                                const float& v) {
+    s = fmaf(w, v, s);
+}
+
+template <>
+__device__ __forceinline__ void fma_into<float4>(float4& s, float w,
+                                                 const float4& v) {
+    s.x = fmaf(w, v.x, s.x);
+    s.y = fmaf(w, v.y, s.y);
+    s.z = fmaf(w, v.z, s.z);
+    s.w = fmaf(w, v.w, s.w);
+}
+
+// V is float (one coordinate a unit) or float4 (four); n = d / (units of V)
+template <class V>
+__global__ void __launch_bounds__(WSUM_THREADS)
+wsum_kernel(const float* __restrict__ x, const float* __restrict__ w,
+            float* __restrict__ z, int k, long long d, long long n) {
     const long long b = blockIdx.y;
-    if (c >= d) return;
-    const float* xb = x + b * k * d;
     const float* wb = w + b * k;
-    float s = 0.0f;
-    for (int j = 0; j < k; ++j) s = fmaf(wb[j], xb[(long long)j * d + c], s);
-    z[b * d + c] = s;
+    const V* xb = reinterpret_cast<const V*>(x + b * k * d);
+    V* zb = reinterpret_cast<V*>(z + b * d);
+    const long long row = d * sizeof(float) / sizeof(V);
+    const long long stride = (long long)gridDim.x * WSUM_THREADS;
+    for (long long q = (long long)blockIdx.x * WSUM_THREADS + threadIdx.x;
+         q < n; q += stride) {
+        V s{};
+        // rows whose loads a thread issues together: every row of a
+        // stack of K <= 16 in one group on the scalar route
+        constexpr int WSUM_ROWS = sizeof(V) == sizeof(float) ? 16 : 8;
+        for (int j0 = 0; j0 < k; j0 += WSUM_ROWS) {
+            V v[WSUM_ROWS];
+#pragma unroll
+            for (int u = 0; u < WSUM_ROWS; ++u) {
+                if (j0 + u < k) v[u] = __ldg(xb + (j0 + u) * row + q);
+            }
+#pragma unroll
+            for (int u = 0; u < WSUM_ROWS; ++u) {
+                if (j0 + u < k) fma_into(s, __ldg(wb + j0 + u), v[u]);
+            }
+        }
+        zb[q] = s;
+    }
+}
+
+template <class V>
+int launch_wsum(const float* x, const float* w, float* z, int bt, int k,
+                long long d, cudaStream_t stream) {
+    static int resident[64] = {};   // blocks resident on the card, per device
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    if (dev >= 64) return (int)cudaErrorInvalidDevice;
+    if (resident[dev] == 0) {
+        int n_sm = 0, per_sm = 0;
+        e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                   dev);
+        if (e == cudaSuccess)
+            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, wsum_kernel<V>, WSUM_THREADS, 0);
+        if (e != cudaSuccess) return (int)e;
+        resident[dev] = n_sm * per_sm > 0 ? n_sm * per_sm : 1;
+    }
+    const long long n = d * (long long)sizeof(float) / (long long)sizeof(V);
+    const long long need = (n + WSUM_THREADS - 1) / WSUM_THREADS;
+    const long long waves2 = (2LL * resident[dev] + bt - 1) / bt;
+    const long long blocks = need < waves2 ? need : waves2;
+    wsum_kernel<V><<<dim3((unsigned)blocks, bt), WSUM_THREADS, 0, stream>>>(
+        x, w, z, k, d, n);
+    return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -402,11 +763,15 @@ krum_score_kernel(const float* __restrict__ g, float* __restrict__ scores,
 
 extern "C" {
 
-int repro_gram_f32(const float* x, float* g, int bt, int k, long long d,
-                   cudaStream_t stream) {
-    gram_kernel<<<dim3(k, bt), GRAM_THREADS, 0, stream>>>(x, g, k, d);
-    return (int)cudaGetLastError();
+// ws: a (bt, k(k+1)/2, n_chunks) workspace when d > repro_gram_chunk(),
+// else unused (may be null)
+int repro_gram_f32(const float* x, float* g, float* ws, int bt, int k,
+                   long long d, cudaStream_t stream) {
+    return gram_for_k(k, x, g, ws, bt, d, stream,
+                      std::make_integer_sequence<int, KMAX>{});
 }
+
+int repro_gram_chunk() { return GRAM_CHUNK; }
 
 int repro_weiszfeld_f32(const float* g, float* w, int bt, int k, float nu,
                         int n_iter, cudaStream_t stream) {
@@ -416,11 +781,11 @@ int repro_weiszfeld_f32(const float* g, float* w, int bt, int k, float nu,
 
 int repro_wsum_f32(const float* x, const float* w, float* z, int bt, int k,
                    long long d, cudaStream_t stream) {
-    const int threads = 256;
-    const long long blocks = (d + threads - 1) / threads;
-    wsum_kernel<<<dim3((unsigned)blocks, bt), threads, 0, stream>>>(x, w, z,
-                                                                    k, d);
-    return (int)cudaGetLastError();
+    const bool vec = d % 4 == 0 && (long long)bt * d >= WSUM_VEC_MIN
+        && reinterpret_cast<uintptr_t>(x) % 16 == 0
+        && reinterpret_cast<uintptr_t>(z) % 16 == 0;
+    return vec ? launch_wsum<float4>(x, w, z, bt, k, d, stream)
+               : launch_wsum<float>(x, w, z, bt, k, d, stream);
 }
 
 int repro_trimmed_mean_f32(const float* x, float* out, int bt, int k,

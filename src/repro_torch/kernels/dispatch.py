@@ -33,14 +33,14 @@ class Kernel:
         self.launches = 0
 
     def __call__(self, x: torch.Tensor, *args, **kwargs):
+        if x.is_cuda:
+            out = self._launch(x, *args, **kwargs)
+            self.launches += 1
+            return out
         if x.device.type == "cpu":
             return self.plain(x, *args, **kwargs)
-        if x.device.type != "cuda":
-            raise ValueError(f"kernel {self.name!r}: no route for a tensor "
-                             f"on {x.device}")
-        out = self._launch(x, *args, **kwargs)
-        self.launches += 1
-        return out
+        raise ValueError(f"kernel {self.name!r}: no route for a tensor on "
+                         f"{x.device}")
 
 
 def register_kernel(name: str, *, plain: Callable,
@@ -65,14 +65,32 @@ def reset_launches() -> None:
         k.launches = 0
 
 
+_raw_stream = None
+
+
 def stream_of(t: torch.Tensor) -> int:
-    """The raw handle of the current CUDA stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current CUDA stream on ``t``'s device.
+
+    Reads it through ``torch._C._cuda_getCurrentRawStream`` where the
+    build has it, without building a ``torch.cuda.Stream`` object on
+    every launch; other builds take the public ``current_stream``."""
+    global _raw_stream
+    if _raw_stream is None:
+        raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+        _raw_stream = (
+            (lambda t: raw(t.get_device())) if raw is not None else
+            (lambda t: torch.cuda.current_stream(t.device).cuda_stream))
+    return _raw_stream(t)
 
 
-def check_stack(x: torch.Tensor, name: str, kmax: int) -> None:
+def check_stack(x: torch.Tensor, name: str, kmax: int):
     """What the CUDA kernels take: a contiguous f32 (Bt, K, d) stack with
-    1 <= K <= ``kmax``."""
+    1 <= K <= ``kmax`` and 1 <= Bt <= 65535. Returns ``(Bt, K, d)``; the
+    common case passes one test, and only a refused tensor is diagnosed."""
+    if x.dtype == torch.float32 and x.dim() == 3 and x.is_contiguous():
+        bt, k, d = x.shape
+        if 1 <= k <= kmax and 1 <= bt <= 65535 and d >= 1:
+            return bt, k, d
     if x.dtype != torch.float32:
         raise TypeError(f"{name}: expected float32, got {x.dtype}")
     if x.dim() != 3:
@@ -84,5 +102,4 @@ def check_stack(x: torch.Tensor, name: str, kmax: int) -> None:
                          f"got shape {tuple(x.shape)}")
     if bt > 65535:
         raise ValueError(f"{name}: batch {bt} exceeds the grid's 65535")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
+    raise ValueError(f"{name}: expected a contiguous tensor")

@@ -105,6 +105,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B * H, Sq, hd).to(q.dtype)
 
 
+_FLASH = _build.CFunction("repro_flash_attention_f32", "flash_attention")
+
+
 def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 n_q_heads: int, window: Optional[int] = None) -> torch.Tensor:
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -134,10 +137,8 @@ def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _, H, _, G = _heads(q, k, n_q_heads)
     win = _check_window(window)
     out = torch.empty_like(q)
-    lib = _build.library()
-    _build.check(lib.repro_flash_attention_f32(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq, sk,
-        hd, H, G, win, hd ** -0.5, stream_of(q)), "flash_attention")
+    _FLASH(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq,
+           sk, hd, H, G, win, hd ** -0.5, stream_of(q))
     return out
 
 

@@ -60,6 +60,11 @@ def _check_width(name: str, p: int) -> None:
                          f"P={p}")
 
 
+_GOSSIP_REDUCE = _build.CFunction("repro_gossip_reduce_f32", "gossip_reduce")
+_NEIGHBOR_REDUCE = _build.CFunction("repro_neighbor_reduce_f32",
+                                    "neighbor_reduce")
+
+
 def _gossip_reduce_cuda(msgs: torch.Tensor, nbr: torch.Tensor,
                         mode: str = "mean", n_trim: int = 0) -> torch.Tensor:
     check_mode(mode, nbr.shape[1], n_trim)
@@ -73,10 +78,8 @@ def _gossip_reduce_cuda(msgs: torch.Tensor, nbr: torch.Tensor,
     p = nbr.shape[1]
     _check_width("gossip_reduce", p)
     out = torch.empty((k, d), device=msgs.device, dtype=torch.float32)
-    lib = _build.library()
-    _build.check(lib.repro_gossip_reduce_f32(
-        msgs.data_ptr(), nbr.data_ptr(), out.data_ptr(), k, p, d,
-        MODE_IDS[mode], int(n_trim), stream_of(msgs)), "gossip_reduce")
+    _GOSSIP_REDUCE(msgs.data_ptr(), nbr.data_ptr(), out.data_ptr(), k, p, d,
+                   MODE_IDS[mode], int(n_trim), stream_of(msgs))
     return out
 
 
@@ -87,10 +90,8 @@ def _neighbor_reduce_cuda(recv: torch.Tensor, mode: str = "mean",
     k, p, d = recv.shape
     _check_width("neighbor_reduce", p)
     out = torch.empty((k, d), device=recv.device, dtype=torch.float32)
-    lib = _build.library()
-    _build.check(lib.repro_neighbor_reduce_f32(
-        recv.data_ptr(), out.data_ptr(), k, p, d, MODE_IDS[mode],
-        int(n_trim), stream_of(recv)), "neighbor_reduce")
+    _NEIGHBOR_REDUCE(recv.data_ptr(), out.data_ptr(), k, p, d,
+                     MODE_IDS[mode], int(n_trim), stream_of(recv))
     return out
 
 

@@ -46,6 +46,9 @@ def krum_score_plain(g: torch.Tensor, n_near: int) -> torch.Tensor:
     return kept[..., 0]
 
 
+_KRUM_SCORE = _build.CFunction("repro_krum_score_f32", "krum_score")
+
+
 def _krum_score_cuda(g: torch.Tensor, n_near: int) -> torch.Tensor:
     if g.dtype != torch.float32:
         raise TypeError(f"krum_score: expected float32, got {g.dtype}")
@@ -58,10 +61,8 @@ def _krum_score_cuda(g: torch.Tensor, n_near: int) -> torch.Tensor:
         raise ValueError("krum_score: expected a contiguous tensor")
     bt, k, _ = g.shape
     out = torch.empty((bt, k), device=g.device, dtype=torch.float32)
-    lib = _build.library()
-    _build.check(lib.repro_krum_score_f32(g.data_ptr(), out.data_ptr(), bt,
-                                          k, int(n_near), stream_of(g)),
-                 "krum_score")
+    _KRUM_SCORE(g.data_ptr(), out.data_ptr(), bt, k, int(n_near),
+                stream_of(g))
     return out
 
 

@@ -1,10 +1,11 @@
 """Gram matrix and pairwise squared distances of stacked vectors.
 
 ``gram`` maps a (Bt, K, d) float32 stack to its (Bt, K, K) Gram matrices
-``X Xᵀ``. On a CUDA tensor it launches ``gram_kernel`` from
-``kernels/csrc/aggregation.cu`` (the counterpart of the JAX package's
-``kernels/pairwise_dist/pairwise_dist.py::gram``); on a CPU tensor it runs
-:func:`gram_plain`, the same row-by-row products in PyTorch.
+``X Xᵀ``. On a CUDA tensor it launches ``gram_chunk_kernel`` (and, for
+d > :data:`GRAM_CHUNK`, ``gram_reduce_kernel``) from
+``kernels/csrc/aggregation.cu``, the counterpart of the JAX package's
+``kernels/pairwise_dist/pairwise_dist.py::gram``; on a CPU tensor it runs
+:func:`gram_plain`, the same chunked algorithm in PyTorch.
 
 ``pairwise_sq_dists`` is plain tensor code on top: D² = diag + diagᵀ − 2G,
 clamped at 0.
@@ -12,27 +13,70 @@ clamped at 0.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.dispatch import check_stack, register_kernel, \
     stream_of
 
+#: coordinates per chunk of the plan (``GRAM_CHUNK`` in the CUDA source)
+GRAM_CHUNK = 8192
+#: lanes of the second pass's fixed summation order
+_LANES = 32
 
-def gram_plain(x: torch.Tensor) -> torch.Tensor:
-    """(Bt, K, d) -> (Bt, K, K): row i of each Gram matrix is the sum over
-    d of row i's products with every row, as the kernel's block i does."""
-    x = x.to(torch.float32)
-    return torch.stack([(x * x[:, i:i + 1, :]).sum(-1)
+
+def gram_chunks(d: int) -> list:
+    """The plan of ``gram``: ``[lo, hi)`` coordinate ranges of
+    :data:`GRAM_CHUNK`, the last one ragged. It depends on d alone, so a
+    result's bits depend only on the input."""
+    return [(lo, min(lo + GRAM_CHUNK, d)) for lo in range(0, d, GRAM_CHUNK)]
+
+
+def _partials(x: torch.Tensor) -> torch.Tensor:
+    """(Bt, K, n) -> (Bt, K, K) sums over the last axis of every row's
+    products with every row; (i, j) and (j, i) sum the same products in
+    the same order, so the result is exactly symmetric."""
+    return torch.stack([(x * x[:, i:i + 1]).sum(-1)
                         for i in range(x.shape[1])], dim=1)
 
 
-def _gram_cuda(x: torch.Tensor) -> torch.Tensor:
-    check_stack(x, "gram", _build.KMAX)
+def gram_plain(x: torch.Tensor) -> torch.Tensor:
+    """(Bt, K, d) -> (Bt, K, K) under the kernel's plan: one partial Gram
+    matrix per chunk of :func:`gram_chunks`, then, with more than one
+    chunk, the kernel's second pass: lane l of 32 sums chunks l, l + 32,
+    ... in sequence, and the lanes meet in a xor butterfly."""
+    x = x.to(torch.float32)
     bt, k, d = x.shape
+    n = len(gram_chunks(d))
+    if n == 1:
+        return _partials(x)
+    xc = F.pad(x, (0, n * GRAM_CHUNK - d)).reshape(bt, k, n, GRAM_CHUNK)
+    part = _partials(xc).permute(0, 3, 1, 2)
+    # part (Bt, n, K, K); lane l takes chunks l, l + 32, ... (zeros past n)
+    part = F.pad(part, (0, 0, 0, 0, 0, -n % _LANES))
+    part = part.reshape(bt, -1, _LANES, k, k)
+    s = torch.zeros_like(part[:, 0])
+    for m in range(part.shape[1]):
+        s = s + part[:, m]
+    # lane l adds lane l ^ off for off = 16, 8, 4, 2, 1: the halves pair up
+    # the same way, and a + b == b + a bit for bit
+    while s.shape[1] > 1:
+        half = s.shape[1] // 2
+        s = s[:, :half] + s[:, half:]
+    return s[:, 0]
+
+
+_GRAM = _build.CFunction("repro_gram_f32", "gram")
+
+
+def _gram_cuda(x: torch.Tensor) -> torch.Tensor:
+    bt, k, d = check_stack(x, "gram", _build.KMAX)
     out = torch.empty((bt, k, k), device=x.device, dtype=torch.float32)
-    lib = _build.library()
-    _build.check(lib.repro_gram_f32(x.data_ptr(), out.data_ptr(), bt, k, d,
-                                    stream_of(x)), "gram")
+    n = -(-d // GRAM_CHUNK)
+    ws = None if n == 1 else torch.empty(
+        (bt, k * (k + 1) // 2, n), device=x.device, dtype=torch.float32)
+    _GRAM(x.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
+          bt, k, d, stream_of(x))
     return out
 
 

@@ -52,19 +52,20 @@ def weiszfeld_plain(g: torch.Tensor, nu: float = 1e-6,
     return w
 
 
+_WEISZFELD = _build.CFunction("repro_weiszfeld_f32", "weiszfeld")
+_WSUM = _build.CFunction("repro_wsum_f32", "wsum")
+
+
 def _weiszfeld_cuda(g: torch.Tensor, nu: float = 1e-6,
                     n_iter: int = 32) -> torch.Tensor:
     _check_iter(nu, n_iter)
-    check_stack(g, "weiszfeld", _build.KMAX)
-    bt, k, k2 = g.shape
+    bt, k, k2 = check_stack(g, "weiszfeld", _build.KMAX)
     if k2 != k:
         raise ValueError(f"weiszfeld: expected square Gram matrices, got "
                          f"shape {tuple(g.shape)}")
     w = torch.empty((bt, k), device=g.device, dtype=torch.float32)
-    lib = _build.library()
-    _build.check(lib.repro_weiszfeld_f32(g.data_ptr(), w.data_ptr(), bt, k,
-                                         float(nu), int(n_iter),
-                                         stream_of(g)), "weiszfeld")
+    _WEISZFELD(g.data_ptr(), w.data_ptr(), bt, k, float(nu), int(n_iter),
+               stream_of(g))
     return w
 
 
@@ -78,17 +79,14 @@ def weighted_sum_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _wsum_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    check_stack(x, "wsum", _build.KMAX)
-    bt, k, d = x.shape
-    if w.shape != (bt, k) or w.dtype != torch.float32 \
-            or not w.is_contiguous() or w.device != x.device:
+    bt, k, d = check_stack(x, "wsum", _build.KMAX)
+    if not (w.dtype == torch.float32 and w.shape == (bt, k)
+            and w.is_contiguous() and w.device == x.device):
         raise ValueError(f"wsum: weights must be a contiguous float32 "
                          f"{(bt, k)} tensor on {x.device}, got "
                          f"{tuple(w.shape)} {w.dtype} on {w.device}")
     z = torch.empty((bt, d), device=x.device, dtype=torch.float32)
-    lib = _build.library()
-    _build.check(lib.repro_wsum_f32(x.data_ptr(), w.data_ptr(), z.data_ptr(),
-                                    bt, k, d, stream_of(x)), "wsum")
+    _WSUM(x.data_ptr(), w.data_ptr(), z.data_ptr(), bt, k, d, stream_of(x))
     return z
 
 

@@ -35,15 +35,15 @@ def trimmed_mean_plain(x: torch.Tensor, n_trim: int) -> torch.Tensor:
     return cw_reduce_plain(xp.transpose(0, 1), "trimmed", n_trim, n_valid=k)
 
 
+_TRIMMED_MEAN = _build.CFunction("repro_trimmed_mean_f32", "trimmed_mean")
+
+
 def _trimmed_mean_cuda(x: torch.Tensor, n_trim: int) -> torch.Tensor:
-    check_stack(x, "trimmed_mean", _build.KMAX)
-    bt, k, d = x.shape
+    bt, k, d = check_stack(x, "trimmed_mean", _build.KMAX)
     _check_trim(k, n_trim)
     out = torch.empty((bt, d), device=x.device, dtype=torch.float32)
-    lib = _build.library()
-    _build.check(lib.repro_trimmed_mean_f32(x.data_ptr(), out.data_ptr(), bt,
-                                            k, d, int(n_trim), stream_of(x)),
-                 "trimmed_mean")
+    _TRIMMED_MEAN(x.data_ptr(), out.data_ptr(), bt, k, d, int(n_trim),
+                  stream_of(x))
     return out
 
 

@@ -131,7 +131,8 @@ def test_adam_continues_from_carried_state():
         prev = theta
         theta, state = jax.vmap(jo.update)(jnp.asarray(_x(20 + i)), state,
                                            theta)
-    carry = convert.carry_from_jax(theta, prev, jax.device_get(state))
+    carry = convert.carry_from_jax(theta, prev, jax.device_get(state),
+                                   device="cpu")
     assert carry.opt_state.step.tolist() == [3] * K
     g = _x(30)
     want, _ = jax.vmap(jo.update)(jnp.asarray(g), state, theta)
@@ -143,6 +144,26 @@ def test_adam_continues_from_carried_state():
 # ---------------------------------------------------------------------------
 # Aggregators
 # ---------------------------------------------------------------------------
+
+
+def test_converters_default_to_cuda():
+    """Without a device argument the converters place tensors on CUDA;
+    without a card each raises resolve_device's own error."""
+    if torch.cuda.is_available():
+        pytest.skip("this checks the error without a CUDA device")
+    from repro_torch import resolve_device
+    from repro_torch.configs import get_config, reduced
+    with pytest.raises(RuntimeError) as want:
+        resolve_device(None)
+    cfg = reduced(get_config("llama3.2-1b"))
+    x = _x(40)
+    for call in (
+            lambda: convert.theta_from_jax_params([{"w": x, "b": x[0]}]),
+            lambda: convert.carry_from_jax(x, x, (np.zeros(K), x, x)),
+            lambda: convert.model_params_from_jax({}, cfg)):
+        with pytest.raises(RuntimeError) as got:
+            call()
+        assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("spec,tol", [("mean", 1e-6), ("cwmed", 1e-6),

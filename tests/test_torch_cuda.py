@@ -10,7 +10,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import dispatch  # noqa: E402
+from repro_torch.kernels import _build, dispatch  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_kernel, flash_attention_plain)
 from repro_torch.kernels.gossip_reduce import (  # noqa: E402
@@ -18,7 +18,8 @@ from repro_torch.kernels.gossip_reduce import (  # noqa: E402
     neighbor_reduce_plain)
 from repro_torch.kernels.krum_score import (  # noqa: E402
     krum_score, krum_score_plain)
-from repro_torch.kernels.pairwise_dist import gram, gram_plain  # noqa: E402
+from repro_torch.kernels.pairwise_dist import (  # noqa: E402
+    GRAM_CHUNK, gram, gram_chunks, gram_plain)
 from repro_torch.kernels.rfa import (  # noqa: E402
     weighted_sum, weighted_sum_plain, weiszfeld_plain, weiszfeld_weights)
 from repro_torch.kernels.trimmed_mean import (  # noqa: E402
@@ -61,6 +62,65 @@ def test_cuda_kernels_match_plain(cuda, shape):
     after = dispatch.launch_counts()
     assert {k: after[k] - before[k] for k in ("gram", "weiszfeld", "wsum")} \
         == {"gram": 2, "weiszfeld": 1, "wsum": 1}
+
+
+def _offset_copy(x):
+    """The same values in a contiguous tensor whose base is 4 bytes past
+    an allocation's start: never 16-byte aligned."""
+    buf = torch.empty(x.numel() + 1, device=x.device, dtype=x.dtype)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    assert y.is_contiguous() and y.data_ptr() % 16 == 4
+    return y
+
+
+def _check_gram_and_wsum(x):
+    g = gram(x)
+    assert torch.equal(g, gram(x))                  # bit-identical rerun
+    assert torch.equal(g, g.transpose(1, 2))        # each pair once
+    torch.testing.assert_close(g, gram_plain(x), rtol=0,
+                               atol=2e-5 * g.abs().max().item())
+    w = torch.softmax(torch.linspace(-1, 1, x.shape[1], device=x.device),
+                      0).expand(x.shape[0], -1).contiguous()
+    z = weighted_sum(x, w)
+    assert torch.equal(z, weighted_sum(x, w))
+    torch.testing.assert_close(z, weighted_sum_plain(x, w), rtol=0,
+                               atol=1e-5 * x.abs().max().item())
+    return g, z
+
+
+# d around the chunk boundaries (bulk route where d % 4 == 0, direct
+# route otherwise), the unaligned widths of the main path, K = 1 and 32,
+# and batches of several chunks
+GRAM_CASES = [(1, 13, GRAM_CHUNK - 1), (1, 13, GRAM_CHUNK),
+              (1, 13, GRAM_CHUNK + 1), (1, 13, 2 * GRAM_CHUNK + 3),
+              (1, 13, 2 * GRAM_CHUNK + 4), (13, 13, 386), (13, 7, 4867),
+              (2, 1, GRAM_CHUNK + 8), (1, 1, 3), (2, 32, 2 * GRAM_CHUNK + 3),
+              (1, 32, 2 * GRAM_CHUNK), (3, 17, 3 * GRAM_CHUNK + 4),
+              (3, 16, 3 * GRAM_CHUNK + 1), (4, 5, 5 * GRAM_CHUNK),
+              (1, 3, 1 << 20)]           # wsum's vector route (>= 2^20)
+
+
+@pytest.mark.cuda
+def test_cuda_gram_chunk_matches_the_plan(cuda):
+    assert _build.library().repro_gram_chunk() == GRAM_CHUNK
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GRAM_CASES, ids=str)
+def test_cuda_gram_and_wsum_routes(cuda, shape):
+    x = torch.from_numpy(_stack(shape, sum(shape))).to(cuda)
+    before = dispatch.launch_counts()
+    g, z = _check_gram_and_wsum(x)
+    # the other load route on the same values gives the same bits
+    g2, z2 = _check_gram_and_wsum(_offset_copy(x))
+    assert torch.equal(g, g2) and torch.equal(z, z2)
+    torch.cuda.synchronize()
+    after = dispatch.launch_counts()
+    # one count per wrapper call, however many chunks the plan has
+    assert {k: after[k] - before[k] for k in ("gram", "wsum")} == {
+        "gram": 4, "wsum": 4}
+    assert len(gram_chunks(shape[2])) == -(-shape[2] // GRAM_CHUNK)
 
 
 @pytest.mark.cuda

@@ -16,7 +16,7 @@ from repro.kernels.rfa.rfa import rfa_pallas  # noqa: E402
 
 from repro_torch.kernels import _build, dispatch  # noqa: E402
 from repro_torch.kernels.pairwise_dist import (  # noqa: E402
-    gram, gram_plain, pairwise_sq_dists)
+    GRAM_CHUNK, gram, gram_chunks, gram_plain, pairwise_sq_dists)
 from repro_torch.kernels.rfa import (  # noqa: E402
     rfa, weighted_sum, weighted_sum_plain, weiszfeld_plain,
     weiszfeld_weights)
@@ -47,6 +47,48 @@ def test_gram_and_distances_match_pallas(shape):
         np.testing.assert_allclose(d2[b], want_d2, rtol=1e-5,
                                    atol=1e-5 * scale)
         assert (d2[b] >= 0).all()
+
+
+@pytest.mark.parametrize("d", [1, 386, GRAM_CHUNK, GRAM_CHUNK + 1,
+                               3 * GRAM_CHUNK + 5])
+def test_gram_chunk_plan_covers_d_exactly(d):
+    plan = gram_chunks(d)
+    assert plan[0][0] == 0 and plan[-1][1] == d
+    for (lo, hi), (lo2, _) in zip(plan, plan[1:]):
+        assert hi == lo2                            # no gap, no overlap
+    assert all(0 < hi - lo <= GRAM_CHUNK for lo, hi in plan)
+    assert all(hi - lo == GRAM_CHUNK for lo, hi in plan[:-1])
+    assert len(plan) == -(-d // GRAM_CHUNK)
+
+
+def test_chunked_gram_plain_matches_pallas():
+    shape = (2, 13, 3 * GRAM_CHUNK + 5)
+    x = _stack(shape, 14)
+    g = gram_plain(torch.from_numpy(x))
+    assert len(gram_chunks(shape[2])) == 4
+    assert torch.equal(g, g.transpose(1, 2))        # each pair once
+    for b in range(shape[0]):
+        want = np.asarray(jax_gram(jnp.asarray(x[b]), interpret=True))
+        np.testing.assert_allclose(g[b].numpy(), want, rtol=1e-5,
+                                   atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("d", [5, 387, 1001, 4867])
+def test_weighted_sum_plain_at_unaligned_widths(d):
+    """d % 4 != 0, the kernel's scalar route: against the reference's
+    Pallas weighted sum (RFA with no Weiszfeld step, w = 1/K) and against
+    float64 at other weights."""
+    x = _stack((13, d), 15)
+    z = weighted_sum_plain(torch.from_numpy(x)[None],
+                           torch.full((1, 13), 1 / 13))[0].numpy()
+    want = np.asarray(rfa_pallas(jnp.asarray(x), n_iter=0, interpret=True))
+    scale = np.abs(x).max()
+    np.testing.assert_allclose(z, want, rtol=0, atol=1e-5 * scale)
+    w = np.random.default_rng(16).dirichlet(np.ones(13)).astype(np.float32)
+    z = weighted_sum_plain(torch.from_numpy(x)[None],
+                           torch.from_numpy(w)[None])[0].numpy()
+    np.testing.assert_allclose(z, w.astype(np.float64) @ x, rtol=0,
+                               atol=1e-5 * scale)
 
 
 def _rfa_cases():

@@ -146,7 +146,8 @@ def model(request):
             a[name] = 0.1 * jax.random.normal(jax.random.PRNGKey(i),
                                               a[name].shape)
     np_params = jax.tree.map(np.asarray, params)
-    return cfg, port_cfg, params, model_params_from_jax(np_params, port_cfg)
+    return cfg, port_cfg, params, model_params_from_jax(np_params, port_cfg,
+                                                        device="cpu")
 
 
 def _inputs(cfg, B, S, seed=0):
@@ -180,7 +181,7 @@ def test_param_tree_matches_the_reference(model):
     bad = dict(jax.tree.map(np.asarray, params))
     bad["embed"] = bad["embed"][:-1]
     with pytest.raises(ValueError, match="embed"):
-        model_params_from_jax(bad, port_cfg)
+        model_params_from_jax(bad, port_cfg, device="cpu")
 
 
 def test_gqa_forward_matches_the_reference(model):

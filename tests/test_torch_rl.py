@@ -89,7 +89,7 @@ def test_mlp_logits_from_carried_weights(activation):
     keys = jax.random.split(jax.random.PRNGKey(1), 3)
     params = [_jax_params(k, sizes) for k in keys]
     theta = torch.stack([convert.theta_from_jax_params(
-        jax.device_get(p)) for p in params])
+        jax.device_get(p), device="cpu") for p in params])
     for p, row in zip(params, theta):
         np.testing.assert_array_equal(row.numpy(), ravel(p)[0])
     obs = np.random.default_rng(2).standard_normal((3, 7, 6)).astype(
@@ -126,7 +126,8 @@ def _sampled(name, activation="relu", M=6, K=2, horizon=40):
                            scales[k])
              for k in range(K)]
     draws = [trajectory_draws(jenv, keys[K + k], M) for k in range(K)]
-    theta = torch.stack([convert.theta_from_jax_params(jax.device_get(p))
+    theta = torch.stack([convert.theta_from_jax_params(jax.device_get(p),
+                                                       device="cpu")
                          for p in params])
     pol = MLPPolicy(sizes, activation)
     ttraj = rollout(tenv, pol, theta,

@@ -67,7 +67,7 @@ def jax_side():
 @pytest.fixture(scope="module")
 def params(policy, jax_side):
     return model_params_from_jax(jax.tree.map(np.asarray, jax_side[1]),
-                                 policy.model_cfg)
+                                 policy.model_cfg, device="cpu")
 
 
 def _tokens_by_uid(policy, params, traffic, slots, **kw):
@@ -297,7 +297,7 @@ def test_lm_streams_match_the_reference():
     port_cfg = tcfg.reduced(tcfg.get_config("llama3.2-1b"))
     jparams = jm.init_params(cfg, jax.random.PRNGKey(3))
     tparams = model_params_from_jax(jax.tree.map(np.asarray, jparams),
-                                    port_cfg)
+                                    port_cfg, device="cpu")
     traffic = make_traffic(5, seed=2, max_new=5, vocab=cfg.vocab_size,
                            prompt_lens=(1, 3, 8))
     before = dispatch.launch_counts()["flash_attention"]
@@ -319,7 +319,7 @@ def test_policy_params_from_theta_in_ravel_order(policy, jax_side):
     theta, _ = ravel_pytree(jparams)
     got = policy_params(policy, theta=np.asarray(theta), device="cpu")
     want = model_params_from_jax(jax.tree.map(np.asarray, jparams),
-                                 policy.model_cfg)
+                                 policy.model_cfg, device="cpu")
     jax.tree.map(lambda a, b: np.testing.assert_array_equal(a.numpy(),
                                                             b.numpy()),
                  got, want)
