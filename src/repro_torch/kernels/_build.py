@@ -36,8 +36,7 @@ KMAX = 32
 _VP, _INT, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_float)
 _SIGNATURES = {
-    "repro_gram_f32": (_VP, _VP, _VP, _INT, _INT, _I64, _VP),
-    "repro_gram_chunk": (),
+    "repro_gram_f32": (_VP, _VP, _VP, _INT, _INT, _I64, _INT, _INT, _VP),
     "repro_weiszfeld_f32": (_VP, _VP, _INT, _INT, _F32, _INT, _VP),
     "repro_wsum_f32": (_VP, _VP, _VP, _INT, _INT, _I64, _VP),
     "repro_trimmed_mean_f32": (_VP, _VP, _INT, _INT, _I64, _INT, _VP),

@@ -42,34 +42,46 @@ constexpr int KMAX = 32;          // largest stack the kernels take
 // bound by bytes for every k <= 32. At the main path's (13, 13, 386) the
 // whole call moves 260 KB, so the launch bounds it.
 //
-// Design. d is cut into chunks of GRAM_CHUNK coordinates, the last one
-// ragged; the plan depends on d alone (never on the SM count), so a
-// result's bits depend only on the input, and gram_plain follows the same
-// plan. One block per (batch, chunk) reads its chunk of all k rows once:
-//   * bulk route (d % 4 == 0 and a 16-byte aligned base): one warp keeps a
-//     ring of shared-memory stages filled with 1-D bulk async copies
-//     (cp.async.bulk, one per row segment, one lane per row, completing on
-//     an mbarrier), so bytes stay in flight without spending registers;
-//     3 stages deep where two blocks share an SM, 6 where one block does;
+// Design. d is cut into chunks by the caller's plan (chunk length and
+// count, from gram_chunks in pairwise_dist.py, which depends on d alone and
+// never on the SM count), so a result's bits depend only on the input, and
+// gram_plain follows the same plan. One block per (batch, chunk) reads its
+// chunk of all k rows once:
+//   * bulk route (d % 4 == 0, chunk % 4 == 0 and a 16-byte aligned base):
+//     one warp keeps a ring of shared-memory stages filled with 1-D bulk
+//     async copies (cp.async.bulk, one per row segment, one lane per row,
+//     completing on an mbarrier), so bytes stay in flight without spending
+//     registers; 3 stages deep where two blocks share an SM, 6 where one
+//     block does;
 //   * direct route (any other d, e.g. 386, whose rows start 8 bytes off a
 //     16-byte boundary): threads load their coordinates' k values straight
 //     from device memory, coalesced across the warp.
-// Each pair (i <= j) is computed once and written to g[i, j] and g[j, i],
-// so G is exactly symmetric. Threads hold their pairs in registers
-// (GramPairs<k>: all pairs for k <= 16, one of four parts of the triangle
-// for k <= 32), and every warp reads the same staged tile, so device memory
-// still sees each byte once. Both routes visit a thread's coordinates in the
-// same order, so they give the same bits. A block reduces its threads' sums
-// with xor butterflies and a fixed-order pass over its warps. With one chunk
-// (d <= GRAM_CHUNK, the main path) the block writes G itself: one launch.
-// With more, blocks write a (bt, k(k+1)/2, n_chunks) workspace and
-// gram_reduce_kernel sums it in one fixed order: lane l of a warp sums
-// chunks l, l + 32, ... in sequence, then a xor butterfly over the lanes.
-// No atomics anywhere, so a rerun is bit-identical.
+// The kernel is compiled for a few stack heights (GramBuckets); a stack of k
+// rows runs on the smallest bucket KB >= k, with k fixed at compile time
+// when it is KB and read at run time when it is less. Its pad rows k..KB-1
+// are never copied (the bulk route leaves their stage rows as they are, the
+// direct route reads row k-1 again), and the pairs they make are summed and
+// dropped: no pair of the stack's own rows reads them. Each pair (i <= j) is
+// computed once and written to g[i, j] and g[j, i], so G is exactly
+// symmetric. Threads hold their pairs in registers (GramPairs<KB>: all pairs
+// for KB <= 16, one of four parts of the triangle up to 32), and every warp
+// reads the same staged tile, so device memory still sees each byte once.
+// Both routes visit a thread's coordinates in the same order, so they give
+// the same bits, and so do the buckets up to 16 (one role each). A block
+// reduces each pair with a shuffle-down tree per warp, stores the warp sums
+// to shared memory, then sums each role's warps in a fixed order. With one
+// chunk (the main path) the block writes G itself: one launch. With more,
+// blocks write a (bt, k(k+1)/2, n_chunks) workspace and gram_reduce_kernel
+// sums it in one fixed order: lane l of a warp sums chunks l, l + 32, ... in
+// sequence, then a xor butterfly over the lanes. No atomics anywhere, so a
+// rerun is bit-identical.
 // ---------------------------------------------------------------------------
-constexpr int GRAM_CHUNK = 8192;         // coordinates per first-pass block
 constexpr int GRAM_MAX_STAGES = 6;       // shared-memory ring of the bulk route
 constexpr int GRAM_REDUCE_WARPS = 8;     // pairs per block of the second pass
+// the stack heights gram_chunk_kernel is compiled for (the last is KMAX)
+// (7 and 13, the main path's stacks, ran up to 35% slower on an H100 on the
+// next larger height)
+using GramBuckets = std::integer_sequence<int, 4, 7, 8, 13, 16, 24, 32>;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -118,7 +130,8 @@ __device__ __forceinline__ int pair_index(int i, int j, int k) {
     return i * k - i * (i - 1) / 2 + (j - i);
 }
 
-// The pairs of K rows and the threads that sum them. For K <= 16 one role:
+// The pairs of K rows (a bucket's height) and the threads that sum them.
+// For K <= 16 one role:
 // every thread holds all K(K+1)/2 pairs of its coordinates (at most 136
 // accumulators) and the 8 warps split the coordinates. For K > 16 the rows
 // split into A = [0, H) and B = [H, K), H = ceil(K/2), B into B1 and B2, and
@@ -191,8 +204,8 @@ struct GramPairs {
         }
     }
 
-    // warp sums (a fixed shuffle tree), then a fixed-order sum over each
-    // role's warps; out(i, j, pair index, value) for every pair
+    // warp sums (a shuffle-down tree per pair), then a fixed-order sum over
+    // each role's warps; out(i, j, value) for every pair, i <= j
     template <class Out>
     __device__ void finish(float* scratch, const Out& out) {
         const int lane = threadIdx.x & 31;
@@ -234,29 +247,32 @@ struct GramPairs {
                 i = i0 + p / m;
                 j = j0 + p % m;
             }
-            out(i, j, pair_index(i, j, K), s);
+            out(i, j, s);
         }
     }
 };
 
-// First pass: block (chunk, b) sums its chunk's products. `bulk` picks the
-// route (the launcher checks alignment); `ws` is null when n_chunks == 1.
-template <int K>
+// First pass: block (chunk, b) sums its chunk's products for a stack of
+// k <= K rows; without PAD, k is K at compile time (an exact height runs
+// the code of a kernel built for its k alone). `bulk` picks the route (the
+// launcher checks alignment); `ws` is null when n_chunks == 1.
+template <int K, bool PAD>
 __global__ void __launch_bounds__(GramPairs<K>::THREADS,
                                   GramPairs<K>::MIN_BLOCKS)
 gram_chunk_kernel(const float* __restrict__ x, float* __restrict__ g,
-                  float* __restrict__ ws, long long d, int n_chunks,
-                  int bulk) {
+                  float* __restrict__ ws, int k_rows, long long d,
+                  int chunk_len, int n_chunks, int bulk) {
     using Acc = GramPairs<K>;
+    const int k = PAD ? k_rows : K;
     extern __shared__ __align__(128) float smem[];
     __shared__ __align__(8) uint64_t full[GRAM_MAX_STAGES];
     constexpr int TILE = Acc::TILE, STAGES = Acc::STAGES;
     constexpr int STAGE = K * TILE;              // floats per stage
     const int chunk = blockIdx.x;
     const long long b = blockIdx.y;
-    const long long c0 = (long long)chunk * GRAM_CHUNK;
-    const int len = (int)min((long long)GRAM_CHUNK, d - c0);
-    const float* xb = x + b * K * d + c0;
+    const long long c0 = (long long)chunk * chunk_len;
+    const int len = (int)min((long long)chunk_len, d - c0);
+    const float* xb = x + b * k * d + c0;
     Acc acc;
 
     if (bulk) {
@@ -267,15 +283,15 @@ gram_chunk_kernel(const float* __restrict__ x, float* __restrict__ g,
         }
         __syncthreads();
         // warp 0 fills a stage: lane 0 arms the barrier with the stage's
-        // bytes, then lane r copies row r (K <= 32)
+        // bytes, then lane r < k copies row r (k <= 32)
         const int lane = threadIdx.x & 31;
         auto issue = [&](int t) {
             const int s = t % STAGES;
             const int tlen = min(TILE, len - t * TILE);
             asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-            if (lane == 0) mbar_expect_tx(&full[s], (uint32_t)(K * tlen * 4));
+            if (lane == 0) mbar_expect_tx(&full[s], (uint32_t)(k * tlen * 4));
             __syncwarp();
-            if (lane < K)
+            if (lane < k)
                 bulk_load(smem + s * STAGE + lane * TILE,
                           xb + (long long)lane * d + (long long)t * TILE,
                           (uint32_t)(tlen * 4), &full[s]);
@@ -294,18 +310,19 @@ gram_chunk_kernel(const float* __restrict__ x, float* __restrict__ g,
                 issue(t + STAGES);
         }
     } else {
-        acc.consume([xb, d](int r, int c) {
-            return __ldg(xb + (long long)r * d + c);
+        acc.consume([xb, k, d](int r, int c) {      // pad rows repeat row k-1
+            return __ldg(xb + (long long)min(r, k - 1) * d + c);
         }, len);
     }
 
-    constexpr int n_pairs = K * (K + 1) / 2;
-    acc.finish(smem, [=](int i, int j, int p, float v) {
+    const int n_pairs = k * (k + 1) / 2;
+    acc.finish(smem, [=](int i, int j, float v) {
+        if (j >= k) return;                      // a pair with a pad row
         if (n_chunks == 1) {
-            g[(b * K + i) * K + j] = v;
-            g[(b * K + j) * K + i] = v;
+            g[(b * k + i) * k + j] = v;
+            g[(b * k + j) * k + i] = v;
         } else {
-            ws[(b * n_pairs + p) * n_chunks + chunk] = v;
+            ws[(b * n_pairs + pair_index(i, j, k)) * n_chunks + chunk] = v;
         }
     });
 }
@@ -333,12 +350,13 @@ gram_reduce_kernel(const float* __restrict__ ws, float* __restrict__ g,
     }
 }
 
-template <int K>
-int launch_gram(const float* x, float* g, float* ws, int bt, long long d,
+template <int K, bool PAD>
+int launch_gram(const float* x, float* g, float* ws, int bt, int k,
+                long long d, int chunk_len, int n_chunks,
                 cudaStream_t stream) {
     using Acc = GramPairs<K>;
-    const long long n_chunks = (d + GRAM_CHUNK - 1) / GRAM_CHUNK;
-    const int bulk = d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+    const int bulk = d % 4 == 0 && chunk_len % 4 == 0
+        && reinterpret_cast<uintptr_t>(x) % 16 == 0;
     const int bulk_bytes = Acc::STAGES * K * Acc::TILE * 4;
     static bool attr_set[64] = {};   // per instantiation and device
     int dev = 0;
@@ -346,32 +364,41 @@ int launch_gram(const float* x, float* g, float* ws, int bt, long long d,
     if (e != cudaSuccess) return (int)e;
     if (dev >= 64) return (int)cudaErrorInvalidDevice;
     if (!attr_set[dev]) {
-        e = cudaFuncSetAttribute(gram_chunk_kernel<K>,
+        e = cudaFuncSetAttribute(gram_chunk_kernel<K, PAD>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  bulk_bytes);
         if (e != cudaSuccess) return (int)e;
         attr_set[dev] = true;
     }
-    gram_chunk_kernel<K><<<dim3((unsigned)n_chunks, bt), Acc::THREADS,
-                           bulk ? bulk_bytes : Acc::SCRATCH_BYTES, stream>>>(
-        x, g, ws, d, (int)n_chunks, bulk);
+    gram_chunk_kernel<K, PAD><<<dim3((unsigned)n_chunks, bt), Acc::THREADS,
+                                bulk ? bulk_bytes : Acc::SCRATCH_BYTES,
+                                stream>>>(
+        x, g, ws, k, d, chunk_len, n_chunks, bulk);
     e = cudaGetLastError();
     if (e != cudaSuccess || n_chunks == 1) return (int)e;
-    const int n_pairs = K * (K + 1) / 2;
+    const int n_pairs = k * (k + 1) / 2;
     gram_reduce_kernel<<<dim3((n_pairs + GRAM_REDUCE_WARPS - 1)
                               / GRAM_REDUCE_WARPS, bt),
                          32 * GRAM_REDUCE_WARPS, 0, stream>>>(
-        ws, g, K, (int)n_chunks);
+        ws, g, k, n_chunks);
     return (int)cudaGetLastError();
 }
 
-template <int... Ks>
-int gram_for_k(int k, const float* x, float* g, float* ws, int bt,
-               long long d, cudaStream_t stream,
-               std::integer_sequence<int, Ks...>) {
+// launches the smallest bucket that holds k rows
+template <int... KBs>
+int gram_for_k(const float* x, float* g, float* ws, int bt, int k,
+               long long d, int chunk_len, int n_chunks, cudaStream_t stream,
+               std::integer_sequence<int, KBs...>) {
     int status = (int)cudaErrorInvalidValue;      // k outside [1, KMAX]
-    ((k == Ks + 1
-      ? (status = launch_gram<Ks + 1>(x, g, ws, bt, d, stream), 0) : 0), ...);
+    bool done = k < 1;
+    ((!done && k <= KBs
+      ? (done = true,
+         status = k == KBs
+             ? launch_gram<KBs, false>(x, g, ws, bt, k, d, chunk_len,
+                                       n_chunks, stream)
+             : launch_gram<KBs, true>(x, g, ws, bt, k, d, chunk_len,
+                                      n_chunks, stream),
+         0) : 0), ...);
     return status;
 }
 
@@ -763,15 +790,20 @@ krum_score_kernel(const float* __restrict__ g, float* __restrict__ scores,
 
 extern "C" {
 
-// ws: a (bt, k(k+1)/2, n_chunks) workspace when d > repro_gram_chunk(),
-// else unused (may be null)
+// The plan: n_chunks chunks of chunk_len coordinates, the last one ragged
+// (pairwise_dist.py::gram_chunks). ws: a (bt, k(k+1)/2, n_chunks) workspace
+// when n_chunks > 1, else unused (may be null).
 int repro_gram_f32(const float* x, float* g, float* ws, int bt, int k,
-                   long long d, cudaStream_t stream) {
-    return gram_for_k(k, x, g, ws, bt, d, stream,
-                      std::make_integer_sequence<int, KMAX>{});
+                   long long d, int chunk_len, int n_chunks,
+                   cudaStream_t stream) {
+    if (chunk_len < 1 || n_chunks < 1
+        || (long long)(n_chunks - 1) * chunk_len >= d
+        || (long long)n_chunks * chunk_len < d
+        || (n_chunks > 1 && ws == nullptr))
+        return (int)cudaErrorInvalidValue;       // not a plan that covers d
+    return gram_for_k(x, g, ws, bt, k, d, chunk_len, n_chunks, stream,
+                      GramBuckets{});
 }
-
-int repro_gram_chunk() { return GRAM_CHUNK; }
 
 int repro_weiszfeld_f32(const float* g, float* w, int bt, int k, float nu,
                         int n_iter, cudaStream_t stream) {

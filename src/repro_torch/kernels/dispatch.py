@@ -65,22 +65,10 @@ def reset_launches() -> None:
         k.launches = 0
 
 
-_raw_stream = None
-
-
 def stream_of(t: torch.Tensor) -> int:
-    """The raw handle of the current CUDA stream on ``t``'s device.
-
-    Reads it through ``torch._C._cuda_getCurrentRawStream`` where the
-    build has it, without building a ``torch.cuda.Stream`` object on
-    every launch; other builds take the public ``current_stream``."""
-    global _raw_stream
-    if _raw_stream is None:
-        raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-        _raw_stream = (
-            (lambda t: raw(t.get_device())) if raw is not None else
-            (lambda t: torch.cuda.current_stream(t.device).cuda_stream))
-    return _raw_stream(t)
+    """The raw handle of the current CUDA stream on ``t``'s device, read
+    without building a ``torch.cuda.Stream`` object on every launch."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check_stack(x: torch.Tensor, name: str, kmax: int):

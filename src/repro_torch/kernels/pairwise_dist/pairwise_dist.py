@@ -19,17 +19,18 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.dispatch import check_stack, register_kernel, \
     stream_of
 
-#: coordinates per chunk of the plan (``GRAM_CHUNK`` in the CUDA source)
+#: coordinates per chunk of the plan
 GRAM_CHUNK = 8192
 #: lanes of the second pass's fixed summation order
 _LANES = 32
 
 
-def gram_chunks(d: int) -> list:
-    """The plan of ``gram``: ``[lo, hi)`` coordinate ranges of
-    :data:`GRAM_CHUNK`, the last one ragged. It depends on d alone, so a
-    result's bits depend only on the input."""
-    return [(lo, min(lo + GRAM_CHUNK, d)) for lo in range(0, d, GRAM_CHUNK)]
+def gram_chunks(d: int) -> range:
+    """The plan of ``gram``, for the kernel and :func:`gram_plain` alike:
+    the chunks' first coordinates. Chunk ``lo`` covers
+    ``[lo, min(lo + step, d))``, the last one ragged. It depends on d
+    alone, so a result's bits depend only on the input."""
+    return range(0, d, GRAM_CHUNK)
 
 
 def _partials(x: torch.Tensor) -> torch.Tensor:
@@ -47,10 +48,11 @@ def gram_plain(x: torch.Tensor) -> torch.Tensor:
     ... in sequence, and the lanes meet in a xor butterfly."""
     x = x.to(torch.float32)
     bt, k, d = x.shape
-    n = len(gram_chunks(d))
+    plan = gram_chunks(d)
+    n = len(plan)
     if n == 1:
         return _partials(x)
-    xc = F.pad(x, (0, n * GRAM_CHUNK - d)).reshape(bt, k, n, GRAM_CHUNK)
+    xc = F.pad(x, (0, n * plan.step - d)).reshape(bt, k, n, plan.step)
     part = _partials(xc).permute(0, 3, 1, 2)
     # part (Bt, n, K, K); lane l takes chunks l, l + 32, ... (zeros past n)
     part = F.pad(part, (0, 0, 0, 0, 0, -n % _LANES))
@@ -72,11 +74,12 @@ _GRAM = _build.CFunction("repro_gram_f32", "gram")
 def _gram_cuda(x: torch.Tensor) -> torch.Tensor:
     bt, k, d = check_stack(x, "gram", _build.KMAX)
     out = torch.empty((bt, k, k), device=x.device, dtype=torch.float32)
-    n = -(-d // GRAM_CHUNK)
+    plan = gram_chunks(d)
+    n = len(plan)
     ws = None if n == 1 else torch.empty(
         (bt, k * (k + 1) // 2, n), device=x.device, dtype=torch.float32)
     _GRAM(x.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
-          bt, k, d, stream_of(x))
+          bt, k, d, plan.step, n, stream_of(x))
     return out
 
 

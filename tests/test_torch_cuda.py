@@ -10,7 +10,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import _build, dispatch  # noqa: E402
+from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_kernel, flash_attention_plain)
 from repro_torch.kernels.gossip_reduce import (  # noqa: E402
@@ -98,12 +98,8 @@ GRAM_CASES = [(1, 13, GRAM_CHUNK - 1), (1, 13, GRAM_CHUNK),
               (2, 1, GRAM_CHUNK + 8), (1, 1, 3), (2, 32, 2 * GRAM_CHUNK + 3),
               (1, 32, 2 * GRAM_CHUNK), (3, 17, 3 * GRAM_CHUNK + 4),
               (3, 16, 3 * GRAM_CHUNK + 1), (4, 5, 5 * GRAM_CHUNK),
+              (2, 25, GRAM_CHUNK + 4), (1, 10, 4867),
               (1, 3, 1 << 20)]           # wsum's vector route (>= 2^20)
-
-
-@pytest.mark.cuda
-def test_cuda_gram_chunk_matches_the_plan(cuda):
-    assert _build.library().repro_gram_chunk() == GRAM_CHUNK
 
 
 @pytest.mark.cuda
@@ -121,6 +117,20 @@ def test_cuda_gram_and_wsum_routes(cuda, shape):
     assert {k: after[k] - before[k] for k in ("gram", "wsum")} == {
         "gram": 4, "wsum": 4}
     assert len(gram_chunks(shape[2])) == -(-shape[2] // GRAM_CHUNK)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k, pad", [(5, 3), (5, 11), (13, 3)])
+@pytest.mark.parametrize("d", [386, 2 * GRAM_CHUNK + 4])
+def test_cuda_gram_pad_rows_leave_the_stack_alone(cuda, k, pad, d):
+    """A stack runs on the smallest compiled height that holds it, and no
+    pair of its own rows reads the height's pad rows: appending zero rows
+    (within the one-role heights, up to 16) leaves the stack's block of G
+    bit for bit."""
+    x = torch.from_numpy(_stack((2, k, d), k + d)).to(cuda)
+    gp = gram(torch.cat([x, x.new_zeros((2, pad, d))], 1))
+    assert torch.equal(gp[:, :k, :k], gram(x))
+    assert not gp[:, k:].any() and not gp[:, :, k:].any()
 
 
 @pytest.mark.cuda

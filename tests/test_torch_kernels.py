@@ -52,7 +52,8 @@ def test_gram_and_distances_match_pallas(shape):
 @pytest.mark.parametrize("d", [1, 386, GRAM_CHUNK, GRAM_CHUNK + 1,
                                3 * GRAM_CHUNK + 5])
 def test_gram_chunk_plan_covers_d_exactly(d):
-    plan = gram_chunks(d)
+    starts = gram_chunks(d)
+    plan = [(lo, min(lo + starts.step, d)) for lo in starts]
     assert plan[0][0] == 0 and plan[-1][1] == d
     for (lo, hi), (lo2, _) in zip(plan, plan[1:]):
         assert hi == lo2                            # no gap, no overlap

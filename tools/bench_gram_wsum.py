@@ -27,7 +27,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-SWEEP_K = (4, 8, 12, 13, 14, 16, 17, 20, 24, 25, 28, 32)
+SWEEP_K = (4, 7, 8, 12, 13, 14, 16, 17, 20, 24, 25, 28, 32)
 
 
 def host_us(fn, reps: int) -> float:
