@@ -13,8 +13,10 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    and ``flash_attention`` against their plain PyTorch versions on the
    card, at the main path's shapes and large inputs (``gram``, ``wsum``:
    three large stacks, ``LARGE_SHAPES``); every kernel is rerun for
-   bit-identity, ``gram`` must be exactly symmetric, and one integer-grid
-   input per cw kernel must match its plain version bit for bit. Two
+   bit-identity, ``gram`` must be exactly symmetric, one integer-grid
+   input per cw kernel must match its plain version bit for bit, and
+   flash attention must also take strided (B, S, H, hd) tensors, sliced
+   out of one fused projection, with the folded launch's bits. Two
    times per kernel and per library yardstick (``torch.bmm``, ``torch.sort``
    plus a slice mean or sum, SDPA; timed only, never called by the port),
    taken in turns (kernel, library, library, kernel), medians of
@@ -103,12 +105,14 @@ HEADLINE = {"gram": (13, 13, 386), "weiszfeld": (13, 7, 386),
             "flash_attention": "q (32, 512, 64) kv (8, 512, 64)"}
 # flash inputs (B, H, Hkv, S, hd, window): Llama-3.2-1B's 512-token
 # prefill (G = 4) with and without windows, Qwen2.5-3B's (hd 128, G = 8),
-# the policy's 9-position prefill (hd 32, G = 1) and ragged grouped ones
+# the policy's 9-position prefill (hd 32, G = 1), ragged grouped ones, and
+# the 16- and 128-token buckets that Llama's serving prefills most
 FLASH_CASES = [(1, 32, 8, 512, 64, None), (1, 32, 8, 512, 64, 1),
                (1, 32, 8, 512, 64, 7), (1, 32, 8, 512, 64, 128),
                (1, 16, 2, 256, 128, None), (1, 2, 2, 9, 32, None),
                (1, 4, 1, 9, 32, None), (1, 4, 1, 100, 64, None),
-               (2, 4, 2, 130, 32, None)]
+               (2, 4, 2, 130, 32, None), (1, 32, 8, 16, 64, None),
+               (1, 32, 8, 128, 64, None)]
 FLASH_LARGE = (1, 32, 8, 8192, 64, None)
 N_ITER, NU = 32, 1e-6
 F32_EPS = 2.0 ** -23
@@ -552,7 +556,45 @@ def phase_flash(dev):
             bound_ms=b[0], bound_by=b[1])
         del q, k, v, out, ref
         torch.cuda.empty_cache()
+    phase_flash_layout(dev)
     return rows
+
+
+def phase_flash_layout(dev):
+    """The model-layout launch on strided tensors, as the serving path
+    hands them over: q, k and v sliced out of one fused (B, S, H + 2·Hkv,
+    hd) tensor at Llama-3.2-1B's and Qwen2.5-3B's widths, against the
+    plain version on contiguous folded copies (tolerance 2e-5·max|v|) and
+    against the folded launch on those copies (the same bits)."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+                                                     flash_attention_plain)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    for case in [(1, 32, 8, 512, 64, None), (2, 32, 8, 130, 64, 100),
+                 (1, 16, 2, 256, 128, None)]:
+        B, H, Hkv, S, hd, window = case
+        fused = torch.randn((B, S, H + 2 * Hkv, hd), generator=gen,
+                            device=dev)
+        q, k, v = (fused[:, :, :H], fused[:, :, H:H + Hkv],
+                   fused[:, :, H + Hkv:])
+        out = flash_attention_kernel(q, k, v, window=window)
+        fold = [x.transpose(1, 2).reshape(B * x.shape[2], S, hd).contiguous()
+                for x in (q, k, v)]
+        ref = flash_attention_plain(*fold, H, window)
+        folded = flash_attention_kernel(*fold, H, window)
+        unfold = folded.reshape(B, H, S, hd).transpose(1, 2)
+        err = (out - ref.reshape(B, H, S, hd).transpose(1, 2)).abs().max()
+        tol = 2e-5 * v.abs().max().item()
+        if not err.item() <= tol or not torch.equal(out, unfold):
+            raise AssertionError(f"flash_attention model layout {case}: "
+                                 f"max abs err {err.item()} (tol {tol}), "
+                                 f"equal to the folded launch: "
+                                 f"{torch.equal(out, unfold)}")
+        log(f"[flash] strided (B, S, H, hd) q {tuple(q.shape)} strides "
+            f"{q.stride()}, window {window}: max abs err {err.item():.3e} "
+            f"against the plain version (tol {tol:.3e}), bits equal to the "
+            f"folded launch")
 
 
 def log_kernel_rows(rows):

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 Every ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` into an
-object, one ``nvcc`` per source, all started together, and the objects are
-linked into one shared library with a plain C interface, at first use,
-into ``build/`` beside this file (listed in ``.gitignore``). The library's
-name carries a hash of all the sources and the flags, so an edited source
-is rebuilt and an unchanged set is loaded as it is. It is loaded with
+object (``csrc/*.cuh`` are headers they share), one ``nvcc`` per source,
+all started together, and the objects are linked into one shared library
+with a plain C interface, at first use, into ``build/`` beside this file
+(listed in ``.gitignore``). The library's name carries a hash of all the
+sources, headers and flags, so an edited file is rebuilt and an unchanged
+set is loaded as it is. It is loaded with
 :mod:`ctypes`; every pointer and the stream pass as ``c_void_p``.
 
 Nothing here runs at import: the CPU tests import every module, and this
@@ -45,8 +46,8 @@ _SIGNATURES = {
     "repro_neighbor_reduce_f32": (_VP, _VP, _INT, _INT, _I64, _INT, _INT,
                                   _VP),
     "repro_krum_score_f32": (_VP, _VP, _I64, _INT, _INT, _VP),
-    "repro_flash_attention_f32": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
-                                  _INT, _INT, _INT, _F32, _VP),
+    "repro_flash_attention_f32": (_VP, _VP, _VP, _VP, *(_I64,) * 9,
+                                  *(_INT,) * 9, _F32, _VP),
     "repro_flash_attention_shared_bytes": (_INT,),
 }
 
@@ -76,9 +77,10 @@ def sources() -> list:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags
+    lives."""
     h = hashlib.sha256()
-    for src in sources():
+    for src in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -24,6 +24,8 @@
 #include <cstdint>
 #include <utility>
 
+#include "async_copy.cuh"
+
 namespace {
 
 constexpr int KMAX = 32;          // largest stack the kernels take
@@ -82,41 +84,6 @@ constexpr int GRAM_REDUCE_WARPS = 8;     // pairs per block of the second pass
 // (7 and 13, the main path's stacks, ran up to 35% slower on an H100 on the
 // next larger height)
 using GramBuckets = std::integer_sequence<int, 4, 7, 8, 13, 16, 24, 32>;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-                 :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-    asm volatile(
-        "{\n\t"
-        ".reg .pred p;\n\t"
-        "LAB_WAIT:\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n\t"
-        "@!p bra LAB_WAIT;\n\t"
-        "}"
-        :: "r"(smem_u32(bar)), "r"(parity) : "memory");
-}
-
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];"
-        :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-        : "memory");
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

@@ -2,67 +2,140 @@
 // grouped-query heads and an optional sliding window, in f32.
 //
 // Replaces src/repro/kernels/flash_attention/flash_attention.py
-// ::flash_attention_pallas (body _flash_kernel): q (B*H, Sq, hd), k and v
-// (B*Hkv, Sk, hd), query head bh reads KV head (bh / H) * Hkv + (bh % H) / G,
-// the mask is k_pos <= q_pos, k_pos < Sk and (q_pos - k_pos) < window on
-// absolute indices 0..Sq-1 and 0..Sk-1, the scale is hd^-0.5, and the
-// denominator has a floor of 1e-30.
+// ::flash_attention_pallas (body _flash_kernel): query head h of batch b
+// reads KV head h / G (G = H / Hkv), the mask is k_pos <= q_pos,
+// k_pos < Sk and (q_pos - k_pos) < window on absolute indices 0..Sq-1 and
+// 0..Sk-1, the scale is hd^-0.5, masked scores are -1e30 with p = 0 after
+// the exponential, and the denominator has a floor of 1e-30.
 //
-// Design: one block of 256 threads per (bh, tile of 64 query rows), heavy
-// (late, causal) tiles launched first. The block keeps its Q tile in shared
-// memory, transposed, and walks the KV tiles of 64 keys from the first one
-// the window reaches to the one holding the diagonal; tiles wholly outside
-// are skipped, which changes nothing, since a fully masked tile adds p = 0
-// and leaves the running max where it was. K (transposed) and V of one tile
-// sit in shared memory, and so do the tile's probabilities P. Thread (ty, tx)
-// of the 16 x 16 grid owns query rows 4ty..4ty+3: a 4 x 4 block of scores
-// (key columns 4tx..4tx+3), and hd/16 output columns of those rows. The
-// running max, denominator and accumulator of each row live in registers;
-// the 16 threads of a row group (one half-warp) combine their row max and
-// row sum with an xor butterfly, which gives every lane the same value.
-// Masked scores are -1e30 and their p is set to 0 after the exponential,
-// as the Pallas body does (a row whose visited keys are all masked so far
-// keeps m = -1e30, where exp(s - m) would be 1).
+// Layout. q, k, v and o are read and written through their batch,
+// position and head strides (in floats; hd contiguous, rows 16-byte
+// aligned), so one launch serves the model's (B, S, H, hd) tensors and the
+// folded (B*H, S, hd) ones alike, with no copy on either side.
+//
+// Grid. A tile is FA_ROWS = 64 query rows: all G heads of one KV head (gb
+// of them when G > 64, gb the largest divisor of G up to 64) times
+// 64 / gb consecutive positions, row r being position q0 + r / gb and head
+// h0 + r % gb. The caller passes that plan (tile_plan in
+// flash_attention.py). One block (256 threads) owns one tile, so every
+// K/V tile it stages serves G heads, and the causal and window range of the
+// block is that of its positions, the same for all its heads. The grid is
+// (batch x KV head x head chunk, position tile), and the position tile is
+// walked from the last to the first: blocks are handed out x-fastest, so
+// the longest causal KV walks of every head start first. Where one block
+// per tile would put more than one block on some SM (the 512-token
+// headline: 256 tiles on 132 SMs, whose pairs of blocks would walk from 5
+// to 12 KV tiles), the launch pairs tile n - 1 - y with tile y in block y:
+// every block then walks about as far as every other, in one wave. A
+// smaller grid keeps one tile per block, the shortest latency; so do a
+// window shorter than the queries (the walks are about equal) and a grid of
+// several waves (the heavy-first order balances it).
+//
+// Ring. The block walks the KV tiles of 64 keys from the first one the
+// window reaches to the one holding its last position's diagonal (tiles
+// wholly outside are skipped: a fully masked tile adds p = 0 and leaves the
+// running max where it was). K and V tiles sit in a ring of FA_STAGES
+// stages of shared memory, filled by 16-byte cp.async copies (zero-filled
+// past Sk), so tile t + 1 is in flight while tile t is computed; one block
+// barrier per tile hands a stage back to the copies. K is stored as it lies
+// in memory (key-major, rows of hd + 4 floats): thread tx reads keys tx,
+// tx + 16, tx + 32 and tx + 48, so the 16 lanes of a row group read 16
+// rows 4 banks apart and Q K^T runs without bank conflicts.
+//
+// Rows. Thread (ty, tx) of the FA_GROUPS x 16 grid owns the RPT rows
+// ty + FA_GROUPS i (RPT = 4: 256 threads; a warp, ty = 2w and 2w + 1, owns
+// 2 RPT whole rows): their RPT x 4 scores with its 4 keys, and hd/16
+// output columns. The two half-warps read rows r and r + 1, 4 banks apart
+// in Q (broadcast within each half) and 16 apart in P. The running max,
+// the denominator (a per-lane partial, summed over the row's 16 lanes once
+// at the end) and the accumulator live in registers; the row max is
+// combined by an xor butterfly inside the warp. The warp's tile of P is
+// its own: it is written and read back by the same warp after a
+// __syncwarp, never by another warp. Tiles that the mask leaves whole (all
+// keys valid for every row) skip the mask arithmetic.
 //
 // Arithmetic is IEEE f32 on the FMA units: no TF32, no tensor cores and no
-// fast-math exponentials. Every sum runs in a fixed order with no atomics, so
-// a rerun is bit-identical.
+// fast-math exponentials. Every sum runs in a fixed order with no atomics
+// (scores over d in order, P V over the keys 0..63 of each tile in order,
+// the denominator's lane partials by a butterfly), so a rerun is
+// bit-identical.
 //
 // Bound on the H100: operations. A causal prefill of S tokens costs about
 // 2 * 2 * hd * S^2 / 2 flops per head against 4 * S * hd * (2 + 2 / G)
-// bytes, hundreds of flops per byte at S = 512, so the 67 TFLOP/s f32 rate
-// bounds it. What the design does about that: each thread does 16 FMAs per
-// pair of 16-byte shared-memory loads in Q K^T, and 4 * hd / 16 FMAs per
-// key against a quarter of a 16-byte P load and hd / 64 16-byte V loads in
-// P V, so the FMA pipe rather than shared memory sets the pace. Tensor cores (wgmma), TMA double
-// buffering and bf16 are later work. The caller passes contiguous
-// (B*H, S, hd) tensors: ops.py folds the model layout into copies.
+// bytes, hundreds of flops per byte at S = 512, so the 67 TFLOP/s FP32 rate
+// bounds it. What the design does about that: each thread does 64 FMAs per
+// eight 16-byte shared-memory loads in Q K^T and in P V (the four of Q or
+// P are broadcasts within each half-warp), the copies of the next tile
+// overlap the arithmetic of this one, and a tile of G heads puts 64 rows
+// of work on every staged K/V byte. On an H100 it reaches about a third of
+// the bound at Llama-3.2-1B's 512-token prefill and half of it at 8192
+// tokens (PERF.md). The macros FA_STAGES, FA_PAIR and FA_RPT build the
+// variants that measurement weighed (tools/bench_flash.py --define); the
+// defaults are the ones kept. Tensor cores (wgmma, split f32) and bf16 are
+// later work.
 //
-// Plain C interface (see aggregation.cu): the caller passes the pointers and
-// the stream; the entry point returns cudaGetLastError().
+// Plain C interface (see aggregation.cu): the caller passes the pointers,
+// strides and the stream; the entry point returns cudaGetLastError().
 
 #include <climits>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "async_copy.cuh"
+
+#ifndef FA_STAGES
+#define FA_STAGES 2       // 1 measures the kernel without its ring
+#endif
+#ifndef FA_RPT
+#define FA_RPT 4          // 8 measures 8 query rows a thread, 128 threads
+#endif
+#ifndef FA_PAIR
+#define FA_PAIR 1         // 0 measures it without pairing query tiles
+#endif
+
 namespace {
 
-constexpr int FA_BQ = 64;          // query rows per block
-constexpr int FA_BK = 64;          // keys per KV tile
-constexpr int FA_THREADS = 256;    // 16 x 16: ty row group, tx column group
-constexpr int FA_LDT = FA_BQ + 4;  // row stride of Qt, Kt, Ps (16-B aligned)
+constexpr int FA_ROWS = 64;        // query rows per tile (BLOCK_Q)
+constexpr int FA_BK = 64;          // keys per KV tile (BLOCK_K)
+constexpr int RPT = FA_RPT;        // query rows per thread
+constexpr int FA_GROUPS = FA_ROWS / RPT;   // row groups: ty
+constexpr int FA_THREADS = 16 * FA_GROUPS; // FA_GROUPS x 16: tx key group
+constexpr int FA_LDP = FA_BK + 16; // row stride of P: rows r, r + 1 16
+                                   // banks apart
 constexpr float FA_NEG_INF = -1e30f;
+
+constexpr int STAGES = FA_STAGES;   // K/V ring depth
+static_assert(STAGES >= 1 && STAGES <= 3, "a ring of 1 to 3 stages");
 
 template <int HD>
 struct FaTile {
-    static constexpr int DPT = HD / 16;            // output columns/thread
+    static constexpr int LD = HD + 4;               // row stride of Q, K, V
+    static constexpr int CPR = HD / 4;              // 16-byte chunks per row
+    static constexpr int DPT = HD / 16;             // output columns/thread
     static constexpr int VEC = DPT < 4 ? DPT : 4;   // columns per vector load
     static constexpr int NG = DPT / VEC;            // vector groups/thread
-    static constexpr int LDV = HD + 4;              // row stride of Vs
-    static constexpr int QT = HD * FA_LDT;          // Qt[d][r]
-    static constexpr int KT = HD * FA_LDT;          // Kt[d][c]
-    static constexpr int VS = FA_BK * LDV;          // Vs[c][d]
-    static constexpr int PS = FA_BQ * FA_LDT;       // Ps[r][c]
-    static constexpr size_t BYTES = sizeof(float) * (QT + KT + VS + PS);
+    static constexpr int Q = FA_ROWS * LD;          // Q[r][d]
+    static constexpr int KV = FA_BK * LD;           // K[c][d], then V[c][d]
+    static constexpr int P = FA_ROWS * FA_LDP;      // P[r][c]
+    static constexpr size_t BYTES =
+        sizeof(float) * (Q + 2 * STAGES * KV + P);
+    static constexpr int MIN_BLOCKS = HD <= 64 ? 2 : 1;
+    static_assert(FA_ROWS * CPR % FA_THREADS == 0
+                  && FA_BK * CPR % FA_THREADS == 0, "whole copy rounds");
+};
+
+struct FaParams {
+    const float* q;
+    const float* k;
+    const float* v;
+    float* o;
+    long long q_sb, q_ss, q_sh;      // strides in floats: batch, position,
+    long long kv_sb, kv_ss, kv_sh;   // head (k and v share theirs)
+    long long o_sb, o_ss, o_sh;
+    int sq, sk, n_kv, group, heads_per_tile, pos_per_tile, window;
+    float scale;
+    int n_qt, paired;                // query tiles; two per block or one
 };
 
 template <int VEC>
@@ -76,174 +149,293 @@ __device__ __forceinline__ void load_vec(const float* p, float* out) {
     }
 }
 
+template <int VEC>
+__device__ __forceinline__ void store_vec(float* p, const float* in) {
+    if constexpr (VEC == 4)
+        *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2],
+                                                    in[3]);
+    else
+        *reinterpret_cast<float2*>(p) = make_float2(in[0], in[1]);
+}
+
 template <int HD>
-__global__ void __launch_bounds__(FA_THREADS)
-flash_attention_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ o,
-                       int sq, int sk, int n_heads, int group, int window,
-                       float scale) {
+__global__ void __launch_bounds__(FA_THREADS, FaTile<HD>::MIN_BLOCKS)
+flash_attention_kernel(const FaParams a) {
     using T = FaTile<HD>;
     extern __shared__ __align__(16) float smem[];
-    float* qt_s = smem;                 // Q tile, transposed
-    float* kt_s = qt_s + T::QT;         // K tile, transposed
-    float* v_s = kt_s + T::KT;          // V tile
-    float* p_s = v_s + T::VS;           // probabilities of the tile
+    float* q_s = smem;                       // Q tile
+    float* kv_s = q_s + T::Q;                // ring: K then V per stage
+    float* p_s = kv_s + STAGES * 2 * T::KV;  // probabilities of the tile
 
     const int tid = threadIdx.x;
     const int tx = tid & 15;
     const int ty = tid >> 4;
-    const int n_qt = gridDim.x;
-    const int qtile = n_qt - 1 - (int)blockIdx.x;   // heavy tiles first
-    const int bh = blockIdx.y;
-    const int n_kv = n_heads / group;
-    const int kvh = (bh / n_heads) * n_kv + (bh % n_heads) / group;
-    const float* qb = q + (long long)bh * sq * HD;
-    const float* kb = k + (long long)kvh * sk * HD;
-    const float* vb = v + (long long)kvh * sk * HD;
-    float* ob = o + (long long)bh * sq * HD;
-    const int q0 = qtile * FA_BQ;
+    const int gb = a.heads_per_tile;
+    const int ppb = a.pos_per_tile;
+    const int chunks = a.group / gb;
+    int bx = blockIdx.x;
+    const int chunk = bx % chunks;
+    bx /= chunks;
+    const int kvh = bx % a.n_kv;
+    const long long b = bx / a.n_kv;
+    const int h0 = kvh * a.group + chunk * gb;
+    const int n_rows = gb * ppb;
+    const float* qb = a.q + b * a.q_sb + h0 * a.q_sh;
+    const float* kb = a.k + b * a.kv_sb + kvh * a.kv_sh;
+    const float* vb = a.v + b * a.kv_sb + kvh * a.kv_sh;
 
-    for (int idx = tid; idx < FA_BQ * HD; idx += FA_THREADS) {
-        const int r = idx / HD, d = idx % HD;
-        qt_s[d * FA_LDT + r] = (q0 + r < sq) ? qb[(long long)(q0 + r) * HD + d]
-                                             : 0.0f;
-    }
+    // one query tile: its KV walk, then its rows of o
+    auto run_tile = [&](int qtile) {
+        const int q0 = qtile * ppb;
+        // keys any row of the tile may see: k <= q_last, k < sk and
+        // k > q0 - window
+        const int q_last = min(q0 + ppb, a.sq) - 1;
+        const int win = a.window > 0 ? a.window : INT_MAX;
+        const int k_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+        const int k_hi = min(q_last, a.sk - 1);
+        const int kt_begin = k_lo / FA_BK;
+        const int n_tiles = k_hi >= k_lo ? k_hi / FA_BK - kt_begin + 1 : 0;
 
-    float m[4], l[4], acc[4][T::DPT];
+        auto load_q = [&]() {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        m[i] = FA_NEG_INF;
-        l[i] = 0.0f;
+            for (int it = 0; it < FA_ROWS * T::CPR / FA_THREADS; ++it) {
+                const int idx = tid + it * FA_THREADS;
+                const int r = idx / T::CPR, e = idx % T::CPR;
+                const int pos = q0 + r / gb;
+                const bool in = r < n_rows && pos < a.sq;
+                const float* src = in ? qb + pos * a.q_ss + (r % gb) * a.q_sh
+                                            + 4 * e
+                                      : qb;
+                cp_async16(q_s + r * T::LD + 4 * e, src, in);
+            }
+        };
+        auto load_kv = [&](int kt, int stage) {
+            float* ks = kv_s + stage * 2 * T::KV;
+            float* vs = ks + T::KV;
+            const int k0 = kt * FA_BK;
 #pragma unroll
-        for (int c = 0; c < T::DPT; ++c) acc[i][c] = 0.0f;
-    }
+            for (int it = 0; it < FA_BK * T::CPR / FA_THREADS; ++it) {
+                const int idx = tid + it * FA_THREADS;
+                const int c = idx / T::CPR, e = idx % T::CPR;
+                const bool in = k0 + c < a.sk;
+                const long long off = in ? (k0 + c) * a.kv_ss + 4 * e : 0;
+                cp_async16(ks + c * T::LD + 4 * e, kb + off, in);
+                cp_async16(vs + c * T::LD + 4 * e, vb + off, in);
+            }
+        };
 
-    // keys any row of the tile may see: k <= q_last, k < sk, k > q0 - window
-    const int q_last = min(q0 + FA_BQ, sq) - 1;
-    const int k_hi = min(q_last, sk - 1);
-    const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-    const int win = window > 0 ? window : INT_MAX;
-    const int kt_begin = k_lo / FA_BK;
-    const int kt_end = k_hi >= k_lo ? k_hi / FA_BK : kt_begin - 1;
-
-    for (int kt = kt_begin; kt <= kt_end; ++kt) {
-        const int k0 = kt * FA_BK;
-        __syncthreads();                 // previous tile fully consumed
-        for (int idx = tid; idx < FA_BK * HD; idx += FA_THREADS) {
-            const int c = idx / HD, d = idx % HD;
-            const bool in = k0 + c < sk;
-            const long long off = (long long)(k0 + c) * HD + d;
-            kt_s[d * FA_LDT + c] = in ? kb[off] : 0.0f;
-            v_s[c * T::LDV + d] = in ? vb[off] : 0.0f;
+        int qpos[RPT];                       // positions of this thread's rows
+        float m[RPT], l[RPT], acc[RPT][T::DPT];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+            qpos[i] = q0 + (ty + FA_GROUPS * i) / gb;
+            m[i] = FA_NEG_INF;
+            l[i] = 0.0f;
+#pragma unroll
+            for (int c = 0; c < T::DPT; ++c) acc[i][c] = 0.0f;
         }
-        __syncthreads();
 
-        // S = Q K^T for rows 4ty+i, key columns 4tx+j
-        float s[4][4];
+        // one KV tile: S = Q K^T (rows ty + FA_GROUPS i, keys tx + 16j),
+        // the online softmax, then acc += P V; MASK is false where every
+        // key is valid for every row
+        auto step = [&](const float* ks, const float* vs, int k0, auto mask) {
+            constexpr bool MASK = decltype(mask)::value;
+            float s[RPT][4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+            for (int i = 0; i < RPT; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 8
-        for (int d = 0; d < HD; ++d) {
-            float a[4], b[4];
-            load_vec<4>(qt_s + d * FA_LDT + 4 * ty, a);
-            load_vec<4>(kt_s + d * FA_LDT + 4 * tx, b);
+                for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+#pragma unroll 4
+            for (int d = 0; d < HD; d += 4) {
+                float qa[RPT][4], kc[4][4];
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
+                for (int i = 0; i < RPT; ++i)
+                    load_vec<4>(q_s + (ty + FA_GROUPS * i) * T::LD + d,
+                                qa[i]);
 #pragma unroll
                 for (int j = 0; j < 4; ++j)
-                    s[i][j] = fmaf(a[i], b[j], s[i][j]);
-        }
-
-        // online softmax, one row at a time
+                    load_vec<4>(ks + (tx + 16 * j) * T::LD + d, kc[j]);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const int qp = q0 + 4 * ty + i;
-            bool valid[4];
-            float mt = FA_NEG_INF;
+                for (int e = 0; e < 4; ++e)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int kp = k0 + 4 * tx + j;
-                valid[j] = kp <= qp && kp < sk && (qp - kp) < win;
-                s[i][j] = valid[j] ? s[i][j] * scale : FA_NEG_INF;
-                mt = fmaxf(mt, s[i][j]);
+                    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+                        for (int j = 0; j < 4; ++j)
+                            s[i][j] = fmaf(qa[i][e], kc[j][e], s[i][j]);
             }
-#pragma unroll
-            for (int off = 8; off > 0; off >>= 1)
-                mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-            const float m_new = fmaxf(m[i], mt);
-            const float alpha = expf(m[i] - m_new);
-            float lt = 0.0f;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                s[i][j] = valid[j] ? expf(s[i][j] - m_new) : 0.0f;
-                lt += s[i][j];
-            }
-#pragma unroll
-            for (int off = 8; off > 0; off >>= 1)
-                lt += __shfl_xor_sync(0xffffffffu, lt, off);
-            l[i] = alpha * l[i] + lt;
-            m[i] = m_new;
-#pragma unroll
-            for (int c = 0; c < T::DPT; ++c) acc[i][c] *= alpha;
-            *reinterpret_cast<float4*>(p_s + (4 * ty + i) * FA_LDT + 4 * tx) =
-                make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
-        }
-        __syncthreads();
 
-        // acc += P V, keys in order 0..63
+#pragma unroll
+            for (int i = 0; i < RPT; ++i) {
+                bool valid[4];
+                float mt = FA_NEG_INF;
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    const int kp = k0 + tx + 16 * j;
+                    valid[j] = !MASK || (kp <= qpos[i] && kp < a.sk
+                                         && qpos[i] - kp < win);
+                    s[i][j] = valid[j] ? s[i][j] * a.scale : FA_NEG_INF;
+                    mt = fmaxf(mt, s[i][j]);
+                }
+#pragma unroll
+                for (int off = 8; off > 0; off >>= 1)
+                    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
+                const float m_new = fmaxf(m[i], mt);
+                const float alpha = expf(m[i] - m_new);
+                float ls = 0.0f;
+                float* prow = p_s + (ty + FA_GROUPS * i) * FA_LDP + tx;
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    const float p = valid[j] ? expf(s[i][j] - m_new) : 0.0f;
+                    ls += p;
+                    prow[16 * j] = p;
+                }
+                l[i] = alpha * l[i] + ls;
+                m[i] = m_new;
+#pragma unroll
+                for (int c = 0; c < T::DPT; ++c) acc[i][c] *= alpha;
+            }
+            __syncwarp();                        // P rows are the warp's own
+
 #pragma unroll 2
-        for (int c0 = 0; c0 < FA_BK; c0 += 4) {
-            float p[4][4];
+            for (int c0 = 0; c0 < FA_BK; c0 += 4) {
+                float p[RPT][4];
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
-                load_vec<4>(p_s + (4 * ty + i) * FA_LDT + c0, p[i]);
+                for (int i = 0; i < RPT; ++i)
+                    load_vec<4>(p_s + (ty + FA_GROUPS * i) * FA_LDP + c0,
+                                p[i]);
 #pragma unroll
-            for (int cc = 0; cc < 4; ++cc) {
-                float vv[T::DPT];
+                for (int cc = 0; cc < 4; ++cc) {
+                    float vv[T::DPT];
 #pragma unroll
-                for (int g = 0; g < T::NG; ++g)
-                    load_vec<T::VEC>(v_s + (c0 + cc) * T::LDV
-                                     + g * 16 * T::VEC + tx * T::VEC,
-                                     vv + g * T::VEC);
+                    for (int g = 0; g < T::NG; ++g)
+                        load_vec<T::VEC>(vs + (c0 + cc) * T::LD
+                                         + g * 16 * T::VEC + tx * T::VEC,
+                                         vv + g * T::VEC);
 #pragma unroll
-                for (int i = 0; i < 4; ++i)
+                    for (int i = 0; i < RPT; ++i)
 #pragma unroll
-                    for (int c = 0; c < T::DPT; ++c)
-                        acc[i][c] = fmaf(p[i][cc], vv[c], acc[i][c]);
+                        for (int c = 0; c < T::DPT; ++c)
+                            acc[i][c] = fmaf(p[i][cc], vv[c], acc[i][c]);
+                }
+            }
+        };
+
+        if (n_tiles > 0) {
+            load_q();                            // rides with the first tile
+#pragma unroll
+            for (int t = 0; t < STAGES - 1; ++t) {
+                if (t < n_tiles) load_kv(kt_begin + t, t);
+                cp_async_commit();
             }
         }
-    }
+        for (int t = 0; t < n_tiles; ++t) {
+            if constexpr (STAGES == 1) {
+                if (t > 0) __syncthreads();      // the one stage is free again
+                load_kv(kt_begin + t, 0);
+                cp_async_commit();
+                cp_async_wait<0>();
+                __syncthreads();
+            } else {
+                // tile t has landed
+                cp_async_wait<(STAGES > 1 ? STAGES - 2 : 0)>();
+                __syncthreads();                 // ... for every thread, and
+                                                 // tile t - 1 is consumed
+                const int tn = t + STAGES - 1;
+                if (tn < n_tiles) load_kv(kt_begin + tn, tn % STAGES);
+                cp_async_commit();
+            }
+            const int k0 = (kt_begin + t) * FA_BK;
+            const float* ks = kv_s + (t % STAGES) * 2 * T::KV;
+            const float* vs = ks + T::KV;
+            const bool whole = k0 + FA_BK - 1 <= q0 && k0 + FA_BK <= a.sk
+                               && q_last - k0 < win;
+            if (whole)
+                step(ks, vs, k0, std::false_type{});
+            else
+                step(ks, vs, k0, std::true_type{});
+        }
+        cp_async_wait<0>();
 
+        float* ob = a.o + b * a.o_sb + h0 * a.o_sh;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int r = q0 + 4 * ty + i;
-        if (r >= sq) continue;
-        const float inv_den = 1.0f / fmaxf(l[i], 1e-30f);
+        for (int i = 0; i < RPT; ++i) {
+            float den = l[i];
 #pragma unroll
-        for (int g = 0; g < T::NG; ++g)
+            for (int off = 8; off > 0; off >>= 1)
+                den += __shfl_xor_sync(0xffffffffu, den, off);
+            const int r = ty + FA_GROUPS * i;
+            if (r >= n_rows || qpos[i] >= a.sq) continue;
+            const float inv_den = 1.0f / fmaxf(den, 1e-30f);
+            float* orow = ob + qpos[i] * a.o_ss + (r % gb) * a.o_sh;
 #pragma unroll
-            for (int e = 0; e < T::VEC; ++e)
-                ob[(long long)r * HD + g * 16 * T::VEC + tx * T::VEC + e] =
-                    acc[i][g * T::VEC + e] * inv_den;
+            for (int g = 0; g < T::NG; ++g) {
+                float out[T::VEC];
+#pragma unroll
+                for (int e = 0; e < T::VEC; ++e)
+                    out[e] = acc[i][g * T::VEC + e] * inv_den;
+                store_vec<T::VEC>(orow + g * 16 * T::VEC + tx * T::VEC, out);
+            }
+        }
+    };
+
+    // the block's query tiles: the one the grid row counts from the end
+    // (the longest causal walk first) and, when the launch pairs tiles,
+    // the one as far from the start, so that every block walks as many
+    // KV tiles as any other
+    const int y = blockIdx.y;
+    run_tile(a.n_qt - 1 - y);
+    if (a.paired && y < a.n_qt - 1 - y) {
+        __syncthreads();                     // Q and the ring are free
+        run_tile(y);
     }
 }
 
+// SMs of the current device, read once per device
+int sm_count() {
+    static int counts[64];
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+    if (counts[dev] == 0)
+        cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount,
+                               dev);
+    return counts[dev];
+}
+
+// blocks of flash_attention_kernel<HD> an SM holds at once, read once
 template <int HD>
-int launch_flash(const float* q, const float* k, const float* v, float* o,
-                 int bh, int sq, int sk, int n_heads, int group, int window,
-                 float scale, cudaStream_t stream) {
-    const size_t bytes = FaTile<HD>::BYTES;
+int blocks_per_sm() {
+    static int n = 0;
+    if (n == 0)
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, flash_attention_kernel<HD>, FA_THREADS, FaTile<HD>::BYTES);
+    return n;
+}
+
+template <int HD>
+int launch_flash(FaParams a, int batch, cudaStream_t stream) {
+    constexpr size_t bytes = FaTile<HD>::BYTES;
+    auto kernel = flash_attention_kernel<HD>;
     cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
-    const int n_qt = (sq + FA_BQ - 1) / FA_BQ;
-    flash_attention_kernel<HD><<<dim3(n_qt, bh), FA_THREADS, bytes,
-                                 stream>>>(q, k, v, o, sq, sk, n_heads,
-                                           group, window, scale);
+    a.n_qt = (a.sq + a.pos_per_tile - 1) / a.pos_per_tile;
+    const long long nx =
+        (long long)batch * a.n_kv * (a.group / a.heads_per_tile);
+    if (nx > INT_MAX || a.n_qt > 65535) return (int)cudaErrorInvalidValue;
+    // pair the tiles of a causal walk that no window cuts short where one
+    // block per tile would put two or more blocks on some SM within one
+    // wave (their walks differ up to 2x): a wave of blocks with equal walks
+    // replaces them. A window makes the walks about equal, and a grid of
+    // several waves is balanced by the heavy-first order; both keep one
+    // tile per block (pairing lost up to 21% and 4% there on an H100).
+    const long long blocks = nx * a.n_qt;
+    const int sms = sm_count();
+    a.paired = FA_PAIR && (a.window <= 0 || a.window >= a.sq)
+               && blocks > sms
+               && blocks <= (long long)sms * blocks_per_sm<HD>();
+    const int ny = a.paired ? (a.n_qt + 1) / 2 : a.n_qt;
+    kernel<<<dim3((unsigned)nx, (unsigned)ny), FA_THREADS, bytes,
+             stream>>>(a);
     return (int)cudaGetLastError();
 }
 
@@ -251,24 +443,31 @@ int launch_flash(const float* q, const float* k, const float* v, float* o,
 
 extern "C" {
 
-// window <= 0 means no window; scale is hd^-0.5 rounded to f32 by the
-// caller, as the reference rounds it. hd must be 32, 64 or 128.
-int repro_flash_attention_f32(const float* q, const float* k, const float* v,
-                              float* o, int bh, int sq, int sk, int hd,
-                              int n_heads, int group, int window, float scale,
-                              cudaStream_t stream) {
+// Strides are in floats, (batch, position, head) for q, for k and v (which
+// share them) and for o; hd is contiguous. heads_per_tile and pos_per_tile
+// are the tile plan (heads_per_tile divides H / n_kv, their product is at
+// most 64). window <= 0 means no window; scale is hd^-0.5 rounded to f32
+// by the caller, as the reference rounds it. hd must be 32, 64 or 128.
+int repro_flash_attention_f32(
+        const float* q, const float* k, const float* v, float* o,
+        long long q_sb, long long q_ss, long long q_sh, long long kv_sb,
+        long long kv_ss, long long kv_sh, long long o_sb, long long o_ss,
+        long long o_sh, int batch, int sq, int sk, int hd, int n_heads,
+        int n_kv, int heads_per_tile, int pos_per_tile, int window,
+        float scale, cudaStream_t stream) {
+    if (n_kv < 1 || n_heads % n_kv || heads_per_tile < 1 || pos_per_tile < 1
+            || (n_heads / n_kv) % heads_per_tile
+            || heads_per_tile * pos_per_tile > FA_ROWS || batch < 1
+            || sq < 1 || sk < 1)
+        return (int)cudaErrorInvalidValue;
+    const FaParams a{q, k, v, o, q_sb, q_ss, q_sh, kv_sb, kv_ss, kv_sh,
+                     o_sb, o_ss, o_sh, sq, sk, n_kv, n_heads / n_kv,
+                     heads_per_tile, pos_per_tile, window, scale, 0, 0};
     switch (hd) {
-        case 32:
-            return launch_flash<32>(q, k, v, o, bh, sq, sk, n_heads, group,
-                                    window, scale, stream);
-        case 64:
-            return launch_flash<64>(q, k, v, o, bh, sq, sk, n_heads, group,
-                                    window, scale, stream);
-        case 128:
-            return launch_flash<128>(q, k, v, o, bh, sq, sk, n_heads, group,
-                                     window, scale, stream);
-        default:
-            return (int)cudaErrorInvalidValue;
+        case 32: return launch_flash<32>(a, batch, stream);
+        case 64: return launch_flash<64>(a, batch, stream);
+        case 128: return launch_flash<128>(a, batch, stream);
+        default: return (int)cudaErrorInvalidValue;
     }
 }
 

@@ -1,18 +1,22 @@
 """Causal online-softmax (flash) attention with GQA and an optional window.
 
-``flash_attention_kernel`` maps q (B·H, Sq, hd) and k, v (B·Hkv, Sk, hd),
-float32, to (B·H, Sq, hd): query head ``bh`` attends to KV head
-``(bh // H)·Hkv + (bh % H) // G`` over keys ``k_pos <= q_pos`` (absolute
-indices ``0..Sq-1`` and ``0..Sk-1``) with ``q_pos − k_pos < window`` when a
-window is given, scale ``hd**-0.5``. On a CUDA tensor it launches
+``flash_attention_kernel`` maps q (B, Sq, H, hd) and k, v (B, Sk, Hkv, hd),
+float32, in any strides with hd contiguous, to (B, Sq, H, hd), or, with
+``n_q_heads`` given, the reference's folded q (B·H, Sq, hd) and k, v
+(B·Hkv, Sk, hd) to (B·H, Sq, hd): query head ``h`` attends to KV head
+``h // G`` (G = H / Hkv) over keys ``k_pos <= q_pos`` (absolute indices
+``0..Sq-1`` and ``0..Sk-1``) with ``q_pos − k_pos < window`` when a window
+is given, scale ``hd**-0.5``. On a CUDA tensor it launches
 ``flash_attention_kernel`` of ``kernels/csrc/attention.cu`` (the
 counterpart of the JAX package's
-``kernels/flash_attention/flash_attention.py::flash_attention_pallas``);
-on a CPU tensor it runs :func:`flash_attention_plain`, the same algorithm
-in PyTorch.
+``kernels/flash_attention/flash_attention.py::flash_attention_pallas``)
+on the tensors' own strides, in either layout, with no copy; on a CPU
+tensor it runs :func:`flash_attention_plain`, the same algorithm in
+PyTorch.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -21,7 +25,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.dispatch import register_kernel, stream_of
 
 NEG_INF = -1e30
-#: query rows per tile and keys per KV tile, in the kernel and here
+#: rows (positions × heads) of a query tile and keys of a KV tile, in the
+#: kernel (``FA_ROWS``, ``FA_BK``) and in the plain version
 BLOCK_Q = BLOCK_K = 64
 #: head dims the CUDA kernel is compiled for
 KERNEL_HEAD_DIMS = (32, 64, 128)
@@ -31,6 +36,30 @@ def kernel_shared_bytes(hd: int) -> int:
     """Dynamic shared memory of one block of the CUDA kernel at head dim
     ``hd``, as the kernel library reports it (builds the library)."""
     return _build.library().repro_flash_attention_shared_bytes(hd)
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(group: int) -> tuple:
+    """(heads, positions) of a query tile for ``group`` query heads per KV
+    head: the largest divisor of the group up to :data:`BLOCK_Q` heads,
+    times ``BLOCK_Q // heads`` consecutive positions. Every K/V tile a
+    query tile stages then serves all its heads."""
+    heads = max(d for d in range(1, min(group, BLOCK_Q) + 1)
+                if group % d == 0)
+    return heads, BLOCK_Q // heads
+
+
+def _fold(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, hd) -> contiguous (B·H, S, hd), as the reference's
+    ``_fold``; no copy when ``x`` is an unfolded contiguous tensor."""
+    B, S, H, hd = x.shape
+    return x.transpose(1, 2).reshape(B * H, S, hd).contiguous()
+
+
+def _unfold(x: torch.Tensor, B: int) -> torch.Tensor:
+    """(B·H, S, hd) -> a (B, S, H, hd) view."""
+    BH, S, hd = x.shape
+    return x.reshape(B, BH // B, S, hd).transpose(1, 2)
 
 
 def _heads(q: torch.Tensor, k: torch.Tensor, n_q_heads: int):
@@ -60,10 +89,12 @@ def _check_window(window: Optional[int]) -> int:
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           n_q_heads: int,
                           window: Optional[int] = None) -> torch.Tensor:
-    """The kernel's algorithm in PyTorch: q in tiles of 64 rows, each
-    walking the KV tiles of 64 keys that the causal mask and the window
-    reach, with the running max, denominator and accumulator of the
-    online softmax. Memory stays at one tile's scores per step."""
+    """The kernel's algorithm in PyTorch on folded tensors: query tiles of
+    :func:`tile_plan`'s positions × all heads of a KV head, each walking
+    the KV tiles of :data:`BLOCK_K` keys that the causal mask and the
+    window reach from its positions, with the running max, denominator and
+    accumulator of the online softmax. Memory stays at one tile's scores
+    per step."""
     B, H, Hkv, G = _heads(q, k, n_q_heads)
     win = _check_window(window)
     _, Sq, hd = q.shape
@@ -73,9 +104,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kg = k.float().reshape(B, Hkv, Sk, hd)
     vg = v.float().reshape(B, Hkv, Sk, hd)
     scale = hd ** -0.5
+    positions = tile_plan(G)[1]
     out = torch.zeros_like(qg)
-    for q0 in range(0, Sq, BLOCK_Q):
-        qt = qg[:, :, :, q0:q0 + BLOCK_Q]
+    for q0 in range(0, Sq, positions):
+        qt = qg[:, :, :, q0:q0 + positions]
         bq = qt.shape[3]
         q_pos = torch.arange(q0, q0 + bq, device=dev)[:, None]
         m = torch.full((B, Hkv, G, bq, 1), NEG_INF, device=dev)
@@ -105,42 +137,97 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B * H, Sq, hd).to(q.dtype)
 
 
+def _plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           n_q_heads: Optional[int] = None,
+           window: Optional[int] = None) -> torch.Tensor:
+    """The plain route of :data:`flash_attention_kernel`: folded tensors
+    go to :func:`flash_attention_plain` as they are, (B, S, H, hd) ones
+    are folded first and the result unfolded into a contiguous tensor."""
+    if n_q_heads is not None:
+        return flash_attention_plain(q, k, v, n_q_heads, window)
+    B, _, H, _ = q.shape
+    return _unfold(flash_attention_plain(_fold(q), _fold(k), _fold(v), H,
+                                         window), B).contiguous()
+
+
+def _refuse(t: torch.Tensor, name: str, ndim: int):
+    """Why the kernel's copies cannot take ``t``: they read float32 rows
+    with hd contiguous, every row 16-byte aligned."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"flash_attention: {name} must be float32, got "
+                        f"{t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"flash_attention: {name} must be a {ndim}-D "
+                         f"tensor, got shape {tuple(t.shape)}")
+    if t.stride(-1) != 1:
+        raise ValueError(f"flash_attention: {name} must have a contiguous "
+                         f"head dim, got strides {t.stride()}")
+    raise ValueError(f"flash_attention: {name}'s rows must start 16-byte "
+                     f"aligned, got strides {t.stride()} at "
+                     f"{t.data_ptr() % 16} bytes past a 16-byte boundary")
+
+
+def _rows(t: torch.Tensor, name: str, ndim: int) -> tuple:
+    """(data pointer, strides) of ``t`` when the kernel's copies take it."""
+    st, ptr = t.stride(), t.data_ptr()
+    if (t.dtype is torch.float32 and len(st) == ndim and st[-1] == 1
+            and not (st[0] | st[1] | st[ndim - 2]) & 3 and not ptr & 15):
+        return ptr, st
+    _refuse(t, name, ndim)
+
+
 _FLASH = _build.CFunction("repro_flash_attention_f32", "flash_attention")
 
 
 def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                n_q_heads: int, window: Optional[int] = None) -> torch.Tensor:
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"flash_attention: {name} must be float32, got "
-                            f"{t.dtype}")
-        if t.dim() != 3 or not t.is_contiguous():
-            raise ValueError(f"flash_attention: {name} must be a contiguous "
-                             f"3-D tensor, got shape {tuple(t.shape)}")
-        if t.device != q.device:
-            raise ValueError("flash_attention: q, k and v must share a "
-                             "device")
-    if k.shape != v.shape:
-        raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
-                         f"{tuple(v.shape)} differ")
-    bh, sq, hd = q.shape
-    sk = k.shape[1]
-    if k.shape[2] != hd:
-        raise ValueError("flash_attention: q and k head dims differ")
-    if hd not in KERNEL_HEAD_DIMS:
+                n_q_heads: Optional[int] = None,
+                window: Optional[int] = None) -> torch.Tensor:
+    folded = n_q_heads is not None
+    nd = 3 if folded else 4
+    (qp, qs), (kp, ks), (vp, vs) = (_rows(q, "q", nd), _rows(k, "k", nd),
+                                    _rows(v, "v", nd))
+    if vs != ks or k.shape != v.shape:
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} {ks} and v "
+                         f"{tuple(v.shape)} {vs} differ in shape or strides")
+    dev = q.get_device()
+    if k.get_device() != dev or v.get_device() != dev:
+        raise ValueError("flash_attention: q, k and v must share a device")
+    if folded:
+        B, H, Hkv, _ = _heads(q, k, n_q_heads)
+        _, sq, hd = q.shape
+        sk = k.shape[1]
+        # (b, s, h) of a folded row lies at (b·H + h)·s0 + s·s1
+        q_st = (H * qs[0], qs[1], qs[0])
+        kv_st = (Hkv * ks[0], ks[1], ks[0])
+        out = torch.empty((B * H, sq, hd), dtype=q.dtype, device=q.device)
+        o_st = (H * sq * hd, hd, sq * hd)
+    else:
+        B, sq, H, hd = q.shape
+        sk, Hkv = k.shape[1], k.shape[2]
+        if k.shape[0] != B or H % Hkv:
+            raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
+                             f"{tuple(k.shape)} differ in batch, or the "
+                             f"heads are no multiple of the KV heads")
+        q_st, kv_st = qs[:3], ks[:3]
+        out = torch.empty((B, sq, H, hd), dtype=q.dtype, device=q.device)
+        o_st = (sq * H * hd, H * hd, hd)
+    if k.shape[-1] != hd or hd not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash_attention: the CUDA kernel takes head_dim "
-                         f"in {KERNEL_HEAD_DIMS}, got {hd}")
-    if sq < 1 or sk < 1 or bh > 65535:
-        raise ValueError(f"flash_attention: needs Sq, Sk >= 1 and B·H <= "
-                         f"65535; got q {tuple(q.shape)}, k "
+                         f"in {KERNEL_HEAD_DIMS} for q and k alike, got q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    heads, positions = tile_plan(H // Hkv)
+    if sq < 1 or sk < 1 or -(-sq // positions) > 65535:
+        raise ValueError(f"flash_attention: needs Sq, Sk >= 1 and at most "
+                         f"65535 query tiles; got q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}")
-    _, H, _, G = _heads(q, k, n_q_heads)
-    win = _check_window(window)
-    out = torch.empty_like(q)
-    _FLASH(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq,
-           sk, hd, H, G, win, hd ** -0.5, stream_of(q))
+    _FLASH(qp, kp, vp, out.data_ptr(), *q_st, *kv_st, *o_st, B, sq, sk, hd,
+           H, Hkv, heads, positions, _check_window(window), hd ** -0.5,
+           stream_of(q))
     return out
 
 
+#: q (B·H, Sq, hd), k and v (B·Hkv, Sk, hd) with ``n_q_heads`` given, or
+#: the model's q (B, Sq, H, hd), k and v (B, Sk, Hkv, hd) without it; the
+#: result in the same layout as q, contiguous
 flash_attention_kernel = register_kernel(
-    "flash_attention", plain=flash_attention_plain, launch=_flash_cuda)
+    "flash_attention", plain=_plain, launch=_flash_cuda)

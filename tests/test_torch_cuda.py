@@ -258,6 +258,7 @@ def _qkv(B, H, Hkv, Sq, Sk, hd, seed):
     (2, 2, 2, 9, 32),               # the policy's, ragged
     (1, 4, 1, 100, 64),             # ragged, G = 4
     (2, 4, 2, 130, 32),             # G = 2
+    (1, 10, 2, 100, 64),            # G = 5 (Hymba's), 60-row tiles
 ])
 @pytest.mark.parametrize("window", [None, 1, 7, 128])
 def test_cuda_flash_attention_matches_plain(cuda, B, H, Hkv, S, hd, window):
@@ -294,6 +295,10 @@ def test_cuda_flash_attention_model_layout_and_rejects(cuda):
     want = flash_attention(q.cpu(), k.cpu(), v.cpu())
     torch.testing.assert_close(out.cpu(), want, rtol=0,
                                atol=2e-5 * v.abs().max().item())
+    # a strided q (every other position of a longer one) is taken as it is
+    q2 = torch.zeros((2, 80, 4, 64), device=cuda)
+    q2[:, ::2] = q
+    assert torch.equal(flash_attention(q2[:, ::2], k, v), out)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_kernel(torch.zeros((2, 8, 48), device=cuda),
                                torch.zeros((2, 8, 48), device=cuda),
@@ -303,7 +308,8 @@ def test_cuda_flash_attention_model_layout_and_rejects(cuda):
                                            dtype=torch.float64),
                                torch.zeros((2, 8, 64), device=cuda),
                                torch.zeros((2, 8, 64), device=cuda), 2)
-    with pytest.raises(ValueError, match="contiguous"):
+    # the head dim must be contiguous: rows are copied 16 bytes at a time
+    with pytest.raises(ValueError, match="contiguous head dim"):
         flash_attention_kernel(torch.zeros((2, 64, 8), device=cuda
                                            ).transpose(1, 2),
                                torch.zeros((2, 8, 64), device=cuda),
@@ -312,3 +318,33 @@ def test_cuda_flash_attention_model_layout_and_rejects(cuda):
         flash_attention_kernel(torch.zeros((2, 8, 64), device=cuda),
                                torch.zeros((2, 8, 64), device=cuda),
                                torch.zeros((2, 8, 64), device=cuda), 2, 0)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_kernel(torch.zeros(2 * 8 * 64 + 1, device=cuda
+                                           )[1:].view(2, 8, 64),
+                               torch.zeros((2, 8, 64), device=cuda),
+                               torch.zeros((2, 8, 64), device=cuda), 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Hkv", [(8, 8), (32, 8), (16, 2)])
+@pytest.mark.parametrize("window", [None, 100])
+def test_cuda_flash_attention_strided_layout_equals_folded(cuda, H, Hkv,
+                                                           window):
+    """G = 1, 4 and 8: q, k and v sliced out of one fused (B, S, H + 2Hkv,
+    hd) projection go through the model-layout launch, their contiguous
+    folded copies through the folded one; the same plan gives the same
+    bits."""
+    rng = np.random.default_rng(14)
+    B, S, hd = 2, 300, 64
+    fused = torch.from_numpy(rng.standard_normal(
+        (B, S, H + 2 * Hkv, hd)).astype(np.float32)).to(cuda)
+    q, k, v = fused[:, :, :H], fused[:, :, H:H + Hkv], fused[:, :, H + Hkv:]
+    before = dispatch.launch_counts()["flash_attention"]
+    got = flash_attention(q, k, v, window)
+    assert got.shape == (B, S, H, hd) and got.is_contiguous()
+    fold = [x.transpose(1, 2).reshape(B * x.shape[2], S, hd).contiguous()
+            for x in (q, k, v)]
+    folded = flash_attention_kernel(*fold, H, window)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["flash_attention"] - before == 2
+    assert torch.equal(got, folded.reshape(B, H, S, hd).transpose(1, 2))

@@ -18,6 +18,8 @@ from repro.kernels.flash_attention.flash_attention import (  # noqa: E402
 from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_kernel, flash_attention_plain)
+from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
+    BLOCK_Q, tile_plan)
 
 torch.set_num_threads(2)
 
@@ -41,6 +43,9 @@ def _t(*arrays):
     (2, 4, 2, 96, 96, 32),
     (1, 8, 8, 128, 128, 64),
     (2, 4, 1, 100, 100, 24),        # ragged seq + GQA 4:1
+    (1, 10, 2, 70, 70, 16),         # G = 5 (Hymba's): 12 positions a tile
+    (1, 8, 1, 90, 90, 32),          # G = 8 (Qwen2.5-3B's)
+    (2, 6, 3, 40, 40, 16),          # G = 2, batched
 ])
 def test_plain_matches_pallas_and_oracle(B, H, Hkv, Sq, Sk, hd):
     q, k, v = _qkv(B, H, Hkv, Sq, Sk, hd)
@@ -54,10 +59,16 @@ def test_plain_matches_pallas_and_oracle(B, H, Hkv, Sq, Sk, hd):
     np.testing.assert_allclose(got, np.asarray(oracle), atol=TOL)
 
 
-@pytest.mark.parametrize("window", [1, 7, 32, 1000])
-def test_plain_sliding_window_matches_pallas(window):
-    H, S, hd = 2, 80, 16
-    q, k, v = _qkv(1, H, H, S, S, hd, seed=1)
+@pytest.mark.parametrize("window,H,Hkv", [
+    (1, 2, 2), (7, 2, 2), (32, 2, 2), (1000, 2, 2),
+    (7, 10, 2),                     # G = 5
+    (32, 8, 1),                     # G = 8
+    (5, 4, 1),                      # G = 4
+    (20, 4, 2),                     # G = 2
+], ids=["1", "7", "32", "1000", "7-G5", "32-G8", "5-G4", "20-G2"])
+def test_plain_sliding_window_matches_pallas(window, H, Hkv):
+    S, hd = 80, 16
+    q, k, v = _qkv(1, H, Hkv, S, S, hd, seed=1)
     got = flash_attention_plain(*_t(q, k, v), H, window).numpy()
     pallas = flash_attention_pallas(jnp.asarray(q), jnp.asarray(k),
                                     jnp.asarray(v), n_q_heads=H,
@@ -70,6 +81,9 @@ def test_plain_sliding_window_matches_pallas(window):
     (1, 8, 1, 200, 32, None),       # G = 8, four q tiles
     (1, 4, 2, 200, 16, 70),         # window skips whole KV tiles
     (2, 2, 2, 9, 32, 128),          # the policy's prefill shape
+    (1, 10, 2, 150, 32, 70),        # G = 5, window across tiles
+    (2, 8, 2, 77, 16, None),        # G = 4, ragged last tile
+    (1, 4, 2, 130, 16, 3),          # G = 2, narrow window
 ])
 def test_plain_tiles_and_windows_match_oracle(B, H, Hkv, S, hd, window):
     q, k, v = _qkv(B, H, Hkv, S, S, hd, seed=2)
@@ -92,6 +106,59 @@ def test_plain_with_fewer_keys_follows_the_oracle():
                                     jnp.asarray(v), n_q_heads=2, block_q=16,
                                     block_k=16, interpret=True)
     assert np.abs(np.asarray(pallas) - np.asarray(oracle)).max() > 0.1
+
+
+@pytest.mark.parametrize("H,Hkv,Sq,Sk,window", [
+    (2, 2, 30, 75, None),           # G = 1, more keys than queries
+    (8, 2, 75, 30, None),           # G = 4, fewer keys
+    (10, 2, 50, 90, 16),            # G = 5, window
+    (8, 1, 90, 50, 60),             # G = 8, window, fewer keys
+])
+def test_plain_unequal_lengths_match_oracle(H, Hkv, Sq, Sk, window):
+    """Sq != Sk on absolute positions, over the tile plans of G = 1, 4, 5
+    and 8; with Sq <= Sk the Pallas body (whose key padding lies past
+    every query) agrees as well."""
+    q, k, v = _qkv(1, H, Hkv, Sq, Sk, 16, seed=7)
+    got = flash_attention_plain(*_t(q, k, v), H, window).numpy()
+    oracle = fa_ref.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              n_q_heads=H, window=window)
+    np.testing.assert_allclose(got, np.asarray(oracle), atol=TOL)
+    if Sq <= Sk:
+        pallas = flash_attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v), n_q_heads=H,
+                                        window=window, block_q=16,
+                                        block_k=16, interpret=True)
+        np.testing.assert_allclose(got, np.asarray(pallas), atol=TOL)
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 5, 8])
+def test_tile_plan_packs_the_group(G):
+    heads, positions = tile_plan(G)
+    assert heads == G and positions == BLOCK_Q // G
+    assert heads * positions <= BLOCK_Q
+    # a group wider than a tile is cut into chunks that divide it
+    assert tile_plan(128) == (64, 1) and tile_plan(96) == (48, 1)
+
+
+@pytest.mark.parametrize("H,Hkv,window", [(4, 4, None), (8, 2, 7),
+                                          (10, 2, None), (8, 1, 33)])
+def test_layout_route_equals_folded_route(H, Hkv, window):
+    """The model-layout entry on strided views (q, k and v sliced out of
+    one fused projection, as a QKV matmul gives them) returns the folded
+    route's bits, unfolded."""
+    rng = np.random.default_rng(8)
+    B, S, hd = 2, 70, 16
+    fused = torch.from_numpy(rng.standard_normal(
+        (B, S, H + 2 * Hkv, hd)).astype(np.float32))
+    q, k, v = fused[:, :, :H], fused[:, :, H:H + Hkv], fused[:, :, H + Hkv:]
+    assert not q.is_contiguous()
+    got = flash_attention_kernel(q, k, v, window=window)
+    assert got.shape == (B, S, H, hd)
+    fold = [x.transpose(1, 2).reshape(B * x.shape[2], S, hd).contiguous()
+            for x in (q, k, v)]
+    folded = flash_attention_kernel(*fold, H, window)
+    assert torch.equal(got, folded.reshape(B, H, S, hd).transpose(1, 2))
+    assert torch.equal(flash_attention(q, k, v, window), got)
 
 
 def test_model_layout_wrapper_matches_reference():

@@ -3,6 +3,7 @@
 
     python3 tools/profile_serve.py [--requests N] [--slots S]
                                    [--max-prompt P] [--max-new M]
+                                   [--src DIR] [--label NAME]
 
 Builds ``chip_smoke.py``'s ``llama3.2-1b_serve`` run: Llama-3.2-1B at full
 width and depth with the port's own init (``torch.Generator``, seed 0),
@@ -10,11 +11,15 @@ f32, ``DecodeEngine(slots=8, max_prompt=512, max_new=32)`` and
 ``make_traffic(24, seed=0, prompt_lens=(1, 16, 128, 512), max_new=32)``.
 After the engine's warmup it serves the traffic once timed by the host
 clock, then once more under ``torch.profiler``. Prints the card; the
-run's summary; for each range of the engine (``serve.prefill``,
-``serve.insert``, ``serve.tick``) its calls, host ms and the kernel time
-of the kernels launched inside it, in total and per call; CUDA kernels
-per tick; the device's busy and idle shares of the profiled wall time;
-and the ops with the most device time. Needs a CUDA device.
+run's summary with its ms per tick and per prefill by bucket
+(``chip_smoke._PhaseTimes``); for each range of the engine
+(``serve.prefill``, ``serve.insert``, ``serve.tick``) its calls, host
+ms and the kernel time of the kernels launched inside it, in total and
+per call; CUDA kernels per tick; the device's busy and idle shares of
+the profiled wall time; and the ops with the most device time. ``--src``
+imports ``repro_torch`` from another tree (e.g. a parent commit unpacked by
+``git archive``), so that two trees can be compared in one call in turns.
+Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ import sys
 import time
 from pathlib import Path
 
-SRC = Path(__file__).resolve().parents[1] / "src"
+ROOT = Path(__file__).resolve().parents[1]
 RANGES = ("serve.prefill", "serve.insert", "serve.tick")
 
 
@@ -35,13 +40,17 @@ def main(argv=None) -> int:
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--max-prompt", type=int, default=512)
     ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--label", default="tree")
     args = ap.parse_args(argv)
 
     import torch
     if not torch.cuda.is_available():
         print("profile_serve: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    sys.path.insert(1, str(ROOT))
+    import chip_smoke
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.kernels import dispatch
@@ -52,7 +61,8 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(card)
+    print(f"{card}; {args.label}: repro_torch from "
+          f"{sys.modules['repro_torch'].__file__}")
     dev = torch.device("cuda")
     cfg = get_config("llama3.2-1b")
     gen = torch.Generator(device=dev)
@@ -66,14 +76,15 @@ def main(argv=None) -> int:
     PolicyServer(engine)                             # builds, warms up
     torch.cuda.synchronize()
     dispatch.reset_launches()
-    t0 = time.perf_counter()
-    report = PolicyServer(engine, warmup=False).run_offline(traffic)
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
+    with chip_smoke._PhaseTimes() as times:
+        t0 = time.perf_counter()
+        report = PolicyServer(engine, warmup=False).run_offline(traffic)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
     print(f"[profile] llama3.2-1b_serve slots={args.slots} "
           f"max_prompt={args.max_prompt} max_new={args.max_new} "
           f"requests={args.requests}: {wall:.3f} ms (host clock, "
-          f"synchronised) {report.summary()}")
+          f"synchronised) {report.summary()} {times.summary()}")
     print(f"[profile] our kernels: {dispatch.launch_counts()}")
 
     with profile(activities=[ProfilerActivity.CPU,
