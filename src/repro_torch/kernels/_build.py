@@ -47,7 +47,7 @@ _SIGNATURES = {
                                   _VP),
     "repro_krum_score_f32": (_VP, _VP, _I64, _INT, _INT, _VP),
     "repro_flash_attention_f32": (_VP, _VP, _VP, _VP, *(_I64,) * 9,
-                                  *(_INT,) * 9, _F32, _VP),
+                                  *(_INT,) * 7, _F32, _VP),
     "repro_flash_attention_shared_bytes": (_INT,),
 }
 

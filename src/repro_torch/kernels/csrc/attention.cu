@@ -13,46 +13,42 @@
 // aligned), so one launch serves the model's (B, S, H, hd) tensors and the
 // folded (B*H, S, hd) ones alike, with no copy on either side.
 //
-// Grid. A tile is FA_ROWS = 64 query rows: all G heads of one KV head (gb
-// of them when G > 64, gb the largest divisor of G up to 64) times
-// 64 / gb consecutive positions, row r being position q0 + r / gb and head
-// h0 + r % gb. The caller passes that plan (tile_plan in
-// flash_attention.py). One block (256 threads) owns one tile, so every
-// K/V tile it stages serves G heads, and the causal and window range of the
-// block is that of its positions, the same for all its heads. The grid is
-// (batch x KV head x head chunk, position tile), and the position tile is
-// walked from the last to the first: blocks are handed out x-fastest, so
-// the longest causal KV walks of every head start first. Where one block
-// per tile would put more than one block on some SM (the 512-token
-// headline: 256 tiles on 132 SMs, whose pairs of blocks would walk from 5
-// to 12 KV tiles), the launch pairs tile n - 1 - y with tile y in block y:
-// every block then walks about as far as every other, in one wave. A
-// smaller grid keeps one tile per block, the shortest latency; so do a
-// window shorter than the queries (the walks are about equal) and a grid of
+// Grid. One block (256 threads) owns one tile of FA_ROWS = 64 consecutive
+// query positions of one query head. The grid is (batch x head, position
+// tile), heads fastest, so the G heads of a KV head run side by side and
+// read its K/V tiles from L2 together; the position tile is walked from
+// the last to the first: blocks are handed out x-fastest, so the longest
+// causal KV walks of every head start first. Where one block per tile
+// would put more than one block on some SM (the 512-token headline: 256
+// tiles on 132 SMs, whose pairs of blocks would walk from 5 to 12 KV
+// tiles), the launch pairs tile n - 1 - y with tile y in block y: every
+// block then walks about as far as every other, in one wave. A smaller
+// grid keeps one tile per block, the shortest latency; so do a window
+// shorter than the queries (the walks are about equal) and a grid of
 // several waves (the heavy-first order balances it).
 //
 // Ring. The block walks the KV tiles of 64 keys from the first one the
 // window reaches to the one holding its last position's diagonal (tiles
 // wholly outside are skipped: a fully masked tile adds p = 0 and leaves the
-// running max where it was). K and V tiles sit in a ring of FA_STAGES
-// stages of shared memory, filled by 16-byte cp.async copies (zero-filled
-// past Sk), so tile t + 1 is in flight while tile t is computed; one block
-// barrier per tile hands a stage back to the copies. K is stored as it lies
-// in memory (key-major, rows of hd + 4 floats): thread tx reads keys tx,
+// running max where it was). K and V tiles sit in a ring of two stages of
+// shared memory, filled by 16-byte cp.async copies (zero-filled past Sk),
+// so tile t + 1 is in flight while tile t is computed; one block barrier
+// per tile hands a stage back to the copies. K is stored as it lies in
+// memory (key-major, rows of hd + 4 floats): thread tx reads keys tx,
 // tx + 16, tx + 32 and tx + 48, so the 16 lanes of a row group read 16
 // rows 4 banks apart and Q K^T runs without bank conflicts.
 //
-// Rows. Thread (ty, tx) of the FA_GROUPS x 16 grid owns the RPT rows
-// ty + FA_GROUPS i (RPT = 4: 256 threads; a warp, ty = 2w and 2w + 1, owns
-// 2 RPT whole rows): their RPT x 4 scores with its 4 keys, and hd/16
-// output columns. The two half-warps read rows r and r + 1, 4 banks apart
-// in Q (broadcast within each half) and 16 apart in P. The running max,
-// the denominator (a per-lane partial, summed over the row's 16 lanes once
-// at the end) and the accumulator live in registers; the row max is
-// combined by an xor butterfly inside the warp. The warp's tile of P is
-// its own: it is written and read back by the same warp after a
-// __syncwarp, never by another warp. Tiles that the mask leaves whole (all
-// keys valid for every row) skip the mask arithmetic.
+// Rows. Thread (ty, tx) of the 16 x 16 grid owns the four query rows
+// ty + 16 i (a warp, ty = 2w and 2w + 1, owns 8 whole rows): their 4 x 4
+// scores with its 4 keys, and hd/16 output columns. The two half-warps
+// read rows r and r + 1, 4 banks apart in Q (broadcast within each half)
+// and 16 apart in P. The running max, the denominator (a per-lane partial,
+// summed over the row's 16 lanes once at the end) and the accumulator live
+// in registers; the row max is combined by an xor butterfly inside the
+// warp. The warp's tile of P is its own: it is written and read back by
+// the same warp after a __syncwarp, never by another warp. Tiles that the
+// mask leaves whole (all keys valid for every row) skip the mask
+// arithmetic.
 //
 // Arithmetic is IEEE f32 on the FMA units: no TF32, no tensor cores and no
 // fast-math exponentials. Every sum runs in a fixed order with no atomics
@@ -66,13 +62,10 @@
 // bounds it. What the design does about that: each thread does 64 FMAs per
 // eight 16-byte shared-memory loads in Q K^T and in P V (the four of Q or
 // P are broadcasts within each half-warp), the copies of the next tile
-// overlap the arithmetic of this one, and a tile of G heads puts 64 rows
-// of work on every staged K/V byte. On an H100 it reaches about a third of
-// the bound at Llama-3.2-1B's 512-token prefill and half of it at 8192
-// tokens (PERF.md). The macros FA_STAGES, FA_PAIR and FA_RPT build the
-// variants that measurement weighed (tools/bench_flash.py --define); the
-// defaults are the ones kept. Tensor cores (wgmma, split f32) and bf16 are
-// later work.
+// overlap the arithmetic of this one, and the blocks of one wave walk
+// equal lengths. On an H100 it reaches about a third of the bound at
+// Llama-3.2-1B's 512-token prefill and half of it at 8192 tokens
+// (PERF.md). Tensor cores (wgmma, split f32) and bf16 are later work.
 //
 // Plain C interface (see aggregation.cu): the caller passes the pointers,
 // strides and the stream; the entry point returns cudaGetLastError().
@@ -84,29 +77,18 @@
 
 #include "async_copy.cuh"
 
-#ifndef FA_STAGES
-#define FA_STAGES 2       // 1 measures the kernel without its ring
-#endif
-#ifndef FA_RPT
-#define FA_RPT 4          // 8 measures 8 query rows a thread, 128 threads
-#endif
-#ifndef FA_PAIR
-#define FA_PAIR 1         // 0 measures it without pairing query tiles
-#endif
-
 namespace {
 
 constexpr int FA_ROWS = 64;        // query rows per tile (BLOCK_Q)
 constexpr int FA_BK = 64;          // keys per KV tile (BLOCK_K)
-constexpr int RPT = FA_RPT;        // query rows per thread
+constexpr int RPT = 4;             // query rows per thread
 constexpr int FA_GROUPS = FA_ROWS / RPT;   // row groups: ty
 constexpr int FA_THREADS = 16 * FA_GROUPS; // FA_GROUPS x 16: tx key group
 constexpr int FA_LDP = FA_BK + 16; // row stride of P: rows r, r + 1 16
                                    // banks apart
 constexpr float FA_NEG_INF = -1e30f;
 
-constexpr int STAGES = FA_STAGES;   // K/V ring depth
-static_assert(STAGES >= 1 && STAGES <= 3, "a ring of 1 to 3 stages");
+constexpr int STAGES = 2;           // K/V ring depth
 
 template <int HD>
 struct FaTile {
@@ -133,7 +115,7 @@ struct FaParams {
     long long q_sb, q_ss, q_sh;      // strides in floats: batch, position,
     long long kv_sb, kv_ss, kv_sh;   // head (k and v share theirs)
     long long o_sb, o_ss, o_sh;
-    int sq, sk, n_kv, group, heads_per_tile, pos_per_tile, window;
+    int sq, sk, n_heads, group, window;
     float scale;
     int n_qt, paired;                // query tiles; two per block or one
 };
@@ -170,26 +152,19 @@ flash_attention_kernel(const FaParams a) {
     const int tid = threadIdx.x;
     const int tx = tid & 15;
     const int ty = tid >> 4;
-    const int gb = a.heads_per_tile;
-    const int ppb = a.pos_per_tile;
-    const int chunks = a.group / gb;
-    int bx = blockIdx.x;
-    const int chunk = bx % chunks;
-    bx /= chunks;
-    const int kvh = bx % a.n_kv;
-    const long long b = bx / a.n_kv;
-    const int h0 = kvh * a.group + chunk * gb;
-    const int n_rows = gb * ppb;
-    const float* qb = a.q + b * a.q_sb + h0 * a.q_sh;
+    const int h = blockIdx.x % a.n_heads;
+    const long long b = blockIdx.x / a.n_heads;
+    const int kvh = h / a.group;
+    const float* qb = a.q + b * a.q_sb + h * a.q_sh;
     const float* kb = a.k + b * a.kv_sb + kvh * a.kv_sh;
     const float* vb = a.v + b * a.kv_sb + kvh * a.kv_sh;
 
     // one query tile: its KV walk, then its rows of o
     auto run_tile = [&](int qtile) {
-        const int q0 = qtile * ppb;
+        const int q0 = qtile * FA_ROWS;
         // keys any row of the tile may see: k <= q_last, k < sk and
         // k > q0 - window
-        const int q_last = min(q0 + ppb, a.sq) - 1;
+        const int q_last = min(q0 + FA_ROWS, a.sq) - 1;
         const int win = a.window > 0 ? a.window : INT_MAX;
         const int k_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
         const int k_hi = min(q_last, a.sk - 1);
@@ -201,11 +176,8 @@ flash_attention_kernel(const FaParams a) {
             for (int it = 0; it < FA_ROWS * T::CPR / FA_THREADS; ++it) {
                 const int idx = tid + it * FA_THREADS;
                 const int r = idx / T::CPR, e = idx % T::CPR;
-                const int pos = q0 + r / gb;
-                const bool in = r < n_rows && pos < a.sq;
-                const float* src = in ? qb + pos * a.q_ss + (r % gb) * a.q_sh
-                                            + 4 * e
-                                      : qb;
+                const bool in = q0 + r < a.sq;
+                const float* src = in ? qb + (q0 + r) * a.q_ss + 4 * e : qb;
                 cp_async16(q_s + r * T::LD + 4 * e, src, in);
             }
         };
@@ -228,7 +200,7 @@ flash_attention_kernel(const FaParams a) {
         float m[RPT], l[RPT], acc[RPT][T::DPT];
 #pragma unroll
         for (int i = 0; i < RPT; ++i) {
-            qpos[i] = q0 + (ty + FA_GROUPS * i) / gb;
+            qpos[i] = q0 + ty + FA_GROUPS * i;
             m[i] = FA_NEG_INF;
             l[i] = 0.0f;
 #pragma unroll
@@ -329,21 +301,12 @@ flash_attention_kernel(const FaParams a) {
             }
         }
         for (int t = 0; t < n_tiles; ++t) {
-            if constexpr (STAGES == 1) {
-                if (t > 0) __syncthreads();      // the one stage is free again
-                load_kv(kt_begin + t, 0);
-                cp_async_commit();
-                cp_async_wait<0>();
-                __syncthreads();
-            } else {
-                // tile t has landed
-                cp_async_wait<(STAGES > 1 ? STAGES - 2 : 0)>();
-                __syncthreads();                 // ... for every thread, and
+            cp_async_wait<STAGES - 2>();         // tile t has landed
+            __syncthreads();                     // ... for every thread, and
                                                  // tile t - 1 is consumed
-                const int tn = t + STAGES - 1;
-                if (tn < n_tiles) load_kv(kt_begin + tn, tn % STAGES);
-                cp_async_commit();
-            }
+            const int tn = t + STAGES - 1;
+            if (tn < n_tiles) load_kv(kt_begin + tn, tn % STAGES);
+            cp_async_commit();
             const int k0 = (kt_begin + t) * FA_BK;
             const float* ks = kv_s + (t % STAGES) * 2 * T::KV;
             const float* vs = ks + T::KV;
@@ -356,17 +319,16 @@ flash_attention_kernel(const FaParams a) {
         }
         cp_async_wait<0>();
 
-        float* ob = a.o + b * a.o_sb + h0 * a.o_sh;
+        float* ob = a.o + b * a.o_sb + h * a.o_sh;
 #pragma unroll
         for (int i = 0; i < RPT; ++i) {
             float den = l[i];
 #pragma unroll
             for (int off = 8; off > 0; off >>= 1)
                 den += __shfl_xor_sync(0xffffffffu, den, off);
-            const int r = ty + FA_GROUPS * i;
-            if (r >= n_rows || qpos[i] >= a.sq) continue;
+            if (qpos[i] >= a.sq) continue;
             const float inv_den = 1.0f / fmaxf(den, 1e-30f);
-            float* orow = ob + qpos[i] * a.o_ss + (r % gb) * a.o_sh;
+            float* orow = ob + qpos[i] * a.o_ss;
 #pragma unroll
             for (int g = 0; g < T::NG; ++g) {
                 float out[T::VEC];
@@ -418,19 +380,18 @@ int launch_flash(FaParams a, int batch, cudaStream_t stream) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
-    a.n_qt = (a.sq + a.pos_per_tile - 1) / a.pos_per_tile;
-    const long long nx =
-        (long long)batch * a.n_kv * (a.group / a.heads_per_tile);
+    a.n_qt = (a.sq + FA_ROWS - 1) / FA_ROWS;
+    const long long nx = (long long)batch * a.n_heads;
     if (nx > INT_MAX || a.n_qt > 65535) return (int)cudaErrorInvalidValue;
     // pair the tiles of a causal walk that no window cuts short where one
     // block per tile would put two or more blocks on some SM within one
     // wave (their walks differ up to 2x): a wave of blocks with equal walks
     // replaces them. A window makes the walks about equal, and a grid of
     // several waves is balanced by the heavy-first order; both keep one
-    // tile per block (pairing lost up to 21% and 4% there on an H100).
+    // tile per block (pairing was slower there on an H100, PERF.md).
     const long long blocks = nx * a.n_qt;
     const int sms = sm_count();
-    a.paired = FA_PAIR && (a.window <= 0 || a.window >= a.sq)
+    a.paired = (a.window <= 0 || a.window >= a.sq)
                && blocks > sms
                && blocks <= (long long)sms * blocks_per_sm<HD>();
     const int ny = a.paired ? (a.n_qt + 1) / 2 : a.n_qt;
@@ -444,25 +405,20 @@ int launch_flash(FaParams a, int batch, cudaStream_t stream) {
 extern "C" {
 
 // Strides are in floats, (batch, position, head) for q, for k and v (which
-// share them) and for o; hd is contiguous. heads_per_tile and pos_per_tile
-// are the tile plan (heads_per_tile divides H / n_kv, their product is at
-// most 64). window <= 0 means no window; scale is hd^-0.5 rounded to f32
-// by the caller, as the reference rounds it. hd must be 32, 64 or 128.
+// share them) and for o; hd is contiguous. window <= 0 means no window;
+// scale is hd^-0.5 rounded to f32 by the caller, as the reference rounds
+// it. hd must be 32, 64 or 128.
 int repro_flash_attention_f32(
         const float* q, const float* k, const float* v, float* o,
         long long q_sb, long long q_ss, long long q_sh, long long kv_sb,
         long long kv_ss, long long kv_sh, long long o_sb, long long o_ss,
         long long o_sh, int batch, int sq, int sk, int hd, int n_heads,
-        int n_kv, int heads_per_tile, int pos_per_tile, int window,
-        float scale, cudaStream_t stream) {
-    if (n_kv < 1 || n_heads % n_kv || heads_per_tile < 1 || pos_per_tile < 1
-            || (n_heads / n_kv) % heads_per_tile
-            || heads_per_tile * pos_per_tile > FA_ROWS || batch < 1
-            || sq < 1 || sk < 1)
+        int n_kv, int window, float scale, cudaStream_t stream) {
+    if (n_kv < 1 || n_heads % n_kv || batch < 1 || sq < 1 || sk < 1)
         return (int)cudaErrorInvalidValue;
     const FaParams a{q, k, v, o, q_sb, q_ss, q_sh, kv_sb, kv_ss, kv_sh,
-                     o_sb, o_ss, o_sh, sq, sk, n_kv, n_heads / n_kv,
-                     heads_per_tile, pos_per_tile, window, scale, 0, 0};
+                     o_sb, o_ss, o_sh, sq, sk, n_heads, n_heads / n_kv,
+                     window, scale, 0, 0};
     switch (hd) {
         case 32: return launch_flash<32>(a, batch, stream);
         case 64: return launch_flash<64>(a, batch, stream);

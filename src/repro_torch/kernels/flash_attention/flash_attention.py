@@ -16,7 +16,6 @@ PyTorch.
 """
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import torch
@@ -25,8 +24,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.dispatch import register_kernel, stream_of
 
 NEG_INF = -1e30
-#: rows (positions × heads) of a query tile and keys of a KV tile, in the
-#: kernel (``FA_ROWS``, ``FA_BK``) and in the plain version
+#: query positions of a tile and keys of a KV tile, in the kernel
+#: (``FA_ROWS``, ``FA_BK``) and in the plain version
 BLOCK_Q = BLOCK_K = 64
 #: head dims the CUDA kernel is compiled for
 KERNEL_HEAD_DIMS = (32, 64, 128)
@@ -36,17 +35,6 @@ def kernel_shared_bytes(hd: int) -> int:
     """Dynamic shared memory of one block of the CUDA kernel at head dim
     ``hd``, as the kernel library reports it (builds the library)."""
     return _build.library().repro_flash_attention_shared_bytes(hd)
-
-
-@functools.lru_cache(maxsize=None)
-def tile_plan(group: int) -> tuple:
-    """(heads, positions) of a query tile for ``group`` query heads per KV
-    head: the largest divisor of the group up to :data:`BLOCK_Q` heads,
-    times ``BLOCK_Q // heads`` consecutive positions. Every K/V tile a
-    query tile stages then serves all its heads."""
-    heads = max(d for d in range(1, min(group, BLOCK_Q) + 1)
-                if group % d == 0)
-    return heads, BLOCK_Q // heads
 
 
 def _fold(x: torch.Tensor) -> torch.Tensor:
@@ -89,12 +77,11 @@ def _check_window(window: Optional[int]) -> int:
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           n_q_heads: int,
                           window: Optional[int] = None) -> torch.Tensor:
-    """The kernel's algorithm in PyTorch on folded tensors: query tiles of
-    :func:`tile_plan`'s positions × all heads of a KV head, each walking
-    the KV tiles of :data:`BLOCK_K` keys that the causal mask and the
-    window reach from its positions, with the running max, denominator and
-    accumulator of the online softmax. Memory stays at one tile's scores
-    per step."""
+    """The kernel's algorithm in PyTorch on folded tensors: q in tiles of
+    :data:`BLOCK_Q` positions, each walking the KV tiles of
+    :data:`BLOCK_K` keys that the causal mask and the window reach, with
+    the running max, denominator and accumulator of the online softmax.
+    Memory stays at one tile's scores per step."""
     B, H, Hkv, G = _heads(q, k, n_q_heads)
     win = _check_window(window)
     _, Sq, hd = q.shape
@@ -104,10 +91,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kg = k.float().reshape(B, Hkv, Sk, hd)
     vg = v.float().reshape(B, Hkv, Sk, hd)
     scale = hd ** -0.5
-    positions = tile_plan(G)[1]
     out = torch.zeros_like(qg)
-    for q0 in range(0, Sq, positions):
-        qt = qg[:, :, :, q0:q0 + positions]
+    for q0 in range(0, Sq, BLOCK_Q):
+        qt = qg[:, :, :, q0:q0 + BLOCK_Q]
         bq = qt.shape[3]
         q_pos = torch.arange(q0, q0 + bq, device=dev)[:, None]
         m = torch.full((B, Hkv, G, bq, 1), NEG_INF, device=dev)
@@ -215,14 +201,12 @@ def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: the CUDA kernel takes head_dim "
                          f"in {KERNEL_HEAD_DIMS} for q and k alike, got q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}")
-    heads, positions = tile_plan(H // Hkv)
-    if sq < 1 or sk < 1 or -(-sq // positions) > 65535:
+    if sq < 1 or sk < 1 or -(-sq // BLOCK_Q) > 65535:
         raise ValueError(f"flash_attention: needs Sq, Sk >= 1 and at most "
                          f"65535 query tiles; got q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}")
     _FLASH(qp, kp, vp, out.data_ptr(), *q_st, *kv_st, *o_st, B, sq, sk, hd,
-           H, Hkv, heads, positions, _check_window(window), hd ** -0.5,
-           stream_of(q))
+           H, Hkv, _check_window(window), hd ** -0.5, stream_of(q))
     return out
 
 

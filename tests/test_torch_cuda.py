@@ -258,7 +258,7 @@ def _qkv(B, H, Hkv, Sq, Sk, hd, seed):
     (2, 2, 2, 9, 32),               # the policy's, ragged
     (1, 4, 1, 100, 64),             # ragged, G = 4
     (2, 4, 2, 130, 32),             # G = 2
-    (1, 10, 2, 100, 64),            # G = 5 (Hymba's), 60-row tiles
+    (1, 10, 2, 100, 64),            # G = 5 (Hymba's)
 ])
 @pytest.mark.parametrize("window", [None, 1, 7, 128])
 def test_cuda_flash_attention_matches_plain(cuda, B, H, Hkv, S, hd, window):
@@ -332,8 +332,7 @@ def test_cuda_flash_attention_strided_layout_equals_folded(cuda, H, Hkv,
                                                            window):
     """G = 1, 4 and 8: q, k and v sliced out of one fused (B, S, H + 2Hkv,
     hd) projection go through the model-layout launch, their contiguous
-    folded copies through the folded one; the same plan gives the same
-    bits."""
+    folded copies through the folded one; the two give the same bits."""
     rng = np.random.default_rng(14)
     B, S, hd = 2, 300, 64
     fused = torch.from_numpy(rng.standard_normal(

@@ -19,7 +19,7 @@ from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_kernel, flash_attention_plain)
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
-    BLOCK_Q, tile_plan)
+    BLOCK_Q)
 
 torch.set_num_threads(2)
 
@@ -43,7 +43,7 @@ def _t(*arrays):
     (2, 4, 2, 96, 96, 32),
     (1, 8, 8, 128, 128, 64),
     (2, 4, 1, 100, 100, 24),        # ragged seq + GQA 4:1
-    (1, 10, 2, 70, 70, 16),         # G = 5 (Hymba's): 12 positions a tile
+    (1, 10, 2, 70, 70, 16),         # G = 5 (Hymba's)
     (1, 8, 1, 90, 90, 32),          # G = 8 (Qwen2.5-3B's)
     (2, 6, 3, 40, 40, 16),          # G = 2, batched
 ])
@@ -115,8 +115,8 @@ def test_plain_with_fewer_keys_follows_the_oracle():
     (8, 1, 90, 50, 60),             # G = 8, window, fewer keys
 ])
 def test_plain_unequal_lengths_match_oracle(H, Hkv, Sq, Sk, window):
-    """Sq != Sk on absolute positions, over the tile plans of G = 1, 4, 5
-    and 8; with Sq <= Sk the Pallas body (whose key padding lies past
+    """Sq != Sk on absolute positions, at G = 1, 4, 5 and 8; with
+    Sq <= Sk the Pallas body (whose key padding lies past
     every query) agrees as well."""
     q, k, v = _qkv(1, H, Hkv, Sq, Sk, 16, seed=7)
     got = flash_attention_plain(*_t(q, k, v), H, window).numpy()
@@ -132,12 +132,22 @@ def test_plain_unequal_lengths_match_oracle(H, Hkv, Sq, Sk, window):
 
 
 @pytest.mark.parametrize("G", [1, 2, 4, 5, 8])
-def test_tile_plan_packs_the_group(G):
-    heads, positions = tile_plan(G)
-    assert heads == G and positions == BLOCK_Q // G
-    assert heads * positions <= BLOCK_Q
-    # a group wider than a tile is cut into chunks that divide it
-    assert tile_plan(128) == (64, 1) and tile_plan(96) == (48, 1)
+def test_model_layout_matches_reference_over_groups(G):
+    """The model-layout route at every GQA group of ``configs/`` (5 is
+    Hymba's, 8 Qwen2.5-3B's), over two query tiles with a window across
+    them, against the reference's model-layout wrapper."""
+    rng = np.random.default_rng(9)
+    B, S, Hkv, hd, window = 1, BLOCK_Q + 11, 2, 16, 40
+    H = G * Hkv
+    q = rng.standard_normal((B, S, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, S, Hkv, hd)).astype(np.float32)
+    v = rng.standard_normal((B, S, Hkv, hd)).astype(np.float32)
+    got = flash_attention(*_t(q, k, v), window)
+    assert got.shape == (B, S, H, hd)
+    want = jax_ops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), window=window,
+                                   use_pallas=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL)
 
 
 @pytest.mark.parametrize("H,Hkv,window", [(4, 4, None), (8, 2, 7),

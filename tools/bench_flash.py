@@ -3,39 +3,35 @@
 GPU.
 
     python3 tools/bench_flash.py [--src DIR] [--label NAME] [--sdpa]
-                                 [--buckets] [--define NAME=VALUE ...]
-                                 [--packing-off] [--out FILE]
+                                 [--buckets] [--out FILE]
 
 Imports ``repro_torch`` from ``DIR`` (default: this checkout's ``src``), so
 that two trees, e.g. a parent commit unpacked by ``git archive`` and the
 working tree, can be measured in one call in turns (parent, change,
 change, parent). Every input of ``chip_smoke.FLASH_CASES`` and
-``FLASH_LARGE`` goes through the folded entry point
-``flash_attention_kernel(q, k, v, H, window)``, which every tree has: the
-issue-bound time (``chip_smoke.time_ms``) and the device time (a CUDA
-graph of the calls, ``chip_smoke.GraphTimer``), medians over
-``chip_smoke.ROUNDS`` rounds, beside the bound of ``chip_smoke.py``.
-``--sdpa`` also times f32 ``scaled_dot_product_attention`` on the same
-inputs, in turns with the kernel. Each input is first held against the
-plain version (2e-5·max|v|, as in ``chip_smoke.py``). ``--buckets``
-times instead the inputs of ``chip_smoke.serving_runs()``: every prefill
-bucket of each run, with its flash launches in that run (layers × (one
-warmup prefill + the requests in the bucket)), and the launch-weighted
-loss, the sum over buckets of launches × (device ms − bound ms). Two
-switches measure the design without one of its parts (this tree's kernel
-only, nothing in the package changes): ``--define`` builds
-``csrc/attention.cu`` with a macro of its own (``FA_STAGES=1``: load a
-K/V tile, then compute it, without the ring; ``FA_PAIR=0``: one query
-tile per block whatever the grid; ``FA_RPT=8``: eight query rows a
-thread, 128 threads a block), and ``--packing-off`` puts one head in a
-query tile (64 positions) whatever the GQA group. Prints the card, one
-line per input and one JSON object last (also written to ``--out``).
-Needs a CUDA device.
+``FLASH_LARGE`` is timed two ways, in turns: ``folded``, the entry point
+``flash_attention_kernel(q, k, v, H, window)`` on contiguous (B·H, S, hd)
+tensors, which every tree has; and ``layout``, the call the serving path
+makes on the model's contiguous (B, S, H, hd) tensors,
+``ops.flash_attention(q, k, v, window).reshape(B, S, H·hd)`` (one strided
+launch on a tree whose kernel takes strides; the fold and unfold copies
+around the folded launch on one that does not). Each has its issue-bound
+time (``chip_smoke.time_ms``) and its device time (a CUDA graph of the
+calls, ``chip_smoke.GraphTimer``), medians over ``chip_smoke.ROUNDS``
+rounds, beside the bound of ``chip_smoke.py``. ``--sdpa`` also times f32
+``scaled_dot_product_attention`` on the same inputs, in the same turns.
+Each input is first held against the plain version both ways
+(2e-5·max|v|, as in ``chip_smoke.py``). ``--buckets`` times instead the
+inputs of ``chip_smoke.serving_runs()``: every prefill bucket of each
+run, with its flash launches in that run (layers × (one warmup prefill +
+the requests in the bucket)), and the launch-weighted loss of each way,
+the sum over buckets of launches × (device ms − bound ms). Prints the
+card, one line per input and one JSON object last (also written to
+``--out``). Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
-import importlib
 import json
 import subprocess
 import sys
@@ -72,13 +68,29 @@ def bucket_cases():
     return out
 
 
+def turns(fns: dict, reps: int) -> dict:
+    """{name: (issue ms, device ms)}: each function's issue-bound and
+    device times, medians over ``chip_smoke.ROUNDS`` rounds that run the
+    functions in order and then in reverse."""
+    import chip_smoke as cs
+    order = list(fns) + list(fns)[::-1]
+    issue = {n: [] for n in fns}
+    for _ in range(cs.ROUNDS):
+        for n in order:
+            issue[n].append(cs.time_ms(fns[n], reps))
+    timers = {n: cs.GraphTimer(fn, reps) for n, fn in fns.items()}
+    device = {n: [] for n in fns}
+    for _ in range(cs.ROUNDS):
+        for n in order:
+            device[n].append(timers[n].ms())
+    return {n: (cs._median(issue[n]), cs._median(device[n])) for n in fns}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="tree")
     ap.add_argument("--sdpa", action="store_true")
-    ap.add_argument("--define", action="append", default=[])
-    ap.add_argument("--packing-off", action="store_true")
     ap.add_argument("--buckets", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -91,14 +103,9 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     sys.path.insert(0, str(Path(args.src).resolve()))
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_kernel,
                                                      flash_attention_plain)
-    fa = importlib.import_module(
-        "repro_torch.kernels.flash_attention.flash_attention")
-    _build.NVCC_FLAGS = (*_build.NVCC_FLAGS,
-                         *(f"-D{d}" for d in args.define))
-    if args.packing_off:
-        fa.tile_plan = lambda group: (1, fa.BLOCK_Q)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -123,49 +130,58 @@ def main(argv=None) -> int:
         k = torch.randn((B * Hkv, S, hd), generator=gen, device=dev)
         v = torch.randn((B * Hkv, S, hd), generator=gen, device=dev)
         q4, k4, v4 = (x.reshape(B, -1, S, hd) for x in (q, k, v))
-        if window is None:
-            def sdpa():
-                return F.scaled_dot_product_attention(
-                    q4, k4, v4, is_causal=True, enable_gqa=True)
-        else:
+        qm, km, vm = (x.transpose(1, 2).contiguous() for x in (q4, k4, v4))
+        fns = {"folded": lambda: flash_attention_kernel(q, k, v, H, window),
+               "layout": lambda: flash_attention(qm, km, vm, window
+                                                 ).reshape(B, S, H * hd)}
+        if args.sdpa and window is None:
+            fns["sdpa"] = lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True, enable_gqa=True)
+        elif args.sdpa:
             pos = torch.arange(S, device=dev)
             mask = (pos[None, :] <= pos[:, None]) \
                 & ((pos[:, None] - pos[None, :]) < window)
-
-            def sdpa():
-                return F.scaled_dot_product_attention(
-                    q4, k4, v4, attn_mask=mask, enable_gqa=True)
-        err = (flash_attention_kernel(q, k, v, H, window)
-               - flash_attention_plain(q, k, v, H, window)).abs().max()
-        if not err.item() <= 2e-5 * v.abs().max().item():
-            raise AssertionError(f"{args.label} {case}: max abs err "
-                                 f"{err.item()} against the plain version")
-        t = cs.paired_ms(
-            lambda: flash_attention_kernel(q, k, v, H, window),
-            sdpa if args.sdpa else None, 5 if large else 100)
+            fns["sdpa"] = lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask, enable_gqa=True)
+        ref = flash_attention_plain(q, k, v, H, window)
+        err = max((fns["folded"]() - ref).abs().max().item(),
+                  (fns["layout"]() - ref.reshape(B, H, S, hd).transpose(1, 2)
+                   .reshape(B, S, H * hd)).abs().max().item())
+        if not err <= 2e-5 * v.abs().max().item():
+            raise AssertionError(f"{args.label} {case}: max abs err {err} "
+                                 f"against the plain version")
+        t = turns(fns, 5 if large else 100)
         pairs = B * H * cs._flash_pairs(S, window)
         b = cs.bound(4 * (2 * B * H * S * hd + 2 * B * Hkv * S * hd),
                      4 * hd * pairs)
         row = dict(case=list(case), label=args.label, bound_ms=b[0],
-                   bound_by=b[1], launches=launches, max_abs_err=err.item(),
-                   **t)
+                   bound_by=b[1], launches=launches, max_abs_err=err,
+                   ms=t["folded"][0], device_ms=t["folded"][1],
+                   layout_ms=t["layout"][0], layout_device_ms=t["layout"][1],
+                   sdpa_ms=t.get("sdpa", (None,))[0],
+                   sdpa_device_ms=t.get("sdpa", (None, None))[1])
         rows.append(row)
         lib = "" if not args.sdpa else (
-            f"; SDPA issue {t['library_ms']:.6f} ms, device "
-            f"{t['library_device_ms']:.6f} ms")
+            f"; SDPA issue {row['sdpa_ms']:.6f} ms, device "
+            f"{row['sdpa_device_ms']:.6f} ms")
         n = "" if launches is None else f", {launches} launches"
-        print(f"[bench] {args.label} flash {case}{n}: issue {t['ms']:.6f} "
-              f"ms, device {t['device_ms']:.6f} ms, bound {b[0]:.6f} ms "
-              f"({b[1]}), {b[0] / t['device_ms']:.1%} of the bound{lib}",
+        print(f"[bench] {args.label} flash {case}{n}: folded issue "
+              f"{row['ms']:.6f} ms, device {row['device_ms']:.6f} ms; layout "
+              f"issue {row['layout_ms']:.6f} ms, device "
+              f"{row['layout_device_ms']:.6f} ms; bound {b[0]:.6f} ms "
+              f"({b[1]}), {b[0] / row['device_ms']:.1%} of the bound folded, "
+              f"{b[0] / row['layout_device_ms']:.1%} by layout{lib}",
               flush=True)
-        del q, k, v, q4, k4, v4
+        del q, k, v, q4, k4, v4, qm, km, vm, fns
         torch.cuda.empty_cache()
     if args.buckets:
-        loss = sum(r["launches"] * (r["device_ms"] - r["bound_ms"])
-                   for r in rows)
-        print(f"[bench] {args.label} launch-weighted loss over the serving "
-              f"runs' {sum(r['launches'] for r in rows)} flash launches: "
-              f"{loss:.6f} ms")
+        for way, key in (("folded", "device_ms"), ("layout",
+                                                   "layout_device_ms")):
+            loss = sum(r["launches"] * (r[key] - r["bound_ms"])
+                       for r in rows)
+            print(f"[bench] {args.label} launch-weighted loss ({way}) over "
+                  f"the serving runs' {sum(r['launches'] for r in rows)} "
+                  f"flash launches: {loss:.6f} ms")
     result = {"card": card, "label": args.label, "rows": rows}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
