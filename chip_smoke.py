@@ -80,7 +80,13 @@ LARGE_SHAPES = [(1, 13, 1 << 24), (1, 32, 1 << 22), (13, 13, 1 << 20)]
 LARGE_CW = {"krum_bt": 1 << 20, "trimmed_d": 1 << 24, "gossip_d": 1 << 22,
             "neighbor_d": 1 << 20}
 SOURCE = "src/repro_torch/kernels/csrc/aggregation.cu"
-SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/attention.cu"}
+SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/attention.cu",
+           **dict.fromkeys(("trimmed_mean", "gossip_reduce",
+                            "neighbor_reduce"),
+                           "src/repro_torch/kernels/csrc/cw_reduce.cu")}
+# the slot counts at the edges of the cw rank network's instances (exact 5;
+# padded heights 8, 16 and 32), held bit for bit on an integer grid
+CW_EDGES = (5, 8, 9, 16, 17, 32)
 REPLACES = {
     "gram": "src/repro/kernels/pairwise_dist/pairwise_dist.py:30",
     "weiszfeld": "src/repro/kernels/rfa/rfa.py:76",
@@ -114,6 +120,10 @@ FLASH_CASES = [(1, 32, 8, 512, 64, None), (1, 32, 8, 512, 64, 1),
                (2, 4, 2, 130, 32, None), (1, 32, 8, 16, 64, None),
                (1, 32, 8, 128, 64, None)]
 FLASH_LARGE = (1, 32, 8, 8192, 64, None)
+# head dims the kernel is not compiled for (run zero-padded to 64 and 128):
+# a transformer policy's (d_model 96, 2 heads) and a 96-wide head
+FLASH_PADDED = [(1, 2, 2, 9, 48, None), (2, 4, 2, 130, 48, 100),
+                (1, 8, 2, 256, 96, None)]
 N_ITER, NU = 32, 1e-6
 F32_EPS = 2.0 ** -23
 
@@ -393,7 +403,7 @@ def phase_cw_kernels(dev):
             err=err, rel=err / max(scale, 1e-30), tol=tol, large=large,
             lib_err=lib_err,
             **paired_ms(lambda: fn(*args), lambda: library(*args), reps,
-                        device=label == HEADLINE[name]),
+                        device=large or label == HEADLINE[name]),
             plain_ms=time_ms(lambda: plain(*args), max(reps // 10, 2), 1),
             bound_ms=b[0], bound_by=b[1])
 
@@ -476,7 +486,65 @@ def phase_cw_kernels(dev):
                   nbytes=4 * (k * p * d + k * d), ops=ops)
         del recv
         torch.cuda.empty_cache()
+    phase_cw_edges(dev, draw)
+    for (name, label), r in rows.items():
+        if r["large"]:
+            log(f"[large] {name} {label}: device {r['device_ms']:.6f} ms, "
+                f"issue {r['ms']:.6f} ms, bound {r['bound_ms']:.6f} ms "
+                f"({r['bound_by']}, one operation per compare), "
+                f"{r['bound_ms'] / r['device_ms']:.1%} of the bound; "
+                f"library device {r['library_device_ms']:.6f} ms")
     return rows
+
+
+def phase_cw_edges(dev, draw):
+    """The cw kernels at the slot counts on the edges of their rank
+    networks' instances (``CW_EDGES``), on an integer grid with a NaN, a
+    +inf and a -inf slot in some coordinates: bit for bit against the
+    plain versions (NaN in the same places) in every mode, reruns
+    bit-identical. ``gossip_reduce`` gathers from a random (13, P) table,
+    ``neighbor_reduce`` reduces (13, P, 386), ``trimmed_mean`` (1, P, 386)
+    over P agents."""
+    import torch
+    from repro_torch.kernels.gossip_reduce import (
+        cw_reduce, gossip_reduce, gossip_reduce_plain, neighbor_reduce,
+        neighbor_reduce_plain)
+    from repro_torch.kernels.trimmed_mean import (trimmed_mean,
+                                                  trimmed_mean_plain)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+
+    def specials(x):
+        x[..., 0, 1] = float("nan")
+        x[..., -1, 2] = float("inf")
+        x[..., 0, 3] = float("-inf")
+        return x
+
+    def same(name, fn, plain, *args):
+        out = fn(*args)
+        for other in (fn(*args), plain(*args)):
+            torch.testing.assert_close(out, other, rtol=0, atol=0,
+                                       equal_nan=True, msg=lambda m: (
+                                           f"{name} P={p}: {m}"))
+
+    d = 386
+    for p in CW_EDGES:
+        nbr = torch.randint(0, 13, (13, p), generator=gen, device=dev)
+        msgs = specials(draw((13, d), True))
+        recv = specials(draw((13, p, d), True))
+        for mode, n_trim in (("mean", 0), ("median", 0),
+                             ("trimmed", (p - 1) // 2)):
+            same("gossip_reduce", gossip_reduce, gossip_reduce_plain, msgs,
+                 nbr, mode, n_trim)
+            same("neighbor_reduce", neighbor_reduce, neighbor_reduce_plain,
+                 recv, mode, n_trim)
+        same("trimmed_mean", trimmed_mean, trimmed_mean_plain,
+             specials(draw((1, p, d), True)), (p - 1) // 4)
+        log(f"[cw] P={p} (rank network height {cw_reduce.cw_instance(p)}, "
+            f"layout {'spread' if cw_reduce.cw_layout(13, d) else 'thread'}"
+            f"): gossip_reduce, neighbor_reduce (mean, median, trimmed) and "
+            f"trimmed_mean bit-equal to their plain versions on an integer "
+            f"grid with NaN and infinite slots, reruns bit-identical")
 
 
 def _flash_pairs(S: int, window) -> int:
@@ -557,7 +625,53 @@ def phase_flash(dev):
         del q, k, v, out, ref
         torch.cuda.empty_cache()
     phase_flash_layout(dev)
+    phase_flash_padded(dev)
     return rows
+
+
+def phase_flash_padded(dev):
+    """Head dims the kernel is not compiled for (``FLASH_PADDED``): the
+    wrapper zero-pads q, k and v to the next compiled head dim and passes
+    the true scale. Each must launch the kernel (never the plain version),
+    agree with the plain version at the true head dim (2e-5·max|v|),
+    rerun bit-identically, and give the folded launch's bits through the
+    model layout."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_kernel,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        kernel_head_dim)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    for B, H, Hkv, S, hd, window in FLASH_PADDED:
+        q = torch.randn((B * H, S, hd), generator=gen, device=dev)
+        k = torch.randn((B * Hkv, S, hd), generator=gen, device=dev)
+        v = torch.randn((B * Hkv, S, hd), generator=gen, device=dev)
+        before = dispatch.launch_counts()["flash_attention"]
+        out = flash_attention_kernel(q, k, v, H, window)
+        rerun = flash_attention_kernel(q, k, v, H, window)
+        layout = flash_attention(*(x.reshape(B, -1, S, hd).transpose(1, 2)
+                                   for x in (q, k, v)), window)
+        torch.cuda.synchronize()
+        launched = dispatch.launch_counts()["flash_attention"] - before
+        err = (out - flash_attention_plain(q, k, v, H, window)).abs().max()
+        tol = 2e-5 * v.abs().max().item()
+        unfold = out.reshape(B, H, S, hd).transpose(1, 2)
+        if not (launched == 3 and err.item() <= tol
+                and torch.equal(out, rerun) and torch.equal(layout, unfold)):
+            raise AssertionError(
+                f"flash_attention at head dim {hd} {(B, H, Hkv, S, window)}: "
+                f"{launched} launches of 3, max abs err {err.item()} (tol "
+                f"{tol}), rerun equal {torch.equal(out, rerun)}, layout "
+                f"equal {torch.equal(layout, unfold)}")
+        ms = time_ms(lambda: flash_attention_kernel(q, k, v, H, window), 50)
+        log(f"[flash] head dim {hd} on the hd {kernel_head_dim(hd)} kernel, "
+            f"q {tuple(q.shape)} kv {tuple(k.shape)} window {window}: max "
+            f"abs err {err.item():.3e} against the plain version (tol "
+            f"{tol:.3e}), rerun and model layout bit-equal, issue-bound "
+            f"{ms:.6f} ms")
 
 
 def phase_flash_layout(dev):
@@ -898,6 +1012,83 @@ def phase_serving_cpu_agreement(dev):
         f"prompts <= 128, 8 new tokens): prefill logits max abs err "
         f"{worst:.3e} (tol {tol}); streams equal over {compared} of "
         f"{sum(r.max_new for r in traffic)} tokens under the margin rule")
+    phase_policy_cpu_agreement(dev, tol)
+
+
+#: a transformer policy at head dim 48, which the flash kernel runs
+#: zero-padded to 64
+POLICY_HD48 = "transformer(d_model=96, n_heads=2)"
+
+
+def phase_policy_cpu_agreement(dev, tol):
+    """``serve()`` with the :data:`POLICY_HD48` policy on the card and on
+    the CPU, the same weights (drawn on the CPU): the card's prefills must
+    go through the flash kernel, and the greedy streams must equal the
+    CPU's unbatched ones up to each request's first step whose top-1
+    margin is within ``tol``."""
+    import numpy as np
+    import torch
+    from repro_torch.core.registry import resolve
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.model import decode_step, prefill, tree_map
+    from repro_torch.serving import make_traffic, serve
+    env = resolve("env", "cartpole(horizon=32)")
+    pol = resolve("policy", POLICY_HD48, env=env)
+    cfg = pol.model_cfg
+    if cfg.resolved_head_dim != 48:
+        raise AssertionError(f"{POLICY_HD48}: head dim "
+                             f"{cfg.resolved_head_dim}, expected 48")
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    cpu_params = pol.init(gen)
+    n, max_new = 8, 8
+    streams, launched = {}, {}
+    for d, params in (("cpu", cpu_params),
+                      (dev, tree_map(lambda t: t.to(dev), cpu_params))):
+        before = dispatch.launch_counts()["flash_attention"]
+        report = serve(pol, env, params=params, n_requests=n, slots=4,
+                       max_new=max_new, realtime=False, warmup=False,
+                       device=d)
+        torch.cuda.synchronize()
+        launched[str(d)] = dispatch.launch_counts()["flash_attention"] - before
+        streams[str(d)] = {r.uid: r.tokens for r in report.results}
+    # one flash launch per layer per prefill on the card, none on the CPU
+    if launched != {"cpu": 0, str(dev): cfg.n_layers * n}:
+        raise AssertionError(f"{POLICY_HD48}: flash launches {launched}, "
+                             f"expected {cfg.n_layers * n} on the card")
+    compared = 0
+    traffic = make_traffic(n, seed=0, rate_rps=50.0, max_new=max_new,
+                           obs_dim=env.obs_dim)
+    for req in traffic:
+        pe = torch.zeros((1, cfg.n_prefix_embeds, cfg.d_model))
+        pe[0, 0, :req.obs.shape[0]] = torch.from_numpy(req.obs)
+        logits, cache = prefill(cfg, cpu_params, torch.zeros(
+            (1, 1), dtype=torch.long), pe, cache_len=cfg.n_prefix_embeds
+            + 1 + req.max_new)
+        row, margins, want = logits[0, -1, :env.n_actions], [], []
+        for i in range(req.max_new):
+            top = torch.topk(row, 2).values
+            margins.append((top[0] - top[1]).item())
+            tok = torch.argmax(row)
+            want.append(int(tok))
+            if i + 1 < req.max_new:
+                logits, cache = decode_step(cfg, cpu_params, tok[None],
+                                            cache)
+                row = logits[0, 0, :env.n_actions]
+        m = next((i for i, x in enumerate(margins) if x <= tol),
+                 len(margins))
+        cpu_s, card_s = streams["cpu"][req.uid], streams[str(dev)][req.uid]
+        if cpu_s != want or card_s[:m] != want[:m] \
+                or len(card_s) != len(want):
+            raise AssertionError(f"{POLICY_HD48} request {req.uid}: card "
+                                 f"{card_s}, CPU {cpu_s}, unbatched {want}, "
+                                 f"margins {np.round(margins, 6).tolist()}")
+        compared += m
+    log(f"[check] card vs CPU, {POLICY_HD48} (head dim 48 on the hd 64 "
+        f"kernel, {launched[str(dev)]} flash launches on the card): greedy "
+        f"streams equal over {compared} of "
+        f"{sum(r.max_new for r in traffic)} tokens under the margin rule "
+        f"(tol {tol})")
 
 
 def phase_cpu_agreement(dev):

@@ -30,8 +30,9 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-#: largest stack (K) the kernels take: their register and shared-memory
-#: arrays are sized for it (``KMAX`` in ``csrc/aggregation.cu``)
+#: largest stack (K) or neighbour count (P) the kernels take: their
+#: register and shared-memory arrays are sized for it (``KMAX`` in
+#: ``csrc/aggregation.cu``, the largest height in ``csrc/cw_reduce.cu``)
 KMAX = 32
 
 _VP, _INT, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -40,10 +41,10 @@ _SIGNATURES = {
     "repro_gram_f32": (_VP, _VP, _VP, _INT, _INT, _I64, _INT, _INT, _VP),
     "repro_weiszfeld_f32": (_VP, _VP, _INT, _INT, _F32, _INT, _VP),
     "repro_wsum_f32": (_VP, _VP, _VP, _INT, _INT, _I64, _VP),
-    "repro_trimmed_mean_f32": (_VP, _VP, _INT, _INT, _I64, _INT, _VP),
-    "repro_gossip_reduce_f32": (_VP, _VP, _VP, _INT, _INT, _I64, _INT, _INT,
+    "repro_trimmed_mean_f32": (_VP, _VP, _INT, _INT, _I64, _INT, _INT, _VP),
+    "repro_gossip_reduce_f32": (_VP, _VP, _VP, _INT, _INT, _I64, *(_INT,) * 4,
                                 _VP),
-    "repro_neighbor_reduce_f32": (_VP, _VP, _INT, _INT, _I64, _INT, _INT,
+    "repro_neighbor_reduce_f32": (_VP, _VP, _INT, _INT, _I64, *(_INT,) * 4,
                                   _VP),
     "repro_krum_score_f32": (_VP, _VP, _I64, _INT, _INT, _VP),
     "repro_flash_attention_f32": (_VP, _VP, _VP, _VP, *(_I64,) * 9,

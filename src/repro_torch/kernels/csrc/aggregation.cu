@@ -1,7 +1,6 @@
 // Robust-aggregation kernels for Hopper (sm_90a): Gram matrix, Gram-space
-// smoothed-Weiszfeld weights, the weighted sum z = w^T X, Krum scores,
-// and the coordinate-wise reduces (trimmed mean over agents, and the
-// gossip reduces of the cw* agreement rounds).
+// smoothed-Weiszfeld weights, the weighted sum z = w^T X and Krum scores
+// (the coordinate-wise reduces are in cw_reduce.cu).
 //
 // Plain C interface, built with nvcc into a shared library and loaded with
 // ctypes (repro_torch/kernels/_build.py). Every entry point takes its
@@ -11,8 +10,7 @@
 //
 // The aggregation kernels take a leading batch dimension: the JAX package
 // vmaps these calls over receivers (one bucketing permutation, or one MDA
-// round, per receiver), and one launch here covers the whole batch. The
-// gossip reduces cover all receivers of one agreement round in one launch.
+// round, per receiver), and one launch here covers the whole batch.
 //
 // Arithmetic is IEEE f32 (no fast-math): RFA's distances come from the Gram
 // identity, and only the smoothing floor nu bounds their cancellation, so
@@ -530,173 +528,8 @@ int launch_wsum(const float* x, const float* w, float* z, int bt, int k,
     return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// The coordinate-wise reduce shared by trimmed_mean, gossip_reduce and
-// neighbor_reduce: the counterpart of the JAX package's
-// kernels/gossip_reduce/ref.py::cw_reduce, which its three Pallas kernels
-// share.
-//
-// One thread reduces one coordinate over p <= KMAX values v[0..p), held in
-// a register array (every loop is unrolled to KMAX with a uniform guard, so
-// nothing is indexed dynamically). Slots >= n are pad: ranked last, never
-// kept. The rank of a valid slot b is the number of slots a ordered before
-// it,
-//   rank_b = sum_a [xv_a < v_b  or  (xv_a == v_b and a < b)],
-// with xv the values whose pad slots hold 3.4e38, as the reference writes
-// it (the masked xv on the left of <, the unmasked v on the right). For
-// finite values the ranks of the valid slots are a permutation of [0, n),
-// so a sort is not needed. Each rank is used as soon as it is formed and
-// never stored. The guards are run-time values, so every call executes all
-// KMAX^2 predicated steps; specialising on p is later work. Kept values
-// are summed in slot order:
-//   mean     sum_{a<n} v_a / n
-//   median   (v at rank (n-1)/2 + v at rank n/2) / 2
-//   trimmed  sum of v at ranks [n_trim, n - n_trim), / (n - 2 n_trim)
-// ---------------------------------------------------------------------------
-constexpr int CW_THREADS = 256;
+// pad entries: ranked after every finite value
 constexpr float PAD_BIG = 3.4e38f;
-enum : int { CW_MEAN = 0, CW_MEDIAN = 1, CW_TRIMMED = 2 };
-
-__device__ __forceinline__ float cw_reduce_one(const float (&v)[KMAX], int p,
-                                               int n, int mode, int n_trim) {
-    float s = 0.0f;
-    if (mode == CW_MEAN) {
-#pragma unroll
-        for (int a = 0; a < KMAX; ++a) {
-            if (a < n) s += v[a];
-        }
-        return s / (float)n;
-    }
-    const bool median = mode == CW_MEDIAN;
-    const int lo = median ? (n - 1) / 2 : n_trim;
-    const int hi = median ? n / 2 : n - n_trim - 1;
-    float s_hi = 0.0f;
-#pragma unroll
-    for (int b = 0; b < KMAX; ++b) {
-        if (b < n) {
-            int r = 0;
-#pragma unroll
-            for (int a = 0; a < KMAX; ++a) {
-                if (a < p) {
-                    const float xa = a < n ? v[a] : PAD_BIG;
-                    r += (xa < v[b]) | ((xa == v[b]) & (a < b));
-                }
-            }
-            if (median) {
-                s += r == lo ? v[b] : 0.0f;
-                s_hi += r == hi ? v[b] : 0.0f;
-            } else {
-                s += (r >= lo && r <= hi) ? v[b] : 0.0f;
-            }
-        }
-    }
-    return median ? 0.5f * (s + s_hi) : s / (float)(n - 2 * n_trim);
-}
-
-// ---------------------------------------------------------------------------
-// trimmed_mean: x (bt, k, d), n_trim -> out (bt, d), per coordinate the mean
-// of ranks [n_trim, k - n_trim) over the k agents.
-//
-// Replaces src/repro/kernels/trimmed_mean/trimmed_mean.py::trimmed_mean_pallas
-// (_tm_kernel): cw_reduce(..., "trimmed", n_valid=K) over a K-padded,
-// d-tiled block. The agent axis is ranked as the Pallas kernel ranks it,
-// padded to kp = K rounded up to 8 with pad slots last.
-//
-// Design: one thread per (b, c); thread c reads x[b, j, c] for j < k, so a
-// warp's loads of one row are coalesced, and every byte is read once.
-//
-// Bound on the H100: bytes (k + 1 floats per coordinate) by the roofline,
-// since k^2 comparisons at the FP32 rate take less time. But the
-// comparisons are instructions, and cw_reduce_one executes KMAX^2 guarded
-// steps whatever k is: at (1, 13, 2^24) that, not bandwidth, sets the
-// time (6.6x the bytes bound). Launch latency at the main path's d = 386.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(CW_THREADS)
-trimmed_mean_kernel(const float* __restrict__ x, float* __restrict__ out,
-                    int k, long long d, int n_trim) {
-    const long long c = (long long)blockIdx.x * CW_THREADS + threadIdx.x;
-    const long long b = blockIdx.y;
-    if (c >= d) return;
-    const float* xb = x + b * k * d + c;
-    float v[KMAX];
-#pragma unroll
-    for (int j = 0; j < KMAX; ++j) v[j] = j < k ? xb[(long long)j * d] : 0.0f;
-    const int kp = (k + 7) & ~7;
-    out[b * d + c] = cw_reduce_one(v, kp, k, CW_TRIMMED, n_trim);
-}
-
-// ---------------------------------------------------------------------------
-// gossip_reduce: msgs (k, d), nbr (k, p) int64, mode, n_trim -> out (k, d),
-// out[r, c] = reduce over p of msgs[nbr[r, p], c].
-//
-// Replaces src/repro/kernels/gossip_reduce/gossip_reduce.py::
-// gossip_reduce_pallas (_gather_reduce_kernel), which gathers the
-// neighbour rows with p one-hot (K, K) matmuls on the MXU because row
-// gathers lower poorly on a TPU. Hopper loads indexed rows directly, so the
-// one-hot products are gone.
-//
-// Design: blockIdx.y is the receiver r; the block loads nbr[r, :] into
-// shared memory once, then thread c reads msgs[nbr[r, q], c] for q < p
-// (coalesced across c) and reduces in registers; the gathered (k, p, d)
-// tensor never exists in device memory. An index outside [0, k) is not
-// followed: the receiver's row comes out NaN instead.
-//
-// Bound on the H100: the messages are read p times each from L2 (k * d *
-// 4 bytes, 20 KB at the main path's d = 386, stay in the 50 MB L2), so the
-// device-memory bytes are one read of msgs and one write of out, and the
-// p^2 comparisons per coordinate bound it. The KMAX^2 guarded steps of
-// cw_reduce_one set the time at large d. Launch latency at the main
-// path's sizes.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(CW_THREADS)
-gossip_reduce_kernel(const float* __restrict__ msgs,
-                     const long long* __restrict__ nbr,
-                     float* __restrict__ out, int k, int p, long long d,
-                     int mode, int n_trim) {
-    __shared__ long long rows[KMAX];
-    const long long r = blockIdx.y;
-    int bad = 0;
-    if (threadIdx.x < p) {
-        const long long q = nbr[r * p + threadIdx.x];
-        bad = q < 0 || q >= k;
-        rows[threadIdx.x] = bad ? 0 : q;
-    }
-    bad = __syncthreads_or(bad);
-    const long long c = (long long)blockIdx.x * CW_THREADS + threadIdx.x;
-    if (c >= d) return;
-    float v[KMAX];
-#pragma unroll
-    for (int j = 0; j < KMAX; ++j) v[j] = j < p ? msgs[rows[j] * d + c] : 0.0f;
-    out[r * d + c] = bad ? __int_as_float(0x7fc00000)
-                         : cw_reduce_one(v, p, p, mode, n_trim);
-}
-
-// ---------------------------------------------------------------------------
-// neighbor_reduce: recv (k, p, d), mode, n_trim -> out (k, d), the reduce
-// over an already gathered tensor (the per-receiver equivocation path).
-//
-// Replaces src/repro/kernels/gossip_reduce/gossip_reduce.py::
-// neighbor_reduce_pallas (_reduce_kernel).
-//
-// Design: thread (r, c) reads recv[r, q, c] for q < p, coalesced across c.
-//
-// Bound on the H100: bytes (p + 1 floats moved per coordinate) by the
-// roofline; the KMAX^2 guarded steps of cw_reduce_one set the time at
-// large d. Launch latency at the main path's sizes.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(CW_THREADS)
-neighbor_reduce_kernel(const float* __restrict__ recv,
-                       float* __restrict__ out, int p, long long d, int mode,
-                       int n_trim) {
-    const long long c = (long long)blockIdx.x * CW_THREADS + threadIdx.x;
-    const long long r = blockIdx.y;
-    if (c >= d) return;
-    const float* rr = recv + r * p * d + c;
-    float v[KMAX];
-#pragma unroll
-    for (int j = 0; j < KMAX; ++j) v[j] = j < p ? rr[(long long)j * d] : 0.0f;
-    out[r * d + c] = cw_reduce_one(v, p, p, mode, n_trim);
-}
 
 // ---------------------------------------------------------------------------
 // krum_score: g (bt, k, k) Gram matrices, n_near -> scores (bt, k),
@@ -785,32 +618,6 @@ int repro_wsum_f32(const float* x, const float* w, float* z, int bt, int k,
         && reinterpret_cast<uintptr_t>(z) % 16 == 0;
     return vec ? launch_wsum<float4>(x, w, z, bt, k, d, stream)
                : launch_wsum<float>(x, w, z, bt, k, d, stream);
-}
-
-int repro_trimmed_mean_f32(const float* x, float* out, int bt, int k,
-                           long long d, int n_trim, cudaStream_t stream) {
-    const long long blocks = (d + CW_THREADS - 1) / CW_THREADS;
-    trimmed_mean_kernel<<<dim3((unsigned)blocks, bt), CW_THREADS, 0,
-                          stream>>>(x, out, k, d, n_trim);
-    return (int)cudaGetLastError();
-}
-
-int repro_gossip_reduce_f32(const float* msgs, const long long* nbr,
-                            float* out, int k, int p, long long d, int mode,
-                            int n_trim, cudaStream_t stream) {
-    const long long blocks = (d + CW_THREADS - 1) / CW_THREADS;
-    gossip_reduce_kernel<<<dim3((unsigned)blocks, k), CW_THREADS, 0,
-                           stream>>>(msgs, nbr, out, k, p, d, mode, n_trim);
-    return (int)cudaGetLastError();
-}
-
-int repro_neighbor_reduce_f32(const float* recv, float* out, int k, int p,
-                              long long d, int mode, int n_trim,
-                              cudaStream_t stream) {
-    const long long blocks = (d + CW_THREADS - 1) / CW_THREADS;
-    neighbor_reduce_kernel<<<dim3((unsigned)blocks, k), CW_THREADS, 0,
-                             stream>>>(recv, out, p, d, mode, n_trim);
-    return (int)cudaGetLastError();
 }
 
 int repro_krum_score_f32(const float* g, float* scores, long long bt, int k,

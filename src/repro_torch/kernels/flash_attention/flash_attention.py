@@ -12,13 +12,17 @@ counterpart of the JAX package's
 ``kernels/flash_attention/flash_attention.py::flash_attention_pallas``)
 on the tensors' own strides, in either layout, with no copy; on a CPU
 tensor it runs :func:`flash_attention_plain`, the same algorithm in
-PyTorch.
+PyTorch. The kernel is compiled for head dims 32, 64 and 128; any other
+head dim up to 128 runs on the next of them, with q, k and v zero-padded
+in their last axis (zero columns add nothing to q·k, and v's give only
+output columns that are sliced away) and the true scale.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.dispatch import register_kernel, stream_of
@@ -29,6 +33,20 @@ NEG_INF = -1e30
 BLOCK_Q = BLOCK_K = 64
 #: head dims the CUDA kernel is compiled for
 KERNEL_HEAD_DIMS = (32, 64, 128)
+
+
+def kernel_head_dim(hd: int) -> int:
+    """The compiled head dim that runs head dim ``hd``: the smallest of
+    :data:`KERNEL_HEAD_DIMS` that holds it."""
+    for h in KERNEL_HEAD_DIMS:
+        if hd <= h:
+            return h
+    raise ValueError(
+        f"flash_attention: the CUDA kernel takes head_dim up to "
+        f"{KERNEL_HEAD_DIMS[-1]}, got {hd}: its shared memory grows by "
+        f"1,280 bytes per unit of head dim, past the H100's 227 KB a block "
+        f"near 192, so larger head dims need their own tiling (ROADMAP "
+        f"Queue 1 item 7, MLA)")
 
 
 def kernel_shared_bytes(hd: int) -> int:
@@ -75,13 +93,14 @@ def _check_window(window: Optional[int]) -> int:
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          n_q_heads: int,
-                          window: Optional[int] = None) -> torch.Tensor:
+                          n_q_heads: int, window: Optional[int] = None,
+                          scale: Optional[float] = None) -> torch.Tensor:
     """The kernel's algorithm in PyTorch on folded tensors: q in tiles of
     :data:`BLOCK_Q` positions, each walking the KV tiles of
     :data:`BLOCK_K` keys that the causal mask and the window reach, with
     the running max, denominator and accumulator of the online softmax.
-    Memory stays at one tile's scores per step."""
+    Memory stays at one tile's scores per step. ``scale`` defaults to
+    ``hd**-0.5``."""
     B, H, Hkv, G = _heads(q, k, n_q_heads)
     win = _check_window(window)
     _, Sq, hd = q.shape
@@ -90,7 +109,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qg = q.float().reshape(B, Hkv, G, Sq, hd)
     kg = k.float().reshape(B, Hkv, Sk, hd)
     vg = v.float().reshape(B, Hkv, Sk, hd)
-    scale = hd ** -0.5
+    if scale is None:
+        scale = hd ** -0.5
     out = torch.zeros_like(qg)
     for q0 in range(0, Sq, BLOCK_Q):
         qt = qg[:, :, :, q0:q0 + BLOCK_Q]
@@ -168,6 +188,24 @@ _FLASH = _build.CFunction("repro_flash_attention_f32", "flash_attention")
 def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 n_q_heads: Optional[int] = None,
                 window: Optional[int] = None) -> torch.Tensor:
+    hd = q.shape[-1]
+    if k.shape[-1] != hd:
+        raise ValueError(f"flash_attention: the CUDA kernel takes one "
+                         f"head_dim for q and k alike, got q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    hd_k = kernel_head_dim(hd)
+    if hd_k == hd:
+        return _flash_launch(q, k, v, n_q_heads, window, hd ** -0.5)
+    pad = (0, hd_k - hd)
+    out = _flash_launch(F.pad(q, pad), F.pad(k, pad), F.pad(v, pad),
+                        n_q_heads, window, hd ** -0.5)
+    return out[..., :hd].contiguous()
+
+
+def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  n_q_heads: Optional[int], window: Optional[int],
+                  scale: float) -> torch.Tensor:
+    """One launch at a compiled head dim."""
     folded = n_q_heads is not None
     nd = 3 if folded else 4
     (qp, qs), (kp, ks), (vp, vs) = (_rows(q, "q", nd), _rows(k, "k", nd),
@@ -197,16 +235,12 @@ def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q_st, kv_st = qs[:3], ks[:3]
         out = torch.empty((B, sq, H, hd), dtype=q.dtype, device=q.device)
         o_st = (sq * H * hd, H * hd, hd)
-    if k.shape[-1] != hd or hd not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention: the CUDA kernel takes head_dim "
-                         f"in {KERNEL_HEAD_DIMS} for q and k alike, got q "
-                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
     if sq < 1 or sk < 1 or -(-sq // BLOCK_Q) > 65535:
         raise ValueError(f"flash_attention: needs Sq, Sk >= 1 and at most "
                          f"65535 query tiles; got q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}")
     _FLASH(qp, kp, vp, out.data_ptr(), *q_st, *kv_st, *o_st, B, sq, sk, hd,
-           H, Hkv, _check_window(window), hd ** -0.5, stream_of(q))
+           H, Hkv, _check_window(window), scale, stream_of(q))
     return out
 
 

@@ -3,10 +3,12 @@ kernels: the port's own copy of the JAX package's
 ``kernels/gossip_reduce/ref.py`` (``MODES``, ``check_mode``,
 ``cw_reduce``).
 
-:func:`cw_reduce_plain` is the plain PyTorch version of ``cw_reduce_one``
-in ``kernels/csrc/aggregation.cu``: the same O(P²) rank network (no sort),
+:func:`cw_reduce_plain` is the plain PyTorch version of the reduce in
+``kernels/csrc/cw_reduce.cu``: the same ranks (an O(P²) network, no sort),
 the same tie and pad rules, and the kept values summed in the same slot
-order, so on equal inputs the two give the same bits.
+order, so on equal inputs the two give the same bits. :func:`cw_instance`
+and :func:`cw_layout` are the kernels' plan: which compiled rank network
+and which layout of the work a launch takes.
 """
 from __future__ import annotations
 
@@ -19,6 +21,36 @@ MODES = ("mean", "median", "trimmed")
 MODE_IDS = {m: i for i, m in enumerate(MODES)}
 #: the value pad slots rank with: after every finite value
 PAD_BIG = 3.4e38
+#: the heights the rank network is compiled for: exact (P fixed at compile
+#: time: ring(k=4)'s 5 and the complete graph's 13 at K = 13) and padded
+#: (any P up to the height, read at run time)
+EXACT_HEIGHTS = (5, 13)
+PADDED_HEIGHTS = (8, 16, 32)
+#: the work's layouts, as the C interface numbers them: one thread per
+#: coordinate, or one warp per slot of 32 coordinates
+THREAD, SPREAD = 0, 1
+#: the largest input (receivers x coordinates) that takes the spread
+#: layout: below it the thread layout leaves most SMs idle
+SPREAD_MAX = 1 << 15
+
+
+def cw_instance(p: int) -> int:
+    """The height of the rank network for ``p`` slots: ``p`` itself where
+    an exact instance exists, else the smallest padded height >= p."""
+    if p in EXACT_HEIGHTS:
+        return p
+    for h in PADDED_HEIGHTS:
+        if p <= h:
+            return h
+    raise ValueError(f"no rank network holds P={p} slots (P <= "
+                     f"{PADDED_HEIGHTS[-1]})")
+
+
+def cw_layout(rows: int, d: int) -> int:
+    """The layout of a gossip reduce over ``rows`` receivers of ``d``
+    coordinates: :data:`SPREAD` up to :data:`SPREAD_MAX` coordinates in
+    all, else :data:`THREAD`."""
+    return SPREAD if rows * d <= SPREAD_MAX else THREAD
 
 
 def check_mode(mode: str, deg_max: int, n_trim: int) -> None:

@@ -9,7 +9,10 @@
   path (``neighbor_reduce_pallas``).
 
 On a CUDA tensor each launches its kernel from ``kernels/csrc/
-aggregation.cu``; on a CPU tensor it runs its plain version, the
+cw_reduce.cu``, at the rank network :func:`~repro_torch.kernels.
+gossip_reduce.cw_reduce.cw_instance` picks for P and in the layout
+:func:`~repro_torch.kernels.gossip_reduce.cw_reduce.cw_layout` picks for
+the input's size; on a CPU tensor it runs its plain version, the
 gather and :func:`~repro_torch.kernels.gossip_reduce.cw_reduce.
 cw_reduce_plain`. ``mode`` is ``"mean"``, ``"median"`` or ``"trimmed"``;
 ``check_mode``'s errors come first, then the kernels' limits (P <= 32).
@@ -20,12 +23,16 @@ PyTorch does.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.dispatch import register_kernel, stream_of
 from repro_torch.kernels.gossip_reduce.cw_reduce import (MODE_IDS,
                                                          check_mode,
+                                                         cw_instance,
+                                                         cw_layout,
                                                          cw_reduce_plain)
 
 
@@ -66,7 +73,10 @@ _NEIGHBOR_REDUCE = _build.CFunction("repro_neighbor_reduce_f32",
 
 
 def _gossip_reduce_cuda(msgs: torch.Tensor, nbr: torch.Tensor,
-                        mode: str = "mean", n_trim: int = 0) -> torch.Tensor:
+                        mode: str = "mean", n_trim: int = 0,
+                        layout: Optional[int] = None) -> torch.Tensor:
+    """``layout`` (``cw_reduce.THREAD`` or ``SPREAD``) overrides the plan,
+    for timing both."""
     check_mode(mode, nbr.shape[1], n_trim)
     _check_values(msgs, "gossip_reduce", 2)
     k, d = msgs.shape
@@ -79,19 +89,24 @@ def _gossip_reduce_cuda(msgs: torch.Tensor, nbr: torch.Tensor,
     _check_width("gossip_reduce", p)
     out = torch.empty((k, d), device=msgs.device, dtype=torch.float32)
     _GOSSIP_REDUCE(msgs.data_ptr(), nbr.data_ptr(), out.data_ptr(), k, p, d,
-                   MODE_IDS[mode], int(n_trim), stream_of(msgs))
+                   MODE_IDS[mode], int(n_trim), cw_instance(p),
+                   cw_layout(k, d) if layout is None else layout,
+                   stream_of(msgs))
     return out
 
 
 def _neighbor_reduce_cuda(recv: torch.Tensor, mode: str = "mean",
-                          n_trim: int = 0) -> torch.Tensor:
+                          n_trim: int = 0,
+                          layout: Optional[int] = None) -> torch.Tensor:
     check_mode(mode, recv.shape[1], n_trim)
     _check_values(recv, "neighbor_reduce", 3)
     k, p, d = recv.shape
     _check_width("neighbor_reduce", p)
     out = torch.empty((k, d), device=recv.device, dtype=torch.float32)
     _NEIGHBOR_REDUCE(recv.data_ptr(), out.data_ptr(), k, p, d,
-                     MODE_IDS[mode], int(n_trim), stream_of(recv))
+                     MODE_IDS[mode], int(n_trim), cw_instance(p),
+                     cw_layout(k, d) if layout is None else layout,
+                     stream_of(recv))
     return out
 
 

@@ -3,7 +3,7 @@
 ``trimmed_mean(x (Bt, K, d), n_trim) -> (Bt, d)``: per coordinate, the
 mean of the values at ranks ``[n_trim, K - n_trim)`` among the K agents.
 On a CUDA tensor it launches ``trimmed_mean_kernel`` from
-``kernels/csrc/aggregation.cu`` (the counterpart of the JAX package's
+``kernels/csrc/cw_reduce.cu`` (the counterpart of the JAX package's
 ``kernels/trimmed_mean/trimmed_mean.py::trimmed_mean_pallas``); on a CPU
 tensor it runs :func:`trimmed_mean_plain`. Both rank the agent axis as the
 Pallas kernel does: padded to a multiple of 8, pad slots last
@@ -17,7 +17,8 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 from repro_torch.kernels.dispatch import check_stack, register_kernel, \
     stream_of
-from repro_torch.kernels.gossip_reduce.cw_reduce import cw_reduce_plain
+from repro_torch.kernels.gossip_reduce.cw_reduce import (cw_instance,
+                                                         cw_reduce_plain)
 
 
 def _check_trim(k: int, n_trim: int) -> None:
@@ -43,7 +44,7 @@ def _trimmed_mean_cuda(x: torch.Tensor, n_trim: int) -> torch.Tensor:
     _check_trim(k, n_trim)
     out = torch.empty((bt, d), device=x.device, dtype=torch.float32)
     _TRIMMED_MEAN(x.data_ptr(), out.data_ptr(), bt, k, d, int(n_trim),
-                  stream_of(x))
+                  cw_instance(k), stream_of(x))
     return out
 
 

@@ -16,6 +16,9 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.gossip_reduce import (  # noqa: E402
     gossip_reduce, gossip_reduce_plain, neighbor_reduce,
     neighbor_reduce_plain)
+from repro_torch.kernels.gossip_reduce import cw_reduce  # noqa: E402
+from repro_torch.kernels.gossip_reduce.gossip_reduce import (  # noqa: E402
+    _gossip_reduce_cuda, _neighbor_reduce_cuda)
 from repro_torch.kernels.krum_score import (  # noqa: E402
     krum_score, krum_score_plain)
 from repro_torch.kernels.pairwise_dist import (  # noqa: E402
@@ -153,27 +156,49 @@ def _grid(shape, seed):
         np.float32)
 
 
+def _nbr_tables(topology, K, seed):
+    """The neighbour tables a case runs: a topology's, or, for "every P",
+    random (K, P) tables (repeated neighbours included) for P = 1..32."""
+    if topology != "every P":
+        return [resolve_topology(topology, K).nbr_idx]
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, K, (K, p)) for p in range(1, 33)]
+
+
+def _with_specials(x):
+    """A few coordinates with a NaN, a +inf and a -inf slot."""
+    x = x.clone()
+    x[..., 0, 1] = float("nan")
+    x[..., -1, 2] = float("inf")
+    x[..., 0, 3] = float("-inf")
+    x[..., -1, 3] = float("inf")
+    return x
+
+
+# the main path's inputs, d around the tiles of both layouts (67: three
+# 32-coordinate tiles and not a multiple of 4; 1000: four 256-coordinate
+# blocks), and every P in 1..32 at K = 13 and 32
 @pytest.mark.cuda
 @pytest.mark.parametrize("K,d,topology", [(13, 386, "complete"),
                                           (13, 386, "ring(k=4)"),
                                           (9, 1000, "complete"),
-                                          (32, 300, "complete")])
+                                          (32, 300, "complete"),
+                                          (13, 67, "every P"),
+                                          (32, 1000, "every P")])
 @pytest.mark.parametrize("grid", [False, True], ids=["normal", "grid"])
 def test_cuda_cw_kernels_match_plain(cuda, K, d, topology, grid):
     make = _grid if grid else _stack
     x = torch.from_numpy(make((2, K, d), 9)).to(cuda)
     x[1, 3] = x[1, 5]                               # tied rows
-    nbr = torch.as_tensor(resolve_topology(topology, K).nbr_idx,
-                          dtype=torch.int64, device=cuda)
-    P = nbr.shape[1]
-    recv = torch.from_numpy(make((K, P, d), 10)).to(cuda)
     before = dispatch.launch_counts()
 
     def same(fn, plain, *args, tol):
         out = fn(*args)
-        assert torch.equal(out, fn(*args))          # fixed-order sums
+        # fixed-order sums; NaN where the plain version has it
+        torch.testing.assert_close(out, fn(*args), rtol=0, atol=0,
+                                   equal_nan=True)
         torch.testing.assert_close(out, plain(*args), rtol=0,
-                                   atol=0 if grid else tol)
+                                   atol=0 if grid else tol, equal_nan=True)
 
     # the plain versions sum in the kernels' order: the tolerance is what
     # another order could cost, P·eps·max|x|
@@ -184,16 +209,47 @@ def test_cuda_cw_kernels_match_plain(cuda, K, d, topology, grid):
     n_trim = (K - 1) // 4
     same(trimmed_mean, trimmed_mean_plain, x, n_trim,
          tol=K * eps * x.abs().max().item())
-    for mode, nt in (("mean", 0), ("median", 0), ("trimmed", (P - 1) // 2)):
-        same(gossip_reduce, gossip_reduce_plain, x[0].contiguous(), nbr,
-             mode, nt, tol=P * eps * x.abs().max().item())
-        same(neighbor_reduce, neighbor_reduce_plain, recv, mode, nt,
-             tol=P * eps * recv.abs().max().item())
+    tables = _nbr_tables(topology, K, d)
+    for nbr in tables:
+        nbr = torch.as_tensor(nbr, dtype=torch.int64, device=cuda)
+        P = nbr.shape[1]
+        msgs = x[0].contiguous()
+        recv = torch.from_numpy(make((K, P, d), 10 + P)).to(cuda)
+        if topology == "every P":
+            msgs, recv = _with_specials(msgs), _with_specials(recv)
+            # the trimmed mean over P agents, padded to a multiple of 8
+            xs = _with_specials(torch.from_numpy(make((2, P, d), P)).to(
+                cuda))
+            scale_x = xs[xs.isfinite()].abs().max().item()
+            for nt in sorted({0, (P - 1) // 4, (P - 1) // 2}):
+                same(trimmed_mean, trimmed_mean_plain, xs, nt,
+                     tol=P * eps * scale_x)
+        scale_m = msgs[msgs.isfinite()].abs().max().item()
+        scale_r = recv[recv.isfinite()].abs().max().item()
+        for mode, nt in (("mean", 0), ("median", 0),
+                         ("trimmed", (P - 1) // 2)):
+            same(gossip_reduce, gossip_reduce_plain, msgs, nbr, mode, nt,
+                 tol=P * eps * scale_m)
+            same(neighbor_reduce, neighbor_reduce_plain, recv, mode, nt,
+                 tol=P * eps * scale_r)
+            # both layouts of the work give the same bits
+            want_g = gossip_reduce(msgs, nbr, mode, nt)
+            want_n = neighbor_reduce(recv, mode, nt)
+            for layout in (cw_reduce.THREAD, cw_reduce.SPREAD):
+                torch.testing.assert_close(
+                    _gossip_reduce_cuda(msgs, nbr, mode, nt, layout),
+                    want_g, rtol=0, atol=0, equal_nan=True)
+                torch.testing.assert_close(
+                    _neighbor_reduce_cuda(recv, mode, nt, layout),
+                    want_n, rtol=0, atol=0, equal_nan=True)
     torch.cuda.synchronize()
     after = dispatch.launch_counts()
+    n = len(tables)
+    n_tm = 2 + (sum(len({0, (p - 1) // 4, (p - 1) // 2})
+                    for p in range(1, 33)) * 2 if n > 1 else 0)
     assert {k: after[k] - before[k] for k in CW + ("gram",)} == {
-        "gram": 1, "krum_score": 2, "trimmed_mean": 2, "gossip_reduce": 6,
-        "neighbor_reduce": 6}
+        "gram": 1, "krum_score": 2, "trimmed_mean": n_tm,
+        "gossip_reduce": 9 * n, "neighbor_reduce": 9 * n}
 
 
 @pytest.mark.cuda
@@ -299,10 +355,15 @@ def test_cuda_flash_attention_model_layout_and_rejects(cuda):
     q2 = torch.zeros((2, 80, 4, 64), device=cuda)
     q2[:, ::2] = q
     assert torch.equal(flash_attention(q2[:, ::2], k, v), out)
+    # above 128 the kernel has no tiling (ROADMAP Queue 1 item 7)
+    with pytest.raises(ValueError, match="head_dim up to 128.*Queue 1 item 7"):
+        flash_attention_kernel(torch.zeros((2, 8, 192), device=cuda),
+                               torch.zeros((2, 8, 192), device=cuda),
+                               torch.zeros((2, 8, 192), device=cuda), 2)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_kernel(torch.zeros((2, 8, 48), device=cuda),
-                               torch.zeros((2, 8, 48), device=cuda),
-                               torch.zeros((2, 8, 48), device=cuda), 2)
+                               torch.zeros((2, 8, 64), device=cuda),
+                               torch.zeros((2, 8, 64), device=cuda), 2)
     with pytest.raises(TypeError, match="float32"):
         flash_attention_kernel(torch.zeros((2, 8, 64), device=cuda,
                                            dtype=torch.float64),
@@ -347,3 +408,30 @@ def test_cuda_flash_attention_strided_layout_equals_folded(cuda, H, Hkv,
     torch.cuda.synchronize()
     assert dispatch.launch_counts()["flash_attention"] - before == 2
     assert torch.equal(got, folded.reshape(B, H, S, hd).transpose(1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [8, 48, 50, 96, 100])
+@pytest.mark.parametrize("window", [None, 20])
+def test_cuda_flash_attention_at_head_dims_it_pads(cuda, hd, window):
+    """A head dim the kernel is not compiled for runs on the kernel,
+    zero-padded to the next compiled one, in both layouts: against the
+    plain version at the true head dim (tolerance 2e-5·max|v|), the
+    model layout on strided views with the folded launch's bits."""
+    B, H, Hkv, S = 2, 4, 2, 100
+    q, k, v = (t.to(cuda) for t in _qkv(B, H, Hkv, S, S, hd, 15 + hd))
+    before = dispatch.launch_counts()["flash_attention"]
+    out = flash_attention_kernel(q, k, v, H, window)
+    assert out.shape == q.shape and out.is_contiguous()
+    assert torch.equal(out, flash_attention_kernel(q, k, v, H, window))
+    torch.testing.assert_close(
+        out, flash_attention_plain(q, k, v, H, window), rtol=0,
+        atol=2e-5 * v.abs().max().item())
+    fused = torch.cat([x.reshape(B, -1, S, hd).transpose(1, 2)
+                       for x in (q, k, v)], 2)
+    got = flash_attention(fused[:, :, :H], fused[:, :, H:H + Hkv],
+                          fused[:, :, H + Hkv:], window)
+    assert got.is_contiguous()
+    assert torch.equal(got, out.reshape(B, H, S, hd).transpose(1, 2))
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["flash_attention"] - before == 3

@@ -17,6 +17,7 @@ from repro.core import aggregators as jagg  # noqa: E402
 from repro.core import agreement as jagree  # noqa: E402
 from repro.core import attacks as jattacks  # noqa: E402
 from repro.kernels import dispatch as jdispatch  # noqa: E402
+from repro.kernels.gossip_reduce import ref as jref  # noqa: E402
 from repro.kernels.gossip_reduce.gossip_reduce import (  # noqa: E402
     gossip_reduce_pallas, neighbor_reduce_pallas)
 from repro.kernels.krum_score.krum_score import (  # noqa: E402
@@ -31,8 +32,9 @@ from repro_torch.core import attacks as tattacks  # noqa: E402
 from repro_torch.core.registry import Spec, resolve  # noqa: E402
 from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.kernels.gossip_reduce import (  # noqa: E402
-    check_mode, gossip_reduce, gossip_reduce_plain, neighbor_reduce,
-    neighbor_reduce_plain)
+    check_mode, cw_reduce_plain, gossip_reduce, gossip_reduce_plain,
+    neighbor_reduce, neighbor_reduce_plain)
+from repro_torch.kernels.gossip_reduce import cw_reduce  # noqa: E402
 from repro_torch.kernels.krum_score import (  # noqa: E402
     krum_score, krum_score_plain, krum_scores)
 from repro_torch.kernels.pairwise_dist import gram_plain  # noqa: E402
@@ -107,6 +109,63 @@ def test_gossip_and_neighbor_reduce_match_pallas(topology, K, mode, n_trim):
     want = neighbor_reduce_pallas(jnp.asarray(recv), mode=mode,
                                   n_trim=n_trim, interpret=True)
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+#: the slot counts of the CUDA rank network's instances and their edges:
+#: exact 5 and 13, padded heights 8, 16 and 32, and P = 1, 2
+SWEEP_P = (1, 2, 5, 7, 8, 9, 13, 16, 17, 31, 32)
+
+
+def _slots_with_specials(P, shape, seed):
+    """(P, *shape) normal values with tied slots, and a +inf, a -inf and
+    a NaN slot in some coordinates."""
+    v = _x(seed, (P,) + shape)
+    v[P // 2] = v[0]                                     # tied slots
+    v[P - 1, 0, :8] = np.inf
+    v[0, 0, 4:12] = -np.inf
+    v[(P - 1) // 3, 1, 2:6] = np.nan
+    v[P // 3, 1, 5:7] = np.inf
+    return v
+
+
+@pytest.mark.parametrize("P", SWEEP_P)
+@pytest.mark.parametrize("mode", ["mean", "median", "trimmed"])
+def test_cw_reduce_plain_matches_reference_at_every_height(P, mode):
+    """The plain reduce against the reference's ``cw_reduce`` and the
+    Pallas body in interpret mode at the slot counts of every compiled
+    rank network and its edges, with ties, infinities and NaN slots.
+    Both sum the kept values, the plain version in slot order and the
+    reference in XLA's order: P·eps·max|finite v| (NaN in the same
+    places, infinities equal)."""
+    n_trim = (P - 1) // 3 if mode == "trimmed" else 0
+    v = _slots_with_specials(P, (3, 40), 20 + P)
+    got = cw_reduce_plain(torch.from_numpy(v), mode, n_trim).numpy()
+    tol = P * np.finfo(np.float32).eps * np.abs(v[np.isfinite(v)]).max()
+    want = np.asarray(jref.cw_reduce(jnp.asarray(v), mode, n_trim))
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+    pallas = neighbor_reduce_pallas(jnp.asarray(v.transpose(1, 0, 2)),
+                                    mode=mode, n_trim=n_trim, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas), rtol=0, atol=tol)
+    if mode == "mean":                  # every slot is kept
+        assert np.isnan(got[1, 2:5]).all() and np.isinf(got).any()
+
+
+def test_cw_instance_takes_the_smallest_height():
+    """Every P in 1..32 runs on the smallest compiled rank network that
+    holds it: its exact instance where one exists, else a padded one."""
+    heights = cw_reduce.EXACT_HEIGHTS + cw_reduce.PADDED_HEIGHTS
+    for p in range(1, 33):
+        h = cw_reduce.cw_instance(p)
+        holds = [x for x in cw_reduce.PADDED_HEIGHTS if x >= p] + [
+            x for x in cw_reduce.EXACT_HEIGHTS if x == p]
+        assert h in heights and h == min(holds), (p, h)
+        assert h == p or h in cw_reduce.PADDED_HEIGHTS
+    assert [cw_reduce.cw_instance(p) for p in (1, 5, 6, 9, 13, 14, 17)] == \
+        [8, 5, 8, 16, 13, 16, 32]
+    with pytest.raises(ValueError, match="P <= 32"):
+        cw_reduce.cw_instance(33)
+    assert cw_reduce.cw_layout(13, 386) == cw_reduce.SPREAD
+    assert cw_reduce.cw_layout(13, 1 << 20) == cw_reduce.THREAD
 
 
 # divisors are powers of two (or the reduce picks), so the reference's

@@ -184,6 +184,35 @@ def test_model_layout_wrapper_matches_reference():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL)
 
 
+@pytest.mark.parametrize("hd", [8, 48, 50, 96])
+@pytest.mark.parametrize("S", [128, 77])
+def test_plain_on_zero_padded_head_dims_gives_the_same_result(hd, S):
+    """What the CUDA route does at a head dim it was not compiled for: q,
+    k and v zero-padded to the next compiled head dim, the true
+    ``hd**-0.5`` passed in, the output sliced back. Zero columns add
+    nothing to q·k and give only output columns that are sliced away, so
+    on whole 64 x 64 tiles the plain version gives the same bits. On a
+    ragged last tile (S = 77: a 13-row tile against 13 keys) MKL's
+    small-matrix products sum a short head dim in another order than a
+    padded one: there it agrees to f32 rounding, 1e-6·max|v|."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        kernel_head_dim)
+    H, Hkv, B = 4, 2, 1
+    q, k, v = _t(*_qkv(B, H, Hkv, S, S, hd, seed=hd))
+    hd_k = kernel_head_dim(hd)
+    assert hd_k == {8: 32, 48: 64, 50: 64, 96: 128}[hd]
+    pad = (0, hd_k - hd)
+    padded = flash_attention_plain(
+        *(torch.nn.functional.pad(t, pad) for t in (q, k, v)), H,
+        scale=hd ** -0.5)[..., :hd]
+    want = flash_attention_plain(q, k, v, H)
+    if S % BLOCK_Q == 0:
+        assert torch.equal(padded, want)
+    else:
+        torch.testing.assert_close(padded, want, rtol=0,
+                                   atol=1e-6 * v.abs().max().item())
+
+
 def test_cpu_route_launches_nothing_and_has_no_backward():
     q, k, v = _t(*_qkv(1, 2, 1, 10, 10, 16, seed=4))
     before = dispatch.launch_counts()["flash_attention"]
@@ -204,3 +233,9 @@ def test_wrapper_rejects_bad_heads_windows_and_devices():
         flash_attention_kernel(q, k, v, 2, 0)
     with pytest.raises(ValueError, match="no route"):
         flash_attention_kernel(q.to("meta"), k.to("meta"), v.to("meta"), 2)
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        kernel_head_dim)
+    assert [kernel_head_dim(h) for h in (1, 32, 33, 64, 65, 128)] == [
+        32, 32, 64, 64, 128, 128]
+    with pytest.raises(ValueError, match="Queue 1 item 7"):
+        kernel_head_dim(192)

@@ -171,4 +171,5 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     # edit of any source rebuilds
     assert _build.library_path().name.startswith("libkernels-")
     assert [p.name for p in _build.sources()] == ["aggregation.cu",
-                                                  "attention.cu"]
+                                                  "attention.cu",
+                                                  "cw_reduce.cu"]

@@ -41,6 +41,10 @@ torch.set_num_threads(2)
 
 POLICY = ("transformer(arch='qwen2.5-3b', n_layers=2, d_model=64, "
           "n_heads=2)")
+#: the same policy at head dim 48, which the CUDA flash kernel runs
+#: zero-padded to 64
+POLICY_HD48 = ("transformer(arch='qwen2.5-3b', n_layers=2, d_model=96, "
+               "n_heads=2)")
 LOGIT_TOL = 2e-5
 J_PREFILL = jax.jit(jm.prefill, static_argnums=0,
                     static_argnames=("cache_len",))
@@ -279,8 +283,16 @@ def _assert_streams_agree(mine, ref, cfg, jparams, traffic, n_logits):
     assert compared >= len(traffic)            # the rule left work to do
 
 
-def test_policy_streams_match_the_reference(policy, params, env, jax_side):
-    jpol, jparams = jax_side
+@pytest.mark.parametrize("spec", [POLICY, POLICY_HD48],
+                         ids=["hd32", "hd48"])
+def test_policy_streams_match_the_reference(spec, env):
+    policy = resolve("policy", spec, env=env)
+    jpol = jresolve("policy", spec, env=make_env("cartpole(horizon=16)"))
+    jparams = jpol.init(jax.random.PRNGKey(42))
+    params = model_params_from_jax(jax.tree.map(np.asarray, jparams),
+                                   policy.model_cfg, device="cpu")
+    assert policy.model_cfg.resolved_head_dim == (
+        48 if spec == POLICY_HD48 else 32)
     traffic = make_traffic(6, seed=4, rate_rps=500.0, max_new=6,
                            obs_dim=env.obs_dim)
     mine = _tokens_by_uid(policy, params, traffic, slots=2)
