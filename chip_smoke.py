@@ -540,9 +540,8 @@ def phase_cw_edges(dev, draw):
                  recv, mode, n_trim)
         same("trimmed_mean", trimmed_mean, trimmed_mean_plain,
              specials(draw((1, p, d), True)), (p - 1) // 4)
-        log(f"[cw] P={p} (rank network height {cw_reduce.cw_instance(p)}, "
-            f"layout {'spread' if cw_reduce.cw_layout(13, d) else 'thread'}"
-            f"): gossip_reduce, neighbor_reduce (mean, median, trimmed) and "
+        log(f"[cw] P={p} (rank network height {cw_reduce.cw_instance(p)}): "
+            f"gossip_reduce, neighbor_reduce (mean, median, trimmed) and "
             f"trimmed_mean bit-equal to their plain versions on an integer "
             f"grid with NaN and infinite slots, reruns bit-identical")
 

@@ -42,9 +42,9 @@ _SIGNATURES = {
     "repro_weiszfeld_f32": (_VP, _VP, _INT, _INT, _F32, _INT, _VP),
     "repro_wsum_f32": (_VP, _VP, _VP, _INT, _INT, _I64, _VP),
     "repro_trimmed_mean_f32": (_VP, _VP, _INT, _INT, _I64, _INT, _INT, _VP),
-    "repro_gossip_reduce_f32": (_VP, _VP, _VP, _INT, _INT, _I64, *(_INT,) * 4,
+    "repro_gossip_reduce_f32": (_VP, _VP, _VP, _INT, _INT, _I64, *(_INT,) * 3,
                                 _VP),
-    "repro_neighbor_reduce_f32": (_VP, _VP, _INT, _INT, _I64, *(_INT,) * 4,
+    "repro_neighbor_reduce_f32": (_VP, _VP, _INT, _INT, _I64, *(_INT,) * 3,
                                   _VP),
     "repro_krum_score_f32": (_VP, _VP, _I64, _INT, _INT, _VP),
     "repro_flash_attention_f32": (_VP, _VP, _VP, _VP, *(_I64,) * 9,

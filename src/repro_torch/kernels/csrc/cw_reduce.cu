@@ -6,7 +6,7 @@
 // loaded with ctypes (repro_torch/kernels/_build.py). Every entry point
 // takes its pointers and the CUDA stream from the caller, allocates
 // nothing, does not synchronise, and returns cudaGetLastError(), or
-// cudaErrorInvalidValue for an instance or layout it does not have.
+// cudaErrorInvalidValue for an instance it does not have.
 //
 // Arithmetic is IEEE f32 (no fast-math). Each sum is taken in slot order
 // with no atomics, so a rerun is bit-identical and the plain versions
@@ -14,15 +14,19 @@
 
 #include <cuda_runtime.h>
 
-#include <cstdint>
 #include <type_traits>
 
 namespace {
 
 constexpr float PAD_BIG = 3.4e38f;
-constexpr int CW_THREADS = 256;          // threads a block, thread layout
+// threads a block of the gossip reduces: at the main path's d = 386, 128
+// spread the 13 receivers' coordinates over 52 blocks, and ran 6-20% faster
+// there than 256 on an H100 (PERF.md), as fast at 2^22
+constexpr int CW_THREADS = 128;
+// the trimmed mean keeps its launch (256 threads a block) and changes only
+// its reduce
+constexpr int TM_THREADS = 256;
 enum : int { CW_MEAN = 0, CW_MEDIAN = 1, CW_TRIMMED = 2 };
-enum : int { CW_THREAD = 0, CW_SPREAD = 1 };   // the work's layouts
 
 // ---------------------------------------------------------------------------
 // The reduce: the counterpart of the JAX package's
@@ -56,7 +60,7 @@ enum : int { CW_THREAD = 0, CW_SPREAD = 1 };   // the work's layouts
 // compares bound it. Each pair of slots costs one FSET and two FADDs.
 // ---------------------------------------------------------------------------
 
-// 1.0f when a <= b (or a < b), else 0.0f; 0.0f for a NaN on either side.
+// 1.0f when a <= b, else 0.0f (also for a NaN on either side).
 // One FSET each: the rank network counts in f32, whose adds run on the FMA
 // pipe beside the compares (counts up to 32 are exact); int masks took an
 // FSETP, a SEL and an IADD3 a step, 1.459 against 1.116 ms at (13, 2^22),
@@ -64,12 +68,6 @@ enum : int { CW_THREAD = 0, CW_SPREAD = 1 };   // the work's layouts
 __device__ __forceinline__ float le_one(float a, float b) {
     float c;
     asm("set.le.f32.f32 %0, %1, %2;" : "=f"(c) : "f"(a), "f"(b));
-    return c;
-}
-
-__device__ __forceinline__ float lt_one(float a, float b) {
-    float c;
-    asm("set.lt.f32.f32 %0, %1, %2;" : "=f"(c) : "f"(a), "f"(b));
     return c;
 }
 
@@ -184,68 +182,6 @@ __device__ __forceinline__ float cw_reduce_thread(const Load& load, int n,
 }
 
 // ---------------------------------------------------------------------------
-// The spread layout: one block per (32 coordinates, receiver), one warp per
-// slot. Warp b stages slot b of the block's coordinates in shared memory
-// (one coalesced 128-byte row), then ranks slot b of its lane's coordinate
-// against the staged column, with a < b and a > b known at compile time
-// (a switch on the warp, uniform within it); warp 0 then sums the kept
-// values in slot order and writes 32 coordinates. A P^2 chain is spread
-// over P warps, and a small input covers every SM: (13, 386) at P = 13 is
-// 169 blocks of 13 warps, where the thread layout runs 26 blocks whose
-// threads each carry a whole chain.
-// ---------------------------------------------------------------------------
-template <int H>
-struct CwTile {
-    float x[H][32];
-    float rank[H][32];
-};
-
-template <int H, int B>
-__device__ __forceinline__ float cw_rank_of(const CwTile<H>& t, int lane) {
-    const float vb = t.x[B][lane];
-    float r = 0.0f;
-#pragma unroll
-    for (int a = 0; a < H; ++a) {
-        if (a < B) r += le_one(t.x[a][lane], vb);
-        if (a > B) r += lt_one(t.x[a][lane], vb);
-    }
-    return r;
-}
-
-template <int H, int... Bs>
-__device__ __forceinline__ float cw_rank_switch(
-        const CwTile<H>& t, int lane, int b,
-        std::integer_sequence<int, Bs...>) {
-    float r = 0.0f;
-    ((b == Bs ? (r = cw_rank_of<H, Bs>(t, lane), 0) : 0), ...);
-    return r;
-}
-
-// Warp `warp` holds slot `warp` of the lane's coordinate in x (rows >= n
-// hold +inf); returns the reduce in warp 0 (other warps: 0).
-template <int H, bool EXACT>
-__device__ __forceinline__ float cw_reduce_spread(CwTile<H>& t, float x,
-                                                  int n, int pads, int mode,
-                                                  int n_trim) {
-    if (EXACT) n = H;
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    t.x[warp][lane] = x;
-    __syncthreads();
-    if (mode != CW_MEAN) {
-        if (EXACT || warp < n) {
-            t.rank[warp][lane] = cw_rank_switch<H>(
-                t, lane, warp, std::make_integer_sequence<int, H>{})
-                + (pads && x > PAD_BIG ? (float)pads : 0.0f);
-        }
-        __syncthreads();
-    }
-    if (warp != 0) return 0.0f;
-    return CwKeep(mode, n, n_trim).reduce<H, EXACT>(
-        [&](int b) { return t.rank[b][lane]; },
-        [&](int b) { return t.x[b][lane]; });
-}
-
-// ---------------------------------------------------------------------------
 // trimmed_mean: x (bt, k, d), n_trim -> out (bt, d), per coordinate the mean
 // of ranks [n_trim, k - n_trim) over the k agents.
 //
@@ -254,19 +190,18 @@ __device__ __forceinline__ float cw_reduce_spread(CwTile<H>& t, float x,
 // d-tiled block. The agent axis is ranked as the Pallas kernel ranks it,
 // padded to kp = K rounded up to 8 with pad slots last (in closed form).
 //
-// Design: one thread per (b, c), the thread layout; thread c reads
-// x[b, j, c] for j < k, so a warp's loads of one row are coalesced, and
-// every byte is read once.
+// Design: one thread per (b, c); thread c reads x[b, j, c] for j < k, so a
+// warp's loads of one row are coalesced, and every byte is read once.
 //
 // Bound on the H100: k^2 compares per coordinate against k + 1 floats
 // moved: at k = 13 the compares bound it. Launch latency at the main
 // path's d = 386.
 // ---------------------------------------------------------------------------
 template <int H, bool EXACT>
-__global__ void __launch_bounds__(CW_THREADS)
+__global__ void __launch_bounds__(TM_THREADS)
 trimmed_mean_kernel(const float* __restrict__ x, float* __restrict__ out,
                     int k, long long d, int n_trim) {
-    const long long c = (long long)blockIdx.x * CW_THREADS + threadIdx.x;
+    const long long c = (long long)blockIdx.x * TM_THREADS + threadIdx.x;
     const long long b = blockIdx.y;
     if (c >= d) return;
     const float* xb = x + b * k * d + c;
@@ -287,12 +222,15 @@ trimmed_mean_kernel(const float* __restrict__ x, float* __restrict__ out,
 // one-hot products are gone, and the gathered (k, p, d) tensor never exists
 // in device memory.
 //
-// Design: blockIdx.y is the receiver r, and the block reads nbr[r, :] once
-// (thread layout: into shared memory; spread layout: warp q reads its
-// slot's index). An index outside [0, k) is not followed: the receiver's
-// row comes out NaN instead. Thread layout: thread c reads msgs[nbr[r, q],
-// c] for q < p, coalesced across c, and reduces in registers. Spread
-// layout: see cw_reduce_spread.
+// Design: blockIdx.y is the receiver r, and the block reads nbr[r, :] into
+// shared memory once; thread c reads msgs[nbr[r, q], c] for q < p,
+// coalesced across c, and reduces in registers. An index outside [0, k) is
+// not followed: the receiver's row comes out NaN instead. One thread per
+// coordinate: a layout that spread each coordinate's P^2 compares over P
+// warps (one warp per slot, ranks through shared memory) ran 10% slower at
+// the main path's (13, 386) and 4.7x slower at (13, 2^22) on an H100
+// (PERF.md), since the one-thread kernel is already at the launch's floor
+// where the other would gain from more SMs.
 //
 // Bound on the H100: the messages are read p times each, from L2 where
 // they fit, so the device-memory bytes are one read of msgs and one write
@@ -301,7 +239,7 @@ trimmed_mean_kernel(const float* __restrict__ x, float* __restrict__ out,
 // ---------------------------------------------------------------------------
 template <int H, bool EXACT>
 __global__ void __launch_bounds__(CW_THREADS)
-gossip_reduce_thread(const float* __restrict__ msgs,
+gossip_reduce_kernel(const float* __restrict__ msgs,
                      const long long* __restrict__ nbr,
                      float* __restrict__ out, int k, int p, long long d,
                      int mode, int n_trim) {
@@ -321,29 +259,6 @@ gossip_reduce_thread(const float* __restrict__ msgs,
     out[r * d + c] = bad ? __int_as_float(0x7fc00000) : v;
 }
 
-template <int H, bool EXACT>
-__global__ void __launch_bounds__(32 * H)
-gossip_reduce_spread(const float* __restrict__ msgs,
-                     const long long* __restrict__ nbr,
-                     float* __restrict__ out, int k, int p, long long d,
-                     int mode, int n_trim) {
-    __shared__ CwTile<H> t;
-    const long long r = blockIdx.y;
-    const int warp = threadIdx.x >> 5;
-    const long long c = (long long)blockIdx.x * 32 + (threadIdx.x & 31);
-    float x = __int_as_float(0x7f800000);            // slots >= p
-    int bad = 0;
-    if (warp < p) {
-        const long long q = nbr[r * p + warp];
-        bad = q < 0 || q >= k;
-        x = !bad && c < d ? msgs[q * d + c] : 0.0f;
-    }
-    bad = __syncthreads_or(bad);
-    const float v = cw_reduce_spread<H, EXACT>(t, x, p, 0, mode, n_trim);
-    if (warp == 0 && c < d)
-        out[r * d + c] = bad ? __int_as_float(0x7fc00000) : v;
-}
-
 // ---------------------------------------------------------------------------
 // neighbor_reduce: recv (k, p, d), mode, n_trim -> out (k, d), the reduce
 // over an already gathered tensor (the per-receiver equivocation path).
@@ -351,15 +266,15 @@ gossip_reduce_spread(const float* __restrict__ msgs,
 // Replaces src/repro/kernels/gossip_reduce/gossip_reduce.py::
 // neighbor_reduce_pallas (_reduce_kernel).
 //
-// Design: the two layouts of gossip_reduce; thread (r, c) or warp q reads
-// recv[r, q, c], coalesced across c.
+// Design: as gossip_reduce's: thread (r, c) reads recv[r, q, c] for q < p,
+// coalesced across c.
 //
 // Bound on the H100: p^2 compares per coordinate against p + 1 floats
 // moved: the compares at p = 13. Launch latency at the main path's sizes.
 // ---------------------------------------------------------------------------
 template <int H, bool EXACT>
 __global__ void __launch_bounds__(CW_THREADS)
-neighbor_reduce_thread(const float* __restrict__ recv,
+neighbor_reduce_kernel(const float* __restrict__ recv,
                        float* __restrict__ out, int p, long long d, int mode,
                        int n_trim) {
     const long long c = (long long)blockIdx.x * CW_THREADS + threadIdx.x;
@@ -368,21 +283,6 @@ neighbor_reduce_thread(const float* __restrict__ recv,
     const float* rr = recv + r * p * d + c;
     out[r * d + c] = cw_reduce_thread<H, EXACT>(
         [=](int j) { return rr[(long long)j * d]; }, p, 0, mode, n_trim);
-}
-
-template <int H, bool EXACT>
-__global__ void __launch_bounds__(32 * H)
-neighbor_reduce_spread(const float* __restrict__ recv,
-                       float* __restrict__ out, int p, long long d, int mode,
-                       int n_trim) {
-    __shared__ CwTile<H> t;
-    const long long r = blockIdx.y;
-    const int warp = threadIdx.x >> 5;
-    const long long c = (long long)blockIdx.x * 32 + (threadIdx.x & 31);
-    float x = __int_as_float(0x7f800000);
-    if (warp < p) x = c < d ? recv[(r * p + warp) * d + c] : 0.0f;
-    const float v = cw_reduce_spread<H, EXACT>(t, x, p, 0, mode, n_trim);
-    if (warp == 0 && c < d) out[r * d + c] = v;
 }
 
 // Calls f(height, exact) for the instance (height, n): exact instances
@@ -408,8 +308,8 @@ int cw_instance(int height, int n, const F& f) {
     return (int)cudaErrorInvalidValue;
 }
 
-unsigned cw_blocks(long long d, int per_block) {
-    return (unsigned)((d + per_block - 1) / per_block);
+unsigned cw_blocks(long long d, int threads) {
+    return (unsigned)((d + threads - 1) / threads);
 }
 
 }  // namespace
@@ -425,51 +325,35 @@ int repro_trimmed_mean_f32(const float* x, float* out, int bt, int k,
         constexpr int H = decltype(h)::value;
         constexpr bool EXACT = decltype(exact)::value;
         trimmed_mean_kernel<H, EXACT>
-            <<<dim3(cw_blocks(d, CW_THREADS), bt), CW_THREADS, 0, stream>>>(
-                x, out, k, d, n_trim);
+            <<<dim3(cw_blocks(d, TM_THREADS), bt), TM_THREADS, 0,
+               stream>>>(x, out, k, d, n_trim);
         return (int)cudaGetLastError();
     });
 }
 
-// `height` is cw_instance(p); `layout` is CW_THREAD or CW_SPREAD
-// (cw_reduce.py::cw_layout).
+// `height` is cw_instance(p).
 int repro_gossip_reduce_f32(const float* msgs, const long long* nbr,
                             float* out, int k, int p, long long d, int mode,
-                            int n_trim, int height, int layout,
-                            cudaStream_t stream) {
+                            int n_trim, int height, cudaStream_t stream) {
     return cw_instance(height, p, [&](auto h, auto exact) {
         constexpr int H = decltype(h)::value;
         constexpr bool EXACT = decltype(exact)::value;
-        if (layout == CW_SPREAD)
-            gossip_reduce_spread<H, EXACT>
-                <<<dim3(cw_blocks(d, 32), k), 32 * H, 0, stream>>>(
-                    msgs, nbr, out, k, p, d, mode, n_trim);
-        else if (layout == CW_THREAD)
-            gossip_reduce_thread<H, EXACT>
-                <<<dim3(cw_blocks(d, CW_THREADS), k), CW_THREADS, 0,
-                   stream>>>(msgs, nbr, out, k, p, d, mode, n_trim);
-        else
-            return (int)cudaErrorInvalidValue;
+        gossip_reduce_kernel<H, EXACT>
+            <<<dim3(cw_blocks(d, CW_THREADS), k), CW_THREADS, 0, stream>>>(
+                msgs, nbr, out, k, p, d, mode, n_trim);
         return (int)cudaGetLastError();
     });
 }
 
 int repro_neighbor_reduce_f32(const float* recv, float* out, int k, int p,
                               long long d, int mode, int n_trim, int height,
-                              int layout, cudaStream_t stream) {
+                              cudaStream_t stream) {
     return cw_instance(height, p, [&](auto h, auto exact) {
         constexpr int H = decltype(h)::value;
         constexpr bool EXACT = decltype(exact)::value;
-        if (layout == CW_SPREAD)
-            neighbor_reduce_spread<H, EXACT>
-                <<<dim3(cw_blocks(d, 32), k), 32 * H, 0, stream>>>(
-                    recv, out, p, d, mode, n_trim);
-        else if (layout == CW_THREAD)
-            neighbor_reduce_thread<H, EXACT>
-                <<<dim3(cw_blocks(d, CW_THREADS), k), CW_THREADS, 0,
-                   stream>>>(recv, out, p, d, mode, n_trim);
-        else
-            return (int)cudaErrorInvalidValue;
+        neighbor_reduce_kernel<H, EXACT>
+            <<<dim3(cw_blocks(d, CW_THREADS), k), CW_THREADS, 0, stream>>>(
+                recv, out, p, d, mode, n_trim);
         return (int)cudaGetLastError();
     });
 }

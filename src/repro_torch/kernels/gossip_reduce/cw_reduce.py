@@ -7,8 +7,7 @@ kernels: the port's own copy of the JAX package's
 ``kernels/csrc/cw_reduce.cu``: the same ranks (an O(P²) network, no sort),
 the same tie and pad rules, and the kept values summed in the same slot
 order, so on equal inputs the two give the same bits. :func:`cw_instance`
-and :func:`cw_layout` are the kernels' plan: which compiled rank network
-and which layout of the work a launch takes.
+is the kernels' plan: which compiled rank network a launch takes.
 """
 from __future__ import annotations
 
@@ -26,12 +25,6 @@ PAD_BIG = 3.4e38
 #: (any P up to the height, read at run time)
 EXACT_HEIGHTS = (5, 13)
 PADDED_HEIGHTS = (8, 16, 32)
-#: the work's layouts, as the C interface numbers them: one thread per
-#: coordinate, or one warp per slot of 32 coordinates
-THREAD, SPREAD = 0, 1
-#: the largest input (receivers x coordinates) that takes the spread
-#: layout: below it the thread layout leaves most SMs idle
-SPREAD_MAX = 1 << 15
 
 
 def cw_instance(p: int) -> int:
@@ -44,13 +37,6 @@ def cw_instance(p: int) -> int:
             return h
     raise ValueError(f"no rank network holds P={p} slots (P <= "
                      f"{PADDED_HEIGHTS[-1]})")
-
-
-def cw_layout(rows: int, d: int) -> int:
-    """The layout of a gossip reduce over ``rows`` receivers of ``d``
-    coordinates: :data:`SPREAD` up to :data:`SPREAD_MAX` coordinates in
-    all, else :data:`THREAD`."""
-    return SPREAD if rows * d <= SPREAD_MAX else THREAD
 
 
 def check_mode(mode: str, deg_max: int, n_trim: int) -> None:

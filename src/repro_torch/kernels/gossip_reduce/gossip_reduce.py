@@ -10,20 +10,17 @@
 
 On a CUDA tensor each launches its kernel from ``kernels/csrc/
 cw_reduce.cu``, at the rank network :func:`~repro_torch.kernels.
-gossip_reduce.cw_reduce.cw_instance` picks for P and in the layout
-:func:`~repro_torch.kernels.gossip_reduce.cw_reduce.cw_layout` picks for
-the input's size; on a CPU tensor it runs its plain version, the
-gather and :func:`~repro_torch.kernels.gossip_reduce.cw_reduce.
-cw_reduce_plain`. ``mode`` is ``"mean"``, ``"median"`` or ``"trimmed"``;
-``check_mode``'s errors come first, then the kernels' limits (P <= 32).
+gossip_reduce.cw_reduce.cw_instance` picks for P; on a CPU tensor it runs
+its plain version, the gather and :func:`~repro_torch.kernels.
+gossip_reduce.cw_reduce.cw_reduce_plain`. ``mode`` is ``"mean"``,
+``"median"`` or ``"trimmed"``; ``check_mode``'s errors come first, then
+the kernels' limits (P <= 32).
 ``nbr`` must index rows of ``msgs``. The kernel cannot raise without a
 device sync, so a receiver with an index outside ``[0, K)`` gets a NaN
 row instead of a read past ``msgs``; the plain version indexes as
 PyTorch does.
 """
 from __future__ import annotations
-
-from typing import Optional
 
 import torch
 
@@ -32,7 +29,6 @@ from repro_torch.kernels.dispatch import register_kernel, stream_of
 from repro_torch.kernels.gossip_reduce.cw_reduce import (MODE_IDS,
                                                          check_mode,
                                                          cw_instance,
-                                                         cw_layout,
                                                          cw_reduce_plain)
 
 
@@ -73,10 +69,7 @@ _NEIGHBOR_REDUCE = _build.CFunction("repro_neighbor_reduce_f32",
 
 
 def _gossip_reduce_cuda(msgs: torch.Tensor, nbr: torch.Tensor,
-                        mode: str = "mean", n_trim: int = 0,
-                        layout: Optional[int] = None) -> torch.Tensor:
-    """``layout`` (``cw_reduce.THREAD`` or ``SPREAD``) overrides the plan,
-    for timing both."""
+                        mode: str = "mean", n_trim: int = 0) -> torch.Tensor:
     check_mode(mode, nbr.shape[1], n_trim)
     _check_values(msgs, "gossip_reduce", 2)
     k, d = msgs.shape
@@ -90,14 +83,12 @@ def _gossip_reduce_cuda(msgs: torch.Tensor, nbr: torch.Tensor,
     out = torch.empty((k, d), device=msgs.device, dtype=torch.float32)
     _GOSSIP_REDUCE(msgs.data_ptr(), nbr.data_ptr(), out.data_ptr(), k, p, d,
                    MODE_IDS[mode], int(n_trim), cw_instance(p),
-                   cw_layout(k, d) if layout is None else layout,
                    stream_of(msgs))
     return out
 
 
 def _neighbor_reduce_cuda(recv: torch.Tensor, mode: str = "mean",
-                          n_trim: int = 0,
-                          layout: Optional[int] = None) -> torch.Tensor:
+                          n_trim: int = 0) -> torch.Tensor:
     check_mode(mode, recv.shape[1], n_trim)
     _check_values(recv, "neighbor_reduce", 3)
     k, p, d = recv.shape
@@ -105,7 +96,6 @@ def _neighbor_reduce_cuda(recv: torch.Tensor, mode: str = "mean",
     out = torch.empty((k, d), device=recv.device, dtype=torch.float32)
     _NEIGHBOR_REDUCE(recv.data_ptr(), out.data_ptr(), k, p, d,
                      MODE_IDS[mode], int(n_trim), cw_instance(p),
-                     cw_layout(k, d) if layout is None else layout,
                      stream_of(recv))
     return out
 

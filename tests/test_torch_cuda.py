@@ -16,9 +16,6 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.gossip_reduce import (  # noqa: E402
     gossip_reduce, gossip_reduce_plain, neighbor_reduce,
     neighbor_reduce_plain)
-from repro_torch.kernels.gossip_reduce import cw_reduce  # noqa: E402
-from repro_torch.kernels.gossip_reduce.gossip_reduce import (  # noqa: E402
-    _gossip_reduce_cuda, _neighbor_reduce_cuda)
 from repro_torch.kernels.krum_score import (  # noqa: E402
     krum_score, krum_score_plain)
 from repro_torch.kernels.pairwise_dist import (  # noqa: E402
@@ -175,9 +172,8 @@ def _with_specials(x):
     return x
 
 
-# the main path's inputs, d around the tiles of both layouts (67: three
-# 32-coordinate tiles and not a multiple of 4; 1000: four 256-coordinate
-# blocks), and every P in 1..32 at K = 13 and 32
+# the main path's inputs, d not a multiple of 4 (67) and over several
+# 256-coordinate blocks (1000), and every P in 1..32 at K = 13 and 32
 @pytest.mark.cuda
 @pytest.mark.parametrize("K,d,topology", [(13, 386, "complete"),
                                           (13, 386, "ring(k=4)"),
@@ -232,16 +228,6 @@ def test_cuda_cw_kernels_match_plain(cuda, K, d, topology, grid):
                  tol=P * eps * scale_m)
             same(neighbor_reduce, neighbor_reduce_plain, recv, mode, nt,
                  tol=P * eps * scale_r)
-            # both layouts of the work give the same bits
-            want_g = gossip_reduce(msgs, nbr, mode, nt)
-            want_n = neighbor_reduce(recv, mode, nt)
-            for layout in (cw_reduce.THREAD, cw_reduce.SPREAD):
-                torch.testing.assert_close(
-                    _gossip_reduce_cuda(msgs, nbr, mode, nt, layout),
-                    want_g, rtol=0, atol=0, equal_nan=True)
-                torch.testing.assert_close(
-                    _neighbor_reduce_cuda(recv, mode, nt, layout),
-                    want_n, rtol=0, atol=0, equal_nan=True)
     torch.cuda.synchronize()
     after = dispatch.launch_counts()
     n = len(tables)
@@ -249,7 +235,7 @@ def test_cuda_cw_kernels_match_plain(cuda, K, d, topology, grid):
                     for p in range(1, 33)) * 2 if n > 1 else 0)
     assert {k: after[k] - before[k] for k in CW + ("gram",)} == {
         "gram": 1, "krum_score": 2, "trimmed_mean": n_tm,
-        "gossip_reduce": 9 * n, "neighbor_reduce": 9 * n}
+        "gossip_reduce": 6 * n, "neighbor_reduce": 6 * n}
 
 
 @pytest.mark.cuda

@@ -3,7 +3,7 @@
 on the GPU: ``gossip_reduce``, ``neighbor_reduce`` and ``trimmed_mean``.
 
     python3 tools/bench_cw.py [--src DIR] [--label NAME] [--sweep-p]
-                              [--layouts] [--sass] [--out FILE]
+                              [--sass] [--out FILE]
 
 Imports ``repro_torch`` from ``DIR`` (default: this checkout's ``src``), so
 that two trees, e.g. a parent commit unpacked by ``git archive`` and the
@@ -21,12 +21,11 @@ launches in ``main_runs()`` × (device ms − bound ms).
 
 ``--sweep-p`` times instead ``gossip_reduce`` (median) over 13 receivers
 of 2^22 coordinates for P = 1, 2, 5, 7, 8, 9, 13, 16, 17, 24, 32 (random
-neighbour tables). ``--layouts`` (a tree with the two layouts) times the
-thread and spread layouts of both gossip reduces in turns at the
-headlines, the large inputs and widths between. ``--sass`` counts the
-instructions of every cw kernel in the built library (``cuobjdump
--sass``). Prints the card, one line per input and one JSON object last
-(also written to ``--out``). Needs a CUDA device.
+neighbour tables). ``--sass`` counts the instructions of every cw kernel
+in the built library (``cuobjdump -sass``), and gives their registers and
+spills from the build's ``ptxas -v`` report (a fresh build). Prints the
+card, one line per input and one JSON object last (also written to
+``--out``). Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -40,9 +39,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 SWEEP_P = (1, 2, 5, 7, 8, 9, 13, 16, 17, 24, 32)
-#: gossip widths between the main path's and the large inputs, for the
-#: layout threshold (13 receivers)
-LAYOUT_D = (386, 1024, 2048, 2520, 4868, 8192, 16384)
 
 
 def launches_per_run():
@@ -101,11 +97,13 @@ def device_ms(fn, reps):
 
 
 def sass_counts(lib: Path) -> list:
-    """Instructions of every cw kernel in ``lib`` (``cuobjdump -sass``):
-    the total and the compares, integer adds and shared-memory loads."""
-    out = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass",
-                          str(lib)], capture_output=True, text=True,
-                         check=True).stdout
+    """Instructions of every cw kernel in ``lib`` (``cuobjdump -sass``,
+    beside the ``nvcc`` that built it): the total and the compares, adds
+    and loads."""
+    from repro_torch.kernels import _build
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                         capture_output=True, text=True, check=True).stdout
     rows, name, ops = [], None, Counter()
     for line in out.splitlines() + ["Function : <end>"]:
         m = re.search(r"Function : (\S+)", line)
@@ -125,12 +123,31 @@ def sass_counts(lib: Path) -> list:
     return rows
 
 
+def ptxas_counts(report: str) -> list:
+    """Registers and spill bytes of every cw kernel in a build's ``ptxas
+    -v`` report."""
+    rows, name = [], None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)'?", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name and re.search(r"gossip|neighbor|trimmed", name):
+            rows.append(dict(function=name, spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2))))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and rows and rows[-1]["function"] == name:
+            rows[-1]["registers"] = int(m.group(1))
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="tree")
     ap.add_argument("--sweep-p", action="store_true")
-    ap.add_argument("--layouts", action="store_true")
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--out")
     args = ap.parse_args(argv)
@@ -157,6 +174,9 @@ def main(argv=None) -> int:
     result = {"card": card, "label": args.label, "rows": []}
     rows = result["rows"]
     if args.sass:
+        for r in ptxas_counts(_build.BUILD_INFO["ptxas"]):
+            rows.append(dict(kind="ptxas", **r))
+            print(f"[ptxas] {args.label} {r}", flush=True)
         for r in sass_counts(_build.library_path()):
             rows.append(dict(kind="sass", **r))
             print(f"[sass] {args.label} {r}", flush=True)
@@ -174,43 +194,7 @@ def main(argv=None) -> int:
                   f"median: device {ms:.6f} ms, bound {b[0]:.6f} ms "
                   f"({b[1]}), {b[0] / ms:.1%} of the bound", flush=True)
         del msgs
-    if args.layouts:
-        from repro_torch.kernels.gossip_reduce import cw_reduce
-        from repro_torch.kernels.gossip_reduce.gossip_reduce import (
-            _gossip_reduce_cuda, _neighbor_reduce_cuda)
-        from repro_torch.topology import resolve_topology
-        nbr = torch.as_tensor(resolve_topology("complete", 13).nbr_idx,
-                              dtype=torch.int64, device=dev)
-        cases = []
-        for d in LAYOUT_D + (cs.LARGE_CW["gossip_d"],):
-            msgs = torch.randn((13, d), generator=gen, device=dev)
-            cases.append((f"gossip_reduce (13, {d}) P=13 trimmed",
-                          lambda L, m=msgs: _gossip_reduce_cuda(
-                              m, nbr, "trimmed", 3, L), d > 1 << 20))
-        for d in (386, 4868, cs.LARGE_CW["neighbor_d"]):
-            recv = torch.randn((13, 13, d), generator=gen, device=dev)
-            cases.append((f"neighbor_reduce (13, 13, {d}) median",
-                          lambda L, r=recv: _neighbor_reduce_cuda(
-                              r, "median", 0, L), d > 1 << 19))
-        for label, fn, large in cases:
-            reps = 3 if large else 200
-            timers = {L: cs.GraphTimer(lambda L=L: fn(L), reps)
-                      for L in (cw_reduce.THREAD, cw_reduce.SPREAD)}
-            got = {L: [] for L in timers}
-            # the small inputs differ by little: twice the rounds
-            for _ in range(cs.ROUNDS if large else 2 * cs.ROUNDS):
-                for L in (cw_reduce.THREAD, cw_reduce.SPREAD,
-                          cw_reduce.SPREAD, cw_reduce.THREAD):
-                    got[L].append(timers[L].ms())
-            thread, spread = (cs._median(got[cw_reduce.THREAD]),
-                              cs._median(got[cw_reduce.SPREAD]))
-            rows.append(dict(kind="layout", input=label, thread_ms=thread,
-                             spread_ms=spread))
-            print(f"[layout] {args.label} {label}: device thread "
-                  f"{thread:.6f} ms, spread {spread:.6f} ms", flush=True)
-            del timers
-        torch.cuda.empty_cache()
-    if not (args.sweep_p or args.layouts or args.sass):
+    if not (args.sweep_p or args.sass):
         launches = launches_per_run()
         loss = 0.0
         for name, label, fn, lib, (b, by), head in inputs(dev, gen):
