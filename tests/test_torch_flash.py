@@ -185,16 +185,17 @@ def test_model_layout_wrapper_matches_reference():
 
 
 @pytest.mark.parametrize("hd", [8, 48, 50, 96])
-@pytest.mark.parametrize("S", [128, 77])
+@pytest.mark.parametrize("S", [128, 130])
 def test_plain_on_zero_padded_head_dims_gives_the_same_result(hd, S):
     """What the CUDA route does at a head dim it was not compiled for: q,
     k and v zero-padded to the next compiled head dim, the true
     ``hd**-0.5`` passed in, the output sliced back. Zero columns add
     nothing to q·k and give only output columns that are sliced away, so
     on whole 64 x 64 tiles the plain version gives the same bits. On a
-    ragged last tile (S = 77: a 13-row tile against 13 keys) MKL's
-    small-matrix products sum a short head dim in another order than a
-    padded one: there it agrees to f32 rounding, 1e-6·max|v|."""
+    ragged last tile (S = 130: two positions, a 4-row tile against 2
+    keys at G = 2) MKL's small-matrix products sum a short head dim in
+    another order than a padded one (at hd 48 and 50): there it agrees to
+    f32 rounding, 1e-6·max|v|."""
     from repro_torch.kernels.flash_attention.flash_attention import (
         kernel_head_dim)
     H, Hkv, B = 4, 2, 1
