@@ -13,8 +13,11 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    and ``flash_attention`` against their plain PyTorch versions on the
    card, at the main path's shapes and large inputs (``gram``, ``wsum``:
    three large stacks, ``LARGE_SHAPES``); every kernel is rerun for
-   bit-identity, ``gram`` must be exactly symmetric, one integer-grid
-   input per cw kernel must match its plain version bit for bit, and
+   bit-identity, ``gram`` must be exactly symmetric, ``weiszfeld`` must
+   match its plain version bit for bit, one integer-grid input per cw
+   kernel must match its plain version bit for bit, ``weiszfeld`` and
+   ``krum_score`` must at every stack height on the edges of their
+   instances (``K_EDGES``, with NaN and infinite entries in G), and
    flash attention must also take strided (B, S, H, hd) tensors, sliced
    out of one fused projection, with the folded launch's bits. Two
    times per kernel and per library yardstick (``torch.bmm``, ``torch.sort``
@@ -81,17 +84,23 @@ LARGE_CW = {"krum_bt": 1 << 20, "trimmed_d": 1 << 24, "gossip_d": 1 << 22,
             "neighbor_d": 1 << 20}
 SOURCE = "src/repro_torch/kernels/csrc/aggregation.cu"
 SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/attention.cu",
-           **dict.fromkeys(("trimmed_mean", "gossip_reduce",
+           **dict.fromkeys(("krum_score", "trimmed_mean", "gossip_reduce",
                             "neighbor_reduce"),
                            "src/repro_torch/kernels/csrc/cw_reduce.cu")}
 # the slot counts at the edges of the cw rank network's instances (exact 5;
 # padded heights 8, 16 and 32), held bit for bit on an integer grid
 CW_EDGES = (5, 8, 9, 16, 17, 32)
+# the stack heights at the edges of the weiszfeld instances (exact 7 and
+# 13; padded 8, 16, 32) and of krum_score's rank network (exact 5 and 13;
+# padded 8, 16, 32), held bit for bit
+K_EDGES = (1, 4, 5, 7, 8, 9, 13, 16, 17, 24, 32)
+# the TPU kernel each replaces: the line of the function that holds the
+# kernel's body (its pallas_call is a few lines below it, PERF.md §6)
 REPLACES = {
     "gram": "src/repro/kernels/pairwise_dist/pairwise_dist.py:30",
-    "weiszfeld": "src/repro/kernels/rfa/rfa.py:76",
-    "wsum": "src/repro/kernels/rfa/rfa.py:86",
-    "krum_score": "src/repro/kernels/krum_score/krum_score.py:44",
+    "weiszfeld": "src/repro/kernels/rfa/rfa.py:33",
+    "wsum": "src/repro/kernels/rfa/rfa.py:55",
+    "krum_score": "src/repro/kernels/krum_score/krum_score.py:24",
     "trimmed_mean": "src/repro/kernels/trimmed_mean/trimmed_mean.py:29",
     "gossip_reduce": "src/repro/kernels/gossip_reduce/gossip_reduce.py:50",
     "neighbor_reduce":
@@ -290,12 +299,16 @@ def phase_kernels(dev):
             plain_ms=time_ms(lambda: gram_plain(x), max(reps // 10, 2), 1),
             bound_ms=b[0], bound_by=b[1])
 
-        # weiszfeld on the kernel's Gram matrices: weights lie in [0, 1]
+        # weiszfeld on the kernel's Gram matrices: the plain version is the
+        # kernel's order of IEEE operations, so the bits must be equal
         w = weiszfeld_weights(g, NU, N_ITER)
         w_plain = weiszfeld_plain(g, NU, N_ITER)
         err = (w - w_plain).abs().max().item()
-        tol = 1e-5
-        if not err <= tol:
+        tol = 0.0
+        if not torch.equal(w, weiszfeld_weights(g, NU, N_ITER)):
+            raise AssertionError(f"weiszfeld {shape}: rerun is not "
+                                 f"bit-identical")
+        if not torch.equal(w, w_plain):
             raise AssertionError(f"weiszfeld {shape}: max abs err {err} > "
                                  f"{tol}")
         b = bound(4 * (bt * k * k + bt * k), N_ITER * bt * (2 * k * k + 8 * k))
@@ -487,6 +500,7 @@ def phase_cw_kernels(dev):
         del recv
         torch.cuda.empty_cache()
     phase_cw_edges(dev, draw)
+    phase_k_edges(dev)
     for (name, label), r in rows.items():
         if r["large"]:
             log(f"[large] {name} {label}: device {r['device_ms']:.6f} ms, "
@@ -544,6 +558,52 @@ def phase_cw_edges(dev, draw):
             f"gossip_reduce, neighbor_reduce (mean, median, trimmed) and "
             f"trimmed_mean bit-equal to their plain versions on an integer "
             f"grid with NaN and infinite slots, reruns bit-identical")
+
+
+def phase_k_edges(dev):
+    """``weiszfeld`` and ``krum_score`` at the stack heights on the edges of
+    their instances (``K_EDGES``), on the Gram matrices of 13 stacks of
+    (K, 386): normal rows, a duplicated row, an outlier row, and NaN and
+    infinite entries in G. Bit for bit against the plain versions (NaN in
+    the same places), weiszfeld at 0, 1 and 32 steps and krum_score at
+    three n_near; reruns bit-identical."""
+    import torch
+    from repro_torch.kernels.gossip_reduce import cw_reduce
+    from repro_torch.kernels.krum_score import krum_score, krum_score_plain
+    from repro_torch.kernels.pairwise_dist import gram
+    from repro_torch.kernels.rfa import (weiszfeld_instance, weiszfeld_plain,
+                                         weiszfeld_weights)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+
+    def same(name, fn, plain, *args):
+        out = fn(*args)
+        for other in (fn(*args), plain(*args)):
+            torch.testing.assert_close(out, other, rtol=0, atol=0,
+                                       equal_nan=True, msg=lambda m: (
+                                           f"{name} K={k} {args[1:]}: {m}"))
+
+    for k in K_EDGES:
+        x = torch.randn((13, k, 386), generator=gen, device=dev) + 1.0
+        x[1, k - 1] = x[1, 0]                           # a duplicated row
+        x[2, k // 2] += 100.0                           # an outlier row
+        g = gram(x)
+        specials = g.clone()
+        specials[3, 0, k - 1] = float("nan")
+        specials[4, k - 1, k // 2] = float("inf")
+        specials[5, k // 2, k // 2] = float("inf")
+        specials[6, 0, k - 1] = specials[6, k - 1, 0] = float("-inf")
+        for gg in (g, specials):
+            for n_iter in (0, 1, N_ITER):
+                same("weiszfeld", weiszfeld_weights, weiszfeld_plain, gg, NU,
+                     n_iter)
+            for n_near in sorted({1, max(k // 2, 1), max(k - 1, 1)}):
+                same("krum_score", krum_score, krum_score_plain, gg, n_near)
+        log(f"[edges] K={k} (weiszfeld height {weiszfeld_instance(k)}, "
+            f"krum_score rank network height {cw_reduce.cw_instance(k)}): "
+            f"both bit-equal to their plain versions on normal, duplicated "
+            f"and outlier rows and on G with NaN and infinite entries, "
+            f"reruns bit-identical")
 
 
 def _flash_pairs(S: int, window) -> int:

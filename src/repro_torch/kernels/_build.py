@@ -31,22 +31,23 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 #: largest stack (K) or neighbour count (P) the kernels take: their
-#: register and shared-memory arrays are sized for it (``KMAX`` in
-#: ``csrc/aggregation.cu``, the largest height in ``csrc/cw_reduce.cu``)
+#: register and shared-memory arrays are sized for it (the largest height
+#: of ``gram`` and ``weiszfeld`` in ``csrc/aggregation.cu`` and of the rank
+#: network in ``csrc/cw_reduce.cu``)
 KMAX = 32
 
 _VP, _INT, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_float)
 _SIGNATURES = {
     "repro_gram_f32": (_VP, _VP, _VP, _INT, _INT, _I64, _INT, _INT, _VP),
-    "repro_weiszfeld_f32": (_VP, _VP, _INT, _INT, _F32, _INT, _VP),
+    "repro_weiszfeld_f32": (_VP, _VP, _INT, _INT, _F32, _INT, _INT, _VP),
     "repro_wsum_f32": (_VP, _VP, _VP, _INT, _INT, _I64, _VP),
     "repro_trimmed_mean_f32": (_VP, _VP, _INT, _INT, _I64, _INT, _INT, _VP),
     "repro_gossip_reduce_f32": (_VP, _VP, _VP, _INT, _INT, _I64, *(_INT,) * 3,
                                 _VP),
     "repro_neighbor_reduce_f32": (_VP, _VP, _INT, _INT, _I64, *(_INT,) * 3,
                                   _VP),
-    "repro_krum_score_f32": (_VP, _VP, _I64, _INT, _INT, _VP),
+    "repro_krum_score_f32": (_VP, _VP, _I64, _INT, _INT, _INT, _VP),
     "repro_flash_attention_f32": (_VP, _VP, _VP, _VP, *(_I64,) * 9,
                                   *(_INT,) * 7, _F32, _VP),
     "repro_flash_attention_shared_bytes": (_INT,),

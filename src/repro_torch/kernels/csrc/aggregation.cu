@@ -1,6 +1,6 @@
 // Robust-aggregation kernels for Hopper (sm_90a): Gram matrix, Gram-space
-// smoothed-Weiszfeld weights, the weighted sum z = w^T X and Krum scores
-// (the coordinate-wise reduces are in cw_reduce.cu).
+// smoothed-Weiszfeld weights and the weighted sum z = w^T X (Krum scores
+// and the coordinate-wise reduces are in cw_reduce.cu).
 //
 // Plain C interface, built with nvcc into a shared library and loaded with
 // ctypes (repro_torch/kernels/_build.py). Every entry point takes its
@@ -20,13 +20,13 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 #include <utility>
 
 #include "async_copy.cuh"
+#include "fixed_sums.cuh"
 
 namespace {
-
-constexpr int KMAX = 32;          // largest stack the kernels take
 
 // ---------------------------------------------------------------------------
 // gram: x (bt, k, d) -> g (bt, k, k), g[b, i, j] = sum_c x[b, i, c] x[b, j, c]
@@ -78,7 +78,8 @@ constexpr int KMAX = 32;          // largest stack the kernels take
 // ---------------------------------------------------------------------------
 constexpr int GRAM_MAX_STAGES = 6;       // shared-memory ring of the bulk route
 constexpr int GRAM_REDUCE_WARPS = 8;     // pairs per block of the second pass
-// the stack heights gram_chunk_kernel is compiled for (the last is KMAX)
+// the stack heights gram_chunk_kernel is compiled for (the last, 32, is
+// the largest stack the kernels take)
 // (7 and 13, the main path's stacks, ran up to 35% slower on an H100 on the
 // next larger height)
 using GramBuckets = std::integer_sequence<int, 4, 7, 8, 13, 16, 24, 32>;
@@ -354,7 +355,7 @@ template <int... KBs>
 int gram_for_k(const float* x, float* g, float* ws, int bt, int k,
                long long d, int chunk_len, int n_chunks, cudaStream_t stream,
                std::integer_sequence<int, KBs...>) {
-    int status = (int)cudaErrorInvalidValue;      // k outside [1, KMAX]
+    int status = (int)cudaErrorInvalidValue;      // k outside [1, 32]
     bool done = k < 1;
     ((!done && k <= KBs
       ? (done = true,
@@ -372,55 +373,163 @@ int gram_for_k(const float* x, float* g, float* ws, int bt, int k,
 //
 // Replaces src/repro/kernels/rfa/rfa.py::rfa_pallas, first pallas_call
 // (_weiszfeld_kernel): n_iter smoothed-Weiszfeld steps in weight space,
-//   d2 = max(diag - 2 G w + w^T G w, 0),  iw = 1 / sqrt(d2 + nu),
-//   w  = iw / sum(iw),                      from w0 = 1/k.
+//   gw = G w,  d2 = max(diag - 2 gw + w^T gw, 0),  iw = 1 / sqrt(d2 + nu),
+//   w  = iw / sum(iw),                              from w0 = 1/k.
 //
-// Design: one warp per batch element, lane j owns row j, G sits in shared
-// memory. The two sums per step (w^T G w and sum(iw)) are xor butterflies,
-// which leave the same bits in every lane. There are no pad rows, so no
-// valid mask beyond lane < k.
+// Bound on the H100: k <= 32 and n_iter of about 32 make this a chain of
+// n_iter dependent steps of one warp, each a few hundred cycles of latency
+// (shuffles, IEEE sqrt and divisions) on a few hundred FLOP: latency, not
+// bytes or operations, bounds it, whatever the batch.
 //
-// Bound on the H100: k <= 32 and n_iter of about 32 make this a few
-// thousand dependent shared-memory operations per warp: latency, not bytes
-// or FLOPs. Folding it into the Gram or weighted-sum launch is later work.
+// Design: one warp per batch element; lane j holds row j of G in H
+// registers, loaded once (pad entries and pad rows are 0), so a step reads
+// no memory. The kernel is compiled for a few heights H (exact: k = H at
+// compile time; padded: k <= H read at run time), and the caller's plan
+// (rfa.py::weiszfeld_instance) picks the smallest that holds k. In a step
+// the H weights reach every lane through H independent __shfl_syncs,
+// issued together (no shared memory, no __syncwarp); each of the three
+// sums (gw_j over l, w^T gw over j, sum(iw) over j) is a halving tree over
+// P = H rounded up to a power of two, slot i += slot i + h for h = P/2 ..
+// 1 (fixed_sums.cuh), with -0.0 in the pad slots (x + -0 is x for every x,
+// so the bits do not depend on H). The two sums over lanes are xor
+// butterflies, which leave the tree's bits in every lane. Every operation
+// is an IEEE intrinsic (__fmul_rn, __fadd_rn, __fsqrt_rn, __fdiv_rn: no
+// contraction into FMA, no fast math), so rfa.py::weiszfeld_plain, which
+// does the same operations in the same order, gives the same bits. The
+// clamp keeps NaN, as the reference's jnp.maximum does.
 // ---------------------------------------------------------------------------
+enum : int { WZ_SHFL = 0, WZ_SMEM = 1, WZ_BCAST = 2 };
+
+template <int H, bool EXACT, int ROUTE>
 __global__ void __launch_bounds__(32)
 weiszfeld_kernel(const float* __restrict__ g, float* __restrict__ w_out,
-                 int k, float nu, int n_iter) {
-    __shared__ float gs[KMAX][KMAX + 1];
-    __shared__ float ws[KMAX];
+                 int k_rows, float nu, int n_iter) {
+    constexpr int P = pow2_at_least(H);
+    const int k = EXACT ? H : k_rows;
     const long long b = blockIdx.x;
     const int j = threadIdx.x;
-    const float* gb = g + b * k * k;
-
-    for (int idx = j; idx < k * k; idx += 32) gs[idx / k][idx % k] = gb[idx];
     const bool valid = j < k;
-    float w = valid ? 1.0f / (float)k : 0.0f;
-    ws[j] = w;
-    __syncwarp();
-    const float diag = valid ? gs[j][j] : 0.0f;
+    const float* gb = g + b * k * k;
+    float row[H];
+#pragma unroll
+    for (int l = 0; l < H; ++l)
+        row[l] = valid && (EXACT || l < k) ? __ldg(gb + j * k + l) : 0.0f;
+    const float diag = valid ? __ldg(gb + j * k + j) : 0.0f;
+    float w = valid ? __fdiv_rn(1.0f, (float)k) : 0.0f;
+    __shared__ __align__(16) float ws[2][P < 4 ? 4 : P];   // WZ_SMEM only
 
     for (int it = 0; it < n_iter; ++it) {
-        float gw = 0.0f;
-        if (valid) {
-            for (int l = 0; l < k; ++l) gw = fmaf(gs[j][l], ws[l], gw);
+        float wl[H];
+        if constexpr (ROUTE == WZ_SMEM) {
+            // one store, one __syncwarp, H/4 float4 broadcasts; the buffers
+            // alternate, so no lane overwrites one another still reads
+            float* buf = ws[it & 1];
+            if (j < P) buf[j] = w;
+            __syncwarp();
+#pragma unroll
+            for (int q = 0; q < (H + 3) / 4; ++q) {
+                const float4 v = reinterpret_cast<const float4*>(buf)[q];
+                const float t[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+                for (int u = 0; u < 4; ++u) {
+                    if (4 * q + u < H) wl[4 * q + u] = t[u];
+                }
+            }
+        } else {
+#pragma unroll
+            for (int l = 0; l < H; ++l)
+                wl[l] = __shfl_sync(0xffffffffu, w, l);
         }
-        float wgw = w * gw;
+        float p[P];
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-            wgw += __shfl_xor_sync(0xffffffffu, wgw, off);
-        const float d2 = fmaxf(diag - 2.0f * gw + wgw, 0.0f);
-        const float iw = valid ? 1.0f / sqrtf(d2 + nu) : 0.0f;
-        float tot = iw;
+        for (int l = 0; l < P; ++l)
+            p[l] = l < H && (EXACT || l < k) ? __fmul_rn(row[l], wl[l])
+                                             : -0.0f;
+        const float gw = tree_sum(p);
+        float wgw;
+        if constexpr (ROUTE == WZ_BCAST) {
+            // every lane gathers the H lanes' gw and sums w_l gw_l itself
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-            tot += __shfl_xor_sync(0xffffffffu, tot, off);
-        w = iw / tot;
-        __syncwarp();
-        ws[j] = w;
-        __syncwarp();
+            for (int l = 0; l < H; ++l) {
+                const float gl = __shfl_sync(0xffffffffu, gw, l);
+                p[l] = EXACT || l < k ? __fmul_rn(wl[l], gl) : -0.0f;
+            }
+#pragma unroll
+            for (int l = H; l < P; ++l) p[l] = -0.0f;
+            wgw = tree_sum(p);
+        } else {
+            wgw = lane_sum<P>(valid ? __fmul_rn(w, gw) : -0.0f);
+        }
+        const float d2 = clamp0(
+            __fadd_rn(__fsub_rn(diag, __fmul_rn(2.0f, gw)), wgw));
+        const float iw = valid
+            ? __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(d2, nu))) : -0.0f;
+        float tot;
+        if constexpr (ROUTE == WZ_BCAST) {
+#pragma unroll
+            for (int l = 0; l < H; ++l) {
+                const float il = __shfl_sync(0xffffffffu, iw, l);
+                p[l] = EXACT || l < k ? il : -0.0f;
+            }
+#pragma unroll
+            for (int l = H; l < P; ++l) p[l] = -0.0f;
+            tot = tree_sum(p);
+        } else {
+            tot = lane_sum<P>(iw);
+        }
+        w = valid ? __fdiv_rn(iw, tot) : 0.0f;
     }
     if (valid) w_out[b * k + j] = w;
+}
+
+// Calls f(height, exact) for the weiszfeld instance (height, k): exact
+// instances 7 and 13 need k == height, padded ones 8, 16 and 32 take
+// 1 <= k <= height.
+template <class F>
+int weiszfeld_instance(int height, int k, const F& f) {
+    using std::integral_constant;
+    using E = std::true_type;
+    using P = std::false_type;
+    if (k < 1 || k > height) return (int)cudaErrorInvalidValue;
+    switch (height) {
+        case 7:
+            if (k != 7) break;
+            return f(integral_constant<int, 7>{}, E{});
+        case 13:
+            if (k != 13) break;
+            return f(integral_constant<int, 13>{}, E{});
+        case 8: return f(integral_constant<int, 8>{}, P{});
+        case 16: return f(integral_constant<int, 16>{}, P{});
+        case 32: return f(integral_constant<int, 32>{}, P{});
+        default: break;
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+int launch_weiszfeld(const float* g, float* w, int bt, int k, float nu,
+                     int n_iter, int height, int route,
+                     cudaStream_t stream) {
+    if (bt < 1 || n_iter < 0) return (int)cudaErrorInvalidValue;
+    return weiszfeld_instance(height, k, [&](auto h, auto exact) {
+        constexpr int H = decltype(h)::value;
+        constexpr bool EXACT = decltype(exact)::value;
+        switch (route) {
+            case WZ_SHFL:
+                weiszfeld_kernel<H, EXACT, WZ_SHFL><<<bt, 32, 0, stream>>>(
+                    g, w, k, nu, n_iter);
+                break;
+            case WZ_SMEM:
+                weiszfeld_kernel<H, EXACT, WZ_SMEM><<<bt, 32, 0, stream>>>(
+                    g, w, k, nu, n_iter);
+                break;
+            case WZ_BCAST:
+                weiszfeld_kernel<H, EXACT, WZ_BCAST><<<bt, 32, 0, stream>>>(
+                    g, w, k, nu, n_iter);
+                break;
+            default: return (int)cudaErrorInvalidValue;
+        }
+        return (int)cudaGetLastError();
+    });
 }
 
 // ---------------------------------------------------------------------------
@@ -528,64 +637,6 @@ int launch_wsum(const float* x, const float* w, float* z, int bt, int k,
     return (int)cudaGetLastError();
 }
 
-// pad entries: ranked after every finite value
-constexpr float PAD_BIG = 3.4e38f;
-
-// ---------------------------------------------------------------------------
-// krum_score: g (bt, k, k) Gram matrices, n_near -> scores (bt, k),
-// score_i = the sum of the n_near smallest off-self squared distances of
-// row i.
-//
-// Replaces src/repro/kernels/krum_score/krum_score.py::krum_scores_pallas
-// (_score_kernel), which ranks each row of the K-padded D^2 with an O(K^2)
-// comparison network and sums ranks [1, n_near] (rank 0 is the self
-// distance, exactly 0 from the Gram identity).
-//
-// Design: one warp per (b, i). Lane j forms d2_ij = max(G_ii + G_jj -
-// 2 G_ij, 0) from G, as the reference does outside its kernel, so D^2 is
-// never written; lanes [k, kp) are pad columns (3.4e38, ranked last), with
-// kp = k rounded up to 8 as in the Pallas layout. Each lane ranks its entry
-// against the others through __shfl_sync (ties by column), and the kept
-// entries are summed with a fixed xor butterfly, which leaves the same bits
-// in every lane.
-//
-// Bound on the H100: k^2 comparisons per row and k^2 floats read per
-// matrix; at k = 13 it is a few hundred dependent shuffles per warp, so
-// latency, not bytes or operations, bounds it.
-// ---------------------------------------------------------------------------
-constexpr int KRUM_WARPS = 4;
-
-__global__ void __launch_bounds__(32 * KRUM_WARPS)
-krum_score_kernel(const float* __restrict__ g, float* __restrict__ scores,
-                  long long n_rows, int k, int n_near) {
-    const long long row = (long long)blockIdx.x * KRUM_WARPS
-        + (threadIdx.x >> 5);
-    if (row >= n_rows) return;               // the whole warp leaves
-    const int lane = threadIdx.x & 31;
-    const long long b = row / k;
-    const int i = (int)(row - b * k);
-    const float* gb = g + b * k * k;
-    const bool valid = lane < k;
-    const int kp = (k + 7) & ~7;
-    float d2 = 0.0f;
-    if (valid) {
-        d2 = fmaxf(gb[i * k + i] + gb[lane * k + lane]
-                   - 2.0f * gb[i * k + lane], 0.0f);
-    }
-    const float xv = valid ? d2 : PAD_BIG;
-    int r = 0;
-#pragma unroll
-    for (int a = 0; a < KMAX; ++a) {
-        const float xa = __shfl_sync(0xffffffffu, xv, a);
-        if (a < kp) r += (xa < xv) | ((xa == xv) & (a < lane));
-    }
-    float s = (valid && r >= 1 && r <= n_near) ? d2 : 0.0f;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) scores[row] = s;
-}
-
 }  // namespace
 
 extern "C" {
@@ -605,10 +656,20 @@ int repro_gram_f32(const float* x, float* g, float* ws, int bt, int k,
                       GramBuckets{});
 }
 
+// `height` is the instance (rfa.py::weiszfeld_instance(k)).
 int repro_weiszfeld_f32(const float* g, float* w, int bt, int k, float nu,
-                        int n_iter, cudaStream_t stream) {
-    weiszfeld_kernel<<<bt, 32, 0, stream>>>(g, w, k, nu, n_iter);
-    return (int)cudaGetLastError();
+                        int n_iter, int height, cudaStream_t stream) {
+    return launch_weiszfeld(g, w, bt, k, nu, n_iter, height, WZ_SHFL,
+                            stream);
+}
+
+// The same with the route chosen by the caller (0: shuffle broadcast and
+// butterflies, 1: shared-memory broadcast and butterflies, 2: shuffle
+// broadcasts and per-lane trees), for timing the routes against each other.
+int repro_weiszfeld_route_f32(const float* g, float* w, int bt, int k,
+                              float nu, int n_iter, int height, int route,
+                              cudaStream_t stream) {
+    return launch_weiszfeld(g, w, bt, k, nu, n_iter, height, route, stream);
 }
 
 int repro_wsum_f32(const float* x, const float* w, float* z, int bt, int k,
@@ -618,15 +679,6 @@ int repro_wsum_f32(const float* x, const float* w, float* z, int bt, int k,
         && reinterpret_cast<uintptr_t>(z) % 16 == 0;
     return vec ? launch_wsum<float4>(x, w, z, bt, k, d, stream)
                : launch_wsum<float>(x, w, z, bt, k, d, stream);
-}
-
-int repro_krum_score_f32(const float* g, float* scores, long long bt, int k,
-                         int n_near, cudaStream_t stream) {
-    const long long n_rows = bt * k;
-    const long long blocks = (n_rows + KRUM_WARPS - 1) / KRUM_WARPS;
-    krum_score_kernel<<<(unsigned)blocks, 32 * KRUM_WARPS, 0, stream>>>(
-        g, scores, n_rows, k, n_near);
-    return (int)cudaGetLastError();
 }
 
 const char* repro_error_string(int status) {

@@ -1,6 +1,7 @@
 // The coordinate-wise reduces for Hopper (sm_90a): the trimmed mean over a
 // stack's agents and the gossip reduces of the cw* agreement rounds, all
-// through one rank network specialised on the slot count.
+// through one rank network specialised on the slot count, and Krum's
+// scores, which rank each row of D^2 through the same network.
 //
 // Plain C interface, built with nvcc into the port's shared library and
 // loaded with ctypes (repro_torch/kernels/_build.py). Every entry point
@@ -14,7 +15,10 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <type_traits>
+
+#include "fixed_sums.cuh"
 
 namespace {
 
@@ -285,6 +289,125 @@ neighbor_reduce_kernel(const float* __restrict__ recv,
         [=](int j) { return rr[(long long)j * d]; }, p, 0, mode, n_trim);
 }
 
+// ---------------------------------------------------------------------------
+// krum_score: g (bt, k, k) Gram matrices, n_near -> scores (bt, k),
+// score_i = the sum of the n_near smallest off-self squared distances of
+// row i.
+//
+// Replaces src/repro/kernels/krum_score/krum_score.py::krum_scores_pallas
+// (_score_kernel), which ranks each row of the K-padded D^2 with an O(K^2)
+// comparison network and sums ranks [1, n_near] (rank 0 is the self
+// distance, exactly 0 from the Gram identity).
+//
+// Design: one thread per row (b, i), through the rank network of height
+// H = cw_instance(k) (exact 5 and 13, padded 8, 16, 32). The thread forms
+// d2_ij = max((G_ii + G_jj) - 2 G_ij, 0) in registers, as the reference
+// does outside its kernel, so D^2 is never written; the clamp keeps NaN.
+// It ranks the row with cw_ranks (each pair once, f32 counts), repairs NaN
+// with cw_fix_nan, and counts the kp - k pad columns (k rounded up to 8,
+// at 3.4e38, as in the Pallas layout) in closed form, as trimmed_mean
+// does. The entries at ranks [1, n_near] are summed by a halving tree over
+// P = H rounded up to a power of two (fixed_sums.cuh), +0 elsewhere: the
+// bits of krum_score.py::krum_score_plain's 32-wide butterfly, since no
+// kept value is -0 where the sum is 0 (a +0 adds exactly to anything
+// else). With STAGE a block of KRUM_THREADS threads or fewer owns a whole
+// number of matrices and first copies them into shared memory with
+// coalesced loads (16 bytes where aligned), so that each thread's strided
+// row and the diagonal are read from there; without it each thread reads
+// them from device memory through the read-only cache.
+//
+// Bound on the H100: bytes, 4 (bt k^2 + bt k); the k(k-1)/2 compares a row
+// (an FSET and two FADDs each) come close at k = 13.
+// ---------------------------------------------------------------------------
+constexpr int KRUM_THREADS = 128;
+
+template <int H, bool EXACT, class Row, class Diag>
+__device__ __forceinline__ float krum_row(const Row& row, const Diag& diag,
+                                          int i, int k, int n_near) {
+    constexpr int P = pow2_at_least(H);
+    if (EXACT) k = H;
+    const float gii = diag(i);
+    float v[H];
+    float t = 0.0f;                  // NaN when a distance is NaN or inf
+#pragma unroll
+    for (int j = 0; j < H; ++j) {
+        if (EXACT || j < k) {
+            v[j] = clamp0(__fsub_rn(__fadd_rn(gii, diag(j)),
+                                    __fmul_rn(2.0f, row(j))));
+            t = fmaf(v[j], 0.0f, t);
+        } else {
+            v[j] = __int_as_float(0x7f800000);
+        }
+    }
+    float r[H];
+    cw_ranks(v, r);
+    if (t != t) cw_fix_nan(v, r);
+    const int pads = ((k + 7) & ~7) - k;
+    if (pads) {
+#pragma unroll
+        for (int j = 0; j < H; ++j)
+            r[j] += v[j] > PAD_BIG ? (float)pads : 0.0f;
+    }
+    const float hi = (float)n_near;
+    float kept[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+        kept[j] = j < H && (EXACT || j < k) && r[j] >= 1.0f && r[j] <= hi
+            ? v[j] : 0.0f;
+    }
+    return tree_sum(kept);
+}
+
+// STAGE: block x owns matrices [x m, x m + m), m = per_block, one thread a
+// row (m k threads); `vec` says that g is 16-byte aligned (m k^2 is a
+// multiple of 4, so every block's base is too). Otherwise thread x
+// KRUM_THREADS + t owns row x KRUM_THREADS + t of all bt k rows.
+template <int H, bool EXACT, bool STAGE>
+__global__ void __launch_bounds__(KRUM_THREADS)
+krum_score_kernel(const float* __restrict__ g, float* __restrict__ scores,
+                  long long bt, int k_rows, int n_near, int per_block,
+                  int vec) {
+    const int k = EXACT ? H : k_rows;
+    const int kk = k * k;
+    long long row;
+    float s;
+    if constexpr (STAGE) {
+        extern __shared__ __align__(16) float gs[];
+        const long long b0 = (long long)blockIdx.x * per_block;
+        const int nm = (int)min((long long)per_block, bt - b0);
+        const int n = nm * kk;
+        const float* src = g + b0 * kk;
+        int tail = 0;
+        if (vec) {
+            tail = n / 4 * 4;
+            for (int q = threadIdx.x; q < n / 4; q += blockDim.x)
+                reinterpret_cast<float4*>(gs)[q] =
+                    __ldg(reinterpret_cast<const float4*>(src) + q);
+        }
+        for (int q = tail + threadIdx.x; q < n; q += blockDim.x)
+            gs[q] = __ldg(src + q);
+        __syncthreads();
+        const int t = threadIdx.x;
+        if (t >= nm * k) return;
+        const int m = t / k, i = t - m * k;
+        const float* gb = gs + m * kk;
+        row = b0 * k + t;
+        s = krum_row<H, EXACT>([=](int j) { return gb[i * k + j]; },
+                               [=](int j) { return gb[j * k + j]; }, i, k,
+                               n_near);
+    } else {
+        row = (long long)blockIdx.x * KRUM_THREADS + threadIdx.x;
+        if (row >= bt * k) return;
+        const long long b = row / k;
+        const int i = (int)(row - b * k);
+        const float* gb = g + b * kk;
+        s = krum_row<H, EXACT>([=](int j) { return __ldg(gb + i * k + j); },
+                               [=](int j) { return __ldg(gb + j * k + j); },
+                               i, k, n_near);
+    }
+    scores[row] = s;
+}
+
 // Calls f(height, exact) for the instance (height, n): exact instances
 // 5 and 13 need n == height, padded ones 8, 16 and 32 take 1 <= n <= height.
 template <class F>
@@ -310,6 +433,35 @@ int cw_instance(int height, int n, const F& f) {
 
 unsigned cw_blocks(long long d, int threads) {
     return (unsigned)((d + threads - 1) / threads);
+}
+
+int launch_krum_score(const float* g, float* scores, long long bt, int k,
+                      int n_near, int height, bool stage,
+                      cudaStream_t stream) {
+    if (bt < 1) return (int)cudaErrorInvalidValue;
+    return cw_instance(height, k, [&](auto h, auto exact) {
+        constexpr int H = decltype(h)::value;
+        constexpr bool EXACT = decltype(exact)::value;
+        if (stage) {
+            // whole matrices a block, a multiple of 4 of them (16-byte
+            // block bases), at most KRUM_THREADS rows
+            const int fit = KRUM_THREADS / (4 * k);
+            const int per_block = 4 * (fit > 1 ? fit : 1);
+            const int vec = reinterpret_cast<uintptr_t>(g) % 16 == 0;
+            const long long blocks = (bt + per_block - 1) / per_block;
+            krum_score_kernel<H, EXACT, true>
+                <<<(unsigned)blocks, per_block * k,
+                   (size_t)per_block * k * k * sizeof(float), stream>>>(
+                    g, scores, bt, k, n_near, per_block, vec);
+        } else {
+            const long long blocks = (bt * k + KRUM_THREADS - 1)
+                / KRUM_THREADS;
+            krum_score_kernel<H, EXACT, false>
+                <<<(unsigned)blocks, KRUM_THREADS, 0, stream>>>(
+                    g, scores, bt, k, n_near, 0, 0);
+        }
+        return (int)cudaGetLastError();
+    });
 }
 
 }  // namespace
@@ -356,6 +508,21 @@ int repro_neighbor_reduce_f32(const float* recv, float* out, int k, int p,
                 recv, out, p, d, mode, n_trim);
         return (int)cudaGetLastError();
     });
+}
+
+// `height` is cw_instance(k); the row is ranked padded to k rounded up to 8.
+int repro_krum_score_f32(const float* g, float* scores, long long bt, int k,
+                         int n_near, int height, cudaStream_t stream) {
+    return launch_krum_score(g, scores, bt, k, n_near, height, true, stream);
+}
+
+// The same with the load route chosen by the caller (stage: 1 through
+// shared memory, 0 straight from device memory), for timing the two.
+int repro_krum_score_route_f32(const float* g, float* scores, long long bt,
+                               int k, int n_near, int height, int stage,
+                               cudaStream_t stream) {
+    return launch_krum_score(g, scores, bt, k, n_near, height, stage != 0,
+                             stream);
 }
 
 }  // extern "C"

@@ -7,10 +7,12 @@ scoring forms ``d2_ij = max(G_ii + G_jj − 2 G_ij, 0)`` (exactly 0 on the
 diagonal), ranks each row with the column tie-break over the row padded
 to a multiple of 8 (pad columns last), and sums the entries at ranks
 ``[1, n_near]``: rank 0 is the self-distance. On a CUDA tensor it launches
-``krum_score_kernel`` from ``kernels/csrc/aggregation.cu`` (the
-counterpart of the JAX package's ``kernels/krum_score/krum_score.py::
-krum_scores_pallas``); on a CPU tensor it runs :func:`krum_score_plain`,
-the same network, which also sums in the kernel's butterfly order.
+``krum_score_kernel`` from ``kernels/csrc/cw_reduce.cu`` (the counterpart
+of the JAX package's ``kernels/krum_score/krum_score.py::
+krum_scores_pallas``), one thread a row through the cw reduces' rank
+network of height ``cw_instance(K)``; on a CPU tensor it runs
+:func:`krum_score_plain`, the same ranks, which also sums in the kernel's
+butterfly order.
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.dispatch import register_kernel, stream_of
-from repro_torch.kernels.gossip_reduce.cw_reduce import PAD_BIG
+from repro_torch.kernels.gossip_reduce.cw_reduce import PAD_BIG, \
+    cw_instance
 from repro_torch.kernels.pairwise_dist.pairwise_dist import gram
 
 
@@ -38,8 +41,9 @@ def krum_score_plain(g: torch.Tensor, n_near: int) -> torch.Tensor:
         rank = ((xv < e) | ((xv == e) & (col < b))).sum(-1)
         kept[..., b] = torch.where((rank >= 1) & (rank <= n_near),
                                    d2[..., b], 0.0)
-    # lane l adds lane l ^ off for off = 16, 8, 4, 2, 1: the halves pair up
-    # the same way, and a + b == b + a bit for bit
+    # halves of 32 slots: the kernel's tree over fewer slots (a power of two
+    # >= K) gives the same bits, since the halvings it skips add +0 to
+    # values that are never -0 where the score is 0
     while kept.shape[-1] > 1:
         half = kept.shape[-1] // 2
         kept = kept[..., :half] + kept[..., half:]
@@ -62,7 +66,7 @@ def _krum_score_cuda(g: torch.Tensor, n_near: int) -> torch.Tensor:
     bt, k, _ = g.shape
     out = torch.empty((bt, k), device=g.device, dtype=torch.float32)
     _KRUM_SCORE(g.data_ptr(), out.data_ptr(), bt, k, int(n_near),
-                stream_of(g))
+                cw_instance(k), stream_of(g))
     return out
 
 

@@ -18,15 +18,42 @@ Each launches ``csrc/aggregation.cu`` on a CUDA tensor and runs its plain
 PyTorch version on a CPU tensor. Distances come from the Gram identity, so
 tiny distances lose bits to cancellation; the smoothing floor ``nu``
 bounds the effect, which is why the port keeps TF32 off.
+
+:func:`weiszfeld_plain` is the kernel's specification of order: the same
+IEEE operations in the same order (every sum a halving tree, see
+:func:`tree_sum`), so on equal inputs the two give the same bits.
+:func:`weiszfeld_instance` is the kernel's plan: which compiled height a
+launch takes.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.dispatch import check_stack, register_kernel, \
     stream_of
 from repro_torch.kernels.pairwise_dist.pairwise_dist import gram
+
+
+#: the heights ``weiszfeld_kernel`` is compiled for: exact (k fixed at
+#: compile time: CartPole's 7 bucket means and LunarLander's K = 13) and
+#: padded (any k up to the height, read at run time)
+WEISZFELD_EXACT = (7, 13)
+WEISZFELD_PADDED = (8, 16, 32)
+
+
+def weiszfeld_instance(k: int) -> int:
+    """The height of the Weiszfeld kernel for a stack of ``k``: ``k``
+    itself where an exact instance exists, else the smallest padded height
+    >= k."""
+    if k in WEISZFELD_EXACT:
+        return k
+    for h in WEISZFELD_PADDED:
+        if 1 <= k <= h:
+            return h
+    raise ValueError(f"weiszfeld: no instance holds K={k} (1 <= K <= "
+                     f"{WEISZFELD_PADDED[-1]})")
 
 
 def _check_iter(nu: float, n_iter: int) -> None:
@@ -36,19 +63,50 @@ def _check_iter(nu: float, n_iter: int) -> None:
         raise ValueError(f"nu must be > 0, got {nu}")
 
 
+def tree_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in the kernel's order: the slots padded with
+    -0.0 to a power of two P, then halved, slot i += slot i + h for h =
+    P/2 .. 1 (``csrc/fixed_sums.cuh``). ``x + -0.0`` is ``x`` for every x,
+    so any power of two >= the length gives the same bits."""
+    n = v.shape[-1]
+    p = 1 << (n - 1).bit_length()
+    if p > n:
+        v = F.pad(v, (0, p - n), value=-0.0)
+    while v.shape[-1] > 1:
+        h = v.shape[-1] // 2
+        v = v[..., :h] + v[..., h:]
+    return v[..., 0]
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root of an f32 tensor, as CUDA's
+    ``__fsqrt_rn``: PyTorch's CPU ``sqrt`` of float32 misses by an ulp now
+    and then; the float64 root rounded once to f32 never does (the f32
+    root of a float is never that near a rounding midpoint)."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
 def weiszfeld_plain(g: torch.Tensor, nu: float = 1e-6,
                     n_iter: int = 32) -> torch.Tensor:
-    """(Bt, K, K) -> (Bt, K) smoothed-Weiszfeld weights, in PyTorch."""
+    """(Bt, K, K) -> (Bt, K) smoothed-Weiszfeld weights, in PyTorch, in
+    the kernel's order: per step ``gw_j = tree_sum_l(g_jl w_l)``, ``wgw =
+    tree_sum_j(w_j gw_j)``, ``d2 = max((diag - 2 gw) + wgw, 0)`` (NaN
+    kept), ``iw = 1 / sqrt(d2 + nu)`` (``sqrt_rn``) and ``w = iw /
+    tree_sum(iw)``. Every division is tensor by tensor (a Python number over a tensor goes
+    through a reciprocal on CUDA) and ``nu`` is rounded to the tensor's
+    type first, as the kernel takes it."""
     _check_iter(nu, n_iter)
     k = g.shape[-1]
+    like = dict(dtype=g.dtype, device=g.device)
+    one, nu_t = torch.tensor(1.0, **like), torch.tensor(nu, **like)
     diag = torch.diagonal(g, dim1=-2, dim2=-1)
-    w = torch.full(g.shape[:-1], 1.0 / k, dtype=g.dtype, device=g.device)
+    w = torch.full(g.shape[:-1], 1.0 / k, **like)
     for _ in range(n_iter):
-        gw = (g * w[..., None, :]).sum(-1)
-        wgw = (w * gw).sum(-1, keepdim=True)
+        gw = tree_sum(g * w[..., None, :])
+        wgw = tree_sum(w * gw)[..., None]
         d2 = torch.clamp_min(diag - 2.0 * gw + wgw, 0.0)
-        iw = 1.0 / torch.sqrt(d2 + nu)
-        w = iw / iw.sum(-1, keepdim=True)
+        iw = one / sqrt_rn(d2 + nu_t)
+        w = iw / tree_sum(iw)[..., None]
     return w
 
 
@@ -65,7 +123,7 @@ def _weiszfeld_cuda(g: torch.Tensor, nu: float = 1e-6,
                          f"shape {tuple(g.shape)}")
     w = torch.empty((bt, k), device=g.device, dtype=torch.float32)
     _WEISZFELD(g.data_ptr(), w.data_ptr(), bt, k, float(nu), int(n_iter),
-               stream_of(g))
+               weiszfeld_instance(k), stream_of(g))
     return w
 
 

@@ -53,8 +53,8 @@ def test_cuda_kernels_match_plain(cuda, shape):
     scale = g.abs().max().item()
     torch.testing.assert_close(g, gram_plain(x), rtol=0, atol=2e-5 * scale)
     w = weiszfeld_weights(g, 1e-6, 32)
-    torch.testing.assert_close(w, weiszfeld_plain(g, 1e-6, 32), rtol=0,
-                               atol=1e-5)
+    # the plain version is the kernel's order: the same bits
+    assert torch.equal(w, weiszfeld_plain(g, 1e-6, 32))
     z = weighted_sum(x, w)
     torch.testing.assert_close(z, weighted_sum_plain(x, w), rtol=0,
                                atol=1e-5 * x.abs().max().item())
@@ -284,6 +284,128 @@ def test_cuda_cw_wrappers_reject_what_the_kernels_do_not_take(cuda):
                                dtype=torch.float64), 2)
     with pytest.raises(ValueError, match="contiguous"):
         krum_score(torch.zeros((4, 4, 1), device=cuda).transpose(0, 2), 2)
+
+
+#: stack heights at the edges of the weiszfeld and krum_score instances
+#: (weiszfeld: exact 7 and 13, padded 8, 16, 32; krum_score: the cw rank
+#: network's exact 5 and 13, padded 8, 16, 32)
+SWEEP_K = (1, 4, 5, 7, 8, 9, 13, 16, 17, 24, 32)
+
+
+def _gram_cases(k, seed):
+    """(name, G) of two Gram matrices each: normal rows, two duplicated
+    rows (distance exactly 0), and an outlier row far from the rest."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((2, k, 96)).astype(np.float32) + 1.0
+    dup = x.copy()
+    dup[:, k - 1] = dup[:, 0]
+    out = x.copy()
+    out[:, k // 2] += 1e3
+    return [(name, gram_plain(torch.from_numpy(v)))
+            for name, v in (("normal", x), ("dups", dup), ("outlier", out))]
+
+
+def _specials(g):
+    """G with a NaN, +inf and -inf entries: some distances NaN or
+    infinite, some rows all NaN."""
+    g = g.clone()
+    k = g.shape[-1]
+    g[0, 0, k - 1] = float("nan")
+    g[0, k - 1, k // 2] = float("inf")
+    g[1, k // 2, k // 2] = float("inf")
+    g[1, 0, k - 1] = float("-inf")
+    g[1, k - 1, 0] = float("-inf")
+    return g
+
+
+def _same_bits(out, want, what):
+    """Equal values, NaN where ``want`` has NaN (any NaN's bits)."""
+    torch.testing.assert_close(out, want, rtol=0, atol=0, equal_nan=True,
+                               msg=lambda m: f"{what}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", SWEEP_K)
+def test_cuda_weiszfeld_bit_equal_at_every_k(cuda, k):
+    """The kernel at every instance edge equals its plain version bit for
+    bit, for 0, 1 and 32 steps, on duplicated rows, an outlier row and G
+    with NaN and infinite entries (NaN where the plain version gives
+    NaN); reruns are bit-identical; one launch a call."""
+    cases = _gram_cases(k, 100 + k)
+    cases.append(("specials", _specials(cases[0][1])))
+    before = dispatch.launch_counts()["weiszfeld"]
+    calls = 0
+    for name, g in cases:
+        g = g.to(cuda)
+        for n_iter in (0, 1, 32):
+            w = weiszfeld_weights(g, 1e-6, n_iter)
+            assert w.shape == (2, k) and w.dtype == torch.float32
+            _same_bits(w, weiszfeld_weights(g, 1e-6, n_iter),
+                       f"K={k} {name} n_iter={n_iter} rerun")
+            _same_bits(w, weiszfeld_plain(g, 1e-6, n_iter),
+                       f"K={k} {name} n_iter={n_iter}")
+            calls += 2
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["weiszfeld"] - before == calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", SWEEP_K)
+def test_cuda_krum_score_bit_equal_at_every_k(cuda, k):
+    """The kernel at every instance edge equals its plain version bit for
+    bit at several n_near, on duplicated rows (tied distances), an outlier
+    row and G with NaN and infinite entries: a NaN distance ranks 0 and
+    is never kept, as in the plain version and the reference (CUDA's
+    fmaxf would clamp it to a kept 0); reruns are bit-identical; one
+    launch a call."""
+    cases = _gram_cases(k, 200 + k)
+    cases.append(("specials", _specials(cases[0][1])))
+    before = dispatch.launch_counts()["krum_score"]
+    calls = 0
+    for name, g in cases:
+        g = g.to(cuda)
+        for n_near in sorted({1, max(k // 2, 1), max(k - 1, 1), k + 2}):
+            s = krum_score(g, n_near)
+            assert s.shape == (2, k) and s.dtype == torch.float32
+            _same_bits(s, krum_score(g, n_near),
+                       f"K={k} {name} n_near={n_near} rerun")
+            _same_bits(s, krum_score_plain(g, n_near),
+                       f"K={k} {name} n_near={n_near}")
+            calls += 2
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["krum_score"] - before == calls
+
+
+@pytest.mark.cuda
+def test_cuda_krum_score_drops_nan_distances(cuda):
+    """A NaN in G makes NaN distances, which rank 0 and are dropped: the
+    scores equal the plain version's, and no NaN reaches them."""
+    g = _gram_cases(13, 7)[0][1]
+    g[0, 2, 5] = g[0, 5, 2] = float("nan")
+    g[1, 3, 3] = float("nan")                 # row 3 of matrix 1: all NaN
+    g = g.to(cuda)
+    s = krum_score(g, 8)
+    assert torch.equal(s, krum_score_plain(g, 8))
+    assert torch.isfinite(s).all()
+    assert s[1, 3] == 0.0                     # nothing kept
+
+
+@pytest.mark.cuda
+def test_cuda_weiszfeld_and_krum_reject_what_they_do_not_take(cuda):
+    with pytest.raises(ValueError, match="K <= 32"):
+        weiszfeld_weights(torch.zeros((1, 33, 33), device=cuda), 1e-6, 4)
+    with pytest.raises(ValueError, match="square"):
+        weiszfeld_weights(torch.zeros((1, 4, 5), device=cuda), 1e-6, 4)
+    with pytest.raises(TypeError, match="float32"):
+        weiszfeld_weights(torch.zeros((1, 4, 4), device=cuda,
+                                      dtype=torch.float64), 1e-6, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        weiszfeld_weights(torch.zeros((4, 4, 1), device=cuda
+                                      ).transpose(0, 2), 1e-6, 4)
+    with pytest.raises(ValueError, match="n_iter"):
+        weiszfeld_weights(torch.zeros((1, 4, 4), device=cuda), 1e-6, -1)
+    with pytest.raises(ValueError, match="nu"):
+        weiszfeld_weights(torch.zeros((1, 4, 4), device=cuda), 0.0, 4)
 
 
 def _qkv(B, H, Hkv, Sq, Sk, hd, seed):

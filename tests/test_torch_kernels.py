@@ -12,14 +12,21 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.pairwise_dist.pairwise_dist import (  # noqa: E402
     gram as jax_gram, pairwise_sq_dists_pallas)
 from repro.kernels.rfa import ref as rfa_ref  # noqa: E402
+from repro.kernels.krum_score.krum_score import (  # noqa: E402
+    krum_scores_pallas)
 from repro.kernels.rfa.rfa import rfa_pallas  # noqa: E402
 
 from repro_torch.kernels import _build, dispatch  # noqa: E402
 from repro_torch.kernels.pairwise_dist import (  # noqa: E402
     GRAM_CHUNK, gram, gram_chunks, gram_plain, pairwise_sq_dists)
+from repro_torch.kernels.gossip_reduce.cw_reduce import (  # noqa: E402
+    cw_instance)
+from repro_torch.kernels.krum_score import krum_scores  # noqa: E402
 from repro_torch.kernels.rfa import (  # noqa: E402
-    rfa, weighted_sum, weighted_sum_plain, weiszfeld_plain,
-    weiszfeld_weights)
+    rfa, weighted_sum, weighted_sum_plain, weiszfeld_instance,
+    weiszfeld_plain, weiszfeld_weights)
+from repro_torch.kernels.rfa.rfa import (  # noqa: E402
+    WEISZFELD_EXACT, WEISZFELD_PADDED, tree_sum)
 
 torch.set_num_threads(2)
 
@@ -139,6 +146,131 @@ def test_weiszfeld_and_wsum_plain_semantics():
     torch.testing.assert_close(weighted_sum_plain(x, w), x.mean(1))
     with pytest.raises(ValueError, match="n_iter"):
         weiszfeld_plain(gram_plain(x), 1e-6, -1)
+
+
+#: stack heights at the edges of the CUDA weiszfeld and krum_score
+#: instances (exact 7 and 13 / 5 and 13; padded 8, 16, 32)
+EDGE_K = (1, 5, 7, 8, 9, 13, 16, 17, 32)
+
+
+def _tree_np(v):
+    """The kernel's halving tree over the last axis, in numpy float32: pad
+    with -0.0 to a power of two, then slot i += slot i + h."""
+    n = v.shape[-1]
+    p = 1 << (n - 1).bit_length()
+    pad = np.full(v.shape[:-1] + (p - n,), -0.0, np.float32)
+    v = np.concatenate([v, pad], -1)
+    while v.shape[-1] > 1:
+        h = v.shape[-1] // 2
+        v = v[..., :h] + v[..., h:]
+    return v[..., 0]
+
+
+def _weiszfeld_np(g, nu, n_iter):
+    """Smoothed Weiszfeld in numpy float32, one IEEE operation at a time in
+    the order the CUDA kernel takes them."""
+    f32 = np.float32
+    k = g.shape[-1]
+    diag = np.diagonal(g, axis1=-2, axis2=-1)
+    w = np.full(g.shape[:-1], f32(1) / f32(k), f32)
+    with np.errstate(invalid="ignore"):          # inf - inf is NaN, meant
+        for _ in range(n_iter):
+            gw = _tree_np(g * w[..., None, :])
+            wgw = _tree_np(w * gw)[..., None]
+            x = (diag - f32(2) * gw) + wgw
+            d2 = np.where(x < 0, f32(0), x)
+            iw = f32(1) / np.sqrt(d2 + f32(nu))
+            w = iw / _tree_np(iw)[..., None]
+    return w
+
+
+def _edge_stacks(k, seed, dup=True):
+    """(2, k, 48): normal rows, then an outlier row and (``dup``) a
+    duplicated row."""
+    x = _stack((2, k, 48), seed)
+    if dup:
+        x[1, k - 1] = x[1, 0]
+    x[1, k // 2] += 100.0
+    return x
+
+
+@pytest.mark.parametrize("k", EDGE_K)
+@pytest.mark.parametrize("n_iter", [0, 1, 32])
+def test_weiszfeld_plain_is_the_kernel_order_bit_for_bit(k, n_iter):
+    """weiszfeld_plain equals a numpy float32 loop of the same operations
+    in the same order bit for bit, also where G holds NaN and infinite
+    entries (NaN in the same places)."""
+    g = gram_plain(torch.from_numpy(_edge_stacks(k, 30 + k)))
+    g[0, 0, k - 1] = float("nan")
+    g[0, k - 1, k // 2] = float("inf")
+    g = torch.cat([gram_plain(torch.from_numpy(_stack((1, k, 48), k))), g])
+    got = weiszfeld_plain(g, 1e-6, n_iter).numpy()
+    want = _weiszfeld_np(g.numpy(), 1e-6, n_iter)
+    np.testing.assert_array_equal(got, want)
+    assert np.isfinite(got[0]).all()
+
+
+def test_tree_sum_bits_do_not_depend_on_the_padding():
+    """-0.0 pads add exactly to every value, -0.0 included: the sum over
+    any power of two >= n slots has the same bits."""
+    v = torch.from_numpy(_stack((4, 13), 40, 0.0))
+    v[1, 3] = -0.0
+    v[2] = -0.0
+    v[3, 5] = float("nan")
+    want = tree_sum(v)
+    for p in (16, 32, 64):
+        padded = torch.nn.functional.pad(v, (0, p - 13), value=-0.0)
+        assert torch.equal(tree_sum(padded)[:3], want[:3])
+        assert torch.isnan(tree_sum(padded)[3])
+    assert torch.signbit(want[2])                 # a sum of -0.0 is -0.0
+
+
+@pytest.mark.parametrize("k", EDGE_K)
+def test_rfa_and_krum_match_pallas_at_every_k(k):
+    """rfa and krum_scores of the port against the Pallas bodies in
+    interpret mode at every instance edge, with the tolerances of the
+    tests above: 1e-5·scale for RFA, SCORE_RTOL (1e-5 of the largest
+    score) for Krum. RFA's stacks hold no duplicated row: a duplicate's
+    distance is exactly 0 in one summation order and a cancellation
+    residue of about eps·max|G| (far above nu) in another, which moves
+    the smoothed weights by more than 1e-5 whichever order the port takes
+    (3e-5·scale at K = 5 before and after the kernel's order changed); the
+    bit tests on the card cover duplicates."""
+    x = _edge_stacks(k, 50 + k, dup=False)
+    z = rfa(torch.from_numpy(x), n_iter=32).numpy()
+    x_dup = _edge_stacks(k, 50 + k)
+    s = krum_scores(torch.from_numpy(x_dup), max(k - 3, 1)).numpy()
+    for b in range(2):
+        want = np.asarray(rfa_pallas(jnp.asarray(x[b]), n_iter=32,
+                                     interpret=True))
+        scale = max(float(np.abs(want).max()), 1.0)
+        np.testing.assert_allclose(z[b], want, atol=1e-5 * scale)
+        want = np.asarray(krum_scores_pallas(jnp.asarray(x_dup[b]),
+                                             max(k - 3, 1), interpret=True))
+        np.testing.assert_allclose(s[b], want, rtol=0,
+                                   atol=1e-5 * max(np.abs(want).max(), 1e-30))
+
+
+def test_weiszfeld_and_krum_height_plans():
+    """Every K in 1..32 runs on the smallest compiled height that holds
+    it: weiszfeld's exact 7 and 13 or a padded 8, 16, 32; krum_score's
+    the cw rank network's (exact 5 and 13, padded 8, 16, 32). Above 32
+    both raise."""
+    for k in range(1, 33):
+        h = weiszfeld_instance(k)
+        holds = [x for x in WEISZFELD_PADDED if x >= k] + [
+            x for x in WEISZFELD_EXACT if x == k]
+        assert h == min(holds), (k, h)
+    assert [weiszfeld_instance(k) for k in (1, 5, 7, 8, 9, 13, 14, 16, 17,
+                                            32)] == \
+        [8, 8, 7, 8, 16, 13, 16, 16, 32, 32]
+    assert [cw_instance(k) for k in (1, 5, 7, 8, 9, 13, 14, 16, 17, 32)] \
+        == [8, 5, 8, 8, 16, 13, 16, 16, 32, 32]
+    for bad in (0, 33):
+        with pytest.raises(ValueError, match="K <= 32"):
+            weiszfeld_instance(bad)
+    with pytest.raises(ValueError, match="P <= 32"):
+        cw_instance(33)
 
 
 def test_cpu_tensors_take_the_plain_route():

@@ -96,10 +96,15 @@ def device_ms(fn, reps):
     return cs._median([timer.ms() for _ in range(cs.ROUNDS)])
 
 
-def sass_counts(lib: Path) -> list:
-    """Instructions of every cw kernel in ``lib`` (``cuobjdump -sass``,
-    beside the ``nvcc`` that built it): the total and the compares, adds
-    and loads."""
+#: the kernels this tool reports on (a regular expression on their names)
+CW_KERNELS = r"gossip|neighbor|trimmed"
+
+
+def sass_counts(lib: Path, pattern: str = CW_KERNELS) -> list:
+    """Instructions of every kernel whose name matches ``pattern`` in
+    ``lib`` (``cuobjdump -sass``, beside the ``nvcc`` that built it): the
+    total and the compares, adds, shuffles, special functions and
+    loads."""
     from repro_torch.kernels import _build
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     out = subprocess.run([str(cuobjdump), "-sass", str(lib)],
@@ -108,7 +113,7 @@ def sass_counts(lib: Path) -> list:
     for line in out.splitlines() + ["Function : <end>"]:
         m = re.search(r"Function : (\S+)", line)
         if m:
-            if name and re.search(r"gossip|neighbor|trimmed", name):
+            if name and re.search(pattern, name):
                 rows.append(dict(function=name, **ops))
             name, ops = m.group(1), Counter()
             continue
@@ -118,14 +123,14 @@ def sass_counts(lib: Path) -> list:
             op = m.group(2).split(".")[0]
             ops["total"] += 1
             if op in ("FSET", "FSETP", "ISETP", "IADD3", "LDS", "SEL",
-                      "FADD", "LDG", "BRA"):
+                      "FADD", "FMUL", "FFMA", "SHFL", "MUFU", "LDG", "BRA"):
                 ops[op] += 1
     return rows
 
 
-def ptxas_counts(report: str) -> list:
-    """Registers and spill bytes of every cw kernel in a build's ``ptxas
-    -v`` report."""
+def ptxas_counts(report: str, pattern: str = CW_KERNELS) -> list:
+    """Registers and spill bytes of every kernel whose name matches
+    ``pattern`` in a build's ``ptxas -v`` report."""
     rows, name = [], None
     for line in report.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
@@ -134,7 +139,7 @@ def ptxas_counts(report: str) -> list:
             name = m.group(1)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
-        if m and name and re.search(r"gossip|neighbor|trimmed", name):
+        if m and name and re.search(pattern, name):
             rows.append(dict(function=name, spill_stores=int(m.group(1)),
                              spill_loads=int(m.group(2))))
         m = re.search(r"Used (\d+) registers", line)
