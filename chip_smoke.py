@@ -90,9 +90,9 @@ SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/attention.cu",
 # the slot counts at the edges of the cw rank network's instances (exact 5;
 # padded heights 8, 16 and 32), held bit for bit on an integer grid
 CW_EDGES = (5, 8, 9, 16, 17, 32)
-# the stack heights at the edges of the weiszfeld instances (exact 7 and
-# 13; padded 8, 16, 32) and of krum_score's rank network (exact 5 and 13;
-# padded 8, 16, 32), held bit for bit
+# the stack heights at the edges of the weiszfeld instances (8, 16, 32)
+# and of krum_score's rank network (exact 5 and 13; padded 8, 16, 32),
+# held bit for bit
 K_EDGES = (1, 4, 5, 7, 8, 9, 13, 16, 17, 24, 32)
 # the TPU kernel each replaces: the line of the function that holds the
 # kernel's body (its pallas_call is a few lines below it, PERF.md §6)

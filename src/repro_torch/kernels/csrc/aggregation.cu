@@ -382,148 +382,105 @@ int gram_for_k(const float* x, float* g, float* ws, int bt, int k,
 // bytes or operations, bounds it, whatever the batch.
 //
 // Design: one warp per batch element; lane j holds row j of G in H
-// registers, loaded once (pad entries and pad rows are 0), so a step reads
-// no memory. The kernel is compiled for a few heights H (exact: k = H at
-// compile time; padded: k <= H read at run time), and the caller's plan
-// (rfa.py::weiszfeld_instance) picks the smallest that holds k. In a step
+// registers, loaded once, so a step reads no memory. The kernel is
+// compiled for heights H = 8, 16 and 32 with k <= H read at run time, and
+// the caller's plan (rfa.py::weiszfeld_instance) picks the smallest that
+// holds k. In a step
 // the H weights reach every lane through H independent __shfl_syncs,
 // issued together (no shared memory, no __syncwarp); each of the three
 // sums (gw_j over l, w^T gw over j, sum(iw) over j) is a halving tree over
-// P = H rounded up to a power of two, slot i += slot i + h for h = P/2 ..
-// 1 (fixed_sums.cuh), with -0.0 in the pad slots (x + -0 is x for every x,
-// so the bits do not depend on H). The two sums over lanes are xor
+// the H slots, slot i += slot i + h for h = H/2 .. 1 (fixed_sums.cuh),
+// with -0.0 in the pad slots (x + -0 is x for every x, so the bits do not
+// depend on H). The two sums over lanes are xor
 // butterflies, which leave the tree's bits in every lane. Every operation
 // is an IEEE intrinsic (__fmul_rn, __fadd_rn, __fsqrt_rn, __fdiv_rn: no
 // contraction into FMA, no fast math), so rfa.py::weiszfeld_plain, which
 // does the same operations in the same order, gives the same bits. The
 // clamp keeps NaN, as the reference's jnp.maximum does.
 // ---------------------------------------------------------------------------
-enum : int { WZ_SHFL = 0, WZ_SMEM = 1, WZ_BCAST = 2 };
+enum : int { WZ_SHFL = 0, WZ_SMEM = 1 };
 
-template <int H, bool EXACT, int ROUTE>
+template <int H, int ROUTE>
 __global__ void __launch_bounds__(32)
 weiszfeld_kernel(const float* __restrict__ g, float* __restrict__ w_out,
-                 int k_rows, float nu, int n_iter) {
-    constexpr int P = pow2_at_least(H);
-    const int k = EXACT ? H : k_rows;
+                 int k, float nu, int n_iter) {
+    static_assert(H == pow2_at_least(H), "a height is a power of two");
     const long long b = blockIdx.x;
     const int j = threadIdx.x;
     const bool valid = j < k;
     const float* gb = g + b * k * k;
+    // pad entries (columns >= k of a row, and pad rows) hold -0.0: a pad
+    // lane's weight is +0, so every product with a pad is -0.0, which adds
+    // exactly, and no step needs a per-slot test of k
     float row[H];
 #pragma unroll
     for (int l = 0; l < H; ++l)
-        row[l] = valid && (EXACT || l < k) ? __ldg(gb + j * k + l) : 0.0f;
+        row[l] = valid && l < k ? __ldg(gb + j * k + l) : -0.0f;
     const float diag = valid ? __ldg(gb + j * k + j) : 0.0f;
     float w = valid ? __fdiv_rn(1.0f, (float)k) : 0.0f;
-    __shared__ __align__(16) float ws[2][P < 4 ? 4 : P];   // WZ_SMEM only
+    __shared__ __align__(16) float ws[2][H];       // WZ_SMEM only
 
     for (int it = 0; it < n_iter; ++it) {
-        float wl[H];
+        float p[H];
         if constexpr (ROUTE == WZ_SMEM) {
             // one store, one __syncwarp, H/4 float4 broadcasts; the buffers
             // alternate, so no lane overwrites one another still reads
             float* buf = ws[it & 1];
-            if (j < P) buf[j] = w;
+            if (j < H) buf[j] = w;
             __syncwarp();
 #pragma unroll
-            for (int q = 0; q < (H + 3) / 4; ++q) {
+            for (int q = 0; q < H / 4; ++q) {
                 const float4 v = reinterpret_cast<const float4*>(buf)[q];
-                const float t[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-                for (int u = 0; u < 4; ++u) {
-                    if (4 * q + u < H) wl[4 * q + u] = t[u];
-                }
+                p[4 * q] = __fmul_rn(row[4 * q], v.x);
+                p[4 * q + 1] = __fmul_rn(row[4 * q + 1], v.y);
+                p[4 * q + 2] = __fmul_rn(row[4 * q + 2], v.z);
+                p[4 * q + 3] = __fmul_rn(row[4 * q + 3], v.w);
             }
         } else {
 #pragma unroll
             for (int l = 0; l < H; ++l)
-                wl[l] = __shfl_sync(0xffffffffu, w, l);
+                p[l] = __fmul_rn(row[l], __shfl_sync(0xffffffffu, w, l));
         }
-        float p[P];
-#pragma unroll
-        for (int l = 0; l < P; ++l)
-            p[l] = l < H && (EXACT || l < k) ? __fmul_rn(row[l], wl[l])
-                                             : -0.0f;
-        const float gw = tree_sum(p);
-        float wgw;
-        if constexpr (ROUTE == WZ_BCAST) {
-            // every lane gathers the H lanes' gw and sums w_l gw_l itself
-#pragma unroll
-            for (int l = 0; l < H; ++l) {
-                const float gl = __shfl_sync(0xffffffffu, gw, l);
-                p[l] = EXACT || l < k ? __fmul_rn(wl[l], gl) : -0.0f;
-            }
-#pragma unroll
-            for (int l = H; l < P; ++l) p[l] = -0.0f;
-            wgw = tree_sum(p);
-        } else {
-            wgw = lane_sum<P>(valid ? __fmul_rn(w, gw) : -0.0f);
-        }
+        const float gw = tree_sum(p);     // a pad lane's gw is -0.0
+        const float wgw = lane_sum<H>(__fmul_rn(w, gw));
         const float d2 = clamp0(
             __fadd_rn(__fsub_rn(diag, __fmul_rn(2.0f, gw)), wgw));
         const float iw = valid
             ? __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(d2, nu))) : -0.0f;
-        float tot;
-        if constexpr (ROUTE == WZ_BCAST) {
-#pragma unroll
-            for (int l = 0; l < H; ++l) {
-                const float il = __shfl_sync(0xffffffffu, iw, l);
-                p[l] = EXACT || l < k ? il : -0.0f;
-            }
-#pragma unroll
-            for (int l = H; l < P; ++l) p[l] = -0.0f;
-            tot = tree_sum(p);
-        } else {
-            tot = lane_sum<P>(iw);
-        }
+        // every lane takes part in the butterfly (outside the select: a
+        // shuffle under `valid` would leave the pad lanes out of it)
+        const float tot = lane_sum<H>(iw);
         w = valid ? __fdiv_rn(iw, tot) : 0.0f;
     }
     if (valid) w_out[b * k + j] = w;
 }
 
-// Calls f(height, exact) for the weiszfeld instance (height, k): exact
-// instances 7 and 13 need k == height, padded ones 8, 16 and 32 take
-// 1 <= k <= height.
+// Calls f(height) for a weiszfeld height (8, 16 or 32) that holds k.
 template <class F>
 int weiszfeld_instance(int height, int k, const F& f) {
     using std::integral_constant;
-    using E = std::true_type;
-    using P = std::false_type;
     if (k < 1 || k > height) return (int)cudaErrorInvalidValue;
     switch (height) {
-        case 7:
-            if (k != 7) break;
-            return f(integral_constant<int, 7>{}, E{});
-        case 13:
-            if (k != 13) break;
-            return f(integral_constant<int, 13>{}, E{});
-        case 8: return f(integral_constant<int, 8>{}, P{});
-        case 16: return f(integral_constant<int, 16>{}, P{});
-        case 32: return f(integral_constant<int, 32>{}, P{});
-        default: break;
+        case 8: return f(integral_constant<int, 8>{});
+        case 16: return f(integral_constant<int, 16>{});
+        case 32: return f(integral_constant<int, 32>{});
+        default: return (int)cudaErrorInvalidValue;
     }
-    return (int)cudaErrorInvalidValue;
 }
 
 int launch_weiszfeld(const float* g, float* w, int bt, int k, float nu,
                      int n_iter, int height, int route,
                      cudaStream_t stream) {
     if (bt < 1 || n_iter < 0) return (int)cudaErrorInvalidValue;
-    return weiszfeld_instance(height, k, [&](auto h, auto exact) {
+    return weiszfeld_instance(height, k, [&](auto h) {
         constexpr int H = decltype(h)::value;
-        constexpr bool EXACT = decltype(exact)::value;
         switch (route) {
             case WZ_SHFL:
-                weiszfeld_kernel<H, EXACT, WZ_SHFL><<<bt, 32, 0, stream>>>(
+                weiszfeld_kernel<H, WZ_SHFL><<<bt, 32, 0, stream>>>(
                     g, w, k, nu, n_iter);
                 break;
             case WZ_SMEM:
-                weiszfeld_kernel<H, EXACT, WZ_SMEM><<<bt, 32, 0, stream>>>(
-                    g, w, k, nu, n_iter);
-                break;
-            case WZ_BCAST:
-                weiszfeld_kernel<H, EXACT, WZ_BCAST><<<bt, 32, 0, stream>>>(
+                weiszfeld_kernel<H, WZ_SMEM><<<bt, 32, 0, stream>>>(
                     g, w, k, nu, n_iter);
                 break;
             default: return (int)cudaErrorInvalidValue;
@@ -663,9 +620,8 @@ int repro_weiszfeld_f32(const float* g, float* w, int bt, int k, float nu,
                             stream);
 }
 
-// The same with the route chosen by the caller (0: shuffle broadcast and
-// butterflies, 1: shared-memory broadcast and butterflies, 2: shuffle
-// broadcasts and per-lane trees), for timing the routes against each other.
+// The same with the route chosen by the caller (0: the weights broadcast
+// by shuffles, 1: through shared memory), for timing the two.
 int repro_weiszfeld_route_f32(const float* g, float* w, int bt, int k,
                               float nu, int n_iter, int height, int route,
                               cudaStream_t stream) {

@@ -15,7 +15,6 @@
 
 #include <cuda_runtime.h>
 
-#include <cstdint>
 #include <type_traits>
 
 #include "fixed_sums.cuh"
@@ -310,11 +309,11 @@ neighbor_reduce_kernel(const float* __restrict__ recv,
 // P = H rounded up to a power of two (fixed_sums.cuh), +0 elsewhere: the
 // bits of krum_score.py::krum_score_plain's 32-wide butterfly, since no
 // kept value is -0 where the sum is 0 (a +0 adds exactly to anything
-// else). With STAGE a block of KRUM_THREADS threads or fewer owns a whole
-// number of matrices and first copies them into shared memory with
-// coalesced loads (16 bytes where aligned), so that each thread's strided
-// row and the diagonal are read from there; without it each thread reads
-// them from device memory through the read-only cache.
+// else). Each thread reads its row and the diagonal straight from device
+// memory through the read-only cache: a warp's rows are contiguous, so the
+// lines a load touches serve the next loads from L1. Staging whole
+// matrices in shared memory first (coalesced 16-byte loads, a block
+// barrier) ran 35% slower at 2^20 matrices of 13 on an H100 (PERF.md).
 //
 // Bound on the H100: bytes, 4 (bt k^2 + bt k); the k(k-1)/2 compares a row
 // (an FSET and two FADDs each) come close at k = 13.
@@ -358,54 +357,20 @@ __device__ __forceinline__ float krum_row(const Row& row, const Diag& diag,
     return tree_sum(kept);
 }
 
-// STAGE: block x owns matrices [x m, x m + m), m = per_block, one thread a
-// row (m k threads); `vec` says that g is 16-byte aligned (m k^2 is a
-// multiple of 4, so every block's base is too). Otherwise thread x
-// KRUM_THREADS + t owns row x KRUM_THREADS + t of all bt k rows.
-template <int H, bool EXACT, bool STAGE>
+// Thread x KRUM_THREADS + t owns row x KRUM_THREADS + t of all bt k rows.
+template <int H, bool EXACT>
 __global__ void __launch_bounds__(KRUM_THREADS)
 krum_score_kernel(const float* __restrict__ g, float* __restrict__ scores,
-                  long long bt, int k_rows, int n_near, int per_block,
-                  int vec) {
+                  long long bt, int k_rows, int n_near) {
     const int k = EXACT ? H : k_rows;
-    const int kk = k * k;
-    long long row;
-    float s;
-    if constexpr (STAGE) {
-        extern __shared__ __align__(16) float gs[];
-        const long long b0 = (long long)blockIdx.x * per_block;
-        const int nm = (int)min((long long)per_block, bt - b0);
-        const int n = nm * kk;
-        const float* src = g + b0 * kk;
-        int tail = 0;
-        if (vec) {
-            tail = n / 4 * 4;
-            for (int q = threadIdx.x; q < n / 4; q += blockDim.x)
-                reinterpret_cast<float4*>(gs)[q] =
-                    __ldg(reinterpret_cast<const float4*>(src) + q);
-        }
-        for (int q = tail + threadIdx.x; q < n; q += blockDim.x)
-            gs[q] = __ldg(src + q);
-        __syncthreads();
-        const int t = threadIdx.x;
-        if (t >= nm * k) return;
-        const int m = t / k, i = t - m * k;
-        const float* gb = gs + m * kk;
-        row = b0 * k + t;
-        s = krum_row<H, EXACT>([=](int j) { return gb[i * k + j]; },
-                               [=](int j) { return gb[j * k + j]; }, i, k,
-                               n_near);
-    } else {
-        row = (long long)blockIdx.x * KRUM_THREADS + threadIdx.x;
-        if (row >= bt * k) return;
-        const long long b = row / k;
-        const int i = (int)(row - b * k);
-        const float* gb = g + b * kk;
-        s = krum_row<H, EXACT>([=](int j) { return __ldg(gb + i * k + j); },
-                               [=](int j) { return __ldg(gb + j * k + j); },
-                               i, k, n_near);
-    }
-    scores[row] = s;
+    const long long row = (long long)blockIdx.x * KRUM_THREADS + threadIdx.x;
+    if (row >= bt * k) return;
+    const long long b = row / k;
+    const int i = (int)(row - b * k);
+    const float* gb = g + b * k * k;
+    scores[row] = krum_row<H, EXACT>(
+        [=](int j) { return __ldg(gb + i * k + j); },
+        [=](int j) { return __ldg(gb + j * k + j); }, i, k, n_near);
 }
 
 // Calls f(height, exact) for the instance (height, n): exact instances
@@ -433,35 +398,6 @@ int cw_instance(int height, int n, const F& f) {
 
 unsigned cw_blocks(long long d, int threads) {
     return (unsigned)((d + threads - 1) / threads);
-}
-
-int launch_krum_score(const float* g, float* scores, long long bt, int k,
-                      int n_near, int height, bool stage,
-                      cudaStream_t stream) {
-    if (bt < 1) return (int)cudaErrorInvalidValue;
-    return cw_instance(height, k, [&](auto h, auto exact) {
-        constexpr int H = decltype(h)::value;
-        constexpr bool EXACT = decltype(exact)::value;
-        if (stage) {
-            // whole matrices a block, a multiple of 4 of them (16-byte
-            // block bases), at most KRUM_THREADS rows
-            const int fit = KRUM_THREADS / (4 * k);
-            const int per_block = 4 * (fit > 1 ? fit : 1);
-            const int vec = reinterpret_cast<uintptr_t>(g) % 16 == 0;
-            const long long blocks = (bt + per_block - 1) / per_block;
-            krum_score_kernel<H, EXACT, true>
-                <<<(unsigned)blocks, per_block * k,
-                   (size_t)per_block * k * k * sizeof(float), stream>>>(
-                    g, scores, bt, k, n_near, per_block, vec);
-        } else {
-            const long long blocks = (bt * k + KRUM_THREADS - 1)
-                / KRUM_THREADS;
-            krum_score_kernel<H, EXACT, false>
-                <<<(unsigned)blocks, KRUM_THREADS, 0, stream>>>(
-                    g, scores, bt, k, n_near, 0, 0);
-        }
-        return (int)cudaGetLastError();
-    });
 }
 
 }  // namespace
@@ -513,16 +449,16 @@ int repro_neighbor_reduce_f32(const float* recv, float* out, int k, int p,
 // `height` is cw_instance(k); the row is ranked padded to k rounded up to 8.
 int repro_krum_score_f32(const float* g, float* scores, long long bt, int k,
                          int n_near, int height, cudaStream_t stream) {
-    return launch_krum_score(g, scores, bt, k, n_near, height, true, stream);
-}
-
-// The same with the load route chosen by the caller (stage: 1 through
-// shared memory, 0 straight from device memory), for timing the two.
-int repro_krum_score_route_f32(const float* g, float* scores, long long bt,
-                               int k, int n_near, int height, int stage,
-                               cudaStream_t stream) {
-    return launch_krum_score(g, scores, bt, k, n_near, height, stage != 0,
-                             stream);
+    if (bt < 1) return (int)cudaErrorInvalidValue;
+    return cw_instance(height, k, [&](auto h, auto exact) {
+        constexpr int H = decltype(h)::value;
+        constexpr bool EXACT = decltype(exact)::value;
+        const long long blocks = (bt * k + KRUM_THREADS - 1) / KRUM_THREADS;
+        krum_score_kernel<H, EXACT>
+            <<<(unsigned)blocks, KRUM_THREADS, 0, stream>>>(
+                g, scores, bt, k, n_near);
+        return (int)cudaGetLastError();
+    });
 }
 
 }  // extern "C"

@@ -26,15 +26,18 @@ __device__ __forceinline__ float clamp0(float x) {
     return x < 0.0f ? 0.0f : x;
 }
 
-// v[i] += v[i + h] for h = P/2 .. 1: v[0] is the sum
-template <int P>
+// v[i] += v[i + h] for h = P/2 .. 1: v[0] is the sum. One template level a
+// halving, so every loop has a constant trip count and is unrolled: a
+// loop over h left nvcc a local-memory array at P = 32 (2.5x slower).
+template <int P, int HALF = P / 2>
 __device__ __forceinline__ float tree_sum(float (&v)[P]) {
+    if constexpr (HALF == 0) {
+        return v[0];
+    } else {
 #pragma unroll
-    for (int h = P / 2; h >= 1; h >>= 1) {
-#pragma unroll
-        for (int i = 0; i < h; ++i) v[i] = __fadd_rn(v[i], v[i + h]);
+        for (int i = 0; i < HALF; ++i) v[i] = __fadd_rn(v[i], v[i + HALF]);
+        return tree_sum<P, HALF / 2>(v);
     }
-    return v[0];
 }
 
 // the xor butterfly over lanes [0, P): tree_sum's bits, in every lane

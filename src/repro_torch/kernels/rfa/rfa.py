@@ -36,24 +36,21 @@ from repro_torch.kernels.dispatch import check_stack, register_kernel, \
 from repro_torch.kernels.pairwise_dist.pairwise_dist import gram
 
 
-#: the heights ``weiszfeld_kernel`` is compiled for: exact (k fixed at
-#: compile time: CartPole's 7 bucket means and LunarLander's K = 13) and
-#: padded (any k up to the height, read at run time)
-WEISZFELD_EXACT = (7, 13)
-WEISZFELD_PADDED = (8, 16, 32)
+#: the heights ``weiszfeld_kernel`` is compiled for, each taking any k up
+#: to the height (read at run time): exact instances for CartPole's 7
+#: bucket means and K = 13 ran within 1.4% of heights 8 and 16 on an H100
+#: (PERF.md)
+WEISZFELD_HEIGHTS = (8, 16, 32)
 
 
 def weiszfeld_instance(k: int) -> int:
-    """The height of the Weiszfeld kernel for a stack of ``k``: ``k``
-    itself where an exact instance exists, else the smallest padded height
-    >= k."""
-    if k in WEISZFELD_EXACT:
-        return k
-    for h in WEISZFELD_PADDED:
+    """The height of the Weiszfeld kernel for a stack of ``k``: the
+    smallest compiled height >= k."""
+    for h in WEISZFELD_HEIGHTS:
         if 1 <= k <= h:
             return h
     raise ValueError(f"weiszfeld: no instance holds K={k} (1 <= K <= "
-                     f"{WEISZFELD_PADDED[-1]})")
+                     f"{WEISZFELD_HEIGHTS[-1]})")
 
 
 def _check_iter(nu: float, n_iter: int) -> None:

@@ -287,8 +287,8 @@ def test_cuda_cw_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 
 #: stack heights at the edges of the weiszfeld and krum_score instances
-#: (weiszfeld: exact 7 and 13, padded 8, 16, 32; krum_score: the cw rank
-#: network's exact 5 and 13, padded 8, 16, 32)
+#: (weiszfeld: 8, 16, 32; krum_score: the cw rank network's exact 5 and
+#: 13, padded 8, 16, 32)
 SWEEP_K = (1, 4, 5, 7, 8, 9, 13, 16, 17, 24, 32)
 
 

@@ -26,7 +26,7 @@ from repro_torch.kernels.rfa import (  # noqa: E402
     rfa, weighted_sum, weighted_sum_plain, weiszfeld_instance,
     weiszfeld_plain, weiszfeld_weights)
 from repro_torch.kernels.rfa.rfa import (  # noqa: E402
-    WEISZFELD_EXACT, WEISZFELD_PADDED, tree_sum)
+    WEISZFELD_HEIGHTS, tree_sum)
 
 torch.set_num_threads(2)
 
@@ -148,8 +148,8 @@ def test_weiszfeld_and_wsum_plain_semantics():
         weiszfeld_plain(gram_plain(x), 1e-6, -1)
 
 
-#: stack heights at the edges of the CUDA weiszfeld and krum_score
-#: instances (exact 7 and 13 / 5 and 13; padded 8, 16, 32)
+#: stack heights at the edges of the CUDA weiszfeld instances (8, 16, 32)
+#: and krum_score's (exact 5 and 13; padded 8, 16, 32)
 EDGE_K = (1, 5, 7, 8, 9, 13, 16, 17, 32)
 
 
@@ -253,17 +253,15 @@ def test_rfa_and_krum_match_pallas_at_every_k(k):
 
 def test_weiszfeld_and_krum_height_plans():
     """Every K in 1..32 runs on the smallest compiled height that holds
-    it: weiszfeld's exact 7 and 13 or a padded 8, 16, 32; krum_score's
-    the cw rank network's (exact 5 and 13, padded 8, 16, 32). Above 32
-    both raise."""
+    it: weiszfeld's padded 8, 16 or 32; krum_score's the cw rank
+    network's (exact 5 and 13, padded 8, 16, 32). Outside 1..32 both
+    raise."""
     for k in range(1, 33):
         h = weiszfeld_instance(k)
-        holds = [x for x in WEISZFELD_PADDED if x >= k] + [
-            x for x in WEISZFELD_EXACT if x == k]
-        assert h == min(holds), (k, h)
+        assert h == min(x for x in WEISZFELD_HEIGHTS if x >= k), (k, h)
     assert [weiszfeld_instance(k) for k in (1, 5, 7, 8, 9, 13, 14, 16, 17,
                                             32)] == \
-        [8, 8, 7, 8, 16, 13, 16, 16, 32, 32]
+        [8, 8, 8, 8, 16, 16, 16, 16, 32, 32]
     assert [cw_instance(k) for k in (1, 5, 7, 8, 9, 13, 14, 16, 17, 32)] \
         == [8, 5, 8, 8, 16, 13, 16, 16, 32, 32]
     for bad in (0, 33):

@@ -103,8 +103,8 @@ CW_KERNELS = r"gossip|neighbor|trimmed"
 def sass_counts(lib: Path, pattern: str = CW_KERNELS) -> list:
     """Instructions of every kernel whose name matches ``pattern`` in
     ``lib`` (``cuobjdump -sass``, beside the ``nvcc`` that built it): the
-    total and the compares, adds, shuffles, special functions and
-    loads."""
+    total and the compares, adds, shuffles, special functions, loads and
+    local-memory accesses."""
     from repro_torch.kernels import _build
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     out = subprocess.run([str(cuobjdump), "-sass", str(lib)],
@@ -123,25 +123,27 @@ def sass_counts(lib: Path, pattern: str = CW_KERNELS) -> list:
             op = m.group(2).split(".")[0]
             ops["total"] += 1
             if op in ("FSET", "FSETP", "ISETP", "IADD3", "LDS", "SEL",
-                      "FADD", "FMUL", "FFMA", "SHFL", "MUFU", "LDG", "BRA"):
+                      "FADD", "FMUL", "FFMA", "SHFL", "MUFU", "LDG", "BRA",
+                      "STL", "LDL"):
                 ops[op] += 1
     return rows
 
 
 def ptxas_counts(report: str, pattern: str = CW_KERNELS) -> list:
-    """Registers and spill bytes of every kernel whose name matches
-    ``pattern`` in a build's ``ptxas -v`` report."""
+    """Registers, stack frame and spill bytes of every kernel whose name
+    matches ``pattern`` in a build's ``ptxas -v`` report."""
     rows, name = [], None
     for line in report.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(\w+)'?", line)
         if m:
             name = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                      r"stores, (\d+) bytes spill loads", line)
         if m and name and re.search(pattern, name):
-            rows.append(dict(function=name, spill_stores=int(m.group(1)),
-                             spill_loads=int(m.group(2))))
+            rows.append(dict(function=name, stack_frame=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3))))
         m = re.search(r"Used (\d+) registers", line)
         if m and rows and rows[-1]["function"] == name:
             rows[-1]["registers"] = int(m.group(1))

@@ -26,12 +26,11 @@ replayed from the same kind of graph.
 Gram matrices, ``krum_score`` on about 709 MB of them (as many as 2^20
 matrices of 13). ``--sass`` counts the instructions of every instance
 (``cuobjdump -sass``) and gives their registers and spills from the build's
-``ptxas -v`` report (a fresh build). ``--routes`` times the kernels' other
-routes through their C entries (``repro_weiszfeld_route_f32``: shuffle,
-shared-memory and all-shuffle routes, exact and padded heights;
-``repro_krum_score_route_f32``: staged and direct loads), after checking
-that every route gives the default's bits. One JSON object last (also
-written to ``--out``). Needs a CUDA device.
+``ptxas -v`` report (a fresh build). ``--routes`` times ``weiszfeld``'s
+two routes (the weights broadcast by shuffles or through shared memory)
+at every height that holds K, through ``repro_weiszfeld_route_f32``,
+after checking that each gives the default's bits. One JSON object last
+(also written to ``--out``). Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -192,13 +191,11 @@ def run_sweep(args, dev, gen, rows):
 
 
 def run_routes(args, dev, gen, rows):
-    """Every route and height of both kernels through their C entries:
-    bits equal to the default launch, and device ms."""
+    """Both routes of ``weiszfeld`` at every height that holds K, through
+    its C entry: bits equal to the default launch, and device ms."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels.dispatch import stream_of
-    from repro_torch.kernels.gossip_reduce.cw_reduce import cw_instance
-    from repro_torch.kernels.krum_score import krum_score
     from repro_torch.kernels.pairwise_dist import gram
     from repro_torch.kernels.rfa import weiszfeld_instance, weiszfeld_weights
     lib = _build.library()
@@ -207,18 +204,13 @@ def run_routes(args, dev, gen, rows):
                    ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_void_p)
     wz.restype = ctypes.c_int
-    kr = lib.repro_krum_score_route_f32
-    kr.argtypes = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p)
-    kr.restype = ctypes.c_int
     for bt, k in ((13, 7), (13, 13), (1, 13), (1, 32), (13, 5)):
         g = gram(torch.randn((bt, k, 386), generator=gen, device=dev) + 1.5)
         want = weiszfeld_weights(g, NU, N_ITER)
         heights = sorted({weiszfeld_instance(k)} | {
             h for h in (8, 16, 32) if h >= k})
         for h in heights:
-            for route in (0, 1, 2):
+            for route in (0, 1):
                 w = torch.empty_like(want)
 
                 def call():
@@ -235,31 +227,6 @@ def run_routes(args, dev, gen, rows):
                 print(f"[route] {args.label} weiszfeld ({bt}, {k}) height "
                       f"{h} route {route}: device {ms:.6f} ms, bits equal "
                       f"to the default launch: {same}", flush=True)
-    cases = [(g, n) for _, g, n, _ in krum_inputs(dev, gen)]
-    for g, n_near in cases:
-        bt, k, _ = g.shape
-        want = krum_score(g, n_near)
-        for stage in (1, 0):
-            s = torch.empty_like(want)
-
-            def call():
-                _build.check(kr(g.data_ptr(), s.data_ptr(), bt, k, n_near,
-                                cw_instance(k), stage, stream_of(g)),
-                             "krum_score route")
-            call()
-            torch.cuda.synchronize()
-            same = torch.equal(s, want)
-            ms = device_ms(call, 3 if bt > 1000 else 200)
-            b, _ = krum_bound(bt, k)
-            rows.append(dict(kind="route", name="krum_score", bt=bt, k=k,
-                             stage=stage, same_bits=same, device_ms=ms,
-                             bound_ms=b))
-            print(f"[route] {args.label} krum_score ({bt}, {k}, {k}) "
-                  f"n_near={n_near} {'staged' if stage else 'direct'}: "
-                  f"device {ms:.6f} ms, {b / ms:.1%} of the bound, bits "
-                  f"equal to the default launch: {same}", flush=True)
-    del cases
-    torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
