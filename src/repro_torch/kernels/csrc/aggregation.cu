@@ -20,7 +20,6 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <type_traits>
 #include <utility>
 
 #include "async_copy.cuh"
@@ -385,22 +384,21 @@ int gram_for_k(const float* x, float* g, float* ws, int bt, int k,
 // registers, loaded once, so a step reads no memory. The kernel is
 // compiled for heights H = 8, 16 and 32 with k <= H read at run time, and
 // the caller's plan (rfa.py::weiszfeld_instance) picks the smallest that
-// holds k. In a step
-// the H weights reach every lane through H independent __shfl_syncs,
-// issued together (no shared memory, no __syncwarp); each of the three
-// sums (gw_j over l, w^T gw over j, sum(iw) over j) is a halving tree over
-// the H slots, slot i += slot i + h for h = H/2 .. 1 (fixed_sums.cuh),
-// with -0.0 in the pad slots (x + -0 is x for every x, so the bits do not
-// depend on H). The two sums over lanes are xor
-// butterflies, which leave the tree's bits in every lane. Every operation
-// is an IEEE intrinsic (__fmul_rn, __fadd_rn, __fsqrt_rn, __fdiv_rn: no
+// holds k (exact instances for k = 7 and 13 ran within 1.4% of heights 8
+// and 16 on an H100, PERF.md). In a step the H weights reach every lane
+// through H independent __shfl_syncs, issued together (no shared memory,
+// no __syncwarp: a float4 broadcast through shared memory ran 2-5% slower
+// at heights 8 and 16, 3% faster at 32). Each of the three sums (gw_j
+// over l, w^T gw over j, sum(iw) over j) is a halving tree over the H
+// slots, slot i += slot i + h for h = H/2 .. 1 (fixed_sums.cuh), with -0.0
+// in the pad slots (x + -0 is x for every x, so the bits do not depend on
+// H); the two sums over lanes are xor butterflies, which leave the tree's
+// bits in every lane. Every operation is an IEEE intrinsic (__fmul_rn, __fadd_rn, __fsqrt_rn, __fdiv_rn: no
 // contraction into FMA, no fast math), so rfa.py::weiszfeld_plain, which
 // does the same operations in the same order, gives the same bits. The
 // clamp keeps NaN, as the reference's jnp.maximum does.
 // ---------------------------------------------------------------------------
-enum : int { WZ_SHFL = 0, WZ_SMEM = 1 };
-
-template <int H, int ROUTE>
+template <int H>
 __global__ void __launch_bounds__(32)
 weiszfeld_kernel(const float* __restrict__ g, float* __restrict__ w_out,
                  int k, float nu, int n_iter) {
@@ -418,29 +416,12 @@ weiszfeld_kernel(const float* __restrict__ g, float* __restrict__ w_out,
         row[l] = valid && l < k ? __ldg(gb + j * k + l) : -0.0f;
     const float diag = valid ? __ldg(gb + j * k + j) : 0.0f;
     float w = valid ? __fdiv_rn(1.0f, (float)k) : 0.0f;
-    __shared__ __align__(16) float ws[2][H];       // WZ_SMEM only
 
     for (int it = 0; it < n_iter; ++it) {
         float p[H];
-        if constexpr (ROUTE == WZ_SMEM) {
-            // one store, one __syncwarp, H/4 float4 broadcasts; the buffers
-            // alternate, so no lane overwrites one another still reads
-            float* buf = ws[it & 1];
-            if (j < H) buf[j] = w;
-            __syncwarp();
 #pragma unroll
-            for (int q = 0; q < H / 4; ++q) {
-                const float4 v = reinterpret_cast<const float4*>(buf)[q];
-                p[4 * q] = __fmul_rn(row[4 * q], v.x);
-                p[4 * q + 1] = __fmul_rn(row[4 * q + 1], v.y);
-                p[4 * q + 2] = __fmul_rn(row[4 * q + 2], v.z);
-                p[4 * q + 3] = __fmul_rn(row[4 * q + 3], v.w);
-            }
-        } else {
-#pragma unroll
-            for (int l = 0; l < H; ++l)
-                p[l] = __fmul_rn(row[l], __shfl_sync(0xffffffffu, w, l));
-        }
+        for (int l = 0; l < H; ++l)
+            p[l] = __fmul_rn(row[l], __shfl_sync(0xffffffffu, w, l));
         const float gw = tree_sum(p);     // a pad lane's gw is -0.0
         const float wgw = lane_sum<H>(__fmul_rn(w, gw));
         const float d2 = clamp0(
@@ -453,40 +434,6 @@ weiszfeld_kernel(const float* __restrict__ g, float* __restrict__ w_out,
         w = valid ? __fdiv_rn(iw, tot) : 0.0f;
     }
     if (valid) w_out[b * k + j] = w;
-}
-
-// Calls f(height) for a weiszfeld height (8, 16 or 32) that holds k.
-template <class F>
-int weiszfeld_instance(int height, int k, const F& f) {
-    using std::integral_constant;
-    if (k < 1 || k > height) return (int)cudaErrorInvalidValue;
-    switch (height) {
-        case 8: return f(integral_constant<int, 8>{});
-        case 16: return f(integral_constant<int, 16>{});
-        case 32: return f(integral_constant<int, 32>{});
-        default: return (int)cudaErrorInvalidValue;
-    }
-}
-
-int launch_weiszfeld(const float* g, float* w, int bt, int k, float nu,
-                     int n_iter, int height, int route,
-                     cudaStream_t stream) {
-    if (bt < 1 || n_iter < 0) return (int)cudaErrorInvalidValue;
-    return weiszfeld_instance(height, k, [&](auto h) {
-        constexpr int H = decltype(h)::value;
-        switch (route) {
-            case WZ_SHFL:
-                weiszfeld_kernel<H, WZ_SHFL><<<bt, 32, 0, stream>>>(
-                    g, w, k, nu, n_iter);
-                break;
-            case WZ_SMEM:
-                weiszfeld_kernel<H, WZ_SMEM><<<bt, 32, 0, stream>>>(
-                    g, w, k, nu, n_iter);
-                break;
-            default: return (int)cudaErrorInvalidValue;
-        }
-        return (int)cudaGetLastError();
-    });
 }
 
 // ---------------------------------------------------------------------------
@@ -613,19 +560,25 @@ int repro_gram_f32(const float* x, float* g, float* ws, int bt, int k,
                       GramBuckets{});
 }
 
-// `height` is the instance (rfa.py::weiszfeld_instance(k)).
+// `height` is the instance (rfa.py::weiszfeld_instance(k)): 8, 16 or 32,
+// holding k.
 int repro_weiszfeld_f32(const float* g, float* w, int bt, int k, float nu,
                         int n_iter, int height, cudaStream_t stream) {
-    return launch_weiszfeld(g, w, bt, k, nu, n_iter, height, WZ_SHFL,
-                            stream);
-}
-
-// The same with the route chosen by the caller (0: the weights broadcast
-// by shuffles, 1: through shared memory), for timing the two.
-int repro_weiszfeld_route_f32(const float* g, float* w, int bt, int k,
-                              float nu, int n_iter, int height, int route,
-                              cudaStream_t stream) {
-    return launch_weiszfeld(g, w, bt, k, nu, n_iter, height, route, stream);
+    if (bt < 1 || n_iter < 0 || k < 1 || k > height)
+        return (int)cudaErrorInvalidValue;
+    switch (height) {
+        case 8:
+            weiszfeld_kernel<8><<<bt, 32, 0, stream>>>(g, w, k, nu, n_iter);
+            break;
+        case 16:
+            weiszfeld_kernel<16><<<bt, 32, 0, stream>>>(g, w, k, nu, n_iter);
+            break;
+        case 32:
+            weiszfeld_kernel<32><<<bt, 32, 0, stream>>>(g, w, k, nu, n_iter);
+            break;
+        default: return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
 }
 
 int repro_wsum_f32(const float* x, const float* w, float* z, int bt, int k,

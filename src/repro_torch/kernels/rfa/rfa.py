@@ -89,9 +89,9 @@ def weiszfeld_plain(g: torch.Tensor, nu: float = 1e-6,
     the kernel's order: per step ``gw_j = tree_sum_l(g_jl w_l)``, ``wgw =
     tree_sum_j(w_j gw_j)``, ``d2 = max((diag - 2 gw) + wgw, 0)`` (NaN
     kept), ``iw = 1 / sqrt(d2 + nu)`` (``sqrt_rn``) and ``w = iw /
-    tree_sum(iw)``. Every division is tensor by tensor (a Python number over a tensor goes
-    through a reciprocal on CUDA) and ``nu`` is rounded to the tensor's
-    type first, as the kernel takes it."""
+    tree_sum(iw)``. Every division is tensor by tensor (a Python number
+    over a tensor goes through a reciprocal on CUDA) and ``nu`` is rounded
+    to the tensor's type first, as the kernel takes it."""
     _check_iter(nu, n_iter)
     k = g.shape[-1]
     like = dict(dtype=g.dtype, device=g.device)

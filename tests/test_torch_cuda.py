@@ -144,6 +144,20 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = torch.zeros((2, 3, 8), device=cuda)
     with pytest.raises(ValueError, match="weights"):
         weighted_sum(x, torch.zeros((2, 4), device=cuda))
+    with pytest.raises(ValueError, match="K <= 32"):
+        weiszfeld_weights(torch.zeros((1, 33, 33), device=cuda), 1e-6, 4)
+    with pytest.raises(ValueError, match="square"):
+        weiszfeld_weights(torch.zeros((1, 4, 5), device=cuda), 1e-6, 4)
+    with pytest.raises(TypeError, match="float32"):
+        weiszfeld_weights(torch.zeros((1, 4, 4), device=cuda,
+                                      dtype=torch.float64), 1e-6, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        weiszfeld_weights(torch.zeros((4, 4, 1), device=cuda
+                                      ).transpose(0, 2), 1e-6, 4)
+    with pytest.raises(ValueError, match="n_iter"):
+        weiszfeld_weights(torch.zeros((1, 4, 4), device=cuda), 1e-6, -1)
+    with pytest.raises(ValueError, match="nu"):
+        weiszfeld_weights(torch.zeros((1, 4, 4), device=cuda), 0.0, 4)
 
 
 def _grid(shape, seed):
@@ -388,24 +402,6 @@ def test_cuda_krum_score_drops_nan_distances(cuda):
     assert torch.equal(s, krum_score_plain(g, 8))
     assert torch.isfinite(s).all()
     assert s[1, 3] == 0.0                     # nothing kept
-
-
-@pytest.mark.cuda
-def test_cuda_weiszfeld_and_krum_reject_what_they_do_not_take(cuda):
-    with pytest.raises(ValueError, match="K <= 32"):
-        weiszfeld_weights(torch.zeros((1, 33, 33), device=cuda), 1e-6, 4)
-    with pytest.raises(ValueError, match="square"):
-        weiszfeld_weights(torch.zeros((1, 4, 5), device=cuda), 1e-6, 4)
-    with pytest.raises(TypeError, match="float32"):
-        weiszfeld_weights(torch.zeros((1, 4, 4), device=cuda,
-                                      dtype=torch.float64), 1e-6, 4)
-    with pytest.raises(ValueError, match="contiguous"):
-        weiszfeld_weights(torch.zeros((4, 4, 1), device=cuda
-                                      ).transpose(0, 2), 1e-6, 4)
-    with pytest.raises(ValueError, match="n_iter"):
-        weiszfeld_weights(torch.zeros((1, 4, 4), device=cuda), 1e-6, -1)
-    with pytest.raises(ValueError, match="nu"):
-        weiszfeld_weights(torch.zeros((1, 4, 4), device=cuda), 0.0, 4)
 
 
 def _qkv(B, H, Hkv, Sq, Sk, hd, seed):

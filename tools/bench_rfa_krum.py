@@ -3,7 +3,7 @@
 the GPU.
 
     python3 tools/bench_rfa_krum.py [--src DIR] [--label NAME] [--sweep-k]
-                                    [--sass] [--routes] [--out FILE]
+                                    [--sass] [--out FILE]
 
 Imports ``repro_torch`` from ``DIR`` (default: this checkout's ``src``), so
 that two trees, e.g. a parent commit unpacked by ``git archive`` and the
@@ -26,16 +26,12 @@ replayed from the same kind of graph.
 Gram matrices, ``krum_score`` on about 709 MB of them (as many as 2^20
 matrices of 13). ``--sass`` counts the instructions of every instance
 (``cuobjdump -sass``) and gives their registers and spills from the build's
-``ptxas -v`` report (a fresh build). ``--routes`` times ``weiszfeld``'s
-two routes (the weights broadcast by shuffles or through shared memory)
-at every height that holds K, through ``repro_weiszfeld_route_f32``,
-after checking that each gives the default's bits. One JSON object last
-(also written to ``--out``). Needs a CUDA device.
+``ptxas -v`` report (a fresh build). One JSON object last (also written to
+``--out``). Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import subprocess
 import sys
@@ -190,52 +186,12 @@ def run_sweep(args, dev, gen, rows):
         torch.cuda.empty_cache()
 
 
-def run_routes(args, dev, gen, rows):
-    """Both routes of ``weiszfeld`` at every height that holds K, through
-    its C entry: bits equal to the default launch, and device ms."""
-    import torch
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.dispatch import stream_of
-    from repro_torch.kernels.pairwise_dist import gram
-    from repro_torch.kernels.rfa import weiszfeld_instance, weiszfeld_weights
-    lib = _build.library()
-    wz = lib.repro_weiszfeld_route_f32
-    wz.argtypes = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p)
-    wz.restype = ctypes.c_int
-    for bt, k in ((13, 7), (13, 13), (1, 13), (1, 32), (13, 5)):
-        g = gram(torch.randn((bt, k, 386), generator=gen, device=dev) + 1.5)
-        want = weiszfeld_weights(g, NU, N_ITER)
-        heights = sorted({weiszfeld_instance(k)} | {
-            h for h in (8, 16, 32) if h >= k})
-        for h in heights:
-            for route in (0, 1):
-                w = torch.empty_like(want)
-
-                def call():
-                    _build.check(wz(g.data_ptr(), w.data_ptr(), bt, k, NU,
-                                    N_ITER, h, route, stream_of(g)),
-                                 "weiszfeld route")
-                call()
-                torch.cuda.synchronize()
-                same = torch.equal(w, want)
-                ms = device_ms(call, 200)
-                rows.append(dict(kind="route", name="weiszfeld", bt=bt, k=k,
-                                 height=h, route=route, same_bits=same,
-                                 device_ms=ms))
-                print(f"[route] {args.label} weiszfeld ({bt}, {k}) height "
-                      f"{h} route {route}: device {ms:.6f} ms, bits equal "
-                      f"to the default launch: {same}", flush=True)
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="tree")
     ap.add_argument("--sweep-k", action="store_true")
     ap.add_argument("--sass", action="store_true")
-    ap.add_argument("--routes", action="store_true")
     ap.add_argument("--out")
     args = ap.parse_args(argv)
     import torch
@@ -269,11 +225,9 @@ def main(argv=None) -> int:
         for r in sass_counts(_build.library_path(), KERNELS):
             rows.append(dict(kind="sass", **r))
             print(f"[sass] {args.label} {r}", flush=True)
-    if args.routes:
-        run_routes(args, dev, gen, rows)
     if args.sweep_k:
         run_sweep(args, dev, gen, rows)
-    if not (args.sweep_k or args.sass or args.routes):
+    if not (args.sweep_k or args.sass):
         result["loss_ms"] = run_inputs(args, dev, gen, rows)
     line = json.dumps(result)
     if args.out:
