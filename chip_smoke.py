@@ -48,7 +48,27 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    same weights on the card and on the CPU: prefill logits must agree,
    and greedy streams wherever the top-1 margin exceeds the tolerance.
    Every registered kernel must launch on some run of phases 4 and 5.
-6. The kernel table as one JSON line (``device_ms`` and
+6. ByzPG (paper Algorithm 1, ``byzpg_runs()``) at its defaults (K=13,
+   N=50, B=4, MLP (16, 16) relu): CartPole under ``large_noise`` with
+   bucketing ∘ RFA and with Krum for 8 iterations, LunarLander with the
+   trimmed mean for 3, each after a warm iteration with exact launches
+   per iteration; then small runs on the card against the CPU's plain
+   path (bucketed RFA, Krum, trimmed mean).
+7. ``Experiment(...).run()``, the front door of the paper's figures
+   (``experiment_cells()``): the reference's fig5 cell (ByzPG, attack ×
+   aggregator, 3 seeds, T=15) and fig1's DecByzPG K axis with its κ
+   override, with exact launches, each scenario's final return ± CI, the
+   wall per iteration, and each seed's history bit-equal to its single
+   run in the first scenario.
+8. Telemetry: three of the runs above at T=4 with ``telemetry=True``
+   under an ``obs.MemorySink``: returns, coins, Δ₂ and θ bit-identical
+   to the run without it, one tap per iteration, the rejection mask's
+   launches counted. Then a checkpoint round trip: ``byzpg_cartpole``'s
+   parameters saved and restored onto the card bit for bit, and one
+   request served through ``policy_params(checkpoint=)``.
+   Phases 6–8 are driven with the launch counts set to 0 just before
+   each run and read just after; their launches join the totals.
+9. The kernel table as one JSON line (``device_ms`` and
    ``library_device_ms`` beside the issue-bound ``ms`` and
    ``library_ms``), then
    ``{"ok": true, "device": {...}}`` as the last line.
@@ -794,6 +814,17 @@ def log_kernel_rows(rows):
                 f"{r['library_device_ms']:.6f} ms")
 
 
+def _check_launches(label, counts, want):
+    want = {name: want.get(name, 0) for name in counts}
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+
+
+def _add(totals, counts):
+    for name, n in counts.items():
+        totals[name] = totals.get(name, 0) + n
+
+
 def main_runs():
     """(label, env, T, config, launches per iteration) of phase 4."""
     from repro_torch.core.decbyzpg import DecByzPGConfig
@@ -848,17 +879,337 @@ def phase_main_path(dev):
             raise AssertionError(f"{label}: unexpected output shapes")
         if not bool(out["coins"][0]):
             raise AssertionError(f"{label}: coin at t=0 is not 1")
-        want = {name: per_iter.get(name, 0) * T for name in counts}
-        if counts != want:
-            raise AssertionError(f"{label}: launches {counts}, expected "
-                                 f"{want}")
-        for name, n in counts.items():
-            totals[name] = totals.get(name, 0) + n
+        _check_launches(label, counts,
+                        {k: n * T for k, n in per_iter.items()})
+        _add(totals, counts)
         log(f"[main] {label}: d={d} T={T} ms/iter={secs / T * 1e3:.3f} "
             f"launches/iter={per_iter} returns={out['returns'].tolist()} "
             f"diameter={out['diameter'].tolist()} "
             f"coins={out['coins'].astype(int).tolist()}")
     return totals
+
+
+def byzpg_runs():
+    """(label, env, T, config, launches per iteration) of the ByzPG phase:
+    the paper's Algorithm 1 at its defaults (K=13, N=50, B=4, MLP (16, 16)
+    relu). The server aggregates on every iteration: bucketing (7 buckets
+    of 2) ∘ RFA on (1, 7, d), Krum on (1, 13, d), the trimmed mean on
+    (1, 13, d); no agreement, no diameter."""
+    from repro_torch.core.byzpg import ByzPGConfig
+    from repro_torch.rl.envs import make_cartpole, make_lunarlander
+    cartpole = make_cartpole(horizon=200)
+    byz = dict(n_byz=3, attack="large_noise(sigma=10)")
+    return [
+        ("byzpg_cartpole", cartpole, 8, ByzPGConfig(**byz),
+         {"gram": 1, "weiszfeld": 1, "wsum": 1}),
+        ("byzpg_cartpole_krum", cartpole, 8,
+         ByzPGConfig(**byz, aggregator="krum"),
+         {"gram": 1, "krum_score": 1}),
+        ("byzpg_lunarlander_tm", make_lunarlander(), 3,
+         ByzPGConfig(hidden=(64, 64), activation="tanh", n_byz=3,
+                     aggregator="trimmed_mean"),
+         {"trimmed_mean": 1}),
+    ]
+
+
+def phase_byzpg(dev):
+    """Drive ``run_byzpg`` as a user would, counting launches: each run
+    must launch exactly the kernels of its row. Returns the launches per
+    kernel over the runs and the ``byzpg_cartpole`` output."""
+    import numpy as np
+    import torch
+    from repro_torch.core.byzpg import run_byzpg
+    from repro_torch.kernels import dispatch
+
+    totals, kept = {}, None
+    for label, env, T, cfg, per_iter in byzpg_runs():
+        run_byzpg(env, cfg, 1, device=dev)              # warm iteration
+        torch.cuda.synchronize()
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        out = run_byzpg(env, cfg, T, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dispatch.launch_counts()
+        d = out["vec"].shape[0]
+        if not (np.isfinite(out["returns"]).all()
+                and bool(torch.isfinite(out["vec"]).all())):
+            raise AssertionError(f"{label}: non-finite returns or theta")
+        if out["returns"].shape != (T,) or out["vec"].device.type != dev.type:
+            raise AssertionError(f"{label}: unexpected output shapes")
+        if not bool(out["coins"][0]):
+            raise AssertionError(f"{label}: coin at t=0 is not 1")
+        _check_launches(label, counts,
+                        {k: n * T for k, n in per_iter.items()})
+        _add(totals, counts)
+        log(f"[byzpg] {label}: d={d} T={T} ms/iter={secs / T * 1e3:.3f} "
+            f"launches/iter={per_iter} returns={out['returns'].tolist()} "
+            f"coins={out['coins'].astype(int).tolist()}")
+        if label == "byzpg_cartpole":
+            kept = out
+    return totals, kept
+
+
+#: the reference's fig5 cell (benchmarks/run.py): ByzPG under two attacks
+#: against RFA and the plain mean (Fed-PAGE-PG), and fig1's DecByzPG K axis
+#: with its κ override
+FIG_T, FIG_SEEDS = 15, (0, 1, 2)
+FIG_BASE = dict(env="cartpole(horizon=100)", T=FIG_T, seeds=FIG_SEEDS, N=20,
+                B=4, eta=2e-2)
+
+
+def _fig1_kappa(c):
+    import dataclasses
+    return dataclasses.replace(c, kappa=4 if c.K > 1 else 0)
+
+
+def experiment_cells():
+    """(label, Experiment kwargs, launches per iteration of one seed by
+    scenario); a scenario absent from the map launches nothing."""
+    return [
+        ("fig5_byzpg", dict(FIG_BASE, algo="byzpg", axes={
+            "attack": ("large_noise", "avg_zero"),
+            "aggregator": ("rfa", "mean")}, K=13, n_byz=3),
+         lambda scn: ({"gram": 1, "weiszfeld": 1, "wsum": 1}
+                      if scn.aggregator == "rfa" else {})),
+        # n_byz 0: RFA unbucketed on (1, K, d), κ MDA grams and Δ₂'s gram
+        ("fig1_decbyzpg", dict(FIG_BASE, algo="decbyzpg",
+                               axes={"K": (1, 5, 13)},
+                               override=_fig1_kappa),
+         lambda scn: {"gram": 2 + (4 if scn.K > 1 else 0), "weiszfeld": 1,
+                      "wsum": 1}),
+    ]
+
+
+def phase_experiment(dev):
+    """The paper's figure front door, ``Experiment(...).run()``: every
+    scenario's (3, 15) seed histories, mean ± CI of the final return, wall
+    per iteration, exact launches, and each seed's history bit-equal to
+    the single run for that seed in the first scenario. Returns the
+    launches per kernel of the Experiment runs (the checks' single runs
+    left out)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import Experiment
+    from repro_torch.core.engine import ScenarioGrid, grid_scenarios
+    from repro_torch.core.registry import resolve
+    from repro_torch.kernels import dispatch
+
+    totals = {}
+    for label, kw, per_iter in experiment_cells():
+        exp = Experiment(device=dev, **kw)
+        torch.cuda.synchronize()
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        res = exp.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dispatch.launch_counts()
+        S = len(FIG_SEEDS)
+        n_scn = int(np.prod([len(v) for v in kw["axes"].values()]))
+        want = {}
+        for scn in res:
+            _add(want, {k: n * S * FIG_T for k, n in per_iter(scn).items()})
+        if len(res) != n_scn:
+            raise AssertionError(f"{label}: {len(res)} scenarios, expected "
+                                 f"{n_scn}")
+        _check_launches(label, counts, want)
+        _add(totals, counts)
+        for scn, out in res.items():
+            if out["returns"].shape != (S, FIG_T) \
+                    or not np.isfinite(out["returns"]).all():
+                raise AssertionError(f"{label} {scn}: returns of shape "
+                                     f"{out['returns'].shape}, or not finite")
+            log(f"[experiment] {label} {res.scenario_name(scn)}: final "
+                f"return {out['final_return_mean']:.3f} ± "
+                f"{out['final_return_ci95']:.3f} (95% CI, {S} seeds)")
+        log(f"[experiment] {label}: {n_scn} scenarios x {S} seeds x T="
+            f"{FIG_T} in {secs:.3f} s: {secs / FIG_T * 1e3:.3f} ms per "
+            f"iteration of the whole grid, {secs / (n_scn * FIG_T) * 1e3:.3f}"
+            f" ms per iteration of one scenario's seed batch, "
+            f"{secs / (n_scn * S * FIG_T) * 1e3:.3f} ms per single-run "
+            f"iteration; launches {counts}")
+        # the first scenario's config, as run_grid builds it
+        base = {k: v for k, v in kw.items() if k not in (
+            "algo", "env", "T", "seeds", "axes", "override")}
+        _, ((scn, cfg), *_) = grid_scenarios(
+            ScenarioGrid(seeds=FIG_SEEDS, axes=kw["axes"]), algo=kw["algo"],
+            override=kw.get("override"), base=base)
+        out, a = res[scn], resolve("algo", kw["algo"])
+        for i, s in enumerate(FIG_SEEDS):
+            one = a.run(exp.env, dataclasses.replace(cfg, seed=s), FIG_T,
+                        device=dev)
+            same = np.array_equal(one["returns"], out["returns"][i]) and \
+                np.array_equal(one[a.carry_hist].cpu().numpy(),
+                               out[a.carry_hist][i])
+            if not same:
+                raise AssertionError(f"{label} {scn} seed {s}: the grid's "
+                                     f"history differs from the single run")
+        log(f"[experiment] {label} {res.scenario_name(scn)}: each seed's "
+            f"returns and final iterate bit-equal to its single run")
+    return totals
+
+
+def phase_telemetry(dev):
+    """``telemetry=True`` on the card at T=4 under an ``obs.MemorySink``:
+    returns, coins, diameter and θ bit-identical to the run without it
+    (the same seed, so the same draws), one tap per iteration, and the
+    launches of the telemetry run counted: the run's own row plus the
+    rejection mask's kernels (Krum's scores: one gram, one krum_score).
+    Returns the launches per kernel of the telemetry runs."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.core.byzpg import run_byzpg
+    from repro_torch.core.decbyzpg import run_decbyzpg
+    from repro_torch.kernels import dispatch
+
+    T = 4
+    runs = byzpg_runs()[:2] + main_runs()[:1]
+    totals = {}
+    for label, env, _, cfg, per_iter in runs:
+        algo = "decbyzpg" if label == "cartpole" else "byzpg"
+        run = run_decbyzpg if algo == "decbyzpg" else run_byzpg
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        off = run(env, cfg, T, device=dev)
+        torch.cuda.synchronize()
+        t_off = time.perf_counter() - t0
+        sink = obs.MemorySink()
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        with obs.telemetry(sink):
+            on = run(env, dataclasses.replace(cfg, telemetry=True), T,
+                     device=dev)
+        torch.cuda.synchronize()
+        t_on = time.perf_counter() - t0
+        counts = dispatch.launch_counts()
+        extra = {"gram": 1, "krum_score": 1} \
+            if cfg.aggregator.name == "krum" else {}
+        want = {k: (per_iter.get(k, 0) + extra.get(k, 0)) * T
+                for k in set(per_iter) | set(extra)}
+        _check_launches(f"{label} telemetry", counts, want)
+        _add(totals, counts)
+        carry = "theta" if algo == "decbyzpg" else "vec"
+        keys = ["returns", "coins"] + (["diameter"] if algo == "decbyzpg"
+                                       else [])
+        for k in keys:
+            if not np.array_equal(on[k], off[k]):
+                raise AssertionError(f"{label}: telemetry changed {k}")
+        if not torch.equal(on[carry], off[carry]):
+            raise AssertionError(f"{label}: telemetry changed {carry}")
+        taps = [r for r in sink.records if r["stream"] == algo]
+        if [int(r["t"]) for r in taps] != list(range(T)) or \
+                on["rejected"].shape != (T, cfg.K):
+            raise AssertionError(f"{label}: {len(taps)} taps for T={T}")
+        log(f"[telemetry] {label} ({algo}): {', '.join(keys)} and {carry} "
+            f"bit-identical to the run without telemetry; {len(taps)} taps; "
+            f"grad_norm={np.round(on['grad_norm'], 4).tolist()}; "
+            f"aggregator_confusion={on['aggregator_confusion']}; launches "
+            f"{ {k: v for k, v in counts.items() if v} }; ms/iter "
+            f"{t_off / T * 1e3:.3f} off, {t_on / T * 1e3:.3f} on")
+    return totals
+
+
+def phase_byzpg_cpu_agreement(dev):
+    """Small ByzPG runs on the card against the same runs on the CPU
+    (plain versions), fed the same draws and θ₀: bucketed RFA, Krum and
+    the trimmed mean at K=13, n_byz=3."""
+    import numpy as np
+    import torch
+    from repro_torch.core.byzpg import ByzPGConfig, run_byzpg
+    from repro_torch.core.noise import draw_byzpg_noise
+    from repro_torch.rl.envs import make_cartpole
+    from repro_torch.rl.policy import resolve_policy
+
+    env = make_cartpole(horizon=32)
+    small = dict(K=13, n_byz=3, attack="large_noise(sigma=10)", N=8, B=2)
+    T = 3
+    for label in ("rfa", "krum", "trimmed_mean"):
+        cfg = ByzPGConfig(**small, aggregator=label)
+        policy = resolve_policy(cfg, env)
+        gen = torch.Generator()
+        gen.manual_seed(1)
+        theta0 = policy.init(gen)
+        noise = [draw_byzpg_noise(gen, cfg, env, policy.d, t)
+                 for t in range(T)]
+        on_card = [type(nz)(*(None if x is None else x.to(dev) for x in nz))
+                   for nz in noise]
+        cpu = run_byzpg(env, cfg, T, device="cpu", theta0=theta0,
+                        noise=noise)
+        gpu = run_byzpg(env, cfg, T, device=dev, theta0=theta0.to(dev),
+                        noise=on_card)
+        if not np.array_equal(cpu["coins"], gpu["coins"]):
+            raise AssertionError(f"byzpg {label}: card/CPU coins differ")
+        np.testing.assert_allclose(gpu["returns"], cpu["returns"], rtol=1e-5)
+        th_err = (gpu["vec"].cpu() - cpu["vec"]).abs().max().item()
+        if not th_err <= 1e-4:
+            raise AssertionError(f"byzpg {label}: card/CPU theta differ by "
+                                 f"{th_err} > 1e-4")
+        log(f"[check] card vs CPU plain path, byzpg {label} (K=13, n_byz=3, "
+            f"T={T}, coins {cpu['coins'].astype(int).tolist()}): coins "
+            f"equal, returns within rtol 1e-5, theta max abs err "
+            f"{th_err:.3e} (tol 1e-4)")
+
+
+def phase_checkpoint(dev, byzpg_out):
+    """``byzpg_cartpole``'s policy parameters saved and restored onto the
+    card bit for bit, then one request served by ``serve()`` through
+    ``policy_params(checkpoint=)``: the same tokens as serving the same
+    parameters directly, and flash attention once per layer per prefill.
+    Returns the launches per kernel of the served request."""
+    import os
+    import tempfile
+    import torch
+    from repro_torch import checkpoint
+    from repro_torch.core.registry import resolve
+    from repro_torch.core.tree import tree_paths
+    from repro_torch.kernels import dispatch
+    from repro_torch.serving import (default_buckets, make_traffic,
+                                     policy_params, serve)
+
+    params = byzpg_out["params"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "byzpg_cartpole.npz")
+        checkpoint.save(params, path)
+        back = checkpoint.restore(params, path, device=dev)
+        pairs = list(zip(tree_paths(params), tree_paths(back)))
+        if not all(ka == kb and b.device.type == dev.type
+                   and torch.equal(a, b)
+                   for (ka, a), (kb, b) in pairs):
+            raise AssertionError("byzpg_cartpole params: the restored "
+                                 "archive differs")
+        spec = "transformer(arch='llama3.2-1b', n_layers=2, d_model=64, " \
+            "n_heads=2)"
+        env = resolve("env", "cartpole(horizon=32)")
+        pol = resolve("policy", spec, env=env)
+        direct = policy_params(pol, key=0, device=dev)
+        ppath = os.path.join(tmp, "policy.npz")
+        checkpoint.save(direct, ppath)
+        kw = dict(n_requests=1, slots=4, max_new=16, realtime=False,
+                  device=dev)
+        want = serve(spec, env, params=direct, **kw).results[0].tokens
+        torch.cuda.synchronize()
+        dispatch.reset_launches()
+        report = serve(spec, env, checkpoint=ppath, **kw)
+        torch.cuda.synchronize()
+        counts = dispatch.launch_counts()
+    flash = pol.model_cfg.n_layers * (len(default_buckets(8)) + 1)
+    _check_launches("checkpoint serve", counts, {"flash_attention": flash})
+    _check_served("checkpoint serve", report, make_traffic(
+        1, seed=0, rate_rps=50.0, max_new=16, obs_dim=env.obs_dim),
+        env.n_actions)
+    got = report.results[0].tokens
+    if got != want:
+        raise AssertionError(f"served from the checkpoint {got}, directly "
+                             f"{want}")
+    log(f"[checkpoint] byzpg_cartpole params ({len(pairs)} arrays) restored "
+        f"onto {dev} bit for bit; one request served through "
+        f"policy_params(checkpoint=): tokens {got} equal to serving the "
+        f"parameters directly, flash launches {counts['flash_attention']}")
+    return counts
 
 
 def serving_runs():
@@ -988,13 +1339,8 @@ def phase_serving(dev):
                 _check_served(label, report, traffic, cfg.vocab_size)
             torch.cuda.synchronize()
             counts = dispatch.launch_counts()
-            want = {name: 0 for name in counts}
-            want["flash_attention"] = want_flash
-            if counts != want:
-                raise AssertionError(f"{label}: launches {counts}, "
-                                     f"expected {want}")
-            for name, c in counts.items():
-                totals[name] = totals.get(name, 0) + c
+            _check_launches(label, counts, {"flash_attention": want_flash})
+            _add(totals, counts)
             log(f"[serve] {label}: {report.summary()} {times.summary()}"
                 f"{extra} flash_launches={counts['flash_attention']}")
             log(f"[serve] {label}: first streams "
@@ -1223,9 +1569,14 @@ def main() -> int:
     log_kernel_rows(rows)
     totals = phase_main_path(dev)
     phase_cpu_agreement(dev)
-    for name, n in phase_serving(dev).items():
-        totals[name] = totals.get(name, 0) + n
+    byzpg_totals, byzpg_out = phase_byzpg(dev)
+    _add(totals, byzpg_totals)
+    phase_byzpg_cpu_agreement(dev)
+    _add(totals, phase_experiment(dev))
+    _add(totals, phase_telemetry(dev))
+    _add(totals, phase_serving(dev))
     phase_serving_cpu_agreement(dev)
+    _add(totals, phase_checkpoint(dev, byzpg_out))
     from repro_torch.kernels import dispatch
     missing = [name for name in dispatch.kernels()
                if totals.get(name, 0) <= 0]

@@ -2,11 +2,21 @@
 
 The JAX package ``repro`` is the reference; this package mirrors its layout
 (``core/``, ``rl/``, ``optim/``, ``topology/``, ``kernels/``, ``configs/``,
-``models/``, ``distributed/``, ``serving/``, ``launch/``) and imports
-neither ``jax`` nor anything of ``repro``. Its entry points run on the CUDA
-device unless the caller asks for the CPU (:func:`resolve_device`).
+``models/``, ``distributed/``, ``serving/``, ``launch/``, ``obs/``,
+``checkpoint/``) and imports neither ``jax`` nor anything of ``repro``. Its
+entry points run on the CUDA device unless the caller asks for the CPU
+(:func:`resolve_device`).
+
+The front door, as in the reference, resolves lazily::
+
+    from repro_torch import Experiment, obs
+    Experiment(algo="byzpg", env="cartpole(horizon=100)", T=15, seeds=3,
+               axes={"aggregator": ("rfa", "mean")}, K=13, n_byz=3,
+               attack="large_noise", N=20, B=4, eta=2e-2).run().summary()
 """
 from __future__ import annotations
+
+import importlib
 
 import torch
 
@@ -30,4 +40,23 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-__all__ = ["resolve_device"]
+#: name -> defining submodule (attribute re-exports, imported on first use)
+_EXPORTS = {
+    "Experiment": "repro_torch.core.engine",
+    "ExperimentResult": "repro_torch.core.engine",
+    "ScenarioGrid": "repro_torch.core.engine",
+    "run_grid": "repro_torch.core.engine",
+}
+#: subsystem namespaces exposed as attributes
+_MODULES = ("checkpoint", "obs")
+
+__all__ = ["resolve_device", *sorted(_EXPORTS), *_MODULES]
+
+
+def __getattr__(name):
+    module = _EXPORTS.get(name)
+    if module is not None:
+        return getattr(importlib.import_module(module), name)
+    if name in _MODULES:
+        return importlib.import_module(f"repro_torch.{name}")
+    raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")

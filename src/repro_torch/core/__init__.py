@@ -1,1 +1,2 @@
-"""DecByzPG core: registry, attacks, aggregation, agreement, the step."""
+"""DecByzPG and ByzPG core: registry, attacks, aggregation, agreement,
+the steps, PAGE, and the experiment engine."""

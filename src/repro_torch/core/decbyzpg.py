@@ -20,7 +20,12 @@ Python loop; each step's randomness arrives as a
 :class:`~repro_torch.core.noise.StepNoise`. The step's phases are
 ``torch.profiler`` ranges (``decbyzpg.noise``, ``.rollout``, ``.estimate``,
 ``.aggregate``, ``.agree``, ``.diameter``), six per iteration, which
-``tools/profile_decbyzpg.py`` reads.
+``tools/profile_decbyzpg.py`` reads. With ``cfg.telemetry`` the step also
+computes the honest gradient norm and the aggregator's rejection mask
+(which launches kernels of its own, e.g. ``gram`` and ``krum_score`` for
+Krum), taps them to the ``"decbyzpg"`` stream of :mod:`repro_torch.obs`
+(one read to the host a step) and returns them; it draws nothing more, so
+every other output is bit-identical to the run without it.
 """
 from __future__ import annotations
 
@@ -31,11 +36,14 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.core import attacks as attacks_lib
+from repro_torch.core.aggregators import rejection_mask
 from repro_torch.core.agreement import avg_agree, honest_diameter
+from repro_torch.core.engine import AlgoDef, add_telemetry, history
 from repro_torch.core.noise import StepNoise, draw_step_noise
-from repro_torch.core.registry import normalize_spec_fields, resolve
+from repro_torch.core.registry import (normalize_spec_fields, register,
+                                       resolve)
 from repro_torch.optim.optimizers import get_optimizer
 from repro_torch.rl.gradient import grad_estimate, weighted_grad_estimate
 from repro_torch.rl.policy import resolve_policy
@@ -69,13 +77,10 @@ class DecByzPGConfig:
     baseline: float = 0.0
     optimizer: object = "adam"
     seed: int = 0
-    telemetry: bool = False     # the in-loop taps come with the obs slice
+    telemetry: bool = False     # taps + per-round rejected-agent masks
 
     def __post_init__(self):
         normalize_spec_fields(self, _SPEC_FIELDS)
-        if self.telemetry:
-            raise NotImplementedError(
-                "repro_torch has no telemetry taps yet (telemetry=True)")
 
     @property
     def switch_p(self) -> float:
@@ -112,9 +117,11 @@ def init_decbyzpg_carry(env, cfg: DecByzPGConfig,
 
 
 def build_decbyzpg_step(env, cfg: DecByzPGConfig, device):
-    """One iteration ``step(carry, noise) -> (carry, (ret, coin, diam))``
-    with the honest mean return, the coin and the honest diameter as
-    device tensors (no host sync)."""
+    """One iteration ``step(carry, noise, t) -> (carry, (ret, coin,
+    diam))`` with the honest mean return, the coin and the honest diameter
+    as device tensors (no host sync). With ``cfg.telemetry`` the outputs
+    gain the honest mean message norm and the rejected-agent mask (K,),
+    tapped to the ``"decbyzpg"`` stream."""
     dev = torch.device(device)
     policy = resolve_policy(cfg, env)
     byz_mask = torch.arange(cfg.K, device=dev) < cfg.n_byz
@@ -134,7 +141,7 @@ def build_decbyzpg_step(env, cfg: DecByzPGConfig, device):
     w_large = torch.where(idx < cfg.N, 1.0 / cfg.N, 0.0)
     w_small = torch.where(idx < cfg.B, 1.0 / cfg.B, 0.0)
 
-    def step(carry: Carry, noise: StepNoise):
+    def step(carry: Carry, noise: StepNoise, t: int):
         theta, theta_prev, opt_state = carry
         coin = noise.coin
         w = torch.where(coin, w_large, w_small)
@@ -166,7 +173,17 @@ def build_decbyzpg_step(env, cfg: DecByzPGConfig, device):
         with record_function("decbyzpg.diameter"):
             honest_ret = torch.where(byz_mask, 0.0, rets).sum() / n_honest
             diam = honest_diameter(theta_new, honest)
-        return Carry(theta_new, theta, opt_state), (honest_ret, coin, diam)
+        carry = Carry(theta_new, theta, opt_state)
+        if not cfg.telemetry:
+            return carry, (honest_ret, coin, diam)
+        # observers only: nothing drawn, nothing the run's outputs read
+        norms = torch.linalg.vector_norm(tilde_v, dim=1)
+        grad_norm = torch.where(byz_mask, 0.0, norms).sum() / n_honest
+        rejected = rejection_mask(cfg.aggregator, msgs, cfg.n_byz)
+        obs.tap("decbyzpg", t=np.int32(t), coin=coin,
+                honest_return=honest_ret, diameter=diam, grad_norm=grad_norm,
+                rejected=rejected)
+        return carry, (honest_ret, coin, diam, grad_norm, rejected)
 
     return step
 
@@ -176,7 +193,9 @@ def run_decbyzpg(env, cfg: DecByzPGConfig, T: int, *, device=None,
                  noise: Optional[Sequence[StepNoise]] = None) -> dict:
     """Run T iterations. Returns the honest mean returns, the coins, the
     per-agent sample counts, the honest diameter trace (numpy), and the
-    final θ (K, d) with an honest agent's parameters.
+    final θ (K, d) with an honest agent's parameters; with
+    ``cfg.telemetry`` also the honest gradient norms (T,), the rejected
+    masks (T, K) and their ``aggregator_confusion`` tally.
 
     ``device=None`` means CUDA. ``theta0`` ((d,) or (K, d)) replaces the
     seeded init; ``noise`` (T StepNoise on ``device``) replaces the seeded
@@ -199,14 +218,20 @@ def run_decbyzpg(env, cfg: DecByzPGConfig, T: int, *, device=None,
         else:
             with record_function("decbyzpg.noise"):
                 nz = draw_step_noise(gen, cfg, env, policy.d, t)
-        carry, y = step(carry, nz)
+        carry, y = step(carry, nz, t)
         ys.append(y)
-    rets, coins, diams = (torch.stack(col).cpu().numpy() for col in zip(*ys))
+    hist = history(ys, ("returns", "coins", "diameter", "grad_norm",
+                        "rejected"))
     theta = carry.theta
     honest_idx = min(cfg.n_byz, cfg.K - 1)
-    return {"returns": rets,
-            "coins": coins,
-            "samples": np.cumsum(np.where(coins, cfg.N, cfg.B)),
-            "diameter": diams,
-            "params": policy.layers(theta[honest_idx]),
-            "theta": theta}
+    out = {"returns": hist["returns"],
+           "coins": hist["coins"],
+           "samples": np.cumsum(np.where(hist["coins"], cfg.N, cfg.B)),
+           "diameter": hist["diameter"],
+           "params": policy.layers(theta[honest_idx]),
+           "theta": theta}
+    return add_telemetry(out, hist, cfg.n_byz)
+
+
+register("algo", "decbyzpg")(
+    lambda: AlgoDef(DecByzPGConfig, run_decbyzpg, carry_hist="theta"))

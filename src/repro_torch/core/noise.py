@@ -1,4 +1,4 @@
-"""Everything one DecByzPG step draws, as explicit tensors.
+"""Everything one DecByzPG or ByzPG step draws, as explicit tensors.
 
 The JAX package threads PRNG keys through the step and draws inside it.
 The port draws a step's randomness up front, on the device, in one batched
@@ -23,7 +23,7 @@ class StepNoise(NamedTuple):
     gumbel: torch.Tensor                  # (K, M, H, A) action noise
     attack: Optional[torch.Tensor]        # (K, d) message-attack normals
     agree_attack: Optional[torch.Tensor]  # (κ, K, d) or (κ, K, K, d)
-    perm: Optional[torch.Tensor]          # (K, K) bucketing permutations
+    perm: Optional[torch.Tensor]          # (R, K) bucketing permutations
 
 
 def _gumbel(generator, shape) -> torch.Tensor:
@@ -35,8 +35,26 @@ def _gumbel(generator, shape) -> torch.Tensor:
 
 def draw_step_noise(generator: torch.Generator, cfg, env, d: int,
                     t: int) -> StepNoise:
-    """Draw step ``t``'s :class:`StepNoise` for ``cfg`` on the generator's
-    device. M = max(N, B) trajectories per agent are always drawn."""
+    """Draw DecByzPG step ``t``'s :class:`StepNoise` for ``cfg`` on the
+    generator's device: κ rounds of agreement noise (one per receiver with
+    ``per_receiver``) and one bucketing permutation per receiver."""
+    K = cfg.K
+    per_round = (K, K, d) if cfg.per_receiver else (K, d)
+    return _draw(generator, cfg, env, d, t, (cfg.kappa, *per_round), K)
+
+
+def draw_byzpg_noise(generator: torch.Generator, cfg, env, d: int,
+                     t: int) -> StepNoise:
+    """Draw ByzPG step ``t``'s :class:`StepNoise`: no agreement draws, and
+    one bucketing permutation (1, K), since the server aggregates once."""
+    return _draw(generator, cfg, env, d, t, None, 1)
+
+
+def _draw(generator, cfg, env, d: int, t: int, agree_shape,
+          receivers: int) -> StepNoise:
+    """M = max(N, B) trajectories per agent are always drawn; the attack
+    and agreement normals only for an attack that draws noise, and the
+    ``receivers`` permutations only for an aggregator that buckets."""
     dev = generator.device
     K, M, H, A = cfg.K, max(cfg.N, cfg.B), env.horizon, env.n_actions
     p = cfg.switch_p
@@ -46,13 +64,12 @@ def draw_step_noise(generator: torch.Generator, cfg, env, d: int,
     attack = agree = None
     if attacks_lib.draws_noise(cfg.attack):
         attack = torch.randn((K, d), generator=generator, device=dev)
-        per_round = (K, K, d) if cfg.per_receiver else (K, d)
-        agree = torch.randn((cfg.kappa, *per_round), generator=generator,
-                            device=dev)
+        if agree_shape is not None:
+            agree = torch.randn(agree_shape, generator=generator, device=dev)
     perm = None
     if resolve("aggregator", cfg.aggregator, K=K,
                n_byz=cfg.n_byz).bucket_size:
         perm = torch.argsort(
-            torch.rand((K, K), generator=generator, device=dev), dim=1)
+            torch.rand((receivers, K), generator=generator, device=dev),
+            dim=1)
     return StepNoise(coin, s0, gumbel, attack, agree, perm)
-

@@ -2,8 +2,8 @@
 ``core/registry.py``.
 
 Components (aggregators, attacks, agreement methods, estimators,
-optimizers, environments, topologies, policies) register under a
-namespace and are addressed by a :class:`Spec`, a frozen, hashable
+optimizers, environments, topologies, policies, algorithms) register
+under a namespace and are addressed by a :class:`Spec`, a frozen, hashable
 ``(name, sorted kwargs)`` value that parses from strings::
 
     Spec.of("bucketing(s=2, inner=rfa(n_iter=64))").canonical()
@@ -160,6 +160,7 @@ _PROVIDERS: Dict[str, Tuple[str, ...]] = {  # analysis: not-a-spec
     "topology": ("repro_torch.topology.graphs",),
     "policy": ("repro_torch.rl.policy",
                "repro_torch.rl.transformer_policy"),
+    "algo": ("repro_torch.core.decbyzpg", "repro_torch.core.byzpg"),
 }
 
 

@@ -76,3 +76,46 @@ def unravel_tree(vec: torch.Tensor, shapes):
         raise ValueError(f"flat vector has {vec.shape[-1]} entries, the "
                          f"shapes need {off}")
     return out
+
+
+def _is_namedtuple(node) -> bool:
+    return isinstance(node, tuple) and hasattr(node, "_fields")
+
+
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` leaf by leaf to trees of one structure: dicts, lists,
+    tuples and NamedTuples are nodes, ``None`` an empty subtree, anything
+    else a leaf. Leaves are visited in :func:`tree_paths`'s order (dict
+    keys sorted, as ``jax.tree_util`` does)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        out = [tree_map(fn, x, *(r[i] for r in rest))
+               for i, x in enumerate(tree)]
+        if _is_namedtuple(tree):
+            return type(tree)(*out)
+        return type(tree)(out)
+    return fn(tree, *rest)
+
+
+def tree_paths(tree, prefix: str = ""):
+    """``(path, leaf)`` pairs in ``jax.tree_util``'s leaf order, each path
+    the keys joined by ``/``: dict keys sorted, list and tuple indices,
+    NamedTuple field names; ``None`` holds no leaf."""
+    def join(key):
+        return f"{prefix}/{key}" if prefix else str(key)
+
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in tree_paths(tree[k], join(k))]
+    if _is_namedtuple(tree):
+        return [p for name, x in zip(tree._fields, tree)
+                for p in tree_paths(x, join(name))]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, x in enumerate(tree)
+                for p in tree_paths(x, join(i))]
+    return [(prefix, tree)]

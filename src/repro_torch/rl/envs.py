@@ -14,7 +14,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core.registry import register
+from repro_torch.core.registry import Spec, register, resolve
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,3 +114,19 @@ def make_lunarlander(horizon: int = 300) -> Env:
 
 register("env", "cartpole")(make_cartpole)
 register("env", "lunarlander")(make_lunarlander)
+
+
+def make_env(name, **kw) -> Env:
+    """Build an env from a spec (``"cartpole"``, ``"cartpole(horizon=100)"``,
+    or a Spec); extra ``kw`` merge into the spec's kwargs. An ``Env`` is
+    returned as it is."""
+    if isinstance(name, Env):
+        if kw:
+            raise TypeError(f"cannot apply overrides {sorted(kw)} to an "
+                            f"already-built Env ({name.name}); pass a "
+                            f"spec instead")
+        return name
+    spec = Spec.of(name)
+    if kw:
+        spec = spec.with_kwargs(**kw)
+    return resolve("env", spec)

@@ -51,16 +51,19 @@ def policy_params(policy, *, checkpoint: Optional[str] = None, theta=None,
     """Servable parameters for a resolved transformer policy, on
     ``device`` (default CUDA).
 
-    Precedence: ``checkpoint`` (not ported yet: raises) > ``theta`` (a
-    flat aggregated policy vector, unraveled in ``ravel_pytree``'s order:
-    keys sorted at every level) > ``key`` (fresh init from a
-    ``torch.Generator``, or an int seed for one; nothing here invents
-    randomness)."""
-    if checkpoint is not None:
-        raise NotImplementedError(
-            "restoring a checkpoint is not ported yet (ROADMAP Queue 1, "
-            "checkpoint/ckpt.py); pass theta= or key=")
+    Precedence: ``checkpoint`` (a :mod:`repro_torch.checkpoint` archive of
+    the parameter tree, the aggregated artifact a trainer saves; either
+    package's archive restores) > ``theta`` (a flat aggregated policy
+    vector, unraveled in ``ravel_pytree``'s order: keys sorted at every
+    level) > ``key`` (fresh init from a ``torch.Generator``, or an int
+    seed for one; nothing here invents randomness)."""
     dev = resolve_device(device)
+    if checkpoint is not None:
+        from repro_torch.checkpoint import restore
+        # shapes and dtype without storage: the restore template
+        template = tree_map(lambda s: torch.empty(s, device="meta"),
+                            param_shapes(policy.model_cfg))
+        return restore(template, checkpoint, device=dev)
     if theta is not None:
         if not isinstance(theta, torch.Tensor):
             theta = torch.from_numpy(np.array(theta, dtype=np.float32))

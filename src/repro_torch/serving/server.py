@@ -15,10 +15,10 @@ Two execution modes share the same scheduler:
   ticks.  Latency percentiles from this mode include real queueing
   delay, which is what the serving benchmark reports.
 
-The port of the JAX package's ``serving/server.py``. The port has no
-``obs`` telemetry layer yet (ROADMAP Queue 1): the per-request
-``serve.request`` records and ``serve.gauge`` gauges wait for it, and the
-end-of-run summary prints through :func:`progress`.
+The port of the JAX package's ``serving/server.py``. Per-request
+``serve.request`` records and ``serve.gauge`` queue-depth/slot-occupancy
+gauges go to :mod:`repro_torch.obs` only under ``obs.enabled()``; the
+end-of-run summary prints through :func:`progress`, with its fields.
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ import threading
 import time
 from typing import List, Optional, Sequence
 
+from repro_torch import obs
 from repro_torch.serving.engine import DecodeEngine
 from repro_torch.serving.request import Request, RequestQueue, RequestResult
 from repro_torch.serving.scheduler import SlotScheduler
@@ -78,8 +79,25 @@ class PolicyServer:
         self.scheduler = SlotScheduler(engine)
         self.queue = RequestQueue()
         if warmup:
-            engine.warmup()
+            with obs.host_span("serve.warmup"):
+                engine.warmup()
             self.scheduler = SlotScheduler(engine)   # fresh post-warmup state
+
+    # -- shared bookkeeping ------------------------------------------------
+
+    def _emit_done(self, res: RequestResult) -> None:
+        if obs.enabled():
+            obs.record("serve.request", uid=res.uid,
+                       tokens=len(res.tokens), prompt_len=res.prompt_len,
+                       latency_ms=round(res.latency_s * 1e3, 3),
+                       ttft_ms=round(res.ttft_s * 1e3, 3),
+                       queue_ms=round(res.queue_s * 1e3, 3))
+
+    def _emit_gauges(self) -> None:
+        if obs.enabled():
+            obs.record("serve.gauge", queue_depth=self.queue.depth(),
+                       slots_busy=self.scheduler.busy(),
+                       slots=self.engine.slots)
 
     # -- offline -----------------------------------------------------------
 
@@ -104,7 +122,11 @@ class PolicyServer:
                 res = self.scheduler.admit(req, t_submit=t_submit)
                 if res is not None:
                     done.append(res)
-            done.extend(self.scheduler.tick())
+                    self._emit_done(res)
+            for res in self.scheduler.tick():
+                done.append(res)
+                self._emit_done(res)
+            self._emit_gauges()
         report = ServeReport(done, time.monotonic() - t0)
         progress("serve.done", mode="offline", **report.summary())
         return report
@@ -141,8 +163,11 @@ class PolicyServer:
                 admitted = True
                 if res is not None:
                     done.append(res)
+                    self._emit_done(res)
             if not self.scheduler.idle():
-                done.extend(self.scheduler.tick())
+                for res in self.scheduler.tick():
+                    done.append(res)
+                    self._emit_done(res)
             elif not admitted:
                 # nothing in flight, nothing admitted: block briefly on
                 # the queue instead of spinning
@@ -153,6 +178,8 @@ class PolicyServer:
                         req, t_submit=submit_times[req.uid])
                     if res is not None:
                         done.append(res)
+                        self._emit_done(res)
+            self._emit_gauges()
         feeder.join()
         report = ServeReport(done, time.monotonic() - t0)
         progress("serve.done", mode="realtime", **report.summary())

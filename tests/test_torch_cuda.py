@@ -539,3 +539,69 @@ def test_cuda_flash_attention_at_head_dims_it_pads(cuda, hd, window):
     assert torch.equal(got, out.reshape(B, H, S, hd).transpose(1, 2))
     torch.cuda.synchronize()
     assert dispatch.launch_counts()["flash_attention"] - before == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["byzpg", "decbyzpg"])
+def test_cuda_telemetry_is_bit_identical(cuda, algo):
+    """Telemetry observes only, on the card too: the same seed's run with
+    it on gives the same bits, one tap per iteration, and the rejection
+    mask's kernels (Krum: gram and krum_score) on top of the run's own."""
+    import dataclasses
+    from repro_torch import obs
+    from repro_torch.core.byzpg import ByzPGConfig, run_byzpg
+    from repro_torch.core.decbyzpg import DecByzPGConfig, run_decbyzpg
+    from repro_torch.rl.envs import make_cartpole
+    kw = dict(K=13, n_byz=3, attack="large_noise(sigma=10)",
+              aggregator="krum", N=8, B=2)
+    cfg, run = ((ByzPGConfig(**kw), run_byzpg) if algo == "byzpg" else
+                (DecByzPGConfig(**kw, agreement="cwtm"), run_decbyzpg))
+    env = make_cartpole(horizon=32)
+    T = 3
+    off = run(env, cfg, T, device=cuda)
+    before = dispatch.launch_counts()
+    with obs.capture(algo) as sink:
+        on = run(env, dataclasses.replace(cfg, telemetry=True), T,
+                 device=cuda)
+    torch.cuda.synchronize()
+    after = dispatch.launch_counts()
+    for k in ("returns", "coins") + (("diameter",) if algo == "decbyzpg"
+                                     else ()):
+        np.testing.assert_array_equal(on[k], off[k])
+    carry = "vec" if algo == "byzpg" else "theta"
+    assert torch.equal(on[carry], off[carry])
+    assert [int(r["t"]) for r in sink.records] == list(range(T))
+    assert on["rejected"].sum(1).tolist() == [3] * T
+    own = {"gram": 1, "krum_score": 1} if algo == "byzpg" else \
+        {"gram": 2, "krum_score": 1, "gossip_reduce": 6}
+    assert {k: after[k] - before[k] for k in own} == \
+        {k: (n + (k in ("gram", "krum_score"))) * T for k, n in own.items()}
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_round_trip(cuda, tmp_path):
+    """Save from the card, restore onto it (and onto the CPU) bit for bit,
+    and serve the restored policy parameters."""
+    from repro_torch import checkpoint
+    from repro_torch.core.registry import resolve
+    from repro_torch.core.tree import tree_paths
+    from repro_torch.serving import policy_params
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    tree = {"layers": [{"w": torch.randn(4, 3, generator=gen, device=cuda),
+                        "b": torch.randn(3, generator=gen, device=cuda)}],
+            "step": torch.arange(3, dtype=torch.int32, device=cuda)}
+    checkpoint.save(tree, str(tmp_path / "c"))
+    for dev in (cuda, "cpu", None):
+        back = checkpoint.restore(tree, str(tmp_path / "c"), device=dev)
+        for (k, a), (kb, b) in zip(tree_paths(tree), tree_paths(back)):
+            assert k == kb and b.device.type == (
+                "cpu" if dev == "cpu" else "cuda")
+            assert torch.equal(a.cpu(), b.cpu())
+    spec = "transformer(arch='llama3.2-1b', n_layers=2, d_model=64, n_heads=2)"
+    pol = resolve("policy", spec, env=resolve("env", "cartpole(horizon=32)"))
+    params = policy_params(pol, key=1, device=cuda)
+    checkpoint.save(params, str(tmp_path / "p"))
+    got = policy_params(pol, checkpoint=str(tmp_path / "p"))
+    assert all(b.is_cuda and torch.equal(a, b) for (_, a), (_, b) in
+               zip(tree_paths(params), tree_paths(got)))

@@ -124,8 +124,18 @@ def test_config_fields_match_reference():
     ours = {f.name: f.default for f in dataclasses.fields(tdb.DecByzPGConfig)}
     ref = {f.name: f.default for f in dataclasses.fields(jdb.DecByzPGConfig)}
     assert ours == ref
-    with pytest.raises(NotImplementedError):
-        tdb.DecByzPGConfig(telemetry=True)
+    # telemetry observes only: the same run with it on returns the same
+    # bits, plus one rejected mask and gradient norm per iteration
+    cfg = tdb.DecByzPGConfig(K=4, n_byz=1, attack="sign_flip", kappa=1,
+                             N=3, B=2, hidden=(4,))
+    env = make_cartpole(horizon=8)
+    off = tdb.run_decbyzpg(env, cfg, 2, device="cpu")
+    on = tdb.run_decbyzpg(env, dataclasses.replace(cfg, telemetry=True), 2,
+                          device="cpu")
+    for k in ("returns", "coins", "diameter"):
+        np.testing.assert_array_equal(on[k], off[k])
+    assert torch.equal(on["theta"], off["theta"])
+    assert on["rejected"].shape == (2, 4) and on["grad_norm"].shape == (2,)
 
 
 def test_default_device_is_cuda():
@@ -138,7 +148,8 @@ def test_default_device_is_cuda():
 
 def test_port_imports_no_jax():
     """Every module of the port imports without ``jax`` or ``repro``, the
-    serving slice's among them, and no import statement in the port, in
+    serving slice's and the ByzPG, engine, obs and checkpoint modules
+    among them, and no import statement in the port, in
     ``chip_smoke.py`` or in ``tools/`` names either (the smoke script and
     the profilers import the port inside their functions)."""
     serving = ["repro_torch.configs.base", "repro_torch.configs.qwen2_7b",
@@ -150,7 +161,12 @@ def test_port_imports_no_jax():
                "repro_torch.serving.engine", "repro_torch.serving.server",
                "repro_torch.serving.scheduler", "repro_torch.serving.traffic",
                "repro_torch.rl.transformer_policy",
-               "repro_torch.launch.serve"]
+               "repro_torch.launch.serve",
+               "repro_torch.core.byzpg", "repro_torch.core.page",
+               "repro_torch.core.engine", "repro_torch.obs",
+               "repro_torch.obs.metrics", "repro_torch.obs.sinks",
+               "repro_torch.obs.trace", "repro_torch.obs.manifest",
+               "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt"]
     code = (
         "import pkgutil, importlib, sys, repro_torch\n"
         "names = [m.name for m in pkgutil.walk_packages("

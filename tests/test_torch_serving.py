@@ -326,7 +326,8 @@ def test_lm_streams_match_the_reference():
     _assert_streams_agree(mine, ref, cfg, jparams, traffic, None)
 
 
-def test_policy_params_from_theta_in_ravel_order(policy, jax_side):
+def test_policy_params_from_theta_in_ravel_order(policy, jax_side,
+                                                 tmp_path):
     jpol, jparams = jax_side
     theta, _ = ravel_pytree(jparams)
     got = policy_params(policy, theta=np.asarray(theta), device="cpu")
@@ -337,8 +338,17 @@ def test_policy_params_from_theta_in_ravel_order(policy, jax_side):
                  got, want)
     with pytest.raises(ValueError, match="theta has shape"):
         policy_params(policy, theta=np.zeros(3, np.float32), device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        policy_params(policy, checkpoint="policy.npz", device="cpu")
+    # a checkpoint of the same parameters wins over theta
+    from repro_torch.checkpoint import save
+    save(got, str(tmp_path / "policy.npz"))
+    restored = policy_params(policy, checkpoint=str(tmp_path / "policy.npz"),
+                             theta=np.zeros(3, np.float32), device="cpu")
+    jax.tree.map(lambda a, b: np.testing.assert_array_equal(a.numpy(),
+                                                            b.numpy()),
+                 restored, want)
+    with pytest.raises(FileNotFoundError):
+        policy_params(policy, checkpoint=str(tmp_path / "absent.npz"),
+                      device="cpu")
     with pytest.raises(ValueError, match="no parameter source"):
         policy_params(policy, device="cpu")
     gen = torch.Generator()

@@ -91,3 +91,39 @@ def replay_step_noise(env, cfg, d: int, T: int):
             None if agree is None else to_torch(agree),
             None if perm is None else to_torch(perm).long()))
     return out
+
+
+def replay_byzpg_noise(env, cfg, d: int, T: int):
+    """The T StepNoise of ``byzpg.run_byzpg(env, cfg, T)``, replayed from
+    ``engine.seed_keys(cfg.seed)``: ``split(loop, T)``, then
+    ``split(key, 3)`` into trajectory, attack and aggregation keys; the
+    server's one bucketing permutation ``permutation(split(k_agg)[0], K)``;
+    the coin from ``fold_in(coin, t)``. No agreement draws."""
+    K, M = cfg.K, max(cfg.N, cfg.B)
+    ks = engine.seed_keys(cfg.seed)
+    step_keys = jax.random.split(ks.loop, T)
+    noisy = cfg.attack.name == "large_noise"
+    bucketed = torch_resolve("aggregator", str(cfg.aggregator), K=K,
+                             n_byz=cfg.n_byz).bucket_size > 0
+
+    @jax.jit
+    def draws(step_key):
+        k_traj, k_att, k_agg = jax.random.split(step_key, 3)
+        s0, gumbel = jax.vmap(lambda k: trajectory_draws(env, k, M))(
+            jax.random.split(k_traj, K))
+        attack = perm = None
+        if noisy:
+            attack = jax.random.normal(k_att, (K, d))
+        if bucketed:
+            perm = jax.random.permutation(jax.random.split(k_agg)[0], K)[None]
+        return s0, gumbel, attack, perm
+
+    out = []
+    for t in range(T):
+        coin = engine.page_coin(ks.coin, t, cfg.switch_p)
+        s0, gumbel, attack, perm = draws(step_keys[t])
+        out.append(StepNoise(
+            torch.as_tensor(bool(coin)), to_torch(s0), to_torch(gumbel),
+            None if attack is None else to_torch(attack), None,
+            None if perm is None else to_torch(perm).long()))
+    return out

@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
-"""Where one iteration of the port's DecByzPG spends its time on the GPU.
+"""Where one iteration of the port's DecByzPG (or ByzPG) spends its time
+on the GPU.
 
-    python3 tools/profile_decbyzpg.py [--env cartpole|lunarlander]
+    python3 tools/profile_decbyzpg.py [--algo decbyzpg|byzpg]
+                                      [--env cartpole|lunarlander]
                                       [--iters N] [--aggregator SPEC]
                                       [--agreement SPEC]
 
-Runs ``repro_torch.core.decbyzpg.run_decbyzpg`` at ``chip_smoke.py``'s
-full-width configurations (bucketing ∘ RFA and MDA unless
-``--aggregator`` / ``--agreement`` name other rules, e.g. ``--aggregator
-krum --agreement cwtm``): one warm iteration, then N iterations timed by
-the host clock around a synchronised run, then N more under
-``torch.profiler``. Prints the card, ms per iteration, and for each phase
-range of the step (``decbyzpg.rollout`` ...) its host ms and the kernel
-time of the kernels it launched, per iteration; the device-busy share
+Runs ``run_decbyzpg`` (or, with ``--algo byzpg``, ``run_byzpg``) at
+``chip_smoke.py``'s full-width configurations (bucketing ∘ RFA and MDA
+for DecByzPG; ByzPG's ``byzpg_cartpole`` and ``byzpg_lunarlander_tm``),
+unless ``--aggregator`` / ``--agreement`` name other rules, e.g.
+``--aggregator krum --agreement cwtm``: one warm iteration, then N
+iterations timed by the host clock around a synchronised run, then N more
+under ``torch.profiler``. Prints the card, ms per iteration, and for each
+phase range of the step (``decbyzpg.rollout`` or ``byzpg.rollout`` ...)
+its host ms and the kernel time of the kernels it launched, per iteration; the device-busy share
 (kernel time over the profiled wall time); CUDA kernels per iteration;
 and the ops with the most device time. Needs a CUDA device.
 """
@@ -29,19 +32,25 @@ from pathlib import Path
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 
-def _configs():
+def _configs(algo):
+    from repro_torch.core.byzpg import ByzPGConfig
     from repro_torch.core.decbyzpg import DecByzPGConfig
     from repro_torch.rl.envs import make_cartpole, make_lunarlander
-    return {
-        "cartpole": (make_cartpole(horizon=200),
-                     DecByzPGConfig(n_byz=3, attack="large_noise(sigma=10)")),
-        "lunarlander": (make_lunarlander(),
-                        DecByzPGConfig(hidden=(64, 64), activation="tanh")),
-    }
+    cartpole, lunar = make_cartpole(horizon=200), make_lunarlander()
+    byz = dict(n_byz=3, attack="large_noise(sigma=10)")
+    wide = dict(hidden=(64, 64), activation="tanh")
+    if algo == "byzpg":
+        return {"cartpole": (cartpole, ByzPGConfig(**byz)),
+                "lunarlander": (lunar, ByzPGConfig(
+                    **wide, n_byz=3, aggregator="trimmed_mean"))}
+    return {"cartpole": (cartpole, DecByzPGConfig(**byz)),
+            "lunarlander": (lunar, DecByzPGConfig(**wide))}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--algo", choices=("decbyzpg", "byzpg"),
+                    default="decbyzpg")
     ap.add_argument("--env", choices=("cartpole", "lunarlander"),
                     default="cartpole")
     ap.add_argument("--iters", type=int, default=4)
@@ -50,6 +59,8 @@ def main(argv=None) -> int:
     ap.add_argument("--agreement", default=None,
                     help="agreement spec, e.g. cwtm or cwmed")
     args = ap.parse_args(argv)
+    if args.algo == "byzpg" and args.agreement:
+        ap.error("ByzPG has no agreement rounds (--agreement)")
 
     import torch
     if not torch.cuda.is_available():
@@ -57,6 +68,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(SRC))
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.byzpg import run_byzpg
     from repro_torch.core.decbyzpg import run_decbyzpg
     from repro_torch.kernels import dispatch
 
@@ -65,21 +77,24 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card)
-    env, cfg = _configs()[args.env]
+    env, cfg = _configs(args.algo)[args.env]
     rules = {k: v for k, v in (("aggregator", args.aggregator),
                                ("agreement", args.agreement)) if v}
     cfg = dataclasses.replace(cfg, **rules)
+    run = run_byzpg if args.algo == "byzpg" else run_decbyzpg
+    prefix = f"{args.algo}."
     n = args.iters
-    run_decbyzpg(env, cfg, 1)                    # build kernels, warm up
+    run(env, cfg, 1)                             # build kernels, warm up
     torch.cuda.synchronize()
     dispatch.reset_launches()
     t0 = time.perf_counter()
-    out = run_decbyzpg(env, cfg, n)
+    out = run(env, cfg, n)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / n
-    d = out["theta"].shape[1]
-    print(f"[profile] {args.env} aggregator={cfg.aggregator} "
-          f"agreement={cfg.agreement} d={d} K={cfg.K} horizon={env.horizon} "
+    d = sum(t.numel() for layer in out["params"] for t in layer.values())
+    print(f"[profile] {args.algo} {args.env} aggregator={cfg.aggregator} "
+          f"agreement={getattr(cfg, 'agreement', None)} d={d} K={cfg.K} "
+          f"horizon={env.horizon} "
           f"M={max(cfg.N, cfg.B)}: {wall:.3f} ms/iter over {n} iterations "
           f"(host clock, synchronised)")
     print(f"[profile] our kernels per iteration: "
@@ -88,7 +103,7 @@ def main(argv=None) -> int:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_decbyzpg(env, cfg, n)
+        run(env, cfg, n)
         torch.cuda.synchronize()
         prof_wall = (time.perf_counter() - t0) * 1e3
 
@@ -98,8 +113,8 @@ def main(argv=None) -> int:
     events = prof.events()
     device = [e for e in events if str(e.device_type).endswith("CUDA")]
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in device if e.name.startswith("decbyzpg."))
-    kernels = [e for e in device if not e.name.startswith("decbyzpg.")]
+                   for e in device if e.name.startswith(prefix))
+    kernels = [e for e in device if not e.name.startswith(prefix)]
     starts = [sp[0] for sp in spans]
     phase_dev = {}
     for k in kernels:
@@ -110,7 +125,7 @@ def main(argv=None) -> int:
             k.time_range.end - k.time_range.start) / 1e3
     phase_host = {}
     for e in events:
-        if e.name.startswith("decbyzpg.") \
+        if e.name.startswith(prefix) \
                 and not str(e.device_type).endswith("CUDA"):
             phase_host[e.name] = phase_host.get(e.name, 0.0) \
                 + e.cpu_time_total / 1e3
@@ -131,7 +146,7 @@ def main(argv=None) -> int:
         print(f"[profile] {name:30s} {phase_host.get(name, 0.0) / n:12.3f}"
               f"  {phase_dev.get(name, 0.0) / n:14.3f}")
     avg = [a for a in prof.key_averages()
-           if not a.key.startswith("decbyzpg.")]
+           if not a.key.startswith(prefix)]
     top = sorted(avg, key=lambda a: -a.self_device_time_total)[:12]
     print("[profile] top ops by self device time (ms/iter, calls/iter):")
     for a in top:
