@@ -60,14 +60,26 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    override, with exact launches, each scenario's final return ± CI, the
    wall per iteration, and each seed's history bit-equal to its single
    run in the first scenario.
+7b. Sweeps (``repro_torch.sweep``): the fig5 cell through
+   ``SweepRunner(windows=3)``, preempted after 5 windows and resumed from
+   its manifest, bit-equal to phase 7's result with exactly its launches
+   (a second resume runs nothing); ``python -m repro_torch.launch.sweep``
+   in fresh processes on a DecByzPG Krum/trimmed-mean × consistent/
+   per-receiver cwtm grid (``cli_grid_args()``), stopped and resumed, two
+   processes in ``shard`` mode and in ``span`` mode resumed by one
+   ``local`` process, each against an in-process ``run_grid`` with
+   exact launches read from the processes' run manifests; a sweep
+   started on the CPU refused on the card. Prints the walls and the
+   window commits' times.
 8. Telemetry: three of the runs above at T=4 with ``telemetry=True``
    under an ``obs.MemorySink``: returns, coins, Δ₂ and θ bit-identical
    to the run without it, one tap per iteration, the rejection mask's
    launches counted. Then a checkpoint round trip: ``byzpg_cartpole``'s
    parameters saved and restored onto the card bit for bit, and one
    request served through ``policy_params(checkpoint=)``.
-   Phases 6–8 are driven with the launch counts set to 0 just before
-   each run and read just after; their launches join the totals.
+   Phases 6–8 (7b included) are driven with the launch counts set to 0
+   just before each run and read just after; their launches join the
+   totals.
 9. The kernel table as one JSON line (``device_ms`` and
    ``library_device_ms`` beside the issue-bound ``ms`` and
    ``library_ms``), then
@@ -987,7 +999,7 @@ def phase_experiment(dev):
     per iteration, exact launches, and each seed's history bit-equal to
     the single run for that seed in the first scenario. Returns the
     launches per kernel of the Experiment runs (the checks' single runs
-    left out)."""
+    left out) and, by cell, its result, launches and wall in s."""
     import dataclasses
     import numpy as np
     import torch
@@ -996,7 +1008,7 @@ def phase_experiment(dev):
     from repro_torch.core.registry import resolve
     from repro_torch.kernels import dispatch
 
-    totals = {}
+    totals, cells = {}, {}
     for label, kw, per_iter in experiment_cells():
         exp = Experiment(device=dev, **kw)
         torch.cuda.synchronize()
@@ -1016,6 +1028,7 @@ def phase_experiment(dev):
                                  f"{n_scn}")
         _check_launches(label, counts, want)
         _add(totals, counts)
+        cells[label] = (res, counts, secs)
         for scn, out in res.items():
             if out["returns"].shape != (S, FIG_T) \
                     or not np.isfinite(out["returns"]).all():
@@ -1048,6 +1061,312 @@ def phase_experiment(dev):
                                      f"history differs from the single run")
         log(f"[experiment] {label} {res.scenario_name(scn)}: each seed's "
             f"returns and final iterate bit-equal to its single run")
+    return totals, cells
+
+
+#: the sweep CLI's grid (phase 7b): DecByzPG at the paper's K=13 under
+#: large_noise, Krum or the trimmed mean, cwtm κ=6 with a consistent or a
+#: per-receiver attack, 2 seeds, T=6 in 3 windows
+CLI_ENV = "cartpole(horizon=100)"
+CLI_AXES = {"aggregator": ("krum", "trimmed_mean"),
+            "per_receiver": (False, True)}
+CLI_BASE = dict(K=13, n_byz=3, attack="large_noise(sigma=10)", N=20, B=4,
+                agreement="cwtm")
+CLI_T, CLI_SEEDS, CLI_WINDOWS = 6, (0, 1), 3
+#: each fresh process's wall limit
+CLI_TIMEOUT_S = 300
+
+
+def cli_grid_args() -> list:
+    """The CLI flags of the grid above."""
+    return ["--algo", "decbyzpg", "--env", CLI_ENV, "--T", str(CLI_T),
+            "--seeds", str(len(CLI_SEEDS)), "--windows", str(CLI_WINDOWS),
+            *[a for k, v in CLI_AXES.items()
+              for a in ("--axis", f"{k}={','.join(map(str, v))}")],
+            *[a for k, v in CLI_BASE.items() for a in ("--set", f"{k}={v}")]]
+
+
+def cli_per_iter(scn) -> dict:
+    """Launches per iteration of one seed of the CLI grid (§4 of PERF.md):
+    Krum's gram and Δ₂'s, or Δ₂'s alone; κ = 6 cwtm rounds, fused with
+    the gather for a consistent attack, on the gathered tensor per
+    receiver."""
+    agg = {"gram": 2, "krum_score": 1} if scn["aggregator"] == "krum" \
+        else {"gram": 1, "trimmed_mean": 1}
+    agree = "neighbor_reduce" if scn["per_receiver"] else "gossip_reduce"
+    return {**agg, agree: 6}
+
+
+def cli_launches(windows) -> dict:
+    """Launches of the CLI grid's (group, t0, t1) windows, all seeds; the
+    groups are the grid's scenarios in order."""
+    import itertools
+    scns = [dict(zip(CLI_AXES, combo))
+            for combo in itertools.product(*CLI_AXES.values())]
+    out = {}
+    for g, t0, t1 in windows:
+        _add(out, {k: n * (t1 - t0) * len(CLI_SEEDS)
+                   for k, n in cli_per_iter(scns[g]).items()})
+    return out
+
+
+def _cli(args, tele, dev):
+    """Start ``python -m repro_torch.launch.sweep`` on ``dev`` in a fresh
+    process, its run manifest (with the kernels' launches) to ``tele``."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.sweep", *args,
+         "--device", dev.type, "--telemetry-out", tele], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _cli_wait(procs, label):
+    """Every process's stdout and launches; kills them all if one fails
+    or hangs."""
+    import os
+    outs = []
+    try:
+        for p, tele in procs:
+            out, err = p.communicate(timeout=CLI_TIMEOUT_S)
+            if p.returncode != 0:
+                raise AssertionError(f"{label}: the CLI exited "
+                                     f"{p.returncode}:\n{err[-3000:]}")
+            with open(os.path.join(tele, "manifest.json")) as f:
+                outs.append((out, json.load(f)["kernel_launch_counts"]))
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def _final_lines(out: str) -> list:
+    return [ln for ln in out.splitlines() if "final_return" in ln]
+
+
+def sweep_preempt_resume(dev, fig5, tmp):
+    """``fig5_byzpg`` through ``SweepRunner(windows=3)``, preempted after
+    5 windows (inside group 1 and T), then resumed from its manifest:
+    phase 7's ``Experiment`` result bit for bit and its launches exactly;
+    a second resume runs no window and launches nothing. Returns the
+    launches."""
+    import os
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.core.engine import window_slices
+    from repro_torch.kernels import dispatch
+    from repro_torch.sweep import SweepRunner
+
+    exp_res, exp_counts, exp_secs = fig5
+    label, kw, _ = experiment_cells()[0]
+    out = os.path.join(tmp, "fig5")
+    obs.get_tracer().clear()
+    sink = obs.MemorySink()
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    with obs.telemetry(sink):
+        paused = SweepRunner(windows=3, out_dir=out, device=dev,
+                             **kw).run(max_windows=5)
+        res = SweepRunner.resume(out, device=dev).run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dispatch.launch_counts()
+    wins = [(r["group"], r["window"]) for r in sink.records
+            if r["stream"] == "sweep.window"]
+    if paused is not None or wins[:5] != [(0, 0), (0, 1), (0, 2), (1, 0),
+                                          (1, 1)]:
+        raise AssertionError(f"{label} sweep: run(max_windows=5) gave "
+                             f"{type(paused).__name__} after windows "
+                             f"{wins[:5]}")
+    if len(wins) != 4 * 3:
+        raise AssertionError(f"{label} sweep: {len(wins)} windows ran, "
+                             f"expected 12 (none twice)")
+    for scn, want in exp_res.items():
+        got = res[tuple(scn)]
+        for k in ("returns", "samples", "vec", "returns_mean",
+                  "returns_ci95"):
+            if not np.array_equal(got[k], want[k]):
+                raise AssertionError(f"{label} sweep {scn}: {k} differs "
+                                     f"from the Experiment's")
+        for k in ("final_return_mean", "final_return_ci95"):
+            if got[k] != want[k]:
+                raise AssertionError(f"{label} sweep {scn}: {k} {got[k]} "
+                                     f"!= {want[k]}")
+    if counts != exp_counts:
+        raise AssertionError(f"{label} sweep: launches {counts}, the "
+                             f"Experiment's {exp_counts}")
+    commits = sorted(e["dur"] / 1e3 for e in obs.get_tracer().events
+                     if e["name"] == "sweep.commit")
+    if len(commits) != 12:
+        raise AssertionError(f"{len(commits)} window commits, expected 12")
+    dispatch.reset_launches()
+    with obs.capture("sweep.window") as again:
+        SweepRunner.resume(out, device=dev).run()
+    torch.cuda.synchronize()
+    if again.records or any(dispatch.launch_counts().values()):
+        raise AssertionError(f"{label}: resuming the finished sweep ran "
+                             f"{len(again.records)} windows, launches "
+                             f"{dispatch.launch_counts()}")
+    log(f"[sweep] {label}: windows=3, preempted after 5 windows (group 1, "
+        f"t={window_slices(FIG_T, 3)[1][1]} of {FIG_T}) and resumed: every scenario's returns, samples, "
+        f"vec, curves, final return and CI bit-equal to phase 7's "
+        f"Experiment; launches {counts} equal its launches; a second "
+        f"resume ran 0 windows and 0 launches")
+    log(f"[sweep] {label}: wall {secs:.3f} s (preempted + resumed) against "
+        f"the Experiment's {exp_secs:.3f} s; window commit (carry, chunk, "
+        f"state) median {_median(commits):.3f} ms, largest "
+        f"{commits[-1]:.3f} ms over {len(commits)} commits")
+    return counts
+
+
+def sweep_cli(dev, tmp):
+    """The CLI in fresh processes (``cli_grid_args()``): stopped after 4 windows
+    and resumed; then two processes on the one card, ``--mode shard``, and
+    ``--mode span`` stopped after 2 windows and resumed by one ``local``
+    process. Every run's lines and ``summary.json`` equal an in-process
+    ``run_grid`` of the grid (not counted), the launches of each part are
+    exact, and the processes' launches sum to the grid's. Returns the
+    launches of the CLI processes."""
+    import os
+    import socket
+    from repro_torch.core.engine import (ExperimentResult, ScenarioGrid,
+                                         run_grid)
+    from repro_torch.rl.envs import make_env
+
+    ref = run_grid(make_env(CLI_ENV),
+                   ScenarioGrid(seeds=CLI_SEEDS, axes=CLI_AXES), CLI_T,
+                   algo="decbyzpg", device=dev, **CLI_BASE)
+    want_lines = [f"{name}: final_return={e['final_return_mean']:.3f} +/- "
+                  f"{e['final_return_ci95']:.3f}" for name, e in
+                  ExperimentResult({}, CLI_AXES, ref).summary().items()]
+    want_final = {ExperimentResult.scenario_name(s): r["final_return_mean"]
+                  for s, r in ref.items()}
+    full = [(g, 0, CLI_T) for g in range(4)]
+    totals = {}
+
+    def check(tag, outs, sweep_dir, parts):
+        """The finished processes' lines (the paused ones print none)."""
+        done = [text for text, _ in outs if "sweep paused" not in text]
+        if not done:
+            raise AssertionError(f"{tag}: no process finished the sweep")
+        for text in done:
+            if _final_lines(text) != want_lines:
+                raise AssertionError(f"{tag}: lines {_final_lines(text)}, "
+                                     f"the in-process grid's {want_lines}")
+        with open(os.path.join(sweep_dir, "summary.json")) as f:
+            got = {",".join(f"{k}={v}" for k, v in e["scenario"].items()):
+                   e["final_return_mean"] for e in json.load(f)["scenarios"]}
+        if got != want_final:
+            raise AssertionError(f"{tag}: summary.json {got}, the "
+                                 f"in-process grid's {want_final}")
+        for (_, launches), want in zip(outs, parts):
+            if want is not None:
+                _check_launches(tag, launches, want)
+        summed = {}
+        for _, launches in outs:
+            _add(summed, launches)
+        _check_launches(f"{tag} (all processes)", summed, cli_launches(full))
+        _add(totals, summed)
+
+    def launch(args, tag):
+        tele = os.path.join(tmp, tag)
+        return _cli(args, tele, dev), tele
+
+    d2 = os.path.join(tmp, "cli")
+    t0 = time.perf_counter()
+    first = _cli_wait([launch([*cli_grid_args(), "--out", d2, "--stop-after", "4"],
+                              "t2a")], "CLI stop")
+    if "sweep paused" not in first[0][0] or _final_lines(first[0][0]):
+        raise AssertionError(f"CLI --stop-after 4: {first[0][0]}")
+    second = _cli_wait([launch(["--resume", d2], "t2b")], "CLI resume")
+    walls = {"stop + resume": time.perf_counter() - t0}
+    # group 0 whole and group 1's first window, then the rest
+    w1 = CLI_T // CLI_WINDOWS
+    check("CLI stop + resume", first + second, d2,
+          [cli_launches([(0, 0, CLI_T), (1, 0, w1)]),
+           cli_launches([(1, w1, CLI_T)] + full[2:])])
+    log(f"[sweep] CLI in fresh processes, --stop-after 4 then --resume: "
+        f"lines equal to the in-process run_grid ({len(want_lines)} "
+        f"scenarios), summary.json's final returns bit-equal, launches "
+        f"exact per part")
+
+    def two(mode, sweep_dir, extra, tag):
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        flags = [*cli_grid_args(), "--mode", mode, "--processes", "2",
+                 "--coordinator", f"localhost:{port}", "--out", sweep_dir,
+                 *extra]
+        return _cli_wait([launch([*flags, "--process-id", str(i)],
+                                 f"{tag}{i}") for i in range(2)],
+                         f"{mode} {tag}")
+
+    d3 = os.path.join(tmp, "shard")
+    t0 = time.perf_counter()
+    shard = two("shard", d3, [], "t3s")
+    walls["shard, 2 processes"] = time.perf_counter() - t0
+    check("two-process shard", shard, d3, [None, None])
+    d4 = os.path.join(tmp, "span")
+    t0 = time.perf_counter()
+    span = two("span", d4, ["--stop-after", "2"], "t3p")
+    if any("sweep paused" not in o or _final_lines(o) for o, _ in span):
+        raise AssertionError("span --stop-after 2 did not pause")
+    local = _cli_wait([launch(["--resume", d4, "--mode", "local"], "t3l")],
+                      "span resume")
+    walls["span, 2 processes, + local resume"] = time.perf_counter() - t0
+    check("two-process span + one-process resume", span + local, d4,
+          [None, None, cli_launches([(0, 2 * w1, CLI_T)] + full[1:])])
+    log(f"[sweep] two processes on the card: shard (both print the lines; "
+        f"launches by process {[c for _, c in shard]}), and span stopped "
+        f"after 2 windows then resumed by one local process (launches by "
+        f"process {[c for _, c in span + local]}): the same lines and "
+        f"summary, launches summing to the grid's")
+    log(f"[sweep] CLI walls (s, fresh processes included): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
+    return totals
+
+
+def sweep_device_mismatch(dev, tmp):
+    """A sweep started on the CPU refuses to resume on ``dev``:
+    ``SweepMismatch`` naming ``meta.device``, before any launch."""
+    import os
+    from repro_torch.kernels import dispatch
+    from repro_torch.sweep import SweepMismatch, SweepRunner
+
+    d5 = os.path.join(tmp, "cpu")
+    SweepRunner(algo="byzpg", env="cartpole(horizon=20)", T=2, seeds=(0,),
+                axes={"aggregator": ("mean",)}, windows=2, out_dir=d5,
+                device="cpu", K=3, N=4, B=2).run(max_windows=1)
+    dispatch.reset_launches()
+    try:
+        SweepRunner.resume(d5, device=dev).run()
+    except SweepMismatch as e:
+        if f"meta.device: 'cpu' != '{dev.type}'" not in str(e):
+            raise AssertionError(f"the mismatch names {e}") from e
+    else:
+        raise AssertionError(f"a CPU sweep resumed on {dev}")
+    if any(dispatch.launch_counts().values()):
+        raise AssertionError("the refused resume launched kernels")
+    log(f"[sweep] a sweep started on the CPU refuses to resume on {dev}: "
+        f"SweepMismatch names meta.device ('cpu' != '{dev.type}')")
+
+
+def phase_sweep(dev, fig5):
+    """The sweep service on the card (``repro_torch.sweep``), phase 7b:
+    :func:`sweep_preempt_resume`, :func:`sweep_cli`,
+    :func:`sweep_device_mismatch`. Returns the launches per kernel of the
+    sweeps' runs."""
+    import tempfile
+    totals = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        _add(totals, sweep_preempt_resume(dev, fig5, tmp))
+        _add(totals, sweep_cli(dev, tmp))
+        sweep_device_mismatch(dev, tmp)
+    log(f"[sweep] launches in the phase {totals}")
     return totals
 
 
@@ -1572,7 +1891,9 @@ def main() -> int:
     byzpg_totals, byzpg_out = phase_byzpg(dev)
     _add(totals, byzpg_totals)
     phase_byzpg_cpu_agreement(dev)
-    _add(totals, phase_experiment(dev))
+    exp_totals, exp_cells = phase_experiment(dev)
+    _add(totals, exp_totals)
+    _add(totals, phase_sweep(dev, exp_cells["fig5_byzpg"]))
     _add(totals, phase_telemetry(dev))
     _add(totals, phase_serving(dev))
     phase_serving_cpu_agreement(dev)

@@ -3,9 +3,9 @@
 The JAX package ``repro`` is the reference; this package mirrors its layout
 (``core/``, ``rl/``, ``optim/``, ``topology/``, ``kernels/``, ``configs/``,
 ``models/``, ``distributed/``, ``serving/``, ``launch/``, ``obs/``,
-``checkpoint/``) and imports neither ``jax`` nor anything of ``repro``. Its
-entry points run on the CUDA device unless the caller asks for the CPU
-(:func:`resolve_device`).
+``checkpoint/``, ``sweep/``) and imports neither ``jax`` nor anything of
+``repro``. Its entry points run on the CUDA device unless the caller asks
+for the CPU (:func:`resolve_device`).
 
 The front door, as in the reference, resolves lazily::
 
@@ -46,6 +46,9 @@ _EXPORTS = {
     "ExperimentResult": "repro_torch.core.engine",
     "ScenarioGrid": "repro_torch.core.engine",
     "run_grid": "repro_torch.core.engine",
+    "SweepRunner": "repro_torch.sweep",
+    "SweepError": "repro_torch.sweep",
+    "SweepMismatch": "repro_torch.sweep",
 }
 #: subsystem namespaces exposed as attributes
 _MODULES = ("checkpoint", "obs")

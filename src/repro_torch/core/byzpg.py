@@ -24,12 +24,14 @@ back to the host.
 
 The T iterations are a Python loop over one step, each step's randomness
 arriving as a :class:`~repro_torch.core.noise.StepNoise` (no agreement
-draws; one bucketing permutation, since the server aggregates once). The
-reference's ``run_byzpg_legacy`` and ``build_byzpg_window`` manage its
-jit dispatch and have no counterpart here. With ``cfg.telemetry`` the step
-also taps the honest gradient norm and the aggregator's rejection mask to
-the ``"byzpg"`` stream of :mod:`repro_torch.obs`; it draws nothing more,
-so the other outputs are bit-identical to the run without it.
+draws; one bucketing permutation, since the server aggregates once). A
+run is ``init`` + ``window`` over ``[0, T)`` + ``finish``, the windows
+being the counterpart of the reference's ``build_byzpg_window``; its
+``run_byzpg_legacy`` manages jit dispatch and has no counterpart here.
+With ``cfg.telemetry`` the step also taps the honest gradient norm and
+the aggregator's rejection mask to the ``"byzpg"`` stream of
+:mod:`repro_torch.obs`; it draws nothing more, so the other outputs are
+bit-identical to the run without it.
 """
 from __future__ import annotations
 
@@ -43,7 +45,8 @@ from torch.profiler import record_function
 from repro_torch import obs, resolve_device
 from repro_torch.core import attacks as attacks_lib
 from repro_torch.core.aggregators import rejection_mask
-from repro_torch.core.engine import AlgoDef, add_telemetry, history
+from repro_torch.core.engine import (AlgoDef, add_telemetry, history,
+                                     seed_generator)
 from repro_torch.core.noise import StepNoise, draw_byzpg_noise
 from repro_torch.core.registry import (normalize_spec_fields, register,
                                        resolve)
@@ -177,13 +180,49 @@ def build_byzpg_step(env, cfg: ByzPGConfig, device):
     return step
 
 
+def window_byzpg(env, cfg: ByzPGConfig, carry: ByzPGCarry,
+                 generator: Optional[torch.Generator], t0: int, t1: int,
+                 noise: Optional[Sequence[StepNoise]] = None):
+    """Iterations ``[t0, t1)`` from ``carry``: ``(carry, chunk)`` with the
+    chunk's histories (numpy, time axis 0). Each step's draws come from
+    ``generator`` in order, so chaining windows over ``[0, T)`` with one
+    generator is the uninterrupted run; ``noise`` (the whole run's T
+    StepNoise) replaces the draws with ``noise[t0:t1]``."""
+    dev = carry.theta.device
+    policy = resolve_policy(cfg, env)
+    step = build_byzpg_step(env, cfg, dev)
+    ys: List[tuple] = []
+    for t in range(t0, t1):
+        if noise is not None:
+            nz = noise[t]
+        else:
+            with record_function("byzpg.noise"):
+                nz = draw_byzpg_noise(generator, cfg, env, policy.d, t)
+        carry, y = step(carry, nz, t)
+        ys.append(y)
+    return carry, history(ys, ("returns", "coins", "grad_norm", "rejected"))
+
+
+def finish_byzpg(env, cfg: ByzPGConfig, carry: ByzPGCarry,
+                 chunks: Sequence[dict]) -> dict:
+    """The run's output from its final carry and its windows' chunks."""
+    hist = {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
+    out = {"returns": hist["returns"],
+           "coins": hist["coins"],
+           "samples": np.cumsum(np.where(hist["coins"], cfg.N, cfg.B)),
+           "params": resolve_policy(cfg, env).layers(carry.theta),
+           "vec": carry.theta}
+    return add_telemetry(out, hist, cfg.n_byz)
+
+
 def run_byzpg(env, cfg: ByzPGConfig, T: int, *, device=None, theta0=None,
               noise: Optional[Sequence[StepNoise]] = None) -> dict:
-    """Run T iterations. Returns the returns and coins (numpy), the
-    per-agent sample counts, the final θ (d,) as ``vec`` and as the
-    policy's ``params``; with ``cfg.telemetry`` also the honest gradient
-    norms (T,), the rejected masks (T, K) and their
-    ``aggregator_confusion`` tally.
+    """Run T iterations: :func:`init_byzpg_carry`, one
+    :func:`window_byzpg` over ``[0, T)``, :func:`finish_byzpg`. Returns
+    the returns and coins (numpy), the per-agent sample counts, the final
+    θ (d,) as ``vec`` and as the policy's ``params``; with
+    ``cfg.telemetry`` also the honest gradient norms (T,), the rejected
+    masks (T, K) and their ``aggregator_confusion`` tally.
 
     ``device=None`` means CUDA. ``theta0`` (d,) replaces the seeded init;
     ``noise`` (T StepNoise on ``device``) replaces the seeded draws. The
@@ -194,28 +233,12 @@ def run_byzpg(env, cfg: ByzPGConfig, T: int, *, device=None, theta0=None,
         raise ValueError(f"T must be >= 1, got {T}")
     if noise is not None and len(noise) != T:
         raise ValueError(f"noise holds {len(noise)} steps, T={T}")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(cfg.seed)
-    policy = resolve_policy(cfg, env)
+    gen = seed_generator(cfg.seed, dev)
     carry = init_byzpg_carry(env, cfg, gen, theta0, dev)
-    step = build_byzpg_step(env, cfg, dev)
-    ys: List[tuple] = []
-    for t in range(T):
-        if noise is not None:
-            nz = noise[t]
-        else:
-            with record_function("byzpg.noise"):
-                nz = draw_byzpg_noise(gen, cfg, env, policy.d, t)
-        carry, y = step(carry, nz, t)
-        ys.append(y)
-    hist = history(ys, ("returns", "coins", "grad_norm", "rejected"))
-    out = {"returns": hist["returns"],
-           "coins": hist["coins"],
-           "samples": np.cumsum(np.where(hist["coins"], cfg.N, cfg.B)),
-           "params": policy.layers(carry.theta),
-           "vec": carry.theta}
-    return add_telemetry(out, hist, cfg.n_byz)
+    carry, chunk = window_byzpg(env, cfg, carry, gen, 0, T, noise)
+    return finish_byzpg(env, cfg, carry, [chunk])
 
 
 register("algo", "byzpg")(
-    lambda: AlgoDef(ByzPGConfig, run_byzpg, carry_hist="vec"))
+    lambda: AlgoDef(ByzPGConfig, run_byzpg, init_byzpg_carry, window_byzpg,
+                    finish_byzpg, carry_hist="vec"))

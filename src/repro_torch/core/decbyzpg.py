@@ -17,7 +17,10 @@ Per iteration t, every agent k:
 
 All K agents run together on (K, ...) tensors. The T iterations are a
 Python loop; each step's randomness arrives as a
-:class:`~repro_torch.core.noise.StepNoise`. The step's phases are
+:class:`~repro_torch.core.noise.StepNoise`. A run is ``init`` + ``window``
+over ``[0, T)`` + ``finish``; the sweep service chains windows over
+slices of ``[0, T)`` with the carry and the generator's state saved
+between them. The step's phases are
 ``torch.profiler`` ranges (``decbyzpg.noise``, ``.rollout``, ``.estimate``,
 ``.aggregate``, ``.agree``, ``.diameter``), six per iteration, which
 ``tools/profile_decbyzpg.py`` reads. With ``cfg.telemetry`` the step also
@@ -40,7 +43,8 @@ from repro_torch import obs, resolve_device
 from repro_torch.core import attacks as attacks_lib
 from repro_torch.core.aggregators import rejection_mask
 from repro_torch.core.agreement import avg_agree, honest_diameter
-from repro_torch.core.engine import AlgoDef, add_telemetry, history
+from repro_torch.core.engine import (AlgoDef, add_telemetry, history,
+                                     seed_generator)
 from repro_torch.core.noise import StepNoise, draw_step_noise
 from repro_torch.core.registry import (normalize_spec_fields, register,
                                        resolve)
@@ -188,14 +192,55 @@ def build_decbyzpg_step(env, cfg: DecByzPGConfig, device):
     return step
 
 
+def window_decbyzpg(env, cfg: DecByzPGConfig, carry: Carry,
+                    generator: Optional[torch.Generator], t0: int, t1: int,
+                    noise: Optional[Sequence[StepNoise]] = None):
+    """Iterations ``[t0, t1)`` from ``carry``: ``(carry, chunk)`` with the
+    chunk's histories (numpy, time axis 0). Each step's draws come from
+    ``generator`` in order, so chaining windows over ``[0, T)`` with one
+    generator is the uninterrupted run; ``noise`` (the whole run's T
+    StepNoise) replaces the draws with ``noise[t0:t1]``."""
+    dev = carry.theta.device
+    policy = resolve_policy(cfg, env)
+    step = build_decbyzpg_step(env, cfg, dev)
+    ys: List[tuple] = []
+    for t in range(t0, t1):
+        if noise is not None:
+            nz = noise[t]
+        else:
+            with record_function("decbyzpg.noise"):
+                nz = draw_step_noise(generator, cfg, env, policy.d, t)
+        carry, y = step(carry, nz, t)
+        ys.append(y)
+    return carry, history(ys, ("returns", "coins", "diameter", "grad_norm",
+                               "rejected"))
+
+
+def finish_decbyzpg(env, cfg: DecByzPGConfig, carry: Carry,
+                    chunks: Sequence[dict]) -> dict:
+    """The run's output from its final carry and its windows' chunks."""
+    hist = {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
+    theta = carry.theta
+    honest_idx = min(cfg.n_byz, cfg.K - 1)
+    out = {"returns": hist["returns"],
+           "coins": hist["coins"],
+           "samples": np.cumsum(np.where(hist["coins"], cfg.N, cfg.B)),
+           "diameter": hist["diameter"],
+           "params": resolve_policy(cfg, env).layers(theta[honest_idx]),
+           "theta": theta}
+    return add_telemetry(out, hist, cfg.n_byz)
+
+
 def run_decbyzpg(env, cfg: DecByzPGConfig, T: int, *, device=None,
                  theta0=None,
                  noise: Optional[Sequence[StepNoise]] = None) -> dict:
-    """Run T iterations. Returns the honest mean returns, the coins, the
-    per-agent sample counts, the honest diameter trace (numpy), and the
-    final θ (K, d) with an honest agent's parameters; with
-    ``cfg.telemetry`` also the honest gradient norms (T,), the rejected
-    masks (T, K) and their ``aggregator_confusion`` tally.
+    """Run T iterations: :func:`init_decbyzpg_carry`, one
+    :func:`window_decbyzpg` over ``[0, T)``, :func:`finish_decbyzpg`.
+    Returns the honest mean returns, the coins, the per-agent sample
+    counts, the honest diameter trace (numpy), and the final θ (K, d) with
+    an honest agent's parameters; with ``cfg.telemetry`` also the honest
+    gradient norms (T,), the rejected masks (T, K) and their
+    ``aggregator_confusion`` tally.
 
     ``device=None`` means CUDA. ``theta0`` ((d,) or (K, d)) replaces the
     seeded init; ``noise`` (T StepNoise on ``device``) replaces the seeded
@@ -206,32 +251,12 @@ def run_decbyzpg(env, cfg: DecByzPGConfig, T: int, *, device=None,
         raise ValueError(f"T must be >= 1, got {T}")
     if noise is not None and len(noise) != T:
         raise ValueError(f"noise holds {len(noise)} steps, T={T}")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(cfg.seed)
-    policy = resolve_policy(cfg, env)
+    gen = seed_generator(cfg.seed, dev)
     carry = init_decbyzpg_carry(env, cfg, gen, theta0, dev)
-    step = build_decbyzpg_step(env, cfg, dev)
-    ys: List[tuple] = []
-    for t in range(T):
-        if noise is not None:
-            nz = noise[t]
-        else:
-            with record_function("decbyzpg.noise"):
-                nz = draw_step_noise(gen, cfg, env, policy.d, t)
-        carry, y = step(carry, nz, t)
-        ys.append(y)
-    hist = history(ys, ("returns", "coins", "diameter", "grad_norm",
-                        "rejected"))
-    theta = carry.theta
-    honest_idx = min(cfg.n_byz, cfg.K - 1)
-    out = {"returns": hist["returns"],
-           "coins": hist["coins"],
-           "samples": np.cumsum(np.where(hist["coins"], cfg.N, cfg.B)),
-           "diameter": hist["diameter"],
-           "params": policy.layers(theta[honest_idx]),
-           "theta": theta}
-    return add_telemetry(out, hist, cfg.n_byz)
+    carry, chunk = window_decbyzpg(env, cfg, carry, gen, 0, T, noise)
+    return finish_decbyzpg(env, cfg, carry, [chunk])
 
 
 register("algo", "decbyzpg")(
-    lambda: AlgoDef(DecByzPGConfig, run_decbyzpg, carry_hist="theta"))
+    lambda: AlgoDef(DecByzPGConfig, run_decbyzpg, init_decbyzpg_carry,
+                    window_decbyzpg, finish_decbyzpg, carry_hist="theta"))

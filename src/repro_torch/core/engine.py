@@ -10,13 +10,22 @@ door. The port of the JAX package's ``core/engine.py``.
   axes=..., **base)`` with ``.run()``, ``.summary()``, ``.to_json()``,
   built on the component registry, so every string is a component spec.
 
+* Windows: ``window_slices`` cuts ``[0, T)`` as the reference does, and
+  each algorithm's ``init``/``window``/``finish`` (its ``run`` is one
+  window over ``[0, T)``) let the sweep service (``repro_torch.sweep``)
+  run T a slice at a time; ``carry_struct`` and ``assemble_hist`` are the
+  reference's ``lane_carry_struct`` and ``assemble_hist`` over a seed
+  batch's rows.
+
 What the reference has for managing XLA compiles (the compiled-loop
-cache, lane batching of scalar axes, windows, ``static_key``, carry
-donation) has no counterpart: the port compiles nothing. Each scenario's
-seeds run one at a time through the algorithm's own ``run``, so every
-seed's history is bit-identical to the single run for that seed. A seed
-``s`` means ``torch.Generator(device).manual_seed(s)``: results repeat per
-seed on one device, and match neither JAX's numbers nor another device's.
+cache, lane batching of scalar axes, ``static_key``, carry donation) has
+no counterpart: the port compiles nothing. Each scenario's seeds run one
+at a time through the algorithm's own ``run``, so every seed's history is
+bit-identical to the single run for that seed. A seed ``s`` means
+``torch.Generator(device).manual_seed(s)`` (:func:`seed_generator`): a
+run draws θ₀ and then every step's noise from it in order, so results
+repeat per seed on one device, and match neither JAX's numbers nor
+another device's.
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.registry import Spec, resolve
+from repro_torch.core.tree import tree_map
 
 
 class AlgoDef(NamedTuple):
@@ -38,15 +48,30 @@ class AlgoDef(NamedTuple):
     its single-run entry point ``run(env, cfg, T, *, device=None)``.
     ``carry_hist`` names the run output that holds the final iterate
     (``"theta"`` for DecByzPG's agent stack, ``"vec"`` for ByzPG's server
-    iterate), which the grid's histories stack per seed. Algorithm modules
-    register one under ``register("algo", name)``."""
+    iterate, in both ``carry[0]``), which the grid's histories stack per
+    seed. ``run`` is ``init(env, cfg, generator, theta0=None,
+    device=None) -> carry``, then ``window(env, cfg, carry, generator, 0,
+    T) -> (carry, chunk)``, then ``finish(env, cfg, carry, [chunk]) ->
+    output``; windows over consecutive slices with one generator chain to
+    the same bits. Algorithm modules register one under
+    ``register("algo", name)``."""
     config_cls: type
     run: Callable
+    init: Callable
+    window: Callable
+    finish: Callable
     carry_hist: str = "theta"
 
 
 def _algo(name) -> AlgoDef:
     return resolve("algo", name)
+
+
+def seed_generator(seed: int, device) -> torch.Generator:
+    """The generator a run with ``cfg.seed == seed`` draws from."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
 
 
 def history(ys, names) -> dict:
@@ -272,6 +297,60 @@ def run_grid(env, grid: ScenarioGrid, T: int, algo="decbyzpg",
             hist = seed_batch(a, env, cfg, T, grid.seeds, device)
         results[scn] = summarize(hist, cfg)
     return results
+
+
+# ---------------------------------------------------------------------------
+# Windowed execution (the sweep service)
+# ---------------------------------------------------------------------------
+
+
+def window_slices(T: int, windows: int) -> tuple:
+    """Split ``[0, T)`` into ``windows`` contiguous ``(start, stop)``
+    slices, near-equal with the remainder spread over the leading
+    windows (the reference's slicing, so a sweep directory's manifest
+    names the same windows in both packages)."""
+    if not 1 <= windows <= T:
+        raise ValueError(f"windows must be in [1, T={T}], got {windows}")
+    base, rem = divmod(T, windows)
+    out, start = [], 0
+    for w in range(windows):
+        stop = start + base + (1 if w < rem else 0)
+        out.append((start, stop))
+        start = stop
+    return tuple(out)
+
+
+def stack_rows(trees):
+    """One tree with a leading row axis from a list of same-shaped trees
+    (the rows' carries, or their chunks' numpy histories)."""
+    def stack(*xs):
+        if isinstance(xs[0], torch.Tensor):
+            return torch.stack(xs)
+        return np.stack(xs)
+    return tree_map(stack, *trees)
+
+
+def carry_struct(env, cfg, n_rows: int, algo="decbyzpg"):
+    """The shapes and dtypes of ``n_rows`` stacked carries as tensors on
+    the ``meta`` device, drawn from no generator: the restore template of
+    a sweep's carry archive (the reference's ``lane_carry_struct``)."""
+    from repro_torch.rl.policy import resolve_policy
+    a = _algo(Spec.of(algo))
+    d = resolve_policy(cfg, env).d
+    carry = a.init(env, cfg, None, torch.zeros(d), device="meta")
+    return tree_map(lambda x: x.expand(n_rows, *x.shape), carry)
+
+
+def assemble_hist(carry, chunks, algo="decbyzpg") -> dict:
+    """Stitch window chunks (leading row axis, time axis 1) and the final
+    stacked carry into :func:`seed_batch`'s history dict: the histories
+    concatenated along time plus the algorithm's ``carry_hist`` (the
+    rows' ``carry[0]``), bit-identical to the uninterrupted runs."""
+    a = _algo(Spec.of(algo))
+    hist = {a.carry_hist: carry[0].cpu().numpy()}
+    for k in chunks[0]:
+        hist[k] = np.concatenate([np.asarray(c[k]) for c in chunks], axis=1)
+    return hist
 
 
 # ---------------------------------------------------------------------------

@@ -1,2 +1,9 @@
 """Serving-side cache operations (the sharded programs wait, ROADMAP
-Queue 1)."""
+Queue 1) and the sweep service's host-side process helpers."""
+from repro_torch.distributed.sharding import (host_assignment,
+                                              init_distributed,
+                                              process_count, process_index,
+                                              row_block)
+
+__all__ = ["host_assignment", "init_distributed", "process_count",
+           "process_index", "row_block"]

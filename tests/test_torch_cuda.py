@@ -605,3 +605,47 @@ def test_cuda_checkpoint_round_trip(cuda, tmp_path):
     got = policy_params(pol, checkpoint=str(tmp_path / "p"))
     assert all(b.is_cuda and torch.equal(a, b) for (_, a), (_, b) in
                zip(tree_paths(params), tree_paths(got)))
+
+
+@pytest.mark.cuda
+def test_cuda_windowed_sweep_equals_run_grid(cuda, tmp_path):
+    """A two-window sweep on the card, preempted after its first window
+    and resumed, equals ``run_grid`` on the card bit for bit (the CUDA
+    generators' states carried across the archive), with the run's
+    launches; a sweep started on the CPU refuses to resume on the card."""
+    from repro_torch.core.engine import ScenarioGrid, run_grid
+    from repro_torch.rl.envs import make_cartpole
+    from repro_torch.sweep import SweepMismatch, SweepRunner
+    axes = {"aggregator": ("krum", "trimmed_mean")}
+    kw = dict(K=13, n_byz=3, attack="large_noise(sigma=10)",
+              agreement="cwtm", N=8, B=2)
+    T, seeds = 4, (0, 1)
+    ref = run_grid(make_cartpole(horizon=32), ScenarioGrid(seeds=seeds,
+                                                           axes=axes),
+                   T, algo="decbyzpg", device=cuda, **kw)
+    out = str(tmp_path / "card")
+    sweep = dict(algo="decbyzpg", env="cartpole(horizon=32)", T=T,
+                 seeds=seeds, axes=axes, windows=2, **kw)
+    before = dispatch.launch_counts()
+    assert SweepRunner(out_dir=out, device=cuda, **sweep).run(
+        max_windows=1) is None
+    res = SweepRunner.resume(out).run()
+    torch.cuda.synchronize()
+    after = dispatch.launch_counts()
+    for scn, want in ref.items():
+        got = res[tuple(scn)]
+        for k in ("returns", "samples", "diameter", "theta"):
+            np.testing.assert_array_equal(got[k], want[k])
+        assert got["final_return_mean"] == want["final_return_mean"]
+    # Krum: gram 2, krum_score 1; the trimmed mean: gram 1, trimmed_mean 1;
+    # cwtm's κ = 6 rounds each (consistent attack)
+    per_iter = {"gram": 3, "krum_score": 1, "trimmed_mean": 1,
+                "gossip_reduce": 12}
+    assert {k: after[k] - before[k] for k in per_iter} == \
+        {k: n * T * len(seeds) for k, n in per_iter.items()}
+    cpu_dir = str(tmp_path / "cpu")
+    SweepRunner(out_dir=cpu_dir, device="cpu", **dict(
+        sweep, T=2, seeds=(0,), axes={"aggregator": ("trimmed_mean",)})
+    ).run(max_windows=1)
+    with pytest.raises(SweepMismatch, match="meta.device: 'cpu' != 'cuda'"):
+        SweepRunner.resume(cpu_dir).run()
