@@ -27,6 +27,16 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    host's cost of issuing one call for a small kernel) and the device
    time (``device_ms``: the same calls replayed from one CUDA graph), the
    latter at every headline input and every shape of the first three.
+3b. Training through attention: the chunked route
+   (``chunked_causal_attention``) equals the flash kernel's forward at
+   Llama-3.2-1B's layer shape and the CPU's float64 route in output and
+   gradients, and the flash op's backward raises; then Llama-3.2-1B at
+   full width and depth on a ``TokenPipeline`` batch of 2 x 1025 tokens:
+   the no-grad forward's flash launches against the plain version on
+   their own inputs, the chunked route's logits against the flash
+   route's, ``lm_loss`` against the flash forward's cross-entropy, finite
+   gradients with no flash launch under autograd, three Adam steps that
+   lower the loss, the forward+backward time and peak memory.
 4. Main path: ``run_decbyzpg`` at full width, five runs (``main_runs()``):
    the paper's CartPole configuration (K=13, n_byz=3
    ``large_noise(sigma=10)``, bucketing ∘ RFA, MDA κ=6, horizon 200,
@@ -54,6 +64,16 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    trimmed mean for 3, each after a warm iteration with exact launches
    per iteration; then small runs on the card against the CPU's plain
    path (bucketed RFA, Krum, trimmed mean).
+6b. The transformer policy (``transformer_runs()``: reduced Qwen2.5-3B,
+   d=1,378,560, on ``cartpole(horizon=50)``, K=13, n_byz=3, N=20, B=4):
+   DecByzPG with bucketing ∘ RFA and MDA, DecByzPG with Krum and cwtm,
+   ByzPG with the trimmed mean, each with exact launches per iteration
+   (the policy's passes take the chunked route: no flash launch), the
+   aggregation kernels held against their plain versions on the run's
+   own inputs, finite outputs and a bit-equal repeat; the reference's
+   tiny transformer on the card against the CPU; the first run's honest
+   mean θ served through ``policy_params(theta=)`` (flash per layer and
+   request, held against its plain version on its own inputs).
 7. ``Experiment(...).run()``, the front door of the paper's figures
    (``experiment_cells()``): the reference's fig5 cell (ByzPG, attack ×
    aggregator, 3 seeds, T=15) and fig1's DecByzPG K axis with its κ
@@ -77,9 +97,9 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    launches counted. Then a checkpoint round trip: ``byzpg_cartpole``'s
    parameters saved and restored onto the card bit for bit, and one
    request served through ``policy_params(checkpoint=)``.
-   Phases 6–8 (7b included) are driven with the launch counts set to 0
-   just before each run and read just after; their launches join the
-   totals.
+   Phases 3b and 6–8 (6b and 7b included) are driven with the launch
+   counts set to 0 just before each run and read just after; their
+   launches join the totals.
 9. The kernel table as one JSON line (``device_ms`` and
    ``library_device_ms`` beside the issue-bound ``ms`` and
    ``library_ms``), then
@@ -270,13 +290,18 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_card():
-    out = subprocess.run(
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` reports them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()
-    log(out[0])
-    return out[0]
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def phase_card():
+    out = card()
+    log(out)
+    return out
 
 
 def phase_build():
@@ -718,6 +743,186 @@ def phase_flash(dev):
     phase_flash_layout(dev)
     phase_flash_padded(dev)
     return rows
+
+
+#: the training route at Llama-3.2-1B's layer shape (B, S, H, Hkv, hd)
+TRAIN_ATTN = (1, 512, 32, 8, 64)
+
+
+def phase_train_attention(dev):
+    """The training route, ``chunked_causal_attention``, on the card: at
+    Llama-3.2-1B's layer shape (:data:`TRAIN_ATTN`, chunk 128) it equals
+    the flash kernel's forward within 1e-5 abs, with and without a window
+    of 128 (both f32, summed in other orders); at (1, 96, 4, 64) over 2
+    KV heads (chunk 32, positions offset by 7), its output and dq, dk, dv
+    equal the same computation on the CPU in float64 within 1e-4 of each
+    tensor's largest entry; a backward through the flash op raises. These
+    launches compare routes and join no total."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.attention import chunked_causal_attention
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    B, S, H, Hkv, hd = TRAIN_ATTN
+    q = torch.randn((B, S, H, hd), generator=gen, device=dev)
+    k = torch.randn((B, S, Hkv, hd), generator=gen, device=dev)
+    v = torch.randn((B, S, Hkv, hd), generator=gen, device=dev)
+    pos = torch.arange(S, device=dev)
+    with torch.no_grad():
+        for window in (None, 128):
+            got = chunked_causal_attention(q, k, v, pos, pos, window=window,
+                                           chunk=128)
+            err = (got - flash_attention(q, k, v, window)).abs().max().item()
+            if not err <= 1e-5:
+                raise AssertionError(f"chunked vs flash {TRAIN_ATTN} window "
+                                     f"{window}: max abs err {err} > 1e-5")
+            log(f"[train] chunked route vs the flash kernel, q "
+                f"{tuple(q.shape)} kv {tuple(k.shape)} chunk 128 window "
+                f"{window}: max abs err {err:.3e} (tol 1e-5)")
+    cpu = torch.Generator()
+    cpu.manual_seed(7)
+    qkv = [torch.randn(shape, generator=cpu, dtype=torch.float64)
+           for shape in ((1, 96, 4, 64), (1, 96, 2, 64), (1, 96, 2, 64))]
+    ct = torch.randn((1, 96, 4, 64), generator=cpu, dtype=torch.float64)
+    res = {}
+    for d, dt in ((dev, torch.float32), (torch.device("cpu"),
+                                         torch.float64)):
+        ts = [x.to(d, dt).requires_grad_(True) for x in qkv]
+        p = torch.arange(96, device=d) + 7
+        out = chunked_causal_attention(*ts, p, p, chunk=32)
+        (out * ct.to(d, dt)).sum().backward()
+        res[d.type] = [out.detach()] + [t.grad for t in ts]
+    errs = []
+    for name, a, b in zip(("out", "dq", "dk", "dv"), res[dev.type],
+                          res["cpu"]):
+        err = (a.cpu().double() - b).abs().max().item()
+        errs.append(f"{name} {err:.3e}")
+        if not err <= 1e-4 * b.abs().max().item():
+            raise AssertionError(f"chunked route on the card vs float64 on "
+                                 f"the CPU, {name}: {err} > 1e-4 * max")
+    qg = q[:, :8].clone().requires_grad_(True)
+    try:
+        flash_attention(qg, k[:, :8], v[:, :8]).sum().backward()
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("a backward through the flash op did not raise")
+    log(f"[train] chunked route (1, 96, 4, 64) over 2 KV heads, chunk 32, "
+        f"positions 7..102, card f32 vs CPU float64: max abs err "
+        f"{', '.join(errs)} (tol 1e-4 of each max); the flash op's "
+        f"backward raises NotImplementedError")
+
+
+def phase_lm_loss_full_width(dev):
+    """Llama-3.2-1B at full width and depth (random init, seed 0) on a
+    ``TokenPipeline`` batch of 2 x 1025 tokens: the no-grad forward's
+    flash launches equal the plain version on their own inputs
+    (:class:`_PathInputs`), the chunked route's logits equal the flash
+    route's within 1e-5 of max|logits|, ``lm_loss`` (the chunked route,
+    ``remat=True``) equals the cross-entropy of the flash route's no-grad
+    forward within 1e-5 (ten times the gap measured on the H100), its
+    backward gives finite
+    gradients on every leaf and launches no flash kernel, and three steps
+    of the port's Adam (lr 1e-4) lower the loss at every step. Returns
+    the launches of the no-grad forward (16 flash)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_paths
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.model import (_cross_entropy, forward,
+                                          init_params, lm_loss)
+    from repro_torch.optim.optimizers import adam
+    cfg = get_config("llama3.2-1b")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, device=dev)
+    toks = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=1025,
+                                    per_agent_batch=2, seed=0),
+                         device=dev).batch(0)["tokens"][0]
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+    with torch.no_grad(), _PathInputs() as path:
+        logits, _, _ = forward(cfg, params, toks[:, :-1])
+        want = _cross_entropy(logits, toks[:, 1:]).item()
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    _check_launches("llama3.2-1b no-grad forward", counts,
+                    {"flash_attention": cfg.n_layers})
+    path.check("llama3.2-1b no-grad forward")
+    with torch.no_grad():
+        chunked, _, _ = forward(cfg, params, toks[:, :-1],
+                                attention="chunked")
+    logit_scale = logits.abs().max().item()
+    logit_err = (chunked - logits).abs().max().item()
+    if not logit_err <= 1e-5 * logit_scale:
+        raise AssertionError(f"llama3.2-1b logits, chunked vs flash route: "
+                             f"max abs err {logit_err} > 1e-5 * "
+                             f"{logit_scale}")
+    del logits, chunked
+    leaves = [t for _, t in tree_paths(params)]
+    for t in leaves:
+        t.requires_grad_(True)
+
+    def loss_and_grad():
+        for t in leaves:
+            t.grad = None
+        loss = lm_loss(cfg, params, toks)
+        loss.backward()
+        return loss.item()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    loss = loss_and_grad()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    _check_launches("llama3.2-1b lm_loss backward", dispatch.launch_counts(),
+                    {})
+    if not abs(loss - want) <= 1e-5:
+        raise AssertionError(f"lm_loss {loss} vs the flash forward's "
+                             f"cross-entropy {want}: |diff| > 1e-5")
+    bad = [p for p, t in tree_paths(params)
+           if t.grad is None or not bool(torch.isfinite(t.grad).all())]
+    if bad:
+        raise AssertionError(f"lm_loss: no or non-finite gradient at {bad}")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss_and_grad()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    opt = adam(1e-4, maximize=False)
+    state = [opt.init(t.detach()) for t in leaves]
+    losses = [loss]
+    for step in range(3):
+        with torch.no_grad():
+            for i, t in enumerate(leaves):
+                new, state[i] = opt.update(t.grad, state[i], t)
+                t.copy_(new)
+            if step == 2:                   # the last loss needs no grad
+                losses.append(lm_loss(cfg, params, toks).item())
+        if step < 2:
+            losses.append(loss_and_grad())
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"Adam did not lower the loss: {losses}")
+    log(f"[lm] {card()}: llama3.2-1b full width ({cfg.n_layers} L, d "
+        f"{cfg.d_model}, "
+        f"vocab {cfg.vocab_size}, {sum(t.numel() for t in leaves)} "
+        f"parameters), batch 2 x 1025 tokens: logits of the chunked route "
+        f"vs the flash route max abs err {logit_err:.3e} (tol 1e-5 x max "
+        f"{logit_scale:.6f}); lm_loss {loss:.6f} vs the flash forward's "
+        f"{want:.6f} (|diff| {abs(loss - want):.3e}, tol 1e-5); gradients "
+        f"finite on {len(leaves)} leaves, 0 "
+        f"flash launches under autograd; forward+backward median "
+        f"{_median(walls):.3f} ms of {[round(w, 3) for w in walls]}; peak "
+        f"memory {peak} bytes; no-grad forward flash launches "
+        f"{counts['flash_attention']}; Adam lr 1e-4 losses "
+        f"{[round(x, 6) for x in losses]}")
+    del params, leaves, state
+    torch.cuda.empty_cache()
+    return counts
 
 
 def phase_flash_padded(dev):
@@ -1451,7 +1656,7 @@ def phase_byzpg_cpu_agreement(dev):
         policy = resolve_policy(cfg, env)
         gen = torch.Generator()
         gen.manual_seed(1)
-        theta0 = policy.init(gen)
+        theta0 = policy.init_theta(gen)
         noise = [draw_byzpg_noise(gen, cfg, env, policy.d, t)
                  for t in range(T)]
         on_card = [type(nz)(*(None if x is None else x.to(dev) for x in nz))
@@ -1471,6 +1676,291 @@ def phase_byzpg_cpu_agreement(dev):
             f"T={T}, coins {cpu['coins'].astype(int).tolist()}): coins "
             f"equal, returns within rtol 1e-5, theta max abs err "
             f"{th_err:.3e} (tol 1e-4)")
+
+
+#: the default transformer policy (reduced Qwen2.5-3B: d_model 256, 2
+#: layers, 4 heads over 2 KV heads, hd 64, d_ff 512, vocab 512), the
+#: parameter count of each agent's row of θ, and the reference's tiny one
+TF_POLICY = "transformer(arch='qwen2.5-3b')"
+TF_D = 1378560
+TINY_TF = ("transformer(arch='qwen2.5-3b', d_model=32, n_layers=1, "
+           "n_heads=2, d_ff=64)")
+
+
+def transformer_runs():
+    """(label, algo, T, config, aggregation launches per iteration) of
+    phase 6b: :data:`TF_POLICY` on ``cartpole(horizon=50)``, K=13, n_byz=3
+    ``large_noise(sigma=10)``, N=20, B=4. ``per_receiver`` stays off: its
+    agreement draws would be K = 13 times the (κ, K, d) = 430 MB a step
+    already drawn. The policy's passes take the chunked route, so no run
+    launches flash attention."""
+    from repro_torch.core.byzpg import ByzPGConfig
+    from repro_torch.core.decbyzpg import DecByzPGConfig
+    kw = dict(K=13, n_byz=3, attack="large_noise(sigma=10)", N=20, B=4,
+              policy=TF_POLICY)
+    return [
+        ("tf_decbyzpg_rfa_mda", "decbyzpg", 3, DecByzPGConfig(**kw),
+         {"gram": 8, "weiszfeld": 1, "wsum": 1}),
+        ("tf_decbyzpg_krum_cwtm", "decbyzpg", 2,
+         DecByzPGConfig(**kw, aggregator="krum", agreement="cwtm"),
+         {"gram": 2, "krum_score": 1, "gossip_reduce": 6}),
+        ("tf_byzpg_trimmed_mean", "byzpg", 3,
+         ByzPGConfig(**kw, aggregator="trimmed_mean"), {"trimmed_mean": 1}),
+    ]
+
+
+class _Ranges:
+    """Per-range host ms (synchronised at both ends) of the runs made
+    while active: it stands in for ``record_function`` in the two
+    algorithms' modules. Synchronising changes no value."""
+
+    def __init__(self):
+        self.ms = {}
+
+    def __enter__(self):
+        import contextlib
+        import torch
+        from repro_torch.core import byzpg, decbyzpg
+        self.mods = (byzpg, decbyzpg)
+        self.orig = [m.record_function for m in self.mods]
+
+        @contextlib.contextmanager
+        def timed(name):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            yield
+            torch.cuda.synchronize()
+            key = name.split(".", 1)[1]
+            self.ms[key] = self.ms.get(key, 0.0) + \
+                (time.perf_counter() - t0) * 1e3
+
+        for m in self.mods:
+            m.record_function = timed
+        return self
+
+    def __exit__(self, *exc):
+        for m, f in zip(self.mods, self.orig):
+            m.record_function = f
+
+
+def _path_tol(name: str, args, ref) -> float:
+    """The tolerance of each kernel against its plain version, as the
+    kernel phases state it: 2e-5·max|G| (gram), 0 (weiszfeld, whose plain
+    version is the kernel's order of operations), 1e-5·max|x| (wsum),
+    P·eps·max of the input (the cw reduces; K·eps·max|score| for Krum),
+    2e-5·max|v| (flash)."""
+    if name == "gram":
+        return 2e-5 * ref.abs().max().item()
+    if name == "weiszfeld":
+        return 0.0
+    if name == "wsum":
+        return 1e-5 * args[0].abs().max().item()
+    if name == "krum_score":
+        return args[0].shape[-1] * F32_EPS * ref.abs().max().item()
+    if name == "trimmed_mean":
+        return args[0].shape[1] * F32_EPS * args[0].abs().max().item()
+    if name == "gossip_reduce":
+        return args[1].shape[1] * F32_EPS * args[0].abs().max().item()
+    if name == "neighbor_reduce":
+        return args[0].shape[1] * F32_EPS * args[0].abs().max().item()
+    if name == "flash_attention":
+        return 2e-5 * args[2].abs().max().item()
+    raise KeyError(name)
+
+
+class _PathInputs:
+    """While active, keeps the first input of each distinct shape that
+    each kernel's launch receives, with its result (clones of both), so
+    that :meth:`check` can hold every result against the kernel's plain
+    version on the same inputs: the path's own shapes, whatever the kernel
+    phases chose. The launch counts are untouched (the recorder sits
+    inside the launch the kernel counts)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import dispatch
+        self.kernels = dispatch.kernels()
+        self.orig = {n: k._launch for n, k in self.kernels.items()}
+        self.seen = {}
+        for name, k in self.kernels.items():
+            k._launch = self._wrap(name, k._launch)
+        return self
+
+    def _wrap(self, name, launch):
+        def shape(a):
+            return tuple(a.shape) if hasattr(a, "shape") else a
+
+        def clone(a):
+            return a.clone() if hasattr(a, "clone") else a
+
+        def recorded(*args, **kwargs):
+            out = launch(*args, **kwargs)
+            key = (name, tuple(map(shape, args)),
+                   tuple(sorted((k, shape(v)) for k, v in kwargs.items())))
+            if key not in self.seen:
+                self.seen[key] = ([clone(a) for a in args],
+                                  {k: clone(v) for k, v in kwargs.items()},
+                                  out.clone())
+            return out
+        return recorded
+
+    def __exit__(self, *exc):
+        for name, k in self.kernels.items():
+            k._launch = self.orig[name]
+
+    def check(self, label: str) -> None:
+        """Every recorded launch against its plain version; raises on the
+        first disagreement and logs one line per kernel and shape."""
+        for (name, shapes, kw), (args, kwargs, out) in self.seen.items():
+            ref = self.kernels[name].plain(*args, **kwargs)
+            err = (out - ref).abs().max().item()
+            tol = _path_tol(name, args, ref)
+            if not err <= tol:
+                raise AssertionError(f"{label}: {name} at the path's input "
+                                     f"{shapes} {kw}: max abs err {err} > "
+                                     f"{tol} against the plain version")
+            log(f"[path] {label}: {name} {shapes}{' ' + str(kw) if kw else ''}"
+                f" against the plain version on the path's own input: max "
+                f"abs err {err:.3e} (tol {tol:.3e})")
+        self.seen = {}
+
+
+def phase_transformer_policy(dev):
+    """The transformer policy trained on the card (:func:`transformer_runs`):
+    each run's returns, θ and Δ₂ finite, its launches per iteration equal
+    to its row (the policy's passes take the chunked route: no flash
+    launch), and a repeat with the same seed bit-equal, run under
+    :class:`_Ranges` and :class:`_PathInputs` (the aggregation kernels
+    at d = :data:`TF_D` against their plain versions on their own
+    inputs). Then the tiny policy on the card against the CPU, and the
+    first run's honest mean θ served through ``policy_params(theta=)``
+    (flash once per layer and request, each launch against the plain
+    version on its own input). Returns the launches per kernel of the
+    three runs and the served requests."""
+    import numpy as np
+    import torch
+    from repro_torch.core.byzpg import run_byzpg
+    from repro_torch.core.decbyzpg import run_decbyzpg
+    from repro_torch.kernels import dispatch
+    from repro_torch.rl.envs import make_cartpole
+    from repro_torch.rl.policy import resolve_policy
+    from repro_torch.serving import make_traffic, serve
+
+    env = make_cartpole(horizon=50)
+    totals, served_theta = {}, None
+    for label, algo, T, cfg, per_iter in transformer_runs():
+        run = run_decbyzpg if algo == "decbyzpg" else run_byzpg
+        policy = resolve_policy(cfg, env)
+        if policy.d != TF_D:
+            raise AssertionError(f"{label}: d {policy.d}, expected {TF_D}")
+        run(env, cfg, 1, device=dev)                     # warm iteration
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        out = run(env, cfg, T, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        counts = dispatch.launch_counts()
+        _check_launches(label, counts,
+                        {k: n * T for k, n in per_iter.items()})
+        _add(totals, counts)
+        carry = "theta" if algo == "decbyzpg" else "vec"
+        finite = np.isfinite(out["returns"]).all() and bool(
+            torch.isfinite(out[carry]).all())
+        if algo == "decbyzpg":
+            finite = finite and np.isfinite(out["diameter"]).all()
+        if not finite or out[carry].shape[-1] != TF_D:
+            raise AssertionError(f"{label}: non-finite outputs or wrong d")
+        with _Ranges() as ranges, _PathInputs() as path:
+            again = run(env, cfg, T, device=dev)
+        if not (torch.equal(again[carry], out[carry])
+                and np.array_equal(again["returns"], out["returns"])):
+            raise AssertionError(f"{label}: a repeat is not bit-equal")
+        path.check(label)
+        if algo == "decbyzpg" and served_theta is None:
+            served_theta = out["theta"][cfg.n_byz:].mean(0)
+        per_range = {k: round(v / T, 3) for k, v in ranges.ms.items()}
+        extra = (f" diameter={out['diameter'].tolist()}"
+                 if algo == "decbyzpg" else "")
+        log(f"[tf] {card()}: {label}: d={TF_D} T={T} "
+            f"ms/iter={secs / T * 1e3:.3f} "
+            f"(synchronised ranges, ms/iter: {per_range}) launches/iter="
+            f"{per_iter} peak memory {peak} bytes "
+            f"returns={out['returns'].tolist()}{extra} "
+            f"coins={out['coins'].astype(int).tolist()}; a repeat is "
+            f"bit-equal")
+        del out, again
+        torch.cuda.empty_cache()
+    phase_tiny_transformer_cpu_agreement(dev)
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+    n = 4
+    with _PathInputs() as path:
+        report = serve(TF_POLICY, "cartpole(horizon=50)",
+                       theta=served_theta, n_requests=n, realtime=False,
+                       warmup=False, device=dev)
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    path.check("tf serve")
+    L = resolve_policy(transformer_runs()[0][3], env).model_cfg.n_layers
+    _check_launches("tf serve", counts, {"flash_attention": L * n})
+    _check_served("tf serve", report, make_traffic(
+        n, seed=0, rate_rps=50.0, max_new=16, obs_dim=env.obs_dim),
+        env.n_actions)
+    _add(totals, counts)
+    log(f"[tf] the DecByzPG run's honest mean θ served through "
+        f"policy_params(theta=): {report.summary()} first streams "
+        f"{[r.tokens[:8] for r in report.results[:2]]} flash launches "
+        f"{counts['flash_attention']}")
+    return totals
+
+
+def phase_tiny_transformer_cpu_agreement(dev):
+    """The reference's tiny transformer policy (K=3, n_byz=1
+    ``large_noise(sigma=10)``, RFA, GDA κ=1, N=3, B=2,
+    ``cartpole(horizon=10)``, T=2) on the card against the same run on
+    the CPU, fed the same draws and θ₀, for both algorithms: coins equal,
+    returns within rtol 1e-5, θ within 1e-4 (f32 sums in other orders on
+    the two devices)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.byzpg import ByzPGConfig, run_byzpg
+    from repro_torch.core.decbyzpg import DecByzPGConfig, run_decbyzpg
+    from repro_torch.core.noise import draw_byzpg_noise, draw_step_noise
+    from repro_torch.rl.envs import make_cartpole
+    from repro_torch.rl.policy import resolve_policy
+
+    env = make_cartpole(horizon=10)
+    kw = dict(K=3, n_byz=1, attack="large_noise(sigma=10)",
+              aggregator="rfa", N=3, B=2, policy=TINY_TF)
+    T = 2
+    for algo, cfg, run, draw, carry in [
+            ("decbyzpg", DecByzPGConfig(**kw, agreement="gda", kappa=1),
+             run_decbyzpg, draw_step_noise, "theta"),
+            ("byzpg", ByzPGConfig(**kw), run_byzpg, draw_byzpg_noise,
+             "vec")]:
+        policy = resolve_policy(cfg, env)
+        gen = torch.Generator()
+        gen.manual_seed(1)
+        theta0 = policy.init_theta(gen)
+        noise = [draw(gen, cfg, env, policy.d, t) for t in range(T)]
+        on_card = [type(nz)(*(None if x is None else x.to(dev) for x in nz))
+                   for nz in noise]
+        cpu = run(env, cfg, T, device="cpu", theta0=theta0, noise=noise)
+        gpu = run(env, cfg, T, device=dev, theta0=theta0.to(dev),
+                  noise=on_card)
+        if not np.array_equal(cpu["coins"], gpu["coins"]):
+            raise AssertionError(f"tiny transformer {algo}: card/CPU coins "
+                                 f"differ")
+        np.testing.assert_allclose(gpu["returns"], cpu["returns"], rtol=1e-5)
+        err = (gpu[carry].cpu() - cpu[carry]).abs().max().item()
+        if not err <= 1e-4:
+            raise AssertionError(f"tiny transformer {algo}: card/CPU theta "
+                                 f"differ by {err} > 1e-4")
+        log(f"[check] card vs CPU plain path, tiny transformer {algo} "
+            f"(d={policy.d}, K=3, T={T}): coins equal, returns within rtol "
+            f"1e-5, theta max abs err {err:.3e} (tol 1e-4)")
 
 
 def phase_checkpoint(dev, byzpg_out):
@@ -1839,7 +2329,7 @@ def phase_cpu_agreement(dev):
         policy = resolve_policy(cfg, env)
         gen = torch.Generator()
         gen.manual_seed(1)
-        theta0 = policy.init(gen)
+        theta0 = policy.init_theta(gen)
         noise = [draw_step_noise(gen, cfg, env, policy.d, t)
                  for t in range(T)]
         on_card = [type(nz)(*(None if x is None else x.to(dev) for x in nz))
@@ -1886,11 +2376,19 @@ def main() -> int:
     rows.update(phase_cw_kernels(dev))
     rows.update(phase_flash(dev))
     log_kernel_rows(rows)
+    t0 = time.perf_counter()
+    phase_train_attention(dev)
+    lm_totals = phase_lm_loss_full_width(dev)
+    log(f"[time] phase 3b {time.perf_counter() - t0:.1f} s")
     totals = phase_main_path(dev)
+    _add(totals, lm_totals)
     phase_cpu_agreement(dev)
     byzpg_totals, byzpg_out = phase_byzpg(dev)
     _add(totals, byzpg_totals)
     phase_byzpg_cpu_agreement(dev)
+    t0 = time.perf_counter()
+    _add(totals, phase_transformer_policy(dev))
+    log(f"[time] phase 6b {time.perf_counter() - t0:.1f} s")
     exp_totals, exp_cells = phase_experiment(dev)
     _add(totals, exp_totals)
     _add(totals, phase_sweep(dev, exp_cells["fig5_byzpg"]))

@@ -31,8 +31,18 @@ def theta_from_jax_params(params: Sequence[Mapping[str, np.ndarray]],
     θ (d,) in ``ravel_pytree`` order (``[b0, w0, b1, w1, ...]``), on
     ``resolve_device(device)``: CUDA unless the caller asks for the CPU."""
     device = resolve_device(device)
-    return tree.ravel([{k: _tensor(v, device) for k, v in layer.items()}
-                       for layer in params])
+    return tree.ravel_tree([{k: _tensor(v, device) for k, v in layer.items()}
+                            for layer in params])
+
+
+def theta_from_jax_tree(params: Mapping, device=None) -> torch.Tensor:
+    """A JAX transformer's nested parameter dict (leaves as numpy arrays)
+    -> the port's flat θ (d,) in ``ravel_pytree`` order (keys sorted at
+    every level), on ``resolve_device(device)``: the θ of the
+    ``transformer`` policy (:mod:`repro_torch.rl.transformer_policy`)."""
+    device = resolve_device(device)
+    return tree.ravel_tree(tree.tree_map(lambda x: _tensor(x, device),
+                                         params))
 
 
 def carry_from_jax(theta, theta_prev, adam_state, device=None) -> Carry:

@@ -99,13 +99,13 @@ def init_byzpg_carry(env, cfg: ByzPGConfig,
                      theta0=None, device=None) -> ByzPGCarry:
     """(θ_0, θ_prev = θ_0, v_prev = 0, fresh optimizer state). θ_0 is
     ``theta0`` (d,) when given, else drawn from ``generator`` by the
-    policy's init."""
+    policy's ``init_theta``."""
     dev = resolve_device(device)
     policy = resolve_policy(cfg, env)
     if theta0 is None:
         if generator is None:
             raise ValueError("init_byzpg_carry needs a generator or theta0")
-        vec = policy.init(generator).to(dev)
+        vec = policy.init_theta(generator).to(dev)
     else:
         vec = torch.as_tensor(theta0, dtype=torch.float32, device=dev)
     if tuple(vec.shape) != (policy.d,):

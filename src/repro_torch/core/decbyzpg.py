@@ -102,14 +102,14 @@ def init_decbyzpg_carry(env, cfg: DecByzPGConfig,
                         theta0=None, device=None) -> Carry:
     """θ_0 (K, d) common to all agents, θ_prev = θ_0, fresh optimizer
     state. θ_0 is ``theta0`` ((d,) or (K, d)) when given, else drawn from
-    ``generator`` by the policy's init."""
+    ``generator`` by the policy's ``init_theta``."""
     dev = resolve_device(device)
     policy = resolve_policy(cfg, env)
     if theta0 is None:
         if generator is None:
             raise ValueError("init_decbyzpg_carry needs a generator or "
                              "theta0")
-        vec = policy.init(generator).to(dev)
+        vec = policy.init_theta(generator).to(dev)
     else:
         vec = torch.as_tensor(theta0, dtype=torch.float32, device=dev)
     if vec.shape[-1] != policy.d:

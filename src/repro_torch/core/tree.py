@@ -5,7 +5,7 @@ The reference flattens a policy's parameters with
 dict, keys sorted. An MLP layer ``{"w": (din, dout), "b": (dout,)}`` is
 therefore ``b`` before ``w``, and θ is ``[b0, w0, b1, w1, ...]`` with each
 ``w`` row-major. A transformer's nested parameter dict ravels with keys
-sorted at every level (``unravel_tree``).
+sorted at every level. :func:`ravel_tree` flattens either.
 These helpers keep that order, so a θ carried over from JAX means the
 same weights here.
 """
@@ -17,12 +17,6 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 Shapes = Sequence[Dict[str, Tuple[int, ...]]]
-
-
-def ravel(params: Sequence[Dict[str, torch.Tensor]]) -> torch.Tensor:
-    """List of dicts of tensors -> flat (d,) vector."""
-    return torch.cat([layer[key].reshape(-1)
-                      for layer in params for key in sorted(layer)])
 
 
 def unravel(vec: torch.Tensor,
@@ -53,6 +47,14 @@ def tree_size(shapes) -> int:
     if isinstance(shapes, dict):
         return sum(tree_size(v) for v in shapes.values())
     return math.prod(shapes)
+
+
+def ravel_tree(params) -> torch.Tensor:
+    """A tree of tensors (an MLP's list of dicts, a transformer's nested
+    dict) -> flat (d,), in ``ravel_pytree``'s order: list entries in
+    order, keys sorted at every level, each leaf row-major. The inverse
+    of :func:`unravel` and :func:`unravel_tree`."""
+    return torch.cat([leaf.reshape(-1) for _, leaf in tree_paths(params)])
 
 
 def unravel_tree(vec: torch.Tensor, shapes):

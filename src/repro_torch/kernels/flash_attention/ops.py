@@ -6,9 +6,11 @@ a contiguous (B, Sq, H, hd) result, so nothing is folded into copies or
 unfolded back (the reference's ``_fold``); on a CPU tensor the plain
 version folds, as the reference does. The op is a
 ``torch.autograd.Function`` whose backward raises: the reference's Pallas
-kernel has no backward either, and training through it waits for a
-backward kernel (ROADMAP Queue 1, DecByzPG with the transformer policy).
-Nothing routes a gradient through the plain version instead.
+kernel has no backward either, and its models never differentiate it.
+Training runs the models' ``attention="chunked"`` route
+(``models/attention.py``), the reference's plain route, which autograd
+differentiates. Nothing routes a gradient through this op's plain
+version instead.
 """
 from __future__ import annotations
 
@@ -28,9 +30,9 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         raise NotImplementedError(
-            "flash attention has no backward: training through it (DecByzPG "
-            "with the transformer policy, ROADMAP Queue 1) needs a backward "
-            "kernel, which is not written yet")
+            "flash attention has no backward: it is the forward-only route; "
+            "training runs the models' attention='chunked' route, which "
+            "autograd differentiates")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

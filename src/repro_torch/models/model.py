@@ -12,7 +12,13 @@ stacked ``(L, ...)``), so JAX weights carry over leaf for leaf
 (:func:`repro_torch.convert.model_params_from_jax`). The ``moe``,
 ``hybrid`` and ``ssm`` families and multi-head latent attention raise
 ``NotImplementedError``: they wait for later slices (ROADMAP Queue 1).
-The losses wait for the training slice.
+
+A sequence pass takes one of two attention routes
+(:mod:`repro_torch.models.attention`): ``attention="flash"``, the
+forward-only kernel that serving's prefill runs, or
+``attention="chunked"``, the reference's plain route that autograd
+differentiates. The losses (:func:`lm_loss`, :func:`lm_loss_labeled`)
+are the training route and run the second.
 
 Caches are ring buffers whose size is the attention window. Decode
 writes into the cache it is given, in place (the reference returns a new
@@ -23,9 +29,11 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.tree import tree_paths
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (dense_init, init_swiglu, rms_norm,
                                        swiglu)
@@ -154,10 +162,11 @@ def _layer(blocks: dict, i: int) -> dict:
 # ---------------------------------------------------------------------------
 
 def _block_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
-               window: Optional[int]):
+               window: Optional[int], attention: str):
     """One block over a full sequence. Returns (x, cache_parts, aux)."""
     h = rms_norm(x, p["norm_attn"], cfg.norm_eps, cfg.fused_rmsnorm)
-    a_out, kv = attn.gqa_forward(p["attn"], cfg, h, positions, window=window)
+    a_out, kv = attn.gqa_forward(p["attn"], cfg, h, positions, window=window,
+                                 attention=attention)
     x = x + a_out
     h = rms_norm(x, p["norm_mlp"], cfg.norm_eps, cfg.fused_rmsnorm)
     m_out = swiglu(h, **p["mlp"])
@@ -167,19 +176,34 @@ def _block_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
 
 def forward(cfg: ModelConfig, params: dict, tokens=None, prefix_embeds=None,
             positions=None, window: Optional[int] = None,
-            collect_cache: bool = False, last_only: bool = False):
+            collect_cache: bool = False, remat: bool = True,
+            last_only: bool = False, attention: str = "flash"):
     """Full-sequence forward. Returns (logits, aux, cache_parts|None);
     cache_parts are stacked over layers, ``{"kv": {"k": (L, B, S, Hkv,
-    hd), "v": ...}}``. ``positions`` may only be ``arange(S)`` (the flash
-    kernel's absolute indices)."""
+    hd), "v": ...}}``.
+
+    ``attention="flash"`` (serving's route) takes ``positions`` None or
+    ``arange(S)`` only (the kernel's absolute indices) and has no
+    backward; ``attention="chunked"`` (the training route) takes any
+    ``positions``. ``remat`` checkpoints each layer while autograd records
+    (recomputed in the backward, as the reference's ``jax.checkpoint`` of
+    its layer scan); when it does not record, it changes nothing."""
     check_supported(cfg)
+    attn.check_route(attention)
     x = embed_inputs(cfg, params, tokens, prefix_embeds)
-    attn.check_positions(positions, x.shape[1])
+    if attention == "flash":
+        attn.check_positions(positions, x.shape[1])
+        positions = None
+    recording = remat and torch.is_grad_enabled() and (
+        x.requires_grad
+        or any(t.requires_grad for _, t in tree_paths(params["blocks"])))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        x, cache, a = _block_seq(cfg, _layer(params["blocks"], i), x, None,
-                                 window)
+        args = (cfg, _layer(params["blocks"], i), x, positions, window,
+                attention)
+        x, cache, a = (checkpoint(_block_seq, *args, use_reentrant=False)
+                       if recording else _block_seq(*args))
         aux = aux + a
         if collect_cache:
             ks.append(cache["kv"]["k"])
@@ -323,3 +347,41 @@ def decode_step_slots(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     logits = _decode_layers(cfg, params, x, pos, slot_pos, cache["blocks"])
     return logits[:, 0], {"pos": pos + 1, "slot_pos": slot_pos,
                           "blocks": cache["blocks"]}
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                   ) -> torch.Tensor:
+    """Mean over every position of logsumexp(logits) minus the label's
+    logit, in f32. The reference picks the label's logit with an iota
+    compare and a sum over the vocabulary (so that vocab-sharded logits
+    are never gathered); a gather picks the same value exactly."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    correct = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(lse - correct)
+
+
+def lm_loss_labeled(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                    labels: torch.Tensor, prefix_embeds=None
+                    ) -> torch.Tensor:
+    """Cross-entropy of the logits at every token position against
+    ``labels`` (+ the aux term), on the chunked (training) route.
+    Processes exactly ``tokens.shape[1]`` (+ prefix) positions."""
+    logits, aux, _ = forward(cfg, params, tokens, prefix_embeds,
+                             attention="chunked")
+    P = 0 if prefix_embeds is None else prefix_embeds.shape[1]
+    return _cross_entropy(logits[:, P:], labels) + aux
+
+
+def lm_loss(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            prefix_embeds=None) -> torch.Tensor:
+    """Next-token cross-entropy (+ the aux term) on the chunked (training)
+    route. tokens: (B, S_text)."""
+    logits, aux, _ = forward(cfg, params, tokens[:, :-1], prefix_embeds,
+                             attention="chunked")
+    P = 0 if prefix_embeds is None else prefix_embeds.shape[1]
+    return _cross_entropy(logits[:, P:], tokens[:, 1:]) + aux

@@ -1,4 +1,5 @@
-"""MLP categorical policy over a flat per-agent parameter stack.
+"""MLP categorical policy over a flat per-agent parameter stack, and the
+``policy`` registry namespace.
 
 The port of the JAX package's ``rl/policy.py`` (paper Table 1: 16,16 ReLU
 for CartPole, 64,64 Tanh for LunarLander). Each agent's weights are one row
@@ -6,6 +7,10 @@ of θ (K, d), in the reference's ``ravel_pytree`` order
 (:mod:`repro_torch.core.tree`). :class:`MLPPolicy` holds no parameters of
 its own: its forward pass reads the K agents' layers as views of θ and
 computes all their logits in one batched pass.
+
+The algorithms take any policy with ``d``, ``init_theta(generator)``,
+``layers(theta)`` and ``forward(theta, obs)``: the MLP here, or the
+transformer (:mod:`repro_torch.rl.transformer_policy`).
 """
 from __future__ import annotations
 
@@ -50,9 +55,9 @@ class MLPPolicy(nn.Module):
                 x = act(x)
         return x.reshape(K, *lead, x.shape[-1])
 
-    def init(self, generator: torch.Generator) -> torch.Tensor:
+    def init_theta(self, generator: torch.Generator) -> torch.Tensor:
         """One agent's flat θ (d,) from :func:`init_mlp`."""
-        return tree.ravel(init_mlp(generator, self.sizes))
+        return tree.ravel_tree(init_mlp(generator, self.sizes))
 
 
 def init_mlp(generator: torch.Generator, sizes: Sequence[int]) -> List[dict]:
@@ -83,18 +88,10 @@ def _mlp_policy_factory(env, hidden=None, activation=None,
     return MLPPolicy(mlp_sizes(env, h), act)
 
 
-def resolve_policy(cfg, env) -> MLPPolicy:
+def resolve_policy(cfg, env):
     """Resolve a config's ``policy`` spec, feeding ``cfg.hidden`` and
-    ``cfg.activation`` as the MLP defaults. DecByzPG trains MLP policies
-    only: the transformer policy is served (``repro_torch.serving``), and
-    training through it waits for a backward of the flash-attention op
-    (ROADMAP Queue 1)."""
-    policy = resolve("policy", cfg.policy, env=env,
-                     cfg_hidden=tuple(cfg.hidden),
-                     cfg_activation=cfg.activation)
-    if not isinstance(policy, MLPPolicy):
-        raise NotImplementedError(
-            f"DecByzPG with policy {cfg.policy} is not ported yet: training "
-            f"a transformer policy needs a backward for flash attention "
-            f"(ROADMAP Queue 1)")
-    return policy
+    ``cfg.activation`` as the MLP defaults: an :class:`MLPPolicy` or a
+    :class:`~repro_torch.rl.transformer_policy.TransformerPolicy`."""
+    return resolve("policy", cfg.policy, env=env,
+                   cfg_hidden=tuple(cfg.hidden),
+                   cfg_activation=cfg.activation)

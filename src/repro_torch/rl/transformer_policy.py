@@ -1,5 +1,5 @@
 """Transformer policies: a ``models`` architecture as the categorical
-policy network, forward only.
+policy network, served and trained.
 
 The port of the JAX package's ``rl/transformer_policy.py``, registered
 under the ``policy`` namespace as ``"transformer"``. The observation
@@ -9,19 +9,30 @@ coordinates of a (B, 1, d_model) prefix, a BOS token anchors the text
 side, and the action logits are the first ``n_actions`` entries of the
 last position's LM head output.
 
-The port serves these policies (``repro_torch.serving``); training
-DecByzPG through one needs a backward for the flash-attention op and
-waits for the next slice (ROADMAP Queue 1).
+The port serves these policies (``repro_torch.serving``) and trains
+them with DecByzPG and ByzPG: the model's parameters ravel into one flat
+θ row per agent, in the reference's ``ravel_pytree`` order
+(:func:`repro_torch.core.tree.ravel_tree`), which the robust aggregators
+and the agreement rounds take like the MLP's.
+
+Every pass the algorithms make (rollouts, gradient estimates,
+importance weights) goes through :meth:`TransformerPolicy.forward` on the
+``"chunked"`` attention route, the reference's differentiable one, so
+actions are sampled under the same float results that are then
+differentiated. Serving's :meth:`TransformerPolicy.logits` keeps the flash
+kernel (forward only) by default.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch import nn
 
 from repro_torch.configs.base import ModelConfig, get_config, reduced
+from repro_torch.core import tree
 from repro_torch.core.registry import register
-from repro_torch.models.model import forward, init_params
+from repro_torch.models.model import forward, init_params, param_shapes
 
 
 def transformer_policy_config(arch: str = "qwen2.5-3b", n_layers=None,
@@ -50,21 +61,44 @@ def transformer_policy_config(arch: str = "qwen2.5-3b", n_layers=None,
     return dataclasses.replace(cfg, **kw)
 
 
-class TransformerPolicy:
-    """A servable policy: ``model_cfg``, ``n_actions``, ``obs_dim``,
-    ``init(generator)`` and ``logits(params, obs)``."""
+class TransformerPolicy(nn.Module):
+    """A servable and trainable policy.
 
-    def __init__(self, cfg: ModelConfig, obs_dim: int, n_actions: int):
+    Serving reads ``model_cfg``, ``n_actions``, ``obs_dim``,
+    ``init(generator)`` (a parameter dict) and ``logits(params, obs)``.
+    The algorithms read the protocol of
+    :class:`~repro_torch.rl.policy.MLPPolicy`: ``d``,
+    ``init_theta(generator)`` (a flat (d,) θ₀), ``layers(theta)`` and
+    ``forward(theta (K, d), obs (K, ..., obs_dim)) -> (K, ...,
+    n_actions)``. ``remat`` checkpoints each layer while autograd records
+    (the reference's keyword; off by default, since the policy's
+    sequences have two positions)."""
+
+    def __init__(self, cfg: ModelConfig, obs_dim: int, n_actions: int,
+                 remat: bool = False):
+        super().__init__()
         self.model_cfg = cfg
         self.obs_dim = int(obs_dim)
         self.n_actions = int(n_actions)
+        self.remat = bool(remat)
+        self.shapes = param_shapes(cfg)
+        self.d = tree.tree_size(self.shapes)
 
     def init(self, generator: torch.Generator) -> dict:
         """Random parameters on the generator's device."""
         return init_params(self.model_cfg, generator,
                            device=generator.device)
 
-    def logits(self, params: dict, obs: torch.Tensor) -> torch.Tensor:
+    def init_theta(self, generator: torch.Generator) -> torch.Tensor:
+        """One agent's flat θ (d,) from :meth:`init`."""
+        return tree.ravel_tree(self.init(generator))
+
+    def layers(self, theta: torch.Tensor) -> dict:
+        """θ (d,) -> the parameter dict, as views of θ."""
+        return tree.unravel_tree(theta, self.shapes)
+
+    def logits(self, params: dict, obs: torch.Tensor,
+               attention: str = "flash") -> torch.Tensor:
         """obs (..., obs_dim) -> logits (..., n_actions); leading dims are
         flattened into the forward batch and restored."""
         cfg = self.model_cfg
@@ -76,14 +110,23 @@ class TransformerPolicy:
         prefix[:, 0, :self.obs_dim] = ob
         bos = torch.zeros((B, 1), dtype=torch.long, device=ob.device)
         logits, _, _ = forward(cfg, params, tokens=bos,
-                               prefix_embeds=prefix, last_only=True)
+                               prefix_embeds=prefix, last_only=True,
+                               remat=self.remat, attention=attention)
         return logits[:, -1, :self.n_actions].reshape(*lead, self.n_actions)
+
+    def forward(self, theta: torch.Tensor, obs: torch.Tensor
+                ) -> torch.Tensor:
+        """The K agents one after another, each on a view of its row of
+        θ, on the chunked route (module docstring)."""
+        return torch.stack([self.logits(self.layers(theta[k]), obs[k],
+                                        "chunked")
+                            for k in range(theta.shape[0])])
 
 
 @register("policy", "transformer")
 def _transformer_policy_factory(env, arch: str = "qwen2.5-3b",
                                 n_layers=None, d_model=None, n_heads=None,
-                                d_ff=None):
+                                d_ff=None, remat: bool = False):
     """``policy="transformer(arch='qwen2.5-3b', n_layers=1, ...)"``."""
     cfg = transformer_policy_config(arch, n_layers=n_layers,
                                     d_model=d_model, n_heads=n_heads,
@@ -94,4 +137,4 @@ def _transformer_policy_factory(env, arch: str = "qwen2.5-3b",
     if cfg.vocab_size < env.n_actions:
         raise ValueError(f"transformer policy vocab_size={cfg.vocab_size} "
                          f"< n_actions={env.n_actions}")
-    return TransformerPolicy(cfg, env.obs_dim, env.n_actions)
+    return TransformerPolicy(cfg, env.obs_dim, env.n_actions, remat)

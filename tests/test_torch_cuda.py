@@ -649,3 +649,75 @@ def test_cuda_windowed_sweep_equals_run_grid(cuda, tmp_path):
     ).run(max_windows=1)
     with pytest.raises(SweepMismatch, match="meta.device: 'cpu' != 'cuda'"):
         SweepRunner.resume(cpu_dir).run()
+
+
+#: the reference's tiny transformer policy (tests/test_policy.py)
+TINY_TF = ("transformer(arch='qwen2.5-3b', d_model=32, n_layers=1, "
+           "n_heads=2, d_ff=64)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 12])
+def test_cuda_chunked_attention_equals_the_cpu_route(cuda, window):
+    """The training route on the card against the same computation on the
+    CPU in float64: output and the gradients of q, k and v within 1e-4 of
+    each tensor's largest entry (f32 on the card)."""
+    from repro_torch.models.attention import chunked_causal_attention
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((2, 40, 4, 16))
+    k = rng.standard_normal((2, 40, 2, 16))
+    v = rng.standard_normal((2, 40, 2, 16))
+    ct = rng.standard_normal(q.shape)
+    pos = torch.arange(40) + 7
+    out = {}
+    for dev, dt in ((cuda, torch.float32), ("cpu", torch.float64)):
+        ts = [torch.tensor(x, dtype=dt, device=dev, requires_grad=True)
+              for x in (q, k, v)]
+        o = chunked_causal_attention(*ts, pos.to(dev), pos.to(dev),
+                                     window=window, chunk=16)
+        (o * torch.tensor(ct, dtype=dt, device=dev)).sum().backward()
+        out[str(dev)] = [o.detach()] + [t.grad for t in ts]
+    for got, want in zip(out[str(cuda)], out["cpu"]):
+        err = (got.cpu().double() - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_transformer_decbyzpg_repeats_and_routes(cuda):
+    """A tiny-transformer DecByzPG run on the card repeats bit for bit;
+    the rollout and the gradient estimate take the chunked route and
+    launch no flash attention, and serving's ``logits`` launches it once
+    per layer."""
+    from repro_torch.core.decbyzpg import DecByzPGConfig, run_decbyzpg
+    from repro_torch.core.noise import draw_step_noise
+    from repro_torch.rl.envs import make_cartpole
+    from repro_torch.rl.gradient import grad_estimate
+    from repro_torch.rl.policy import resolve_policy
+    from repro_torch.rl.rollout import rollout
+    env = make_cartpole(horizon=10)
+    cfg = DecByzPGConfig(K=3, n_byz=1, attack="large_noise(sigma=10)",
+                         aggregator="rfa", agreement="gda", kappa=1, N=3,
+                         B=2, policy=TINY_TF)
+    a = run_decbyzpg(env, cfg, 2, device=cuda)
+    b = run_decbyzpg(env, cfg, 2, device=cuda)
+    assert torch.equal(a["theta"], b["theta"])
+    np.testing.assert_array_equal(a["returns"], b["returns"])
+    assert np.isfinite(a["returns"]).all()
+    policy = resolve_policy(cfg, env)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    theta = torch.stack([policy.init_theta(gen) for _ in range(cfg.K)])
+    nz = draw_step_noise(gen, cfg, env, policy.d, 0)
+    L = policy.model_cfg.n_layers
+    before = dispatch.launch_counts()["flash_attention"]
+    traj = rollout(env, policy, theta, nz.s0, nz.gumbel)
+    torch.cuda.synchronize()
+    mid = dispatch.launch_counts()["flash_attention"]
+    g = grad_estimate(policy, theta, traj, cfg.gamma)
+    torch.cuda.synchronize()
+    after = dispatch.launch_counts()["flash_attention"]
+    assert (mid - before, after - mid) == (0, 0)
+    assert bool(torch.isfinite(g).all())
+    policy.logits(policy.layers(theta[0]), traj.obs[0, :, 0])
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["flash_attention"] - after == L

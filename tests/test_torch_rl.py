@@ -105,7 +105,7 @@ def test_mlp_logits_from_carried_weights(activation):
 def test_mlp_init_layout():
     pol = MLPPolicy((4, 16, 16, 2), "relu")
     assert pol.d == 386                      # the paper's CartPole policy
-    vec = pol.init(torch.Generator().manual_seed(0))
+    vec = pol.init_theta(torch.Generator().manual_seed(0))
     layers = pol.layers(vec)
     assert [tuple(l["w"].shape) for l in layers] == [(4, 16), (16, 16),
                                                     (16, 2)]

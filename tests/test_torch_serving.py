@@ -410,12 +410,16 @@ def test_entry_points_default_to_cuda(policy, params):
         main(["--arch", "llama3.2-1b", "--reduced"])
 
 
-def test_decbyzpg_refuses_the_transformer_policy(env):
+def test_decbyzpg_resolves_the_transformer_policy(policy, env):
+    """The policy DecByzPG trains is the one serving serves: its flat θ
+    holds exactly the served model's parameters."""
     from repro_torch.core.decbyzpg import DecByzPGConfig
+    from repro_torch.core.tree import tree_size
     from repro_torch.rl.policy import resolve_policy
     cfg = dataclasses.replace(DecByzPGConfig(), policy=POLICY)
-    with pytest.raises(NotImplementedError, match="backward"):
-        resolve_policy(cfg, env)
+    trained = resolve_policy(cfg, env)
+    assert trained.model_cfg == policy.model_cfg
+    assert trained.d == tree_size(tm.param_shapes(policy.model_cfg))
 
 
 def test_profiler_ranges_cover_the_phases(policy, params, env):
