@@ -50,13 +50,22 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    plain versions, and the two must agree.
 5. Serving (``serving_runs()``): the port's continuous-batching engine
    serves Llama-3.2-1B at full width and depth (24 requests, prompts up to
-   512 tokens), Qwen2.5-3B at full width cut to 4 layers, and the default
-   transformer policy through ``serve()``; each run must launch flash
-   attention exactly once per layer per prefill (warmup included) and
-   give every request exactly its budget of in-range tokens. Then
-   Llama-3.2-1B's width at 2 layers serves the same requests with the
-   same weights on the card and on the CPU: prefill logits must agree,
-   and greedy streams wherever the top-1 margin exceeds the tolerance.
+   512 tokens), Qwen2.5-3B at full width cut to 4 layers, the default
+   transformer policy through ``serve()``, and the MoE and MLA families
+   at full width: Grok-1 cut to 1 layer, DeepSeek-V2-Lite to 4 and
+   MiniCPM3-4B whole (8 requests each, prompts up to 256 tokens); each
+   run must launch flash attention exactly once per GQA layer per
+   prefill (warmup included; MLA layers take the chunked route and
+   launch none) and give every request exactly its budget of in-range
+   tokens; Grok-1's flash launches (48 heads over 8, G = 6) are held
+   against the plain version on their own inputs, each run logs its
+   peak memory and its decode tick's weight-read bound, and one
+   DeepSeek-V2-Lite prefill must repeat bit for bit. Then Llama-3.2-1B's
+   width at 2 layers serves the same requests with the same weights on
+   the card and on the CPU: prefill logits must agree, and greedy
+   streams wherever the top-1 margin exceeds the tolerance; the same at
+   DeepSeek-V2-Lite's width at 1 layer, with the logits held relative to
+   their largest entry and the smallest routing margin reported.
    Every registered kernel must launch on some run of phases 4 and 5.
 6. ByzPG (paper Algorithm 1, ``byzpg_runs()``) at its defaults (K=13,
    N=50, B=4, MLP (16, 16) relu): CartPole under ``large_noise`` with
@@ -111,6 +120,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -172,19 +182,31 @@ HEADLINE = {"gram": (13, 13, 386), "weiszfeld": (13, 7, 386),
             "flash_attention": "q (32, 512, 64) kv (8, 512, 64)"}
 # flash inputs (B, H, Hkv, S, hd, window): Llama-3.2-1B's 512-token
 # prefill (G = 4) with and without windows, Qwen2.5-3B's (hd 128, G = 8),
-# the policy's 9-position prefill (hd 32, G = 1), ragged grouped ones, and
-# the 16- and 128-token buckets that Llama's serving prefills most
+# the policy's 9-position prefill (hd 32, G = 1), ragged grouped ones, the
+# 16- and 128-token buckets that Llama's serving prefills most, and
+# Grok-1's served buckets of 16, 128 and 256 tokens (48 heads over 8: G =
+# 6, not a power of two; hd 128)
 FLASH_CASES = [(1, 32, 8, 512, 64, None), (1, 32, 8, 512, 64, 1),
                (1, 32, 8, 512, 64, 7), (1, 32, 8, 512, 64, 128),
                (1, 16, 2, 256, 128, None), (1, 2, 2, 9, 32, None),
                (1, 4, 1, 9, 32, None), (1, 4, 1, 100, 64, None),
                (2, 4, 2, 130, 32, None), (1, 32, 8, 16, 64, None),
-               (1, 32, 8, 128, 64, None)]
+               (1, 32, 8, 128, 64, None), (1, 48, 8, 16, 128, None),
+               (1, 48, 8, 128, 128, None), (1, 48, 8, 256, 128, None)]
+#: the flash inputs also timed on the device (CUDA-graph replay): the
+#: headline and Grok-1's longest served prefill
+FLASH_DEVICE = (HEADLINE["flash_attention"],
+                "q (48, 256, 128) kv (8, 256, 128)")
 FLASH_LARGE = (1, 32, 8, 8192, 64, None)
 # head dims the kernel is not compiled for (run zero-padded to 64 and 128):
 # a transformer policy's (d_model 96, 2 heads) and a 96-wide head
 FLASH_PADDED = [(1, 2, 2, 9, 48, None), (2, 4, 2, 130, 48, 100),
                 (1, 8, 2, 256, 96, None)]
+#: the card against the CPU at DeepSeek-V2-Lite's width: prefill logits
+#: within this share of their largest entry (f32 sums in other orders over
+#: d 2048, 64 experts of width 1408 and a residual stream of O(100); an
+#: H100 run measured 2.4e-6)
+MOE_REL_TOL = 1e-5
 N_ITER, NU = 32, 1e-6
 F32_EPS = 2.0 ** -23
 
@@ -732,8 +754,7 @@ def phase_flash(dev):
         rows[("flash_attention", label)] = dict(
             err=err, rel=err / scale, tol=tol, large=large, lib_err=lib_err,
             **paired_ms(lambda: flash_attention_kernel(q, k, v, H, window),
-                        sdpa, reps,
-                        device=label == HEADLINE["flash_attention"]),
+                        sdpa, reps, device=label in FLASH_DEVICE),
             plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, H,
                                                            window),
                              2 if large else 10, 1),
@@ -2025,11 +2046,18 @@ def serving_runs():
     """(label, model config, engine kwargs, requests, prompt lengths,
     flash launches) of phase 5; the config is None for the run through
     ``serve()`` with its defaults (the transformer policy on
-    ``cartpole(horizon=32)``, 16 new tokens, prompts of 8 at most)."""
+    ``cartpole(horizon=32)``, 16 new tokens, prompts of 8 at most). The
+    MoE and MLA families at full width: Grok-1 cut to 1 layer (its 8
+    experts of 6144 x 32768 are 19.3 GB a layer in f32, and
+    ``init_params`` holds the blocks twice while it stacks them),
+    DeepSeek-V2-Lite to 4 and MiniCPM3-4B whole; MLA layers take the
+    chunked route, so only Grok's GQA prefills launch flash."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.serving import default_buckets
     qwen_4l = dataclasses.replace(get_config("qwen2.5-3b"), n_layers=4)
+    moe_kw = dict(slots=4, max_prompt=256, max_new=16)
+    moe_lens = (1, 16, 128, 256)
     return [
         ("llama3.2-1b_serve", get_config("llama3.2-1b"),
          dict(slots=8, max_prompt=512, max_new=32), 24, (1, 16, 128, 512),
@@ -2039,7 +2067,56 @@ def serving_runs():
          4 * (len(default_buckets(256)) + 8)),
         ("policy_serve", None, dict(slots=4, max_new=16), 16, None,
          2 * (len(default_buckets(8)) + 16)),
+        ("grok-1_1l_serve",
+         dataclasses.replace(get_config("grok-1-314b"), n_layers=1),
+         moe_kw, 8, moe_lens, 1 * (len(default_buckets(256)) + 8)),
+        ("deepseek-v2-lite_4l_serve",
+         dataclasses.replace(get_config("deepseek-v2-lite-16b"), n_layers=4),
+         moe_kw, 8, moe_lens, 0),
+        ("minicpm3-4b_serve", get_config("minicpm3-4b"), moe_kw, 8,
+         moe_lens, 0),
     ]
+
+
+def tick_read_bound(cfg):
+    """(expert bytes, all bytes) that one decode tick must read at least
+    once: every expert weight of every layer (the batched expert products
+    read all E of them whatever the routing), and every block weight plus
+    the LM head. Over the card's memory rate, the tick's floor."""
+    import math
+    from repro_torch.models.model import param_shapes
+
+    def count(tree):
+        return sum(map(count, tree.values())) if isinstance(tree, dict) \
+            else math.prod(tree)
+
+    shapes = param_shapes(cfg)
+    mlp = shapes["blocks"]["mlp"]
+    experts = sum(count(mlp[k]) for k in ("w_gate", "w_up", "w_down")) \
+        if cfg.moe is not None else 0
+    head = shapes.get("lm_head", shapes["embed"])
+    return 4 * experts, 4 * (count(shapes["blocks"]) + count(head))
+
+
+def _bit_repeat(cfg, params, dev):
+    """One 256-token prefill twice on the card: the logits and every cache
+    leaf must be bit-equal (the MoE combine gathers, no atomics)."""
+    import torch
+    from repro_torch.core.tree import tree_paths
+    from repro_torch.models.model import prefill
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (1, 256), generator=gen,
+                         device=dev)
+    runs = [prefill(cfg, params, toks, cache_len=272, last_only=False)
+            for _ in range(2)]
+    same = torch.equal(runs[0][0], runs[1][0]) and all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(tree_paths(runs[0][1]),
+                                                    tree_paths(runs[1][1])))
+    if not same:
+        raise AssertionError(f"{cfg.name}: a repeated prefill is not "
+                             f"bit-equal")
+    return runs[0][0].shape
 
 
 class _PhaseTimes:
@@ -2122,9 +2199,12 @@ def phase_serving(dev):
     with _PhaseTimes() as times:
         for label, cfg, kw, n, lens, want_flash in serving_runs():
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             dispatch.reset_launches()
             times.reset()
+            t_run = time.perf_counter()
             extra = ""
+            engine = server = path = None
             if cfg is None:
                 # cartpole's observations have 4 entries and 2 actions
                 report = serve(key=0, n_requests=n, realtime=False,
@@ -2137,24 +2217,45 @@ def phase_serving(dev):
                 gen.manual_seed(0)
                 engine = DecodeEngine(cfg, init_params(cfg, gen, device=dev),
                                       device=dev, **kw)
-                t0 = time.perf_counter()
-                server = PolicyServer(engine)           # runs the warmup
-                extra = f" warmup_s={time.perf_counter() - t0:.3f}"
-                times.reset()
-                traffic = make_traffic(n, seed=0, vocab=cfg.vocab_size,
-                                       prompt_lens=lens,
-                                       max_new=kw["max_new"])
-                report = server.run_offline(traffic)
+                # the new families' flash launches (Grok-1's G = 6) are
+                # held against the plain version on their own inputs
+                path = _PathInputs() if cfg.moe is not None \
+                    or cfg.mla is not None else contextlib.nullcontext()
+                with path:
+                    t0 = time.perf_counter()
+                    server = PolicyServer(engine)       # runs the warmup
+                    extra = f" warmup_s={time.perf_counter() - t0:.3f}"
+                    times.reset()
+                    traffic = make_traffic(n, seed=0, vocab=cfg.vocab_size,
+                                           prompt_lens=lens,
+                                           max_new=kw["max_new"])
+                    report = server.run_offline(traffic)
                 _check_served(label, report, traffic, cfg.vocab_size)
+                experts, weights = tick_read_bound(cfg)
+                extra += (f" peak_memory={torch.cuda.max_memory_allocated()}"
+                          f" tick_read_bound_ms: experts "
+                          f"{experts / HBM_BYTES_PER_S * 1e3:.3f} "
+                          f"({experts} bytes), all weights "
+                          f"{weights / HBM_BYTES_PER_S * 1e3:.3f} "
+                          f"({weights} bytes)")
             torch.cuda.synchronize()
             counts = dispatch.launch_counts()
             _check_launches(label, counts, {"flash_attention": want_flash})
             _add(totals, counts)
             log(f"[serve] {label}: {report.summary()} {times.summary()}"
-                f"{extra} flash_launches={counts['flash_attention']}")
+                f"{extra} flash_launches={counts['flash_attention']} "
+                f"run_s={time.perf_counter() - t_run:.3f}")
             log(f"[serve] {label}: first streams "
                 f"{[r.tokens[:8] for r in report.results[:3]]}")
-            del report
+            if isinstance(path, _PathInputs):
+                path.check(label)
+            if cfg is not None and cfg.moe is not None \
+                    and cfg.mla is not None:
+                shape = _bit_repeat(cfg, engine.params, dev)
+                log(f"[serve] {label}: a 256-token prefill repeated on the "
+                    f"card: logits {tuple(shape)} and every cache leaf "
+                    f"bit-equal")
+            del report, engine, server, path
             torch.cuda.empty_cache()
     return totals
 
@@ -2227,6 +2328,138 @@ def phase_serving_cpu_agreement(dev):
         f"{worst:.3e} (tol {tol}); streams equal over {compared} of "
         f"{sum(r.max_new for r in traffic)} tokens under the margin rule")
     phase_policy_cpu_agreement(dev, tol)
+
+
+class _RoutingMargins:
+    """While active, every MoE layer's smallest top-k routing margin (the
+    gap between the k-th and (k+1)-th router probability over its tokens)
+    is recorded: a rounding difference below it cannot flip a choice.
+    It may be entered again; the margins accumulate."""
+
+    def __init__(self):
+        self.margins = []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self.moe, self.orig = moe, moe.moe_forward
+
+        def recorded(p, cfg, x):
+            with torch.no_grad():
+                self.margins.append(moe.top_k_margin(
+                    moe.router_probs(p, x), cfg.moe.top_k).item())
+            return self.orig(p, cfg, x)
+
+        moe.moe_forward = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_forward = self.orig
+
+    def smallest(self) -> float:
+        return min(self.margins, default=float("inf"))
+
+
+def _padded_stream(cfg, params, tokens, max_new, bucket):
+    """The CPU's unbatched greedy stream of one request as the engine
+    serves it: the prompt right-padded to its ``bucket`` (pad tokens take
+    part in an MoE layer's routing and capacity), the first token read at
+    the true last position, the padded ring entries emptied. Returns the
+    tokens and each step's top-1 margin."""
+    import torch
+    from repro_torch.models.model import decode_step, prefill
+    P = len(tokens)
+    toks = torch.zeros((1, bucket), dtype=torch.long)
+    toks[0, :P] = torch.as_tensor(tokens)
+    logits, cache = prefill(cfg, params, toks, cache_len=bucket + max_new,
+                            last_only=False)
+    cache["slot_pos"][cache["slot_pos"] >= P] = -1
+    cache["pos"] = torch.tensor(P)
+    row, margins, want = logits[0, P - 1], [], []
+    for i in range(max_new):
+        top = torch.topk(row, 2).values
+        margins.append((top[0] - top[1]).item())
+        tok = torch.argmax(row)
+        want.append(int(tok))
+        if i + 1 < max_new:
+            logits, cache = decode_step(cfg, params, tok[None], cache)
+            row = logits[0, 0]
+    return want, margins
+
+
+def phase_moe_cpu_agreement(dev):
+    """DeepSeek-V2-Lite's width at 1 layer (MLA with absorbed decode, 64
+    experts top-6 with 2 shared), the same weights on the card and on the
+    CPU: the prefill logits within ``MOE_REL_TOL`` of their largest
+    entry (the expert weights' E^-1/2 init makes the residual stream
+    O(100), so an absolute tolerance says nothing), and the served greedy
+    streams equal up to each request's first step whose top-1 margin (on
+    the CPU, over the padded prompt the engine serves) is within that
+    tolerance. The smallest top-k routing margin of the card's run is
+    reported, and named in any failure, so that a routing flip is a
+    stated cause."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params, prefill, tree_map
+    from repro_torch.serving import (DecodeEngine, PolicyServer,
+                                     make_traffic)
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"), n_layers=1)
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    cpu_params = init_params(cfg, gen, device="cpu")
+    card_params = tree_map(lambda t: t.to(dev), cpu_params)
+    traffic = make_traffic(4, seed=1, vocab=cfg.vocab_size,
+                           prompt_lens=(1, 16, 77, 128), max_new=4,
+                           jitter_budget=False)
+    worst, scale = 0.0, 0.0
+    card_margins = _RoutingMargins()
+    for req in traffic:
+        toks = torch.as_tensor(req.tokens[None], dtype=torch.long)
+        lc, _ = prefill(cfg, cpu_params, toks, last_only=False)
+        with card_margins:
+            lg, _ = prefill(cfg, card_params, toks.to(dev), last_only=False)
+        err = (lg.cpu() - lc).abs().max().item()
+        big = lc.abs().max().item()
+        worst, scale = max(worst, err / big), max(scale, big)
+        if not err <= MOE_REL_TOL * big:
+            raise AssertionError(
+                f"DeepSeek-V2-Lite width: card/CPU prefill logits of "
+                f"request {req.uid} differ by {err} > {MOE_REL_TOL} x "
+                f"{big}; smallest routing margin on the card "
+                f"{card_margins.smallest()}")
+    tol = MOE_REL_TOL * scale
+    streams = {}
+    for d, params in (("cpu", cpu_params), (dev, card_params)):
+        engine = DecodeEngine(cfg, params, slots=4, max_new=4,
+                              max_prompt=128, device=d)
+        with card_margins if d == dev else contextlib.nullcontext():
+            report = PolicyServer(engine, warmup=False).run_offline(traffic)
+        streams[str(d)] = {r.uid: r.tokens for r in report.results}
+    compared = 0
+    for req in traffic:
+        want, margins = _padded_stream(cfg, cpu_params, req.tokens,
+                                       req.max_new,
+                                       engine.bucket_for(len(req.tokens)))
+        n = next((i for i, m in enumerate(margins) if m <= tol),
+                 len(margins))
+        cpu_s, card_s = streams["cpu"][req.uid], streams[str(dev)][req.uid]
+        if cpu_s != want or card_s[:n] != want[:n] \
+                or len(card_s) != len(want):
+            raise AssertionError(
+                f"DeepSeek-V2-Lite width, request {req.uid}: card {card_s}, "
+                f"CPU {cpu_s}, unbatched {want}, margins {margins}; "
+                f"smallest routing margin on the card "
+                f"{card_margins.smallest()}")
+        compared += n
+    log(f"[check] card vs CPU, DeepSeek-V2-Lite width at 1 layer (4 "
+        f"requests, prompts <= 128, 4 new tokens): prefill logits max abs "
+        f"err / max|logits| {worst:.3e} (tol {MOE_REL_TOL}, max|logits| "
+        f"{scale:.6f}); streams equal over {compared} of "
+        f"{sum(r.max_new for r in traffic)} tokens under the margin rule "
+        f"(tol {tol:.3e}); smallest top-{cfg.moe.top_k} routing margin on "
+        f"the card {card_margins.smallest():.3e} over "
+        f"{len(card_margins.margins)} MoE calls")
 
 
 #: a transformer policy at head dim 48, which the flash kernel runs
@@ -2393,8 +2626,13 @@ def main() -> int:
     _add(totals, exp_totals)
     _add(totals, phase_sweep(dev, exp_cells["fig5_byzpg"]))
     _add(totals, phase_telemetry(dev))
+    t0 = time.perf_counter()
     _add(totals, phase_serving(dev))
+    log(f"[time] phase 5 serving runs {time.perf_counter() - t0:.1f} s")
     phase_serving_cpu_agreement(dev)
+    t0 = time.perf_counter()
+    phase_moe_cpu_agreement(dev)
+    log(f"[time] MoE/MLA card-vs-CPU check {time.perf_counter() - t0:.1f} s")
     _add(totals, phase_checkpoint(dev, byzpg_out))
     from repro_torch.kernels import dispatch
     missing = [name for name in dispatch.kernels()

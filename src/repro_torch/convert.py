@@ -4,7 +4,9 @@ JAX parameters arrive as numpy arrays (``np.asarray`` of each leaf); the
 flat θ follows ``ravel_pytree``'s leaf order (:mod:`repro_torch.core.tree`),
 so a θ carried over here is the same policy in the port. A transformer's
 nested parameter dict keeps the reference's layout (blocks stacked
-``(L, ...)``), leaf for leaf.
+``(L, ...)``), leaf for leaf: MLA's projections, and the MoE router
+(float32), experts ``w_gate``/``w_up`` (L, E, d, f) and ``w_down`` (L,
+E, f, d) and shared SwiGLU included.
 """
 from __future__ import annotations
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.tree import tree_paths
 
 
 def serve_cache_len(cfg: ModelConfig, seq_len: int) -> int:
@@ -24,7 +25,8 @@ def serve_cache_len(cfg: ModelConfig, seq_len: int) -> int:
 def slot_cache_insert(cache: dict, row: dict, slot: int,
                       true_len: int) -> dict:
     """Insert a batch-1 prefill cache ``row`` into ``slot`` of a per-slot
-    cache (:func:`repro_torch.models.model.init_slot_cache` layout).
+    cache (:func:`repro_torch.models.model.init_slot_cache` layout): every
+    leaf of the block tree (K and V, or MLA's latent and RoPE key).
 
     ``true_len`` is the number of real prompt positions (prefix embeds
     included); ring entries holding positions ``>= true_len``, the prompt
@@ -33,8 +35,9 @@ def slot_cache_insert(cache: dict, row: dict, slot: int,
     """
     sp = row["slot_pos"]
     sp = torch.where((sp >= 0) & (sp < true_len), sp, -1)
-    for name in ("k", "v"):
-        cache["blocks"]["kv"][name][:, slot] = row["blocks"]["kv"][name][:, 0]
+    for (_, dst), (_, src) in zip(tree_paths(cache["blocks"]),
+                                  tree_paths(row["blocks"])):
+        dst[:, slot] = src[:, 0]
     cache["pos"][slot] = true_len
     cache["slot_pos"][slot] = sp
     return cache

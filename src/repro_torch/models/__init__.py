@@ -1,4 +1,5 @@
-"""The decoder models of the port (dense GQA families)."""
+"""The decoder models of the port: the attention families (GQA or MLA
+attention, a SwiGLU or MoE MLP)."""
 from repro_torch.models.model import (decode_step, decode_step_slots,
                                       forward, init_cache, init_params,
                                       init_slot_cache, lm_loss,

@@ -1,7 +1,8 @@
-"""Attention: grouped-query attention (GQA) with a ring-buffer KV cache.
+"""Attention: grouped-query attention (GQA) and multi-head latent
+attention (MLA), with ring-buffer caches.
 
-The port of the GQA part of the JAX package's ``models/attention.py``.
-A sequence pass (:func:`gqa_forward`) takes one of two routes:
+The port of the JAX package's ``models/attention.py``. A GQA sequence
+pass (:func:`gqa_forward`) takes one of two routes:
 
 * ``attention="flash"`` (serving's prefill, the policy's rollouts): the
   flash-attention kernel (``kernels/flash_attention``), forward only, on
@@ -12,11 +13,17 @@ A sequence pass (:func:`gqa_forward`) takes one of two routes:
 
 Single-token decode (:func:`cache_attention`) is plain tensor code, as in
 the reference. Layouts are the reference's: (B, S, H, hd) for attention
-and (B, W, Hkv, hd) for a layer's ring cache. Multi-head latent attention
-(MLA) waits for a later slice (ROADMAP Queue 1).
+and (B, W, Hkv, hd) for a layer's ring cache.
 
-Unlike the reference, :func:`gqa_decode` writes the new token's K and V
-into the cache it is given, in place, and returns that cache: the port
+MLA (:func:`mla_forward`, :func:`mla_decode`) caches the compressed
+latent ``c`` (B, W, kv_lora_rank) and the shared RoPE key ``k_rope`` (B,
+W, qk_rope_head_dim). Its sequence pass always takes the chunked route,
+as the reference's does: its q/k head dim (qk_nope + qk_rope, 192 for
+DeepSeek-V2-Lite) differs from v's and exceeds the flash kernel's 128
+(ROADMAP, the speed list).
+
+Unlike the reference, the decode steps write the new token's entries
+into the cache they are given, in place, and return that cache: the port
 keeps one copy of the ring instead of a new one per step.
 """
 from __future__ import annotations
@@ -53,6 +60,32 @@ def init_gqa(generator: torch.Generator, cfg, dtype=torch.float32) -> dict:
         p["bv"] = torch.zeros((cfg.n_kv_heads * hd,), dtype=dtype,
                               device=dev)
     return p
+
+
+def init_mla(generator: torch.Generator, cfg, dtype=torch.float32) -> dict:
+    """MLA's projections: the latent down-projection ``w_dkv`` (d, r +
+    rope), the up-projections ``w_uk`` (r, H·nope) and ``w_uv`` (r, H·v),
+    ``wo``, and the query's low-rank pair ``w_dq``/``w_uq`` when
+    ``q_lora_rank`` is set, else one ``wq`` (d, H·(nope + rope))."""
+    return {name: dense_init(generator, shape, dtype)
+            for name, shape in mla_shapes(cfg).items()}
+
+
+def mla_shapes(cfg) -> dict:
+    """The shapes of :func:`init_mla`'s tree."""
+    a = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    qk_hd = a.qk_nope_head_dim + a.qk_rope_head_dim
+    shapes = {"w_dkv": (d, a.kv_lora_rank + a.qk_rope_head_dim),
+              "w_uk": (a.kv_lora_rank, H * a.qk_nope_head_dim),
+              "w_uv": (a.kv_lora_rank, H * a.v_head_dim),
+              "wo": (H * a.v_head_dim, d)}
+    if a.q_lora_rank:
+        shapes["w_dq"] = (d, a.q_lora_rank)
+        shapes["w_uq"] = (a.q_lora_rank, H * qk_hd)
+    else:
+        shapes["wq"] = (d, H * qk_hd)
+    return shapes
 
 
 def _grouped_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -126,9 +159,10 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
     """Causal (optionally sliding-window) attention over query chunks: the
     reference's training route.
 
-    q: (B, Sq, H, hd); k, v: (B, Sk, Hkv, hd); q_pos: (Sq,), k_pos: (Sk,),
-    any positions. KV heads are repeated to H (head h reads KV head h //
-    G), their gradients summed over each group in a fixed order. Queries
+    q: (B, Sq, H, hd); k: (B, Sk, Hkv, hd); v: (B, Sk, Hkv, hd_v), where
+    hd_v may differ from hd (MLA); q_pos: (Sq,), k_pos: (Sk,), any
+    positions. KV heads are repeated to H (head h reads KV head h // G),
+    their gradients summed over each group in a fixed order. Queries
     are padded to whole chunks with position -1, which masks every key.
     Each chunk's scores are (B, H, chunk, Sk), and each chunk is
     checkpointed while autograd records, as the reference's
@@ -141,8 +175,9 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
         # jnp.repeat on axis 2, as an expand: its backward sums each
         # group's G heads in a fixed order, where repeat_interleave's
         # index_add on the card sums them in the order atomics land
-        k, v = (x[:, :, :, None].expand(*x.shape[:3], G, hd).reshape(
-            x.shape[0], x.shape[1], H, hd) for x in (k, v))
+        k, v = (x[:, :, :, None].expand(*x.shape[:3], G, x.shape[-1])
+                .reshape(x.shape[0], x.shape[1], H, x.shape[-1])
+                for x in (k, v))
     q_pos = torch.as_tensor(q_pos, device=q.device)
     k_pos = torch.as_tensor(k_pos, device=q.device)
     chunk = min(chunk, Sq)
@@ -222,3 +257,106 @@ def gqa_decode(p: dict, cfg, x: torch.Tensor, pos: torch.Tensor,
     out = cache_attention(q, cache_kv["k"], cache_kv["v"], pos, slot_pos,
                           window=window or cfg.sliding_window)
     return out.reshape(B, 1, -1) @ p["wo"], cache_kv
+
+
+def _mla_q(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor):
+    """x (B, S, D) -> q_nope (B, S, H, nope), q_rope (B, S, H, rope)
+    rotated at ``positions``."""
+    a = cfg.mla
+    B, S, _ = x.shape
+    if a.q_lora_rank:
+        q = (x @ p["w_dq"]) @ p["w_uq"]
+    else:
+        q = x @ p["wq"]
+    q = q.reshape(B, S, cfg.n_heads, a.qk_nope_head_dim + a.qk_rope_head_dim)
+    q_nope = q[..., :a.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., a.qk_nope_head_dim:], positions,
+                        cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_latent(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor):
+    """x (B, S, D) -> the latent c (B, S, r) and the shared RoPE key
+    k_rope (B, S, rope) rotated at ``positions``."""
+    a = cfg.mla
+    ckv = x @ p["w_dkv"]                              # (B, S, r + rope)
+    c = ckv[..., :a.kv_lora_rank]
+    k_rope = apply_rope(ckv[..., None, a.kv_lora_rank:], positions,
+                        cfg.rope_theta)               # (B, S, 1, rope)
+    return c, k_rope[..., 0, :]
+
+
+def mla_forward(p: dict, cfg, x: torch.Tensor, positions=None,
+                window: Optional[int] = None):
+    """x: (B,S,D) -> ((B,S,D), (c, k_rope)). K and V are expanded from
+    the latent and attended by :func:`chunked_causal_attention` (q/k head
+    dim nope + rope, v head dim ``v_head_dim``). ``window`` alone sets
+    the window: as in the reference, ``cfg.sliding_window`` is not read
+    here (:func:`gqa_forward` reads it)."""
+    a = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    pos = torch.arange(S, device=x.device) if positions is None \
+        else torch.as_tensor(positions, device=x.device)
+    q_nope, q_rope = _mla_q(p, cfg, x, pos)
+    c, k_rope = _mla_latent(p, cfg, x, pos)
+    k_nope = (c @ p["w_uk"]).reshape(B, S, H, a.qk_nope_head_dim)
+    v = (c @ p["w_uv"]).reshape(B, S, H, a.v_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(
+        B, S, H, a.qk_rope_head_dim)], dim=-1)
+    out = chunked_causal_attention(q, k, v, pos, pos, window=window)
+    return out.reshape(B, S, -1) @ p["wo"], (c, k_rope)
+
+
+def mla_decode(p: dict, cfg, x: torch.Tensor, pos: torch.Tensor,
+               cache: dict, slot_pos: torch.Tensor,
+               window: Optional[int] = None, absorb: bool = True):
+    """Latent-cache decode. x: (B,1,D); cache: dict(c=(B,W,r),
+    k_rope=(B,W,rope)), written in place at entry ``pos % W`` of each
+    row; ``pos`` is a scalar or (B,), and ``slot_pos`` ((W,) or (B, W))
+    already includes ``pos``.
+
+    ``absorb=True`` folds ``w_uk`` into the query and ``w_uv`` into the
+    output (DeepSeek's weight absorption), so a step attends over the
+    latent, O(W·(r + rope)·H), instead of expanding K and V from it."""
+    a = cfg.mla
+    B = x.shape[0]
+    H = cfg.n_heads
+    pos_arr = pos.reshape(-1, 1) if pos.dim() else pos.reshape(1)
+    q_nope, q_rope = _mla_q(p, cfg, x, pos_arr)       # (B, 1, H, *)
+    c_t, kr_t = _mla_latent(p, cfg, x, pos_arr)
+    W = cache["c"].shape[1]
+    rows = torch.arange(B, device=x.device)
+    idx = (pos % W).expand(B)
+    cache["c"][rows, idx] = c_t[:, 0]
+    cache["k_rope"][rows, idx] = kr_t[:, 0]
+    c, k_rope = cache["c"], cache["k_rope"]
+    qp = pos[..., None]
+    m = (slot_pos >= 0) & (slot_pos <= qp)
+    if window is not None:
+        m &= (qp - slot_pos) < window
+    m = m.reshape(-1, 1, 1, W)                        # (B|1, 1, 1, W)
+
+    scale = (a.qk_nope_head_dim + a.qk_rope_head_dim) ** -0.5
+    if absorb:
+        w_uk = p["w_uk"].reshape(a.kv_lora_rank, H, a.qk_nope_head_dim)
+        q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk)
+        s = torch.einsum("bqhr,bkr->bhqk", q_lat.float(), c.float())
+        s = s + torch.einsum("bqhd,bkd->bhqk", q_rope.float(),
+                             k_rope.float())
+        s = torch.where(m, s * scale, NEG_INF)
+        w = torch.softmax(s, dim=-1).to(c.dtype)
+        o_lat = torch.einsum("bhqk,bkr->bqhr", w, c)
+        w_uv = p["w_uv"].reshape(a.kv_lora_rank, H, a.v_head_dim)
+        out = torch.einsum("bqhr,rhd->bqhd", o_lat, w_uv)
+    else:
+        k_nope = (c @ p["w_uk"]).reshape(B, W, H, a.qk_nope_head_dim)
+        v = (c @ p["w_uv"]).reshape(B, W, H, a.v_head_dim)
+        s = torch.einsum("bqhd,bkhd->bhqk", q_nope.float(), k_nope.float())
+        s = s + torch.einsum("bqhd,bkd->bhqk", q_rope.float(),
+                             k_rope.float())
+        s = torch.where(m, s * scale, NEG_INF)
+        w = torch.softmax(s, dim=-1).to(v.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", w, v)
+    return out.reshape(B, 1, -1) @ p["wo"], cache

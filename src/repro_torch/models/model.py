@@ -1,26 +1,28 @@
-"""Decoder model: init / forward / prefill / decode for the dense GQA
+"""Decoder model: init / forward / prefill / decode for the attention
 families, with per-layer parameters stacked along a leading layer axis.
 
 The port of the JAX package's ``models/model.py`` for the ``dense``,
-``vlm`` and ``audio`` families (the same block; vlm and audio prepend
-projected prefix embeddings):
+``vlm``, ``audio`` and ``moe`` families (vlm and audio prepend projected
+prefix embeddings):
 
-    [norm -> GQA -> +res -> norm -> SwiGLU -> +res] x n_layers
+    [norm -> GQA|MLA -> +res -> norm -> SwiGLU|MoE -> +res] x n_layers
 
 Parameters are nested dicts of tensors in the reference's layout (blocks
 stacked ``(L, ...)``), so JAX weights carry over leaf for leaf
-(:func:`repro_torch.convert.model_params_from_jax`). The ``moe``,
-``hybrid`` and ``ssm`` families and multi-head latent attention raise
-``NotImplementedError``: they wait for later slices (ROADMAP Queue 1).
+(:func:`repro_torch.convert.model_params_from_jax`). The recurrent
+``hybrid`` and ``ssm`` families raise ``NotImplementedError``: they wait
+for a later slice (ROADMAP Queue 1).
 
-A sequence pass takes one of two attention routes
+A GQA sequence pass takes one of two attention routes
 (:mod:`repro_torch.models.attention`): ``attention="flash"``, the
 forward-only kernel that serving's prefill runs, or
 ``attention="chunked"``, the reference's plain route that autograd
-differentiates. The losses (:func:`lm_loss`, :func:`lm_loss_labeled`)
-are the training route and run the second.
+differentiates. MLA takes the chunked route on both. The losses
+(:func:`lm_loss`, :func:`lm_loss_labeled`) are the training route and
+run the second.
 
-Caches are ring buffers whose size is the attention window. Decode
+Caches are ring buffers whose size is the attention window, holding K
+and V per layer (GQA) or MLA's latent ``c`` and RoPE key. Decode
 writes into the cache it is given, in place (the reference returns a new
 one), and returns it with the position advanced.
 """
@@ -35,23 +37,20 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import tree_paths
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (dense_init, init_swiglu, rms_norm,
                                        swiglu)
 
-#: families this slice ports (the dense block, with or without a prefix
-#: frontend)
-FAMILIES = ("dense", "vlm", "audio")
+#: families the port serves: the attention block (GQA or MLA, SwiGLU or
+#: MoE), with or without a prefix frontend
+FAMILIES = ("dense", "vlm", "audio", "moe")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: multi-head latent attention is not ported yet "
-            f"(ROADMAP Queue 1, the MoE, MLA, hybrid and SSM families)")
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
-            f"Queue 1, the MoE, MLA, hybrid and SSM families)")
+            f"Queue 1, the hybrid and SSM families)")
 
 
 def tree_map(fn: Callable, tree):
@@ -70,28 +69,36 @@ def _init_block(cfg: ModelConfig, generator: torch.Generator, dtype) -> dict:
     dev = generator.device
     return {"norm_attn": torch.ones((d,), dtype=dtype, device=dev),
             "norm_mlp": torch.ones((d,), dtype=dtype, device=dev),
-            "attn": attn.init_gqa(generator, cfg, dtype),
-            "mlp": init_swiglu(generator, d, cfg.d_ff, dtype)}
+            "attn": (attn.init_mla(generator, cfg, dtype)
+                     if cfg.mla is not None
+                     else attn.init_gqa(generator, cfg, dtype)),
+            "mlp": (moe_lib.init_moe(generator, cfg, dtype)
+                    if cfg.moe is not None
+                    else init_swiglu(generator, d, cfg.d_ff, dtype))}
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
     """The shapes of :func:`init_params`'s tree, without drawing it."""
     check_supported(cfg)
-    d, hd, L = cfg.d_model, cfg.resolved_head_dim, cfg.n_layers
-    attn_shapes = {"wq": (L, d, cfg.n_heads * hd),
-                   "wk": (L, d, cfg.n_kv_heads * hd),
-                   "wv": (L, d, cfg.n_kv_heads * hd),
-                   "wo": (L, cfg.n_heads * hd, d)}
-    if cfg.qkv_bias:
-        attn_shapes.update(bq=(L, cfg.n_heads * hd),
-                           bk=(L, cfg.n_kv_heads * hd),
-                           bv=(L, cfg.n_kv_heads * hd))
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    if cfg.mla is not None:
+        attn_shapes = attn.mla_shapes(cfg)
+    else:
+        attn_shapes = {"wq": (d, cfg.n_heads * hd),
+                       "wk": (d, cfg.n_kv_heads * hd),
+                       "wv": (d, cfg.n_kv_heads * hd),
+                       "wo": (cfg.n_heads * hd, d)}
+        if cfg.qkv_bias:
+            attn_shapes.update(bq=(cfg.n_heads * hd,),
+                               bk=(cfg.n_kv_heads * hd,),
+                               bv=(cfg.n_kv_heads * hd,))
+    mlp_shapes = (moe_lib.moe_shapes(cfg) if cfg.moe is not None
+                  else {"w_gate": (d, cfg.d_ff), "w_up": (d, cfg.d_ff),
+                        "w_down": (cfg.d_ff, d)})
+    block = {"norm_attn": (d,), "norm_mlp": (d,), "attn": attn_shapes,
+             "mlp": mlp_shapes}
     shapes = {"embed": (cfg.vocab_size, d), "final_norm": (d,),
-              "blocks": {"norm_attn": (L, d), "norm_mlp": (L, d),
-                         "attn": attn_shapes,
-                         "mlp": {"w_gate": (L, d, cfg.d_ff),
-                                 "w_up": (L, d, cfg.d_ff),
-                                 "w_down": (L, cfg.d_ff, d)}}}
+              "blocks": tree_map(lambda s: (cfg.n_layers,) + s, block)}
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, cfg.vocab_size)
     if cfg.frontend != "none":
@@ -165,13 +172,22 @@ def _block_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
                window: Optional[int], attention: str):
     """One block over a full sequence. Returns (x, cache_parts, aux)."""
     h = rms_norm(x, p["norm_attn"], cfg.norm_eps, cfg.fused_rmsnorm)
-    a_out, kv = attn.gqa_forward(p["attn"], cfg, h, positions, window=window,
-                                 attention=attention)
+    if cfg.mla is not None:
+        a_out, kv = attn.mla_forward(p["attn"], cfg, h, positions,
+                                     window=window)
+        cache = {"c": kv[0], "k_rope": kv[1]}
+    else:
+        a_out, kv = attn.gqa_forward(p["attn"], cfg, h, positions,
+                                     window=window, attention=attention)
+        cache = {"k": kv[0], "v": kv[1]}
     x = x + a_out
     h = rms_norm(x, p["norm_mlp"], cfg.norm_eps, cfg.fused_rmsnorm)
-    m_out = swiglu(h, **p["mlp"])
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + m_out, {"kv": {"k": kv[0], "v": kv[1]}}, aux
+    if cfg.moe is not None:
+        m_out, aux = moe_lib.moe_forward(p["mlp"], cfg, h)
+    else:
+        m_out = swiglu(h, **p["mlp"])
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + m_out, {"kv": cache}, aux
 
 
 def forward(cfg: ModelConfig, params: dict, tokens=None, prefix_embeds=None,
@@ -180,14 +196,19 @@ def forward(cfg: ModelConfig, params: dict, tokens=None, prefix_embeds=None,
             last_only: bool = False, attention: str = "flash"):
     """Full-sequence forward. Returns (logits, aux, cache_parts|None);
     cache_parts are stacked over layers, ``{"kv": {"k": (L, B, S, Hkv,
-    hd), "v": ...}}``.
+    hd), "v": ...}}`` (GQA) or ``{"kv": {"c": (L, B, S, r), "k_rope": (L,
+    B, S, rope)}}`` (MLA). ``aux`` sums the MoE load-balance term over
+    layers (0 without MoE).
 
     ``attention="flash"`` (serving's route) takes ``positions`` None or
     ``arange(S)`` only (the kernel's absolute indices) and has no
     backward; ``attention="chunked"`` (the training route) takes any
-    ``positions``. ``remat`` checkpoints each layer while autograd records
-    (recomputed in the backward, as the reference's ``jax.checkpoint`` of
-    its layer scan); when it does not record, it changes nothing."""
+    ``positions``. MLA layers take the chunked route on both: the flash
+    kernel needs equal q/k/v head dims up to 128, and MLA's differ
+    (DeepSeek-V2-Lite's q/k 192, v 128). ``remat`` checkpoints each
+    layer while autograd records (recomputed in the backward, as the
+    reference's ``jax.checkpoint`` of its layer scan); when it does not
+    record, it changes nothing."""
     check_supported(cfg)
     attn.check_route(attention)
     x = embed_inputs(cfg, params, tokens, prefix_embeds)
@@ -198,7 +219,7 @@ def forward(cfg: ModelConfig, params: dict, tokens=None, prefix_embeds=None,
         x.requires_grad
         or any(t.requires_grad for _, t in tree_paths(params["blocks"])))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    ks, vs = [], []
+    layers = []
     for i in range(cfg.n_layers):
         args = (cfg, _layer(params["blocks"], i), x, positions, window,
                 attention)
@@ -206,10 +227,8 @@ def forward(cfg: ModelConfig, params: dict, tokens=None, prefix_embeds=None,
                        if recording else _block_seq(*args))
         aux = aux + a
         if collect_cache:
-            ks.append(cache["kv"]["k"])
-            vs.append(cache["kv"]["v"])
-    caches = ({"kv": {"k": torch.stack(ks), "v": torch.stack(vs)}}
-              if collect_cache else None)
+            layers.append(cache)
+    caches = _stack(layers) if collect_cache else None
     if last_only:
         x = x[:, -1:]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.fused_rmsnorm)
@@ -222,18 +241,24 @@ def forward(cfg: ModelConfig, params: dict, tokens=None, prefix_embeds=None,
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                dtype=torch.float32, device=None) -> dict:
-    """Empty decode cache; ``cache_len`` is the KV ring size."""
+    """Empty decode cache; ``cache_len`` is the ring size. Per layer it
+    holds K and V (L, B, W, Hkv, hd), or MLA's latent ``c`` (L, B, W,
+    kv_lora_rank) and ``k_rope`` (L, B, W, qk_rope_head_dim)."""
     check_supported(cfg)
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
+    lead = (cfg.n_layers, batch, cache_len)
+    if cfg.mla is not None:
+        shapes = {"c": lead + (cfg.mla.kv_lora_rank,),
+                  "k_rope": lead + (cfg.mla.qk_rope_head_dim,)}
+    else:
+        shapes = dict.fromkeys(("k", "v"), lead + (cfg.n_kv_heads,
+                                                   cfg.resolved_head_dim))
     return {"pos": torch.zeros((), dtype=torch.long, device=dev),
             "slot_pos": torch.full((cache_len,), -1, dtype=torch.long,
                                    device=dev),
-            "blocks": {"kv": {"k": torch.zeros(shape, dtype=dtype,
-                                               device=dev),
-                              "v": torch.zeros(shape, dtype=dtype,
-                                               device=dev)}}}
+            "blocks": {"kv": {name: torch.zeros(shape, dtype=dtype,
+                                                device=dev)
+                              for name, shape in shapes.items()}}}
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens=None, prefix_embeds=None,
@@ -249,7 +274,7 @@ def prefill(cfg: ModelConfig, params: dict, tokens=None, prefix_embeds=None,
     dev = logits.device
 
     def fit(x):
-        # the sequence axis is axis 2 of the stacked (L, B, S, Hkv, hd)
+        # the sequence axis is axis 2 of every stacked (L, B, S, ...) leaf
         if S >= cache_len:
             return x[:, :, S - cache_len:]
         pad = torch.zeros(x.shape[:2] + (cache_len - S,) + x.shape[3:],
@@ -277,11 +302,21 @@ def prefill(cfg: ModelConfig, params: dict, tokens=None, prefix_embeds=None,
 def _block_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
                   pos: torch.Tensor, slot_pos: torch.Tensor, cache: dict):
     h = rms_norm(x, p["norm_attn"], cfg.norm_eps, cfg.fused_rmsnorm)
-    a_out, new_kv = attn.gqa_decode(p["attn"], cfg, h, pos, cache["kv"],
-                                    slot_pos)
+    if cfg.mla is not None:
+        # no window, as in the reference's MLA decode
+        a_out, new_kv = attn.mla_decode(p["attn"], cfg, h, pos, cache["kv"],
+                                        slot_pos, absorb=cfg.mla_absorb)
+    else:
+        a_out, new_kv = attn.gqa_decode(p["attn"], cfg, h, pos,
+                                        cache["kv"], slot_pos)
     x = x + a_out
     h = rms_norm(x, p["norm_mlp"], cfg.norm_eps, cfg.fused_rmsnorm)
-    return x + swiglu(h, **p["mlp"]), {"kv": new_kv}
+    if cfg.moe is not None:
+        # each batch row (each slot) routes its one token alone
+        m_out, _ = moe_lib.moe_forward(p["mlp"], cfg, h)
+    else:
+        m_out = swiglu(h, **p["mlp"])
+    return x + m_out, {"kv": new_kv}
 
 
 def _decode_layers(cfg: ModelConfig, params: dict, x: torch.Tensor,

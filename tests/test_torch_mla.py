@@ -1,0 +1,189 @@
+"""The port's multi-head latent attention (``repro_torch.models.attention``
+MLA part) against the JAX package's on the CPU: the same weights (drawn by
+the reference's ``init_mla``) and inputs give the same outputs and latent
+caches.
+
+Two configurations: reduced MiniCPM3-4B (query through the low-rank
+``w_dq``/``w_uq`` pair) and reduced DeepSeek-V2-Lite with ``q_lora_rank``
+0, as the full DeepSeek-V2-Lite has it (one ``wq``; ``reduced()`` sets
+every MLA config's ``q_lora_rank`` to 48, so without the replace no test
+would reach that branch).
+
+Tolerances: both sides compute in f32 and sum in other orders, with
+activations of O(1): outputs within 2e-5, latent caches within 5e-5 (as
+``tests/test_torch_models.py`` holds K/V caches)."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import base as jcfg  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
+
+from repro_torch.configs import base as tcfg  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
+
+torch.set_num_threads(2)
+
+OUT_TOL = 2e-5
+CACHE_TOL = 5e-5
+
+
+def _cfgs(name):
+    """(JAX cfg, port cfg) of reduced MiniCPM3-4B or reduced
+    DeepSeek-V2-Lite with the plain ``wq`` query."""
+    arch, q_lora = {"minicpm3": ("minicpm3-4b", None),
+                    "deepseek_wq": ("deepseek-v2-lite-16b", 0)}[name]
+    pair = [m.reduced(m.get_config(arch)) for m in (jcfg, tcfg)]
+    if q_lora is not None:
+        pair = [dataclasses.replace(c, mla=dataclasses.replace(
+            c.mla, q_lora_rank=q_lora)) for c in pair]
+    assert dataclasses.asdict(pair[0]) == dataclasses.asdict(pair[1])
+    return pair
+
+
+@pytest.fixture(scope="module", params=["minicpm3", "deepseek_wq"])
+def mla(request):
+    """(JAX cfg, port cfg, JAX params, port params) of one MLA layer."""
+    jc, tc = _cfgs(request.param)
+    params = jattn.init_mla(jax.random.PRNGKey(5), jc, jnp.float32)
+    assert ("wq" in params) == (request.param == "deepseek_wq")
+    tp = {k: torch.tensor(np.asarray(v)) for k, v in params.items()}
+    return jc, tc, params, tp
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=tol)
+
+
+def test_init_mla_tree_matches_the_reference(mla):
+    jc, tc, params, _ = mla
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    mine = tattn.init_mla(gen, tc)
+    assert {k: tuple(v.shape) for k, v in mine.items()} == \
+        {k: tuple(v.shape) for k, v in params.items()}
+    assert tattn.mla_shapes(tc) == {k: tuple(v.shape)
+                                    for k, v in params.items()}
+
+
+@pytest.mark.parametrize("window", [None, 5])
+def test_mla_forward_matches_the_reference(mla, window):
+    """Positions offset by 3 and 37 tokens; the window, when given, is
+    ``mla_forward``'s own argument (it does not read
+    ``cfg.sliding_window``)."""
+    jc, tc, params, tp = mla
+    x = np.random.default_rng(1).standard_normal(
+        (2, 37, jc.d_model)).astype(np.float32)
+    pos = np.arange(37) + 3
+    want, (wc, wk) = jattn.mla_forward(params, jc, jnp.asarray(x),
+                                       jnp.asarray(pos), window=window)
+    got, (gc, gk) = tattn.mla_forward(tp, tc, torch.from_numpy(x),
+                                      torch.from_numpy(pos), window=window)
+    assert got.shape == want.shape == x.shape
+    _close(got, want, OUT_TOL)
+    _close(gc, wc, CACHE_TOL)
+    _close(gk, wk, CACHE_TOL)
+
+
+def _cache(jc, B, W, seed):
+    rng = np.random.default_rng(seed)
+    return {"c": rng.standard_normal((B, W, jc.mla.kv_lora_rank)
+                                     ).astype(np.float32),
+            "k_rope": rng.standard_normal((B, W, jc.mla.qk_rope_head_dim)
+                                          ).astype(np.float32)}
+
+
+@pytest.mark.parametrize("absorb", [True, False], ids=["absorb", "naive"])
+def test_mla_decode_matches_the_reference(mla, absorb):
+    """One decode step over a ring of 8 at position 11 (the ring wrapped:
+    entry 3 holds 11), shared by the three rows, then per-slot rows at their
+    own positions (3, 11, 0) against the reference run row by row."""
+    jc, tc, params, tp = mla
+    B, W = 3, 8
+    x = np.random.default_rng(2).standard_normal(
+        (B, 1, jc.d_model)).astype(np.float32)
+    cache = _cache(jc, B, W, 3)
+    pos = 11
+    slot_pos = np.arange(W)
+    slot_pos[pos % W] = pos
+    want, wcache = jattn.mla_decode(
+        params, jc, jnp.asarray(x), jnp.asarray(pos, jnp.int32),
+        jax.tree.map(jnp.asarray, cache), jnp.asarray(slot_pos),
+        absorb=absorb)
+    tcache = {k: torch.from_numpy(v.copy()) for k, v in cache.items()}
+    got, gcache = tattn.mla_decode(tp, tc, torch.from_numpy(x),
+                                   torch.tensor(pos), tcache,
+                                   torch.from_numpy(slot_pos), absorb=absorb)
+    assert gcache is tcache                 # written in place
+    _close(got, want, OUT_TOL)
+    for k in cache:
+        _close(gcache[k], wcache[k], CACHE_TOL)
+
+    positions = np.array([3, 11, 0])
+    # entry i holds the latest position q <= p with q % W == i (-1: none)
+    latest = positions[:, None] - (positions[:, None] - np.arange(W)) % W
+    per_slot = np.where(latest >= 0, latest, -1)
+    tcache = {k: torch.from_numpy(v.copy()) for k, v in cache.items()}
+    got, gcache = tattn.mla_decode(tp, tc, torch.from_numpy(x),
+                                   torch.from_numpy(positions), tcache,
+                                   torch.from_numpy(per_slot), absorb=absorb)
+    for b, p in enumerate(positions):
+        want, wcache = jattn.mla_decode(
+            params, jc, jnp.asarray(x[b:b + 1]), jnp.asarray(p, jnp.int32),
+            {k: jnp.asarray(v[b:b + 1]) for k, v in cache.items()},
+            jnp.asarray(per_slot[b]), absorb=absorb)
+        _close(got[b:b + 1], want, OUT_TOL)
+        for k in cache:
+            _close(gcache[k][b:b + 1], wcache[k], CACHE_TOL)
+
+
+def test_mla_absorbed_equals_naive_decode(mla):
+    """The port's counterpart of ``tests/test_cache_equivalence.py``'s
+    absorbed-vs-naive check: DeepSeek's weight absorption is an identity,
+    so the two decodes agree to rounding (atol 1e-4, the reference's) and
+    write the same cache entries."""
+    _, tc, _, tp = mla
+    B, W = 2, 8
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (B, 1, tc.d_model)).astype(np.float32))
+    cache = {k: torch.from_numpy(v) for k, v in _cache(tc, B, W, 5).items()}
+    pos = torch.tensor(5)
+    slot_pos = torch.arange(W)
+    slot_pos[5] = 5
+    out = {}
+    for absorb in (True, False):
+        c = {k: v.clone() for k, v in cache.items()}
+        out[absorb] = tattn.mla_decode(tp, tc, x, pos, c, slot_pos,
+                                       absorb=absorb)
+    torch.testing.assert_close(out[True][0], out[False][0], rtol=0,
+                               atol=1e-4)
+    for k in cache:
+        assert torch.equal(out[True][1][k], out[False][1][k])
+
+
+@pytest.mark.parametrize("H,Hkv", [(4, 4), (4, 2)], ids=["G1", "G2"])
+def test_chunked_attention_with_a_narrower_v(H, Hkv):
+    """``chunked_causal_attention`` with v's head dim (16) below q/k's
+    (24), as MLA gives it, with one KV head per query head (MLA's case)
+    and with the GQA expand; 21 queries in chunks of 8 (the last one
+    padded) at positions offset by 4."""
+    rng = np.random.default_rng(6)
+    B, S = 2, 21
+    q = rng.standard_normal((B, S, H, 24)).astype(np.float32)
+    k = rng.standard_normal((B, S, Hkv, 24)).astype(np.float32)
+    v = rng.standard_normal((B, S, Hkv, 16)).astype(np.float32)
+    pos = np.arange(S) + 4
+    for window in (None, 6):
+        want = jattn.chunked_causal_attention(
+            *map(jnp.asarray, (q, k, v, pos, pos)), window=window, chunk=8)
+        got = tattn.chunked_causal_attention(
+            *map(torch.from_numpy, (q, k, v, pos, pos)), window=window,
+            chunk=8)
+        assert got.shape == want.shape == (B, S, H, 16)
+        _close(got, want, OUT_TOL)

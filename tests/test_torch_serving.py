@@ -36,6 +36,7 @@ from repro_torch.models import model as tm  # noqa: E402
 from repro_torch.serving import (DecodeEngine, PolicyServer,  # noqa: E402
                                  Request, SlotScheduler, engine_for_policy,
                                  make_traffic, policy_params, serve)
+from torch_parity import routing_margins  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -46,8 +47,9 @@ POLICY = ("transformer(arch='qwen2.5-3b', n_layers=2, d_model=64, "
 POLICY_HD48 = ("transformer(arch='qwen2.5-3b', n_layers=2, d_model=96, "
                "n_heads=2)")
 LOGIT_TOL = 2e-5
+ROUTE_MARGIN = 1e-5
 J_PREFILL = jax.jit(jm.prefill, static_argnums=0,
-                    static_argnames=("cache_len",))
+                    static_argnames=("cache_len", "last_only"))
 J_DECODE = jax.jit(jm.decode_step, static_argnums=0)
 
 
@@ -244,9 +246,12 @@ def test_slot_cache_ops_and_cache_len_match_the_reference():
                                   np.asarray(want["blocks"]["kv"]["k"]))
 
 
-def _reference_margins(cfg, params, req, n_logits):
+def _reference_margins(cfg, params, req, n_logits, bucket=None):
     """The reference's unbatched greedy stream for ``req`` and each
-    token's top-1 margin over the runner-up."""
+    token's top-1 margin over the runner-up. With ``bucket``, the prompt
+    is right-padded to it as the engines pad it (the first token read at
+    the true last position, the padded ring entries emptied): an MoE
+    model routes pad tokens too, and the capacity follows the bucket."""
     toks = req.tokens if req.tokens is not None else np.zeros(1, np.int32)
     pe = None
     if cfg.frontend != "none":
@@ -254,10 +259,21 @@ def _reference_margins(cfg, params, req, n_logits):
         if req.obs is not None:
             pe[0, 0, :req.obs.shape[0]] = req.obs
         pe = jnp.asarray(pe)
-    W = cfg.n_prefix_embeds + len(toks) + req.max_new
-    logits, cache = J_PREFILL(cfg, params, jnp.asarray(toks[None]), pe,
-                              cache_len=W)
-    row = logits[0, -1]
+    if bucket is None:
+        W = cfg.n_prefix_embeds + len(toks) + req.max_new
+        logits, cache = J_PREFILL(cfg, params, jnp.asarray(toks[None]), pe,
+                                  cache_len=W)
+        row = logits[0, -1]
+    else:
+        true_len = cfg.n_prefix_embeds + len(toks)
+        W = cfg.n_prefix_embeds + bucket + req.max_new
+        padded = np.pad(toks, (0, bucket - len(toks)))[None]
+        logits, cache = J_PREFILL(cfg, params, jnp.asarray(padded), pe,
+                                  cache_len=W, last_only=False)
+        row = logits[0, true_len - 1]
+        sp = cache["slot_pos"]
+        cache = dict(cache, pos=jnp.asarray(true_len, jnp.int32),
+                     slot_pos=jnp.where(sp < true_len, sp, -1))
     out, margins = [], []
     for i in range(req.max_new):
         top = np.sort(np.asarray(row[:n_logits]))[::-1]
@@ -270,10 +286,13 @@ def _reference_margins(cfg, params, req, n_logits):
     return out, margins
 
 
-def _assert_streams_agree(mine, ref, cfg, jparams, traffic, n_logits):
+def _assert_streams_agree(mine, ref, cfg, jparams, traffic, n_logits,
+                          bucket_for=None):
     compared = 0
     for req in traffic:
-        want, margins = _reference_margins(cfg, jparams, req, n_logits)
+        want, margins = _reference_margins(
+            cfg, jparams, req, n_logits,
+            None if bucket_for is None else bucket_for(len(req.tokens)))
         assert ref[req.uid] == want            # the reference's engine
         n = next((i for i, m in enumerate(margins) if m <= LOGIT_TOL),
                  len(margins))
@@ -324,6 +343,38 @@ def test_lm_streams_match_the_reference():
     ref = {r.uid: r.tokens for r in
            JServer(jeng, warmup=False).run_offline(traffic).results}
     _assert_streams_agree(mine, ref, cfg, jparams, traffic, None)
+
+
+def test_moe_mla_streams_match_the_reference():
+    """Token prompts on reduced DeepSeek-V2-Lite (MLA with absorbed
+    decode, MoE with a shared expert), padded to the same buckets on both
+    sides: pad tokens take part in routing and in each expert's capacity
+    (T is the bucket length) and, the sort being stable, queue behind the
+    real tokens of their expert. The port's engine against the
+    reference's, and both against the reference's padded unbatched
+    stream under the margin rule; every routing margin of the port's run
+    exceeds ``ROUTE_MARGIN`` (``tests/test_torch_models.py``)."""
+    cfg = jcfg.reduced(jcfg.get_config("deepseek-v2-lite-16b"))
+    port_cfg = tcfg.reduced(tcfg.get_config("deepseek-v2-lite-16b"))
+    assert cfg.mla_absorb and cfg.moe.n_shared_experts
+    jparams = jm.init_params(cfg, jax.random.PRNGKey(3))
+    tparams = model_params_from_jax(jax.tree.map(np.asarray, jparams),
+                                    port_cfg, device="cpu")
+    traffic = make_traffic(6, seed=2, max_new=5, vocab=cfg.vocab_size,
+                           prompt_lens=(1, 3, 8))
+    assert any(len(r.tokens) == 3 for r in traffic)     # padded to 4
+    engine = DecodeEngine(port_cfg, tparams, slots=2, max_new=5,
+                          max_prompt=8, device="cpu")
+    with routing_margins() as margins:
+        report = PolicyServer(engine, warmup=False).run_offline(traffic)
+    assert min(margins) > ROUTE_MARGIN
+    mine = {r.uid: r.tokens for r in report.results}
+    jeng = JEngine(cfg, jparams, slots=2, max_new=5, max_prompt=8)
+    assert jeng.prompt_buckets == engine.prompt_buckets
+    ref = {r.uid: r.tokens for r in
+           JServer(jeng, warmup=False).run_offline(traffic).results}
+    _assert_streams_agree(mine, ref, cfg, jparams, traffic, None,
+                          bucket_for=engine.bucket_for)
 
 
 def test_policy_params_from_theta_in_ravel_order(policy, jax_side,
@@ -389,6 +440,11 @@ def test_launch_cli_on_the_cpu(capsys):
           "--device", "cpu"])
     out = capsys.readouterr().out
     assert "lm serve arch=llama3.2-1b-reduced n_requests=3" in out
+    main(["--arch", "deepseek-v2-lite-16b", "--reduced", "--requests", "2",
+          "--slots", "2", "--gen", "2", "--prompt-len", "8", "--offline",
+          "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "lm serve arch=deepseek-v2-lite-16b-reduced n_requests=2" in out
     main(["--policy", POLICY, "--requests", "2", "--gen", "2", "--offline",
           "--device", "cpu"])
     assert "policy serve n_requests=2" in capsys.readouterr().out

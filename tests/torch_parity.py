@@ -4,9 +4,12 @@ The JAX package draws inside its steps from a PRNG key tree; the port takes
 a step's draws as explicit tensors (``repro_torch.core.noise.StepNoise``).
 These helpers replay the reference's key tree with ``jax.random`` and hand
 the port the very numbers the reference consumed, as CPU tensors.
+:func:`routing_margins` records how close the port's MoE layers came to a
+discontinuity in their routing.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import jax
@@ -20,6 +23,28 @@ from repro_torch.core.registry import resolve as torch_resolve
 
 def to_torch(x) -> torch.Tensor:
     return torch.as_tensor(np.array(x))
+
+
+@contextlib.contextmanager
+def routing_margins():
+    """While active, every ``repro_torch.models.moe.moe_forward`` call
+    appends its smallest top-k routing margin (the gap between the k-th
+    and (k+1)-th router probability over its tokens) to the yielded
+    list."""
+    from repro_torch.models import moe
+    margins, orig = [], moe.moe_forward
+
+    def recorded(p, cfg, x):
+        with torch.no_grad():
+            margins.append(moe.top_k_margin(moe.router_probs(p, x),
+                                            cfg.moe.top_k).item())
+        return orig(p, cfg, x)
+
+    moe.moe_forward = recorded
+    try:
+        yield margins
+    finally:
+        moe.moe_forward = orig
 
 
 @functools.partial(jax.jit, static_argnums=(0, 2))
