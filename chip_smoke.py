@@ -51,21 +51,27 @@ Phases, each of which raises on failure (so the exit code is non-zero):
 5. Serving (``serving_runs()``): the port's continuous-batching engine
    serves Llama-3.2-1B at full width and depth (24 requests, prompts up to
    512 tokens), Qwen2.5-3B at full width cut to 4 layers, the default
-   transformer policy through ``serve()``, and the MoE and MLA families
+   transformer policy through ``serve()``, the MoE and MLA families
    at full width: Grok-1 cut to 1 layer, DeepSeek-V2-Lite to 4 and
-   MiniCPM3-4B whole (8 requests each, prompts up to 256 tokens); each
-   run must launch flash attention exactly once per GQA layer per
-   prefill (warmup included; MLA layers take the chunked route and
-   launch none) and give every request exactly its budget of in-range
-   tokens; Grok-1's flash launches (48 heads over 8, G = 6) are held
-   against the plain version on their own inputs, each run logs its
-   peak memory and its decode tick's weight-read bound, and one
-   DeepSeek-V2-Lite prefill must repeat bit for bit. Then Llama-3.2-1B's
+   MiniCPM3-4B whole, and the recurrent families at full width and
+   depth: Hymba-1.5B (GQA + Mamba) and xLSTM-350M (12 mLSTM/sLSTM
+   pairs), prefilled at exact prompt lengths (8 requests each, prompts
+   up to 256 tokens); each run must launch flash attention exactly once
+   per GQA layer per prefill (warmup included; MLA layers take the
+   chunked route and xLSTM has no attention) and give every request
+   exactly its budget of in-range tokens; Grok-1's and Hymba's flash
+   launches (G = 6 and G = 5) are held against the plain version on
+   their own inputs, each run logs its peak memory and its decode
+   tick's weight-read bound (and the recurrent states' bytes), and one
+   256-token prefill of DeepSeek-V2-Lite, Hymba and xLSTM must each
+   repeat bit for bit, logits and every cache leaf. Then Llama-3.2-1B's
    width at 2 layers serves the same requests with the same weights on
    the card and on the CPU: prefill logits must agree, and greedy
    streams wherever the top-1 margin exceeds the tolerance; the same at
    DeepSeek-V2-Lite's width at 1 layer, with the logits held relative to
-   their largest entry and the smallest routing margin reported.
+   their largest entry and the smallest routing margin reported, and at
+   Hymba-1.5B's width at 2 layers and xLSTM-350M's at 1 pair (exact-
+   length prefills, logits relative to their largest entry).
    Every registered kernel must launch on some run of phases 4 and 5.
 6. ByzPG (paper Algorithm 1, ``byzpg_runs()``) at its defaults (K=13,
    N=50, B=4, MLP (16, 16) relu): CartPole under ``large_noise`` with
@@ -185,18 +191,22 @@ HEADLINE = {"gram": (13, 13, 386), "weiszfeld": (13, 7, 386),
 # the policy's 9-position prefill (hd 32, G = 1), ragged grouped ones, the
 # 16- and 128-token buckets that Llama's serving prefills most, and
 # Grok-1's served buckets of 16, 128 and 256 tokens (48 heads over 8: G =
-# 6, not a power of two; hd 128)
+# 6, not a power of two; hd 128), and Hymba-1.5B's exact prompt lengths
+# of 16, 77, 128 and 256 tokens (25 heads over 5: G = 5, odd; hd 64)
 FLASH_CASES = [(1, 32, 8, 512, 64, None), (1, 32, 8, 512, 64, 1),
                (1, 32, 8, 512, 64, 7), (1, 32, 8, 512, 64, 128),
                (1, 16, 2, 256, 128, None), (1, 2, 2, 9, 32, None),
                (1, 4, 1, 9, 32, None), (1, 4, 1, 100, 64, None),
                (2, 4, 2, 130, 32, None), (1, 32, 8, 16, 64, None),
                (1, 32, 8, 128, 64, None), (1, 48, 8, 16, 128, None),
-               (1, 48, 8, 128, 128, None), (1, 48, 8, 256, 128, None)]
+               (1, 48, 8, 128, 128, None), (1, 48, 8, 256, 128, None),
+               (1, 25, 5, 16, 64, None), (1, 25, 5, 77, 64, None),
+               (1, 25, 5, 128, 64, None), (1, 25, 5, 256, 64, None)]
 #: the flash inputs also timed on the device (CUDA-graph replay): the
-#: headline and Grok-1's longest served prefill
+#: headline and Grok-1's and Hymba-1.5B's longest served prefills
 FLASH_DEVICE = (HEADLINE["flash_attention"],
-                "q (48, 256, 128) kv (8, 256, 128)")
+                "q (48, 256, 128) kv (8, 256, 128)",
+                "q (25, 256, 64) kv (5, 256, 64)")
 FLASH_LARGE = (1, 32, 8, 8192, 64, None)
 # head dims the kernel is not compiled for (run zero-padded to 64 and 128):
 # a transformer policy's (d_model 96, 2 heads) and a 96-wide head
@@ -207,6 +217,11 @@ FLASH_PADDED = [(1, 2, 2, 9, 48, None), (2, 4, 2, 130, 48, 100),
 #: d 2048, 64 experts of width 1408 and a residual stream of O(100); an
 #: H100 run measured 2.4e-6)
 MOE_REL_TOL = 1e-5
+#: the card against the CPU at Hymba-1.5B's and xLSTM-350M's widths:
+#: prefill logits within this share of their largest entry (f32 sums in
+#: other orders, carried through every step of the scans; an H100 run
+#: measured 2.5e-6 and 2.8e-6 over prompts of up to 128 tokens)
+REC_REL_TOL = 1e-5
 N_ITER, NU = 32, 1e-6
 F32_EPS = 2.0 ** -23
 
@@ -2051,7 +2066,11 @@ def serving_runs():
     experts of 6144 x 32768 are 19.3 GB a layer in f32, and
     ``init_params`` holds the blocks twice while it stacks them),
     DeepSeek-V2-Lite to 4 and MiniCPM3-4B whole; MLA layers take the
-    chunked route, so only Grok's GQA prefills launch flash."""
+    chunked route, so only Grok's GQA prefills launch flash. The
+    recurrent families at full width and depth, prefilled at exact
+    prompt lengths (one warmup prefill of 1 token): Hymba-1.5B launches
+    flash once per layer per prefill (25 heads over 5, G = 5), xLSTM-350M
+    none."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.serving import default_buckets
@@ -2075,6 +2094,10 @@ def serving_runs():
          moe_kw, 8, moe_lens, 0),
         ("minicpm3-4b_serve", get_config("minicpm3-4b"), moe_kw, 8,
          moe_lens, 0),
+        ("hymba-1.5b_serve", get_config("hymba-1.5b"), moe_kw, 8, moe_lens,
+         32 * (1 + 8)),
+        ("xlstm-350m_serve", get_config("xlstm-350m"), moe_kw, 8, moe_lens,
+         0),
     ]
 
 
@@ -2091,16 +2114,26 @@ def tick_read_bound(cfg):
             else math.prod(tree)
 
     shapes = param_shapes(cfg)
-    mlp = shapes["blocks"]["mlp"]
-    experts = sum(count(mlp[k]) for k in ("w_gate", "w_up", "w_down")) \
+    experts = sum(count(shapes["blocks"]["mlp"][k])
+                  for k in ("w_gate", "w_up", "w_down")) \
         if cfg.moe is not None else 0
     head = shapes.get("lm_head", shapes["embed"])
     return 4 * experts, 4 * (count(shapes["blocks"]) + count(head))
 
 
+def state_bytes(cache) -> int:
+    """Bytes of a slot cache's recurrent states (every block leaf outside
+    the attention ring): a tick reads and writes each of them once."""
+    from repro_torch.core.tree import tree_paths
+    return sum(t.numel() * t.element_size()
+               for path, t in tree_paths(cache["blocks"])
+               if not path.startswith("kv/"))
+
+
 def _bit_repeat(cfg, params, dev):
     """One 256-token prefill twice on the card: the logits and every cache
-    leaf must be bit-equal (the MoE combine gathers, no atomics)."""
+    leaf, recurrent states included, must be bit-equal (the MoE combine
+    gathers, the scans loop in a fixed order; no atomics)."""
     import torch
     from repro_torch.core.tree import tree_paths
     from repro_torch.models.model import prefill
@@ -2217,10 +2250,12 @@ def phase_serving(dev):
                 gen.manual_seed(0)
                 engine = DecodeEngine(cfg, init_params(cfg, gen, device=dev),
                                       device=dev, **kw)
-                # the new families' flash launches (Grok-1's G = 6) are
-                # held against the plain version on their own inputs
+                # the later families' flash launches (Grok-1's G = 6,
+                # Hymba's G = 5) are held against the plain version on
+                # their own inputs
                 path = _PathInputs() if cfg.moe is not None \
-                    or cfg.mla is not None else contextlib.nullcontext()
+                    or cfg.mla is not None or cfg.family == "hybrid" \
+                    else contextlib.nullcontext()
                 with path:
                     t0 = time.perf_counter()
                     server = PolicyServer(engine)       # runs the warmup
@@ -2238,6 +2273,11 @@ def phase_serving(dev):
                           f"({experts} bytes), all weights "
                           f"{weights / HBM_BYTES_PER_S * 1e3:.3f} "
                           f"({weights} bytes)")
+                if cfg.is_recurrent:
+                    states = state_bytes(engine.init_state().cache)
+                    extra += (f", recurrent states read and written "
+                              f"{2 * states / HBM_BYTES_PER_S * 1e3:.3f} "
+                              f"({states} bytes)")
             torch.cuda.synchronize()
             counts = dispatch.launch_counts()
             _check_launches(label, counts, {"flash_attention": want_flash})
@@ -2249,8 +2289,8 @@ def phase_serving(dev):
                 f"{[r.tokens[:8] for r in report.results[:3]]}")
             if isinstance(path, _PathInputs):
                 path.check(label)
-            if cfg is not None and cfg.moe is not None \
-                    and cfg.mla is not None:
+            if cfg is not None and (cfg.moe is not None and cfg.mla is not None
+                                    or cfg.is_recurrent):
                 shape = _bit_repeat(cfg, engine.params, dev)
                 log(f"[serve] {label}: a 256-token prefill repeated on the "
                     f"card: logits {tuple(shape)} and every cache leaf "
@@ -2462,6 +2502,75 @@ def phase_moe_cpu_agreement(dev):
         f"{len(card_margins.margins)} MoE calls")
 
 
+def phase_recurrent_cpu_agreement(dev):
+    """Hymba-1.5B at full width and 2 layers, and xLSTM-350M at full width
+    and 1 (mLSTM, sLSTM) pair, the same weights (drawn on the CPU) on the
+    card and on the CPU: the prefill logits within ``REC_REL_TOL`` of
+    their largest entry (f32 sums in other orders, compounded through
+    every step of the scans), and the served greedy streams (exact-length
+    prefills) equal up to each request's first step whose top-1 margin
+    (on the CPU, over the unbatched exact-length stream) is within that
+    tolerance times max|logits|."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params, prefill, tree_map
+    from repro_torch.serving import (DecodeEngine, PolicyServer,
+                                     make_traffic)
+    for arch in ("hymba-1.5b", "xlstm-350m"):
+        cfg = dataclasses.replace(get_config(arch), n_layers=2)
+        gen = torch.Generator()
+        gen.manual_seed(1)
+        cpu_params = init_params(cfg, gen, device="cpu")
+        card_params = tree_map(lambda t: t.to(dev), cpu_params)
+        traffic = make_traffic(4, seed=1, vocab=cfg.vocab_size,
+                               prompt_lens=(1, 16, 77, 128), max_new=8,
+                               jitter_budget=False)
+        worst, scale = 0.0, 0.0
+        for req in traffic:
+            toks = torch.as_tensor(req.tokens[None], dtype=torch.long)
+            lc, _ = prefill(cfg, cpu_params, toks, last_only=False)
+            lg, _ = prefill(cfg, card_params, toks.to(dev), last_only=False)
+            err = (lg.cpu() - lc).abs().max().item()
+            big = lc.abs().max().item()
+            worst, scale = max(worst, err / big), max(scale, big)
+            if not err <= REC_REL_TOL * big:
+                raise AssertionError(
+                    f"{arch} width: card/CPU prefill logits of request "
+                    f"{req.uid} ({len(req.tokens)} tokens) differ by {err} "
+                    f"> {REC_REL_TOL} x {big}")
+        tol = REC_REL_TOL * scale
+        streams = {}
+        for d, params in (("cpu", cpu_params), (dev, card_params)):
+            engine = DecodeEngine(cfg, params, slots=4, max_new=8,
+                                  max_prompt=128, device=d)
+            report = PolicyServer(engine, warmup=False).run_offline(traffic)
+            streams[str(d)] = {r.uid: r.tokens for r in report.results}
+        compared = 0
+        for req in traffic:
+            want, margins = _padded_stream(cfg, cpu_params, req.tokens,
+                                           req.max_new, len(req.tokens))
+            n = next((i for i, m in enumerate(margins) if m <= tol),
+                     len(margins))
+            cpu_s, card_s = streams["cpu"][req.uid], \
+                streams[str(dev)][req.uid]
+            if cpu_s != want or card_s[:n] != want[:n] \
+                    or len(card_s) != len(want):
+                raise AssertionError(
+                    f"{arch} width, request {req.uid}: card {card_s}, CPU "
+                    f"{cpu_s}, unbatched {want}, margins {margins}")
+            compared += n
+        log(f"[check] card vs CPU, {arch} width at "
+            f"{'2 layers' if cfg.family == 'hybrid' else '1 pair'} (4 "
+            f"requests, prompts 1, 16, 77, 128 at exact length, 8 new "
+            f"tokens): prefill logits max abs err / max|logits| "
+            f"{worst:.3e} (tol {REC_REL_TOL}, max|logits| {scale:.6f}); "
+            f"streams equal over {compared} of "
+            f"{sum(r.max_new for r in traffic)} tokens under the margin "
+            f"rule (tol {tol:.3e})")
+        del cpu_params, card_params
+
+
 #: a transformer policy at head dim 48, which the flash kernel runs
 #: zero-padded to 64
 POLICY_HD48 = "transformer(d_model=96, n_heads=2)"
@@ -2633,6 +2742,10 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_moe_cpu_agreement(dev)
     log(f"[time] MoE/MLA card-vs-CPU check {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_recurrent_cpu_agreement(dev)
+    log(f"[time] recurrent card-vs-CPU check {time.perf_counter() - t0:.1f} "
+        f"s")
     _add(totals, phase_checkpoint(dev, byzpg_out))
     from repro_torch.kernels import dispatch
     missing = [name for name in dispatch.kernels()

@@ -6,7 +6,10 @@ so a θ carried over here is the same policy in the port. A transformer's
 nested parameter dict keeps the reference's layout (blocks stacked
 ``(L, ...)``), leaf for leaf: MLA's projections, and the MoE router
 (float32), experts ``w_gate``/``w_up`` (L, E, d, f) and ``w_down`` (L,
-E, f, d) and shared SwiGLU included.
+E, f, d) and shared SwiGLU included; Hymba's Mamba subtree ``ssm``
+(``A_log`` and ``D`` float32), and xLSTM's pairs stacked (L /
+slstm_every, ...): the mLSTM ``m``, the sLSTM ``s``, ``norm_m`` and
+``norm_s``.
 """
 from __future__ import annotations
 

@@ -26,7 +26,8 @@ def slot_cache_insert(cache: dict, row: dict, slot: int,
                       true_len: int) -> dict:
     """Insert a batch-1 prefill cache ``row`` into ``slot`` of a per-slot
     cache (:func:`repro_torch.models.model.init_slot_cache` layout): every
-    leaf of the block tree (K and V, or MLA's latent and RoPE key).
+    leaf of the block tree (K and V, or MLA's latent and RoPE key, and
+    the recurrent states of the hybrid and xLSTM blocks), whole.
 
     ``true_len`` is the number of real prompt positions (prefix embeds
     included); ring entries holding positions ``>= true_len``, the prompt
@@ -46,7 +47,9 @@ def slot_cache_insert(cache: dict, row: dict, slot: int,
 def slot_cache_evict(cache: dict, slot: int) -> dict:
     """Clear one slot: empty ring (``slot_pos = -1``), position 0. Block
     contents stay: the empty ring makes them unreachable and the next
-    :func:`slot_cache_insert` overwrites them."""
+    :func:`slot_cache_insert` overwrites them. A recurrent state stays
+    too, stale (the empty slot's ticks go on stepping it); the next
+    insert overwrites it whole."""
     cache["pos"][slot] = 0
     cache["slot_pos"][slot] = -1
     return cache

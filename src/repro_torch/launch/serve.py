@@ -3,8 +3,10 @@
 The port of the JAX package's ``launch/serve.py``. Two modes share the
 ``repro_torch.serving`` engine:
 
-* **LM traffic** (default): any ported architecture (reduced or full
-  width), token-prompt requests over its vocabulary::
+* **LM traffic** (default): any architecture (reduced or full width),
+  the recurrent Hymba-1.5B and xLSTM-350M included (their prompts are
+  prefilled at exact length), token-prompt requests over its
+  vocabulary::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
         --prompt-len 512 --gen 32 --slots 8 --requests 24 --offline

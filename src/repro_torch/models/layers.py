@@ -1,4 +1,5 @@
-"""Shared model layers: norms, RoPE, MLPs, init helpers.
+"""Shared model layers: norms, RoPE, MLPs, the causal convolution, init
+helpers.
 
 The port of the JAX package's ``models/layers.py``. Everything computes
 in float32 as the reference does; RoPE's frequencies and angles are f32
@@ -76,3 +77,25 @@ def init_swiglu(generator: torch.Generator, d_model: int, d_ff: int,
         "w_up": dense_init(generator, (d_model, d_ff), dtype),
         "w_down": dense_init(generator, (d_ff, d_model), dtype),
     }
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  state: Optional[torch.Tensor] = None):
+    """Depthwise causal convolution over the sequence axis.
+
+    x: (B, S, C); w: (K, C); state: the K-1 inputs before ``x`` (B, K-1,
+    C), zeros when None. Returns (y, new_state): y sums the K taps in tap
+    order, as the reference does, and new_state is the last K-1 inputs,
+    for single-step decode chaining (with K = 1, ``state`` unchanged).
+    """
+    K = w.shape[0]
+    if state is None:
+        state = torch.zeros(x.shape[:-2] + (K - 1, x.shape[-1]),
+                            dtype=x.dtype, device=x.device)
+    xp = torch.cat([state, x], dim=-2)                  # (B, S+K-1, C)
+    S = x.shape[-2]
+    y = xp[..., 0:S, :] * w[0]
+    for i in range(1, K):
+        y = y + xp[..., i:i + S, :] * w[i]
+    new_state = xp[..., S:, :] if K > 1 else state
+    return y, new_state

@@ -1,17 +1,19 @@
-"""Decoder model: init / forward / prefill / decode for the attention
-families, with per-layer parameters stacked along a leading layer axis.
+"""Decoder model: init / forward / prefill / decode for every family,
+with per-layer parameters stacked along a leading layer axis.
 
-The port of the JAX package's ``models/model.py`` for the ``dense``,
-``vlm``, ``audio`` and ``moe`` families (vlm and audio prepend projected
-prefix embeddings):
+The port of the JAX package's ``models/model.py``:
 
-    [norm -> GQA|MLA -> +res -> norm -> SwiGLU|MoE -> +res] x n_layers
+    dense / vlm / audio : [norm -> GQA|MLA -> +res -> norm -> SwiGLU -> +res]
+    moe                 : as dense, the MLP the sort-dispatch MoE
+    hybrid (Hymba)      : [norm -> (GQA + Mamba)/2 -> +res -> norm -> SwiGLU
+                           -> +res]
+    ssm (xLSTM)         : n_layers / slstm_every pairs of residual
+                          [norm -> mLSTM] and [norm -> sLSTM] blocks, no MLP
 
-Parameters are nested dicts of tensors in the reference's layout (blocks
-stacked ``(L, ...)``), so JAX weights carry over leaf for leaf
-(:func:`repro_torch.convert.model_params_from_jax`). The recurrent
-``hybrid`` and ``ssm`` families raise ``NotImplementedError``: they wait
-for a later slice (ROADMAP Queue 1).
+(vlm and audio prepend projected prefix embeddings). Parameters are
+nested dicts of tensors in the reference's layout (blocks stacked ``(L,
+...)``, xLSTM's pairs ``(L / slstm_every, ...)``), so JAX weights carry
+over leaf for leaf (:func:`repro_torch.convert.model_params_from_jax`).
 
 A GQA sequence pass takes one of two attention routes
 (:mod:`repro_torch.models.attention`): ``attention="flash"``, the
@@ -21,10 +23,13 @@ differentiates. MLA takes the chunked route on both. The losses
 (:func:`lm_loss`, :func:`lm_loss_labeled`) are the training route and
 run the second.
 
-Caches are ring buffers whose size is the attention window, holding K
-and V per layer (GQA) or MLA's latent ``c`` and RoPE key. Decode
-writes into the cache it is given, in place (the reference returns a new
-one), and returns it with the position advanced.
+Attention caches are ring buffers whose size is the attention window,
+holding K and V per layer (GQA) or MLA's latent ``c`` and RoPE key;
+recurrent layers carry O(1) state (Mamba's ``h`` and conv inputs,
+mLSTM's C, n, m and conv inputs, sLSTM's h, c, n, m). Decode writes into
+the cache it is given, in place (the reference returns a new one): the
+new ring entries, and every recurrent state copied over its leaf. It
+returns that cache with the position advanced.
 """
 from __future__ import annotations
 
@@ -38,19 +43,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import tree_paths
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (dense_init, init_swiglu, rms_norm,
                                        swiglu)
-
-#: families the port serves: the attention block (GQA or MLA, SwiGLU or
-#: MoE), with or without a prefix frontend
-FAMILIES = ("dense", "vlm", "audio", "moe")
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
-            f"Queue 1, the hybrid and SSM families)")
 
 
 def tree_map(fn: Callable, tree):
@@ -67,20 +62,43 @@ def tree_map(fn: Callable, tree):
 def _init_block(cfg: ModelConfig, generator: torch.Generator, dtype) -> dict:
     d = cfg.d_model
     dev = generator.device
-    return {"norm_attn": torch.ones((d,), dtype=dtype, device=dev),
-            "norm_mlp": torch.ones((d,), dtype=dtype, device=dev),
-            "attn": (attn.init_mla(generator, cfg, dtype)
-                     if cfg.mla is not None
-                     else attn.init_gqa(generator, cfg, dtype)),
-            "mlp": (moe_lib.init_moe(generator, cfg, dtype)
-                    if cfg.moe is not None
-                    else init_swiglu(generator, d, cfg.d_ff, dtype))}
+    p = {"norm_attn": torch.ones((d,), dtype=dtype, device=dev),
+         "norm_mlp": torch.ones((d,), dtype=dtype, device=dev),
+         "attn": (attn.init_mla(generator, cfg, dtype)
+                  if cfg.mla is not None
+                  else attn.init_gqa(generator, cfg, dtype)),
+         "mlp": (moe_lib.init_moe(generator, cfg, dtype)
+                 if cfg.moe is not None
+                 else init_swiglu(generator, d, cfg.d_ff, dtype))}
+    if cfg.family == "hybrid":
+        p["ssm"] = ssm_lib.init_mamba(generator, cfg, dtype)
+    return p
 
 
-def param_shapes(cfg: ModelConfig) -> dict:
-    """The shapes of :func:`init_params`'s tree, without drawing it."""
-    check_supported(cfg)
+def _init_xlstm_pair(cfg: ModelConfig, generator: torch.Generator,
+                     dtype) -> dict:
+    d = cfg.d_model
+    dev = generator.device
+    return {"m": ssm_lib.init_mlstm(generator, cfg, dtype),
+            "s": ssm_lib.init_slstm(generator, cfg, dtype),
+            "norm_m": torch.ones((d,), dtype=dtype, device=dev),
+            "norm_s": torch.ones((d,), dtype=dtype, device=dev)}
+
+
+def n_block_stacks(cfg: ModelConfig) -> int:
+    """Entries of the stacked block axis: the layers, or xLSTM's
+    (mLSTM, sLSTM) pairs."""
+    if cfg.family == "ssm":
+        return cfg.n_layers // cfg.xlstm.slstm_every
+    return cfg.n_layers
+
+
+def _block_shapes(cfg: ModelConfig) -> dict:
     d, hd = cfg.d_model, cfg.resolved_head_dim
+    if cfg.family == "ssm":
+        return {"m": ssm_lib.mlstm_shapes(cfg),
+                "s": ssm_lib.slstm_shapes(cfg), "norm_m": (d,),
+                "norm_s": (d,)}
     if cfg.mla is not None:
         attn_shapes = attn.mla_shapes(cfg)
     else:
@@ -97,8 +115,16 @@ def param_shapes(cfg: ModelConfig) -> dict:
                         "w_down": (cfg.d_ff, d)})
     block = {"norm_attn": (d,), "norm_mlp": (d,), "attn": attn_shapes,
              "mlp": mlp_shapes}
+    if cfg.family == "hybrid":
+        block["ssm"] = ssm_lib.mamba_shapes(cfg)
+    return block
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The shapes of :func:`init_params`'s tree, without drawing it."""
+    d, nb = cfg.d_model, n_block_stacks(cfg)
     shapes = {"embed": (cfg.vocab_size, d), "final_norm": (d,),
-              "blocks": tree_map(lambda s: (cfg.n_layers,) + s, block)}
+              "blocks": tree_map(lambda s: (nb,) + s, _block_shapes(cfg))}
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, cfg.vocab_size)
     if cfg.frontend != "none":
@@ -117,7 +143,6 @@ def init_params(cfg: ModelConfig, key, dtype=torch.float32,
     """Random parameters. ``key`` is a ``torch.Generator`` (draws on its
     device) or an int seed (a generator on ``device``); the result lies on
     ``device`` (default CUDA, see :func:`repro_torch.resolve_device`)."""
-    check_supported(cfg)
     dev = resolve_device(device)
     if isinstance(key, torch.Generator):
         gen = key
@@ -130,8 +155,9 @@ def init_params(cfg: ModelConfig, key, dtype=torch.float32,
                                     device=gen.device).to(dtype),
         "final_norm": torch.ones((d,), dtype=dtype, device=gen.device),
     }
-    params["blocks"] = _stack([_init_block(cfg, gen, dtype)
-                               for _ in range(cfg.n_layers)])
+    init_one = _init_xlstm_pair if cfg.family == "ssm" else _init_block
+    params["blocks"] = _stack([init_one(cfg, gen, dtype)
+                               for _ in range(n_block_stacks(cfg))])
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (d, cfg.vocab_size), dtype)
     if cfg.frontend != "none":
@@ -168,9 +194,30 @@ def _layer(blocks: dict, i: int) -> dict:
 # Sequence forward (prefill)
 # ---------------------------------------------------------------------------
 
+def _xlstm_pair_seq(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                    state: Optional[dict] = None):
+    """One (mLSTM, sLSTM) pair over a sequence, from ``state`` (fresh
+    when None). Returns (x, {"m": mLSTM state, "s": sLSTM state})."""
+    h, new_m = ssm_lib.mlstm_forward(
+        p["m"], cfg, rms_norm(x, p["norm_m"], cfg.norm_eps,
+                              cfg.fused_rmsnorm),
+        None if state is None else state["m"])
+    x = x + h
+    h, new_s = ssm_lib.slstm_forward(
+        p["s"], cfg, rms_norm(x, p["norm_s"], cfg.norm_eps,
+                              cfg.fused_rmsnorm),
+        None if state is None else state["s"])
+    return x + h, {"m": new_m, "s": new_s}
+
+
 def _block_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
                window: Optional[int], attention: str):
-    """One block over a full sequence. Returns (x, cache_parts, aux)."""
+    """One block (or xLSTM pair) over a full sequence. Returns (x,
+    cache_parts, aux)."""
+    if cfg.family == "ssm":
+        x, state = _xlstm_pair_seq(cfg, p, x)
+        return x, state, torch.zeros((), dtype=torch.float32,
+                                     device=x.device)
     h = rms_norm(x, p["norm_attn"], cfg.norm_eps, cfg.fused_rmsnorm)
     if cfg.mla is not None:
         a_out, kv = attn.mla_forward(p["attn"], cfg, h, positions,
@@ -180,6 +227,11 @@ def _block_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
         a_out, kv = attn.gqa_forward(p["attn"], cfg, h, positions,
                                      window=window, attention=attention)
         cache = {"k": kv[0], "v": kv[1]}
+    cache = {"kv": cache}
+    if cfg.family == "hybrid":
+        # attention and Mamba heads in parallel on the same normed input
+        s_out, cache["ssm"] = ssm_lib.mamba_forward(p["ssm"], cfg, h)
+        a_out = (a_out + s_out) * 0.5
     x = x + a_out
     h = rms_norm(x, p["norm_mlp"], cfg.norm_eps, cfg.fused_rmsnorm)
     if cfg.moe is not None:
@@ -187,7 +239,7 @@ def _block_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
     else:
         m_out = swiglu(h, **p["mlp"])
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + m_out, {"kv": cache}, aux
+    return x + m_out, cache, aux
 
 
 def forward(cfg: ModelConfig, params: dict, tokens=None, prefix_embeds=None,
@@ -197,8 +249,9 @@ def forward(cfg: ModelConfig, params: dict, tokens=None, prefix_embeds=None,
     """Full-sequence forward. Returns (logits, aux, cache_parts|None);
     cache_parts are stacked over layers, ``{"kv": {"k": (L, B, S, Hkv,
     hd), "v": ...}}`` (GQA) or ``{"kv": {"c": (L, B, S, r), "k_rope": (L,
-    B, S, rope)}}`` (MLA). ``aux`` sums the MoE load-balance term over
-    layers (0 without MoE).
+    B, S, rope)}}`` (MLA), plus ``"ssm"``, Mamba's final state (hybrid);
+    xLSTM's are its pairs' final states ``{"m": ..., "s": ...}``. ``aux``
+    sums the MoE load-balance term over layers (0 without MoE).
 
     ``attention="flash"`` (serving's route) takes ``positions`` None or
     ``arange(S)`` only (the kernel's absolute indices) and has no
@@ -209,7 +262,6 @@ def forward(cfg: ModelConfig, params: dict, tokens=None, prefix_embeds=None,
     layer while autograd records (recomputed in the backward, as the
     reference's ``jax.checkpoint`` of its layer scan); when it does not
     record, it changes nothing."""
-    check_supported(cfg)
     attn.check_route(attention)
     x = embed_inputs(cfg, params, tokens, prefix_embeds)
     if attention == "flash":
@@ -220,7 +272,7 @@ def forward(cfg: ModelConfig, params: dict, tokens=None, prefix_embeds=None,
         or any(t.requires_grad for _, t in tree_paths(params["blocks"])))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     layers = []
-    for i in range(cfg.n_layers):
+    for i in range(n_block_stacks(cfg)):
         args = (cfg, _layer(params["blocks"], i), x, positions, window,
                 attention)
         x, cache, a = (checkpoint(_block_seq, *args, use_reentrant=False)
@@ -239,32 +291,51 @@ def forward(cfg: ModelConfig, params: dict, tokens=None, prefix_embeds=None,
 # Caches
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
-               dtype=torch.float32, device=None) -> dict:
-    """Empty decode cache; ``cache_len`` is the ring size. Per layer it
-    holds K and V (L, B, W, Hkv, hd), or MLA's latent ``c`` (L, B, W,
-    kv_lora_rank) and ``k_rope`` (L, B, W, qk_rope_head_dim)."""
-    check_supported(cfg)
-    dev = resolve_device(device)
-    lead = (cfg.n_layers, batch, cache_len)
+def _block_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
+                 dev) -> dict:
+    """One layer's (or xLSTM pair's) empty cache, unstacked."""
+    if cfg.family == "ssm":
+        return {"m": ssm_lib.init_mlstm_state(cfg, batch, dtype, dev),
+                "s": ssm_lib.init_slstm_state(cfg, batch, dtype, dev)}
+    lead = (batch, cache_len)
     if cfg.mla is not None:
         shapes = {"c": lead + (cfg.mla.kv_lora_rank,),
                   "k_rope": lead + (cfg.mla.qk_rope_head_dim,)}
     else:
         shapes = dict.fromkeys(("k", "v"), lead + (cfg.n_kv_heads,
                                                    cfg.resolved_head_dim))
+    cache = {"kv": {name: torch.zeros(shape, dtype=dtype, device=dev)
+                    for name, shape in shapes.items()}}
+    if cfg.family == "hybrid":
+        cache["ssm"] = ssm_lib.init_mamba_state(cfg, batch, dtype, dev)
+    return cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               dtype=torch.float32, device=None) -> dict:
+    """Empty decode cache; ``cache_len`` is the ring size. Per layer it
+    holds K and V (L, B, W, Hkv, hd), or MLA's latent ``c`` (L, B, W,
+    kv_lora_rank) and ``k_rope`` (L, B, W, qk_rope_head_dim); a hybrid
+    layer adds ``"ssm"``: Mamba's ``h`` (L, B, d_in, N) and ``conv`` (L,
+    B, K-1, d_in). xLSTM's pairs hold ``{"m": {"C", "n", "m", "conv"},
+    "s": {"h", "c", "n", "m"}}`` stacked (L / slstm_every, B, ...) and no
+    ring (``slot_pos`` is kept for the layout's sake)."""
+    dev = resolve_device(device)
+    block = _block_cache(cfg, batch, cache_len, dtype, dev)
+    nb = n_block_stacks(cfg)
     return {"pos": torch.zeros((), dtype=torch.long, device=dev),
             "slot_pos": torch.full((cache_len,), -1, dtype=torch.long,
                                    device=dev),
-            "blocks": {"kv": {name: torch.zeros(shape, dtype=dtype,
-                                                device=dev)
-                              for name, shape in shapes.items()}}}
+            "blocks": tree_map(lambda t: t.expand(nb, *t.shape).contiguous(),
+                               block)}
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens=None, prefix_embeds=None,
             cache_len: Optional[int] = None, window: Optional[int] = None,
             last_only: bool = True):
-    """Run the prompt, build the decode cache. Returns (logits, cache)."""
+    """Run the prompt, build the decode cache. Returns (logits, cache).
+    The attention ring is cut or padded to ``cache_len``; recurrent
+    states are the prompt's final ones, untouched."""
     logits, _, caches = forward(cfg, params, tokens, prefix_embeds,
                                 window=window, collect_cache=True,
                                 last_only=last_only)
@@ -272,9 +343,14 @@ def prefill(cfg: ModelConfig, params: dict, tokens=None, prefix_embeds=None,
         (prefix_embeds.shape[1] if prefix_embeds is not None else 0)
     cache_len = cache_len or S
     dev = logits.device
+    pos = torch.tensor(S, dtype=torch.long, device=dev)
+    if cfg.family == "ssm":
+        return logits, {"pos": pos, "slot_pos": torch.zeros(
+            (cache_len,), dtype=torch.long, device=dev), "blocks": caches}
 
     def fit(x):
-        # the sequence axis is axis 2 of every stacked (L, B, S, ...) leaf
+        # the sequence axis is axis 2 of every stacked (L, B, S, ...) ring
+        # leaf; only caches["kv"] holds such leaves
         if S >= cache_len:
             return x[:, :, S - cache_len:]
         pad = torch.zeros(x.shape[:2] + (cache_len - S,) + x.shape[3:],
@@ -291,24 +367,43 @@ def prefill(cfg: ModelConfig, params: dict, tokens=None, prefix_embeds=None,
         roll = S % cache_len
         kv = tree_map(lambda x: torch.roll(x, roll, dims=2), kv)
         slot_pos = torch.roll(slot_pos, roll)
-    return logits, {"pos": torch.tensor(S, dtype=torch.long, device=dev),
-                    "slot_pos": slot_pos, "blocks": {"kv": kv}}
+    blocks = {"kv": kv}
+    if cfg.family == "hybrid":
+        blocks["ssm"] = caches["ssm"]
+    return logits, {"pos": pos, "slot_pos": slot_pos, "blocks": blocks}
 
 
 # ---------------------------------------------------------------------------
 # Decode
 # ---------------------------------------------------------------------------
 
+def _write_state(cache: dict, state: dict) -> None:
+    """Copy a recurrent state over its cache leaves, in place: each step
+    makes new state tensors, and the caller keeps the cache."""
+    for (_, dst), (_, src) in zip(tree_paths(cache), tree_paths(state)):
+        dst.copy_(src)
+
+
 def _block_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
                   pos: torch.Tensor, slot_pos: torch.Tensor, cache: dict):
+    """One block's (or xLSTM pair's) decode step: writes ``cache`` in
+    place and returns the new x."""
+    if cfg.family == "ssm":
+        x, state = _xlstm_pair_seq(cfg, p, x, cache)
+        _write_state(cache, state)
+        return x
     h = rms_norm(x, p["norm_attn"], cfg.norm_eps, cfg.fused_rmsnorm)
     if cfg.mla is not None:
         # no window, as in the reference's MLA decode
-        a_out, new_kv = attn.mla_decode(p["attn"], cfg, h, pos, cache["kv"],
-                                        slot_pos, absorb=cfg.mla_absorb)
+        a_out, _ = attn.mla_decode(p["attn"], cfg, h, pos, cache["kv"],
+                                   slot_pos, absorb=cfg.mla_absorb)
     else:
-        a_out, new_kv = attn.gqa_decode(p["attn"], cfg, h, pos,
-                                        cache["kv"], slot_pos)
+        a_out, _ = attn.gqa_decode(p["attn"], cfg, h, pos, cache["kv"],
+                                   slot_pos)
+    if cfg.family == "hybrid":
+        s_out, state = ssm_lib.mamba_decode(p["ssm"], cfg, h, cache["ssm"])
+        _write_state(cache["ssm"], state)
+        a_out = (a_out + s_out) * 0.5
     x = x + a_out
     h = rms_norm(x, p["norm_mlp"], cfg.norm_eps, cfg.fused_rmsnorm)
     if cfg.moe is not None:
@@ -316,15 +411,15 @@ def _block_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
         m_out, _ = moe_lib.moe_forward(p["mlp"], cfg, h)
     else:
         m_out = swiglu(h, **p["mlp"])
-    return x + m_out, {"kv": new_kv}
+    return x + m_out
 
 
 def _decode_layers(cfg: ModelConfig, params: dict, x: torch.Tensor,
                    pos: torch.Tensor, slot_pos: torch.Tensor,
                    blocks: dict) -> torch.Tensor:
-    for i in range(cfg.n_layers):
-        x, _ = _block_decode(cfg, _layer(params["blocks"], i), x, pos,
-                             slot_pos, _layer(blocks, i))
+    for i in range(n_block_stacks(cfg)):
+        x = _block_decode(cfg, _layer(params["blocks"], i), x, pos,
+                          slot_pos, _layer(blocks, i))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.fused_rmsnorm)
     return lm_logits(cfg, params, x)
 
@@ -332,15 +427,16 @@ def _decode_layers(cfg: ModelConfig, params: dict, x: torch.Tensor,
 def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
                 cache: dict):
     """token: (B,) or (B,1) int. Returns (logits (B,1,V), cache): the
-    cache's ring and ``slot_pos`` are written in place, ``pos`` is a new
-    tensor one further."""
-    check_supported(cfg)
+    cache's ring, recurrent states and ``slot_pos`` are written in place
+    (xLSTM's ``slot_pos`` stays as it is, as in the reference), ``pos``
+    is a new tensor one further."""
     if token.dim() == 1:
         token = token[:, None]
     x = params["embed"][token]
     pos = cache["pos"]
     slot_pos = cache["slot_pos"]
-    slot_pos[pos % slot_pos.shape[0]] = pos
+    if cfg.family != "ssm":
+        slot_pos[pos % slot_pos.shape[0]] = pos
     logits = _decode_layers(cfg, params, x, pos, slot_pos, cache["blocks"])
     return logits, {"pos": pos + 1, "slot_pos": slot_pos,
                     "blocks": cache["blocks"]}
@@ -373,12 +469,12 @@ def decode_step_slots(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     ``slot_pos``, so a slot's logits depend only on its own ring. Returns
     ``(logits (slots, V), cache)``, the cache updated in place as in
     :func:`decode_step`."""
-    check_supported(cfg)
     x = params["embed"][tokens][:, None]                 # (slots, 1, D)
     pos = cache["pos"]
     slot_pos = cache["slot_pos"]
-    rows = torch.arange(tokens.shape[0], device=tokens.device)
-    slot_pos[rows, pos % slot_pos.shape[1]] = pos
+    if cfg.family != "ssm":
+        rows = torch.arange(tokens.shape[0], device=tokens.device)
+        slot_pos[rows, pos % slot_pos.shape[1]] = pos
     logits = _decode_layers(cfg, params, x, pos, slot_pos, cache["blocks"])
     return logits[:, 0], {"pos": pos + 1, "slot_pos": slot_pos,
                           "blocks": cache["blocks"]}

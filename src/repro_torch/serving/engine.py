@@ -20,7 +20,9 @@ scheduler round:
   of the flash-attention kernel (MLA layers take the chunked route). An
   MoE layer routes the pad tokens too: they count in each expert's
   capacity (T is the bucket length) and, the expert sort being stable,
-  queue behind the real tokens, as in the reference's engine.
+  queue behind the real tokens, as in the reference's engine. The
+  recurrent families (``hybrid``, ``ssm``) prefill at the prompt's exact
+  length: a pad step changes a recurrent state, and no mask undoes it.
 
 PyTorch runs eagerly, so there is nothing to compile and nothing to
 donate; the state is updated in place. Decode is greedy: the served
@@ -42,8 +44,8 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.serving import (slot_cache_evict,
                                              slot_cache_insert)
-from repro_torch.models.model import (check_supported, decode_step_slots,
-                                      init_slot_cache, prefill, tree_map)
+from repro_torch.models.model import (decode_step_slots, init_slot_cache,
+                                      prefill, tree_map)
 from repro_torch.serving.request import Request
 
 #: BOS anchor supplied when a request carries only an observation
@@ -84,6 +86,11 @@ class DecodeEngine:
     vocabulary entries: the action head of a transformer *policy*
     (``rl.transformer_policy``). ``device`` defaults to CUDA; the
     parameters are moved there if they lie elsewhere.
+
+    Recurrent families (``ssm``, ``hybrid``) are never prompt-padded, as
+    in the reference: their default buckets are ``()``, and
+    :meth:`bucket_for` returns the prompt's own length even when
+    ``prompt_buckets`` are given.
     """
 
     def __init__(self, cfg: ModelConfig, params: dict, *, slots: int = 4,
@@ -93,7 +100,6 @@ class DecodeEngine:
                  device=None):
         if slots < 1:
             raise ValueError(f"need at least one slot, got {slots}")
-        check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = tree_map(lambda t: t.to(self.device), params)
@@ -103,8 +109,10 @@ class DecodeEngine:
         self.n_logits = None if n_logits is None else int(n_logits)
         self.dtype = dtype
         self.has_pe = cfg.frontend != "none"
+        self._pad_ok = not cfg.is_recurrent
         if prompt_buckets is None:
-            prompt_buckets = default_buckets(max_prompt)
+            prompt_buckets = default_buckets(max_prompt) if self._pad_ok \
+                else ()
         self.prompt_buckets = tuple(sorted(prompt_buckets))
         #: ring size: longest padded prompt + full generation budget
         self.cache_len = (cfg.n_prefix_embeds
@@ -136,6 +144,8 @@ class DecodeEngine:
         if prompt_len > self.max_prompt:
             raise ValueError(f"prompt of {prompt_len} tokens exceeds "
                              f"max_prompt={self.max_prompt}")
+        if not self._pad_ok:
+            return prompt_len          # recurrent state: no padding
         for b in self.prompt_buckets:
             if prompt_len <= b:
                 return b

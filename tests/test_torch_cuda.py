@@ -721,3 +721,72 @@ def test_cuda_transformer_decbyzpg_repeats_and_routes(cuda):
     policy.logits(policy.layers(theta[0]), traj.obs[0, :, 0])
     torch.cuda.synchronize()
     assert dispatch.launch_counts()["flash_attention"] - after == L
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 16, 77, 256])
+def test_cuda_flash_attention_at_hymbas_served_shapes(cuda, S):
+    """Hymba-1.5B's prefill: 25 query heads over 5 KV heads (G = 5, odd,
+    not a divisor of the 64-row tile), hd 64, at exact prompt lengths
+    (77 not a multiple of 64), in the model layout sliced out of one
+    fused projection: against the plain version, tolerance 2e-5·max|v|,
+    bit-equal on repeat, one launch per call."""
+    rng = np.random.default_rng(S)
+    H, Hkv, hd = 25, 5, 64
+    fused = torch.from_numpy(rng.standard_normal(
+        (1, S, H + 2 * Hkv, hd)).astype(np.float32)).to(cuda)
+    q, k, v = fused[:, :, :H], fused[:, :, H:H + Hkv], fused[:, :, H + Hkv:]
+    before = dispatch.launch_counts()["flash_attention"]
+    out = flash_attention(q, k, v)
+    assert torch.equal(out, flash_attention(q, k, v))
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["flash_attention"] - before == 2
+    fold = [x.transpose(1, 2).reshape(x.shape[2], S, hd).contiguous()
+            for x in (q, k, v)]
+    want = flash_attention_plain(*fold, H).reshape(1, H, S, hd)
+    torch.testing.assert_close(out, want.transpose(1, 2), rtol=0,
+                               atol=2e-5 * v.abs().max().item())
+
+
+RECURRENT_ARCHS = ["hymba-1.5b", "xlstm-350m"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_cuda_recurrent_model_matches_the_cpu(cuda, arch):
+    """A reduced Hymba-1.5B or xLSTM-350M on the card against the same
+    weights on the CPU: a 37-token prefill and 4 decode steps, logits
+    within 1e-4 (f32 sums in other orders), every state leaf within 1e-4
+    of its largest entry; the prefill repeats bit for bit on the card;
+    Hymba's prefill launches flash once per layer, xLSTM's none."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.tree import tree_paths
+    from repro_torch.models.model import (decode_step, init_params, prefill,
+                                          tree_map)
+    cfg = reduced(get_config(arch))
+    cpu_params = init_params(cfg, 5, device="cpu")
+    params = tree_map(lambda t: t.to(cuda), cpu_params)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 37)))
+    before = dispatch.launch_counts()["flash_attention"]
+    lg, cache = prefill(cfg, params, toks.to(cuda), cache_len=48)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["flash_attention"] - before == (
+        cfg.n_layers if cfg.family == "hybrid" else 0)
+    again, cache2 = prefill(cfg, params, toks.to(cuda), cache_len=48)
+    assert torch.equal(lg, again)
+    for (_, a), (_, b) in zip(tree_paths(cache), tree_paths(cache2)):
+        assert torch.equal(a, b)
+    lc, ccache = prefill(cfg, cpu_params, toks, cache_len=48)
+    tok = torch.argmax(lc[:, -1], -1)
+    for _ in range(4):
+        assert (lg.cpu() - lc).abs().max().item() <= 1e-4
+        lg, cache = decode_step(cfg, params, tok.to(cuda), cache)
+        lc, ccache = decode_step(cfg, cpu_params, tok, ccache)
+        tok = torch.argmax(lc[:, 0], -1)
+    assert (lg.cpu() - lc).abs().max().item() <= 1e-4
+    for (path, a), (_, b) in zip(tree_paths(cache["blocks"]),
+                                 tree_paths(ccache["blocks"])):
+        scale = max(b[b > -1e29].abs().max().item(), 1.0)
+        assert (a.cpu() - b)[b > -1e29].abs().max().item() <= 1e-4 * scale, \
+            path

@@ -1,6 +1,8 @@
-"""The port's configs and dense models against the JAX package's, on the
-CPU: the same weights (carried over by ``model_params_from_jax``) and the
-same tokens give the same logits, caches and decode steps.
+"""The port's configs and models against the JAX package's, on the CPU:
+the same weights (carried over by ``model_params_from_jax``) and the same
+tokens give the same logits, caches and decode steps, for every family
+(the recurrent Hymba-1.5B and xLSTM-350M included: their states are
+compared as cache leaves, with the caches' tolerance).
 
 Tolerances: both sides compute in f32 and sum in other orders (XLA's
 chunked softmax attention against the port's tiled online softmax, other
@@ -49,6 +51,9 @@ ROUTE_MARGIN = 1e-5
 #: with MoE and shared experts (DeepSeek-V2-Lite), MLA with SwiGLU
 #: (MiniCPM3-4B)
 NEW_ARCHS = ["grok-1-314b", "deepseek-v2-lite-16b", "minicpm3-4b"]
+#: the recurrent families, reduced: the hybrid GQA + Mamba block
+#: (Hymba-1.5B) and xLSTM's (mLSTM, sLSTM) pairs
+RECURRENT_ARCHS = ["hymba-1.5b", "xlstm-350m"]
 
 # the reference's entry points, compiled once per config (a static arg)
 J_FORWARD = jax.jit(jm.forward, static_argnums=0,
@@ -78,13 +83,6 @@ def test_aliases_and_input_shapes():
         == {k: dataclasses.asdict(v) for k, v in jcfg.INPUT_SHAPES.items()}
     with pytest.raises(KeyError, match="unknown architecture"):
         tcfg.get_config("gpt-5")
-
-
-@pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-350m"])
-def test_unported_families_raise(arch):
-    cfg = tcfg.reduced(tcfg.get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.init_params(cfg, 0, device="cpu")
 
 
 def test_layers_match_the_reference():
@@ -161,7 +159,8 @@ def _build(name):
 
 
 @pytest.fixture(scope="module", params=["llama3.2-1b", "qwen2.5-3b",
-                                        "policy"] + NEW_ARCHS)
+                                        "policy"] + NEW_ARCHS
+                + RECURRENT_ARCHS)
 def model(request):
     """Every served family: see :func:`_build`."""
     return _build(request.param)
@@ -193,6 +192,17 @@ def _t(x, long=False):
         return None
     return torch.from_numpy(np.asarray(x)).long() if long \
         else torch.from_numpy(np.asarray(x))
+
+
+def _assert_leaves(got, want):
+    """Every leaf of a port cache tree within ``CACHE_TOL`` of the
+    reference's, the trees alike: the rings, the recurrent states."""
+    paths = [p for p, _ in tree_paths(got)]
+    flat = jax.tree_util.tree_flatten_with_path(want)[0]
+    assert paths == ["/".join(k.key for k in kp) for kp, _ in flat]
+    for (path, g), (_, w) in zip(tree_paths(got), flat):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=CACHE_TOL, err_msg=path)
 
 
 def test_param_tree_matches_the_reference(model):
@@ -240,11 +250,7 @@ def test_forward_matches_the_reference(model):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=LOGIT_TOL)
     np.testing.assert_allclose(gaux.item(), float(waux), rtol=1e-5,
                                atol=1e-7)
-    assert set(gc["kv"]) == set(wc["kv"])
-    for name in wc["kv"]:
-        np.testing.assert_allclose(gc["kv"][name].numpy(),
-                                   np.asarray(wc["kv"][name]),
-                                   atol=CACHE_TOL)
+    _assert_leaves(gc, wc)
     last, _, _ = tm.forward(port_cfg, tparams, _t(toks, True), _t(pe),
                             last_only=True)
     np.testing.assert_allclose(last.numpy(), got[:, -1:].numpy(), atol=1e-6)
@@ -276,9 +282,7 @@ def test_prefill_and_decode_match_the_reference(model, S, W):
             np.testing.assert_array_equal(gcache["slot_pos"].numpy(),
                                           np.asarray(wcache["slot_pos"]))
             tok = np.asarray(jnp.argmax(wl[:, 0], -1)).astype(np.int32)
-    for name, leaf in wcache["blocks"]["kv"].items():
-        np.testing.assert_allclose(gcache["blocks"]["kv"][name].numpy(),
-                                   np.asarray(leaf), atol=CACHE_TOL)
+    _assert_leaves(gcache["blocks"], wcache["blocks"])
 
 
 def test_decode_step_slots_matches_the_reference(model):
@@ -324,7 +328,7 @@ def _no_drop(cfg):
         cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
 
 
-@pytest.mark.parametrize("arch", NEW_ARCHS)
+@pytest.mark.parametrize("arch", NEW_ARCHS + RECURRENT_ARCHS)
 def test_prefill_then_decode_equals_forward(arch):
     """The port's counterpart of ``tests/test_cache_equivalence.py``:
     prefill S tokens, decode 4, against one forward over all S + 4 (MoE
@@ -352,7 +356,7 @@ J_LOSS = jax.jit(jax.value_and_grad(jm.lm_loss, argnums=1),
                  static_argnums=0)
 
 
-@pytest.mark.parametrize("arch", NEW_ARCHS)
+@pytest.mark.parametrize("arch", NEW_ARCHS + RECURRENT_ARCHS)
 def test_lm_loss_matches_the_reference(arch):
     """``lm_loss`` (cross-entropy plus the MoE aux term summed over
     layers) within rtol 1e-5 of the reference on the same weights and
@@ -385,3 +389,154 @@ def test_model_entry_points_default_to_cuda():
         tm.init_params(cfg, 0)
     with pytest.raises(RuntimeError, match="CUDA"):
         tm.init_slot_cache(cfg, 2, 8)
+
+
+# --- the recurrent families ------------------------------------------------
+
+def test_recurrent_block_stacks():
+    """xLSTM stacks n_layers / slstm_every pairs (12 at full size), Hymba
+    one block per layer with its Mamba subtree."""
+    x = tcfg.get_config("xlstm-350m")
+    assert tm.n_block_stacks(x) == 12
+    shapes = tm.param_shapes(x)
+    assert shapes["blocks"]["m"]["wq"] == (12, 2048, 2048)
+    assert shapes["blocks"]["norm_s"] == (12, 1024)
+    h = tcfg.get_config("hymba-1.5b")
+    assert tm.n_block_stacks(h) == 32
+    assert tm.param_shapes(h)["blocks"]["ssm"]["A_log"] == (32, 3200, 16)
+    for arch in RECURRENT_ARCHS:
+        cfg, port_cfg, params, _ = _build(arch)
+        cache = tm.init_cache(port_cfg, 3, 10, device="cpu")
+        want = jm.init_cache(cfg, 3, 10)
+        np.testing.assert_array_equal(cache["slot_pos"].numpy(),
+                                      np.asarray(want["slot_pos"]))
+        _assert_leaves(cache["blocks"], want["blocks"])
+        # every leaf its own memory: decode writes them in place
+        ptrs = [t.data_ptr() for _, t in tree_paths(cache["blocks"])]
+        assert len(set(ptrs)) == len(ptrs)
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+@pytest.mark.parametrize("chunk", [0, 4])
+def test_recurrent_lm_loss_gradient_matches_jax(arch, chunk):
+    """``lm_loss`` and its gradient, every leaf, against ``jax.grad`` of
+    the reference's (rtol 1e-5 on the loss; each gradient leaf within
+    1e-5 of the gradient's largest entry, f32 sums in other orders); with
+    ``recurrent_chunk`` 4 over 16 positions, the scans run in
+    checkpointed chunks inside each checkpointed layer, as the
+    reference's nested ``jax.checkpoint``s do."""
+    cfg, port_cfg, params, tparams = _build(arch)
+    cfg = dataclasses.replace(cfg, recurrent_chunk=chunk)
+    port_cfg = dataclasses.replace(port_cfg, recurrent_chunk=chunk)
+    toks, _ = _inputs(cfg, 2, 17, seed=8)
+    want, wgrad = J_LOSS(cfg, params, jnp.asarray(toks))
+    leaves = tm.tree_map(lambda x: x.clone().requires_grad_(True), tparams)
+    loss = tm.lm_loss(port_cfg, leaves, _t(toks, True))
+    np.testing.assert_allclose(loss.item(), float(want), rtol=1e-5)
+    loss.backward()
+    flat = jax.tree_util.tree_flatten_with_path(wgrad)[0]
+    scale = max(float(jnp.abs(g).max()) for _, g in flat)
+    got = tree_paths(tm.tree_map(lambda x: x.grad, leaves))
+    assert [p for p, _ in got] == ["/".join(k.key for k in kp)
+                                   for kp, _ in flat]
+    for (path, g), (_, w) in zip(got, flat):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=1e-5 * scale, err_msg=path)
+
+
+def test_hymba_sliding_window_ring_cache():
+    """The port's ``test_sliding_window_ring_cache`` for Hymba: a ring of
+    W = 8 after a 12-token prefill, 6 decode steps, against a window-8
+    full forward (the Mamba state sees every token, as there), and the
+    prefill and each step against the reference's."""
+    cfg, port_cfg, params, tparams = _build("hymba-1.5b")
+    B, S, n_dec, W = 2, 12, 6, 8
+    toks, _ = _inputs(cfg, B, S + n_dec, seed=11)
+    fullw, _, _ = tm.forward(port_cfg, tparams, _t(toks, True), window=W)
+    lg, cache = tm.prefill(port_cfg, tparams, _t(toks[:, :S], True),
+                           cache_len=W, window=W)
+    wl, wcache = jax.jit(jm.prefill, static_argnums=0,
+                         static_argnames=("cache_len", "window"))(
+        cfg, params, jnp.asarray(toks[:, :S]), cache_len=W, window=W)
+    np.testing.assert_allclose(lg.numpy(), np.asarray(wl), atol=LOGIT_TOL)
+    errs = [(lg[:, -1] - fullw[:, S - 1]).abs().max().item()]
+    for i in range(n_dec):
+        lg, cache = tm.decode_step(port_cfg, tparams, _t(toks[:, S + i], True),
+                                   cache)
+        wl, wcache = J_DECODE(cfg, params, jnp.asarray(toks[:, S + i]),
+                              wcache)
+        np.testing.assert_allclose(lg.numpy(), np.asarray(wl),
+                                   atol=LOGIT_TOL)
+        errs.append((lg[:, 0] - fullw[:, S + i]).abs().max().item())
+    assert max(errs) < LOGIT_TOL, errs
+    _assert_leaves(cache["blocks"], wcache["blocks"])
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_three_token_prompt_keeps_the_state_unpadded(arch):
+    """A 3-token prompt into a ring of 16: the attention ring is padded
+    to 16, but Mamba's conv state (L, B, K-1 = 3, d_in), whose axis 2
+    also has length 3, stays the last three inputs, and mLSTM's likewise;
+    the states equal the reference's and 4 decode steps follow it."""
+    cfg, port_cfg, params, tparams = _build(arch)
+    toks, _ = _inputs(cfg, 2, 3, seed=12)
+    lg, cache = tm.prefill(port_cfg, tparams, _t(toks, True), cache_len=16)
+    wl, wcache = J_PREFILL(cfg, params, jnp.asarray(toks), cache_len=16)
+    np.testing.assert_allclose(lg.numpy(), np.asarray(wl), atol=LOGIT_TOL)
+    blocks = cache["blocks"]
+    conv = blocks["ssm"]["conv"] if arch == "hymba-1.5b" \
+        else blocks["m"]["conv"]
+    assert conv.shape[1:3] == (2, 3)
+    if arch == "hymba-1.5b":
+        assert blocks["kv"]["k"].shape[2] == 16
+    _assert_leaves(blocks, wcache["blocks"])
+    tok = np.asarray(jnp.argmax(wl[:, -1], -1)).astype(np.int32)
+    for _ in range(4):
+        wl, wcache = J_DECODE(cfg, params, jnp.asarray(tok), wcache)
+        lg, cache = tm.decode_step(port_cfg, tparams, _t(tok, True), cache)
+        np.testing.assert_allclose(lg.numpy(), np.asarray(wl),
+                                   atol=LOGIT_TOL)
+        np.testing.assert_array_equal(cache["slot_pos"].numpy(),
+                                      np.asarray(wcache["slot_pos"]))
+        tok = np.asarray(jnp.argmax(wl[:, 0], -1)).astype(np.int32)
+    _assert_leaves(cache["blocks"], wcache["blocks"])
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_decode_step_slots_equals_per_row_decode(arch):
+    """Three slots prefilled with 2, 7 and 5 tokens, four per-slot steps,
+    against each row's own batch-1 cache through ``decode_step``: the
+    logits within ``LOGIT_TOL`` and the states within ``CACHE_TOL`` (f32
+    products blocked differently for other batch shapes), and every
+    state leaf written in place for every row."""
+    _, port_cfg, _, tparams = _build(arch)
+    from repro_torch.distributed.serving import slot_cache_insert
+    W, lens = 12, (2, 7, 5)
+    slots = tm.init_slot_cache(port_cfg, len(lens), W, device="cpu")
+    rows = []
+    for slot, S in enumerate(lens):
+        toks, _ = _inputs(port_cfg, 1, S, seed=20 + slot)
+        _, row = tm.prefill(port_cfg, tparams, _t(toks, True), cache_len=W)
+        slot_cache_insert(slots, row, slot, S)
+        _, own = tm.prefill(port_cfg, tparams, _t(toks, True), cache_len=W)
+        rows.append(own)
+    before = [t.clone() for _, t in tree_paths(slots["blocks"])]
+    tok = torch.tensor([5, 1, 9])
+    for _ in range(4):
+        lg, slots = tm.decode_step_slots(port_cfg, tparams, tok, slots)
+        for r in range(len(lens)):
+            want, rows[r] = tm.decode_step(port_cfg, tparams, tok[r:r + 1],
+                                           rows[r])
+            np.testing.assert_allclose(lg[r].numpy(), want[0, 0].numpy(),
+                                       rtol=0, atol=LOGIT_TOL)
+        tok = torch.argmax(lg, -1)
+    for r in range(len(lens)):
+        for (path, a), (_, b) in zip(tree_paths(slots["blocks"]),
+                                     tree_paths(rows[r]["blocks"])):
+            if "kv" not in path:
+                np.testing.assert_allclose(a[:, r].numpy(), b[:, 0].numpy(),
+                                           rtol=0, atol=CACHE_TOL,
+                                           err_msg=path)
+    for (path, a), b in zip(tree_paths(slots["blocks"]), before):
+        if "kv" not in path:
+            assert not torch.equal(a, b), path     # the states moved

@@ -488,3 +488,136 @@ def test_profiler_ranges_cover_the_phases(policy, params, env):
         PolicyServer(eng, warmup=False).run_offline(traffic)
     names = {e.key for e in prof.key_averages()}
     assert {"serve.prefill", "serve.insert", "serve.tick"} <= names
+
+
+# --- the recurrent families ---------------------------------------------------
+
+RECURRENT_ARCHS = ["hymba-1.5b", "xlstm-350m"]
+
+
+def _recurrent(arch, seed=3):
+    cfg = jcfg.reduced(jcfg.get_config(arch))
+    port_cfg = tcfg.reduced(tcfg.get_config(arch))
+    jparams = jm.init_params(cfg, jax.random.PRNGKey(seed))
+    return cfg, port_cfg, jparams, model_params_from_jax(
+        jax.tree.map(np.asarray, jparams), port_cfg, device="cpu")
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_recurrent_engine_prefills_exact_lengths(arch):
+    """No prompt padding for a recurrent state, as in the reference's
+    engine: no default buckets, the ring sized by ``max_prompt``, and
+    ``bucket_for`` the prompt's own length even when buckets are
+    passed (which then size the ring, as there)."""
+    cfg, port_cfg, jparams, tparams = _recurrent(arch)
+    for buckets in (None, (4, 8)):
+        eng = DecodeEngine(port_cfg, tparams, slots=2, max_new=5,
+                           max_prompt=12, prompt_buckets=buckets,
+                           device="cpu")
+        ref = JEngine(cfg, jparams, slots=2, max_new=5, max_prompt=12,
+                      prompt_buckets=buckets)
+        assert eng.prompt_buckets == ref.prompt_buckets == \
+            (() if buckets is None else buckets)
+        assert eng.cache_len == ref.cache_len == \
+            (12 if buckets is None else 8) + 5
+        for n in range(1, 13):
+            assert eng.bucket_for(n) == ref.bucket_for(n) == n
+        with pytest.raises(ValueError, match="max_prompt"):
+            eng.bucket_for(13)
+    # an attention family pads to the same buckets
+    dense_cfg = tcfg.reduced(tcfg.get_config("llama3.2-1b"))
+    dense = DecodeEngine(dense_cfg, tm.init_params(dense_cfg, 0,
+                                                   device="cpu"),
+                         max_prompt=12, prompt_buckets=(4, 8), device="cpu")
+    assert dense.bucket_for(3) == 4
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_recurrent_streams_match_the_reference(arch):
+    """Prompts of 1, 3, 6 and 11 tokens through the port's engine (two
+    slots, so slots are refilled mid-flight and evicted states are
+    overwritten) against the reference's engine, and both against the
+    reference's unbatched exact-length stream under the margin rule; the
+    warmup's one-token prefill runs first, as a served engine's does."""
+    cfg, port_cfg, jparams, tparams = _recurrent(arch)
+    traffic = make_traffic(6, seed=2, max_new=5, vocab=cfg.vocab_size,
+                           prompt_lens=(1, 3, 6, 11))
+    assert len({len(r.tokens) for r in traffic}) >= 3
+    report = PolicyServer(DecodeEngine(port_cfg, tparams, slots=2,
+                                       max_new=5, max_prompt=12,
+                                       device="cpu")).run_offline(traffic)
+    mine = {r.uid: r.tokens for r in report.results}
+    jeng = JEngine(cfg, jparams, slots=2, max_new=5, max_prompt=12)
+    ref = {r.uid: r.tokens for r in
+           JServer(jeng, warmup=False).run_offline(traffic).results}
+    _assert_streams_agree(mine, ref, cfg, jparams, traffic, None)
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_padding_changes_the_recurrent_state(arch):
+    """Why the engine never pads these families: a prompt right-padded by
+    three tokens leaves a different recurrent state (by far more than
+    rounding), where the attention ring's real entries and the logits at
+    the true last position do not change."""
+    _, port_cfg, _, tparams = _recurrent(arch)
+    toks = torch.tensor([[7, 3, 9, 4, 1]])
+    padded = torch.cat([toks, torch.zeros((1, 3), dtype=torch.long)], 1)
+    lg, exact = tm.prefill(port_cfg, tparams, toks, cache_len=12,
+                           last_only=False)
+    lp, pad = tm.prefill(port_cfg, tparams, padded, cache_len=12,
+                         last_only=False)
+    np.testing.assert_allclose(lp[:, 4].numpy(), lg[:, 4].numpy(), rtol=0,
+                               atol=1e-5)
+    from repro_torch.core.tree import tree_paths
+    moved = {}
+    for (path, a), (_, b) in zip(tree_paths(exact["blocks"]),
+                                 tree_paths(pad["blocks"])):
+        if path.startswith("kv/"):
+            np.testing.assert_allclose(a[:, :, :5].numpy(),
+                                       b[:, :, :5].numpy(), rtol=0,
+                                       atol=1e-5)
+        else:
+            moved[path] = (a - b).abs().max().item()
+    assert moved and max(moved.values()) > 1e-2, moved
+
+
+def test_recurrent_slot_cache_ops_match_the_reference():
+    """Insert and evict over the hybrid and xLSTM trees: every recurrent
+    leaf copied whole into its slot, the evicted slot's state left as it
+    was, as in the reference."""
+    from repro.distributed import serving as jserv
+    from repro_torch.core.tree import tree_paths
+    from repro_torch.distributed import serving as tserv
+    for arch in RECURRENT_ARCHS:
+        cfg, port_cfg, _, _ = _recurrent(arch)
+        row = jm.init_cache(cfg, 1, 6)
+        row = dict(row, slot_pos=jnp.arange(6) - 1,
+                   blocks=jax.tree.map(lambda x: x + 1.5, row["blocks"]))
+        trow = {"slot_pos": torch.arange(6) - 1,
+                "blocks": tm.tree_map(lambda x: torch.tensor(np.asarray(x)),
+                                      row["blocks"])}
+        want = jserv.slot_cache_evict(jserv.slot_cache_insert(
+            jm.init_slot_cache(cfg, 3, 6), row, 1, 3), 1)
+        got = tserv.slot_cache_evict(tserv.slot_cache_insert(
+            tm.init_slot_cache(port_cfg, 3, 6, device="cpu"), trow, 1, 3), 1)
+        np.testing.assert_array_equal(got["pos"].numpy(),
+                                      np.asarray(want["pos"]))
+        np.testing.assert_array_equal(got["slot_pos"].numpy(),
+                                      np.asarray(want["slot_pos"]))
+        flat = jax.tree_util.tree_flatten_with_path(want["blocks"])[0]
+        paths = tree_paths(got["blocks"])
+        assert [p for p, _ in paths] == ["/".join(k.key for k in kp)
+                                         for kp, _ in flat]
+        for (path, g), (_, w) in zip(paths, flat):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w),
+                                          err_msg=path)
+
+
+def test_launch_cli_serves_the_recurrent_families(capsys):
+    from repro_torch.launch.serve import main
+    for arch in RECURRENT_ARCHS:
+        main(["--arch", arch, "--reduced", "--requests", "3", "--slots",
+              "2", "--gen", "3", "--prompt-len", "8", "--offline",
+              "--device", "cpu"])
+        out = capsys.readouterr().out
+        assert f"lm serve arch={arch}-reduced n_requests=3" in out
