@@ -112,9 +112,23 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    launches counted. Then a checkpoint round trip: ``byzpg_cartpole``'s
    parameters saved and restored onto the card bit for bit, and one
    request served through ``policy_params(checkpoint=)``.
-   Phases 3b and 6–8 (6b and 7b included) are driven with the launch
+   Phases 3b, 6–8 (6b and 7b included) and 10 are driven with the launch
    counts set to 0 just before each run and read just after; their
    launches join the totals.
+10. Federated LLM training (``phase_fed``, run after phase 3b):
+   Llama-3.2-1B at full width cut to 2 layers, K = 4 agents (D =
+   384,313,344 each), n_byz = 1 ``large_noise(sigma=10)``, κ = 3, Adam:
+   the tree trainer's ``fed_train_window`` over 5 steps (both coins,
+   finite, the t = 0 honest loss against ``lm_loss_labeled`` at θ₀, no
+   kernel launch, peak memory, a bit-equal repeat, ms per step and per
+   phase); the flat trainer with bucketed RFA, Krum and the trimmed mean
+   for 3 steps each with exact launches, every launch of its last step
+   held against the plain version at that D (per-entry scales, the
+   ragged ``gram`` chunk included) and timed beside its bound; the two
+   trainers against each other (mean, no attack); the reduced model on
+   the card against the CPU; ``python -m repro_torch.launch.train`` in
+   fresh processes, windowed and ``--no-fused``, its checkpoint against
+   the same run in this process.
 9. The kernel table as one JSON line (``device_ms`` and
    ``library_device_ms`` beside the issue-bound ``ms`` and
    ``library_ms``), then
@@ -1810,7 +1824,11 @@ class _PathInputs:
     that :meth:`check` can hold every result against the kernel's plain
     version on the same inputs: the path's own shapes, whatever the kernel
     phases chose. The launch counts are untouched (the recorder sits
-    inside the launch the kernel counts)."""
+    inside the launch the kernel counts). ``host=True`` keeps the copies
+    in host memory, off the card (the federated runs' stacks)."""
+
+    def __init__(self, host: bool = False):
+        self.host = host
 
     def __enter__(self):
         from repro_torch.kernels import dispatch
@@ -1826,7 +1844,9 @@ class _PathInputs:
             return tuple(a.shape) if hasattr(a, "shape") else a
 
         def clone(a):
-            return a.clone() if hasattr(a, "clone") else a
+            if not hasattr(a, "clone"):
+                return a
+            return a.to("cpu", copy=True) if self.host else a.clone()
 
         def recorded(*args, **kwargs):
             out = launch(*args, **kwargs)
@@ -2694,6 +2714,578 @@ def phase_cpu_agreement(dev):
             f"err {th_err:.3e} (tol 1e-4)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: federated LLM training (distributed/fed_trainer.py)
+# ---------------------------------------------------------------------------
+
+#: Llama-3.2-1B at full width, cut from 16 to 2 layers: its (K, D) stacks
+#: at K = 4 hold D = 384,313,344 (the embedding 262,668,288 of it)
+FED_ARCH, FED_LAYERS, FED_D = "llama3.2-1b", 2, 384313344
+FED_K, FED_BYZ, FED_BATCH, FED_SEQ = 4, 1, 2, 128
+#: the tree run's seed: its window's coins hold a c = 1 (t = 0) and a c = 0
+FED_SEED, FED_TREE_T, FED_FLAT_T = 0, 5, 3
+FED_KW = dict(n_byz=FED_BYZ, attack="large_noise(sigma=10)", kappa=3,
+              lr=1e-3, page_p=0.25, seed=FED_SEED)
+#: the flat runs' coins: a large step, then two PAGE steps
+FED_FLAT_COINS = (True, False, False)
+#: launches per flat step: bucketing (2 buckets of 2: Lemma 3 at K = 4,
+#: n_byz = 1) ∘ RFA, Krum (n_near 1), the trimmed mean (n_trim 1)
+FED_FLAT_LAUNCHES = {"rfa": {"gram": 1, "weiszfeld": 1, "wsum": 1},
+                     "krum": {"gram": 1, "krum_score": 1},
+                     "trimmed_mean": {"trimmed_mean": 1}}
+#: the peak the full-width runs must stay under
+FED_PEAK_LIMIT = 70 * 2 ** 30
+#: tree against flat at full width (mean, no attack): θ within this share
+#: of max|θ| (an H100 run measured 2.2e-8: the Gram and mixing sums leaf
+#: by leaf against one ravel) and the honest losses within FED_LOSS_TOL
+#: (about an ulp at 12; the run measured 0)
+FED_TREE_FLAT_TOL = 2e-7
+FED_LOSS_TOL = 1e-6
+#: the card against the CPU (reduced Llama, 2 steps): the aggregated
+#: direction v within FED_CPU_V_TOL of max|v|, θ within FED_CPU_TOL of
+#: max|θ| (an H100 run measured 2.0e-5 on v, where the PAGE step's
+#: g_new − g_old cancels, and 7.3e-5 on θ, Adam near its eps: see
+#: ``phase_fed_cpu_agreement``)
+FED_CPU_V_TOL = 1e-4
+FED_CPU_TOL = 2e-4
+#: gram's gap to its plain version on the flat trainer's input, as a share
+#: of √(G_ii G_jj) per entry
+FED_GRAM_TOL = 1e-6
+#: per-coordinate kernels are held against their plain versions on column
+#: blocks of this many coordinates (the plain trimmed mean pads K to 8)
+FED_BLOCK = 1 << 26
+FED_CLI_TIMEOUT_S = 600
+
+
+def _fed_cfg():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(FED_ARCH), n_layers=FED_LAYERS)
+
+
+def _fed_pipe(cfg, dev):
+    from repro_torch.data import DataConfig, TokenPipeline
+    return TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=FED_SEQ,
+                                    per_agent_batch=FED_BATCH,
+                                    n_agents=FED_K, seed=FED_SEED),
+                         device=dev)
+
+
+class _FedTimer:
+    """While active, each ``fed_train_step`` call and each of the
+    trainers' ``obs.named_phase`` ranges is timed on the host clock,
+    synchronised at both ends (synchronising changes no value)."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch import obs
+        from repro_torch.distributed import fed_trainer as ft
+        self.ft, self.obs = ft, obs
+        self.step_ms, self.phase_ms = [], {}
+        self.orig_step, self.orig_phase = ft.fed_train_step, obs.named_phase
+
+        @contextlib.contextmanager
+        def timed(name, enabled=True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            yield
+            torch.cuda.synchronize()
+            key = name.split(".", 1)[1]
+            self.phase_ms.setdefault(key, []).append(
+                (time.perf_counter() - t0) * 1e3)
+
+        def step(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.orig_step(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        ft.fed_train_step = step
+        obs.named_phase = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.ft.fed_train_step = self.orig_step
+        self.obs.named_phase = self.orig_phase
+
+
+def _fed_tree_run(cfg, fed, dev, batches, mask):
+    """One seeded ``fed_train_window`` of FED_TREE_T steps from the common
+    init, which nothing here keeps (the window lets go of each spent
+    state); returns (state, metrics)."""
+    from repro_torch.core.engine import seed_generator
+    from repro_torch.distributed.fed_trainer import (fed_train_window,
+                                                     init_fed_state)
+    gen = seed_generator(fed.seed, dev)
+    return fed_train_window(
+        cfg, fed, init_fed_state(cfg, fed, FED_K, FED_SEED, device=dev),
+        batches, mask, range(FED_TREE_T), gen)
+
+
+def phase_fed_tree(dev):
+    """``fed_tree_llama``: the tree trainer's window over FED_TREE_T steps
+    at full width (K = 4, n_byz = 1 ``large_noise(sigma=10)``,
+    ``fed_aggregator`` rfa, κ = 3, Adam lr 1e-3, batches of 2 x 128 tokens
+    per agent): both coins occur, every output is finite, the t = 0 honest
+    loss equals the mean of ``lm_loss_labeled`` at θ₀ on the honest
+    agents' batches, the peak stays under FED_PEAK_LIMIT, no kernel
+    launches (the tree aggregators are plain, as the reference's), and a
+    repeat from the seed is bit-equal."""
+    import torch
+    from repro_torch.core.tree import tree_paths
+    from repro_torch.distributed.fed_trainer import FedConfig
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.model import init_params, lm_loss_labeled
+    cfg = _fed_cfg()
+    fed = FedConfig(aggregator="rfa", **FED_KW)
+    pipe = _fed_pipe(cfg, dev)
+    steps = [pipe.batch(t) for t in range(FED_TREE_T)]
+    batches = {k: torch.stack([b[k] for b in steps]) for k in steps[0]}
+    mask = torch.arange(FED_K, device=dev) < FED_BYZ
+    with torch.no_grad():
+        p0 = init_params(cfg, FED_SEED, device=dev)
+        want0 = torch.stack([
+            lm_loss_labeled(cfg, p0, steps[0]["tokens"][k],
+                            steps[0]["labels"][k])
+            for k in range(FED_BYZ, FED_K)]).mean().item()
+        del p0
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    with _FedTimer() as timer:
+        state, m = _fed_tree_run(cfg, fed, dev, batches, mask)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = dispatch.launch_counts()
+    _check_launches("fed_tree_llama", counts, {})
+    leaves = [t for _, t in tree_paths(state.params)]
+    D = sum(t[0].numel() for t in leaves)
+    if D != FED_D:
+        raise AssertionError(f"fed_tree_llama: D {D}, expected {FED_D}")
+    coins = m["coin"].tolist()
+    if not (any(coins) and not all(coins)):
+        raise AssertionError(f"fed_tree_llama: coins {coins} lack a c = 1 "
+                             f"or a c = 0 step")
+    losses, diam = m["loss"].tolist(), m["diameter"].tolist()
+    if not all(bool(torch.isfinite(t).all())
+               for t in [m["loss"], m["diameter"], *leaves]):
+        raise AssertionError("fed_tree_llama: non-finite outputs")
+    if not abs(losses[0] - want0) <= 1e-6 * abs(want0):
+        raise AssertionError(f"fed_tree_llama: t=0 honest loss {losses[0]} "
+                             f"vs lm_loss_labeled at θ₀ {want0}")
+    if not peak < FED_PEAK_LIMIT:
+        raise AssertionError(f"fed_tree_llama: peak {peak} bytes >= "
+                             f"{FED_PEAK_LIMIT}")
+    kept = [t.cpu() for t in leaves]
+    del state, leaves
+    torch.cuda.empty_cache()
+    with _FedTimer() as warm:
+        again, m2 = _fed_tree_run(cfg, fed, dev, batches, mask)
+    same = all(torch.equal(a, b.cpu()) for a, (_, b) in
+               zip(kept, tree_paths(again.params)))
+    if not (same and torch.equal(m2["loss"], m["loss"])
+            and torch.equal(m2["diameter"], m["diameter"])):
+        raise AssertionError("fed_tree_llama: a repeat is not bit-equal")
+    del again, kept
+    torch.cuda.empty_cache()
+    phases, warm_phases = ({k: [round(x, 3) for x in v]
+                            for k, v in t.phase_ms.items()}
+                           for t in (timer, warm))
+    log(f"[fed] {card()}: fed_tree_llama ({FED_ARCH} at full width, "
+        f"{FED_LAYERS} layers, D={D}, K={FED_K}, n_byz={FED_BYZ} "
+        f"large_noise(sigma=10), fed_aggregator rfa, kappa=3, Adam lr "
+        f"1e-3, {FED_BATCH} x {FED_SEQ} tokens per agent, seed "
+        f"{FED_SEED}): coins {[int(c) for c in coins]} loss "
+        f"{[round(x, 6) for x in losses]} diameter {diam} ms/step "
+        f"{[round(x, 3) for x in timer.step_ms]} (window "
+        f"{secs * 1e3:.3f} ms, synchronised; step 0 holds the first "
+        f"calls' set-up), the repeat's {[round(x, 3) for x in warm.step_ms]}"
+        f"; phase ms per step {phases}, the repeat's {warm_phases}; "
+        f"peak memory {peak} bytes ({peak / 2 ** 30:.3f} GiB); t=0 honest "
+        f"loss {losses[0]:.6f} vs lm_loss_labeled at θ₀ {want0:.6f}; 0 "
+        f"kernel launches; a repeat is bit-equal")
+    return counts
+
+
+def _fed_gap(name, args, out, ref):
+    """The largest gap between a flat-trainer launch and its plain version,
+    each entry's gap over its own f32 scale, and the tolerance on that
+    share: gram's (i, j) over √(G_ii G_jj) (Cauchy-Schwarz bounds the sum
+    of |products|), wsum's coordinate over Σ_k |w_k x_kj|, the trimmed
+    mean's over max_k |x_kj|, a Krum score over itself; weiszfeld must be
+    bit-equal. A per-entry scale keeps a far Byzantine row from widening
+    the honest entries' tolerance."""
+    import torch
+    gap = (out - ref).abs()
+    if name == "gram":
+        d = torch.diagonal(ref, dim1=-2, dim2=-1).clamp_min(0)
+        scale = torch.sqrt(d[..., :, None] * d[..., None, :])
+        tol = FED_GRAM_TOL
+    elif name == "wsum":
+        x, w = args[0], args[1]
+        scale = (w[..., None].abs() * x.abs()).sum(-2)
+        tol = 4 * F32_EPS
+    elif name == "trimmed_mean":
+        scale = args[0].abs().amax(-2)
+        tol = args[0].shape[-2] * F32_EPS
+    elif name == "krum_score":
+        scale = ref.abs()
+        tol = args[0].shape[-1] * F32_EPS
+    else:                                        # weiszfeld
+        return gap.max().item(), 0.0
+    share = torch.where(gap > 0, gap / scale.clamp_min(1e-30),
+                        torch.zeros_like(gap))
+    return share.max().item(), tol
+
+
+def _fed_kernel_rows(seen, dev):
+    """Every recorded flat-trainer launch against its plain version on
+    its own input (:func:`_fed_gap`; trimmed_mean and wsum on column
+    blocks of FED_BLOCK, gram whole: its chunk plan depends on d), and
+    its device time by CUDA events beside the bound, each input moved
+    back to the card in turn. Returns log lines."""
+    import torch
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels import dispatch
+    kernels = dispatch.kernels()
+    lines = []
+    for key in list(seen):
+        (name, shapes, kw) = key
+        args, kwargs, out = (
+            tree_map(lambda a: a.to(dev) if hasattr(a, "to") else a, x)
+            for x in seen.pop(key))
+        k = kernels[name]
+        if name in ("trimmed_mean", "wsum") and \
+                args[0].shape[-1] > FED_BLOCK:
+            d = args[0].shape[-1]
+            err = tol = 0.0
+            for lo in range(0, d, FED_BLOCK):
+                cols = slice(lo, min(lo + FED_BLOCK, d))
+                part = [args[0][..., cols].contiguous(), *args[1:]]
+                ref = k.plain(*part, **kwargs)
+                e, tol = _fed_gap(name, part, out[..., cols], ref)
+                err = max(err, e)
+                del part, ref
+        else:
+            ref = k.plain(*args, **kwargs)
+            err, tol = _fed_gap(name, args, out, ref)
+            del ref
+        if not err <= tol:
+            raise AssertionError(f"fed flat: {name} at {shapes} {kw}: gap "
+                                 f"{err} of the entry's scale > {tol}")
+        torch.cuda.empty_cache()
+        ms = time_ms(lambda: k._launch(*args, **kwargs), 5, 1)
+        x = args[0]
+        bt, kk = x.shape[0], x.shape[1]
+        if name == "gram":
+            d = x.shape[-1]
+            b = bound(4 * (bt * kk * d + bt * kk * kk), 2 * bt * kk * kk * d)
+        elif name == "wsum":
+            d = x.shape[-1]
+            b = bound(4 * (bt * kk * d + bt * kk + bt * d), 2 * bt * kk * d)
+        elif name == "trimmed_mean":
+            d = x.shape[-1]
+            b = bound(4 * (bt * kk * d + bt * d), bt * d * kk * kk)
+        elif name == "weiszfeld":
+            b = bound(4 * (bt * kk * kk + bt * kk),
+                      N_ITER * bt * (2 * kk * kk + 8 * kk))
+        else:                                    # krum_score
+            b = bound(4 * (bt * kk * kk + bt * kk), bt * kk * kk * (kk + 2))
+        ragged = ""
+        if name == "gram":
+            from repro_torch.kernels.pairwise_dist import gram_chunks
+            plan = gram_chunks(x.shape[-1])
+            ragged = (f", {len(plan)} chunks, the last "
+                      f"{x.shape[-1] - plan[-1]} wide")
+        kws = f" {kw}" if kw else ""
+        lines.append(
+            f"[fed-kernels] {card()}: {name} {shapes}{kws} on the flat "
+            f"trainer's own input{ragged}: largest gap to the plain version "
+            f"{err:.3e} of the entry's scale (tol {tol:.3e}); device "
+            f"{ms:.6f} ms (CUDA events, 5 launches), bound {b[0]:.6f} ms "
+            f"({b[1]}), {b[0] / ms:.1%} of the bound")
+    return lines
+
+
+def phase_fed_flat(dev):
+    """``fed_flat_llama_{rfa,krum,trimmed_mean}``: the flat trainer at
+    full width, FED_FLAT_T steps each (coins FED_FLAT_COINS) with the
+    registry aggregators: exact launches per step (FED_FLAT_LAUNCHES),
+    finite outputs, the peak under FED_PEAK_LIMIT over the first two
+    steps (a large and a PAGE step); the last step's launches recorded
+    (:class:`_PathInputs`), the state freed, and each held against its
+    plain version on its own input and timed beside its bound. Returns
+    the launches per kernel."""
+    import torch
+    from repro_torch.core.engine import seed_generator
+    from repro_torch.distributed.fed_trainer import (FedConfig, fed_noise,
+                                                     fed_train_step_flat,
+                                                     init_flat_fed_state)
+    from repro_torch.kernels import dispatch
+    cfg = _fed_cfg()
+    pipe = _fed_pipe(cfg, dev)
+    mask = torch.arange(FED_K, device=dev) < FED_BYZ
+    totals = {}
+    for agg, per_step in FED_FLAT_LAUNCHES.items():
+        label = f"fed_flat_llama_{agg}"
+        fed = FedConfig(aggregator=agg, **FED_KW)
+        state, unravel = init_flat_fed_state(cfg, fed, FED_K, FED_SEED,
+                                             device=dev)
+        if state.theta.shape != (FED_K, FED_D):
+            raise AssertionError(f"{label}: theta {tuple(state.theta.shape)}")
+        gen = seed_generator(fed.seed, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_launches()
+        rows, ms = [], []
+        for t, coin in enumerate(FED_FLAT_COINS):
+            last = t == len(FED_FLAT_COINS) - 1
+            if last:
+                peak = torch.cuda.max_memory_allocated()
+            with (_PathInputs(host=True) if last
+                  else contextlib.nullcontext()) as path:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = fed_train_step_flat(
+                    cfg, fed, state, unravel, pipe.batch(t), mask,
+                    fed_noise(gen, fed, state, FED_BYZ), large=coin)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            rows.append((m["loss"].item(), m["diameter"].item()))
+        seen = path.seen
+        counts = dispatch.launch_counts()
+        _check_launches(label, counts,
+                        {k: n * FED_FLAT_T for k, n in per_step.items()})
+        _add(totals, counts)
+        if not (bool(torch.isfinite(state.theta).all())
+                and bool(torch.isfinite(torch.tensor(rows)).all())):
+            raise AssertionError(f"{label}: non-finite outputs")
+        if not peak < FED_PEAK_LIMIT:
+            raise AssertionError(f"{label}: peak {peak} bytes >= "
+                                 f"{FED_PEAK_LIMIT}")
+        del state, unravel
+        torch.cuda.empty_cache()
+        lines = _fed_kernel_rows(seen, dev)
+        del seen
+        torch.cuda.empty_cache()
+        log(f"[fed] {card()}: {label} (D={FED_D}, K={FED_K}, n_byz="
+            f"{FED_BYZ} large_noise(sigma=10), registry aggregator {agg}, "
+            f"kappa=3): coins {[int(c) for c in FED_FLAT_COINS]} (loss, "
+            f"diameter) {rows} ms/step {[round(x, 3) for x in ms]} "
+            f"launches/step {per_step} peak memory over steps 0-1 {peak} "
+            f"bytes ({peak / 2 ** 30:.3f} GiB)")
+        for line in lines:
+            log(line)
+    return totals
+
+
+def phase_fed_tree_vs_flat(dev):
+    """The reference's invariant at full width: with ``mean`` and attack
+    ``none`` the tree and flat trainers take the same step from the same
+    init and batch (coin 1): honest losses within FED_TREE_FLAT_TOL and
+    the raveled θ within FED_TREE_FLAT_TOL of max|θ|, run one after the
+    other (both states do not fit beside each other)."""
+    import torch
+    from repro_torch.core.tree import ravel_tree, tree_map
+    from repro_torch.distributed.fed_trainer import (FedConfig,
+                                                     fed_train_step,
+                                                     fed_train_step_flat,
+                                                     init_fed_state,
+                                                     init_flat_fed_state)
+    cfg = _fed_cfg()
+    fed = FedConfig(aggregator="mean", **dict(FED_KW, attack="none"))
+    batch = _fed_pipe(cfg, dev).batch(0)
+    mask = torch.arange(FED_K, device=dev) < FED_BYZ
+    state = init_fed_state(cfg, fed, FED_K, FED_SEED, device=dev)
+    state, tm = fed_train_step(cfg, fed, state, batch, mask, large=True)
+    tree_theta = torch.stack([
+        ravel_tree(tree_map(lambda leaf: leaf[k], state.params)).cpu()
+        for k in range(FED_K)])
+    del state
+    torch.cuda.empty_cache()
+    fstate, unravel = init_flat_fed_state(cfg, fed, FED_K, FED_SEED,
+                                          device=dev)
+    fstate, fm = fed_train_step_flat(cfg, fed, fstate, unravel, batch, mask,
+                                     large=True)
+    scale = fstate.theta.abs().max().item()
+    err = max((fstate.theta[k].cpu() - tree_theta[k]).abs().max().item()
+              for k in range(FED_K))
+    loss_err = abs(tm["loss"].item() - fm["loss"].item())
+    del fstate, tree_theta
+    torch.cuda.empty_cache()
+    if not (err <= FED_TREE_FLAT_TOL * scale and loss_err <= FED_LOSS_TOL):
+        raise AssertionError(f"tree vs flat at full width: theta max abs "
+                             f"err {err} (max|theta| {scale}), loss |diff| "
+                             f"{loss_err}: over {FED_TREE_FLAT_TOL}")
+    log(f"[fed] {card()}: tree vs flat trainer at full width (mean, no "
+        f"attack, coin 1): honest loss {tm['loss'].item():.6f} vs "
+        f"{fm['loss'].item():.6f} (|diff| {loss_err:.3e}), raveled theta "
+        f"max abs err {err:.3e} = {err / scale:.3e} of max|theta| "
+        f"{scale:.6f} (tol {FED_TREE_FLAT_TOL} of max|theta| and "
+        f"{FED_LOSS_TOL} on the loss)")
+
+
+def phase_fed_cpu_agreement(dev):
+    """The card against the CPU: reduced Llama (2 layers, d 256), K = 4,
+    n_byz = 1 ``large_noise(sigma=10)``, 2 steps (coin 1 then 0) of the
+    tree trainer (fed trimmed_mean) and of the flat trainer (the
+    trimmed_mean kernel) from the same weights and noise: the aggregated
+    direction v within FED_CPU_V_TOL of max|v| (on the PAGE step v sums
+    g_new − g_old, which cancel to well under the gradients' size),
+    θ within FED_CPU_TOL of max|θ|, losses within 1e-5.
+
+    The trimmed mean because it is conditioned per coordinate: RFA's
+    weights come from the Gram identity, whose rounding at the σ = 10
+    row (‖x‖² ≈ 100·D) exceeds the honest rows' distances, so its honest
+    weights differ between any two summation orders. θ's tolerance is
+    wider than v's: Adam's update lr·m̂/(√v̂ + 1e-8) turns a rounding
+    difference in a coordinate whose aggregate is near 1e-8 into a share
+    of lr; a wrong route would move θ by about lr = 1e-3."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.tree import tree_map, tree_paths
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.distributed import fed_trainer as ft
+    cfg = reduced(get_config(FED_ARCH))
+    fed = ft.FedConfig(aggregator="trimmed_mean", **FED_KW)
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, 32, 2, FED_K, seed=1),
+                         device="cpu")
+    cpu_mask = torch.arange(FED_K) < FED_BYZ
+
+    def gap(a_tree, b_tree):
+        pairs = list(zip(tree_paths(a_tree), tree_paths(b_tree)))
+        scale = max(a.abs().max().item() for (_, a), _ in pairs)
+        err = max((b.cpu() - a).abs().max().item()
+                  for (_, a), (_, b) in pairs)
+        return err, scale
+
+    for flat in (False, True):
+        if flat:
+            cpu, unravel = ft.init_flat_fed_state(cfg, fed, FED_K, 1,
+                                                  device="cpu")
+        else:
+            cpu = ft.init_fed_state(cfg, fed, FED_K, 1, device="cpu")
+        gpu = tree_map(lambda x: x.to(dev), cpu)
+        gen = torch.Generator()
+        gen.manual_seed(2)
+        loss_err = v_err = 0.0
+        for t, coin in enumerate((True, False)):
+            b = pipe.batch(t)
+            nz = ft.fed_noise(gen, fed, cpu, FED_BYZ)
+            nz_dev = type(nz)(*(None if x is None else x.to(dev)
+                                for x in nz))
+            b_dev = {k: v.to(dev) for k, v in b.items()}
+            if flat:
+                cpu, cm = ft.fed_train_step_flat(cfg, fed, cpu, unravel, b,
+                                                 cpu_mask, nz, large=coin)
+                gpu, gm = ft.fed_train_step_flat(cfg, fed, gpu, unravel,
+                                                 b_dev, cpu_mask.to(dev),
+                                                 nz_dev, large=coin)
+            else:
+                cpu, cm = ft.fed_train_step(cfg, fed, cpu, b, cpu_mask, nz,
+                                            large=coin)
+                gpu, gm = ft.fed_train_step(cfg, fed, gpu, b_dev,
+                                            cpu_mask.to(dev), nz_dev,
+                                            large=coin)
+            loss_err = max(loss_err, abs(cm["loss"].item()
+                                         - gm["loss"].item()))
+            e, v_scale = gap(cpu.v, gpu.v)
+            v_err = max(v_err, e / v_scale)
+        err, scale = gap(cpu.theta if flat else cpu.params,
+                         gpu.theta if flat else gpu.params)
+        label = ("flat (the trimmed_mean kernel)" if flat
+                 else "tree (fed trimmed_mean)")
+        if not (v_err <= FED_CPU_V_TOL and err <= FED_CPU_TOL * scale
+                and loss_err <= 1e-5):
+            raise AssertionError(f"fed card vs CPU, {label}: v gap {v_err} "
+                                 f"of max|v|, theta max abs err {err} (max "
+                                 f"{scale}), loss |diff| {loss_err}")
+        log(f"[check] {card()}: card vs CPU, fed {label} (reduced "
+            f"{FED_ARCH}, K={FED_K}, 2 steps): v max abs err "
+            f"{v_err:.3e} of max|v| (tol {FED_CPU_V_TOL}), theta max abs "
+            f"err {err:.3e} = {err / scale:.3e} of max|theta| (tol "
+            f"{FED_CPU_TOL}), loss |diff| {loss_err:.3e} (tol 1e-5)")
+
+
+def phase_fed_cli(dev):
+    """``python -m repro_torch.launch.train`` in fresh processes on the
+    card, windowed and ``--no-fused``: exit 0, one ``fed`` record per step
+    in ``metrics.jsonl``, a manifest, and a checkpoint that restores to
+    agent 0's θ of the same run repeated in this process (bit for bit)."""
+    import os
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import restore
+    from repro_torch.core.tree import tree_paths
+    from repro_torch.launch import train
+    steps = 6
+    base = ["--arch", FED_ARCH, "--reduced", "--agents", "4", "--byz", "1",
+            "--attack", "large_noise(sigma=10)", "--steps", str(steps),
+            "--window", "3"]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode in ("fused", "legacy"):
+            extra = [] if mode == "fused" else ["--no-fused"]
+            tele = os.path.join(tmp, mode)
+            ckpt = os.path.join(tmp, f"{mode}.npz")
+            args = base + ["--telemetry-out", tele, "--ckpt", ckpt] + extra
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train", *args],
+                env=env, capture_output=True, text=True,
+                timeout=FED_CLI_TIMEOUT_S)
+            secs = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"train CLI ({mode}) exited "
+                                     f"{proc.returncode}:\n"
+                                     f"{proc.stderr[-3000:]}")
+            with open(os.path.join(tele, "metrics.jsonl")) as f:
+                recs = [json.loads(ln) for ln in f]
+            fed_rows = [r for r in recs if r.get("stream") == "fed"]
+            if [r["step"] for r in fed_rows] != list(range(steps)):
+                raise AssertionError(f"train CLI ({mode}): fed records "
+                                     f"{[r.get('step') for r in fed_rows]}")
+            with open(os.path.join(tele, "manifest.json")) as f:
+                manifest = json.load(f)
+            if manifest["mode"] != mode or manifest["device"] != dev.type:
+                raise AssertionError(f"train CLI ({mode}): manifest "
+                                     f"{manifest}")
+            state = train.main(base + extra + ["--device", dev.type])
+            agent0 = train._agent0(state.params)
+            back = restore(agent0, ckpt, device=dev)
+            same = all(torch.equal(a, b) for (_, a), (_, b) in
+                       zip(tree_paths(agent0), tree_paths(back)))
+            if not same:
+                raise AssertionError(f"train CLI ({mode}): the checkpoint "
+                                     f"is not agent 0's theta of the same "
+                                     f"run in this process")
+            log(f"[fed] train CLI ({mode}) in a fresh process on the card: "
+                f"exit 0 in {secs:.1f} s, {len(fed_rows)} fed records, "
+                f"losses {[round(r['loss'], 6) for r in fed_rows]}, "
+                f"manifest mode {manifest['mode']}; its checkpoint restores "
+                f"to agent 0's theta of the same run in this process, bit "
+                f"for bit")
+
+
+def phase_fed(dev):
+    """Phase 10, federated LLM training at Llama-3.2-1B's full width: the
+    tree run, the flat runs, tree against flat, the card against the CPU
+    and the CLI. Returns the launches per kernel."""
+    totals = {}
+    _add(totals, phase_fed_tree(dev))
+    _add(totals, phase_fed_flat(dev))
+    phase_fed_tree_vs_flat(dev)
+    phase_fed_cpu_agreement(dev)
+    phase_fed_cli(dev)
+    return totals
+
+
 def main() -> int:
     try:
         import torch
@@ -2722,8 +3314,13 @@ def main() -> int:
     phase_train_attention(dev)
     lm_totals = phase_lm_loss_full_width(dev)
     log(f"[time] phase 3b {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fed_totals = phase_fed(dev)
+    log(f"[time] phase 10 federated training {time.perf_counter() - t0:.1f} "
+        f"s")
     totals = phase_main_path(dev)
     _add(totals, lm_totals)
+    _add(totals, fed_totals)
     phase_cpu_agreement(dev)
     byzpg_totals, byzpg_out = phase_byzpg(dev)
     _add(totals, byzpg_totals)

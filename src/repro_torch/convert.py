@@ -9,7 +9,8 @@ nested parameter dict keeps the reference's layout (blocks stacked
 E, f, d) and shared SwiGLU included; Hymba's Mamba subtree ``ssm``
 (``A_log`` and ``D`` float32), and xLSTM's pairs stacked (L /
 slstm_every, ...): the mLSTM ``m``, the sLSTM ``s``, ``norm_m`` and
-``norm_s``.
+``norm_s``. A federated trainer's state (``FedState`` /
+``FlatFedState``) carries over mid-run, leaf by leaf.
 """
 from __future__ import annotations
 
@@ -22,7 +23,9 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import tree
 from repro_torch.core.decbyzpg import Carry
+from repro_torch.distributed.fed_trainer import FedState, FlatFedState
 from repro_torch.models.model import param_shapes
+from repro_torch.optim import optimizers
 from repro_torch.optim.optimizers import AdamState
 
 
@@ -86,3 +89,26 @@ def model_params_from_jax(params: Mapping, cfg: ModelConfig,
         return _tensor(arr, device)
 
     return conv(params, shapes, "")
+
+
+def fed_state_from_jax(state, device=None):
+    """A JAX ``FedState`` or ``FlatFedState`` (any array leaves: numpy or
+    jax) -> the port's, on ``resolve_device(device)``: every leaf with its
+    dtype (f32 stacks, the int32 counters), the optimizer state as the
+    port's class of the same name (``AdamState``, ``MomentumState``).
+    Mid-run states carry over whole: ``prev ≠ params``, ``v ≠ 0``, Adam's
+    step > 0."""
+    device = resolve_device(device)
+
+    def conv(x):
+        return torch.from_numpy(np.array(x)).to(device)
+
+    opt = state.opt_state
+    opt_t = getattr(optimizers, type(opt).__name__)(
+        *(tree.tree_map(conv, f) for f in opt))
+    if hasattr(state, "theta"):
+        return FlatFedState(conv(state.theta), conv(state.prev),
+                            conv(state.v), opt_t, conv(state.step))
+    params, prev, v = (tree.tree_map(conv, t) for t in
+                       (state.params, state.prev_params, state.v))
+    return FedState(params, prev, v, opt_t, conv(state.step))

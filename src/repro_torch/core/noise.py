@@ -3,9 +3,9 @@
 The JAX package threads PRNG keys through the step and draws inside it.
 The port draws a step's randomness up front, on the device, in one batched
 pass from a :class:`torch.Generator`, and hands the step a
-:class:`StepNoise`. The two frameworks' generators give different numbers,
+:class:`StepNoise` (a federated LLM step a :class:`FedNoise`). The two frameworks' generators give different numbers,
 so a parity test builds the StepNoise from the reference's own key tree
-instead and feeds it to the port (``run_decbyzpg(..., noise=...)``).
+instead and feeds it to the port (``run_decbyzpg(..., noise=...)``, ``fed_train_step(..., noise)``).
 """
 from __future__ import annotations
 
@@ -73,3 +73,37 @@ def _draw(generator, cfg, env, d: int, t: int, agree_shape,
             torch.rand((receivers, K), generator=generator, device=dev),
             dim=1)
     return StepNoise(coin, s0, gumbel, attack, agree, perm)
+
+
+class FedNoise(NamedTuple):
+    """What one step of :mod:`repro_torch.distributed.fed_trainer` draws."""
+    attack: Optional[torch.Tensor]  # (n_byz, D) normals, Byzantine rows
+    perm: Optional[torch.Tensor]    # (1, K) bucketing permutation
+
+
+def draw_fed_noise(generator: torch.Generator, fed, K: int, D: int,
+                   n_byz: int, flat: bool) -> FedNoise:
+    """Draw one federated step's :class:`FedNoise` on the generator's
+    device: the normals of the ``n_byz`` Byzantine rows over the raveled
+    parameters (D entries each) for an attack that draws noise, and, on
+    the flat trainer (``flat``) with a bucketing registry aggregator, the
+    one receiver's permutation. Nothing with K = 1, where the step
+    neither attacks nor aggregates."""
+    from repro_torch.core.registry import REGISTRY
+    dev = generator.device
+    attack = perm = None
+    if K > 1 and n_byz > 0 and REGISTRY.meta("fed_attack",
+                                             fed.attack).get("noise"):
+        attack = torch.randn((n_byz, D), generator=generator, device=dev)
+    if K > 1 and flat and resolve("aggregator", fed.aggregator, K=K,
+                                  n_byz=fed.n_byz).bucket_size:
+        perm = torch.argsort(
+            torch.rand((1, K), generator=generator, device=dev), dim=1)
+    return FedNoise(attack, perm)
+
+
+def draw_fed_coins(generator: torch.Generator, ts, p: float) -> list:
+    """The PAGE coins of a window's steps ``ts``: c_t = (t == 0) or
+    u_t < p, the uniforms drawn in one call and read to the host once."""
+    u = torch.rand((len(ts),), generator=generator, device=generator.device)
+    return [int(t) == 0 or bool(c) for t, c in zip(ts, (u < p).tolist())]

@@ -161,6 +161,8 @@ _PROVIDERS: Dict[str, Tuple[str, ...]] = {  # analysis: not-a-spec
     "policy": ("repro_torch.rl.policy",
                "repro_torch.rl.transformer_policy"),
     "algo": ("repro_torch.core.decbyzpg", "repro_torch.core.byzpg"),
+    "fed_aggregator": ("repro_torch.distributed.aggregation",),
+    "fed_attack": ("repro_torch.distributed.aggregation",),
 }
 
 

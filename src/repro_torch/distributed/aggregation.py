@@ -1,0 +1,319 @@
+"""Robust aggregation, GDA agreement and Byzantine attacks on
+agent-stacked parameter trees: the port of the JAX package's
+``distributed/aggregation.py`` (its one-process part).
+
+A stacked tree is a nested dict (or a bare tensor) whose every leaf
+carries the K agents on its leading axis. Distances come from the (K, K)
+Gram matrix, summed leaf by leaf over each leaf's trailing axes, so no
+leaf is ever concatenated with another; the only O(K·d) products are the
+weighted sums and GDA's mixing. The reference computes all of this in
+plain ``jnp`` outside its Pallas kernels, and so does the port: plain
+PyTorch, float32 with TF32 off (``repro_torch/__init__.py``).
+
+Leaves are visited in ``jax.tree_util``'s order (dict keys sorted,
+:func:`repro_torch.core.tree.tree_paths`), so the normals of
+``large_noise`` land on the same coordinates as the reference's. Those
+normals arrive as one explicit tensor, (n_byz, D) over the raveled tree
+(the Byzantine rows only), drawn by :func:`repro_torch.core.noise.
+draw_fed_noise`.
+
+The ``fed_aggregator`` namespace holds the tree aggregators ``mean``,
+``krum``, ``rfa(n_iter, nu)`` and ``trimmed_mean``; ``fed_attack`` holds
+``none``, ``large_noise(sigma)``, ``avg_zero`` and ``sign_flip(scale)``.
+The reference's sharded flat layer (``dim_sharded``, ``flat_*``) waits
+for the ``sharded=`` routes.
+"""
+from __future__ import annotations
+
+import functools
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.core.registry import register, resolve
+from repro_torch.core.tree import tree_map, tree_paths
+
+
+def _leaves(tree) -> list:
+    return [leaf for _, leaf in tree_paths(tree)]
+
+
+def _rows(leaf: torch.Tensor) -> torch.Tensor:
+    """(K, ...) -> (K, n): each agent's entries of the leaf, as a view
+    where the leaf is contiguous."""
+    return leaf.reshape(leaf.shape[0], -1)
+
+
+# ---------------------------------------------------------------------------
+# Stacked-tree linear algebra
+# ---------------------------------------------------------------------------
+
+def stacked_gram(tree) -> torch.Tensor:
+    """Stacked tree -> (K, K) Gram matrix, f32: each leaf contracted over
+    its trailing axes, the leaves' products summed in leaf order."""
+    leaves = _leaves(tree)
+    K = leaves[0].shape[0]
+    g = torch.zeros((K, K), dtype=torch.float32, device=leaves[0].device)
+    for leaf in leaves:
+        r = _rows(leaf).float()
+        g = g + r @ r.T
+    return g
+
+
+def stacked_gram_blocked(tree, block: int) -> torch.Tensor:
+    """The Gram matrix in column blocks of ``block`` agents (the plain
+    form when ``block <= 0``, ``K <= block`` or ``block`` does not divide
+    K): block i's columns sum the leaves' products with agents
+    ``[i·block, (i+1)·block)``."""
+    leaves = _leaves(tree)
+    K = leaves[0].shape[0]
+    if block <= 0 or K <= block or K % block:
+        return stacked_gram(tree)
+    g = torch.zeros((K, K), dtype=torch.float32, device=leaves[0].device)
+    for i in range(K // block):
+        cols = torch.zeros((K, block), dtype=torch.float32, device=g.device)
+        for leaf in leaves:
+            r = _rows(leaf).float()
+            cols = cols + r @ r[i * block:(i + 1) * block].T
+        g[:, i * block:(i + 1) * block] = cols
+    return g
+
+
+def _sq_dists_from_gram(g: torch.Tensor) -> torch.Tensor:
+    sq = torch.diagonal(g)
+    return torch.clamp_min(sq[:, None] + sq[None, :] - 2.0 * g, 0.0)
+
+
+def stacked_sq_dists(tree) -> torch.Tensor:
+    """(K, K) squared distances between the agents, from the Gram
+    matrix, clamped at 0."""
+    return _sq_dists_from_gram(stacked_gram(tree))
+
+
+def stacked_weighted_sum(w: torch.Tensor, tree, mix_dtype=None):
+    """Per leaf ``Σ_k w_k leaf_k``, in f32 (the leaf rounded to
+    ``mix_dtype`` first when given), cast back to the leaf's dtype."""
+    wf = w.float()
+
+    def f(leaf):
+        lc = leaf if mix_dtype is None else leaf.to(mix_dtype)
+        out = wf @ _rows(lc).float()
+        return out.reshape(leaf.shape[1:]).to(leaf.dtype)
+
+    return tree_map(f, tree)
+
+
+def _mix_leaf(W: torch.Tensor, leaf: torch.Tensor, mix_dtype
+              ) -> torch.Tensor:
+    """``einsum("kl,l...->k...", W, leaf)`` accumulated in f32, before the
+    cast back. With ``mix_dtype`` both operands are rounded to it and
+    multiplied in f32: the reference's bf16 operands with an f32
+    accumulator (a bf16 matmul would round the sum as well)."""
+    if mix_dtype is None:
+        out = W.to(leaf.dtype) @ _rows(leaf)
+    else:
+        out = W.to(mix_dtype).float() @ _rows(leaf).to(mix_dtype).float()
+    return out.float().reshape((W.shape[0],) + leaf.shape[1:])
+
+
+def stacked_mix(W: torch.Tensor, tree, mix_dtype=None, block: int = 0):
+    """Row-stochastic mixing ``leaf'_k = Σ_l W[k, l] leaf_l``: the O(K·d)
+    exchange of Avg-Agree. ``mix_dtype=torch.bfloat16`` mixes bf16
+    messages; ``block > 0`` sums the exchange over column blocks of
+    ``block`` agents in block order (the plain form when ``K <= block``
+    or ``block`` does not divide K)."""
+    K = _leaves(tree)[0].shape[0]
+    if block <= 0 or K <= block or K % block:
+        return tree_map(lambda leaf: _mix_leaf(W, leaf, mix_dtype)
+                        .to(leaf.dtype), tree)
+
+    def f(leaf):
+        acc = torch.zeros(leaf.shape, dtype=torch.float32,
+                          device=leaf.device)
+        for i in range(K // block):
+            cols = slice(i * block, (i + 1) * block)
+            acc = acc + _mix_leaf(W[:, cols], leaf[cols], mix_dtype)
+        return acc.to(leaf.dtype)
+
+    return tree_map(f, tree)
+
+
+def _broadcast_rows(tree_single, K: int):
+    """One agent's tree -> the stacked tree with it in every row, as
+    expanded views (the reference's ``broadcast_to``)."""
+    return tree_map(lambda leaf: leaf[None].expand((K,) + leaf.shape),
+                    tree_single)
+
+
+# ---------------------------------------------------------------------------
+# Robust aggregators on stacked trees (broadcast-consistent adversary)
+# ---------------------------------------------------------------------------
+
+def agg_mean(tree, n_byz: int = 0):
+    K = _leaves(tree)[0].shape[0]
+    return _broadcast_rows(tree_map(lambda leaf: leaf.mean(0), tree), K)
+
+
+def agg_krum(tree, n_byz: int):
+    """Krum: the agent whose ``max(K − n_byz − 2, 1)`` nearest others are
+    closest in sum (the first on ties), in every row."""
+    K = _leaves(tree)[0].shape[0]
+    d2 = stacked_sq_dists(tree)
+    n_near = max(K - n_byz - 2, 1)
+    near = torch.sort(d2, dim=1).values[:, 1:n_near + 1]
+    winner = torch.argmin(near.sum(1))
+    sel = torch.nn.functional.one_hot(winner, K).float()
+    return _broadcast_rows(stacked_weighted_sum(sel, tree), K)
+
+
+def agg_rfa(tree, n_byz: int = 0, n_iter: int = 8, nu: float = 1e-6):
+    """Smoothed Weiszfeld in weight space: ``n_iter`` steps from w = 1/K
+    on the Gram matrix, ‖x_k − z‖² = G_kk − 2 (G w)_k + wᵀ G w, then one
+    weighted sum, in every row."""
+    K = _leaves(tree)[0].shape[0]
+    g = stacked_gram(tree)
+    sq = torch.diagonal(g)
+    w = torch.full((K,), 1.0 / K, dtype=torch.float32, device=g.device)
+    for _ in range(n_iter):
+        dz = torch.sqrt(torch.clamp_min(sq - 2.0 * g @ w + w @ g @ w, 0.0)
+                        + nu)
+        w = (1.0 / dz) / torch.sum(1.0 / dz)
+    return _broadcast_rows(stacked_weighted_sum(w, tree), K)
+
+
+def agg_trimmed_mean(tree, n_byz: int):
+    """Coordinate-wise: the mean of ranks ``[n, K − n)`` with ``n =
+    min(n_byz, (K − 1) // 2)``; the mean when n is 0."""
+    K = _leaves(tree)[0].shape[0]
+    n = min(n_byz, (K - 1) // 2)
+    if n == 0:
+        return agg_mean(tree)
+
+    def f(leaf):
+        s = torch.sort(leaf.float(), dim=0).values[n:K - n]
+        return s.mean(0).to(leaf.dtype)
+
+    return _broadcast_rows(tree_map(f, tree), K)
+
+
+register("fed_aggregator", "mean")(lambda: agg_mean)
+register("fed_aggregator", "krum")(lambda: agg_krum)
+register("fed_aggregator", "trimmed_mean")(lambda: agg_trimmed_mean)
+
+
+@register("fed_aggregator", "rfa")
+def _fed_rfa_factory(n_iter: int = 8, nu: float = 1e-6):
+    return functools.partial(agg_rfa, n_iter=n_iter, nu=nu)
+
+
+def aggregate(name, tree, n_byz: int):
+    """Resolve a stacked-tree aggregator spec (name, spec string such as
+    ``"rfa(n_iter=16)"``, or Spec) and apply it."""
+    return resolve("fed_aggregator", name)(tree, n_byz=n_byz)
+
+
+# ---------------------------------------------------------------------------
+# GDA averaging agreement on stacked trees
+# ---------------------------------------------------------------------------
+
+def gda_mix_matrix(d2: torch.Tensor, n_keep: int) -> torch.Tensor:
+    """Per-agent greedy selection: W[k, l] = 1/n_keep for the n_keep
+    agents closest to agent k (self included, d2[k, k] = 0). Ties keep
+    the lower index, as ``lax.top_k`` does: a stable ascending sort."""
+    K = d2.shape[0]
+    idx = torch.sort(d2, dim=1, stable=True).indices[:, :n_keep]
+    W = torch.zeros((K, K), dtype=torch.float32, device=d2.device)
+    return W.scatter_(1, idx, 1.0 / n_keep)
+
+
+def gda_agree(tree, kappa: int, alpha_bar: float = 0.2,
+              mix_dtype: Optional[torch.dtype] = None, block: int = 0):
+    """κ rounds of GDA averaging agreement on a stacked tree: each round
+    mixes every agent with its ``max(⌈(1 − alpha_bar)·K⌉, 1)`` nearest
+    (the reference's ``int(… + 0.999)``)."""
+    K = _leaves(tree)[0].shape[0]
+    if K == 1 or kappa == 0:
+        return tree
+    n_keep = max(int((1.0 - alpha_bar) * K + 0.999), 1)
+    for _ in range(kappa):
+        g = stacked_gram_blocked(tree, block) if block \
+            else stacked_gram(tree)
+        W = gda_mix_matrix(_sq_dists_from_gram(g), n_keep)
+        tree = stacked_mix(W, tree, mix_dtype=mix_dtype, block=block)
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# Stacked-tree Byzantine attacks
+# ---------------------------------------------------------------------------
+# An attack is fn(tree, byz_mask (K,) bool, noise) -> tree. ``noise`` is
+# the (n_byz, D) standard normals of the Byzantine rows over the raveled
+# tree, for an attack registered with ``noise=True``; the others take None.
+
+def _byz_to(byz_mask: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    return byz_mask.reshape(byz_mask.shape + (1,) * (leaf.dim() - 1))
+
+
+@register("fed_attack", "none")
+def _fed_none_factory():
+    return lambda tree, byz_mask, noise=None: tree
+
+
+@register("fed_attack", "large_noise", noise=True)
+def _fed_large_noise_factory(sigma: float = 100.0):
+    def fn(tree, byz_mask, noise):
+        if noise is None:
+            raise ValueError("large_noise needs its noise tensor")
+        off = 0
+
+        def f(leaf):
+            nonlocal off
+            n = math.prod(leaf.shape[1:])
+            out = leaf.clone()
+            out[byz_mask] = (sigma * noise[:, off:off + n]).reshape(
+                (-1,) + leaf.shape[1:])
+            off += n
+            return out
+
+        out = tree_map(f, tree)
+        if off != noise.shape[1]:
+            raise ValueError(f"large_noise: noise has {noise.shape[1]} "
+                             f"columns, the tree {off}")
+        return out
+    return fn
+
+
+@register("fed_attack", "avg_zero")
+def _fed_avg_zero_factory():
+    def fn(tree, byz_mask, noise=None):
+        n_byz = torch.clamp_min(byz_mask.sum(), 1)
+
+        def f(leaf):
+            m = _byz_to(byz_mask, leaf)
+            hsum = torch.where(m, 0.0, leaf).sum(0)
+            return torch.where(m, (-hsum / n_byz)[None], leaf)
+        return tree_map(f, tree)
+    return fn
+
+
+@register("fed_attack", "sign_flip")
+def _fed_sign_flip_factory(scale: float = 3.0):
+    def fn(tree, byz_mask, noise=None):
+        n_h = torch.clamp_min((~byz_mask).sum(), 1)
+
+        def f(leaf):
+            m = _byz_to(byz_mask, leaf)
+            mu = torch.where(m, 0.0, leaf).sum(0) / n_h
+            return torch.where(m, (-scale * mu)[None], leaf)
+        return tree_map(f, tree)
+    return fn
+
+
+def attack_stacked(name, tree, byz_mask, noise=None):
+    """Resolve a stacked-tree attack spec (name, spec string such as
+    ``"large_noise(sigma=10)"``, or Spec) and apply it; ``None`` returns
+    the tree."""
+    if name is None:
+        return tree
+    return resolve("fed_attack", name)(tree, byz_mask, noise)

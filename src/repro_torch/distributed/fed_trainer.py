@@ -1,0 +1,487 @@
+"""Federated DecByzPG trainer for the model architectures: the port of
+the JAX package's ``distributed/fed_trainer.py`` (its one-process part).
+
+Every agent's parameters and optimizer state carry a leading K axis. Per
+step (the PAGE coin picks one of two branches on the host):
+
+  large (c=1): ṽ^(k) = ∇CE(θ^(k); batch_k)
+  small (c=0): ṽ^(k) = ∇CE(θ^(k); b_k) − ∇CE(θ_prev^(k); b_k) + v_prev^(k)
+
+then: attack → robust aggregate → per-agent optimizer step → GDA
+agreement (κ rounds). Two trainers share the protocol:
+
+* the tree trainer (:func:`fed_train_step`, :func:`fed_train_window`)
+  keeps the model's nested parameter dict with K-stacked leaves and
+  aggregates with the ``fed_aggregator`` rules of
+  :mod:`repro_torch.distributed.aggregation` (plain PyTorch, as in the
+  reference);
+* the flat trainer (:func:`fed_train_step_flat`) ravels each agent's
+  parameters into one row of a (K, D) stack and aggregates with the
+  *registry* aggregators (:mod:`repro_torch.core.aggregators`), which run
+  the CUDA kernels: RFA ``gram`` → ``weiszfeld`` → ``wsum``, Krum
+  ``gram`` → ``krum_score``, the trimmed mean ``trimmed_mean``.
+
+The reference's ``jax.vmap`` over the agents is a loop here: each agent's
+loss and gradient run on views of its row of the stacks (the chunked
+attention route, as every training pass does). The PAGE combination and
+the optimizer update also run agent by agent, so the temporaries at full
+width are one agent's, not K's; both are elementwise, so the bits are
+the stacked form's. A step never writes into the state it is given.
+
+Randomness: a step takes a :class:`~repro_torch.core.noise.FedNoise`
+(the attack's normals, the bucketing permutation) in place of the
+reference's key; the window draws its coins and every step's noise from
+one ``torch.Generator``. ``common_sample_coin`` is the reference's numpy
+coin, bit for bit. The phases are ``torch.profiler`` ranges
+(``fed.estimate``, ``fed.aggregate``, ``fed.agree``) when
+``fed.telemetry`` is on. The mesh shardings (``make_fed_step`` and the
+``*_shardings`` helpers) wait for the mesh.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import obs
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.aggregators import rejection_mask
+from repro_torch.core.noise import FedNoise, draw_fed_coins, draw_fed_noise
+from repro_torch.core.registry import normalize_spec_fields, resolve
+from repro_torch.core.tree import (ravel_tree, tree_map, tree_paths,
+                                   unravel_tree)
+from repro_torch.distributed import aggregation as agg_lib
+from repro_torch.models.model import (init_params, lm_loss, lm_loss_labeled,
+                                      param_shapes)
+from repro_torch.optim.optimizers import get_optimizer
+
+
+@dataclasses.dataclass(frozen=True)
+class FedConfig:
+    """The reference's config: the same fields and defaults."""
+    aggregator: object = "rfa"       # str | Spec, normalized to Spec
+    kappa: int = 4
+    alpha_bar: float = 0.2
+    n_byz: int = 0
+    attack: object = "none"
+    lr: float = 1e-4
+    optimizer: object = "adam"
+    page_p: float = 0.1              # Common-Sample coin probability
+    mix_dtype: Optional[str] = None  # None | "bfloat16"
+    mix_block: int = 0               # agreement in K-blocks
+    seed: int = 0
+    telemetry: bool = False          # taps + profiler phases
+
+    def __post_init__(self):
+        normalize_spec_fields(self, ("aggregator", "attack", "optimizer"))
+
+
+class FedState(NamedTuple):
+    params: object       # agent-stacked (K, ...) leaves
+    prev_params: object
+    v: object            # running PAGE direction, agent-stacked
+    opt_state: object
+    step: torch.Tensor   # () int32
+
+
+class FlatFedState(NamedTuple):
+    theta: torch.Tensor  # (K, D) flat agent-stacked parameters
+    prev: torch.Tensor
+    v: torch.Tensor      # running PAGE direction, (K, D)
+    opt_state: object
+    step: torch.Tensor
+
+
+def _leaves(tree) -> list:
+    return [leaf for _, leaf in tree_paths(tree)]
+
+
+def _unflat(template, leaves):
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), template)
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(t.shape[0], -1)
+
+
+def _stack_rows(leaf: torch.Tensor, K: int) -> torch.Tensor:
+    """K materialised copies of one agent's leaf."""
+    return leaf[None].repeat((K,) + (1,) * leaf.dim())
+
+
+def _zero_rows(leaf: torch.Tensor) -> torch.Tensor:
+    """A zero direction shaped like the stacked leaf: one zero row,
+    expanded over the agents (every row of v is the broadcast aggregate
+    after the first step)."""
+    return torch.zeros_like(leaf[0])[None].expand(leaf.shape)
+
+
+# ---------------------------------------------------------------------------
+# The optimizer on stacked trees, one agent at a time
+# ---------------------------------------------------------------------------
+
+def _is_moment(field, leaves) -> bool:
+    """A state field with one tensor per parameter leaf (Adam's m and v);
+    the others are per-agent counters (Adam's step)."""
+    fl = _leaves(field)
+    return len(fl) == len(leaves) and all(
+        a.shape == b.shape for a, b in zip(fl, leaves))
+
+
+def tree_opt_init(opt, params):
+    """The optimizer state of a stacked tree, as the reference's
+    ``vmap(opt.init)``: moments leaf by leaf, one (K,) counter."""
+    leaves = _leaves(params)
+    per = [opt.init(_rows(leaf)) for leaf in leaves]
+    fields = []
+    for i, f0 in enumerate(per[0]):
+        if f0.shape == _rows(leaves[0]).shape:
+            fields.append(_unflat(params, [s[i].reshape(leaf.shape)
+                                           for s, leaf in zip(per, leaves)]))
+        else:
+            fields.append(f0)
+    return type(per[0])(*fields)
+
+
+def _update_rows(opt, g, s, p, moment):
+    """``opt.update`` on one (K, ...) leaf, agent by agent: each row as a
+    (1, n) stack with its counters' row. Every operation is elementwise,
+    so the result is the stacked update's, bit for bit."""
+    K = p.shape[0]
+    new_p = torch.empty_like(p)
+    fields = [torch.empty_like(p, dtype=f.dtype) if m else []
+              for f, m in zip(s, moment)]
+    for k in range(K):
+        r = slice(k, k + 1)
+        s_k = type(s)(*(_rows(f[r]) if m else f[r]
+                        for f, m in zip(s, moment)))
+        p_k, n_k = opt.update(_rows(g[r]), s_k, _rows(p[r]))
+        new_p[r] = p_k.reshape(new_p[r].shape)
+        for j, m in enumerate(moment):
+            if m:
+                fields[j][r] = n_k[j].reshape(fields[j][r].shape)
+            else:
+                fields[j].append(n_k[j])
+    return new_p, type(s)(*(f if m else torch.cat(f)
+                            for f, m in zip(fields, moment)))
+
+
+def tree_opt_update(opt, grads, opt_state, params):
+    """The per-agent optimizer on a stacked tree (or a bare (K, D) stack),
+    leaf by leaf and agent by agent. Returns ``(params, opt_state)``."""
+    leaves, g_leaves = _leaves(params), _leaves(grads)
+    moment = [_is_moment(f, leaves) for f in opt_state]
+    m_leaves = [_leaves(f) if m else None
+                for f, m in zip(opt_state, moment)]
+    new_leaves, new_m = [], [[] for _ in moment]
+    counters = list(opt_state)
+    for i, (p, g) in enumerate(zip(leaves, g_leaves)):
+        s_i = type(opt_state)(*(m_leaves[j][i] if m else f for j, (f, m)
+                                in enumerate(zip(opt_state, moment))))
+        p_new, s_new = _update_rows(opt, g, s_i, p, moment)
+        new_leaves.append(p_new)
+        for j, m in enumerate(moment):
+            if m:
+                new_m[j].append(s_new[j])
+            else:
+                counters[j] = s_new[j]
+    fields = [_unflat(f, new_m[j]) if m else counters[j]
+              for j, (f, m) in enumerate(zip(opt_state, moment))]
+    return _unflat(params, new_leaves), type(opt_state)(*fields)
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def _optimizer(fed: FedConfig):
+    return get_optimizer(fed.optimizer, fed.lr, maximize=False)
+
+
+def init_fed_state(cfg: ModelConfig, fed: FedConfig, K: int, key,
+                   dtype=torch.float32, device=None) -> FedState:
+    """Common init θ_0 in all K rows (``key``: an int seed or a
+    ``torch.Generator``, as :func:`repro_torch.models.model.init_params`
+    takes it; ``device`` defaults to CUDA). ``params`` and
+    ``prev_params`` are separate tensors."""
+    p0 = init_params(cfg, key, dtype, device=device)
+    stack = tree_map(lambda leaf: _stack_rows(leaf, K), p0)
+    del p0
+    return FedState(stack, tree_map(torch.clone, stack),
+                    tree_map(_zero_rows, stack),
+                    tree_opt_init(_optimizer(fed), stack),
+                    torch.zeros((), dtype=torch.int32,
+                                device=_leaves(stack)[0].device))
+
+
+def init_flat_fed_state(cfg: ModelConfig, fed: FedConfig, K: int, key,
+                        dtype=torch.float32, device=None):
+    """Common-init flat state. Returns ``(state, unravel)``, where
+    ``unravel(row)`` gives one agent's parameter tree as views of the
+    (D,) row (``ravel_pytree``'s order)."""
+    p0 = init_params(cfg, key, dtype, device=device)
+    vec0 = ravel_tree(p0)
+    del p0
+    theta = _stack_rows(vec0, K)
+    del vec0
+    state = FlatFedState(theta, theta.clone(), _zero_rows(theta),
+                         _optimizer(fed).init(theta),
+                         torch.zeros((), dtype=torch.int32,
+                                     device=theta.device))
+    return state, functools.partial(unravel_tree, shapes=param_shapes(cfg))
+
+
+# ---------------------------------------------------------------------------
+# The step
+# ---------------------------------------------------------------------------
+
+def _loss(cfg, params, batch):
+    if "labels" in batch:
+        return lm_loss_labeled(cfg, params, batch["tokens"],
+                               batch["labels"], batch.get("prefix_embeds"))
+    return lm_loss(cfg, params, batch["tokens"],
+                   batch.get("prefix_embeds"))
+
+
+def _agent_grad(cfg, params_k, batch_k):
+    """One agent's loss and its gradient leaves (``tree_paths`` order),
+    through leaves detached from the stacks (a leaf the loss does not
+    reach gets zeros, as ``jax.grad`` gives)."""
+    leaves = [t.detach().requires_grad_() for t in _leaves(params_k)]
+    with torch.enable_grad():
+        loss = _loss(cfg, _unflat(params_k, leaves), batch_k)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(t) if g is None else g
+                           for t, g in zip(leaves, grads)]
+
+
+def _estimate(cfg, K, agent, out, batch, large: bool) -> torch.Tensor:
+    """The PAGE direction of every agent into ``out`` (agent k's views
+    from ``agent(out, k)``); returns the (K,) losses at θ. ``agent(name,
+    k)`` gives agent k's tree of ``params``, ``prev`` or ``v``."""
+    losses = []
+    for k in range(K):
+        b = {key: val[k] for key, val in batch.items()}
+        loss, g_new = _agent_grad(cfg, agent("params", k), b)
+        losses.append(loss)
+        dst = _leaves(agent(out, k))
+        if large:
+            for o, g in zip(dst, g_new):
+                o.copy_(g)
+            continue
+        _, g_old = _agent_grad(cfg, agent("prev", k), b)
+        for o, a, b_old, c in zip(dst, g_new, g_old,
+                                  _leaves(agent("v", k))):
+            o.copy_(a - b_old + c)
+        del g_old
+    return torch.stack(losses)
+
+
+def _honest_loss(losses, byz_mask):
+    K = byz_mask.shape[0]
+    return torch.where(byz_mask, 0.0, losses).mean() * K \
+        / torch.clamp_min((~byz_mask).sum(), 1)
+
+
+def _honest_mean(values, byz_mask):
+    return torch.where(byz_mask, 0.0, values).sum() \
+        / torch.clamp_min((~byz_mask).sum(), 1)
+
+
+def _diameter(tree, K: int) -> torch.Tensor:
+    if K == 1:
+        return torch.zeros((), device=_leaves(tree)[0].device)
+    return torch.sqrt(torch.max(agg_lib.stacked_sq_dists(tree)))
+
+
+def _noise(noise: Optional[FedNoise]) -> FedNoise:
+    return FedNoise(None, None) if noise is None else noise
+
+
+def _mix_dtype(fed: FedConfig):
+    return torch.bfloat16 if fed.mix_dtype == "bfloat16" else None
+
+
+def fed_train_step(cfg: ModelConfig, fed: FedConfig, state: FedState,
+                   batch: dict, byz_mask: torch.Tensor,
+                   noise: Optional[FedNoise] = None, *, large: bool):
+    """One federated step of the tree trainer.
+
+    ``batch``: ``{"tokens": (K, b, S)[, "labels"][, "prefix_embeds": (K,
+    b, P, d)]}``; ``byz_mask`` (K,) bool; ``noise`` the step's draws
+    (:func:`~repro_torch.core.noise.draw_fed_noise`, None when the attack
+    draws nothing); ``large`` the PAGE coin, a Python bool. Returns
+    ``(new_state, metrics)``: the honest loss (scaled by K / #honest),
+    the diameter and, with ``fed.telemetry``, the honest ``grad_norm``.
+    """
+    K = byz_mask.shape[0]
+    views = {"params": state.params, "prev": state.prev_params,
+             "v": state.v}
+
+    def agent(name, k):
+        tree = views[name] if isinstance(name, str) else name
+        return tree_map(lambda leaf: leaf[k], tree)
+
+    with obs.named_phase("fed.estimate", fed.telemetry):
+        tilde_v = tree_map(torch.empty_like, state.params)
+        losses = _estimate(cfg, K, agent, tilde_v, batch, large)
+
+    with obs.named_phase("fed.aggregate", fed.telemetry):
+        if K == 1:
+            v = tilde_v     # single-agent federation: aggregation is identity
+        else:
+            tilde_v = agg_lib.attack_stacked(fed.attack, tilde_v, byz_mask,
+                                             _noise(noise).attack)
+            v = agg_lib.aggregate(fed.aggregator, tilde_v, fed.n_byz)
+
+    metrics = {}
+    if fed.telemetry:
+        sq = sum(torch.sum(_rows(leaf) ** 2, dim=1)
+                 for leaf in _leaves(tilde_v))
+        metrics["grad_norm"] = _honest_mean(torch.sqrt(sq), byz_mask)
+    del tilde_v
+
+    new_params, new_opt = tree_opt_update(_optimizer(fed), v,
+                                          state.opt_state, state.params)
+    with obs.named_phase("fed.agree", fed.telemetry):
+        new_params = agg_lib.gda_agree(new_params, fed.kappa, fed.alpha_bar,
+                                       mix_dtype=_mix_dtype(fed),
+                                       block=fed.mix_block)
+
+    metrics = {"loss": _honest_loss(losses, byz_mask),
+               "diameter": _diameter(new_params, K), **metrics}
+    if fed.telemetry:
+        obs.tap("fed", step=state.step, **metrics)
+    return FedState(new_params, state.params, v, new_opt,
+                    state.step + 1), metrics
+
+
+def fed_train_step_flat(cfg: ModelConfig, fed: FedConfig,
+                        state: FlatFedState, unravel, batch: dict,
+                        byz_mask: torch.Tensor,
+                        noise: Optional[FedNoise] = None, *, large: bool,
+                        sharded: Optional[bool] = None):
+    """One federated step on the flat (K, D) stack: the protocol of
+    :func:`fed_train_step`, aggregated by the registry aggregator
+    ``resolve("aggregator", fed.aggregator, K=K, n_byz=fed.n_byz)`` (the
+    CUDA kernels on the card), its result broadcast to all K rows. A
+    bucketing aggregator (RFA with n_byz > 0: Lemma 3) takes the
+    receiver's permutation from ``noise.perm``. ``sharded`` takes None or
+    False: the sharded route waits for the mesh. With ``fed.telemetry``
+    the metrics add the honest ``grad_norm`` and the aggregator's
+    ``rejected`` mask (its own kernel launches: ``gram`` and
+    ``krum_score`` for Krum)."""
+    if sharded:
+        raise NotImplementedError(
+            "fed_train_step_flat(sharded=True): the sharded aggregation "
+            "route is not in the port yet")
+    K = byz_mask.shape[0]
+    views = {"params": state.theta, "prev": state.prev, "v": state.v}
+
+    def agent(name, k):
+        stack = views[name] if isinstance(name, str) else name
+        return unravel(stack[k])
+
+    with obs.named_phase("fed.estimate", fed.telemetry):
+        tilde_v = torch.empty_like(state.theta)
+        losses = _estimate(cfg, K, agent, tilde_v, batch, large)
+
+    with obs.named_phase("fed.aggregate", fed.telemetry):
+        if K == 1:
+            v = tilde_v
+        else:
+            nz = _noise(noise)
+            tilde_v = agg_lib.attack_stacked(fed.attack, tilde_v, byz_mask,
+                                             nz.attack)
+            agg = resolve("aggregator", fed.aggregator, K=K,
+                          n_byz=fed.n_byz)
+            v = agg(tilde_v, nz.perm).expand(state.theta.shape)
+
+    metrics = {}
+    if fed.telemetry:
+        norms = torch.linalg.vector_norm(tilde_v, dim=1)
+        metrics["grad_norm"] = _honest_mean(norms, byz_mask)
+        metrics["rejected"] = (
+            torch.zeros((K,), dtype=torch.bool, device=tilde_v.device)
+            if K == 1 else rejection_mask(fed.aggregator, tilde_v,
+                                          fed.n_byz))
+    del tilde_v
+
+    new_theta, new_opt = tree_opt_update(_optimizer(fed), v,
+                                         state.opt_state, state.theta)
+    with obs.named_phase("fed.agree", fed.telemetry):
+        new_theta = agg_lib.gda_agree(new_theta, fed.kappa, fed.alpha_bar,
+                                      mix_dtype=_mix_dtype(fed),
+                                      block=fed.mix_block)
+    metrics = {"loss": _honest_loss(losses, byz_mask),
+               "diameter": _diameter(new_theta, K), **metrics}
+    if fed.telemetry:
+        obs.tap("fed", step=state.step, **metrics)
+    return FlatFedState(new_theta, state.theta, v, new_opt,
+                        state.step + 1), metrics
+
+
+# ---------------------------------------------------------------------------
+# Drivers
+# ---------------------------------------------------------------------------
+
+def fed_noise(generator: torch.Generator, fed: FedConfig, state,
+              n_byz: int) -> FedNoise:
+    """Draw the next step's :class:`FedNoise` for ``state`` (a
+    :class:`FedState` or :class:`FlatFedState`) from ``generator``;
+    ``n_byz`` is the number of True entries of the step's mask."""
+    flat = isinstance(state, FlatFedState)
+    rows = state.theta if flat else state.params
+    leaves = _leaves(rows)
+    D = sum(leaf[0].numel() for leaf in leaves)
+    return draw_fed_noise(generator, fed, leaves[0].shape[0], D, n_byz,
+                          flat)
+
+
+def fed_train_window(cfg: ModelConfig, fed: FedConfig, state: FedState,
+                     batches: dict, byz_mask: torch.Tensor, ts,
+                     generator: Optional[torch.Generator] = None,
+                     noise=None):
+    """A window of W tree-trainer steps with one read to the host.
+
+    ``batches``: the per-step batch dicts stacked on a leading W axis
+    ((W, K, b, S) tokens/labels); ``ts``: the W global step indices. The
+    window first draws its W PAGE coins from ``generator`` (c = 1 at t =
+    0; :func:`~repro_torch.core.noise.draw_fed_coins`), then each step's
+    :class:`FedNoise` just before the step. ``noise=(coins, [FedNoise,
+    ...])`` replays given draws instead. Returns ``(state, metrics)``,
+    each metric stacked (W,), plus ``coin``. The window lets go of each
+    state once the next is made; a caller that keeps its own reference
+    to the start state (a variable it rebinds only on return) keeps that
+    state alive through the window, one state more at the peak."""
+    ts = [int(t) for t in ts]
+    if noise is None:
+        n_byz = int(byz_mask.sum())
+        coins, steps = draw_fed_coins(generator, ts, fed.page_p), None
+    else:
+        coins, steps = noise
+    rows = []
+    for i, t in enumerate(ts):
+        batch = {key: val[i] for key, val in batches.items()}
+        nz = fed_noise(generator, fed, state, n_byz) if steps is None \
+            else steps[i]
+        state, metrics = fed_train_step(cfg, fed, state, batch, byz_mask,
+                                        nz, large=coins[i])
+        rows.append(metrics)
+    dev = _leaves(state.params)[0].device
+    out = {key: torch.stack([m[key] for m in rows]) for key in rows[0]}
+    out["coin"] = torch.tensor(coins, dtype=torch.bool, device=dev)
+    return state, out
+
+
+def common_sample_coin(step: int, seed: int, p: float) -> bool:
+    """Common-Sample: the paper's shared coin of the per-step loop, from
+    numpy's generator seeded by the common seed and the step (the
+    reference's function, bit for bit)."""
+    rng = np.random.default_rng(np.uint64(seed) * np.uint64(1_000_003)
+                                + np.uint64(step))
+    return bool(step == 0 or rng.random() < p)

@@ -790,3 +790,118 @@ def test_cuda_recurrent_model_matches_the_cpu(cuda, arch):
         scale = max(b[b > -1e29].abs().max().item(), 1.0)
         assert (a.cpu() - b)[b > -1e29].abs().max().item() <= 1e-4 * scale, \
             path
+
+
+FED_TINY = dict(n_layers=1, d_model=32, n_heads=2, n_kv_heads=2, d_ff=64,
+                vocab_size=128, head_dim=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,d", [(4, 1 << 20), (3, 1000)])
+def test_cuda_rowwise_optimizer_and_page_equal_the_stacked_form(cuda, K, d):
+    """The federated trainers' memory-lean forms, one agent's row at a
+    time, give the stacked forms' bits: Adam (a carried state at step 3,
+    the aggregate broadcast as an expanded view) and the PAGE combination
+    ``g_new − g_old + v``."""
+    from repro_torch.distributed.fed_trainer import tree_opt_update
+    from repro_torch.optim.optimizers import AdamState, adam
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+
+    opt = adam(1e-3, maximize=False)
+    p, m = rnd(K, d), 0.05 * rnd(K, d)
+    v = (0.05 * rnd(K, d)) ** 2 + 1e-4
+    s = AdamState(torch.full((K,), 3, dtype=torch.int32, device=cuda), m, v)
+    g = rnd(d)[None].expand(K, d)
+    want_p, want_s = opt.update(g, s, p)
+    got_p, got_s = tree_opt_update(opt, g, s, p)
+    assert torch.equal(got_p, want_p)
+    for a, b in zip(got_s, want_s):
+        assert torch.equal(a, b)
+    g_new, g_old, vv = rnd(K, d), rnd(K, d), rnd(d)[None].expand(K, d)
+    want = g_new - g_old + vv
+    rows = torch.empty_like(g_new)
+    for k in range(K):
+        rows[k].copy_(g_new[k] - g_old[k] + vv[k])
+    assert torch.equal(rows, want)
+
+
+def _tiny_fed(aggregator, attack="large_noise(sigma=10)"):
+    import dataclasses
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.distributed import fed_trainer as ft
+    cfg = dataclasses.replace(reduced(get_config("llama3.2-1b")),
+                              **FED_TINY)
+    fed = ft.FedConfig(aggregator=aggregator, attack=attack, n_byz=1,
+                       kappa=2, lr=1e-3)
+    batches = [TokenPipeline(DataConfig(cfg.vocab_size, 16, 2, 4),
+                             device="cpu").batch(t) for t in range(2)]
+    return cfg, fed, ft, batches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aggregator", ["rfa", "krum", "trimmed_mean"])
+def test_cuda_flat_fed_step_matches_the_cpu(cuda, aggregator):
+    """Two flat-trainer steps (coin 1, then 0) on the card and on the CPU
+    from the same weights and draws: θ within 1e-5 of its largest entry
+    (f32 sums in other orders)."""
+    cfg, fed, ft, batches = _tiny_fed(aggregator)
+    from repro_torch.core.tree import tree_map
+    cpu_st, unravel = ft.init_flat_fed_state(cfg, fed, 4, 0, device="cpu")
+    gpu_st = tree_map(lambda x: x.to(cuda), cpu_st)
+    mask = torch.arange(4) < 1
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    for t, b in enumerate(batches):
+        nz = ft.fed_noise(gen, fed, cpu_st, 1)
+        cpu_st, cm = ft.fed_train_step_flat(cfg, fed, cpu_st, unravel, b,
+                                            mask, nz, large=t == 0)
+        gpu_st, gm = ft.fed_train_step_flat(
+            cfg, fed, gpu_st, unravel, {k: v.to(cuda) for k, v in b.items()},
+            mask.to(cuda), type(nz)(*(None if x is None else x.to(cuda)
+                                      for x in nz)), large=t == 0)
+        assert abs(cm["loss"].item() - gm["loss"].item()) <= 1e-5
+    scale = cpu_st.theta.abs().max()
+    torch.testing.assert_close(gpu_st.theta.cpu(), cpu_st.theta, rtol=0,
+                               atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("telemetry", [False, True])
+@pytest.mark.parametrize("aggregator,want", [
+    ("rfa", {"gram": 1, "weiszfeld": 1, "wsum": 1}),
+    ("krum", {"gram": 1, "krum_score": 1}),
+    ("trimmed_mean", {"trimmed_mean": 1})])
+def test_cuda_flat_fed_step_launches(cuda, aggregator, want, telemetry):
+    """Per flat step: bucketed RFA (2 buckets of 2 at K = 4, n_byz = 1)
+    gram, weiszfeld and wsum once each, Krum gram and krum_score, the
+    trimmed mean its kernel; with telemetry the rejection mask adds
+    Krum's gram and krum_score once more (RFA's and the trimmed mean's
+    masks launch none); the tree trainer launches none."""
+    import dataclasses
+    cfg, fed, ft, batches = _tiny_fed(aggregator)
+    fed = dataclasses.replace(fed, telemetry=telemetry)
+    if telemetry and aggregator == "krum":
+        want = {"gram": 2, "krum_score": 2}
+    st, unravel = ft.init_flat_fed_state(cfg, fed, 4, 0, device=cuda)
+    tree_st = ft.init_fed_state(cfg, fed, 4, 0, device=cuda)
+    mask = torch.arange(4, device=cuda) < 1
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    for t, b in enumerate(batches):
+        b = {k: v.to(cuda) for k, v in b.items()}
+        dispatch.reset_launches()
+        st, _ = ft.fed_train_step_flat(cfg, fed, st, unravel, b, mask,
+                                       ft.fed_noise(gen, fed, st, 1),
+                                       large=t == 0)
+        counts = dispatch.launch_counts()
+        assert counts == {n: want.get(n, 0) for n in counts}
+        dispatch.reset_launches()
+        tree_st, _ = ft.fed_train_step(cfg, fed, tree_st, b, mask,
+                                       ft.fed_noise(gen, fed, tree_st, 1),
+                                       large=t == 0)
+        assert not any(dispatch.launch_counts().values())

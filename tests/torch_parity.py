@@ -3,7 +3,8 @@
 The JAX package draws inside its steps from a PRNG key tree; the port takes
 a step's draws as explicit tensors (``repro_torch.core.noise.StepNoise``).
 These helpers replay the reference's key tree with ``jax.random`` and hand
-the port the very numbers the reference consumed, as CPU tensors.
+the port the very numbers the reference consumed, as CPU tensors (a
+federated LLM step's as a ``FedNoise``).
 :func:`routing_margins` records how close the port's MoE layers came to a
 discontinuity in their routing.
 """
@@ -17,7 +18,7 @@ import numpy as np
 import torch
 
 from repro.core import engine
-from repro_torch.core.noise import StepNoise
+from repro_torch.core.noise import FedNoise, StepNoise
 from repro_torch.core.registry import resolve as torch_resolve
 
 
@@ -152,3 +153,36 @@ def replay_byzpg_noise(env, cfg, d: int, T: int):
             None if attack is None else to_torch(attack), None,
             None if perm is None else to_torch(perm).long()))
     return out
+
+
+def fed_tree_normals(key, tree, byz_mask) -> torch.Tensor:
+    """What the reference's ``large_noise`` fed attack draws from ``key``
+    on a stacked tree (a bare (K, D) array is one leaf): ``split(key,
+    n_leaves)``, one normal of each leaf's shape, of which the port takes
+    the Byzantine rows, raveled and concatenated in leaf order: (n_byz,
+    D)."""
+    mask = np.asarray(byz_mask)
+    leaves = jax.tree.leaves(tree)
+    keys = jax.random.split(key, len(leaves))
+    rows = [np.asarray(jax.random.normal(k, leaf.shape, leaf.dtype))[mask]
+            .reshape(int(mask.sum()), -1) for k, leaf in zip(keys, leaves)]
+    return torch.from_numpy(np.concatenate(rows, axis=1))
+
+
+def replay_fed_noise(key, stacks, byz_mask, fed, flat: bool) -> FedNoise:
+    """The :class:`FedNoise` of one reference federated step keyed by
+    ``key`` (``k_att, k_agg = split(key)``): the attack's normals when it
+    is ``large_noise``, and on the flat trainer with a bucketing registry
+    aggregator the permutation ``permutation(split(k_agg)[0], K)``.
+    ``stacks`` is the tree (or flat stack) the attack sees."""
+    K = len(np.asarray(byz_mask))
+    k_att, k_agg = jax.random.split(key)
+    attack = perm = None
+    if K > 1 and fed.attack.name == "large_noise":
+        attack = fed_tree_normals(k_att, stacks, byz_mask)
+    if K > 1 and flat and torch_resolve(
+            "aggregator", str(fed.aggregator), K=K,
+            n_byz=fed.n_byz).bucket_size:
+        perm = to_torch(jax.random.permutation(
+            jax.random.split(k_agg)[0], K))[None].long()
+    return FedNoise(attack, perm)
