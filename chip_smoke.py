@@ -112,9 +112,9 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    launches counted. Then a checkpoint round trip: ``byzpg_cartpole``'s
    parameters saved and restored onto the card bit for bit, and one
    request served through ``policy_params(checkpoint=)``.
-   Phases 3b, 6–8 (6b and 7b included) and 10 are driven with the launch
-   counts set to 0 just before each run and read just after; their
-   launches join the totals.
+   Phases 3b, 6–8 (6b and 7b included) and 10 (10c included) are driven
+   with the launch counts set to 0 just before each run and read just
+   after; their launches join the totals.
 10. Federated LLM training (``phase_fed``, run after phase 3b):
    Llama-3.2-1B at full width cut to 2 layers, K = 4 agents (D =
    384,313,344 each), n_byz = 1 ``large_noise(sigma=10)``, κ = 3, Adam:
@@ -129,6 +129,23 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    the card against the CPU; ``python -m repro_torch.launch.train`` in
    fresh processes, windowed and ``--no-fused``, its checkpoint against
    the same run in this process.
+10c. The D-sharded flat trainer (``fed_train_step_flat(sharded=True)``):
+   (a) after each full-width flat run of phase 10, the same 3 steps with
+   ``sharded=True`` on one process (the sharded flat layer with one
+   shard), bit-equal in every state field, loss and diameter, with the
+   same launches per step, its ms per step, phases and peak; (b) the
+   reduced model over two gloo ranks on the one card (``chip_smoke.py
+   --fed-rank``, fresh processes; NCCL refuses two ranks on one GPU), D
+   split in two over a ("data", "model") = (1, 2) mesh, RFA without the
+   attack and Krum and the trimmed mean with it, 2 steps: every launch of
+   each rank and of the one-process run against the kernel's plain
+   version on its own input (the rank's local columns for ``gram``,
+   ``wsum`` and ``trimmed_mean``, the combined Gram matrix for
+   ``weiszfeld`` and ``krum_score``), θ against the
+   one-process route within ``FED_RANK_TOL``, Krum's margins, each rank's
+   launches per step the one-process run's, and each rank's peak across
+   the aggregate call below its whole stack. Their launches join the
+   totals.
 9. The kernel table as one JSON line (``device_ms`` and
    ``library_device_ms`` beside the issue-bound ``ms`` and
    ``library_ms``), then
@@ -1825,7 +1842,9 @@ class _PathInputs:
     version on the same inputs: the path's own shapes, whatever the kernel
     phases chose. The launch counts are untouched (the recorder sits
     inside the launch the kernel counts). ``host=True`` keeps the copies
-    in host memory, off the card (the federated runs' stacks)."""
+    (inputs and results) in host memory, off the card: the federated
+    runs' stacks, and the aggregate peaks that phase 10c (b) holds to
+    its shard."""
 
     def __init__(self, host: bool = False):
         self.host = host
@@ -1855,7 +1874,7 @@ class _PathInputs:
             if key not in self.seen:
                 self.seen[key] = ([clone(a) for a in args],
                                   {k: clone(v) for k, v in kwargs.items()},
-                                  out.clone())
+                                  clone(out))
             return out
         return recorded
 
@@ -1864,9 +1883,15 @@ class _PathInputs:
             k._launch = self.orig[name]
 
     def check(self, label: str) -> None:
-        """Every recorded launch against its plain version; raises on the
-        first disagreement and logs one line per kernel and shape."""
-        for (name, shapes, kw), (args, kwargs, out) in self.seen.items():
+        """Every recorded launch against its plain version on the card
+        (host copies moved back); raises on the first disagreement and
+        logs one line per kernel and shape."""
+        def back(a):
+            return a.to("cuda") if self.host and hasattr(a, "to") else a
+
+        for (name, shapes, kw), rec in self.seen.items():
+            args, out = [back(a) for a in rec[0]], back(rec[2])
+            kwargs = {k: back(v) for k, v in rec[1].items()}
             ref = self.kernels[name].plain(*args, **kwargs)
             err = (out - ref).abs().max().item()
             tol = _path_tol(name, args, ref)
@@ -3013,55 +3038,87 @@ def _fed_kernel_rows(seen, dev):
     return lines
 
 
+def _fed_flat_steps(cfg, fed, dev, sharded=None, record=False):
+    """FED_FLAT_T flat steps (coins FED_FLAT_COINS) from the common init
+    and the seeded draws, the launches counted from 0, each step and the
+    trainer's phases timed (synchronised; no value changes). ``record``
+    keeps the last step's launches (:class:`_PathInputs`, in host
+    memory). Returns (state, [(loss, diameter)], ms per step, peak over
+    steps 0-1, recorded launches or None, launch counts, phase ms)."""
+    import torch
+    from repro_torch.core.engine import seed_generator
+    from repro_torch.distributed.fed_trainer import (fed_noise,
+                                                     fed_train_step_flat,
+                                                     init_flat_fed_state)
+    from repro_torch.kernels import dispatch
+    pipe = _fed_pipe(cfg, dev)
+    mask = torch.arange(FED_K, device=dev) < FED_BYZ
+    state, unravel = init_flat_fed_state(cfg, fed, FED_K, FED_SEED,
+                                         device=dev)
+    if state.theta.shape != (FED_K, FED_D):
+        raise AssertionError(f"flat state theta {tuple(state.theta.shape)}")
+    gen = seed_generator(fed.seed, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    rows, ms, seen = [], [], None
+    with _FedTimer() as timer:
+        for t, coin in enumerate(FED_FLAT_COINS):
+            last = t == len(FED_FLAT_COINS) - 1
+            if last:
+                peak = torch.cuda.max_memory_allocated()
+            with (_PathInputs(host=True) if last and record
+                  else contextlib.nullcontext()) as path:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = fed_train_step_flat(
+                    cfg, fed, state, unravel, pipe.batch(t), mask,
+                    fed_noise(gen, fed, state, FED_BYZ), large=coin,
+                    sharded=sharded)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            if last and record:
+                seen = path.seen
+            rows.append((m["loss"].item(), m["diameter"].item()))
+    return (state, rows, ms, peak, seen, dispatch.launch_counts(),
+            timer.phase_ms)
+
+
+def _flat_fields(state) -> dict:
+    """The flat state's fields by name (v's first row: every row is the
+    broadcast aggregate, one expanded view)."""
+    return {"theta": state.theta, "prev": state.prev, "v": state.v[0],
+            "adam m": state.opt_state.m, "adam v": state.opt_state.v,
+            "adam step": state.opt_state.step, "step": state.step}
+
+
 def phase_fed_flat(dev):
     """``fed_flat_llama_{rfa,krum,trimmed_mean}``: the flat trainer at
     full width, FED_FLAT_T steps each (coins FED_FLAT_COINS) with the
     registry aggregators: exact launches per step (FED_FLAT_LAUNCHES),
     finite outputs, the peak under FED_PEAK_LIMIT over the first two
     steps (a large and a PAGE step); the last step's launches recorded
-    (:class:`_PathInputs`), the state freed, and each held against its
-    plain version on its own input and timed beside its bound. Returns
-    the launches per kernel."""
+    (:class:`_PathInputs`), the state kept in host memory and freed on
+    the card, and each launch held against its plain version on its own
+    input and timed beside its bound.
+
+    Then phase 10c (a), ``fed_sharded_llama_{...}``: the same steps with
+    ``sharded=True`` (the D-sharded flat layer with one shard) from the
+    same init and draws, with the same launches per step; every field of
+    the final state and every step's loss and diameter bit-equal to the
+    run before; ms per step, the phases and the peak. Returns the
+    launches per kernel."""
     import torch
-    from repro_torch.core.engine import seed_generator
-    from repro_torch.distributed.fed_trainer import (FedConfig, fed_noise,
-                                                     fed_train_step_flat,
-                                                     init_flat_fed_state)
-    from repro_torch.kernels import dispatch
+    from repro_torch.distributed.fed_trainer import FedConfig
     cfg = _fed_cfg()
-    pipe = _fed_pipe(cfg, dev)
-    mask = torch.arange(FED_K, device=dev) < FED_BYZ
     totals = {}
     for agg, per_step in FED_FLAT_LAUNCHES.items():
         label = f"fed_flat_llama_{agg}"
         fed = FedConfig(aggregator=agg, **FED_KW)
-        state, unravel = init_flat_fed_state(cfg, fed, FED_K, FED_SEED,
-                                             device=dev)
-        if state.theta.shape != (FED_K, FED_D):
-            raise AssertionError(f"{label}: theta {tuple(state.theta.shape)}")
-        gen = seed_generator(fed.seed, dev)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        dispatch.reset_launches()
-        rows, ms = [], []
-        for t, coin in enumerate(FED_FLAT_COINS):
-            last = t == len(FED_FLAT_COINS) - 1
-            if last:
-                peak = torch.cuda.max_memory_allocated()
-            with (_PathInputs(host=True) if last
-                  else contextlib.nullcontext()) as path:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                state, m = fed_train_step_flat(
-                    cfg, fed, state, unravel, pipe.batch(t), mask,
-                    fed_noise(gen, fed, state, FED_BYZ), large=coin)
-                torch.cuda.synchronize()
-                ms.append((time.perf_counter() - t0) * 1e3)
-            rows.append((m["loss"].item(), m["diameter"].item()))
-        seen = path.seen
-        counts = dispatch.launch_counts()
-        _check_launches(label, counts,
-                        {k: n * FED_FLAT_T for k, n in per_step.items()})
+        want = {k: n * FED_FLAT_T for k, n in per_step.items()}
+        state, rows, ms, peak, seen, counts, _ = _fed_flat_steps(
+            cfg, fed, dev, record=True)
+        _check_launches(label, counts, want)
         _add(totals, counts)
         if not (bool(torch.isfinite(state.theta).all())
                 and bool(torch.isfinite(torch.tensor(rows)).all())):
@@ -3069,7 +3126,8 @@ def phase_fed_flat(dev):
         if not peak < FED_PEAK_LIMIT:
             raise AssertionError(f"{label}: peak {peak} bytes >= "
                                  f"{FED_PEAK_LIMIT}")
-        del state, unravel
+        kept = {k: v.cpu() for k, v in _flat_fields(state).items()}
+        del state
         torch.cuda.empty_cache()
         lines = _fed_kernel_rows(seen, dev)
         del seen
@@ -3082,6 +3140,273 @@ def phase_fed_flat(dev):
             f"bytes ({peak / 2 ** 30:.3f} GiB)")
         for line in lines:
             log(line)
+
+        flat_label, label = label, f"fed_sharded_llama_{agg}"
+        state, srows, sms, speak, _, counts, phases = _fed_flat_steps(
+            cfg, fed, dev, sharded=True)
+        _check_launches(label, counts, want)
+        _add(totals, counts)
+        same = srows == rows and all(
+            torch.equal(v, kept[k].to(dev))
+            for k, v in _flat_fields(state).items())
+        del state, kept
+        torch.cuda.empty_cache()
+        if not same:
+            raise AssertionError(f"{label}: sharded=True is not bit-equal to "
+                                 f"the unsharded run: (loss, diameter) "
+                                 f"{srows} vs {rows}")
+        if not speak < FED_PEAK_LIMIT:
+            raise AssertionError(f"{label}: peak {speak} bytes >= "
+                                 f"{FED_PEAK_LIMIT}")
+        split = {k: [round(x, 3) for x in v] for k, v in phases.items()}
+        log(f"[fed] {card()}: {label} (phase 10c a: sharded=True on one "
+            f"process, the D-sharded flat layer with one shard; D={FED_D}, "
+            f"K={FED_K}, registry aggregator {agg}): ms/step "
+            f"{[round(x, 3) for x in sms]} phase ms per step {split} "
+            f"launches/step {per_step} (the unsharded run's) peak memory "
+            f"over steps 0-1 {speak} bytes ({speak / 2 ** 30:.3f} GiB; "
+            f"unsharded {peak}); theta, prev, v, Adam m, v and step and "
+            f"every (loss, diameter) bit-equal to {flat_label}")
+    return totals
+
+
+#: phase 10c (b): the reduced model's flat steps over two gloo ranks on
+#: the one card (NCCL refuses two ranks on one GPU), D split in two,
+#: against the one-process route; RFA without the attack (under
+#: large_noise its weights follow the Gram matrix's rounding order at the
+#: attacked row), Krum and the trimmed mean with it
+FED_RANKS, FED_RANK_T = 2, 2
+FED_RANK_CASES = {"rfa": "none", "krum": "large_noise(sigma=10)",
+                  "trimmed_mean": "large_noise(sigma=10)"}
+#: θ over the ranks within this share of max|θ| of the one-process run
+#: (the Gram partials summed in another order; the CPU tests' gaps are
+#: below 2e-6 of the largest state entry)
+FED_RANK_TOL = 1e-6
+FED_RANK_TIMEOUT_S = 600
+
+
+@contextlib.contextmanager
+def _aggregate_peaks(peaks, dev):
+    """While active, each ``fed.aggregate`` phase of the trainers on a
+    CUDA ``dev`` appends the peak bytes it allocated above what was
+    allocated at its start."""
+    import torch
+    from repro_torch import obs
+    orig = obs.named_phase
+
+    @contextlib.contextmanager
+    def phase(name, enabled=True):
+        watch = name == "fed.aggregate" and dev.type == "cuda"
+        if watch:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        with orig(name, enabled):
+            yield
+        if watch:
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated() - base)
+
+    obs.named_phase = phase
+    try:
+        yield
+    finally:
+        obs.named_phase = orig
+
+
+def _fed_rank_runs(dev, who, mesh=None, krum_stacks=None):
+    """FED_RANK_T flat steps (coin 1, then 0) of the reduced model per
+    FED_RANK_CASES case, from the seed-1 init with draws from a generator
+    on ``dev`` seeded 2: on ``mesh`` (D split over its "model" ranks,
+    ``sharded=True``) or on one process. Every launch of a case is
+    recorded (:class:`_PathInputs`, host copies, so the aggregate peaks
+    stay the route's own) and held against its plain version on its own
+    input, logged as ``[path] fed_two_ranks_<aggregator> <who>``.
+    ``krum_stacks`` collects the stacks the one-process Krum scores.
+    Returns {aggregator: θ's local columns and their first column, the
+    launches per step, each step's aggregate peak and loss}."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import aggregators
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.distributed import columns
+    from repro_torch.distributed import fed_trainer as ft
+    from repro_torch.kernels import dispatch
+    cfg = reduced(get_config(FED_ARCH))
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, 32, 2, FED_K, seed=1),
+                         device=dev)
+    mask = torch.arange(FED_K, device=dev) < FED_BYZ
+    krum = aggregators.krum
+
+    def recorded(x, n_byz, m=1, sharded=None):
+        krum_stacks.append(x)
+        return krum(x, n_byz, m, sharded)
+
+    out = {}
+    for agg, attack in FED_RANK_CASES.items():
+        fed = ft.FedConfig(aggregator=agg, **dict(FED_KW, attack=attack))
+        state, unravel = ft.init_flat_fed_state(cfg, fed, FED_K, 1,
+                                                device=dev, mesh=mesh)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(2)
+        launches, peaks, losses = [], [], []
+        if krum_stacks is not None:
+            aggregators.krum = recorded
+        try:
+            with _PathInputs(host=True) as path:
+                for t in range(FED_RANK_T):
+                    dispatch.reset_launches()
+                    with _aggregate_peaks(peaks, dev):
+                        state, m = ft.fed_train_step_flat(
+                            cfg, fed, state, unravel, pipe.batch(t), mask,
+                            ft.fed_noise(gen, fed, state, FED_BYZ),
+                            large=t == 0, sharded=True if mesh else None)
+                    launches.append(dispatch.launch_counts())
+                    losses.append(m["loss"].item())
+        finally:
+            aggregators.krum = krum
+        if not path.seen:
+            raise AssertionError(f"fed_two_ranks_{agg} {who}: no launch "
+                                 f"recorded")
+        path.check(f"fed_two_ranks_{agg} {who}")
+        local, sh = columns.local_columns(state.theta)
+        out[agg] = {"theta": local.cpu(), "lo": 0 if sh is None else sh.lo,
+                    "launches": launches, "peaks": peaks, "losses": losses}
+    return out
+
+
+def fed_rank_main(argv) -> int:
+    """``chip_smoke.py --fed-rank RANK WORLD PORT OUT DEVICE``: one rank
+    of phase 10c (b), in a gloo group on localhost:PORT, on DEVICE's type
+    (``cuda``: the card); writes its results to OUT."""
+    rank, world, port, dst, dev = argv
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=int(world), rank=int(rank))
+    try:
+        mesh = make_debug_mesh(1, int(world), device_type=dev)
+        torch.save(_fed_rank_runs(torch.device(dev),
+                                  f"rank {rank} of {world}", mesh), dst)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _krum_gap(x, n_near: int) -> float:
+    """Krum's winning margin on the (K, d) stack it scored: the gap
+    between the winner's score and the next one above it, over the
+    largest squared norm among the two agents and their scored
+    neighbours (the Gram identity's rounding scales with those norms, not
+    with a far Byzantine's). With one neighbour the closest pair ties
+    exactly and the first wins, so the margin is to the next pair."""
+    import torch
+    from repro_torch.kernels.pairwise_dist import gram, sq_dists_from_gram
+    g = gram(x[None])[0].double().cpu()
+    d2 = sq_dists_from_gram(g)
+    order = torch.argsort(d2, dim=1, stable=True)[:, 1:n_near + 1]
+    scores = d2.gather(1, order).sum(1)
+    w = int(torch.argmin(scores))
+    r = int(torch.argmin(torch.where(scores > scores[w], scores,
+                                     torch.inf)))
+    involved = {w, r, *order[w].tolist(), *order[r].tolist()}
+    return ((scores[r] - scores[w]) / max(g[i, i] for i in involved)).item()
+
+
+def phase_fed_two_ranks(dev):
+    """Phase 10c (b): the reduced model's flat steps over FED_RANKS gloo
+    ranks on the one card (fresh processes, D split in two) against the
+    one-process route on the card, for FED_RANK_CASES: every launch of
+    each rank and of the one-process run held against the kernel's plain
+    version on its own input (the ranks' ``[path]`` lines logged), θ
+    within FED_RANK_TOL of max|θ|, Krum's margins above 1e-4, the losses within
+    FED_LOSS_TOL, each rank's launches per step the one-process run's,
+    and each rank's peak across the aggregate call below its whole
+    (K, D) stack (no rank gathers it). Returns the launches of every
+    rank and of the one-process runs."""
+    import os
+    import socket
+    import tempfile
+    import torch
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    totals = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dsts = [os.path.join(tmp, f"rank{r}.pt") for r in range(FED_RANKS)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--fed-rank",
+             str(r), str(FED_RANKS), str(port), dsts[r], dev.type], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(FED_RANKS)]
+        try:
+            stacks = []
+            want = _fed_rank_runs(dev, "one process", krum_stacks=stacks)
+            for p in procs:
+                out, err = p.communicate(timeout=FED_RANK_TIMEOUT_S)
+                if p.returncode != 0:
+                    raise AssertionError(f"fed rank exited {p.returncode}:"
+                                         f"\n{err[-3000:]}")
+                paths = [ln for ln in out.splitlines()
+                         if ln.startswith("[path] ")]
+                if not paths:
+                    raise AssertionError("fed rank: no launch held against "
+                                         "its plain version")
+                for ln in paths:
+                    log(ln)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        secs = time.perf_counter() - t0
+        ranks = [torch.load(d, weights_only=False) for d in dsts]
+    margins = [_krum_gap(x[0], max(FED_K - FED_BYZ - 2, 1))
+               for x in stacks]
+    if not min(margins) > 1e-4:
+        raise AssertionError(f"fed two ranks: Krum margins {margins}")
+    for agg, one in want.items():
+        for counts in one["launches"]:
+            _add(totals, counts)
+        theta = torch.cat([r[agg]["theta"] for r in
+                           sorted(ranks, key=lambda r: r[agg]["lo"])], dim=1)
+        scale = one["theta"].abs().max().item()
+        err = (theta - one["theta"]).abs().max().item()
+        loss_err = max(abs(a - b) for r in ranks for a, b in
+                       zip(r[agg]["losses"], one["losses"]))
+        shard = 4 * FED_K * ranks[0][agg]["theta"].shape[1]
+        peaks = [p for r in ranks for p in r[agg]["peaks"]]
+        for r in ranks:
+            if r[agg]["launches"] != one["launches"]:
+                raise AssertionError(f"fed two ranks, {agg}: launches "
+                                     f"{r[agg]['launches']} vs one process "
+                                     f"{one['launches']}")
+            for counts in r[agg]["launches"]:
+                _add(totals, counts)
+        if not (err <= FED_RANK_TOL * scale and loss_err <= FED_LOSS_TOL
+                and max(peaks, default=0) < 2 * shard):
+            raise AssertionError(f"fed two ranks, {agg}: theta max abs err "
+                                 f"{err} (max|theta| {scale}), loss |diff| "
+                                 f"{loss_err}, aggregate peaks {peaks} vs "
+                                 f"shard {shard} bytes")
+        per_step = {k: n for k, n in one["launches"][0].items() if n}
+        gaps = (f"; Krum margins {[round(m, 6) for m in margins]}"
+                if agg == "krum" else "")
+        log(f"[fed] {card()}: fed_two_ranks_{agg} (phase 10c b: reduced "
+            f"{FED_ARCH}, D={one['theta'].shape[1]} split over "
+            f"{FED_RANKS} gloo ranks on the one card, K={FED_K}, attack "
+            f"{FED_RANK_CASES[agg]}, {FED_RANK_T} steps, sharded=True): "
+            f"theta max abs err {err:.3e} = {err / scale:.3e} of "
+            f"max|theta| (tol {FED_RANK_TOL}) against the one-process "
+            f"route on the card, loss |diff| {loss_err:.3e} (tol "
+            f"{FED_LOSS_TOL}), launches per step per rank {per_step} (the "
+            f"one-process run's), each rank's peak across the aggregate "
+            f"call {peaks} bytes against its (K, D/{FED_RANKS}) shard of "
+            f"{shard} bytes{gaps}; the ranks' wall {secs:.1f} s")
     return totals
 
 
@@ -3275,11 +3600,15 @@ def phase_fed_cli(dev):
 
 def phase_fed(dev):
     """Phase 10, federated LLM training at Llama-3.2-1B's full width: the
-    tree run, the flat runs, tree against flat, the card against the CPU
-    and the CLI. Returns the launches per kernel."""
+    tree run, the flat runs (each with phase 10c (a), its ``sharded=True``
+    repeat), phase 10c (b) over two ranks, tree against flat, the card
+    against the CPU and the CLI. Returns the launches per kernel."""
     totals = {}
     _add(totals, phase_fed_tree(dev))
     _add(totals, phase_fed_flat(dev))
+    t0 = time.perf_counter()
+    _add(totals, phase_fed_two_ranks(dev))
+    log(f"[time] phase 10c (b) two ranks {time.perf_counter() - t0:.1f} s")
     phase_fed_tree_vs_flat(dev)
     phase_fed_cpu_agreement(dev)
     phase_fed_cli(dev)
@@ -3376,4 +3705,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--fed-rank"]:
+        sys.exit(fed_rank_main(sys.argv[2:]))
     sys.exit(main())

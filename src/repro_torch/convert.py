@@ -23,7 +23,8 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import tree
 from repro_torch.core.decbyzpg import Carry
-from repro_torch.distributed.fed_trainer import FedState, FlatFedState
+from repro_torch.distributed.fed_trainer import (FedState, FlatFedState,
+                                                place_flat_fed_state)
 from repro_torch.models.model import param_shapes
 from repro_torch.optim import optimizers
 from repro_torch.optim.optimizers import AdamState
@@ -91,13 +92,15 @@ def model_params_from_jax(params: Mapping, cfg: ModelConfig,
     return conv(params, shapes, "")
 
 
-def fed_state_from_jax(state, device=None):
+def fed_state_from_jax(state, device=None, mesh=None):
     """A JAX ``FedState`` or ``FlatFedState`` (any array leaves: numpy or
     jax) -> the port's, on ``resolve_device(device)``: every leaf with its
     dtype (f32 stacks, the int32 counters), the optimizer state as the
     port's class of the same name (``AdamState``, ``MomentumState``).
     Mid-run states carry over whole: ``prev ≠ params``, ``v ≠ 0``, Adam's
-    step > 0."""
+    step > 0. A flat state with a ``mesh`` is placed on it
+    (``fed_trainer.place_flat_fed_state``: each rank keeps its columns of
+    every (K, D) stack)."""
     device = resolve_device(device)
 
     def conv(x):
@@ -107,8 +110,9 @@ def fed_state_from_jax(state, device=None):
     opt_t = getattr(optimizers, type(opt).__name__)(
         *(tree.tree_map(conv, f) for f in opt))
     if hasattr(state, "theta"):
-        return FlatFedState(conv(state.theta), conv(state.prev),
-                            conv(state.v), opt_t, conv(state.step))
+        return place_flat_fed_state(
+            FlatFedState(conv(state.theta), conv(state.prev), conv(state.v),
+                         opt_t, conv(state.step)), mesh)
     params, prev, v = (tree.tree_map(conv, t) for t in
                        (state.params, state.prev_params, state.v))
     return FedState(params, prev, v, opt_t, conv(state.step))

@@ -15,8 +15,18 @@ the receivers' bucketing permutations:
 RFA runs the Gram-space kernels of :mod:`repro_torch.kernels.rfa`, Krum
 the ``gram`` and ``krum_score`` kernels, the trimmed mean the
 ``trimmed_mean`` kernel. ``suspicion_scores`` and ``rejection_mask`` are
-the reference's per-sender forensics view of one (K, d) round. The
-reference's ``sharded=`` routes wait for the ``distributed/`` slice.
+the reference's per-sender forensics view of one (K, d) round.
+
+A D-sharded stack (a DTensor split along d, :mod:`repro_torch.distributed.
+columns`) runs the same bodies on the rank's local columns: Krum's and
+RFA's Gram matrices are the local ``gram`` partials summed over the
+ranks, so every rank picks the same rows and weights; the weighted sums,
+row picks, trimmed means, medians and bucket means stay local; centered
+clipping's and the suspicion scores' norms and counts are local partials
+summed over the ranks. A plain tensor is that route with one shard.
+``sharded=`` (on ``krum``, ``rfa``, ``trimmed_mean`` and their factories)
+is the reference's flag, accepted and needing no action here: the input
+says which route it takes.
 """
 from __future__ import annotations
 
@@ -25,10 +35,24 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.core.registry import Spec, register, resolve
-from repro_torch.kernels.krum_score import krum_scores
-from repro_torch.kernels.rfa import rfa as rfa_kernel
+from repro_torch.distributed.columns import (Shards, local_columns, norms,
+                                             on_columns, rewrap)
+from repro_torch.kernels.krum_score import krum_score
+from repro_torch.kernels.pairwise_dist import gram
+from repro_torch.kernels.rfa import weighted_sum, weiszfeld_weights
 from repro_torch.kernels.trimmed_mean import trimmed_mean as \
     trimmed_mean_kernel
+
+
+def combined_gram(x: torch.Tensor, sh: Optional[Shards] = None
+                  ) -> torch.Tensor:
+    """(Bt, K, K) Gram matrices of the (Bt, K, d) columns ``x``, summed
+    over the ranks that hold the other columns (``sh``; None: ``x`` is
+    all of them): the ``gram`` kernel, nothing launched on an empty
+    shard."""
+    bt, k, d = x.shape
+    g = gram(x) if d else x.new_zeros((bt, k, k))
+    return g if sh is None else sh.sum(g)
 
 
 # ---------------------------------------------------------------------------
@@ -36,55 +60,79 @@ from repro_torch.kernels.trimmed_mean import trimmed_mean as \
 # ---------------------------------------------------------------------------
 
 def mean(x: torch.Tensor) -> torch.Tensor:
-    return x.mean(-2)
+    return on_columns(lambda t: t.mean(-2), x)
 
 
-def rfa(x: torch.Tensor, n_iter: int = 32, nu: float = 1e-6) -> torch.Tensor:
+def rfa(x: torch.Tensor, n_iter: int = 32, nu: float = 1e-6,
+        sharded: Optional[bool] = None, *, gram_of=combined_gram
+        ) -> torch.Tensor:
     """Robust Federated Averaging: smoothed-Weiszfeld geometric median in
-    Gram space (``gram`` -> ``weiszfeld`` -> ``wsum``)."""
-    return rfa_kernel(x, n_iter=n_iter, nu=nu)
+    Gram space: ``weiszfeld`` on the Gram matrices
+    (``gram_of(local, shards)``, :func:`combined_gram` unless the flat
+    layer's blocked route passes its own), then ``wsum`` on the local
+    columns."""
+    local, sh = local_columns(x)
+    w = weiszfeld_weights(gram_of(local, sh), nu, n_iter)
+    out = weighted_sum(local, w) if local.shape[-1] else \
+        local.new_zeros((local.shape[0], 0))
+    return rewrap(out, sh)
 
 
-def krum(x: torch.Tensor, n_byz: int, m: int = 1) -> torch.Tensor:
+def krum(x: torch.Tensor, n_byz: int, m: int = 1,
+         sharded: Optional[bool] = None, *, gram_of=combined_gram
+         ) -> torch.Tensor:
     """(Multi-)Krum: score_i = Σ_{j in closest K-n_byz-2} ||x_j - x_i||²
-    (``gram`` -> ``krum_score``); the lowest-scoring input (the first on
+    (``krum_score`` on the Gram matrices of ``gram_of``, as in
+    :func:`rfa`); the lowest-scoring input's local columns (the first on
     ties), or the mean of the m lowest (a stable sort, so ties keep the
     lower index as ``lax.top_k`` does)."""
-    Bt, K, _ = x.shape
-    scores = krum_scores(x, max(K - n_byz - 2, 1))             # (Bt, K)
-    rows = torch.arange(Bt, device=x.device)
+    local, sh = local_columns(x)
+    Bt, K, _ = local.shape
+    scores = krum_score(gram_of(local, sh), max(K - n_byz - 2, 1))
+    rows = torch.arange(Bt, device=local.device)
     if m == 1:
-        return x[rows, torch.argmin(scores, dim=1)]
-    idx = torch.sort(scores, dim=1, stable=True).indices[:, :m]
-    return x[rows[:, None], idx].mean(1)
+        out = local[rows, torch.argmin(scores, dim=1)]
+    else:
+        idx = torch.sort(scores, dim=1, stable=True).indices[:, :m]
+        out = local[rows[:, None], idx].mean(1)
+    return rewrap(out, sh)
 
 
-def trimmed_mean(x: torch.Tensor, n_byz: int) -> torch.Tensor:
+def trimmed_mean(x: torch.Tensor, n_byz: int,
+                 sharded: Optional[bool] = None) -> torch.Tensor:
     """Coordinate-wise: drop the n_byz largest and smallest per coordinate
-    (the ``trimmed_mean`` kernel)."""
-    return trimmed_mean_kernel(x, n_byz)
+    (the ``trimmed_mean`` kernel on the local columns: the one-process
+    bits whatever the split)."""
+    return on_columns(lambda t: trimmed_mean_kernel(t, n_byz)
+                      if t.shape[-1] else t.new_zeros((t.shape[0], 0)), x)
 
 
-def coordinate_median(x: torch.Tensor) -> torch.Tensor:
-    """Coordinate-wise median; an even count averages the two middle
-    values, as ``jnp.median``."""
+def _median(x: torch.Tensor) -> torch.Tensor:
     K = x.shape[-2]
     s = torch.sort(x, dim=-2).values
     return (s[..., (K - 1) // 2, :] + s[..., K // 2, :]) / 2
 
 
+def coordinate_median(x: torch.Tensor) -> torch.Tensor:
+    """Coordinate-wise median; an even count averages the two middle
+    values, as ``jnp.median``."""
+    return on_columns(_median, x)
+
+
 def centered_clip(x: torch.Tensor, tau: float = 1.0, n_iter: int = 5,
                   center: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Centered clipping: v <- v + mean_i clip(x_i - v, tau), started at
-    the coordinate-wise median."""
-    v = coordinate_median(x) if center is None else center
+    the coordinate-wise median (or ``center``, in ``x``'s form). The
+    norms of x_i - v sum the ranks' partials; the rest is local."""
+    local, sh = local_columns(x)
+    v = _median(local) if center is None else local_columns(center)[0]
     for _ in range(n_iter):
-        diff = x - v[..., None, :]
-        norm = torch.linalg.vector_norm(diff, dim=-1, keepdim=True)
+        diff = local - v[..., None, :]
+        norm = norms(diff, sh)[..., None]
         clipped = diff * torch.clamp(tau / torch.clamp_min(norm, 1e-12),
                                      max=1.0)
         v = v + clipped.mean(-2)
-    return v
+    return rewrap(v, sh)
 
 
 def suspicion_scores(spec, x: torch.Tensor, n_byz: int) -> torch.Tensor:
@@ -92,20 +140,27 @@ def suspicion_scores(spec, x: torch.Tensor, n_byz: int) -> torch.Tensor:
     Krum's score, the trimmed-mean family's share of coordinates in which
     the sender was trimmed, and otherwise the distance from the
     coordinate-wise median. A diagnostic view, not the aggregation
-    (bucketed variants score the raw messages)."""
+    (bucketed variants score the raw messages). On a D-sharded x the
+    Krum scores come from the combined Gram matrix, the trim share from
+    the ranks' counts and the distance from their sums of squares."""
     spec = Spec.of(spec)
     K = x.shape[0]
+    local, sh = local_columns(x)
     if spec.name == "krum":
-        return krum_scores(x[None], max(K - max(n_byz, 1) - 2, 1))[0]
+        n_near = max(K - max(n_byz, 1) - 2, 1)
+        return krum_score(combined_gram(local[None], sh), n_near)[0]
     if spec.name in ("trimmed_mean", "cwtm"):
         nt = max(n_byz, 1)
         # rank of each sender per coordinate; trimmed = in either tail
-        ranks = torch.argsort(torch.argsort(x, dim=0, stable=True), dim=0,
-                              stable=True)
+        ranks = torch.argsort(torch.argsort(local, dim=0, stable=True),
+                              dim=0, stable=True)
         trimmed = (ranks < nt) | (ranks >= K - nt)
-        return trimmed.to(x.dtype).mean(1)
-    med = coordinate_median(x)
-    return torch.sqrt(((x - med[None]) ** 2).sum(1))
+        if sh is None:
+            return trimmed.to(x.dtype).mean(1)
+        return sh.sum(trimmed.sum(1)).to(x.dtype) / sh.D
+    med = _median(local)
+    sq = ((local - med[None]) ** 2).sum(1)
+    return torch.sqrt(sq if sh is None else sh.sum(sq))
 
 
 def rejection_mask(spec, x: torch.Tensor, n_byz: int) -> torch.Tensor:
@@ -136,17 +191,24 @@ def resilient_momentum_update(agg: Callable, momenta: torch.Tensor,
 # Bucketing
 # ---------------------------------------------------------------------------
 
-def bucket_means(x: torch.Tensor, perm: torch.Tensor,
-                 bucket_size: int) -> torch.Tensor:
-    """x (K, d), perm (R, K) -> (R, n_buckets, d): each receiver permutes
-    the inputs, pads by repeating its first permuted entries so every
-    bucket is full, and averages buckets of ``bucket_size``."""
+def _bucket_means(x: torch.Tensor, perm: torch.Tensor,
+                  bucket_size: int) -> torch.Tensor:
     K, d = x.shape
     n_buckets = -(-K // bucket_size)
     pad = n_buckets * bucket_size - K
     idx = torch.cat([perm, perm[:, :pad]], dim=1) if pad else perm
     R = perm.shape[0]
     return x[idx].reshape(R, n_buckets, bucket_size, d).mean(2)
+
+
+def bucket_means(x: torch.Tensor, perm: torch.Tensor,
+                 bucket_size: int) -> torch.Tensor:
+    """x (K, d), perm (R, K) -> (R, n_buckets, d): each receiver permutes
+    the inputs, pads by repeating its first permuted entries so every
+    bucket is full, and averages buckets of ``bucket_size``. Bucketing
+    commutes with a split of d: a D-sharded x buckets its local
+    columns."""
+    return on_columns(_bucket_means, x, perm, bucket_size)
 
 
 class Aggregator(NamedTuple):
@@ -159,7 +221,7 @@ class Aggregator(NamedTuple):
                  perm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x (K, d) messages -> (1, d), or (R, d) for R permutations."""
         if not self.bucket_size:
-            return self.fn(x[None])
+            return self.fn(on_columns(lambda t: t[None], x))
         if perm is None:
             raise ValueError("a bucketing aggregator needs the receivers' "
                              "permutations")
@@ -180,21 +242,25 @@ def _mean_factory():
 
 
 @register("aggregator", "krum")
-def _krum_factory(K, n_byz, m: int = 1, alpha_max: float = 0.25):
+def _krum_factory(K, n_byz, m: int = 1, alpha_max: float = 0.25,
+                  sharded: Optional[bool] = None):
     """Lemma-3 bucketing ∘ Krum (alpha_max 1/4); the inner Krum tolerates
     a quarter of the buckets."""
     bs = _lemma3_bucket_size(K, n_byz, alpha_max)
     if bs == 1:
-        return Aggregator(lambda x: krum(x, n_byz=max(n_byz, 1), m=m))
+        return Aggregator(lambda x: krum(x, n_byz=max(n_byz, 1), m=m,
+                                         sharded=sharded))
     inner_byz = max(1, -(-K // bs) // 4)
-    return Aggregator(lambda x: krum(x, n_byz=inner_byz, m=m), bs)
+    return Aggregator(lambda x: krum(x, n_byz=inner_byz, m=m,
+                                     sharded=sharded), bs)
 
 
 @register("aggregator", "rfa")
 def _rfa_factory(K, n_byz, n_iter: int = 32, nu=1e-6,
-                 alpha_max: float = 0.5):
+                 alpha_max: float = 0.5, sharded: Optional[bool] = None):
     bs = _lemma3_bucket_size(K, n_byz, alpha_max)
-    return Aggregator(lambda x: rfa(x, n_iter=n_iter, nu=nu),
+    return Aggregator(lambda x: rfa(x, n_iter=n_iter, nu=nu,
+                                    sharded=sharded),
                       bs if bs > 1 else 0)
 
 
@@ -204,8 +270,9 @@ def _cwmed_factory():
 
 
 @register("aggregator", "trimmed_mean")
-def _trimmed_mean_factory(n_byz):
-    return Aggregator(lambda x: trimmed_mean(x, max(n_byz, 1)))
+def _trimmed_mean_factory(n_byz, sharded: Optional[bool] = None):
+    return Aggregator(lambda x: trimmed_mean(x, max(n_byz, 1),
+                                             sharded=sharded))
 
 
 @register("aggregator", "centered_clip")
@@ -214,12 +281,14 @@ def _centered_clip_factory(tau=1.0, n_iter: int = 5):
 
 
 @register("aggregator", "bucketing")
-def _bucketing_factory(K, n_byz, inner, s: int = 2):
+def _bucketing_factory(K, n_byz, inner, s: int = 2,
+                       sharded: Optional[bool] = None):
     """Explicit bucketing with a fixed bucket size ``s`` around an inner
     aggregator spec, e.g. ``bucketing(inner=rfa(n_iter=64), s=2)``. The
     inner spec resolves against the bucket means with n_byz 0, so it does
-    not bucket a second time."""
-    inner_agg = resolve("aggregator", inner, K=-(-K // s), n_byz=0)
+    not bucket a second time; ``sharded`` passes on to it."""
+    inner_agg = resolve("aggregator", inner, K=-(-K // s), n_byz=0,
+                        sharded=sharded)
     if inner_agg.bucket_size:
         raise ValueError(f"bucketing: inner aggregator {inner} buckets "
                          f"again; nest one bucketing only")

@@ -15,6 +15,12 @@ launch per round gathers and reduces for all receivers when one message
 matrix is shared (an honest round, or a consistent attack), and
 ``neighbor_reduce`` reduces the gathered (K, P, d) tensor when the
 Byzantine senders equivocate per receiver.
+
+A D-sharded θ (a DTensor split along d, :mod:`repro_torch.distributed.
+columns`) runs the same kernels on each rank's columns: the cw
+reduces are coordinate-wise, MDA's distances are the local ``gram``
+partials and GDA's the local squared distances, each summed over the
+ranks, and the attack's noise is sliced to the rank's columns.
 """
 from __future__ import annotations
 
@@ -26,8 +32,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.registry import REGISTRY, Spec, register, resolve
+from repro_torch.distributed.columns import local_columns
 from repro_torch.kernels.gossip_reduce import gossip_reduce, neighbor_reduce
-from repro_torch.kernels.pairwise_dist import pairwise_sq_dists
+from repro_torch.kernels.pairwise_dist import (gram, pairwise_sq_dists,
+                                               sq_dists_from_gram)
 from repro_torch.topology import resolve_topology
 
 #: Largest neighbor-multiset size ``mda_mean`` enumerates subsets for;
@@ -45,9 +53,16 @@ def _subsets(n: int, size: int, device: torch.device) -> torch.Tensor:
                  dtype=np.int64), device=device)
 
 
-def mda_mean(received: torch.Tensor, n_keep: int) -> torch.Tensor:
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def mda_mean(received: torch.Tensor, n_keep: int,
+             combine: Callable = _whole) -> torch.Tensor:
     """Exact Minimum-Diameter Averaging: received (B, n, d) -> (B, d), the
-    mean of the n_keep-subset of least diameter (the first on ties)."""
+    mean of the n_keep-subset of least diameter (the first on ties).
+    ``combine`` sums a partial over the ranks holding the other columns
+    of d (none: the identity)."""
     B, n, d = received.shape
     if n > MDA_MAX_AGENTS:
         raise ValueError(
@@ -56,7 +71,11 @@ def mda_mean(received: torch.Tensor, n_keep: int) -> torch.Tensor:
             f"method='gda' or a sparser topology (the limit applies to the "
             f"neighborhood size, not K)")
     subs = _subsets(n, n_keep, received.device)          # (S, n_keep)
-    d2 = pairwise_sq_dists(received)                     # (B, n, n)
+    if received.shape[-1]:
+        g = gram(received)                               # (B, n, n)
+    else:                                                # an empty shard
+        g = received.new_zeros((B, n, n))
+    d2 = sq_dists_from_gram(combine(g))
     sub_d = d2[:, subs[:, :, None], subs[:, None, :]]    # (B, S, nk, nk)
     diam = sub_d.reshape(B, subs.shape[0], -1).amax(-1)
     best = subs[torch.argmin(diam, dim=1)]               # (B, n_keep)
@@ -64,12 +83,12 @@ def mda_mean(received: torch.Tensor, n_keep: int) -> torch.Tensor:
     return received[rows, best].mean(1)
 
 
-def gda_mean(received: torch.Tensor, own: torch.Tensor,
-             n_keep: int) -> torch.Tensor:
+def gda_mean(received: torch.Tensor, own: torch.Tensor, n_keep: int,
+             combine: Callable = _whole) -> torch.Tensor:
     """Greedy Diameter Averaging: received (B, n, d), own (B, d) -> (B, d),
     the mean of the n_keep vectors closest to the agent's own (the lower
     index first on ties, as ``lax.top_k``)."""
-    d2 = ((received - own[:, None, :]) ** 2).sum(-1)
+    d2 = combine(((received - own[:, None, :]) ** 2).sum(-1))
     idx = torch.sort(d2, dim=1, stable=True).indices[:, :n_keep]
     rows = torch.arange(received.shape[0], device=received.device)[:, None]
     return received[rows, idx].mean(1)
@@ -88,8 +107,10 @@ class AgreementMethod(NamedTuple):
 
 @register("agreement", "mda", max_agents=MDA_MAX_AGENTS)
 def _mda_factory(alpha_bar: float = 0.25):
-    return AgreementMethod(lambda recv, own, n_keep: mda_mean(recv, n_keep),
-                           alpha_bar)
+    return AgreementMethod(
+        lambda recv, own, n_keep, combine=_whole: mda_mean(recv, n_keep,
+                                                           combine),
+        alpha_bar)
 
 
 @register("agreement", "gda")
@@ -122,7 +143,8 @@ def avg_agree(theta: torch.Tensor, kappa: int, n_byz: int,
               byz_mask: Optional[torch.Tensor] = None, method="gda",
               attack: Optional[Callable] = None,
               noise: Optional[torch.Tensor] = None,
-              topology=None) -> torch.Tensor:
+              topology=None, sharded: Optional[bool] = None
+              ) -> torch.Tensor:
     """Simulate Avg-Agree_κ over K agents (paper Algorithm 3 on a gossip
     graph).
 
@@ -133,8 +155,20 @@ def avg_agree(theta: torch.Tensor, kappa: int, n_byz: int,
     when it draws none. Returns the (K, d) parameters after κ rounds
     (Byzantine rows carry what an honest agent in that slot would compute;
     callers mask them).
+
+    A D-sharded θ runs every round on the rank's columns and returns a
+    DTensor of the same placement. ``sharded=True`` on a plain tensor is
+    that route with one shard: the same kernels, bit for bit (the
+    reference's flag only swapped its kernels for their ``jnp`` oracles).
     """
     K, d = theta.shape
+    theta, sh = local_columns(theta)
+    if sh is not None and sharded is False:
+        raise ValueError("avg_agree: a D-sharded theta takes the sharded "
+                         "route; sharded=False cannot gather it")
+    combine = _whole if sh is None else sh.sum
+    if sh is not None and noise is not None:
+        noise = noise[..., sh.lo:sh.hi]
     m = resolve("agreement", method, n_byz=n_byz)
     topo = resolve_topology(topology, K)
     nbr = torch.as_tensor(topo.nbr_idx, dtype=torch.int64,
@@ -164,13 +198,15 @@ def avg_agree(theta: torch.Tensor, kappa: int, n_byz: int,
                 sent = torch.where(byz_mask[:, None], a, theta)
         if m.reduce is None:
             theta = m.select(sent[nbr] if recv is None else recv, theta,
-                             n_keep)
+                             n_keep, combine)
+        elif not theta.shape[-1]:
+            pass                         # an empty shard reduces nothing
         elif recv is None:
             # one message matrix for all receivers: gather + reduce fused
             theta = gossip_reduce(sent, nbr, m.reduce, m.n_trim)
         else:
             theta = neighbor_reduce(recv, m.reduce, m.n_trim)
-    return theta
+    return theta if sh is None else sh.wrap(theta)
 
 
 def honest_diameter(theta: torch.Tensor,

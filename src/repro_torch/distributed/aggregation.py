@@ -20,8 +20,19 @@ draw_fed_noise`.
 The ``fed_aggregator`` namespace holds the tree aggregators ``mean``,
 ``krum``, ``rfa(n_iter, nu)`` and ``trimmed_mean``; ``fed_attack`` holds
 ``none``, ``large_noise(sigma)``, ``avg_zero`` and ``sign_flip(scale)``.
-The reference's sharded flat layer (``dim_sharded``, ``flat_*``) waits
-for the ``sharded=`` routes.
+
+The D-sharded flat layer (``dim_sharded``, ``flat_*``) takes a (K, D)
+stack, plain or split along D over a mesh's ranks (the carrier of
+:mod:`repro_torch.distributed.columns`, the reference's ``P(None,
+"model")``), and runs the registry aggregators' bodies
+(:mod:`repro_torch.core.aggregators`) on it: the kernels on each rank's
+columns, the (K, K) Gram partials summed over the ranks in rank order. A
+plain tensor is the route with one shard: no collective, the
+one-process kernels' bits. ``stacked_gram``, ``stacked_sq_dists``,
+``stacked_weighted_sum``, ``stacked_mix``, ``gda_agree`` and
+``attack_stacked`` take a D-sharded bare stack the same way, so the flat
+trainer's sharded step runs on them; a tree with D-sharded leaves (the
+tree trainer under a mesh) waits.
 """
 from __future__ import annotations
 
@@ -31,8 +42,13 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import aggregators
 from repro_torch.core.registry import register, resolve
 from repro_torch.core.tree import tree_map, tree_paths
+# dim_sharded is the carrier's; the reference's flat layer exports it here
+from repro_torch.distributed.columns import dim_sharded  # noqa: F401
+from repro_torch.distributed.columns import local_columns, on_columns
+from repro_torch.kernels.pairwise_dist import sq_dists_from_gram
 
 
 def _leaves(tree) -> list:
@@ -51,7 +67,11 @@ def _rows(leaf: torch.Tensor) -> torch.Tensor:
 
 def stacked_gram(tree) -> torch.Tensor:
     """Stacked tree -> (K, K) Gram matrix, f32: each leaf contracted over
-    its trailing axes, the leaves' products summed in leaf order."""
+    its trailing axes, the leaves' products summed in leaf order. A
+    D-sharded stack: the local columns' matrix, summed over the ranks."""
+    local, sh = local_columns(tree)
+    if sh is not None:
+        return sh.sum(stacked_gram(local))
     leaves = _leaves(tree)
     K = leaves[0].shape[0]
     g = torch.zeros((K, K), dtype=torch.float32, device=leaves[0].device)
@@ -65,7 +85,11 @@ def stacked_gram_blocked(tree, block: int) -> torch.Tensor:
     """The Gram matrix in column blocks of ``block`` agents (the plain
     form when ``block <= 0``, ``K <= block`` or ``block`` does not divide
     K): block i's columns sum the leaves' products with agents
-    ``[i·block, (i+1)·block)``."""
+    ``[i·block, (i+1)·block)``. A D-sharded stack: the local columns'
+    matrix, summed over the ranks."""
+    local, sh = local_columns(tree)
+    if sh is not None:
+        return sh.sum(stacked_gram_blocked(local, block))
     leaves = _leaves(tree)
     K = leaves[0].shape[0]
     if block <= 0 or K <= block or K % block:
@@ -80,20 +104,19 @@ def stacked_gram_blocked(tree, block: int) -> torch.Tensor:
     return g
 
 
-def _sq_dists_from_gram(g: torch.Tensor) -> torch.Tensor:
-    sq = torch.diagonal(g)
-    return torch.clamp_min(sq[:, None] + sq[None, :] - 2.0 * g, 0.0)
-
-
 def stacked_sq_dists(tree) -> torch.Tensor:
     """(K, K) squared distances between the agents, from the Gram
     matrix, clamped at 0."""
-    return _sq_dists_from_gram(stacked_gram(tree))
+    return sq_dists_from_gram(stacked_gram(tree))
 
 
 def stacked_weighted_sum(w: torch.Tensor, tree, mix_dtype=None):
     """Per leaf ``Σ_k w_k leaf_k``, in f32 (the leaf rounded to
-    ``mix_dtype`` first when given), cast back to the leaf's dtype."""
+    ``mix_dtype`` first when given), cast back to the leaf's dtype; a
+    D-sharded stack's sum keeps its columns."""
+    local, sh = local_columns(tree)
+    if sh is not None:
+        return sh.wrap(stacked_weighted_sum(w, local, mix_dtype))
     wf = w.float()
 
     def f(leaf):
@@ -122,7 +145,11 @@ def stacked_mix(W: torch.Tensor, tree, mix_dtype=None, block: int = 0):
     exchange of Avg-Agree. ``mix_dtype=torch.bfloat16`` mixes bf16
     messages; ``block > 0`` sums the exchange over column blocks of
     ``block`` agents in block order (the plain form when ``K <= block``
-    or ``block`` does not divide K)."""
+    or ``block`` does not divide K). A D-sharded stack mixes its local
+    columns."""
+    local, sh = local_columns(tree)
+    if sh is not None:
+        return sh.wrap(stacked_mix(W, local, mix_dtype, block))
     K = _leaves(tree)[0].shape[0]
     if block <= 0 or K <= block or K % block:
         return tree_map(lambda leaf: _mix_leaf(W, leaf, mix_dtype)
@@ -144,6 +171,72 @@ def _broadcast_rows(tree_single, K: int):
     expanded views (the reference's ``broadcast_to``)."""
     return tree_map(lambda leaf: leaf[None].expand((K,) + leaf.shape),
                     tree_single)
+
+
+# ---------------------------------------------------------------------------
+# The D-sharded flat (K, D) execution layer
+# ---------------------------------------------------------------------------
+# Each function takes a (K, D) stack or a batch of them (Bt, K, D),
+# D-sharded or plain (one shard), and runs the registry aggregator's body
+# on it: the Gram matrix is the local partial summed over the ranks, the
+# weights and scores come from that one (K, K) matrix on every rank, and
+# the weighted sums, row picks and coordinate-wise reduces stay local.
+# ``block > 0`` makes the local partial from plain products in column
+# blocks of ``block`` agents (:func:`stacked_gram_blocked`, as the
+# reference's blocked route). Results keep D's placement.
+
+def _flat(fn, x):
+    """``fn`` on the (Bt, K, D) form of ``x``; a (K, D) stack's (1, ...)
+    result comes back without its leading axis."""
+    if x.dim() == 3:
+        return fn(x)
+    return on_columns(lambda t: t[0], fn(on_columns(lambda t: t[None], x)))
+
+
+def _gram_of(block: int):
+    """The combined Gram matrices of the flat layer's ``block``."""
+    if not block:
+        return aggregators.combined_gram
+
+    def blocked(x, sh):
+        g = torch.stack([stacked_gram_blocked(m, block) for m in x])
+        return g if sh is None else sh.sum(g)
+    return blocked
+
+
+def flat_gram(x, block: int = 0) -> torch.Tensor:
+    """(K, D) or (Bt, K, D) -> the (K, K) or (Bt, K, K) Gram matrix, the
+    same on every rank."""
+    local, sh = local_columns(x)
+    g = _gram_of(block)(local if local.dim() == 3 else local[None], sh)
+    return g if local.dim() == 3 else g[0]
+
+
+def flat_sq_dists(x, block: int = 0) -> torch.Tensor:
+    """(K, D) -> (K, K) squared distances from :func:`flat_gram`."""
+    return sq_dists_from_gram(flat_gram(x, block))
+
+
+def flat_krum(x, n_byz: int, m: int = 1, block: int = 0):
+    """(Multi-)Krum (:func:`repro_torch.core.aggregators.krum`): the
+    winner's columns by index, or the mean of the m best rows."""
+    return _flat(lambda t: aggregators.krum(t, n_byz, m,
+                                            gram_of=_gram_of(block)), x)
+
+
+def flat_rfa(x, n_iter: int = 32, nu: float = 1e-6, block: int = 0):
+    """Smoothed Weiszfeld (:func:`repro_torch.core.aggregators.rfa`):
+    weights from the combined Gram matrix, the same on every rank, then
+    ``wsum`` on the local columns."""
+    return _flat(lambda t: aggregators.rfa(t, n_iter, nu,
+                                           gram_of=_gram_of(block)), x)
+
+
+def flat_trimmed_mean(x, n_trim: int):
+    """The coordinate-wise trimmed mean
+    (:func:`repro_torch.core.aggregators.trimmed_mean`), the one-process
+    bits whatever the split."""
+    return _flat(lambda t: aggregators.trimmed_mean(t, n_trim), x)
 
 
 # ---------------------------------------------------------------------------
@@ -239,7 +332,7 @@ def gda_agree(tree, kappa: int, alpha_bar: float = 0.2,
     for _ in range(kappa):
         g = stacked_gram_blocked(tree, block) if block \
             else stacked_gram(tree)
-        W = gda_mix_matrix(_sq_dists_from_gram(g), n_keep)
+        W = gda_mix_matrix(sq_dists_from_gram(g), n_keep)
         tree = stacked_mix(W, tree, mix_dtype=mix_dtype, block=block)
     return tree
 
@@ -313,7 +406,12 @@ def _fed_sign_flip_factory(scale: float = 3.0):
 def attack_stacked(name, tree, byz_mask, noise=None):
     """Resolve a stacked-tree attack spec (name, spec string such as
     ``"large_noise(sigma=10)"``, or Spec) and apply it; ``None`` returns
-    the tree."""
+    the tree. A D-sharded stack is attacked on its local columns, with
+    those columns of ``noise``."""
     if name is None:
         return tree
+    local, sh = local_columns(tree)
+    if sh is not None:
+        cols = None if noise is None else noise[:, sh.lo:sh.hi]
+        return sh.wrap(attack_stacked(name, local, byz_mask, cols))
     return resolve("fed_attack", name)(tree, byz_mask, noise)

@@ -34,13 +34,21 @@ reference's key; the window draws its coins and every step's noise from
 one ``torch.Generator``. ``common_sample_coin`` is the reference's numpy
 coin, bit for bit. The phases are ``torch.profiler`` ranges
 (``fed.estimate``, ``fed.aggregate``, ``fed.agree``) when
-``fed.telemetry`` is on. The mesh shardings (``make_fed_step`` and the
-``*_shardings`` helpers) wait for the mesh.
+``fed.telemetry`` is on.
+
+Under a mesh, the flat trainer splits its (K, D) stacks along D over the
+"model" ranks (:func:`flat_param_sharding`, DTensors, the reference's
+``P(None, "model")``), and ``fed_train_step_flat`` runs each rank's
+columns through the D-sharded flat layer of
+:mod:`repro_torch.distributed.aggregation`: the Gram partials and the
+estimate's rows gathered in rank order, the rest local. The tree trainer
+under a mesh (``fed_state_shardings``, ``make_fed_step``) waits.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -54,6 +62,8 @@ from repro_torch.core.registry import normalize_spec_fields, resolve
 from repro_torch.core.tree import (ravel_tree, tree_map, tree_paths,
                                    unravel_tree)
 from repro_torch.distributed import aggregation as agg_lib
+from repro_torch.distributed import columns
+from repro_torch.distributed.sharding import mesh_axis_size
 from repro_torch.models.model import (init_params, lm_loss, lm_loss_labeled,
                                       param_shapes)
 from repro_torch.optim.optimizers import get_optimizer
@@ -218,11 +228,44 @@ def init_fed_state(cfg: ModelConfig, fed: FedConfig, K: int, key,
                                 device=_leaves(stack)[0].device))
 
 
+def flat_param_sharding(mesh) -> tuple:
+    """The placements of a flat (K, D) stack on ``mesh``: D split by
+    ``Shard(1)`` over "model", the agents replicated (``Replicate()`` on
+    every other dimension)."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(Shard(1) if name == "model" else Replicate()
+                 for name in mesh.mesh_dim_names)
+
+
+def flat_fed_state_shardings(mesh, state: FlatFedState) -> FlatFedState:
+    """The placements of each field of a :class:`FlatFedState`: every
+    (K, D) stack :func:`flat_param_sharding`, the counters replicated."""
+    from torch.distributed.tensor import Replicate
+    sh = flat_param_sharding(mesh)
+    rep = tuple(Replicate() for _ in mesh.mesh_dim_names)
+    opt = tree_map(lambda t: sh if t.dim() == 2 else rep, state.opt_state)
+    return FlatFedState(sh, sh, sh, opt, rep)
+
+
+def place_flat_fed_state(state: FlatFedState, mesh) -> FlatFedState:
+    """A flat state every rank holds whole -> the same state on ``mesh``
+    when its "model" dimension spans more than one rank: each (K, D)
+    stack a DTensor of its columns (:func:`flat_fed_state_shardings`),
+    each replicated counter a plain tensor, the same on every rank."""
+    if mesh is None or mesh_axis_size(mesh, "model") <= 1:
+        return state
+    specs = flat_fed_state_shardings(mesh, state)
+    return tree_map(lambda t, places: columns.shard_columns(t, mesh, places),
+                    state, specs)
+
+
 def init_flat_fed_state(cfg: ModelConfig, fed: FedConfig, K: int, key,
-                        dtype=torch.float32, device=None):
+                        dtype=torch.float32, device=None, mesh=None):
     """Common-init flat state. Returns ``(state, unravel)``, where
     ``unravel(row)`` gives one agent's parameter tree as views of the
-    (D,) row (``ravel_pytree``'s order)."""
+    (D,) row (``ravel_pytree``'s order). With a ``mesh`` whose "model"
+    dimension spans more than one rank, every rank makes the same init
+    and keeps its columns of each stack (:func:`place_flat_fed_state`)."""
     p0 = init_params(cfg, key, dtype, device=device)
     vec0 = ravel_tree(p0)
     del p0
@@ -232,7 +275,8 @@ def init_flat_fed_state(cfg: ModelConfig, fed: FedConfig, K: int, key,
                          _optimizer(fed).init(theta),
                          torch.zeros((), dtype=torch.int32,
                                      device=theta.device))
-    return state, functools.partial(unravel_tree, shapes=param_shapes(cfg))
+    return (place_flat_fed_state(state, mesh),
+            functools.partial(unravel_tree, shapes=param_shapes(cfg)))
 
 
 # ---------------------------------------------------------------------------
@@ -259,10 +303,12 @@ def _agent_grad(cfg, params_k, batch_k):
                            for t, g in zip(leaves, grads)]
 
 
-def _estimate(cfg, K, agent, out, batch, large: bool) -> torch.Tensor:
+def _estimate(cfg, K, agent, out, batch, large: bool,
+              written=None) -> torch.Tensor:
     """The PAGE direction of every agent into ``out`` (agent k's views
-    from ``agent(out, k)``); returns the (K,) losses at θ. ``agent(name,
-    k)`` gives agent k's tree of ``params``, ``prev`` or ``v``."""
+    from ``agent(out, k)``; ``written(k)``, when given, once they hold
+    it); returns the (K,) losses at θ. ``agent(name, k)`` gives agent k's
+    tree of ``params``, ``prev`` or ``v``."""
     losses = []
     for k in range(K):
         b = {key: val[k] for key, val in batch.items()}
@@ -272,13 +318,40 @@ def _estimate(cfg, K, agent, out, batch, large: bool) -> torch.Tensor:
         if large:
             for o, g in zip(dst, g_new):
                 o.copy_(g)
-            continue
-        _, g_old = _agent_grad(cfg, agent("prev", k), b)
-        for o, a, b_old, c in zip(dst, g_new, g_old,
-                                  _leaves(agent("v", k))):
-            o.copy_(a - b_old + c)
-        del g_old
+        else:
+            _, g_old = _agent_grad(cfg, agent("prev", k), b)
+            for o, a, b_old, c in zip(dst, g_new, g_old,
+                                      _leaves(agent("v", k))):
+                o.copy_(a - b_old + c)
+            del g_old
+        if written is not None:
+            written(k)
     return torch.stack(losses)
+
+
+def _estimate_sharded(cfg, K, sh, state, unravel, batch, large: bool):
+    """:func:`_estimate` on D-sharded stacks: each loss needs its agent's
+    whole row, so a row is gathered from the ranks in rank order when the
+    loss reads it, one agent at a time (a rank's peak grows by rows, not
+    by K), and the rank keeps its own columns of each direction. Returns
+    ``(tilde_v, losses)``."""
+    local = {"params": state.theta.to_local(), "prev": state.prev.to_local(),
+             "v": state.v.to_local()}
+    out = torch.empty_like(local["params"])
+    row = None
+
+    def agent(name, k):
+        nonlocal row
+        if isinstance(name, str):
+            return unravel(sh.gather_row(local[name][k]))
+        row = torch.empty(sh.D, dtype=out.dtype, device=out.device)
+        return unravel(row)
+
+    def written(k):
+        out[k].copy_(row[sh.lo:sh.hi])
+
+    losses = _estimate(cfg, K, agent, None, batch, large, written)
+    return sh.wrap(out), losses
 
 
 def _honest_loss(losses, byz_mask):
@@ -367,28 +440,42 @@ def fed_train_step_flat(cfg: ModelConfig, fed: FedConfig,
                         sharded: Optional[bool] = None):
     """One federated step on the flat (K, D) stack: the protocol of
     :func:`fed_train_step`, aggregated by the registry aggregator
-    ``resolve("aggregator", fed.aggregator, K=K, n_byz=fed.n_byz)`` (the
-    CUDA kernels on the card), its result broadcast to all K rows. A
-    bucketing aggregator (RFA with n_byz > 0: Lemma 3) takes the
-    receiver's permutation from ``noise.perm``. ``sharded`` takes None or
-    False: the sharded route waits for the mesh. With ``fed.telemetry``
-    the metrics add the honest ``grad_norm`` and the aggregator's
-    ``rejected`` mask (its own kernel launches: ``gram`` and
-    ``krum_score`` for Krum)."""
-    if sharded:
-        raise NotImplementedError(
-            "fed_train_step_flat(sharded=True): the sharded aggregation "
-            "route is not in the port yet")
-    K = byz_mask.shape[0]
-    views = {"params": state.theta, "prev": state.prev, "v": state.v}
+    ``resolve("aggregator", fed.aggregator, K=K, n_byz=fed.n_byz,
+    sharded=sharded)`` (the CUDA kernels on the card), its result
+    broadcast to all K rows. A bucketing aggregator (RFA with n_byz > 0:
+    Lemma 3) takes the receiver's permutation from ``noise.perm``. With
+    ``fed.telemetry`` the metrics add the honest ``grad_norm`` and the
+    aggregator's ``rejected`` mask (its own kernel launches: ``gram`` and
+    ``krum_score`` for Krum).
 
-    def agent(name, k):
-        stack = views[name] if isinstance(name, str) else name
-        return unravel(stack[k])
+    A state on a mesh (:func:`init_flat_fed_state` with ``mesh``: D split
+    over "model") takes the D-sharded route: the estimate gathers each
+    agent's row from the ranks, the aggregate and agreement combine the
+    ranks' Gram partials, the attack, Adam and the PAGE combination run
+    on the rank's columns, and ``noise`` is the whole draw (every rank
+    draws the same and takes its columns). ``sharded=True`` on a plain
+    state is the route with one shard: the ``sharded=None`` step's bits
+    and launches."""
+    K = byz_mask.shape[0]
+    _, sh = columns.local_columns(state.theta)
+    if sh is not None and sharded is False:
+        raise ValueError("fed_train_step_flat: a state on a mesh takes the "
+                         "sharded route; sharded=False cannot gather it")
 
     with obs.named_phase("fed.estimate", fed.telemetry):
-        tilde_v = torch.empty_like(state.theta)
-        losses = _estimate(cfg, K, agent, tilde_v, batch, large)
+        if sh is None:
+            views = {"params": state.theta, "prev": state.prev,
+                     "v": state.v}
+
+            def agent(name, k):
+                stack = views[name] if isinstance(name, str) else name
+                return unravel(stack[k])
+
+            tilde_v = torch.empty_like(state.theta)
+            losses = _estimate(cfg, K, agent, tilde_v, batch, large)
+        else:
+            tilde_v, losses = _estimate_sharded(cfg, K, sh, state, unravel,
+                                                batch, large)
 
     with obs.named_phase("fed.aggregate", fed.telemetry):
         if K == 1:
@@ -398,21 +485,21 @@ def fed_train_step_flat(cfg: ModelConfig, fed: FedConfig,
             tilde_v = agg_lib.attack_stacked(fed.attack, tilde_v, byz_mask,
                                              nz.attack)
             agg = resolve("aggregator", fed.aggregator, K=K,
-                          n_byz=fed.n_byz)
-            v = agg(tilde_v, nz.perm).expand(state.theta.shape)
+                          n_byz=fed.n_byz, sharded=sharded)
+            v = columns.on_columns(lambda a: a.expand(K, a.shape[-1]),
+                                   agg(tilde_v, nz.perm))
 
     metrics = {}
     if fed.telemetry:
-        norms = torch.linalg.vector_norm(tilde_v, dim=1)
-        metrics["grad_norm"] = _honest_mean(norms, byz_mask)
+        metrics["grad_norm"] = _honest_mean(columns.row_norms(tilde_v),
+                                            byz_mask)
         metrics["rejected"] = (
             torch.zeros((K,), dtype=torch.bool, device=tilde_v.device)
             if K == 1 else rejection_mask(fed.aggregator, tilde_v,
                                           fed.n_byz))
     del tilde_v
 
-    new_theta, new_opt = tree_opt_update(_optimizer(fed), v,
-                                         state.opt_state, state.theta)
+    new_theta, new_opt = _opt_update(_optimizer(fed), v, state, sh)
     with obs.named_phase("fed.agree", fed.telemetry):
         new_theta = agg_lib.gda_agree(new_theta, fed.kappa, fed.alpha_bar,
                                       mix_dtype=_mix_dtype(fed),
@@ -423,6 +510,18 @@ def fed_train_step_flat(cfg: ModelConfig, fed: FedConfig,
         obs.tap("fed", step=state.step, **metrics)
     return FlatFedState(new_theta, state.theta, v, new_opt,
                         state.step + 1), metrics
+
+
+def _opt_update(opt, v, state: FlatFedState, sh):
+    """The per-agent optimizer on the flat stacks: elementwise, so a
+    D-sharded state updates its local columns and wraps them back."""
+    if sh is None:
+        return tree_opt_update(opt, v, state.opt_state, state.theta)
+    local = lambda t: columns.local_columns(t)[0]     # noqa: E731
+    new_theta, new_opt = tree_opt_update(
+        opt, local(v), tree_map(local, state.opt_state), local(state.theta))
+    wrap = lambda t: sh.wrap(t) if t.dim() == 2 else t  # noqa: E731
+    return sh.wrap(new_theta), tree_map(wrap, new_opt)
 
 
 # ---------------------------------------------------------------------------
@@ -437,7 +536,7 @@ def fed_noise(generator: torch.Generator, fed: FedConfig, state,
     flat = isinstance(state, FlatFedState)
     rows = state.theta if flat else state.params
     leaves = _leaves(rows)
-    D = sum(leaf[0].numel() for leaf in leaves)
+    D = sum(math.prod(leaf.shape[1:]) for leaf in leaves)
     return draw_fed_noise(generator, fed, leaves[0].shape[0], D, n_byz,
                           flat)
 

@@ -1,10 +1,15 @@
-"""Host-side process helpers of the sweep service: the port of the host
-part of the JAX package's ``repro/distributed/sharding.py``.
+"""Host-side process helpers of the sweep service and the mesh's axis
+sizes: the port of the host part of the JAX package's
+``repro/distributed/sharding.py`` and its ``mesh_axis_size``.
 
 The processes exchange only host objects (carries, generator states and
 history chunks, pickled), so the process group is gloo on the CPU and on
-CUDA alike: NCCL would also refuse two ranks on one GPU. The mesh and
-parameter sharding wait for the federated-training slice.
+CUDA alike: NCCL would also refuse two ranks on one GPU. A mesh is
+torch's ``DeviceMesh`` (:mod:`repro_torch.launch.mesh`); the flat
+trainer's D split needs only :func:`mesh_axis_size`. The leaf placement
+rules of the tree trainer under a mesh (``fed_axes``, ``param_spec``,
+``param_shardings``, ``batch_spec``, ``cache_shardings``, ...) and the
+lane functions wait.
 """
 from __future__ import annotations
 
@@ -56,3 +61,10 @@ def row_block(n_rows: int, n_proc: int, pid: int) -> range:
     base, rem = divmod(n_rows, n_proc)
     start = pid * base + min(pid, rem)
     return range(start, start + base + (1 if pid < rem else 0))
+
+
+def mesh_axis_size(mesh, name: str) -> int:
+    """The size of the mesh dimension ``name``; 1 when the mesh (or None)
+    has no such dimension."""
+    names = getattr(mesh, "mesh_dim_names", None) or ()
+    return mesh.size(names.index(name)) if name in names else 1

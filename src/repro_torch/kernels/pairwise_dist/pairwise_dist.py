@@ -7,8 +7,8 @@ d > :data:`GRAM_CHUNK`, ``gram_reduce_kernel``) from
 ``kernels/pairwise_dist/pairwise_dist.py::gram``; on a CPU tensor it runs
 :func:`gram_plain`, the same chunked algorithm in PyTorch.
 
-``pairwise_sq_dists`` is plain tensor code on top: D² = diag + diagᵀ − 2G,
-clamped at 0.
+``pairwise_sq_dists`` is plain tensor code on top
+(:func:`sq_dists_from_gram`): D² = diag + diagᵀ − 2G, clamped at 0.
 """
 from __future__ import annotations
 
@@ -86,9 +86,14 @@ def _gram_cuda(x: torch.Tensor) -> torch.Tensor:
 gram = register_kernel("gram", plain=gram_plain, launch=_gram_cuda)
 
 
-def pairwise_sq_dists(x: torch.Tensor) -> torch.Tensor:
-    """(Bt, K, d) -> (Bt, K, K) squared euclidean distances, float32."""
-    g = gram(x)
+def sq_dists_from_gram(g: torch.Tensor) -> torch.Tensor:
+    """(..., K, K) Gram matrices -> squared distances ``G_ii + G_jj −
+    2 G_ij``, clamped at 0."""
     sq = torch.diagonal(g, dim1=-2, dim2=-1)
     d2 = sq[..., :, None] + sq[..., None, :] - 2.0 * g
     return torch.clamp_min(d2, 0.0)
+
+
+def pairwise_sq_dists(x: torch.Tensor) -> torch.Tensor:
+    """(Bt, K, d) -> (Bt, K, K) squared euclidean distances, float32."""
+    return sq_dists_from_gram(gram(x))

@@ -23,7 +23,7 @@ from repro_torch.core import byzpg as tbz  # noqa: E402
 from repro_torch.core import page as tpage  # noqa: E402
 from repro_torch.core.registry import resolve  # noqa: E402
 from repro_torch.core.tree import tree_map  # noqa: E402
-from repro_torch.kernels.krum_score import krum_scores  # noqa: E402
+from repro_torch.kernels.krum_score import krum_score  # noqa: E402
 from repro_torch.rl.envs import make_cartpole, make_env  # noqa: E402
 
 from torch_parity import replay_byzpg_noise  # noqa: E402
@@ -77,11 +77,11 @@ def run_both(kw, T=T):
 def test_run_byzpg_matches_jax(kw, monkeypatch):
     scores = []
 
-    def recording_scores(x, n_near):
-        scores.append(krum_scores(x, n_near))
+    def recording_scores(g, n_near):
+        scores.append(krum_score(g, n_near))
         return scores[-1]
 
-    monkeypatch.setattr(tagg, "krum_scores", recording_scores)
+    monkeypatch.setattr(tagg, "krum_score", recording_scores)
     hist, out = run_both(kw)
     # the server aggregates on every step (the coin selects the result);
     # Krum's argmin is discontinuous, so each step's winner must beat the

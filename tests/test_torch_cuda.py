@@ -905,3 +905,53 @@ def test_cuda_flat_fed_step_launches(cuda, aggregator, want, telemetry):
                                        ft.fed_noise(gen, fed, tree_st, 1),
                                        large=t == 0)
         assert not any(dispatch.launch_counts().values())
+
+
+def _launches_of(fn):
+    """fn's result and the kernel launches it made."""
+    dispatch.reset_launches()
+    out = fn()
+    return out, dispatch.launch_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec,n_byz", [("rfa", 1), ("rfa", 0), ("krum", 0),
+                                        ("krum", 1), ("trimmed_mean", 1)])
+def test_cuda_sharded_route_on_one_process_is_bit_equal(cuda, spec, n_byz):
+    """``sharded=True`` on a plain (K, D) stack is the D-sharded flat
+    layer with one shard: at D = 3,000,001 (a ragged last ``gram``
+    chunk) and K = 4, bucketed (n_byz 1: Lemma 3) and not, the same bits
+    as the unsharded route with the same kernel launches."""
+    from repro_torch.core.registry import resolve
+    x = torch.from_numpy(_stack((4, 3_000_001), 31)).to(cuda)
+    x[0] *= 10.0
+    perm = torch.tensor([[2, 0, 3, 1]], device=cuda)
+    dense = resolve("aggregator", spec, K=4, n_byz=n_byz)
+    sharded = resolve("aggregator", spec, K=4, n_byz=n_byz, sharded=True)
+    want, n_want = _launches_of(lambda: dense(x, perm))
+    got, n_got = _launches_of(lambda: sharded(x, perm))
+    assert torch.equal(got, want)
+    assert n_got == n_want and sum(n_got.values()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["cwtm", "mda"])
+def test_cuda_sharded_avg_agree_on_one_process_is_bit_equal(cuda, method):
+    """``avg_agree(sharded=True)`` on a plain θ: the unsharded rounds'
+    bits and kernels (``gossip_reduce`` for cwtm, ``gram`` for MDA),
+    under a consistent ``large_noise`` attack."""
+    import functools
+    from repro_torch.core.agreement import avg_agree
+    from repro_torch.core.attacks import large_noise
+    K, d, kappa = 6, 100_003, 3
+    theta = torch.from_numpy(_stack((K, d), 32)).to(cuda)
+    noise = torch.from_numpy(_stack((kappa, K, d), 33, 0.0)).to(cuda)
+    mask = torch.arange(K, device=cuda) < 1
+    attack = functools.partial(large_noise, sigma=10.0)
+    runs = [_launches_of(lambda: avg_agree(theta, kappa, 1, mask, method,
+                                           attack, noise, sharded=s))
+            for s in (None, True)]
+    (want, n_want), (got, n_got) = runs
+    assert torch.equal(got, want)
+    kernel = "gossip_reduce" if method == "cwtm" else "gram"
+    assert n_got == n_want and n_got[kernel] == kappa

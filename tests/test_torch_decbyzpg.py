@@ -22,7 +22,7 @@ from repro.rl.policy import resolve_policy  # noqa: E402
 
 from repro_torch.core import aggregators as tagg  # noqa: E402
 from repro_torch.core import decbyzpg as tdb  # noqa: E402
-from repro_torch.kernels.krum_score import krum_scores  # noqa: E402
+from repro_torch.kernels.krum_score import krum_score  # noqa: E402
 from repro_torch.rl.envs import make_cartpole  # noqa: E402
 
 from torch_parity import replay_step_noise  # noqa: E402
@@ -74,11 +74,11 @@ def test_run_decbyzpg_matches_jax(kw, monkeypatch):
     noise = replay_step_noise(jenv, jcfg, theta0.shape[0], T)
     scores = []
 
-    def recording_scores(x, n_near):
-        scores.append(krum_scores(x, n_near))
+    def recording_scores(g, n_near):
+        scores.append(krum_score(g, n_near))
         return scores[-1]
 
-    monkeypatch.setattr(tagg, "krum_scores", recording_scores)
+    monkeypatch.setattr(tagg, "krum_score", recording_scores)
     out = tdb.run_decbyzpg(make_cartpole(horizon=32), tcfg, T,
                            device="cpu", theta0=theta0, noise=noise)
     # Krum's argmin is discontinuous: each step's winner must beat the

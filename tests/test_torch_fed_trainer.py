@@ -9,8 +9,12 @@ with the PAGE coin 1 and 0: the tree trainer for each ``fed_aggregator``
 × attack, the flat trainer for each registry aggregator × attack (RFA
 buckets by Lemma 3 with the replayed permutation), a frontend family
 with prefix embeddings on both. The JAX steps are jitted once per
-aggregator (its four attacks in one program) with a traced coin. Then the window against the per-step loop, the
-tree trainer against the flat one, and ``common_sample_coin``.
+aggregator (its four attacks in one program) with a traced coin, every
+program sharing one trace of the model's loss
+(``torch_parity.shared_loss_trace``). Then the window against the
+per-step loop, the tree trainer against the flat one, the flat step's
+``sharded=True`` route on one process against ``sharded=None``, and
+``common_sample_coin``.
 
 Tolerances: the per-agent gradients are f32 sums over the batch's
 positions in other orders, and Adam divides by √v̂ ≥ 1e-2 here, so θ
@@ -48,7 +52,7 @@ from repro_torch.distributed import aggregation as tagg  # noqa: E402
 from repro_torch.distributed import fed_trainer as tft  # noqa: E402
 from repro_torch.models.model import param_shapes  # noqa: E402
 
-from torch_parity import replay_fed_noise  # noqa: E402
+from torch_parity import replay_fed_noise, shared_loss_trace  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -196,9 +200,9 @@ def krum_inputs(monkeypatch):
                                for _, leaf in tree_paths(tree)], dim=1))
         return agg_krum(tree, n_byz)
 
-    def flat_krum(x, n_byz, m=1):
+    def flat_krum(x, n_byz, m=1, sharded=None):
         seen.append(x[0])
-        return krum(x, n_byz, m)
+        return krum(x, n_byz, m, sharded)
 
     monkeypatch.setattr(tagg, "agg_krum", tree_krum)
     monkeypatch.setattr(taggs, "krum", flat_krum)
@@ -240,10 +244,11 @@ def _reference(aggregator, flat, arch="llama3.2-1b", attacks=ATTACKS,
 
     step = jax.jit(run)
     out = {}
-    for large in (True, False):
-        for att, res in step(jstate, batch, jnp.asarray(mask), key,
-                             jnp.asarray(large)).items():
-            out[f"{att}|{large}"] = res
+    with shared_loss_trace():
+        for large in (True, False):
+            for att, res in step(jstate, batch, jnp.asarray(mask), key,
+                                 jnp.asarray(large)).items():
+                out[f"{att}|{large}"] = res
     return jstate, batch, mask, key, out
 
 
@@ -315,14 +320,38 @@ def test_single_agent_step(krum_inputs):
               k=1, n_byz=0)
 
 
-def test_flat_step_refuses_the_sharded_route():
-    _, tcfg = _cfgs()
-    _, tfed = _feds()
-    state, unravel = tft.init_flat_fed_state(tcfg, tfed, 2, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="sharded"):
-        tft.fed_train_step_flat(tcfg, tfed, state, unravel, {},
-                                torch.zeros(2, dtype=torch.bool),
-                                large=True, sharded=True)
+@pytest.mark.parametrize("aggregator", ["rfa", "krum", "trimmed_mean"])
+def test_sharded_flat_step_on_one_process_is_bit_equal(aggregator):
+    """``fed_train_step_flat(sharded=True)`` on a plain state is the
+    D-sharded route with one shard: θ, prev, v, Adam's state and every
+    metric (telemetry on) equal the ``sharded=None`` step bit for bit,
+    coin 1 and 0, under ``large_noise`` (bucketed RFA included). The
+    multi-rank route is ``tests/test_torch_sharded_aggregation.py``'s."""
+    jcfg, tcfg = _cfgs()
+    jfed, tfed = _feds(aggregator=aggregator,
+                       attack="large_noise(sigma=10)", telemetry=True)
+    jstate, _ = _mid_state(jcfg, jfed, True, seed=6)
+    jstate = jax.tree.map(np.asarray, jstate)
+    mask = np.arange(K) < 1
+    noise = replay_fed_noise(jax.random.PRNGKey(13), jstate.theta, mask,
+                             tfed, True)
+    b = {k: torch.from_numpy(np.array(v)) for k, v in _batch(jcfg).items()}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)       # one thread: the CPU's sums in one order
+    try:
+        for large in (True, False):
+            runs = [tft.fed_train_step_flat(
+                tcfg, tfed, fed_state_from_jax(jstate, "cpu"),
+                _unravel(tcfg), b, torch.from_numpy(mask), noise,
+                large=large, sharded=sharded) for sharded in (None, True)]
+            (a, am), (c, cm) = runs
+            for (_, x), (_, y) in zip(tree_paths(a), tree_paths(c)):
+                assert torch.equal(x, y)
+            assert am.keys() == cm.keys()
+            for key in am:
+                assert torch.equal(am[key], cm[key]), key
+    finally:
+        torch.set_num_threads(threads)
 
 
 def test_init_states_match_the_reference_layout():
@@ -424,9 +453,10 @@ def test_window_matches_the_per_step_loop_and_the_reference():
         assert torch.equal(a, b)
 
     key = jax.random.PRNGKey(21)
-    want_state, want_m = jax.jit(lambda s, b, k: jft.fed_train_window(
-        jcfg, jfed, s, b, jnp.asarray(mask), jnp.asarray(ts), k))(
-            jstate, batches, key)
+    with shared_loss_trace():
+        want_state, want_m = jax.jit(lambda s, b, k: jft.fed_train_window(
+            jcfg, jfed, s, b, jnp.asarray(mask), jnp.asarray(ts), k))(
+                jstate, batches, key)
     coin_key = jft.fed_coin_key(jfed)
     coins = [bool(jengine.page_coin(coin_key, int(t), jfed.page_p))
              for t in ts]

@@ -6,7 +6,9 @@ These helpers replay the reference's key tree with ``jax.random`` and hand
 the port the very numbers the reference consumed, as CPU tensors (a
 federated LLM step's as a ``FedNoise``).
 :func:`routing_margins` records how close the port's MoE layers came to a
-discontinuity in their routing.
+discontinuity in their routing; :func:`shared_loss_trace` lets the
+federated reference programs of a test module share one trace of the
+model's loss.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from repro.core import engine
+from repro.distributed import fed_trainer as jft
 from repro_torch.core.noise import FedNoise, StepNoise
 from repro_torch.core.registry import resolve as torch_resolve
 
@@ -46,6 +49,28 @@ def routing_margins():
         yield margins
     finally:
         moe.moe_forward = orig
+
+
+#: the reference trainer's loss as one jitted function for the whole
+#: session, so its trace cache outlives each program that calls it
+_JIT_LOSS = jax.jit(jft._loss, static_argnums=0)
+
+
+@contextlib.contextmanager
+def shared_loss_trace():
+    """While active, ``repro.distributed.fed_trainer`` computes its loss
+    through :data:`_JIT_LOSS`: every federated step program traced under
+    it (any aggregator, attack or trainer) reuses one trace of the
+    model's loss, forward and gradient, per shape, instead of tracing the
+    model again. XLA inlines the inner program, so the steps' results are
+    the same bits (checked on the tree and flat steps with every attack
+    when this was added)."""
+    orig = jft._loss
+    jft._loss = _JIT_LOSS
+    try:
+        yield
+    finally:
+        jft._loss = orig
 
 
 @functools.partial(jax.jit, static_argnums=(0, 2))
