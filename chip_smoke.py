@@ -120,9 +120,13 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    384,313,344 each), n_byz = 1 ``large_noise(sigma=10)``, κ = 3, Adam:
    the tree trainer's ``fed_train_window`` over 5 steps (both coins,
    finite, the t = 0 honest loss against ``lm_loss_labeled`` at θ₀, no
-   kernel launch, peak memory, a bit-equal repeat, ms per step and per
-   phase); the flat trainer with bucketed RFA, Krum and the trimmed mean
-   for 3 steps each with exact launches, every launch of its last step
+   kernel launch, peak memory, ms per step and per phase), then the
+   same steps through ``make_fed_step`` on a one-rank ("data", "model")
+   = (1, 1) mesh (the placed state, not copied): coins, parameters,
+   losses and diameters bit-equal, the window's peak to the byte, ms
+   per step beside the window's; the flat trainer with
+   bucketed RFA, Krum and the trimmed mean for 3 steps each with exact
+   launches, every launch of its last step
    held against the plain version at that D (per-entry scales, the
    ragged ``gram`` chunk included) and timed beside its bound; the two
    trainers against each other (mean, no attack); the reduced model on
@@ -132,8 +136,10 @@ Phases, each of which raises on failure (so the exit code is non-zero):
 10c. The D-sharded flat trainer (``fed_train_step_flat(sharded=True)``):
    (a) after each full-width flat run of phase 10, the same 3 steps with
    ``sharded=True`` on one process (the sharded flat layer with one
-   shard), bit-equal in every state field, loss and diameter, with the
-   same launches per step, its ms per step, phases and peak; (b) the
+   shard), bit-equal in every state field, loss and diameter (the first
+   run's state kept in one set of pinned host buffers, compared field by
+   field on the card), with the same launches per step, its ms per
+   step, phases and peak; (b) the
    reduced model over two gloo ranks on the one card (``chip_smoke.py
    --fed-rank``, fresh processes; NCCL refuses two ranks on one GPU), D
    split in two over a ("data", "model") = (1, 2) mesh, RFA without the
@@ -146,6 +152,21 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    launches per step the one-process run's, and each rank's peak across
    the aggregate call below its whole stack. Their launches join the
    totals.
+10d. The tree trainer under a mesh (``make_fed_step``): the reduced
+   model over four gloo ranks on the one card (``chip_smoke.py
+   --fed-tree-rank``, fresh processes, one process group), a ("data",
+   "model") = (2, 2) mesh: ``fed_axis="data"`` (K = 2 over "data", the
+   leaves split over "model") with mean and RFA, and ``fed_axis="all"``
+   (K = 4, one agent a rank) with Krum and the trimmed mean under
+   ``large_noise(sigma=10)``, 2 steps each, against the one-process
+   tree step on the card from the same init and draws: θ within
+   ``FED_RANK_TOL`` of max|θ|, the losses within ``FED_LOSS_TOL``,
+   Krum's margins, no kernel launch, each rank's allocation across a
+   step within what its own blocks and one agent's whole leaves explain
+   (``_tree_rank_bound``, a bound that one gathered field of the stack
+   would cross), the ranks' wall.
+   ``[time]`` lines give phase 10's tree runs, its flat runs with 10c
+   (a), 10c (b) and 10d.
 9. The kernel table as one JSON line (``device_ms`` and
    ``library_device_ms`` beside the issue-bound ``ms`` and
    ``library_ms``), then
@@ -2850,6 +2871,65 @@ def _fed_tree_run(cfg, fed, dev, batches, mask):
         batches, mask, range(FED_TREE_T), gen)
 
 
+@contextlib.contextmanager
+def _one_rank_group():
+    """A gloo process group of this one process on a free localhost
+    port, for a one-rank mesh; destroyed on exit."""
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _fed_mesh_repeat(cfg, fed, dev, batches, mask):
+    """The window's FED_TREE_T steps again through ``make_fed_step`` on a
+    one-rank ("data", "model") = (1, 1) mesh: the seeded generator's
+    coins and draws in the window's order, each step the step of its
+    coin, the placed state made from the common init without a copy.
+    Returns (state, metrics stacked, coins, ms per step, peak bytes,
+    bytes allocated when the peak was reset: the mesh made)."""
+    import torch
+    from repro_torch.core.engine import seed_generator
+    from repro_torch.core.noise import draw_fed_coins
+    from repro_torch.distributed.fed_trainer import (fed_noise,
+                                                     init_fed_state,
+                                                     make_fed_step,
+                                                     place_fed_state)
+    from repro_torch.launch.mesh import make_debug_mesh
+    with _one_rank_group():
+        mesh = make_debug_mesh(1, 1, device_type=dev.type)
+        steps = {c: make_fed_step(cfg, fed, mesh, large=c,
+                                  per_agent_batch=FED_BATCH,
+                                  seq_len=FED_SEQ)[0] for c in (True, False)}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        gen = seed_generator(fed.seed, dev)
+        coins = draw_fed_coins(gen, range(FED_TREE_T), fed.page_p)
+        state = place_fed_state(
+            init_fed_state(cfg, fed, FED_K, FED_SEED, device=dev), mesh, cfg)
+        rows, ms = [], []
+        for t, coin in enumerate(coins):
+            batch = {k: v[t] for k, v in batches.items()}
+            nz = fed_noise(gen, fed, state, FED_BYZ)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = steps[coin](state, batch, mask, nz)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            rows.append(m)
+        peak = torch.cuda.max_memory_allocated()
+    out = {k: torch.stack([m[k] for m in rows]) for k in rows[0]}
+    return state, out, coins, ms, peak, base
+
+
 def phase_fed_tree(dev):
     """``fed_tree_llama``: the tree trainer's window over FED_TREE_T steps
     at full width (K = 4, n_byz = 1 ``large_noise(sigma=10)``,
@@ -2857,8 +2937,11 @@ def phase_fed_tree(dev):
     per agent): both coins occur, every output is finite, the t = 0 honest
     loss equals the mean of ``lm_loss_labeled`` at θ₀ on the honest
     agents' batches, the peak stays under FED_PEAK_LIMIT, no kernel
-    launches (the tree aggregators are plain, as the reference's), and a
-    repeat from the seed is bit-equal."""
+    launches (the tree aggregators are plain, as the reference's). Then
+    the same steps through ``make_fed_step`` on a one-rank (1, 1) mesh
+    (:func:`_fed_mesh_repeat`, the placed state's route with every split
+    of size 1): the same coins, parameters, losses and diameters bit for
+    bit, at the window's peak to the byte, no kernel launch."""
     import torch
     from repro_torch.core.tree import tree_paths
     from repro_torch.distributed.fed_trainer import FedConfig
@@ -2877,8 +2960,14 @@ def phase_fed_tree(dev):
                             steps[0]["labels"][k])
             for k in range(FED_BYZ, FED_K)]).mean().item()
         del p0
+    # the autograd thread's cuBLAS workspace (32 MiB, kept for the
+    # process) is made here, before both runs' peaks are measured
+    w = torch.ones((2, 2), device=dev, requires_grad=True)
+    (w @ w).sum().backward()
+    del w
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     dispatch.reset_launches()
     t0 = time.perf_counter()
@@ -2908,15 +2997,27 @@ def phase_fed_tree(dev):
         raise AssertionError(f"fed_tree_llama: peak {peak} bytes >= "
                              f"{FED_PEAK_LIMIT}")
     kept = [t.cpu() for t in leaves]
+    m = {k: v.cpu() for k, v in m.items()}
     del state, leaves
     torch.cuda.empty_cache()
+    dispatch.reset_launches()
     with _FedTimer() as warm:
-        again, m2 = _fed_tree_run(cfg, fed, dev, batches, mask)
-    same = all(torch.equal(a, b.cpu()) for a, (_, b) in
+        again, m2, coins2, mesh_ms, mesh_peak, mesh_base = _fed_mesh_repeat(
+            cfg, fed, dev, batches, mask)
+    mesh_counts = dispatch.launch_counts()
+    _check_launches("fed_tree_llama_mesh", mesh_counts, {})
+    from repro_torch.carriers import placed
+    same = all(torch.equal(a, placed.local(b).cpu()) for a, (_, b) in
                zip(kept, tree_paths(again.params)))
-    if not (same and torch.equal(m2["loss"], m["loss"])
-            and torch.equal(m2["diameter"], m["diameter"])):
-        raise AssertionError("fed_tree_llama: a repeat is not bit-equal")
+    if not (same and coins2 == coins
+            and torch.equal(m2["loss"].cpu(), m["loss"])
+            and torch.equal(m2["diameter"].cpu(), m["diameter"])):
+        raise AssertionError("fed_tree_llama: the make_fed_step repeat on a "
+                             "one-rank mesh is not bit-equal")
+    if (mesh_peak, mesh_base) != (peak, base):
+        raise AssertionError(f"fed_tree_llama: the one-rank mesh's peak "
+                             f"{mesh_peak} bytes from {mesh_base} at its "
+                             f"start, the window's {peak} from {base}")
     del again, kept
     torch.cuda.empty_cache()
     phases, warm_phases = ({k: [round(x, 3) for x in v]
@@ -2930,11 +3031,19 @@ def phase_fed_tree(dev):
         f"{[round(x, 6) for x in losses]} diameter {diam} ms/step "
         f"{[round(x, 3) for x in timer.step_ms]} (window "
         f"{secs * 1e3:.3f} ms, synchronised; step 0 holds the first "
-        f"calls' set-up), the repeat's {[round(x, 3) for x in warm.step_ms]}"
-        f"; phase ms per step {phases}, the repeat's {warm_phases}; "
-        f"peak memory {peak} bytes ({peak / 2 ** 30:.3f} GiB); t=0 honest "
-        f"loss {losses[0]:.6f} vs lm_loss_labeled at θ₀ {want0:.6f}; 0 "
-        f"kernel launches; a repeat is bit-equal")
+        f"calls' set-up); phase ms per step {phases}; peak memory {peak} "
+        f"bytes ({peak / 2 ** 30:.3f} GiB); t=0 honest loss "
+        f"{losses[0]:.6f} vs lm_loss_labeled at θ₀ {want0:.6f}; 0 kernel "
+        f"launches")
+    log(f"[fed] {card()}: fed_tree_llama_mesh (the same steps through "
+        f"make_fed_step on a one-rank (data, model) = (1, 1) mesh, the "
+        f"placed state made without a copy): ms/step "
+        f"{[round(x, 3) for x in mesh_ms]} against the window's "
+        f"{[round(x, 3) for x in timer.step_ms]}; phase ms per step "
+        f"{warm_phases}; peak memory {mesh_peak} bytes from {mesh_base} "
+        f"allocated at its start, the window's to the byte; coins, "
+        f"parameters, losses and diameters bit-equal to the window; 0 "
+        f"kernel launches")
     return counts
 
 
@@ -3092,6 +3201,35 @@ def _flat_fields(state) -> dict:
             "adam step": state.opt_state.step, "step": state.step}
 
 
+class _HostFields:
+    """Pinned host buffers for a state's fields, allocated at the first
+    :meth:`keep` and reused by every later one of the same shapes (26 GB
+    for a full-width flat state); :meth:`equal` brings one field at a
+    time back to the card and compares it there, bit for bit."""
+
+    def __init__(self):
+        self.bufs = {}
+
+    def keep(self, fields: dict) -> None:
+        import torch
+        for k, v in fields.items():
+            buf = self.bufs.get(k)
+            if buf is None or buf.shape != v.shape or buf.dtype != v.dtype:
+                buf = self.bufs[k] = torch.empty(
+                    v.shape, dtype=v.dtype, pin_memory=v.is_cuda)
+            buf.copy_(v)
+
+    def equal(self, fields: dict) -> bool:
+        import torch
+        for k, v in fields.items():
+            back = self.bufs[k].to(v.device)
+            same = torch.equal(v, back)
+            del back
+            if not same:
+                return False
+        return True
+
+
 def phase_fed_flat(dev):
     """``fed_flat_llama_{rfa,krum,trimmed_mean}``: the flat trainer at
     full width, FED_FLAT_T steps each (coins FED_FLAT_COINS) with the
@@ -3112,6 +3250,7 @@ def phase_fed_flat(dev):
     from repro_torch.distributed.fed_trainer import FedConfig
     cfg = _fed_cfg()
     totals = {}
+    host = _HostFields()
     for agg, per_step in FED_FLAT_LAUNCHES.items():
         label = f"fed_flat_llama_{agg}"
         fed = FedConfig(aggregator=agg, **FED_KW)
@@ -3126,7 +3265,9 @@ def phase_fed_flat(dev):
         if not peak < FED_PEAK_LIMIT:
             raise AssertionError(f"{label}: peak {peak} bytes >= "
                                  f"{FED_PEAK_LIMIT}")
-        kept = {k: v.cpu() for k, v in _flat_fields(state).items()}
+        t0 = time.perf_counter()
+        host.keep(_flat_fields(state))
+        keep_s = time.perf_counter() - t0
         del state
         torch.cuda.empty_cache()
         lines = _fed_kernel_rows(seen, dev)
@@ -3146,10 +3287,10 @@ def phase_fed_flat(dev):
             cfg, fed, dev, sharded=True)
         _check_launches(label, counts, want)
         _add(totals, counts)
-        same = srows == rows and all(
-            torch.equal(v, kept[k].to(dev))
-            for k, v in _flat_fields(state).items())
-        del state, kept
+        t0 = time.perf_counter()
+        same = srows == rows and host.equal(_flat_fields(state))
+        cmp_s = time.perf_counter() - t0
+        del state
         torch.cuda.empty_cache()
         if not same:
             raise AssertionError(f"{label}: sharded=True is not bit-equal to "
@@ -3166,7 +3307,9 @@ def phase_fed_flat(dev):
             f"launches/step {per_step} (the unsharded run's) peak memory "
             f"over steps 0-1 {speak} bytes ({speak / 2 ** 30:.3f} GiB; "
             f"unsharded {peak}); theta, prev, v, Adam m, v and step and "
-            f"every (loss, diameter) bit-equal to {flat_label}")
+            f"every (loss, diameter) bit-equal to {flat_label} (the state "
+            f"kept in pinned host buffers in {keep_s:.1f} s, compared "
+            f"field by field on the card in {cmp_s:.1f} s)")
     return totals
 
 
@@ -3229,7 +3372,7 @@ def _fed_rank_runs(dev, who, mesh=None, krum_stacks=None):
     from repro_torch.configs import get_config, reduced
     from repro_torch.core import aggregators
     from repro_torch.data import DataConfig, TokenPipeline
-    from repro_torch.distributed import columns
+    from repro_torch.carriers import columns
     from repro_torch.distributed import fed_trainer as ft
     from repro_torch.kernels import dispatch
     cfg = reduced(get_config(FED_ARCH))
@@ -3408,6 +3551,250 @@ def phase_fed_two_ranks(dev):
             f"call {peaks} bytes against its (K, D/{FED_RANKS}) shard of "
             f"{shard} bytes{gaps}; the ranks' wall {secs:.1f} s")
     return totals
+
+
+#: phase 10d: the tree trainer over four gloo ranks on the one card, one
+#: ("data", "model") = (2, 2) mesh: (fed_axis, aggregator, attack). With
+#: fed_axis "data" K = 2 agents over "data", each leaf split over "model"
+#: (RFA without the attack, as in 10c b); with "all" K = 4, one agent a
+#: rank, leaves whole
+FED_TREE_RANKS, FED_TREE_RANK_T = 4, 2
+FED_TREE_RANK_CASES = (("data", "mean", "none"), ("data", "rfa", "none"),
+                       ("all", "krum", "large_noise(sigma=10)"),
+                       ("all", "trimmed_mean", "large_noise(sigma=10)"))
+
+
+def _fed_tree_rank_runs(dev, mesh=None, krum_stacks=None):
+    """FED_TREE_RANK_T tree steps (coin 1, then 0) of the reduced model
+    per FED_TREE_RANK_CASES case, from the seed-1 init with draws from a
+    generator on ``dev`` seeded 2: through ``make_fed_step`` on ``mesh``
+    (the placed state), or ``fed_train_step`` on one process. Each step's
+    peak (``max_memory_allocated`` after a reset at its start), the bytes
+    allocated at its start and its launches are recorded, the cuBLAS
+    workspaces of both autograd threads made first (64 MiB, more than
+    this model's state); ``krum_stacks`` collects the (K, D) stacks Krum
+    scores. Returns {case: parameter blocks (path, block on the host,
+    its index), losses, peaks, starts, launches, ms per step, and the
+    byte counts of :func:`_tree_rank_bound`: one field's blocks, its
+    leaves gathered whole for a loss and the largest leaf's K rows}."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.tree import tree_paths
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.distributed import aggregation as agg_lib
+    from repro_torch.distributed import fed_trainer as ft
+    from repro_torch.carriers import placed
+    from repro_torch.distributed.sharding import AbstractMesh, n_agents
+    from repro_torch.kernels import dispatch
+    cfg0 = reduced(get_config(FED_ARCH))
+    shape = AbstractMesh((2, 2), ("data", "model"))
+    agg_krum = agg_lib.agg_krum
+    cuda = dev.type == "cuda"
+    w = torch.ones((2, 2), device=dev, requires_grad=True)
+    (w @ w).sum().backward()
+    del w
+
+    def recorded(tree, n_byz):
+        krum_stacks.append(torch.cat([x.reshape(x.shape[0], -1) for _, x in
+                                      tree_paths(tree)], dim=1).cpu())
+        return agg_krum(tree, n_byz)
+
+    out = {}
+    for axis, agg, attack in FED_TREE_RANK_CASES:
+        cfg = dataclasses.replace(cfg0, fed_axis=axis)
+        K = n_agents(cfg, shape)
+        fed = ft.FedConfig(aggregator=agg, **dict(FED_KW, attack=attack))
+        pipe = TokenPipeline(DataConfig(cfg.vocab_size, 32, 2, K, seed=1),
+                             device=dev)
+        mask = torch.arange(K, device=dev) < FED_BYZ
+        state = ft.init_fed_state(cfg, fed, K, 1, device=dev)
+        if mesh is not None:
+            state = ft.place_fed_state(state, mesh, cfg)
+            steps = {c: ft.make_fed_step(cfg, fed, mesh, large=c)[0]
+                     for c in (True, False)}
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(2)
+        rec = {"losses": [], "peaks": [], "starts": [], "launches": [],
+               "ms": []}
+        if krum_stacks is not None:
+            agg_lib.agg_krum = recorded
+        try:
+            for t in range(FED_TREE_RANK_T):
+                nz = ft.fed_noise(gen, fed, state, FED_BYZ)
+                batch = pipe.batch(t)
+                if cuda:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                rec["starts"].append(torch.cuda.memory_allocated()
+                                     if cuda else 0)
+                dispatch.reset_launches()
+                t0 = time.perf_counter()
+                if mesh is None:
+                    state, m = ft.fed_train_step(cfg, fed, state, batch,
+                                                 mask, nz, large=t == 0)
+                else:
+                    state, m = steps[t == 0](state, batch, mask, nz)
+                if cuda:
+                    torch.cuda.synchronize()
+                rec["ms"].append((time.perf_counter() - t0) * 1e3)
+                rec["peaks"].append(torch.cuda.max_memory_allocated()
+                                    if cuda else 0)
+                rec["launches"].append(dispatch.launch_counts())
+                rec["losses"].append(m["loss"].item())
+        finally:
+            agg_lib.agg_krum = agg_krum
+        rec["blocks"] = []
+        field = gathered = rows = 0
+        for path, x in tree_paths(state.params):
+            lay, blk = placed.layout(x), placed.local(x)
+            rec["blocks"].append((path, blk.cpu(), None if lay is None
+                                  else lay.index()))
+            field += blk.numel() * blk.element_size()
+            rows = max(rows, K * blk[0].numel() * blk.element_size())
+            if lay is not None and lay.trailing:
+                gathered += math.prod(x.shape[1:]) * blk.element_size()
+        rec.update(K=K, attack=attack, field=field, gathered=gathered,
+                   rows=rows, D=sum(math.prod(x.shape[1:])
+                                    for _, x in tree_paths(state.params)))
+        out[axis, agg] = rec
+    return out
+
+
+def _tree_rank_bound(rank: dict, large: bool) -> int:
+    """The most a rank of phase 10d may allocate across a step above its
+    start, from its own byte counts (``_fed_tree_rank_runs``): its
+    estimate holds its block of the directions, the fields its loss reads
+    gathered whole (params on a large step; params, prev and v on a PAGE
+    step, one at a time, so this also covers the whole direction buffer)
+    and its whole gradients (one, or two on a PAGE step); after the
+    estimate it holds at most seven fields at its block (the directions,
+    their attacked copy, the aggregate, Adam's two new moments and new
+    parameters, one agreement round's mix); the larger of the two, plus
+    one leaf's K rows gathered for the aggregation. W is one agent's
+    whole leaves, 4 D bytes."""
+    w = 4 * rank["D"]
+    reads, grads = (1, 1) if large else (3, 2)
+    estimate = rank["field"] + reads * rank["gathered"] + grads * w
+    return max(estimate, 7 * rank["field"]) + rank["rows"]
+
+
+def fed_tree_rank_main(argv) -> int:
+    """``chip_smoke.py --fed-tree-rank RANK WORLD PORT OUT DEVICE``: one
+    rank of phase 10d, in a gloo group on localhost:PORT, on DEVICE's type
+    (``cuda``: the card), on a ("data", "model") = (2, 2) mesh; writes its
+    results to OUT."""
+    rank, world, port, dst, dev = argv
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=int(world), rank=int(rank))
+    try:
+        mesh = make_debug_mesh(2, 2, device_type=dev)
+        torch.save(_fed_tree_rank_runs(torch.device(dev), mesh), dst)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_fed_tree_ranks(dev):
+    """Phase 10d: the tree trainer over FED_TREE_RANKS gloo ranks on the
+    one card (fresh processes, one process group for every case), each
+    case of FED_TREE_RANK_CASES through ``make_fed_step`` on the (2, 2)
+    mesh against the one-process ``fed_train_step`` on the card from the
+    same init and draws: every rank's parameter blocks within
+    FED_RANK_TOL of max|θ|, the losses within FED_LOSS_TOL, Krum's margins
+    above 1e-4, no kernel launch, and what each rank allocates across a
+    step above its start (its peak less its resident blocks, batch and
+    cuBLAS workspaces) within :func:`_tree_rank_bound`. The bound must
+    lie below the rank's reading plus one whole field of the stack (K
+    agents' whole leaves, 4 K D bytes), so a rank that gathered a field
+    would cross it; the one-process step's allocation above its start is
+    logged beside it. On the CPU (a rehearsal) no allocation is read."""
+    import os
+    import socket
+    import tempfile
+    import torch
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    with tempfile.TemporaryDirectory() as tmp:
+        dsts = [os.path.join(tmp, f"rank{r}.pt")
+                for r in range(FED_TREE_RANKS)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--fed-tree-rank",
+             str(r), str(FED_TREE_RANKS), str(port), dsts[r], dev.type],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for r in range(FED_TREE_RANKS)]
+        try:
+            stacks = []
+            want = _fed_tree_rank_runs(dev, krum_stacks=stacks)
+            for p in procs:
+                _, err = p.communicate(timeout=FED_RANK_TIMEOUT_S)
+                if p.returncode != 0:
+                    raise AssertionError(f"fed tree rank exited "
+                                         f"{p.returncode}:\n{err[-3000:]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        secs = time.perf_counter() - t0
+        ranks = [torch.load(d, weights_only=False) for d in dsts]
+    margins = [_krum_gap(x, max(FED_K - FED_BYZ - 2, 1)) for x in stacks]
+    if not min(margins) > 1e-4:
+        raise AssertionError(f"fed tree ranks: Krum margins {margins}")
+    for (axis, agg), one in want.items():
+        whole = {path: x for path, x, _ in one["blocks"]}
+        scale = max(x.abs().max().item() for x in whole.values())
+        err = max((block - whole[path][idx]).abs().max().item()
+                  for r in ranks
+                  for path, block, idx in r[axis, agg]["blocks"])
+        loss_err = max(abs(a - b) for r in ranks for a, b in
+                       zip(r[axis, agg]["losses"], one["losses"]))
+        launches = [c for r in [one, *(r[axis, agg] for r in ranks)]
+                    for c in r["launches"] if any(c.values())]
+        stack = 4 * one["K"] * one["D"]
+        peaks = [p for r in ranks for p in r[axis, agg]["peaks"]]
+        above = [p - b for r in ranks for p, b in
+                 zip(r[axis, agg]["peaks"], r[axis, agg]["starts"])]
+        bounds = [_tree_rank_bound(r[axis, agg], t == 0) for r in ranks
+                  for t in range(FED_TREE_RANK_T)]
+        one_above = [p - b for p, b in zip(one["peaks"], one["starts"])]
+        memory = dev.type != "cuda" or all(
+            a <= b < a + stack for a, b in zip(above, bounds))
+        if not (err <= FED_RANK_TOL * scale and loss_err <= FED_LOSS_TOL
+                and not launches and memory):
+            raise AssertionError(
+                f"fed tree ranks, {axis}/{agg}: theta max abs err {err} "
+                f"(max|theta| {scale}), loss |diff| {loss_err}, launches "
+                f"{launches}, step peaks {peaks}, above their starts "
+                f"{above} against the bounds {bounds} (each must lie "
+                f"below its reading plus one field of the stack, {stack} "
+                f"bytes)")
+        gaps = (f"; Krum margins {[round(m, 6) for m in margins]}"
+                if agg == "krum" else "")
+        ms = [[round(x, 3) for x in r[axis, agg]["ms"]] for r in ranks]
+        log(f"[fed] {card()}: fed_tree_ranks_{axis}_{agg} (phase 10d: "
+            f"reduced {FED_ARCH}, D={one['D']}, fed_axis {axis}, K="
+            f"{one['K']} over {FED_TREE_RANKS} gloo ranks on the one card, "
+            f"(data, model) = (2, 2), attack {one['attack']}, "
+            f"{FED_TREE_RANK_T} steps through make_fed_step): theta max "
+            f"abs err {err:.3e} = {err / scale:.3e} of max|theta| (tol "
+            f"{FED_RANK_TOL}) against the one-process tree step on the "
+            f"card, loss |diff| {loss_err:.3e} (tol {FED_LOSS_TOL}), 0 "
+            f"kernel launches, each rank's allocation across a step above "
+            f"its start {above} bytes (peaks {peaks}) within the bounds "
+            f"{bounds}, each below its reading plus one field of the stack "
+            f"({stack}); the one-process step's {one_above}; "
+            f"ms/step per rank {ms}, one process "
+            f"{[round(x, 3) for x in one['ms']]}{gaps}; the ranks' wall "
+            f"{secs:.1f} s")
 
 
 def phase_fed_tree_vs_flat(dev):
@@ -3604,11 +3991,19 @@ def phase_fed(dev):
     repeat), phase 10c (b) over two ranks, tree against flat, the card
     against the CPU and the CLI. Returns the launches per kernel."""
     totals = {}
+    t0 = time.perf_counter()
     _add(totals, phase_fed_tree(dev))
+    log(f"[time] phase 10 tree runs {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     _add(totals, phase_fed_flat(dev))
+    log(f"[time] phase 10 flat runs with 10c (a) "
+        f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     _add(totals, phase_fed_two_ranks(dev))
     log(f"[time] phase 10c (b) two ranks {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_fed_tree_ranks(dev)
+    log(f"[time] phase 10d tree ranks {time.perf_counter() - t0:.1f} s")
     phase_fed_tree_vs_flat(dev)
     phase_fed_cpu_agreement(dev)
     phase_fed_cli(dev)
@@ -3707,4 +4102,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--fed-rank"]:
         sys.exit(fed_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--fed-tree-rank"]:
+        sys.exit(fed_tree_rank_main(sys.argv[2:]))
     sys.exit(main())

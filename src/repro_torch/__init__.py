@@ -3,8 +3,9 @@
 The JAX package ``repro`` is the reference; this package mirrors its layout
 (``core/``, ``rl/``, ``optim/``, ``topology/``, ``kernels/``, ``configs/``,
 ``models/``, ``distributed/``, ``serving/``, ``launch/``, ``obs/``,
-``checkpoint/``, ``sweep/``) and imports neither ``jax`` nor anything of
-``repro``. Its entry points run on the CUDA device unless the caller asks
+``checkpoint/``, ``sweep/``), adds the DTensor carriers of its
+distributed routes (``carriers/``), and imports neither ``jax`` nor
+anything of ``repro``. Its entry points run on the CUDA device unless the caller asks
 for the CPU (:func:`resolve_device`).
 
 The front door, as in the reference, resolves lazily::

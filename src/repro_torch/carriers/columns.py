@@ -43,6 +43,21 @@ def _chunk(D: int, n: int, i: int) -> tuple:
     return lo, min(lo + step, D)
 
 
+def gather_over(t: torch.Tensor, mesh, dim: int) -> list:
+    """Every rank's ``t`` (the same shape on each), in rank order over the
+    mesh dimension ``dim``: one ``all_gather``. A gloo group takes no
+    CUDA tensor in ``all_gather`` (two ranks on one GPU run gloo: NCCL
+    refuses them), so there ``t`` is staged through the host and the
+    parts stay there; the sums that follow are the same IEEE operations
+    on either device."""
+    group = mesh.get_group(dim)
+    host = t.is_cuda and dist.get_backend(group) == "gloo"
+    src = (t.cpu() if host else t).contiguous()
+    parts = [torch.empty_like(src) for _ in range(mesh.size(dim))]
+    dist.all_gather(parts, src, group=group)
+    return parts
+
+
 class Shards(NamedTuple):
     """Where a stack's last axis lives: the ``mesh``, the mesh dimension
     ``dim`` that splits it (None: replicated), the global width ``D`` and
@@ -74,26 +89,13 @@ class Shards(NamedTuple):
                                   shape=torch.Size(shape),
                                   stride=tuple(stride))
 
-    def _gather(self, t: torch.Tensor) -> list:
-        """Every rank's ``t`` (the same shape on each), in rank order over
-        ``dim``: one ``all_gather``. A gloo group takes no CUDA tensor in
-        ``all_gather`` (two ranks on one GPU run gloo: NCCL refuses them),
-        so there ``t`` is staged through the host; the sums that follow
-        are the same IEEE operations on either device."""
-        group = self.mesh.get_group(self.dim)
-        host = t.is_cuda and dist.get_backend(group) == "gloo"
-        src = (t.cpu() if host else t).contiguous()
-        parts = [torch.empty_like(src) for _ in range(self.size)]
-        dist.all_gather(parts, src, group=group)
-        return parts
-
     def sum(self, partial: torch.Tensor) -> torch.Tensor:
         """Σ over the ranks of each rank's ``partial``, in rank order, on
         every rank (``all_reduce`` promises no order); ``partial`` itself
         with one shard."""
         if self.size == 1:
             return partial
-        parts = self._gather(partial)
+        parts = gather_over(partial, self.mesh, self.dim)
         total = parts[0]
         for p in parts[1:]:
             total = total + p
@@ -108,7 +110,8 @@ class Shards(NamedTuple):
         step = -(-self.D // self.size)
         buf = row.new_zeros(step)
         buf[:row.shape[0]] = row
-        return torch.cat(self._gather(buf))[:self.D].to(row.device)
+        parts = gather_over(buf, self.mesh, self.dim)
+        return torch.cat(parts)[:self.D].to(row.device)
 
 
 def local_columns(x):

@@ -1,0 +1,196 @@
+"""The carrier of a placed leaf: a ``torch.distributed.tensor.DTensor``
+whose dimensions are split by ``Shard`` over mesh dimensions and
+replicated over the others, as the leaf placement rules of
+:mod:`repro_torch.distributed.sharding` put an agent-stacked parameter:
+dimension 0 (the K agents) over the federation dimensions, trailing
+dimensions over "model" (and a layer stack over "data").
+
+Every split must divide its dimension, so each rank holds one equal
+block per dimension; DTensor applies the shards of one dimension in
+mesh-dimension order, the first major (the reference's order for a tuple
+of axes). :class:`Layout` says which block a rank holds.
+
+Code that takes such a leaf works on its local block
+(``DTensor.to_local()``; no DTensor operator runs) and wraps a result of
+the same layout back (:meth:`Layout.wrap`). What needs more than the
+block gathers it: :func:`gather` puts dimensions back together, inner
+mesh dimension first, by ``all_gather`` in rank order; :func:`rank_sum`
+adds partials over mesh dimensions in rank order, so every rank holds the
+same bits (``all_reduce`` promises no order). A mesh dimension of size 1
+costs no collective, so on a one-rank mesh every function here is the
+plain tensor's operation. The D-sharded bare stack of the flat trainer is
+:mod:`repro_torch.carriers.columns`' carrier; this one is the tree
+trainer's.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.carriers.columns import gather_over, is_dtensor
+
+
+class Layout(NamedTuple):
+    """Where a placed leaf lives: the ``mesh``, its global ``shape`` and,
+    per tensor dimension, the mesh dimensions that split it (major
+    first; empty: whole on every rank)."""
+    mesh: object
+    shape: Tuple[int, ...]
+    splits: Tuple[Tuple[int, ...], ...]
+
+    @classmethod
+    def of(cls, shape, mesh, places) -> "Layout":
+        """The layout of ``places`` (DTensor placements, ``Shard`` and
+        ``Replicate`` only) for a tensor of ``shape`` on ``mesh``."""
+        from torch.distributed.tensor import Replicate, Shard
+        shape = tuple(shape)
+        splits = [[] for _ in shape]
+        for i, p in enumerate(places):
+            if isinstance(p, Shard):
+                splits[p.dim % len(shape)].append(i)
+            elif not isinstance(p, Replicate):
+                raise ValueError(f"a placed leaf is split or replicated; "
+                                 f"got {tuple(places)}")
+        lay = cls(mesh, shape, tuple(tuple(s) for s in splits))
+        for d, n in enumerate(shape):
+            if n % lay.parts(d):
+                raise ValueError(f"dimension {d} of {shape} does not divide "
+                                 f"into {lay.parts(d)} blocks ({places})")
+        return lay
+
+    def parts(self, d: int) -> int:
+        """The number of blocks of dimension d."""
+        n = 1
+        for m in self.splits[d]:
+            n *= self.mesh.size(m)
+        return n
+
+    def block(self, d: int) -> Tuple[int, int]:
+        """This rank's ``[lo, hi)`` of dimension d."""
+        coord = self.mesh.get_coordinate()
+        idx = 0
+        for m in self.splits[d]:
+            idx = idx * self.mesh.size(m) + coord[m]
+        step = self.shape[d] // self.parts(d)
+        return idx * step, (idx + 1) * step
+
+    def index(self, first: int = 0) -> tuple:
+        """Slices of this rank's block over dimensions ``first``...,
+        for indexing a whole tensor."""
+        return tuple(slice(*self.block(d))
+                     for d in range(first, len(self.shape)))
+
+    @property
+    def trailing(self) -> Tuple[int, ...]:
+        """The mesh dimensions that split a dimension past the first."""
+        return tuple(sorted({m for ms in self.splits[1:] for m in ms}))
+
+    def placements(self) -> tuple:
+        from torch.distributed.tensor import Replicate, Shard
+        out = [Replicate()] * self.mesh.ndim
+        for d, ms in enumerate(self.splits):
+            for m in ms:
+                out[m] = Shard(d)
+        return tuple(out)
+
+    def wrap(self, local: torch.Tensor):
+        """This rank's block -> the DTensor of this layout (no
+        collective)."""
+        from torch.distributed.tensor import DTensor
+        stride, acc = [], 1
+        for n in reversed(self.shape):
+            stride.append(acc)
+            acc *= n
+        return DTensor.from_local(local, self.mesh, self.placements(),
+                                  run_check=False,
+                                  shape=torch.Size(self.shape),
+                                  stride=tuple(reversed(stride)))
+
+    def without_first(self) -> "Layout":
+        """The layout of one agent's leaf (dimension 0 dropped; the mesh
+        dimensions that split it now replicate)."""
+        return Layout(self.mesh, self.shape[1:], self.splits[1:])
+
+    def agents(self, t: torch.Tensor) -> torch.Tensor:
+        """The rank's agents' values (dimension 0 this layout's block of
+        it) -> all K agents', gathered over the federation dimensions in
+        rank order, the same on every rank."""
+        lay = Layout(self.mesh, (self.shape[0],) + tuple(t.shape[1:]),
+                     (self.splits[0],) + ((),) * (t.dim() - 1))
+        return gather(t, lay, [0])
+
+
+def layout(x) -> Optional[Layout]:
+    """A DTensor's :class:`Layout`; None for a plain tensor."""
+    if not is_dtensor(x):
+        return None
+    return Layout.of(x.shape, x.device_mesh, x.placements)
+
+
+def local(x) -> torch.Tensor:
+    """A DTensor's block, or the plain tensor itself."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def place(t: torch.Tensor, mesh, places):
+    """A tensor every rank holds whole -> the DTensor of ``places``, each
+    rank keeping a copy of its block, so the whole tensor goes when the
+    caller lets it go (no collective; a block that is all of ``t``, as on
+    a one-rank mesh, is ``t`` itself, not a copy)."""
+    lay = Layout.of(t.shape, mesh, places)
+    idx = lay.index()
+    whole = all(s == slice(0, n) for s, n in zip(idx, t.shape))
+    return lay.wrap(t if whole else t[idx].clone())
+
+
+def gather(block: torch.Tensor, lay: Layout, dims: Sequence[int]
+           ) -> torch.Tensor:
+    """``block`` (laid out as ``lay`` on the given dimensions; the others
+    may be cut) with ``dims`` put back together: per split dimension, an
+    ``all_gather`` over each of its mesh dimensions, inner first, the
+    parts concatenated in rank order; on the block's device."""
+    out = block
+    for d in dims:
+        for m in reversed(lay.splits[d]):
+            if lay.mesh.size(m) > 1:
+                out = torch.cat(gather_over(out, lay.mesh, m), dim=d)
+    return out.to(block.device)
+
+
+def rank_sum(partial: torch.Tensor, mesh, dims: Sequence[int]
+             ) -> torch.Tensor:
+    """Σ of each rank's ``partial`` over the mesh dimensions ``dims``, one
+    dimension after another in the given order, each in rank order: the
+    same bits on every rank."""
+    out = partial
+    for m in dims:
+        if mesh.size(m) > 1:
+            parts = gather_over(out, mesh, m)
+            out = parts[0]
+            for p in parts[1:]:
+                out = out + p
+    return out.to(partial.device)
+
+
+def owns(lay: Optional[Layout], dims: Sequence[int]) -> bool:
+    """Whether this rank's block of a leaf enters a sum over the mesh
+    dimensions ``dims``: a leaf whole along one of them is counted once,
+    on the rank at coordinate 0 there; a plain leaf (``lay`` None)
+    always."""
+    if lay is None:
+        return True
+    coord = lay.mesh.get_coordinate()
+    mine = lay.trailing
+    return all(coord[m] == 0 for m in dims if m not in mine)
+
+
+def tree_layouts(leaves: Sequence) -> Optional[list]:
+    """The layouts of a tree's leaves when they are placed (all DTensors);
+    None when none is. A tree with some placed leaves raises."""
+    lays = [layout(x) for x in leaves]
+    if all(lay is None for lay in lays):
+        return None
+    if any(lay is None for lay in lays):
+        raise ValueError("a placed tree has DTensor leaves only")
+    return lays

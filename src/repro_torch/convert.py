@@ -24,6 +24,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import tree
 from repro_torch.core.decbyzpg import Carry
 from repro_torch.distributed.fed_trainer import (FedState, FlatFedState,
+                                                place_fed_state,
                                                 place_flat_fed_state)
 from repro_torch.models.model import param_shapes
 from repro_torch.optim import optimizers
@@ -92,15 +93,16 @@ def model_params_from_jax(params: Mapping, cfg: ModelConfig,
     return conv(params, shapes, "")
 
 
-def fed_state_from_jax(state, device=None, mesh=None):
+def fed_state_from_jax(state, device=None, mesh=None, cfg=None):
     """A JAX ``FedState`` or ``FlatFedState`` (any array leaves: numpy or
     jax) -> the port's, on ``resolve_device(device)``: every leaf with its
     dtype (f32 stacks, the int32 counters), the optimizer state as the
     port's class of the same name (``AdamState``, ``MomentumState``).
     Mid-run states carry over whole: ``prev ≠ params``, ``v ≠ 0``, Adam's
-    step > 0. A flat state with a ``mesh`` is placed on it
-    (``fed_trainer.place_flat_fed_state``: each rank keeps its columns of
-    every (K, D) stack)."""
+    step > 0. With a ``mesh`` the state is placed on it: a flat state by
+    ``fed_trainer.place_flat_fed_state`` (each rank keeps its columns of
+    every (K, D) stack), a tree state by ``fed_trainer.place_fed_state``
+    with the leaf rules of ``cfg`` (required there)."""
     device = resolve_device(device)
 
     def conv(x):
@@ -113,6 +115,10 @@ def fed_state_from_jax(state, device=None, mesh=None):
         return place_flat_fed_state(
             FlatFedState(conv(state.theta), conv(state.prev), conv(state.v),
                          opt_t, conv(state.step)), mesh)
+    if mesh is not None and cfg is None:
+        raise ValueError("fed_state_from_jax: a tree state placed on a mesh "
+                         "needs its model config (the leaf rules)")
     params, prev, v = (tree.tree_map(conv, t) for t in
                        (state.params, state.prev_params, state.v))
-    return FedState(params, prev, v, opt_t, conv(state.step))
+    return place_fed_state(FedState(params, prev, v, opt_t,
+                                    conv(state.step)), mesh, cfg)

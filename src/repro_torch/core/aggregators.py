@@ -35,7 +35,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.core.registry import Spec, register, resolve
-from repro_torch.distributed.columns import (Shards, local_columns, norms,
+from repro_torch.carriers.columns import (Shards, local_columns, norms,
                                              on_columns, rewrap)
 from repro_torch.kernels.krum_score import krum_score
 from repro_torch.kernels.pairwise_dist import gram

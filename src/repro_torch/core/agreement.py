@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.registry import REGISTRY, Spec, register, resolve
-from repro_torch.distributed.columns import local_columns
+from repro_torch.carriers.columns import local_columns
 from repro_torch.kernels.gossip_reduce import gossip_reduce, neighbor_reduce
 from repro_torch.kernels.pairwise_dist import (gram, pairwise_sq_dists,
                                                sq_dists_from_gram)

@@ -1,13 +1,26 @@
-"""Serving-side cache operations (the sharded programs, ``make_serve_fns``,
-wait: ROADMAP Queue 1), the sweep service's host-side process helpers,
-and federated LLM training (``aggregation``, ``fed_trainer``): on one
-process, and the flat trainer with D split over a mesh's "model" ranks.
-The tree trainer under a mesh waits."""
+"""Distributed layers of the port: the leaf placement rules of the
+("pod", "data", "model") mesh and the sweep service's process helpers
+(``sharding``), federated LLM training (``aggregation``, ``fed_trainer``:
+on one process, the flat trainer with D split over a mesh's "model"
+ranks, and the tree trainer under a mesh), and serving-side cache
+operations (the sharded programs, ``make_serve_fns``, wait: ROADMAP
+Queue 1). The DTensor carriers they run on are
+:mod:`repro_torch.carriers`'."""
+from repro_torch.distributed import aggregation, sharding
+from repro_torch.distributed.fed_trainer import (FedConfig, FedState,
+                                                 common_sample_coin,
+                                                 fed_state_shardings,
+                                                 fed_train_step,
+                                                 init_fed_state,
+                                                 make_fed_step)
 from repro_torch.distributed.sharding import (host_assignment,
                                               init_distributed,
                                               mesh_axis_size,
                                               process_count, process_index,
                                               row_block)
 
-__all__ = ["host_assignment", "init_distributed", "mesh_axis_size",
-           "process_count", "process_index", "row_block"]
+__all__ = ["FedConfig", "FedState", "aggregation", "common_sample_coin",
+           "fed_state_shardings", "fed_train_step", "host_assignment",
+           "init_distributed", "init_fed_state", "make_fed_step",
+           "mesh_axis_size", "process_count", "process_index", "row_block",
+           "sharding"]

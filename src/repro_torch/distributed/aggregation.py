@@ -23,7 +23,7 @@ The ``fed_aggregator`` namespace holds the tree aggregators ``mean``,
 
 The D-sharded flat layer (``dim_sharded``, ``flat_*``) takes a (K, D)
 stack, plain or split along D over a mesh's ranks (the carrier of
-:mod:`repro_torch.distributed.columns`, the reference's ``P(None,
+:mod:`repro_torch.carriers.columns`, the reference's ``P(None,
 "model")``), and runs the registry aggregators' bodies
 (:mod:`repro_torch.core.aggregators`) on it: the kernels on each rank's
 columns, the (K, K) Gram partials summed over the ranks in rank order. A
@@ -31,8 +31,19 @@ plain tensor is the route with one shard: no collective, the
 one-process kernels' bits. ``stacked_gram``, ``stacked_sq_dists``,
 ``stacked_weighted_sum``, ``stacked_mix``, ``gda_agree`` and
 ``attack_stacked`` take a D-sharded bare stack the same way, so the flat
-trainer's sharded step runs on them; a tree with D-sharded leaves (the
-tree trainer under a mesh) waits.
+trainer's sharded step runs on them.
+
+A tree of placed leaves (:mod:`repro_torch.carriers.placed`: K over
+the federation dimensions, trailing dimensions over "model" and the
+layer stack over "data" by :func:`repro_torch.distributed.sharding.
+param_spec`; the tree trainer under a mesh) takes the same functions:
+what needs all K agents (a Gram partial, GDA's mix, a weighted sum, the
+coordinate-wise mean and trimmed mean, the attacks' honest sums) gathers
+the K rows of the rank's block over the federation dimensions; the
+leaves' Gram partials are summed into one (K, K) matrix before one sum
+over the dimensions that split them; ``large_noise`` takes the rank's
+rows and block of its normals. On a one-rank mesh each is the plain
+tree's operation, bit for bit.
 """
 from __future__ import annotations
 
@@ -46,8 +57,9 @@ from repro_torch.core import aggregators
 from repro_torch.core.registry import register, resolve
 from repro_torch.core.tree import tree_map, tree_paths
 # dim_sharded is the carrier's; the reference's flat layer exports it here
-from repro_torch.distributed.columns import dim_sharded  # noqa: F401
-from repro_torch.distributed.columns import local_columns, on_columns
+from repro_torch.carriers.columns import dim_sharded  # noqa: F401
+from repro_torch.carriers.columns import local_columns, on_columns
+from repro_torch.carriers import placed
 from repro_torch.kernels.pairwise_dist import sq_dists_from_gram
 
 
@@ -61,6 +73,53 @@ def _rows(leaf: torch.Tensor) -> torch.Tensor:
     return leaf.reshape(leaf.shape[0], -1)
 
 
+def _layouts(tree) -> Optional[list]:
+    """The layouts of a placed tree's leaves; None for a plain tree."""
+    return placed.tree_layouts(_leaves(tree))
+
+
+def _placement(tree):
+    """``(blocks, layouts, dims)``: each leaf's block (a plain leaf
+    itself), its layout (None for a plain leaf) and the mesh dimensions
+    that split a leaf's trailing dimensions (none for a plain tree), over
+    which the leaves' partials are summed."""
+    leaves = _leaves(tree)
+    lays = _layouts(tree)
+    if lays is None:
+        return leaves, [None] * len(leaves), []
+    dims = sorted({m for lay in lays for m in lay.trailing})
+    return [placed.local(x) for x in leaves], lays, dims
+
+
+def _summed(partial: torch.Tensor, lay, dims) -> torch.Tensor:
+    """A sum of leaf partials over a rank's blocks -> the tree's: summed
+    in rank order over ``dims`` (as is for a plain tree)."""
+    return partial if lay is None else placed.rank_sum(partial, lay.mesh,
+                                                       dims)
+
+
+def _per_leaf(fn, tree):
+    """``fn(x, lay)`` leaf by leaf: a plain leaf with ``lay`` None, or a
+    placed leaf's block with its :class:`~repro_torch.carriers.placed.
+    Layout` (``fn`` wraps its result)."""
+    lays = _layouts(tree)
+    if lays is None:
+        return tree_map(lambda leaf: fn(leaf, None), tree)
+    it = iter(lays)
+    return tree_map(lambda leaf: fn(placed.local(leaf), next(it)), tree)
+
+
+def _all_rows(x: torch.Tensor, lay) -> torch.Tensor:
+    """A leaf's K rows: the plain leaf, or a placed block's rows gathered
+    over the federation dimensions (its trailing block kept)."""
+    return x if lay is None else placed.gather(x, lay, [0])
+
+
+def _own_rows(t: torch.Tensor, lay) -> torch.Tensor:
+    """The rank's rows of a (K, ...) tensor; all of it for a plain leaf."""
+    return t if lay is None else t[slice(*lay.block(0))]
+
+
 # ---------------------------------------------------------------------------
 # Stacked-tree linear algebra
 # ---------------------------------------------------------------------------
@@ -69,16 +128,7 @@ def stacked_gram(tree) -> torch.Tensor:
     """Stacked tree -> (K, K) Gram matrix, f32: each leaf contracted over
     its trailing axes, the leaves' products summed in leaf order. A
     D-sharded stack: the local columns' matrix, summed over the ranks."""
-    local, sh = local_columns(tree)
-    if sh is not None:
-        return sh.sum(stacked_gram(local))
-    leaves = _leaves(tree)
-    K = leaves[0].shape[0]
-    g = torch.zeros((K, K), dtype=torch.float32, device=leaves[0].device)
-    for leaf in leaves:
-        r = _rows(leaf).float()
-        g = g + r @ r.T
-    return g
+    return stacked_gram_blocked(tree, 0)
 
 
 def stacked_gram_blocked(tree, block: int) -> torch.Tensor:
@@ -86,28 +136,50 @@ def stacked_gram_blocked(tree, block: int) -> torch.Tensor:
     form when ``block <= 0``, ``K <= block`` or ``block`` does not divide
     K): block i's columns sum the leaves' products with agents
     ``[i·block, (i+1)·block)``. A D-sharded stack: the local columns'
-    matrix, summed over the ranks."""
+    matrix, summed over the ranks.
+
+    A placed tree: each leaf's rows gathered once over the federation
+    dimensions, its partials over the rank's block added in leaf order,
+    then one sum in rank order over every mesh dimension that splits a
+    leaf's trailing dimensions (a leaf whole along one of those counts on
+    one rank there, ``placed.owns``)."""
     local, sh = local_columns(tree)
     if sh is not None:
         return sh.sum(stacked_gram_blocked(local, block))
-    leaves = _leaves(tree)
-    K = leaves[0].shape[0]
-    if block <= 0 or K <= block or K % block:
-        return stacked_gram(tree)
-    g = torch.zeros((K, K), dtype=torch.float32, device=leaves[0].device)
-    for i in range(K // block):
-        cols = torch.zeros((K, block), dtype=torch.float32, device=g.device)
-        for leaf in leaves:
-            r = _rows(leaf).float()
-            cols = cols + r @ r[i * block:(i + 1) * block].T
-        g[:, i * block:(i + 1) * block] = cols
-    return g
+    blocks, lays, dims = _placement(tree)
+    K = blocks[0].shape[0] if lays[0] is None else lays[0].shape[0]
+    n = K // block if 0 < block < K and not K % block else 1
+    w = K // n
+    cols = [torch.zeros((K, w), dtype=torch.float32, device=blocks[0].device)
+            for _ in range(n)]
+    for x, lay in zip(blocks, lays):
+        if placed.owns(lay, dims):
+            r = _rows(_all_rows(x, lay)).float()
+            for i in range(n):
+                cols[i] = cols[i] + r @ r[i * w:(i + 1) * w].T
+    g = cols[0] if n == 1 else torch.cat(cols, dim=1)
+    return _summed(g, lays[0], dims)
 
 
 def stacked_sq_dists(tree) -> torch.Tensor:
     """(K, K) squared distances between the agents, from the Gram
     matrix, clamped at 0."""
     return sq_dists_from_gram(stacked_gram(tree))
+
+
+def stacked_sq_norms(tree) -> torch.Tensor:
+    """(K,) squared norms of the agents' rows over the tree's leaves. A
+    placed tree: the rank's agents' partials over their blocks summed
+    like :func:`stacked_gram_blocked`'s, then gathered over the
+    federation dimensions."""
+    blocks, lays, dims = _placement(tree)
+    sq = torch.zeros(blocks[0].shape[:1], dtype=blocks[0].dtype,
+                     device=blocks[0].device)
+    for x, lay in zip(blocks, lays):
+        if placed.owns(lay, dims):
+            sq = sq + torch.sum(_rows(x) ** 2, dim=1)
+    sq = _summed(sq, lays[0], dims)
+    return sq if lays[0] is None else lays[0].agents(sq)
 
 
 def stacked_weighted_sum(w: torch.Tensor, tree, mix_dtype=None):
@@ -119,12 +191,22 @@ def stacked_weighted_sum(w: torch.Tensor, tree, mix_dtype=None):
         return sh.wrap(stacked_weighted_sum(w, local, mix_dtype))
     wf = w.float()
 
-    def f(leaf):
-        lc = leaf if mix_dtype is None else leaf.to(mix_dtype)
+    def f(rows):
+        lc = rows if mix_dtype is None else rows.to(mix_dtype)
         out = wf @ _rows(lc).float()
-        return out.reshape(leaf.shape[1:]).to(leaf.dtype)
+        return out.reshape(rows.shape[1:]).to(rows.dtype)
 
-    return tree_map(f, tree)
+    return _over_agents(f, tree)
+
+
+def _over_agents(fn, tree):
+    """``fn`` on each leaf's K rows -> one agent's leaf; a placed leaf's
+    result is its block, placed as the agent's leaf (replicated over the
+    federation dimensions)."""
+    def f(x, lay):
+        out = fn(_all_rows(x, lay))
+        return out if lay is None else lay.without_first().wrap(out)
+    return _per_leaf(f, tree)
 
 
 def _mix_leaf(W: torch.Tensor, leaf: torch.Tensor, mix_dtype
@@ -151,26 +233,39 @@ def stacked_mix(W: torch.Tensor, tree, mix_dtype=None, block: int = 0):
     if sh is not None:
         return sh.wrap(stacked_mix(W, local, mix_dtype, block))
     K = _leaves(tree)[0].shape[0]
-    if block <= 0 or K <= block or K % block:
-        return tree_map(lambda leaf: _mix_leaf(W, leaf, mix_dtype)
-                        .to(leaf.dtype), tree)
+    blocked = not (block <= 0 or K <= block or K % block)
+
+    def f(x, lay):
+        rows, Wr = _all_rows(x, lay), _own_rows(W, lay)
+        if not blocked:
+            out = _mix_leaf(Wr, rows, mix_dtype).to(x.dtype)
+        else:
+            acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+            for i in range(K // block):
+                cols = slice(i * block, (i + 1) * block)
+                acc = acc + _mix_leaf(Wr[:, cols], rows[cols], mix_dtype)
+            out = acc.to(x.dtype)
+        return out if lay is None else lay.wrap(out)
+
+    return _per_leaf(f, tree)
+
+
+def _broadcast_rows(tree_single, K: int, like=None):
+    """One agent's tree -> the stacked tree with it in every row, as
+    expanded views (the reference's ``broadcast_to``); placed like the
+    stacked tree ``like`` when that is placed (the rank's rows of it)."""
+    lays = None if like is None else _layouts(like)
+    if lays is None:
+        return tree_map(lambda leaf: leaf[None].expand((K,) + leaf.shape),
+                        tree_single)
+    it = iter(lays)
 
     def f(leaf):
-        acc = torch.zeros(leaf.shape, dtype=torch.float32,
-                          device=leaf.device)
-        for i in range(K // block):
-            cols = slice(i * block, (i + 1) * block)
-            acc = acc + _mix_leaf(W[:, cols], leaf[cols], mix_dtype)
-        return acc.to(leaf.dtype)
+        lay, x = next(it), placed.local(leaf)
+        lo, hi = lay.block(0)
+        return lay.wrap(x[None].expand((hi - lo,) + x.shape))
 
-    return tree_map(f, tree)
-
-
-def _broadcast_rows(tree_single, K: int):
-    """One agent's tree -> the stacked tree with it in every row, as
-    expanded views (the reference's ``broadcast_to``)."""
-    return tree_map(lambda leaf: leaf[None].expand((K,) + leaf.shape),
-                    tree_single)
+    return tree_map(f, tree_single)
 
 
 # ---------------------------------------------------------------------------
@@ -245,7 +340,8 @@ def flat_trimmed_mean(x, n_trim: int):
 
 def agg_mean(tree, n_byz: int = 0):
     K = _leaves(tree)[0].shape[0]
-    return _broadcast_rows(tree_map(lambda leaf: leaf.mean(0), tree), K)
+    return _broadcast_rows(_over_agents(lambda rows: rows.mean(0), tree), K,
+                           tree)
 
 
 def agg_krum(tree, n_byz: int):
@@ -257,7 +353,7 @@ def agg_krum(tree, n_byz: int):
     near = torch.sort(d2, dim=1).values[:, 1:n_near + 1]
     winner = torch.argmin(near.sum(1))
     sel = torch.nn.functional.one_hot(winner, K).float()
-    return _broadcast_rows(stacked_weighted_sum(sel, tree), K)
+    return _broadcast_rows(stacked_weighted_sum(sel, tree), K, tree)
 
 
 def agg_rfa(tree, n_byz: int = 0, n_iter: int = 8, nu: float = 1e-6):
@@ -272,7 +368,7 @@ def agg_rfa(tree, n_byz: int = 0, n_iter: int = 8, nu: float = 1e-6):
         dz = torch.sqrt(torch.clamp_min(sq - 2.0 * g @ w + w @ g @ w, 0.0)
                         + nu)
         w = (1.0 / dz) / torch.sum(1.0 / dz)
-    return _broadcast_rows(stacked_weighted_sum(w, tree), K)
+    return _broadcast_rows(stacked_weighted_sum(w, tree), K, tree)
 
 
 def agg_trimmed_mean(tree, n_byz: int):
@@ -283,11 +379,11 @@ def agg_trimmed_mean(tree, n_byz: int):
     if n == 0:
         return agg_mean(tree)
 
-    def f(leaf):
-        s = torch.sort(leaf.float(), dim=0).values[n:K - n]
-        return s.mean(0).to(leaf.dtype)
+    def f(rows):
+        s = torch.sort(rows.float(), dim=0).values[n:K - n]
+        return s.mean(0).to(rows.dtype)
 
-    return _broadcast_rows(tree_map(f, tree), K)
+    return _broadcast_rows(_over_agents(f, tree), K, tree)
 
 
 register("fed_aggregator", "mean")(lambda: agg_mean)
@@ -343,6 +439,8 @@ def gda_agree(tree, kappa: int, alpha_bar: float = 0.2,
 # An attack is fn(tree, byz_mask (K,) bool, noise) -> tree. ``noise`` is
 # the (n_byz, D) standard normals of the Byzantine rows over the raveled
 # tree, for an attack registered with ``noise=True``; the others take None.
+# A placed tree is attacked on the rank's rows and blocks: its normals are
+# the whole draw (every rank draws the same) and each rank picks its own.
 
 def _byz_to(byz_mask: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
     return byz_mask.reshape(byz_mask.shape + (1,) * (leaf.dim() - 1))
@@ -360,16 +458,25 @@ def _fed_large_noise_factory(sigma: float = 100.0):
             raise ValueError("large_noise needs its noise tensor")
         off = 0
 
-        def f(leaf):
+        def f(x, lay):
             nonlocal off
-            n = math.prod(leaf.shape[1:])
-            out = leaf.clone()
-            out[byz_mask] = (sigma * noise[:, off:off + n]).reshape(
-                (-1,) + leaf.shape[1:])
+            shape = x.shape if lay is None else lay.shape
+            n = math.prod(shape[1:])
+            src = (sigma * noise[:, off:off + n]).reshape((-1,) + shape[1:])
             off += n
-            return out
+            mask = _own_rows(byz_mask, lay)
+            if lay is not None:
+                # noise row j is the j-th Byzantine agent in K order
+                if lay.trailing:
+                    src = src[(slice(None),) + lay.index(1)]
+                if mask.shape[0] != byz_mask.shape[0]:
+                    nth = torch.cumsum(byz_mask.long(), 0) - 1
+                    src = src[_own_rows(nth, lay)[mask]]
+            out = x.clone()
+            out[mask] = src
+            return out if lay is None else lay.wrap(out)
 
-        out = tree_map(f, tree)
+        out = _per_leaf(f, tree)
         if off != noise.shape[1]:
             raise ValueError(f"large_noise: noise has {noise.shape[1]} "
                              f"columns, the tree {off}")
@@ -382,11 +489,13 @@ def _fed_avg_zero_factory():
     def fn(tree, byz_mask, noise=None):
         n_byz = torch.clamp_min(byz_mask.sum(), 1)
 
-        def f(leaf):
-            m = _byz_to(byz_mask, leaf)
-            hsum = torch.where(m, 0.0, leaf).sum(0)
-            return torch.where(m, (-hsum / n_byz)[None], leaf)
-        return tree_map(f, tree)
+        def f(x, lay):
+            rows = _all_rows(x, lay)
+            hsum = torch.where(_byz_to(byz_mask, rows), 0.0, rows).sum(0)
+            m = _byz_to(_own_rows(byz_mask, lay), x)
+            out = torch.where(m, (-hsum / n_byz)[None], x)
+            return out if lay is None else lay.wrap(out)
+        return _per_leaf(f, tree)
     return fn
 
 
@@ -395,11 +504,13 @@ def _fed_sign_flip_factory(scale: float = 3.0):
     def fn(tree, byz_mask, noise=None):
         n_h = torch.clamp_min((~byz_mask).sum(), 1)
 
-        def f(leaf):
-            m = _byz_to(byz_mask, leaf)
-            mu = torch.where(m, 0.0, leaf).sum(0) / n_h
-            return torch.where(m, (-scale * mu)[None], leaf)
-        return tree_map(f, tree)
+        def f(x, lay):
+            rows = _all_rows(x, lay)
+            mu = torch.where(_byz_to(byz_mask, rows), 0.0, rows).sum(0) / n_h
+            m = _byz_to(_own_rows(byz_mask, lay), x)
+            out = torch.where(m, (-scale * mu)[None], x)
+            return out if lay is None else lay.wrap(out)
+        return _per_leaf(f, tree)
     return fn
 
 

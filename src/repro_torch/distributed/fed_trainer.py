@@ -41,8 +41,19 @@ Under a mesh, the flat trainer splits its (K, D) stacks along D over the
 ``P(None, "model")``), and ``fed_train_step_flat`` runs each rank's
 columns through the D-sharded flat layer of
 :mod:`repro_torch.distributed.aggregation`: the Gram partials and the
-estimate's rows gathered in rank order, the rest local. The tree trainer
-under a mesh (``fed_state_shardings``, ``make_fed_step``) waits.
+estimate's rows gathered in rank order, the rest local.
+
+The tree trainer under a mesh places every leaf of its state by the
+reference's rules (:func:`fed_state_shardings`, :func:`place_fed_state`:
+K over the federation dimensions, trailing dimensions over "model", a
+layer stack over "data" with ``fsdp_layers``; DTensors of
+:mod:`repro_torch.carriers.placed`). ``fed_train_step`` on such a
+state runs the rank's own agents only: each agent's leaves gathered whole
+for its loss (and its batch, where "data" splits it), the rank keeping
+its block of every gradient; the aggregation and agreement on the placed
+tree; Adam on the blocks. :func:`make_fed_step` gives the step, its
+state and batch shapes (on the ``meta`` device) and their specs. On a
+one-rank mesh the step is the plain step, bit for bit and byte for byte.
 """
 from __future__ import annotations
 
@@ -62,8 +73,10 @@ from repro_torch.core.registry import normalize_spec_fields, resolve
 from repro_torch.core.tree import (ravel_tree, tree_map, tree_paths,
                                    unravel_tree)
 from repro_torch.distributed import aggregation as agg_lib
-from repro_torch.distributed import columns
-from repro_torch.distributed.sharding import mesh_axis_size
+from repro_torch.carriers import columns, placed
+from repro_torch.distributed.sharding import (PartitionSpec, batch_spec,
+                                              mesh_axis_size, n_agents,
+                                              param_shardings, placements)
 from repro_torch.models.model import (init_params, lm_loss, lm_loss_labeled,
                                       param_shapes)
 from repro_torch.optim.optimizers import get_optimizer
@@ -216,8 +229,8 @@ def init_fed_state(cfg: ModelConfig, fed: FedConfig, K: int, key,
                    dtype=torch.float32, device=None) -> FedState:
     """Common init θ_0 in all K rows (``key``: an int seed or a
     ``torch.Generator``, as :func:`repro_torch.models.model.init_params`
-    takes it; ``device`` defaults to CUDA). ``params`` and
-    ``prev_params`` are separate tensors."""
+    takes it; ``device`` defaults to CUDA, ``"meta"`` gives the shapes
+    only). ``params`` and ``prev_params`` are separate tensors."""
     p0 = init_params(cfg, key, dtype, device=device)
     stack = tree_map(lambda leaf: _stack_rows(leaf, K), p0)
     del p0
@@ -226,6 +239,58 @@ def init_fed_state(cfg: ModelConfig, fed: FedConfig, K: int, key,
                     tree_opt_init(_optimizer(fed), stack),
                     torch.zeros((), dtype=torch.int32,
                                 device=_leaves(stack)[0].device))
+
+
+def fed_state_shardings(cfg: ModelConfig, state_shape: FedState,
+                        mesh) -> FedState:
+    """The specs (:class:`~repro_torch.distributed.sharding.PartitionSpec`)
+    of each field of a :class:`FedState` (tensors on any device, ``meta``
+    included): the stacks and Adam's (or momentum's) moments by the
+    stacked parameter rules, the counters replicated (``PartitionSpec()``).
+    Adam's (K,) step is replicated, as in the reference: the step gathers
+    the agents' counters over the federation dimensions in rank order."""
+    rep = PartitionSpec()
+
+    def pshard(tree):
+        return param_shardings(cfg, tree, mesh, stacked=True)
+
+    opt = state_shape.opt_state
+    if hasattr(opt, "m") and hasattr(opt, "v"):          # AdamState
+        opt_sh = type(opt)(rep, pshard(opt.m), pshard(opt.v))
+    elif hasattr(opt, "m"):                              # MomentumState
+        opt_sh = type(opt)(pshard(opt.m))
+    else:
+        opt_sh = tree_map(lambda _: rep, opt)
+    return FedState(pshard(state_shape.params),
+                    pshard(state_shape.prev_params),
+                    pshard(state_shape.v), opt_sh, rep)
+
+
+def place_fed_state(state: FedState, mesh, cfg: ModelConfig) -> FedState:
+    """A tree state every rank holds whole -> the same state on ``mesh``
+    (:func:`fed_state_shardings`): each stacked leaf a DTensor of the
+    rank's block (``placed.place``: no collective; on a one-rank mesh the
+    block is the leaf itself, no copy), each replicated counter a plain
+    tensor, the same on every rank. ``mesh`` None gives the state
+    back."""
+    if mesh is None:
+        return state
+
+    def put(t, spec):
+        return placed.place(t, mesh, placements(spec, mesh)) \
+            if len(spec) else t
+
+    return tree_map(put, state, fed_state_shardings(cfg, state, mesh))
+
+
+def place_batch(batch: dict, cfg: ModelConfig, mesh) -> dict:
+    """A batch every rank holds whole ((K, b, ...) leaves) -> its blocks
+    by :func:`~repro_torch.distributed.sharding.batch_spec`: K over the
+    federation dimensions, b over the batch dimensions (a DTensor leaf
+    stays as it is)."""
+    places = placements(batch_spec(cfg, mesh, stacked=True), mesh)
+    return {k: v if columns.is_dtensor(v) else placed.place(v, mesh, places)
+            for k, v in batch.items()}
 
 
 def flat_param_sharding(mesh) -> tuple:
@@ -354,6 +419,78 @@ def _estimate_sharded(cfg, K, sh, state, unravel, batch, large: bool):
     return sh.wrap(out), losses
 
 
+def _estimate_placed(cfg, state: FedState, batch: dict, large: bool,
+                     lays: list):
+    """:func:`_estimate` on a placed state: the rank's own agents only.
+    An agent's leaves split past their first dimension are gathered whole
+    for its loss, and the rank keeps its block of each direction; its
+    batch rows are gathered whole where the batch spec splits them.
+    Returns ``(tilde_v, losses)``: the directions placed like
+    ``state.params``, the (K,) losses gathered over the federation
+    dimensions in rank order, the same on every rank."""
+    lo, hi = lays[0].block(0)
+    trees = {"params": state.params, "prev": state.prev_params,
+             "v": state.v}
+    blocks = {name: [placed.local(x) for x in _leaves(tree)]
+              for name, tree in trees.items()}
+    out = [torch.empty_like(x) for x in blocks["params"]]
+    bufs = []
+
+    def whole(x, lay):
+        return placed.gather(x, lay, range(1, len(lay.shape)))[0]
+
+    def agent(name, k):
+        nonlocal bufs
+        if isinstance(name, str):
+            return _unflat(state.params, [
+                whole(x[k:k + 1], lay) if lay.trailing else x[k]
+                for x, lay in zip(blocks[name], lays)])
+        bufs = [torch.empty(lay.shape[1:], dtype=o.dtype, device=o.device)
+                if lay.trailing else o[k] for o, lay in zip(out, lays)]
+        return _unflat(state.params, bufs)
+
+    def written(k):
+        for o, b, lay in zip(out, bufs, lays):
+            if lay.trailing:
+                o[k].copy_(b[lay.index(1)])
+
+    rows = {}
+    for key, val in batch.items():
+        lay = placed.layout(val)
+        rows[key] = val[lo:hi] if lay is None \
+            else placed.gather(placed.local(val), lay, [1])
+    losses = _estimate(cfg, hi - lo, agent, None, rows, large, written)
+    tilde_v = _unflat(state.params,
+                      [lay.wrap(o) for o, lay in zip(out, lays)])
+    return tilde_v, lays[0].agents(losses)
+
+
+def _opt_update_placed(opt, v, opt_state, params, lays):
+    """:func:`tree_opt_update` on a placed state's blocks (elementwise,
+    so each rank updates its own): the moments placed back, the counters
+    of the rank's agents advanced and gathered over the federation
+    dimensions, the same (K,) tensor on every rank."""
+    lo, hi = lays[0].block(0)
+    p_leaves = _leaves(params)
+
+    def local(tree):
+        return _unflat(tree, [placed.local(x) for x in _leaves(tree)])
+
+    def wrap(tree):
+        return _unflat(tree, [lay.wrap(x)
+                              for x, lay in zip(_leaves(tree), lays)])
+
+    moment = [_is_moment(f, p_leaves) for f in opt_state]
+    new_p, new_opt = tree_opt_update(
+        opt, local(v),
+        type(opt_state)(*(local(f) if m else f[lo:hi]
+                          for f, m in zip(opt_state, moment))),
+        local(params))
+    return wrap(new_p), type(opt_state)(*(
+        wrap(f) if m else lays[0].agents(f)
+        for f, m in zip(new_opt, moment)))
+
+
 def _honest_loss(losses, byz_mask):
     K = byz_mask.shape[0]
     return torch.where(byz_mask, 0.0, losses).mean() * K \
@@ -390,8 +527,16 @@ def fed_train_step(cfg: ModelConfig, fed: FedConfig, state: FedState,
     draws nothing); ``large`` the PAGE coin, a Python bool. Returns
     ``(new_state, metrics)``: the honest loss (scaled by K / #honest),
     the diameter and, with ``fed.telemetry``, the honest ``grad_norm``.
+
+    A placed state (:func:`place_fed_state`) takes the placed route: the
+    rank's agents' directions (:func:`_estimate_placed`), the placed
+    tree's aggregation and agreement, Adam on the blocks; ``batch`` whole
+    on every rank or placed (:func:`place_batch`), ``noise`` the whole
+    draw (every rank draws the same). The metrics are the same on every
+    rank.
     """
     K = byz_mask.shape[0]
+    lays = placed.tree_layouts(_leaves(state.params))
     views = {"params": state.params, "prev": state.prev_params,
              "v": state.v}
 
@@ -400,8 +545,12 @@ def fed_train_step(cfg: ModelConfig, fed: FedConfig, state: FedState,
         return tree_map(lambda leaf: leaf[k], tree)
 
     with obs.named_phase("fed.estimate", fed.telemetry):
-        tilde_v = tree_map(torch.empty_like, state.params)
-        losses = _estimate(cfg, K, agent, tilde_v, batch, large)
+        if lays is None:
+            tilde_v = tree_map(torch.empty_like, state.params)
+            losses = _estimate(cfg, K, agent, tilde_v, batch, large)
+        else:
+            tilde_v, losses = _estimate_placed(cfg, state, batch, large,
+                                               lays)
 
     with obs.named_phase("fed.aggregate", fed.telemetry):
         if K == 1:
@@ -413,13 +562,16 @@ def fed_train_step(cfg: ModelConfig, fed: FedConfig, state: FedState,
 
     metrics = {}
     if fed.telemetry:
-        sq = sum(torch.sum(_rows(leaf) ** 2, dim=1)
-                 for leaf in _leaves(tilde_v))
+        sq = agg_lib.stacked_sq_norms(tilde_v)
         metrics["grad_norm"] = _honest_mean(torch.sqrt(sq), byz_mask)
     del tilde_v
 
-    new_params, new_opt = tree_opt_update(_optimizer(fed), v,
-                                          state.opt_state, state.params)
+    if lays is None:
+        new_params, new_opt = tree_opt_update(_optimizer(fed), v,
+                                              state.opt_state, state.params)
+    else:
+        new_params, new_opt = _opt_update_placed(
+            _optimizer(fed), v, state.opt_state, state.params, lays)
     with obs.named_phase("fed.agree", fed.telemetry):
         new_params = agg_lib.gda_agree(new_params, fed.kappa, fed.alpha_bar,
                                        mix_dtype=_mix_dtype(fed),
@@ -431,6 +583,52 @@ def fed_train_step(cfg: ModelConfig, fed: FedConfig, state: FedState,
         obs.tap("fed", step=state.step, **metrics)
     return FedState(new_params, state.params, v, new_opt,
                     state.step + 1), metrics
+
+
+def make_fed_step(cfg: ModelConfig, fed: FedConfig, mesh, *, large: bool,
+                  dtype=torch.float32, per_agent_batch: int = 8,
+                  seq_len: int = 512, key=None):
+    """The tree trainer's step on ``mesh`` with the PAGE coin ``large``
+    fixed. Returns ``(step, state_shape, batch_shape, (state_specs,
+    batch_specs, replicated))``: K = ``n_agents(cfg, mesh)``; the state
+    and the batch as tensors on the ``meta`` device (the reference's
+    ``jax.eval_shape``: int32 tokens and labels (K, per_agent_batch,
+    seq_len), or with a frontend (K, b, seq_len − n_prefix_embeds) beside
+    ``prefix_embeds`` (K, b, n_prefix_embeds, d_model)); their specs. The
+    shapes do not depend on ``key``, which is accepted for the reference's
+    signature.
+
+    ``step(state, batch, byz_mask, noise=None)`` places a state or batch
+    that every rank holds whole (:func:`place_fed_state`,
+    :func:`place_batch`) and runs :func:`fed_train_step`; it takes any K
+    that the federation dimensions divide, not only the shapes'. The
+    reference's
+    ``donate_argnums`` (a JAX compile detail) has no counterpart: the
+    step never writes into the state it is given, and a caller that
+    rebinds its state lets the old one go."""
+    del key
+    K = n_agents(cfg, mesh)
+    state_shape = init_fed_state(cfg, fed, K, 0, dtype, device="meta")
+    state_sh = fed_state_shardings(cfg, state_shape, mesh)
+    b_sh = batch_spec(cfg, mesh, stacked=True)
+    text = seq_len - (cfg.n_prefix_embeds if cfg.frontend != "none" else 0)
+    tok = torch.empty((K, per_agent_batch, text), dtype=torch.int32,
+                      device="meta")
+    batch = {"tokens": tok, "labels": torch.empty_like(tok)}
+    if cfg.frontend != "none":
+        batch["prefix_embeds"] = torch.empty(
+            (K, per_agent_batch, cfg.n_prefix_embeds, cfg.d_model),
+            dtype=dtype, device="meta")
+    batch_sh = {k: b_sh for k in batch}
+
+    def step(state, batch, byz_mask, noise=None):
+        if placed.tree_layouts(_leaves(state.params)) is None:
+            state = place_fed_state(state, mesh, cfg)
+        return fed_train_step(cfg, fed, state,
+                              place_batch(batch, cfg, mesh), byz_mask,
+                              noise, large=large)
+
+    return step, state_shape, batch, (state_sh, batch_sh, PartitionSpec())
 
 
 def fed_train_step_flat(cfg: ModelConfig, fed: FedConfig,

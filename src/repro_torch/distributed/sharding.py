@@ -1,19 +1,39 @@
-"""Host-side process helpers of the sweep service and the mesh's axis
-sizes: the port of the host part of the JAX package's
-``repro/distributed/sharding.py`` and its ``mesh_axis_size``.
+"""Placement rules for the ("pod", "data", "model") mesh and the host-side
+process helpers of the sweep service: the port of the JAX package's
+``repro/distributed/sharding.py`` (all but its lane functions).
 
-The processes exchange only host objects (carries, generator states and
-history chunks, pickled), so the process group is gloo on the CPU and on
-CUDA alike: NCCL would also refuse two ranks on one GPU. A mesh is
-torch's ``DeviceMesh`` (:mod:`repro_torch.launch.mesh`); the flat
-trainer's D split needs only :func:`mesh_axis_size`. The leaf placement
-rules of the tree trainer under a mesh (``fed_axes``, ``param_spec``,
-``param_shardings``, ``batch_spec``, ``cache_shardings``, ...) and the
-lane functions wait.
+Parameters are placed by leaf-path rules on their *trailing* dimensions,
+so one table serves plain trees, layer-stacked trees (leading L) and
+agent-stacked trees (leading K). Federation mapping:
+
+* ``fed_axis="data"``: agents on every (pod, data) rank, K = pods·data;
+  the per-agent batch whole on each;
+* ``fed_axis="pod"``: one agent per pod, K = pods; "data" splits the
+  agent's batch (and, with ``fsdp_layers``, its layer-stack dimension);
+* ``fed_axis="all"``: one agent per rank, no tensor parallelism.
+
+A placement is a :class:`PartitionSpec`, one entry per tensor dimension:
+None, a mesh dimension's name, or a tuple of names (the first name the
+major one), as in the reference. :func:`placements` turns a spec into a
+``DeviceMesh``'s DTensor placements. The rules read only the mesh's
+dimension names and sizes, so they run on an :class:`AbstractMesh` as on
+a ``DeviceMesh`` (:mod:`repro_torch.launch.mesh`).
+
+The processes of the sweep service exchange only host objects (carries,
+generator states and history chunks, pickled), so the process group is
+gloo on the CPU and on CUDA alike: NCCL would also refuse two ranks on
+one GPU.
 """
 from __future__ import annotations
 
+import contextlib
+from typing import NamedTuple, Tuple
+
 import torch.distributed as dist
+
+from repro_torch.carriers import columns, placed
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.tree import tree_map, tree_paths
 
 
 def init_distributed(coordinator: str, num_processes: int,
@@ -63,8 +83,316 @@ def row_block(n_rows: int, n_proc: int, pid: int) -> range:
     return range(start, start + base + (1 if pid < rem else 0))
 
 
+class AbstractMesh(NamedTuple):
+    """A mesh's dimension sizes and names without ranks (the reference's
+    ``jax.sharding.AbstractMesh``): what the placement rules read."""
+    shape: Tuple[int, ...]
+    mesh_dim_names: Tuple[str, ...]
+
+    def size(self, mesh_dim: int) -> int:
+        return self.shape[mesh_dim]
+
+
 def mesh_axis_size(mesh, name: str) -> int:
     """The size of the mesh dimension ``name``; 1 when the mesh (or None)
     has no such dimension."""
     names = getattr(mesh, "mesh_dim_names", None) or ()
     return mesh.size(names.index(name)) if name in names else 1
+
+
+def _has(mesh, name: str) -> bool:
+    return name in (getattr(mesh, "mesh_dim_names", None) or ())
+
+
+# ---------------------------------------------------------------------------
+# Specs and placements
+# ---------------------------------------------------------------------------
+
+def _entry(e):
+    """A spec entry as the reference's ``PartitionSpec`` keeps it: a
+    one-name tuple is the name, an empty tuple None."""
+    if isinstance(e, (tuple, list)):
+        e = tuple(e)
+        if not e:
+            return None
+        return e[0] if len(e) == 1 else e
+    return e
+
+
+class PartitionSpec:
+    """The placement of a tensor on a mesh (the reference's
+    ``PartitionSpec``): one entry per dimension, None (whole on every
+    rank), a mesh dimension's name or a tuple of names (split over their
+    product, the first name major). ``PartitionSpec()`` is replicated,
+    whatever the rank of the tensor. It iterates and compares as the
+    tuple of its entries, and is a leaf of the port's trees."""
+    __slots__ = ("entries",)
+
+    def __init__(self, *entries):
+        self.entries = tuple(_entry(e) for e in entries)
+
+    def __iter__(self):
+        return iter(self.entries)
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    def __getitem__(self, i):
+        return self.entries[i]
+
+    def __eq__(self, other) -> bool:
+        if isinstance(other, PartitionSpec):
+            other = other.entries
+        return isinstance(other, tuple) and self.entries == other
+
+    def __hash__(self) -> int:
+        return hash(self.entries)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{self.entries!r}"
+
+
+def _axes(entry) -> tuple:
+    """A spec entry's mesh dimension names, major first."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def placements(spec, mesh) -> tuple:
+    """A :class:`PartitionSpec` -> the DTensor placements on ``mesh`` (a
+    ``DeviceMesh``): ``Shard(d)`` on every mesh dimension that splits
+    tensor dimension d, ``Replicate()`` on the others. DTensor applies
+    the shards of one tensor dimension in mesh-dimension order, the first
+    major, so a tuple of names must list them in the mesh's order: then
+    each rank holds the block that the reference's ``PartitionSpec`` gives
+    it (``P(("pod", "data"))`` is pod-major)."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        axes = _axes(entry)
+        idx = []
+        for ax in axes:
+            if ax not in names:
+                raise ValueError(f"spec {spec}: the mesh {names} has no "
+                                 f"dimension {ax!r}")
+            i = names.index(ax)
+            if isinstance(out[i], Shard):
+                raise ValueError(f"spec {spec}: mesh dimension {ax!r} "
+                                 f"splits two tensor dimensions")
+            out[i] = Shard(d)
+            idx.append(i)
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec}: the names of a tuple must follow "
+                             f"the mesh's order {names}")
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# Leaf placement rules
+# ---------------------------------------------------------------------------
+
+#: leaf name -> the trailing dimension that "model" splits
+_MODEL_LAST = {"wq", "wk", "wv", "w_gate", "w_up", "bq", "bk", "bv",
+               "w_uq", "w_uk", "w_uv", "lm_head"}
+_MODEL_SECOND = {"wo", "w_down"}
+_REPLICATE = {"router", "norm_attn", "norm_mlp", "final_norm", "norm_m",
+              "norm_s", "frontend_proj", "w_dq", "w_dkv"}
+
+
+def fed_axes(cfg: ModelConfig, mesh) -> Tuple[str, ...]:
+    """The mesh dimensions that split the K agents."""
+    has_pod = _has(mesh, "pod")
+    if cfg.fed_axis == "pod":
+        return ("pod",) if has_pod else ()
+    if cfg.fed_axis == "all":
+        # one agent per rank: no tensor parallelism, the only collectives
+        # left are the aggregation and the agreement
+        return ("pod", "data", "model") if has_pod else ("data", "model")
+    return ("pod", "data") if has_pod else ("data",)
+
+
+def n_agents(cfg: ModelConfig, mesh) -> int:
+    """K: the product of the federation dimensions' sizes (at least 1)."""
+    n = 1
+    for a in fed_axes(cfg, mesh):
+        n *= mesh_axis_size(mesh, a)
+    return max(n, 1)
+
+
+def batch_axes(cfg: ModelConfig, mesh) -> Tuple[str, ...]:
+    """The mesh dimensions that split the per-agent batch."""
+    if cfg.fed_axis == "pod":
+        return ("data",)
+    if getattr(cfg, "intra_agent_dp", False) and cfg.fed_axis == "data":
+        return ("model",)
+    return ()
+
+
+def _path_names(path) -> list:
+    """A leaf's dict keys along its path: a ``tree_paths`` path ("a/b/c";
+    list indices, all digits, dropped) or a sequence of keys (ints
+    dropped), as the reference keeps its ``DictKey`` and ``GetAttrKey``
+    entries."""
+    parts = path.split("/") if isinstance(path, str) else list(path)
+    return [str(p) for p in parts
+            if not isinstance(p, int) and not (isinstance(p, str)
+                                               and (p.isdigit() or not p))]
+
+
+def param_spec(cfg: ModelConfig, path, leaf, mesh,
+               stacked: bool = False) -> PartitionSpec:
+    """The :class:`PartitionSpec` of one parameter leaf (a tensor) at
+    ``path``; ``stacked``: the leaf carries the K agents first."""
+    names = _path_names(path)
+    name = names[-1] if names else ""
+    shape = tuple(leaf.shape)
+    ndim = len(shape)
+    spec = [None] * ndim
+    if cfg.fed_axis == "all" or getattr(cfg, "intra_agent_dp", False):
+        # an agent's parameters whole on its ranks (no tensor parallelism)
+        if stacked:
+            axes = fed_axes(cfg, mesh)
+            spec[0] = axes if axes else None
+        return PartitionSpec(*spec)
+    msize = mesh_axis_size(mesh, "model")
+    model_ok = msize > 1
+    in_recurrent = (cfg.family == "ssm") or ("ssm" in names) \
+        or ("m" in names) or ("s" in names)
+    e = cfg.moe.n_experts if cfg.moe is not None else 0
+    expert_leaf = (cfg.moe is not None and "mlp" in names
+                   and name in ("w_gate", "w_up", "w_down")
+                   and "shared" not in names)
+
+    def put(dim, axis="model"):
+        if shape[dim] % msize == 0:
+            spec[dim] = axis
+
+    if model_ok and not in_recurrent and name not in _REPLICATE:
+        if name == "embed":
+            put(-2)                     # vocab-parallel
+        elif expert_leaf and e % msize == 0:
+            put(-3)                     # expert-parallel
+        elif name in _MODEL_LAST:
+            put(-1)
+        elif name in _MODEL_SECOND:
+            put(-2)
+    # FSDP over layers: "data" splits the layer-stack dimension
+    dsize = mesh_axis_size(mesh, "data")
+    if (getattr(cfg, "fsdp_layers", False) and names
+            and names[0] == "blocks" and dsize > 1):
+        ldim = 1 if stacked else 0
+        if ldim < ndim and spec[ldim] is None \
+                and shape[ldim] % dsize == 0:
+            spec[ldim] = "data"
+    if stacked:                 # the leaf carries the leading K dimension
+        axes = fed_axes(cfg, mesh)
+        spec[0] = axes if axes else None
+    return PartitionSpec(*spec)
+
+
+def param_shardings(cfg: ModelConfig, params_shape, mesh,
+                    stacked: bool = False):
+    """The tree of specs (:class:`PartitionSpec`) of a parameter tree,
+    its leaves tensors on any device (``meta`` included)."""
+    specs = iter([param_spec(cfg, path, leaf, mesh, stacked)
+                  for path, leaf in tree_paths(params_shape)])
+    return tree_map(lambda _: next(specs), params_shape)
+
+
+def batch_spec(cfg: ModelConfig, mesh, stacked: bool = True) -> PartitionSpec:
+    """The spec of token batches: (K, b, S) when ``stacked``, else the
+    serving batch (B, S) over every non-"model" dimension."""
+    fa = fed_axes(cfg, mesh)
+    ba = batch_axes(cfg, mesh)
+    if stacked:
+        return PartitionSpec(fa if fa else None, ba if ba else None)
+    axes = tuple(a for a in ("pod", "data") if _has(mesh, a))
+    return PartitionSpec(axes if axes else None)
+
+
+def cache_shardings(cfg: ModelConfig, cache_shape, mesh):
+    """The specs of a decode cache (:func:`repro_torch.models.model.
+    init_cache`'s tree, the reference's names and ranks): the batch
+    dimension (1 of every stacked (L, B, ...) leaf) over (pod, data);
+    K and V (L, B, W, Hkv, hd) over "model" on their heads (or, where
+    the heads do not divide, on the ring W); MLA's latent ``c`` and
+    ``k_rope`` (L, B, W, r) on W; ``pos`` and ``slot_pos`` replicated."""
+    axes = tuple(a for a in ("pod", "data") if _has(mesh, a))
+    msize = mesh_axis_size(mesh, "model")
+    model_ok = msize > 1
+    bsize = 1
+    for a in axes:
+        bsize *= mesh_axis_size(mesh, a)
+
+    def spec(path, leaf):
+        names = _path_names(path)
+        name = names[-1] if names else ""
+        if name in ("pos", "slot_pos"):
+            return PartitionSpec()
+        shape = tuple(leaf.shape)
+        nd = len(shape)
+        s = [None] * nd
+        if nd >= 2 and shape[1] % max(bsize, 1) == 0:
+            s[1] = axes if axes else None
+        if model_ok:
+            if name in ("k", "v") and nd == 5:
+                if cfg.n_kv_heads % msize == 0:
+                    s[3] = "model"
+                elif shape[2] % msize == 0:
+                    s[2] = "model"              # the ring split instead
+            elif name in ("c", "k_rope") and nd == 4:
+                if shape[2] % msize == 0:
+                    s[2] = "model"
+        return PartitionSpec(*s)
+
+    specs = iter([spec(path, leaf) for path, leaf in tree_paths(cache_shape)])
+    return tree_map(lambda _: next(specs), cache_shape)
+
+
+# ---------------------------------------------------------------------------
+# Layout hints
+# ---------------------------------------------------------------------------
+
+#: the meshes installed by :func:`use_mesh`, innermost last
+_CTX_MESH: list = []
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Install ``mesh`` for :func:`ctx_mesh` and :func:`maybe_shard` over
+    the context (the reference's ``jax.set_mesh``)."""
+    _CTX_MESH.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _CTX_MESH.pop()
+
+
+def ctx_mesh():
+    """The mesh installed by :func:`use_mesh`; None outside one."""
+    return _CTX_MESH[-1] if _CTX_MESH else None
+
+
+def shard_hint(x, mesh, spec):
+    """``x`` on ``spec``'s placements over ``mesh``; ``x`` itself without
+    a mesh. A tensor every rank holds whole keeps its block (no
+    collective, :func:`repro_torch.carriers.placed.place`); a DTensor
+    on other placements is redistributed (DTensor's own collectives)."""
+    if mesh is None:
+        return x
+    places = placements(spec, mesh)
+    if not columns.is_dtensor(x):
+        return placed.place(x, mesh, places)
+    if tuple(x.placements) == places:
+        return x
+    return x.redistribute(mesh, places)
+
+
+def maybe_shard(x, *spec):
+    """:func:`shard_hint` on the mesh of :func:`ctx_mesh`: a no-op
+    outside :func:`use_mesh`, so model code can pin a layout without
+    breaking the one-process route."""
+    mesh = ctx_mesh()
+    return x if mesh is None else shard_hint(x, mesh, PartitionSpec(*spec))

@@ -138,12 +138,27 @@ def _stack(trees: list):
     return torch.stack(trees)
 
 
+#: the leaves that :func:`init_params` makes float32 whatever its dtype
+_F32_LEAVES = ("router", "A_log", "D")
+
+
+def _meta_params(shapes: dict, dtype, name: str = "") -> dict:
+    if isinstance(shapes, dict):
+        return {k: _meta_params(v, dtype, k) for k, v in shapes.items()}
+    return torch.empty(shapes, device="meta",
+                       dtype=torch.float32 if name in _F32_LEAVES else dtype)
+
+
 def init_params(cfg: ModelConfig, key, dtype=torch.float32,
                 device=None) -> dict:
     """Random parameters. ``key`` is a ``torch.Generator`` (draws on its
     device) or an int seed (a generator on ``device``); the result lies on
-    ``device`` (default CUDA, see :func:`repro_torch.resolve_device`)."""
+    ``device`` (default CUDA, see :func:`repro_torch.resolve_device`). On
+    the ``meta`` device: the tree's shapes and dtypes, nothing drawn
+    (``key`` unread; the reference's ``jax.eval_shape``)."""
     dev = resolve_device(device)
+    if dev.type == "meta":
+        return _meta_params(param_shapes(cfg), dtype)
     if isinstance(key, torch.Generator):
         gen = key
     else:

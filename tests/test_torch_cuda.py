@@ -955,3 +955,46 @@ def test_cuda_sharded_avg_agree_on_one_process_is_bit_equal(cuda, method):
     assert torch.equal(got, want)
     kernel = "gossip_reduce" if method == "cwtm" else "gram"
     assert n_got == n_want and n_got[kernel] == kappa
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aggregator", ["rfa", "krum", "trimmed_mean"])
+def test_cuda_one_rank_mesh_tree_step_is_bit_equal(cuda, aggregator):
+    """``make_fed_step`` on a one-rank ("data", "model") = (1, 1) mesh on
+    the card (a gloo group of one process): two tree steps (coin 1, then
+    0) under ``large_noise`` the plain ``fed_train_step``'s bits, state
+    and metrics, with no collective and no kernel launch (the tree rules
+    are plain)."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.core.tree import tree_paths
+    from repro_torch.carriers import placed
+    from repro_torch.launch.mesh import make_debug_mesh
+    cfg, fed, ft, batches = _tiny_fed(aggregator)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_debug_mesh(1, 1, device_type="cuda")
+        steps = {c: ft.make_fed_step(cfg, fed, mesh, large=c)[0]
+                 for c in (True, False)}
+        mask = torch.arange(4, device=cuda) < 1
+        plain = ft.init_fed_state(cfg, fed, 4, 0, device=cuda)
+        mesh_st = ft.place_fed_state(plain, mesh, cfg)
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(0)
+        for t, b in enumerate(batches):
+            b = {k: v.to(cuda) for k, v in b.items()}
+            nz = ft.fed_noise(gen, fed, plain, 1)
+            plain, pm = ft.fed_train_step(cfg, fed, plain, b, mask, nz,
+                                          large=t == 0)
+            dispatch.reset_launches()
+            mesh_st, mm = steps[t == 0](mesh_st, b, mask, nz)
+            assert not any(dispatch.launch_counts().values())
+            assert all(torch.equal(pm[k], mm[k]) for k in pm)
+        for (_, a), (_, c) in zip(tree_paths(plain), tree_paths(mesh_st)):
+            assert torch.equal(a, placed.local(c))
+    finally:
+        dist.destroy_process_group()

@@ -36,11 +36,7 @@ Gram matrix's rounding order at the attacked row.
 """
 import dataclasses
 import functools
-import os
 import pickle
-import socket
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -69,18 +65,15 @@ from repro_torch.core.attacks import large_noise, per_receiver  # noqa: E402
 from repro_torch.core.registry import resolve  # noqa: E402
 from repro_torch.core.tree import tree_paths, unravel_tree  # noqa: E402
 from repro_torch.distributed import aggregation as tagg  # noqa: E402
-from repro_torch.distributed import columns as tcols  # noqa: E402
+from repro_torch.carriers import columns as tcols  # noqa: E402
 from repro_torch.distributed import fed_trainer as tft  # noqa: E402
 from repro_torch.kernels.pairwise_dist import pairwise_sq_dists  # noqa: E402
 from repro_torch.models.model import param_shapes  # noqa: E402
 
 from torch_parity import (agreement_draws, replay_fed_noise,  # noqa: E402
                           shared_loss_trace)
+from torch_ranks import CollectiveWatch, run_meshes  # noqa: E402
 
-SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
-TESTS = os.path.dirname(os.path.abspath(__file__))
-#: every rank's wall limit: a hung rank fails the module
-TIMEOUT_S = 300
 #: the meshes: ranks and the ("data", "model") shape
 MESHES = {"2": (2, (1, 2)), "4": (4, (1, 4)), "2x2": (4, (2, 2))}
 
@@ -171,56 +164,6 @@ def _feds(agg, attack):
 # The ranks' side (run in spawned processes)
 # ---------------------------------------------------------------------------
 
-class _DTensorOps:
-    """While active, records every operator dispatched on a DTensor (the
-    route dispatches none: it works on local tensors)."""
-
-    def __init__(self):
-        from torch.distributed.tensor import DTensor
-        from torch.utils._python_dispatch import TorchDispatchMode
-        from torch.utils._pytree import tree_flatten
-        seen = self.ops = []
-
-        class Mode(TorchDispatchMode):
-            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-                kwargs = kwargs or {}
-                if any(isinstance(a, DTensor)
-                       for a in tree_flatten((args, kwargs))[0]):
-                    seen.append(str(func))
-                return func(*args, **kwargs)
-
-        self.mode = Mode()
-
-    def __enter__(self):
-        self.mode.__enter__()
-        return self
-
-    def __exit__(self, *exc):
-        self.mode.__exit__(*exc)
-
-
-class _Watch:
-    """``CommDebugMode`` and :class:`_DTensorOps` together; ``record()``
-    adds their counts to ``out``."""
-
-    def __init__(self, out):
-        from torch.distributed.tensor.debug import CommDebugMode
-        self.out, self.comm, self.ops = out, CommDebugMode(), _DTensorOps()
-
-    def __enter__(self):
-        self.comm.__enter__()
-        self.ops.__enter__()
-        return self
-
-    def __exit__(self, *exc):
-        self.ops.__exit__(*exc)
-        self.comm.__exit__(*exc)
-        for op, n in self.comm.get_comm_counts().items():
-            name = str(op)
-            self.out["comm"][name] = self.out["comm"].get(name, 0) + n
-        self.out["dtensor_ops"] += self.ops.ops
-
-
 def _columns(t, mesh):
     from repro_torch.distributed.fed_trainer import flat_param_sharding
     return tcols.shard_columns(t, mesh, flat_param_sharding(mesh))
@@ -238,8 +181,7 @@ def _rank_cases(mesh, inputs):
     from repro_torch.launch.mesh import (make_debug_mesh,
                                          make_production_mesh)
     import torch.distributed as dist
-    out = {"comm": {}, "dtensor_ops": [], "agg": {}, "agree": {},
-           "fed": {}, "empty": {}}
+    out = {"agg": {}, "agree": {}, "fed": {}, "empty": {}}
     world = dist.get_world_size()
 
     # detection, on every case of a DTensor
@@ -256,7 +198,7 @@ def _rank_cases(mesh, inputs):
                           tagg.dim_sharded(xs, axis=0),
                           tagg.dim_sharded(rep), tagg.dim_sharded(one)]
 
-    with _Watch(out):
+    with CollectiveWatch(out):
         out["gram"] = tagg.flat_gram(xs)
         perm = torch.from_numpy(PERM)
         for spec, n_byz in AGG_CASES:
@@ -334,19 +276,6 @@ def _rank_main(rank, world, port, kind, inp, dst):
 # The parent's side
 # ---------------------------------------------------------------------------
 
-def _free_ports(n: int) -> list:
-    """n distinct free localhost ports (held open together while
-    chosen)."""
-    socks = [socket.socket() for _ in range(n)]
-    try:
-        for s in socks:
-            s.bind(("localhost", 0))
-        return [s.getsockname()[1] for s in socks]
-    finally:
-        for s in socks:
-            s.close()
-
-
 def _mid_state(jcfg, jfed, seed=0):
     """A reference flat state as it stands mid-run (the trainer tests'
     recipe): θ around the common init, prev near θ, a running v, Adam at
@@ -397,67 +326,16 @@ def _fed_inputs():
     return inputs, want
 
 
-def _spawn(kind, inputs, tmp, port):
-    """Start the ranks of one mesh; returns (procs, result paths)."""
-    world = MESHES[kind][0]
-    inp = os.path.join(tmp, f"inputs-{kind}.pkl")
-    with open(inp, "wb") as f:
-        pickle.dump(inputs, f)
-    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1",
-               JAX_PLATFORMS="cpu")
-    dsts = [os.path.join(tmp, f"{kind}-{r}.pt") for r in range(world)]
-    code = (f"import sys; sys.path[:0] = [{SRC!r}, {TESTS!r}]; "
-            f"import test_torch_sharded_aggregation as t; "
-            f"t._rank_main(*sys.argv[1:])")
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", code, str(r), str(world), str(port), kind,
-         inp, dsts[r]], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for r in range(world)]
-    return procs, dsts
-
-
-def _finish(procs, dsts, kind):
-    """The ranks' results, in rank order; None when rank 0 could not bind
-    its port (taken between choosing it and binding it: spawn again)."""
-    try:
-        for p in procs:
-            _, err = p.communicate(timeout=TIMEOUT_S)
-            if p.returncode and "EADDRINUSE" in err:
-                return None
-            assert p.returncode == 0, f"mesh {kind}: {err[-3000:]}"
-    finally:
-        _stop(procs)
-    return [torch.load(d, weights_only=False) for d in dsts]
-
-
-def _stop(procs):
-    for p in procs:
-        if p.poll() is None:
-            p.kill()
-            p.communicate()
-
-
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """Every mesh's ranks, spawned once, all meshes at a time: mesh kind
     -> the ranks' results, in rank order. No rank outlives the
     fixture."""
-    tmp = str(tmp_path_factory.mktemp("sharded"))
     inputs, _ = _fed_inputs()
-    started, out = {}, {}
-    try:
-        for kind, port in zip(MESHES, _free_ports(len(MESHES))):
-            started[kind] = _spawn(kind, inputs, tmp, port)
-        for kind in MESHES:
-            out[kind] = _finish(*started[kind], kind)
-            if out[kind] is None:
-                started[kind] = _spawn(kind, inputs, tmp, _free_ports(1)[0])
-                out[kind] = _finish(*started[kind], kind)
-            assert out[kind] is not None, f"mesh {kind}: no free port"
-    finally:
-        for procs, _ in started.values():
-            _stop(procs)
-    return out
+    return run_meshes("test_torch_sharded_aggregation",
+                      {kind: m[0] for kind, m in MESHES.items()},
+                      dict.fromkeys(MESHES, inputs),
+                      str(tmp_path_factory.mktemp("sharded")))
 
 
 def _assemble(results, get):
