@@ -112,9 +112,9 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    launches counted. Then a checkpoint round trip: ``byzpg_cartpole``'s
    parameters saved and restored onto the card bit for bit, and one
    request served through ``policy_params(checkpoint=)``.
-   Phases 3b, 6–8 (6b and 7b included) and 10 (10c included) are driven
-   with the launch counts set to 0 just before each run and read just
-   after; their launches join the totals.
+   Phases 3b, 6–8 (6b and 7b included), 10 (10c included) and 11 are
+   driven with the launch counts set to 0 just before each run and read
+   just after; their launches join the totals.
 10. Federated LLM training (``phase_fed``, run after phase 3b):
    Llama-3.2-1B at full width cut to 2 layers, K = 4 agents (D =
    384,313,344 each), n_byz = 1 ``large_noise(sigma=10)``, κ = 3, Adam:
@@ -167,6 +167,23 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    would cross), the ranks' wall.
    ``[time]`` lines give phase 10's tree runs, its flat runs with 10c
    (a), 10c (b) and 10d.
+11. Serving under a mesh (``make_serve_fns``, after phase 5): (a)
+   Llama-3.2-1B at full width and depth on a one-rank ("data", "model")
+   = (1, 1) mesh in a gloo group of this process, 4 prompts of 512
+   tokens and 8 greedy decode steps: logits, tokens and every cache
+   leaf bit-equal to ``model.prefill`` and ``decode_step`` on the same
+   tensors, the prefill's flash launches (held against the plain version
+   on their own inputs) the plain route's, and the dry run's
+   ``argument_bytes`` for this (config, batch, length, (1, 1)) equal to
+   the bytes the weights and prompts hold, logged with its
+   ``peak_per_device_gb`` beside the measured peak; (b) its width cut to
+   2 layers over two gloo ranks on the one card (``chip_smoke.py
+   --serve-rank``, fresh processes), on (1, 2) and (2, 1) meshes, 3
+   greedy steps: each rank's logit rows, tokens and cache blocks after
+   the prefill and after the last step bit-equal to the one-process
+   route on its own rows and within ``SERVE_RANK_TOL`` of the route on
+   the whole batch. ``[serve-mesh]`` lines and a ``[time]`` line; the
+   launches join the totals.
 9. The kernel table as one JSON line (``device_ms`` and
    ``library_device_ms`` beside the issue-bound ``ms`` and
    ``library_ms``), then
@@ -4010,6 +4027,397 @@ def phase_fed(dev):
     return totals
 
 
+#: phase 11: serving under a mesh. (a) Llama-3.2-1B at full width and
+#: depth through make_serve_fns on a one-rank (1, 1) mesh: B prompts of S
+#: tokens, then greedy decode steps; (b) its width cut to 2 layers over
+#: two gloo ranks on the card, on each (data, model) mesh, 3 steps
+SERVE_MESH_ARCH, SERVE_MESH_SEED = "llama3.2-1b", 0
+SERVE_MESH_B, SERVE_MESH_S, SERVE_MESH_STEPS = 4, 512, 8
+SERVE_RANKS, SERVE_RANK_LAYERS, SERVE_RANK_STEPS = 2, 2, 3
+SERVE_RANK_MESHES = ((1, 2), (2, 1))
+#: (b): each rank against the one-process route on its own rows bit for
+#: bit (the same operations on the same shapes), and against the
+#: one-process route on the whole batch within this share of its largest
+#: logit and of its largest cache entry: where a rank serves a subset of
+#: the rows ((2, 1)) its matmuls are other shapes, so f32 sums over d =
+#: 2048 run in other orders (√2048 · 2⁻²³ ≈ 5.4e-6 of an entry's scale;
+#: the CPU tests' gaps at d 256 are below 2.4e-6)
+SERVE_RANK_TOL = 1e-5
+SERVE_RANK_TIMEOUT_S = 600
+
+
+def _serve_mesh_cfg(layers=None):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(SERVE_MESH_ARCH)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def _serve_mesh_tokens(cfg, dev):
+    """The seeded (B, S) int32 prompts, the same in every process."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SERVE_MESH_SEED + 1)
+    return torch.randint(0, cfg.vocab_size, (SERVE_MESH_B, SERVE_MESH_S),
+                         generator=gen, device=dev, dtype=torch.int32)
+
+
+def _greedy(logits):
+    """The next tokens of (placed) logits (B, 1, V): each rank's rows'
+    argmax, placed like the logits' rows (a plain tensor stays plain)."""
+    import torch
+    from repro_torch.carriers import placed
+    tok = placed.local(logits)[:, -1].argmax(-1)[:, None].to(torch.int32)
+    lay = placed.layout(logits)
+    if lay is None:
+        return tok
+    return placed.Layout(lay.mesh, (lay.shape[0], 1),
+                         lay.splits[:2]).wrap(tok)
+
+
+def _plain_serve(cfg, params, tokens, steps, keep=()):
+    """``model.prefill`` and ``steps`` greedy ``decode_step``s: the logits
+    of each call, the greedy tokens, and the caches (host copies) after
+    the calls listed in ``keep`` (0 the prefill)."""
+    from repro_torch.core.tree import tree_paths
+    from repro_torch.models import model as tm
+    logits, cache = tm.prefill(cfg, params, tokens, cache_len=SERVE_MESH_S)
+    out = {"logits": [logits], "tokens": [], "caches": {}}
+    for i in range(steps + 1):
+        if i in keep:
+            out["caches"][i] = {p: x.cpu() for p, x in tree_paths(cache)}
+        if i == steps:
+            break
+        tok = _greedy(logits)
+        out["tokens"].append(tok)
+        logits, cache = tm.decode_step(cfg, params, tok, cache)
+        out["logits"].append(logits)
+    out["cache"] = cache
+    return out
+
+
+def _serve_one_rank(cfg, params, tokens, dev):
+    """Phase 11 (a)'s mesh run: ``make_serve_fns`` on a one-rank (1, 1)
+    mesh, a prefill and SERVE_MESH_STEPS greedy decode steps, with the
+    launches counted (zeroed just before) and the flash launches held
+    against the plain version on their own inputs. Returns the logits,
+    the tokens, the cache, the launches, ms and the peak bytes."""
+    import torch
+    from repro_torch.distributed.serving import make_serve_fns
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import make_debug_mesh
+    cuda = dev.type == "cuda"
+    with _one_rank_group():
+        fns = make_serve_fns(cfg, make_debug_mesh(1, 1,
+                                                  device_type=dev.type),
+                             SERVE_MESH_B, SERVE_MESH_S)
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_launches()
+        with _PathInputs() as path:
+            t0 = time.perf_counter()
+            logits, cache = fns.prefill(params, tokens)
+            if cuda:
+                torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+        out = {"logits": [logits], "tokens": [], "ms": []}
+        for _ in range(SERVE_MESH_STEPS):
+            tok = _greedy(logits)
+            out["tokens"].append(tok)
+            t0 = time.perf_counter()
+            logits, cache = fns.decode(params, tok, cache)
+            if cuda:
+                torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["logits"].append(logits)
+        out["launches"] = dispatch.launch_counts()
+        out["peak"] = torch.cuda.max_memory_allocated() if cuda else 0
+    path.check("serve_mesh_one_rank")
+    out.update(cache=cache, prefill_ms=prefill_ms)
+    return out
+
+
+def phase_serve_mesh_one_rank(dev):
+    """Phase 11 (a): Llama-3.2-1B at full width and depth through
+    ``make_serve_fns`` on a one-rank (1, 1) mesh against ``model.prefill``
+    and ``decode_step`` on the same tensors: logits, greedy tokens and
+    every cache leaf bit for bit, the prefill's flash launches those of
+    the plain route; the dry run's ``argument_bytes`` for this (cfg, B,
+    S, (1, 1)) equal to the bytes the params and tokens hold, printed
+    with its ``peak_per_device_gb`` beside the measured peak. Returns the
+    mesh run's launches."""
+    import torch
+    from repro_torch.carriers import placed
+    from repro_torch.core.tree import tree_paths
+    from repro_torch.distributed.sharding import AbstractMesh
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import init_params
+    cfg = _serve_mesh_cfg()
+    params = init_params(cfg, SERVE_MESH_SEED, device=dev)
+    tokens = _serve_mesh_tokens(cfg, dev)
+    held = sum(x.nbytes for _, x in tree_paths(params)) + tokens.nbytes
+    mesh = _serve_one_rank(cfg, params, tokens, dev)
+    dispatch.reset_launches()
+    plain = _plain_serve(cfg, params, tokens, SERVE_MESH_STEPS)
+    plain_flash = dispatch.launch_counts()["flash_attention"]
+    bad = [i for i, (a, b) in enumerate(zip(mesh["logits"],
+                                            plain["logits"]))
+           if not torch.equal(placed.local(a), b)]
+    bad += [f"token {i}" for i, (a, b) in enumerate(zip(mesh["tokens"],
+                                                        plain["tokens"]))
+            if not torch.equal(placed.local(a), b)]
+    bad += [p for (p, a), (_, b) in zip(tree_paths(mesh["cache"]),
+                                        tree_paths(plain["cache"]))
+            if not torch.equal(placed.local(a), b)]
+    flash = mesh["launches"]["flash_attention"]
+    amesh = AbstractMesh((1, 1), ("data", "model"))
+    mem = {mode: dryrun.memory(dryrun.serve_program(
+        cfg, mode, SERVE_MESH_B, SERVE_MESH_S, amesh, torch.float32), amesh)
+        for mode in ("prefill", "decode")}
+    if bad or flash != plain_flash or flash != cfg.n_layers \
+            or mem["prefill"]["argument_bytes"] != held:
+        raise AssertionError(
+            f"serve mesh one rank: differs from the plain route at {bad}; "
+            f"flash launches {flash} vs the plain route's {plain_flash} "
+            f"(want {cfg.n_layers}); dry-run argument_bytes "
+            f"{mem['prefill']['argument_bytes']} vs held {held}")
+    ms = mesh["ms"]
+    log(f"[serve-mesh] {card()}: {SERVE_MESH_ARCH} full width and depth "
+        f"({cfg.n_layers} layers, d {cfg.d_model}) through make_serve_fns "
+        f"on a one-rank (1, 1) mesh, B={SERVE_MESH_B} x S={SERVE_MESH_S}, "
+        f"{SERVE_MESH_STEPS} greedy steps: logits, tokens and every cache "
+        f"leaf bit-equal to model.prefill/decode_step; prefill "
+        f"{mesh['prefill_ms']:.3f} ms, decode ms/step "
+        f"{[round(x, 3) for x in ms]} (median {_median(ms):.3f}); flash "
+        f"launches {flash} (plain route {plain_flash})")
+    log(f"[serve-mesh] {card()}: peak allocated across the mesh run "
+        f"{mesh['peak']} bytes ({mesh['peak'] / 2**30:.3f} GiB); dry run "
+        f"(1, 1): prefill argument_bytes {mem['prefill']['argument_bytes']}"
+        f" (= params + tokens held, {held}), output_bytes "
+        f"{mem['prefill']['output_bytes']}, peak_per_device_gb "
+        f"{mem['prefill']['peak_per_device_gb']}; decode argument_bytes "
+        f"{mem['decode']['argument_bytes']}, alias_bytes "
+        f"{mem['decode']['alias_bytes']}, peak_per_device_gb "
+        f"{mem['decode']['peak_per_device_gb']}")
+    return mesh["launches"]
+
+
+def _serve_rank_blocks(cache) -> list:
+    """A (placed) cache's leaves: (path, the rank's block on the host, its
+    global index, or None for a plain leaf)."""
+    from repro_torch.carriers import placed
+    from repro_torch.core.tree import tree_paths
+    out = []
+    for path, x in tree_paths(cache):
+        lay = placed.layout(x)
+        out.append((path, placed.local(x).cpu(), None if lay is None
+                    else [(i.start, i.stop) for i in lay.index()]))
+    return out
+
+
+def _serve_one_process(dev, rows):
+    """Phase 11 (b)'s one-process route on the card: ``model.prefill``
+    and SERVE_RANK_STEPS greedy ``decode_step``s of the prompts' ``rows``
+    ``(lo, hi)``. Returns the logits and tokens of each call and the
+    cache after the prefill and after the last step (host copies), and
+    the launches."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.model import init_params
+    cfg = _serve_mesh_cfg(SERVE_RANK_LAYERS)
+    params = init_params(cfg, SERVE_MESH_SEED, device=dev)
+    tokens = _serve_mesh_tokens(cfg, dev)[slice(*rows)]
+    dispatch.reset_launches()
+    out = _plain_serve(cfg, params, tokens, SERVE_RANK_STEPS,
+                       keep=(0, SERVE_RANK_STEPS))
+    return {"logits": [x.cpu() for x in out["logits"]],
+            "tokens": [x.cpu() for x in out["tokens"]],
+            "caches": out["caches"], "launches": dispatch.launch_counts()}
+
+
+def _serve_rank_runs(dev, meshes):
+    """Phase 11 (b)'s runs on this rank: for each (data, model) shape of
+    ``meshes`` (shape -> DeviceMesh), a prefill and SERVE_RANK_STEPS
+    greedy decode steps through ``make_serve_fns`` (the params placed
+    once). Returns {shape: the rank's rows, each call's logit rows and
+    tokens, its cache blocks after the prefill and after the last step,
+    the launches}."""
+    from repro_torch.carriers import placed
+    from repro_torch.distributed.serving import make_serve_fns
+    from repro_torch.distributed.sharding import place_tree
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.model import init_params
+    cfg = _serve_mesh_cfg(SERVE_RANK_LAYERS)
+    whole = init_params(cfg, SERVE_MESH_SEED, device=dev)
+    tokens = _serve_mesh_tokens(cfg, dev)
+    out = {}
+    for shape, mesh in meshes.items():
+        dispatch.reset_launches()
+        fns = make_serve_fns(cfg, mesh, SERVE_MESH_B, SERVE_MESH_S)
+        params = place_tree(whole, fns.shardings["params"], mesh)
+        logits, cache = fns.prefill(params, tokens)
+        rec = {"rows": placed.layout(logits).block(0),
+               "logits": [placed.local(logits).cpu()], "tokens": [],
+               "caches": {0: _serve_rank_blocks(cache)}}
+        for _ in range(SERVE_RANK_STEPS):
+            tok = _greedy(logits)
+            rec["tokens"].append(placed.local(tok).cpu())
+            logits, cache = fns.decode(params, tok, cache)
+            rec["logits"].append(placed.local(logits).cpu())
+        rec["caches"][SERVE_RANK_STEPS] = _serve_rank_blocks(cache)
+        rec["launches"] = dispatch.launch_counts()
+        out[shape] = rec
+        del params, cache
+    return out
+
+
+def serve_rank_main(argv) -> int:
+    """``chip_smoke.py --serve-rank RANK WORLD PORT OUT DEVICE``: one rank
+    of phase 11 (b), in a gloo group on localhost:PORT, on DEVICE's type
+    (``cuda``: the card), over each mesh of SERVE_RANK_MESHES; writes its
+    results to OUT."""
+    rank, world, port, dst, dev = argv
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=int(world), rank=int(rank))
+    try:
+        meshes = {s: make_debug_mesh(*s, device_type=dev)
+                  for s in SERVE_RANK_MESHES}
+        torch.save(_serve_rank_runs(torch.device(dev), meshes), dst)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_serve_mesh_ranks(dev):
+    """Phase 11 (b): Llama-3.2-1B's width cut to SERVE_RANK_LAYERS layers
+    over SERVE_RANKS gloo ranks on the one card (fresh processes, one
+    group; small collectives staged through the host), on each mesh of
+    SERVE_RANK_MESHES, against the one-process route on the card from the
+    same weights and prompts: each rank's logit rows and greedy tokens
+    after the prefill and every step, and its cache blocks after the
+    prefill and after the last step, bit for bit against the route on
+    the rank's own rows, and within SERVE_RANK_TOL of the largest entry
+    against the route on the whole batch (0 on (1, 2), where each rank
+    runs the whole batch on whole leaves); each rank's launches the
+    one-process route's. Returns the ranks' launches."""
+    import os
+    import socket
+    import tempfile
+    import torch
+    from repro_torch.distributed.sharding import row_block
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    blocks = {(0, SERVE_MESH_B)} | {
+        (r.start, r.stop) for shape in SERVE_RANK_MESHES
+        for r in (row_block(SERVE_MESH_B, shape[0], i)
+                  for i in range(shape[0]))}
+    with tempfile.TemporaryDirectory() as tmp:
+        dsts = [os.path.join(tmp, f"rank{r}.pt") for r in range(SERVE_RANKS)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--serve-rank",
+             str(r), str(SERVE_RANKS), str(port), dsts[r], dev.type],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for r in range(SERVE_RANKS)]
+        try:
+            one = {rows: _serve_one_process(dev, rows)
+                   for rows in sorted(blocks)}
+            for p in procs:
+                _, err = p.communicate(timeout=SERVE_RANK_TIMEOUT_S)
+                if p.returncode != 0:
+                    raise AssertionError(f"serve rank exited {p.returncode}:"
+                                         f"\n{err[-3000:]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        secs = time.perf_counter() - t0
+        ranks = [torch.load(d, weights_only=False) for d in dsts]
+    whole = one[0, SERVE_MESH_B]
+    lscale = max(x.abs().max().item() for x in whole["logits"])
+    cscale = {step: max(x.abs().max().item() for x in c.values()
+                        if x.is_floating_point())
+              for step, c in whole["caches"].items()}
+    totals = {}
+    for shape in SERVE_RANK_MESHES:
+        gaps = {"logits": 0.0, "cache": 0.0}
+        bad = []
+        for r, res in enumerate(ranks):
+            got = res[shape]
+            _add(totals, got["launches"])
+            lo, hi = got["rows"]
+            own = one[lo, hi]
+            if got["launches"] != own["launches"]:
+                bad.append(f"rank {r} launches {got['launches']}")
+            for i, (a, b, w) in enumerate(zip(got["logits"], own["logits"],
+                                              whole["logits"])):
+                gaps["logits"] = max(gaps["logits"],
+                                     (a - w[lo:hi]).abs().max().item())
+                if not torch.equal(a, b):
+                    bad.append(f"rank {r} logits {i}")
+            for i, (a, b, w) in enumerate(zip(got["tokens"], own["tokens"],
+                                              whole["tokens"])):
+                if not (torch.equal(a, b) and torch.equal(a, w[lo:hi])):
+                    bad.append(f"rank {r} token {i}")
+            for step, blks in got["caches"].items():
+                for path, blk, idx in blks:
+                    if idx is None:
+                        if not torch.equal(blk, own["caches"][step][path]):
+                            bad.append(f"rank {r} step {step} {path}")
+                        continue
+                    at = [slice(*i) for i in idx]
+                    w = whole["caches"][step][path][tuple(at)]
+                    at[1] = slice(None)           # the rank's own rows
+                    if not torch.equal(blk, own["caches"][step][path][
+                            tuple(at)]):
+                        bad.append(f"rank {r} step {step} {path}")
+                    if blk.is_floating_point():
+                        gaps["cache"] = max(
+                            gaps["cache"],
+                            (blk - w).abs().max().item() / cscale[step])
+        if gaps["logits"] > SERVE_RANK_TOL * lscale \
+                or gaps["cache"] > SERVE_RANK_TOL:
+            bad.append(f"whole-batch gaps {gaps} (max|logit| {lscale})")
+        log(f"[serve-mesh] {card()}: {SERVE_MESH_ARCH} width cut to "
+            f"{SERVE_RANK_LAYERS} layers over {SERVE_RANKS} gloo ranks on "
+            f"the one card, (data, model) = {shape}, B={SERVE_MESH_B} x "
+            f"S={SERVE_MESH_S}, {SERVE_RANK_STEPS} greedy steps: against "
+            f"the one-process route on the card on each rank's own rows "
+            f"{'bit for bit' if not bad else 'NOT bit for bit'}; against "
+            f"it on the whole batch logits max abs gap "
+            f"{gaps['logits']:.3e} = {gaps['logits'] / lscale:.3e} of "
+            f"max|logit| and cache blocks {gaps['cache']:.3e} of the "
+            f"largest entry (tol {SERVE_RANK_TOL}) after the prefill and "
+            f"step {SERVE_RANK_STEPS}, greedy tokens "
+            f"{'compared' if bad else 'equal'}; flash launches per rank "
+            f"{whole['launches']['flash_attention']}; the ranks' wall "
+            f"{secs:.1f} s")
+        if bad:
+            raise AssertionError(f"serve mesh ranks {shape}: {bad[:8]}")
+    return totals
+
+
+def phase_serve_mesh(dev):
+    """Phase 11, serving under a mesh: (a) and (b). Returns the
+    launches."""
+    totals = {}
+    t0 = time.perf_counter()
+    _add(totals, phase_serve_mesh_one_rank(dev))
+    _add(totals, phase_serve_mesh_ranks(dev))
+    log(f"[time] phase 11 serving under a mesh "
+        f"{time.perf_counter() - t0:.1f} s")
+    return totals
+
+
 def main() -> int:
     try:
         import torch
@@ -4060,6 +4468,7 @@ def main() -> int:
     _add(totals, phase_serving(dev))
     log(f"[time] phase 5 serving runs {time.perf_counter() - t0:.1f} s")
     phase_serving_cpu_agreement(dev)
+    _add(totals, phase_serve_mesh(dev))
     t0 = time.perf_counter()
     phase_moe_cpu_agreement(dev)
     log(f"[time] MoE/MLA card-vs-CPU check {time.perf_counter() - t0:.1f} s")
@@ -4104,4 +4513,6 @@ if __name__ == "__main__":
         sys.exit(fed_rank_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--fed-tree-rank"]:
         sys.exit(fed_tree_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--serve-rank"]:
+        sys.exit(serve_rank_main(sys.argv[2:]))
     sys.exit(main())

@@ -2,10 +2,10 @@
 ("pod", "data", "model") mesh and the sweep service's process helpers
 (``sharding``), federated LLM training (``aggregation``, ``fed_trainer``:
 on one process, the flat trainer with D split over a mesh's "model"
-ranks, and the tree trainer under a mesh), and serving-side cache
-operations (the sharded programs, ``make_serve_fns``, wait: ROADMAP
-Queue 1). The DTensor carriers they run on are
-:mod:`repro_torch.carriers`'."""
+ranks, and the tree trainer under a mesh), and serving (``serving``:
+the mesh-sharded prefill and decode of ``make_serve_fns`` and the
+continuous-batching engine's cache operations). The DTensor carriers
+they run on are :mod:`repro_torch.carriers`'."""
 from repro_torch.distributed import aggregation, sharding
 from repro_torch.distributed.fed_trainer import (FedConfig, FedState,
                                                  common_sample_coin,

@@ -76,7 +76,8 @@ from repro_torch.distributed import aggregation as agg_lib
 from repro_torch.carriers import columns, placed
 from repro_torch.distributed.sharding import (PartitionSpec, batch_spec,
                                               mesh_axis_size, n_agents,
-                                              param_shardings, placements)
+                                              param_shardings, place_tree,
+                                              placements)
 from repro_torch.models.model import (init_params, lm_loss, lm_loss_labeled,
                                       param_shapes)
 from repro_torch.optim.optimizers import get_optimizer
@@ -275,12 +276,7 @@ def place_fed_state(state: FedState, mesh, cfg: ModelConfig) -> FedState:
     back."""
     if mesh is None:
         return state
-
-    def put(t, spec):
-        return placed.place(t, mesh, placements(spec, mesh)) \
-            if len(spec) else t
-
-    return tree_map(put, state, fed_state_shardings(cfg, state, mesh))
+    return place_tree(state, fed_state_shardings(cfg, state, mesh), mesh)
 
 
 def place_batch(batch: dict, cfg: ModelConfig, mesh) -> dict:

@@ -375,6 +375,19 @@ def ctx_mesh():
     return _CTX_MESH[-1] if _CTX_MESH else None
 
 
+def place_tree(tree, specs, mesh):
+    """A tree every rank holds whole -> the same tree on ``mesh``, each
+    leaf on its spec's placements (``specs`` a tree of
+    :class:`PartitionSpec` of the same structure): a DTensor of the
+    rank's block (``placed.place``: no collective; on a one-rank mesh the
+    block is the leaf itself, no copy), or the plain leaf, the same on
+    every rank, where the spec is ``PartitionSpec()``."""
+    def put(t, spec):
+        return placed.place(t, mesh, placements(spec, mesh)) \
+            if len(spec) else t
+    return tree_map(put, tree, specs)
+
+
 def shard_hint(x, mesh, spec):
     """``x`` on ``spec``'s placements over ``mesh``; ``x`` itself without
     a mesh. A tensor every rank holds whole keeps its block (no

@@ -1,0 +1,269 @@
+"""Roofline terms and collective bytes of the port's programs, from shapes
+and specs: the port of the JAX package's ``launch/analysis.py``.
+
+  compute term    = per_device_FLOPs / peak_FLOP/s        [s]
+  memory term     = per_device_bytes / HBM_bw             [s]
+  collective term = per_device_wire_bytes / NVLink_bw     [s]
+
+The reference reads FLOPs and bytes from a compiled module's
+``cost_analysis()`` and the wire bytes from its optimized HLO. A torch
+program has neither, so here the caller gives the FLOPs and bytes
+(:mod:`repro_torch.launch.dryrun`: the analytic MODEL_FLOPS split over
+the devices, and the bytes each device's arguments and outputs hold), and
+the wire bytes are reckoned from the collectives the port's route issues.
+
+Every collective of the port's mesh routes is an ``all_gather`` through
+:func:`repro_torch.carriers.columns.gather_over`, the rank sums of
+:func:`repro_torch.carriers.placed.rank_sum` included (each rank's
+partial gathered, then added in rank order). Each is counted with the
+reference's ring formula, (g−1)/g × out, g the ranks of its group and out
+the bytes it gathers. :func:`serve_gathers` and :func:`fed_step_gathers`
+list them in the order the route issues them:
+
+* each split leaf gathered whole for a prefill, a decode or one agent's
+  loss (every mesh dimension of more than one rank that splits it, inner
+  first, as ``placed.gather`` does), and a decode's cache rows gathered
+  whole past the batch;
+* a federated step's batch rows, its losses and Adam's counters gathered
+  over the federation dimensions, the leaves' K rows gathered for the
+  aggregation, the attacks' honest sums and GDA's mix, and the (K, K)
+  Gram partials (and the telemetry's squared norms) summed over the
+  dimensions that split the leaves.
+
+Not counted: activations and the allocator's workspaces (no collective
+moves them), and the host staging of a gloo group on CUDA tensors.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.core.tree import tree_paths
+from repro_torch.launch.mesh import HBM_BW, NVLINK_BW_PER_LINK, PEAK_FLOPS_BF16
+
+#: one collective: the bytes it gathers (its output, all parts) and its
+#: group's size
+Gather = Tuple[int, int]
+
+_TYPES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+          "collective-permute")
+
+
+def route_wire_bytes(gathers: Sequence[Gather]) -> Dict[str, float]:
+    """Per-device wire bytes by collective type, the reference's dict
+    (``collective_wire_bytes``): every type's bytes, ``"total"`` and
+    ``"counts"``; the port's collectives are all ``all_gather``s, each
+    (g−1)/g × out on the wire. ``"gathers"`` keeps the list."""
+    out: Dict[str, float] = dict.fromkeys(_TYPES, 0.0)
+    counts = dict.fromkeys(_TYPES, 0)
+    for nbytes, g in gathers:
+        if g <= 1:
+            continue
+        out["all-gather"] += nbytes * (g - 1) / g
+        counts["all-gather"] += 1
+    out["total"] = sum(out.values())
+    out["counts"] = counts
+    out["gathers"] = [tuple(x) for x in gathers if x[1] > 1]
+    return out
+
+
+def roofline_terms(cost: dict, wire: Dict[str, float], n_chips: int,
+                   model_flops_global: float = 0.0,
+                   loop_scale: int = 1) -> dict:
+    """The three roofline terms (seconds) + the dominant bottleneck, with
+    the H100 data sheet's constants (:mod:`repro_torch.launch.mesh`).
+
+    ``cost``: per-device ``"flops"`` and ``"bytes accessed"``, as the
+    reference's ``cost_analysis()`` gives them; its FLOPs count a layer
+    loop's body once, so they are scaled by ``loop_scale``. The compute
+    term used for the bottleneck is the analytic MODEL_FLOPS one when
+    ``model_flops_global`` is given (standard MFU practice), the scaled
+    ``cost`` FLOPs kept as ``compute_hlo_s``."""
+    flops = float(cost.get("flops", 0.0))
+    bytes_acc = float(cost.get("bytes accessed", 0.0))
+    t_compute_hlo = flops * loop_scale / PEAK_FLOPS_BF16
+    t_compute = (model_flops_global / n_chips) / PEAK_FLOPS_BF16 \
+        if model_flops_global else t_compute_hlo
+    t_memory = bytes_acc / HBM_BW
+    t_coll = float(wire.get("total", 0.0)) / NVLINK_BW_PER_LINK
+    terms = {"compute_s": t_compute, "compute_hlo_s": t_compute_hlo,
+             "memory_s": t_memory, "collective_s": t_coll}
+    terms["bottleneck"] = max(
+        (("compute", t_compute), ("memory", t_memory),
+         ("collective", t_coll)), key=lambda kv: kv[1])[0]
+    terms["flops_per_device"] = flops
+    terms["bytes_per_device"] = bytes_acc
+    terms["wire_bytes_per_device"] = float(wire.get("total", 0.0))
+    return terms
+
+
+def model_flops(cfg, shape, n_tokens=None) -> float:
+    """MODEL_FLOPS = 6·N·D (dense) or 6·N_active·D (MoE); decode counts the
+    single generated token per sequence."""
+    if n_tokens is None:
+        if shape.mode == "decode":
+            n_tokens = shape.global_batch           # one token per sequence
+        else:
+            n_tokens = shape.global_batch * shape.seq_len
+    n = cfg.n_active_params()
+    mult = 6.0 if shape.mode == "train" else 2.0
+    return mult * n * n_tokens
+
+
+# ---------------------------------------------------------------------------
+# The route's collectives, from shapes and specs
+# ---------------------------------------------------------------------------
+
+class Leaf:
+    """A placed leaf as shapes: its global ``shape``, bytes per entry, the
+    mesh's dimension sizes and, per dimension, the mesh dimensions that
+    split it (major first)."""
+
+    def __init__(self, shape, itemsize: int, sizes, splits):
+        self.shape, self.itemsize = tuple(shape), itemsize
+        self.sizes, self.splits = tuple(sizes), list(splits)
+
+    @classmethod
+    def of(cls, t: torch.Tensor, spec, mesh) -> "Leaf":
+        """A tensor (any device, ``meta`` included) on ``spec`` over
+        ``mesh``."""
+        names = tuple(mesh.mesh_dim_names)
+        splits = [()] * t.dim()
+        for d, entry in enumerate(spec):
+            axes = entry if isinstance(entry, tuple) else \
+                (() if entry is None else (entry,))
+            splits[d] = tuple(names.index(a) for a in axes)
+        return cls(t.shape, t.element_size(),
+                   [mesh.size(i) for i in range(len(names))], splits)
+
+    def parts(self, d: int) -> int:
+        return math.prod(self.sizes[m] for m in self.splits[d])
+
+    @property
+    def block(self) -> List[int]:
+        """One rank's block shape (every split divides)."""
+        return [-(-n // self.parts(d)) for d, n in enumerate(self.shape)]
+
+    @property
+    def block_bytes(self) -> int:
+        return math.prod(self.block) * self.itemsize
+
+    @property
+    def trailing(self) -> Tuple[int, ...]:
+        return tuple(sorted({m for ms in self.splits[1:] for m in ms}))
+
+    def gather(self, dims, block: Optional[List[int]] = None) -> list:
+        """The ``all_gather``s of ``placed.gather`` on ``dims`` of
+        ``block`` (default: the rank's block): per dimension, each mesh
+        dimension of more than one rank that splits it, inner first."""
+        cur = list(self.block if block is None else block)
+        out = []
+        for d in dims:
+            for m in reversed(self.splits[d]):
+                g = self.sizes[m]
+                if g > 1:
+                    cur[d] *= g
+                    out.append((math.prod(cur) * self.itemsize, g))
+        return out
+
+
+def _leaves(tree, specs, mesh) -> List[Leaf]:
+    return [Leaf.of(t, s, mesh) for (_, t), (_, s)
+            in zip(tree_paths(tree), tree_paths(specs))]
+
+
+def serve_gathers(params_shape, param_specs, mesh, cache_shape=None,
+                  cache_specs=None) -> List[Gather]:
+    """The collectives of one prefill (``cache_shape`` None) or decode of
+    :func:`repro_torch.distributed.serving.make_serve_fns` on ``mesh``
+    (any mesh with ``mesh_dim_names`` and ``size``), in order: every
+    parameter leaf gathered whole, then for a decode every cache block
+    leaf gathered whole past its batch dimension (1)."""
+    out = []
+    for leaf in _leaves(params_shape, param_specs, mesh):
+        out += leaf.gather(range(len(leaf.shape)))
+    if cache_shape is not None:
+        for leaf in _leaves(cache_shape["blocks"], cache_specs["blocks"],
+                            mesh):
+            out += leaf.gather([d for d in range(len(leaf.shape))
+                                if d != 1])
+    return out
+
+
+def fed_step_gathers(fed, mesh, state_shape, state_specs, batch,
+                     batch_specs, large: bool, coord=None) -> List[Gather]:
+    """The collectives of one step of
+    :func:`repro_torch.distributed.fed_trainer.make_fed_step` (``large``
+    its PAGE coin) on the rank at mesh coordinate ``coord`` (default all
+    0: the rank that enters every leaf's Gram partial), in order.
+    ``state_shape`` and ``batch`` as tensors on any device (``meta``),
+    ``state_specs`` from ``fed_state_shardings`` and ``batch_specs`` from
+    ``batch_spec(stacked=True)``."""
+    P = _leaves(state_shape.params, state_specs.params, mesh)
+    coord = tuple(coord) if coord is not None else (0,) * len(P[0].sizes)
+    K = P[0].shape[0]
+    Kb = P[0].block[0]
+    dims = sorted({m for leaf in P for m in leaf.trailing})
+    out = []
+
+    def owns(leaf):
+        return all(coord[m] == 0 for m in dims if m not in leaf.trailing)
+
+    def rows(leaf):
+        return leaf.gather([0])
+
+    def rank_sum(nbytes):
+        for m in dims:
+            g = P[0].sizes[m]
+            if g > 1:
+                out.append((nbytes * g, g))
+
+    def agents(itemsize):
+        out.extend(Leaf((K,), itemsize, P[0].sizes,
+                        [P[0].splits[0]]).gather([0]))
+
+    def gram():
+        for leaf in P:
+            if owns(leaf):
+                out.extend(rows(leaf))
+        rank_sum(K * K * 4)
+
+    def each_rows():
+        for leaf in P:
+            out.extend(rows(leaf))
+
+    # the estimate: the batch rows, then each of the rank's agents' split
+    # leaves gathered whole for its loss (params; prev and v at c = 0)
+    for (_, t), (_, s) in zip(tree_paths(batch), tree_paths(batch_specs)):
+        out.extend(Leaf.of(t, s, mesh).gather([1]))
+    for _ in range(Kb):
+        for _ in range(1 if large else 3):
+            for leaf in P:
+                if leaf.trailing:
+                    out.extend(leaf.gather(range(1, len(leaf.shape)),
+                                           [1] + leaf.block[1:]))
+    agents(4)                                   # the f32 losses
+    if K > 1:
+        if fed.attack.name in ("avg_zero", "sign_flip"):
+            each_rows()
+        if fed.aggregator.name in ("krum", "rfa"):
+            gram()
+        each_rows()
+    if fed.telemetry:
+        rank_sum(Kb * P[0].itemsize)
+        agents(P[0].itemsize)
+    for f in state_shape.opt_state:
+        leaves = [t for _, t in tree_paths(f)]
+        if not (len(leaves) == len(P) and all(
+                tuple(a.shape) == b.shape for a, b in zip(leaves, P))):
+            agents(leaves[0].element_size())    # a per-agent counter
+    if K > 1 and fed.kappa > 0:
+        for _ in range(fed.kappa):
+            gram()
+            each_rows()
+        gram()                                  # the diameter
+    elif K > 1:
+        gram()
+    return out

@@ -998,3 +998,52 @@ def test_cuda_one_rank_mesh_tree_step_is_bit_equal(cuda, aggregator):
             assert torch.equal(a, placed.local(c))
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_one_rank_mesh_serving_is_bit_equal(cuda):
+    """Reduced Llama-3.2-1B through ``make_serve_fns`` on a one-rank
+    ("data", "model") = (1, 1) mesh on the card (a gloo group of one
+    process): the prefill and three greedy decode steps bit-equal to
+    ``model.prefill`` and ``decode_step`` on the same tensors, logits and
+    every cache leaf, with the prefill's flash launches (one a layer)
+    those of the plain route."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.carriers import placed
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.tree import tree_paths
+    from repro_torch.distributed.serving import make_serve_fns
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model as tm
+    cfg = reduced(get_config("llama3.2-1b"))
+    params = tm.init_params(cfg, 0, device=cuda)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen,
+                         device=cuda, dtype=torch.int32)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        fns = make_serve_fns(cfg, make_debug_mesh(1, 1, device_type="cuda"),
+                             2, 48)
+        dispatch.reset_launches()
+        logits, cache = fns.prefill(params, toks)
+        n_mesh = dispatch.launch_counts()["flash_attention"]
+        dispatch.reset_launches()
+        want, wcache = tm.prefill(cfg, params, toks, cache_len=48)
+        assert n_mesh == dispatch.launch_counts()["flash_attention"] \
+            == cfg.n_layers
+        for _ in range(4):
+            assert torch.equal(placed.local(logits), want)
+            tok = want[:, -1].argmax(-1)[:, None].to(torch.int32)
+            logits, cache = fns.decode(params, tok, cache)
+            want, wcache = tm.decode_step(cfg, params, tok, wcache)
+        assert torch.equal(placed.local(logits), want)
+        for (_, a), (_, b) in zip(tree_paths(cache), tree_paths(wcache)):
+            assert torch.equal(placed.local(a), b)
+    finally:
+        dist.destroy_process_group()

@@ -1,0 +1,399 @@
+"""The mesh-sharded serving programs, ``repro_torch.distributed.serving``'s
+``ServeFns`` and ``make_serve_fns``, on the CPU.
+
+* ``ServeFns``: its fields, ``specs`` and the legacy unpack's warning.
+* The specs against the reference's ``make_serve_fns`` (on a
+  ``jax.sharding.AbstractMesh``; the port's ``AbstractMesh``), every
+  reduced config on (1, 1), (2, 2) and (2, 2, 2) meshes, with a batch
+  that divides the batch dimensions and a batch of 1 (replicated), a
+  context over 65536 (the window ring) and a short one.
+* Gloo ranks (:mod:`torch_ranks`), spawned once per process group in a
+  module fixture: a one-rank (1, 1) mesh, (data, model) = (1, 2) and
+  (2, 1) over two ranks and (2, 2) over four. Every rank prefills B = 2
+  prompts of 11 positions into a ring of W = 24 and takes 3 decode
+  steps (seeded tokens) for reduced Llama-3.2-1B, DeepSeek-V2-Lite (MLA,
+  MoE), Hymba-1.5B (hybrid), xLSTM-350M (SSM), Pixtral-12B (a frontend,
+  with ``prefix_embeds``) and Llama with one KV head (K and V split on
+  the ring W), from weights made by the reference and carried over by
+  ``convert.model_params_from_jax``. Decode steps write ring slots 11,
+  12 and 13, on both sides of a W split in two.
+
+  - The one-rank mesh against the reference's ``make_serve_fns`` on a
+    (1, 1) JAX mesh: logits within ``LOGIT_TOL``, the caches within
+    ``CACHE_TOL`` (the model tests' tolerances), ``pos`` and
+    ``slot_pos`` equal, every routing margin above ``ROUTE_MARGIN``.
+  - Every rank against the port's one-process ``model.prefill`` and
+    ``decode_step`` (one thread, as the ranks): its logit rows and its
+    cache blocks after the prefill and after decode step 3 within
+    ``RANK_TOL`` of their largest entry (the matmuls of a rank's rows
+    are other shapes than the whole batch's); on the (1, 1) and (1, 2)
+    meshes, where each rank runs the whole batch on whole leaves, bit
+    for bit.
+  - Only ``all_gather``s (none where "model" has one rank), and no
+    operator dispatched on a DTensor.
+"""
+import dataclasses
+import functools
+import warnings
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from jax.sharding import AbstractMesh as JAbstractMesh  # noqa: E402
+from jax.sharding import AxisType  # noqa: E402
+
+from repro.configs.base import ARCH_IDS  # noqa: E402
+from repro.configs.base import get_config as jget_config  # noqa: E402
+from repro.configs.base import reduced as jreduced  # noqa: E402
+from repro.distributed import serving as jserving  # noqa: E402
+from repro.models import model as jmodel  # noqa: E402
+
+from repro_torch.carriers import placed  # noqa: E402
+from repro_torch.configs.base import get_config, reduced  # noqa: E402
+from repro_torch.convert import model_params_from_jax  # noqa: E402
+from repro_torch.core.tree import tree_paths  # noqa: E402
+from repro_torch.distributed import serving as tserving  # noqa: E402
+from repro_torch.distributed import sharding as tsh  # noqa: E402
+from repro_torch.models import model as tmodel  # noqa: E402
+
+from torch_parity import routing_margins  # noqa: E402
+from torch_ranks import CollectiveWatch, Meshes  # noqa: E402
+
+torch.set_num_threads(2)
+
+#: the model tests' tolerances (tests/test_torch_models.py)
+LOGIT_TOL, CACHE_TOL, ROUTE_MARGIN = 2e-5, 5e-5, 1e-5
+#: a rank's logits and cache blocks against the one-process route, as a
+#: share of the largest entry, where a rank runs its rows only: the
+#: matmuls of fewer rows sum in other orders (the reduced configs' gaps
+#: measured 1.1e-06 to 2.4e-06 on (2, 1) and (2, 2))
+RANK_TOL = 1e-5
+#: the served configs: reduced, and "llama_ring": Llama with one KV head
+CASES = ["llama3_2_1b", "deepseek_v2_lite_16b", "hymba_1_5b", "xlstm_350m",
+         "pixtral_12b", "llama_ring"]
+B, PROMPT, W, STEPS = 2, 11, 24, 3
+#: the rank meshes: (data, model) shape; the process group each runs in
+MESHES = {"one": (1, 1), "d12": (1, 2), "d21": (2, 1), "d22": (2, 2)}
+GROUPS = {"one": ("one",), "two": ("d12", "d21"), "four": ("d22",)}
+#: the spec meshes
+SPEC_MESHES = [((1, 1), ("data", "model")), ((2, 2), ("data", "model")),
+               ((2, 2, 2), ("pod", "data", "model"))]
+
+
+def _spec(s):
+    return tuple(getattr(s, "spec", s))
+
+
+def _jpaths(tree):
+    return [("/".join(str(getattr(p, "key", getattr(p, "name", p)))
+                      for p in path), leaf)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]]
+
+
+# ---------------------------------------------------------------------------
+# ServeFns and the specs
+# ---------------------------------------------------------------------------
+
+def test_servefns_dataclass_and_shim():
+    """The reference's ``test_servefns_dataclass_and_shim`` on the port:
+    callable programs, the three shardings, the legacy ``specs`` and the
+    deprecated tuple unpacking."""
+    cfg = reduced(get_config("llama3_2_1b"))
+    fns = tserving.make_serve_fns(cfg, tsh.AbstractMesh((1, 1), (
+        "data", "model")), batch=2, seq_len=16)
+    assert callable(fns.prefill) and callable(fns.decode)
+    assert set(fns.shardings) == {"params", "cache", "batch_spec"}
+    assert fns.specs["params_shape"] is fns.params_shape
+    assert fns.specs["cache"] is fns.shardings["cache"]
+    assert fns.batch_spec == fns.shardings["batch_spec"] == ("data",)
+    assert all(x.device.type == "meta" for _, x in
+               tree_paths((fns.params_shape, fns.cache_shape)))
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        fns.prefill = None
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        pf, dc, specs = fns              # legacy tuple unpacking
+    assert pf is fns.prefill and dc is fns.decode
+    assert specs == fns.specs
+    assert any(issubclass(w.category, DeprecationWarning) for w in caught)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_specs_match_the_reference(arch):
+    """Parameter, cache and batch specs and the shapes, for batches that
+    divide and a batch of 1, a short context and one over 65536."""
+    jc, tc = jreduced(jget_config(arch)), reduced(get_config(arch))
+    key = jax.ShapeDtypeStruct((2,), jnp.uint32)
+    for shape, names in SPEC_MESHES:
+        jm, tm = JAbstractMesh(shape, names), tsh.AbstractMesh(shape, names)
+        for batch, seq in ((8, 16), (1, 70000)):
+            what = f"{arch} {shape} batch {batch} seq {seq}"
+            j = jserving.make_serve_fns(jc, jm, batch, seq, key=key)
+            t = tserving.make_serve_fns(tc, tm, batch, seq)
+            assert t.batch_spec == _spec(j.batch_spec), what
+            for name, jtree, ttree in (
+                    ("params", j.params_shape, t.params_shape),
+                    ("cache", j.cache_shape, t.cache_shape)):
+                jl, tl = _jpaths(jtree), tree_paths(ttree)
+                assert [(p, tuple(x.shape)) for p, x in jl] == \
+                    [(p, tuple(x.shape)) for p, x in tl], what
+                jspecs = [_spec(s) for s in
+                          jax.tree.leaves(j.shardings[name])]
+                tspecs = [s for _, s in tree_paths(t.shardings[name])]
+                assert tspecs == jspecs, f"{what} {name}"
+            assert t.cache_shape["slot_pos"].shape[0] == \
+                jserving.serve_cache_len(jc, seq)
+
+
+# ---------------------------------------------------------------------------
+# Ranks
+# ---------------------------------------------------------------------------
+
+def _cfgs(case):
+    arch = "llama3_2_1b" if case == "llama_ring" else case
+    jc, tc = jreduced(jget_config(arch)), reduced(get_config(arch))
+    if case == "llama_ring":
+        jc = dataclasses.replace(jc, n_kv_heads=1)
+        tc = dataclasses.replace(tc, n_kv_heads=1)
+    return jc, tc
+
+
+_J_INIT = jax.jit(jmodel.init_params, static_argnums=0)
+
+
+@functools.lru_cache(maxsize=None)
+def _inputs(case):
+    """The reference's weights (numpy) and the seeded prompt, prefix
+    embeddings and decode tokens of one case."""
+    jc, _ = _cfgs(case)
+    params = jax.tree.map(np.asarray, _J_INIT(jc, jax.random.PRNGKey(5)))
+    rng = np.random.default_rng(CASES.index(case))
+    P = jc.n_prefix_embeds if jc.frontend != "none" else 0
+    toks = rng.integers(0, jc.vocab_size, (B, PROMPT - P)).astype(np.int32)
+    pe = rng.standard_normal((B, P, jc.d_model)).astype(np.float32) \
+        if P else None
+    steps = rng.integers(0, jc.vocab_size, (STEPS, B, 1)).astype(np.int32)
+    return {"params": params, "tokens": toks, "prefix": pe, "steps": steps}
+
+
+def _blocks(cache):
+    """A (placed) cache's leaves: (path, the rank's block, its global
+    index, or None for a plain leaf)."""
+    out = []
+    for path, x in tree_paths(cache):
+        lay = placed.layout(x)
+        idx = None if lay is None else [(s.start, s.stop)
+                                        for s in lay.index()]
+        out.append((path, placed.local(x).clone(), idx))
+    return out
+
+
+def _serve(tcfg, mesh, inp, out):
+    """Prefill then STEPS decode steps through ``make_serve_fns`` on
+    ``mesh``, under ``CollectiveWatch``: the rank's logit rows, its cache
+    blocks after the prefill and after the last step, the smallest
+    routing margin."""
+    fns = tserving.make_serve_fns(tcfg, mesh, B, W)
+    params = model_params_from_jax(inp["params"], tcfg, device="cpu")
+    args = [torch.from_numpy(inp["tokens"])]
+    if inp["prefix"] is not None:
+        args.append(torch.from_numpy(inp["prefix"]))
+    res = {"logits": []}
+    with routing_margins() as margins, CollectiveWatch(out):
+        logits, cache = fns.prefill(params, *args)
+        res["logits"].append(placed.local(logits).clone())
+        res["prefill"] = _blocks(cache)
+        for tok in inp["steps"]:
+            logits, cache = fns.decode(params, torch.from_numpy(tok), cache)
+            res["logits"].append(placed.local(logits).clone())
+    res["rows"] = placed.layout(logits).block(0)
+    res["last"] = _blocks(cache)
+    res["margin"] = min(margins, default=1.0)
+    return res
+
+
+def _rank_main(rank, world, port, group, inp, dst):
+    """One spawned rank: join the gloo group, build each of the group's
+    meshes, serve every case on it, write the results."""
+    import pickle
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=int(world), rank=int(rank))
+    try:
+        with open(inp, "rb") as f:
+            inputs = pickle.load(f)
+        out = {}
+        for kind in GROUPS[group]:
+            mesh = make_debug_mesh(*MESHES[kind], device_type="cpu")
+            res = {"comm": {}, "dtensor_ops": []}
+            res["cases"] = {case: _serve(_cfgs(case)[1], mesh,
+                                         inputs[case], res)
+                            for case in CASES}
+            out[kind] = res
+        torch.save(out, dst)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _started(tmp_path_factory):
+    """The ranks of every group, started when the module starts (they run
+    beside the spec tests) and stopped when it ends."""
+    inputs = {case: _inputs(case) for case in CASES}
+    meshes = Meshes("test_torch_serve_mesh",
+                    {g: int(np.prod(MESHES[kinds[0]]))
+                     for g, kinds in GROUPS.items()},
+                    {g: inputs for g in GROUPS},
+                    str(tmp_path_factory.mktemp("serve_mesh")))
+    try:
+        yield meshes
+    finally:
+        meshes.stop()
+
+
+@pytest.fixture(scope="module")
+def ranks(_started):
+    """Kind -> the ranks' results, in rank order."""
+    out = _started.results()
+    return {kind: [r[kind] for r in out[g]]
+            for g, kinds in GROUPS.items() for kind in kinds}
+
+
+@functools.lru_cache(maxsize=None)
+def _one_process(case):
+    """The port's one-process route from the same inputs, on one thread
+    as the ranks: the logits of the prefill and each step, the cache
+    after the prefill and after the last step."""
+    _, tcfg = _cfgs(case)
+    inp = _inputs(case)
+    params = model_params_from_jax(inp["params"], tcfg, device="cpu")
+    pe = None if inp["prefix"] is None else torch.from_numpy(inp["prefix"])
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        logits, cache = tmodel.prefill(
+            tcfg, params, torch.from_numpy(inp["tokens"]), pe,
+            cache_len=tserving.serve_cache_len(tcfg, W))
+        out = {"logits": [logits.clone()],
+               "prefill": dict((p, x.clone()) for p, x in tree_paths(cache))}
+        for tok in inp["steps"]:
+            logits, cache = tmodel.decode_step(tcfg, params,
+                                               torch.from_numpy(tok), cache)
+            out["logits"].append(logits.clone())
+        out["last"] = dict(tree_paths(cache))
+    finally:
+        torch.set_num_threads(threads)
+    return out
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if c != "llama_ring"])
+def test_one_rank_mesh_matches_the_reference(ranks, case):
+    """The one-rank mesh's prefill and 3 decode steps against the
+    reference's ``make_serve_fns`` on a (1, 1) JAX mesh, the same weights
+    and tokens."""
+    jcfg, _ = _cfgs(case)
+    inp = _inputs(case)
+    mesh = jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+    fns = jserving.make_serve_fns(jcfg, mesh, B, W)
+    params = jax.tree.map(jnp.asarray, inp["params"])
+    args = [jnp.asarray(inp["tokens"])]
+    if inp["prefix"] is not None:
+        args.append(jnp.asarray(inp["prefix"]))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")      # donation is a no-op here
+        want = [fns.prefill(params, *args)]
+        for tok in inp["steps"]:
+            want.append(fns.decode(params, jnp.asarray(tok), want[-1][1]))
+    (res,) = ranks["one"]
+    got = res["cases"][case]
+    assert got["margin"] > ROUTE_MARGIN
+    for g, (w, _) in zip(got["logits"], want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=LOGIT_TOL, err_msg=case)
+    wcache = want[-1][1]
+    wleaves = dict(_jpaths(wcache))
+    assert [p for p, _, _ in got["last"]] == list(wleaves)
+    for path, block, _ in got["last"]:
+        tol = 0 if path in ("pos", "slot_pos") else CACHE_TOL
+        np.testing.assert_allclose(block.numpy(), np.asarray(wleaves[path]),
+                                   rtol=0, atol=tol, err_msg=f"{case} {path}")
+
+
+def _check_blocks(kind, case, blocks, want, exact):
+    scale = max(float(x.abs().max()) for p, x in want.items()
+                if x.is_floating_point())
+    for path, block, idx in blocks:
+        w = want[path]
+        wb = w if idx is None else w[tuple(slice(*i) for i in idx)]
+        what = f"{kind} {case} {path}"
+        if exact or not w.is_floating_point():
+            assert torch.equal(block, wb), what
+        else:
+            np.testing.assert_allclose(block, wb, rtol=0,
+                                       atol=RANK_TOL * scale, err_msg=what)
+
+
+@pytest.mark.parametrize("kind", list(MESHES))
+@pytest.mark.parametrize("case", CASES)
+def test_ranks_match_one_process(ranks, kind, case):
+    """Each rank's logit rows after the prefill and every step, and its
+    cache blocks after the prefill and after decode step 3, against the
+    one-process route (bit for bit on (1, 1) and (1, 2), where each rank
+    runs the whole batch on whole leaves)."""
+    want = _one_process(case)
+    exact = MESHES[kind][0] == 1
+    for res in ranks[kind]:
+        got = res["cases"][case]
+        lo, hi = got["rows"]
+        for g, w in zip(got["logits"], want["logits"]):
+            w = w[lo:hi]
+            if exact:
+                assert torch.equal(g, w), (kind, case)
+            else:
+                np.testing.assert_allclose(
+                    g, w, rtol=0, atol=RANK_TOL * float(w.abs().max()),
+                    err_msg=f"{kind} {case}")
+        _check_blocks(kind, case, got["prefill"], want["prefill"], exact)
+        _check_blocks(kind, case, got["last"], want["last"], exact)
+
+
+@pytest.mark.parametrize("kind", list(MESHES))
+def test_collectives_and_placements(ranks, kind):
+    """Only ``all_gather``s (none where "model" has one rank: the
+    leaves are whole and each rank serves its rows) and no DTensor
+    operator;
+    every cache block the shape of ``cache_shardings``' placements (K
+    and V of one KV head, and MLA's latent, split on the ring W)."""
+    mesh = tsh.AbstractMesh(MESHES[kind], ("data", "model"))
+    for res in ranks[kind]:
+        assert res["dtensor_ops"] == []
+        if MESHES[kind][1] == 1:
+            # nothing is split past the batch rows: no collective
+            assert res["comm"] == {} and res["gathers"] == []
+        else:
+            assert set(res["comm"]) == {"c10d.allgather_"}, res["comm"]
+        for case in CASES:
+            tcfg = _cfgs(case)[1]
+            cshape = tmodel.init_cache(tcfg, B, W, device="meta")
+            specs = tsh.cache_shardings(tcfg, cshape, mesh)
+            if case in ("llama_ring", "deepseek_v2_lite_16b") \
+                    and MESHES[kind][1] > 1:
+                assert all(s[2] == "model" for _, s in
+                           tree_paths(specs["blocks"]))
+            for (path, block, idx), (_, t), (_, s) in zip(
+                    res["cases"][case]["last"], tree_paths(cshape),
+                    tree_paths(specs)):
+                if not len(s):
+                    assert idx is None, (kind, case, path)
+                    continue
+                lay = placed.Layout.of(t.shape, mesh,
+                                       tsh.placements(s, mesh))
+                assert tuple(block.shape) == tuple(
+                    n // lay.parts(d) for d, n in enumerate(t.shape)), \
+                    (kind, case, path)

@@ -28,17 +28,25 @@ TIMEOUT_S = 300
 
 class DTensorOps:
     """While active, records every operator dispatched on a DTensor (the
-    port's routes dispatch none: they work on local tensors)."""
+    port's routes dispatch none: they work on local tensors) and, in
+    ``gathers``, each c10d all-gather's output bytes (all its parts) and
+    its group's size, in the order they run."""
 
     def __init__(self):
         from torch.distributed.tensor import DTensor
         from torch.utils._python_dispatch import TorchDispatchMode
         from torch.utils._pytree import tree_flatten
         seen = self.ops = []
+        gathers = self.gathers = []
+        allgather = torch.ops.c10d.allgather_.default
 
         class Mode(TorchDispatchMode):
             def __torch_dispatch__(self, func, types, args=(), kwargs=None):
                 kwargs = kwargs or {}
+                if func is allgather:
+                    parts = args[0][0]
+                    gathers.append((sum(p.nbytes for p in parts),
+                                    len(parts)))
                 if any(isinstance(a, DTensor)
                        for a in tree_flatten((args, kwargs))[0]):
                     seen.append(str(func))
@@ -57,13 +65,15 @@ class DTensorOps:
 class CollectiveWatch:
     """``CommDebugMode`` and :class:`DTensorOps` together; on exit their
     counts join ``out["comm"]`` (collective -> count) and
-    ``out["dtensor_ops"]``."""
+    ``out["dtensor_ops"]``, and each all-gather's (output bytes, group
+    size) ``out["gathers"]``."""
 
     def __init__(self, out):
         from torch.distributed.tensor.debug import CommDebugMode
         self.out, self.comm, self.ops = out, CommDebugMode(), DTensorOps()
         out.setdefault("comm", {})
         out.setdefault("dtensor_ops", [])
+        out.setdefault("gathers", [])
 
     def __enter__(self):
         self.comm.__enter__()
@@ -77,6 +87,7 @@ class CollectiveWatch:
             name = str(op)
             self.out["comm"][name] = self.out["comm"].get(name, 0) + n
         self.out["dtensor_ops"] += self.ops.ops
+        self.out["gathers"] += self.ops.gathers
 
 
 def free_ports(n: int) -> list:
