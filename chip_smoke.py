@@ -112,9 +112,9 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    launches counted. Then a checkpoint round trip: ``byzpg_cartpole``'s
    parameters saved and restored onto the card bit for bit, and one
    request served through ``policy_params(checkpoint=)``.
-   Phases 3b, 6–8 (6b and 7b included), 10 (10c included) and 11 are
-   driven with the launch counts set to 0 just before each run and read
-   just after; their launches join the totals.
+   Phases 3b, 6–8 (6b and 7b included), 10 (10c included), 11 and 12
+   are driven with the launch counts set to 0 just before each run and
+   read just after; their launches join the totals.
 10. Federated LLM training (``phase_fed``, run after phase 3b):
    Llama-3.2-1B at full width cut to 2 layers, K = 4 agents (D =
    384,313,344 each), n_byz = 1 ``large_noise(sigma=10)``, κ = 3, Adam:
@@ -184,6 +184,18 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    route on its own rows and within ``SERVE_RANK_TOL`` of the route on
    the whole batch. ``[serve-mesh]`` lines and a ``[time]`` line; the
    launches join the totals.
+12. The analysis suite (``repro_torch.analysis``) on the card:
+   keycheck's entry points on the CUDA generator ((seed, offset) states),
+   retrace's config audit and its swept grid's build-once, the donation
+   sites at their small sizes and, at full width where the state already
+   exists, phase 5's Llama-3.2-1B engine (insert and tick, in place),
+   phase 10's tree state (one ``make_fed_step`` step: no input written,
+   every leaf's checksum summed on the card unchanged) and phase 11
+   (a)'s last decode step (in place), each site's allocated bytes
+   against its bound; one memcheck contract (``MEMCHECK_CARD``) over two
+   gloo ranks on the card; and build-once over the whole script (one
+   ``nvcc``, one load of the library). A finding raises; ``[analysis]``
+   lines and a ``[time]`` line.
 9. The kernel table as one JSON line (``device_ms`` and
    ``library_device_ms`` beside the issue-bound ``ms`` and
    ``library_ms``), then
@@ -413,7 +425,7 @@ def phase_card():
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.library()
+    _build.build()
     info = _build.BUILD_INFO
     log(f"[build] sources {[p.name for p in _build.sources()]}")
     log(f"[build] {_build.library_path().name} in "
@@ -2372,6 +2384,8 @@ def phase_serving(dev):
                 f"{[r.tokens[:8] for r in report.results[:3]]}")
             if isinstance(path, _PathInputs):
                 path.check(label)
+            if label == "llama3.2-1b_serve":
+                _analysis_serving(engine, dev)
             if cfg is not None and (cfg.moe is not None and cfg.mla is not None
                                     or cfg.is_recurrent):
                 shape = _bit_repeat(cfg, engine.params, dev)
@@ -3013,6 +3027,8 @@ def phase_fed_tree(dev):
     if not peak < FED_PEAK_LIMIT:
         raise AssertionError(f"fed_tree_llama: peak {peak} bytes >= "
                              f"{FED_PEAK_LIMIT}")
+    _analysis_fed_step(cfg, fed, state,
+                       {k: v[0] for k, v in batches.items()}, mask, dev)
     kept = [t.cpu() for t in leaves]
     m = {k: v.cpu() for k, v in m.items()}
     del state, leaves
@@ -4123,17 +4139,26 @@ def _serve_one_rank(cfg, params, tokens, dev):
                 torch.cuda.synchronize()
             prefill_ms = (time.perf_counter() - t0) * 1e3
         out = {"logits": [logits], "tokens": [], "ms": []}
-        for _ in range(SERVE_MESH_STEPS):
+        seen = 0
+        for i in range(SERVE_MESH_STEPS):
             tok = _greedy(logits)
             out["tokens"].append(tok)
             t0 = time.perf_counter()
-            logits, cache = fns.decode(params, tok, cache)
+            if i + 1 < SERVE_MESH_STEPS:
+                logits, cache = fns.decode(params, tok, cache)
+            else:
+                # phase 12's in-place audit resets the peak: keep the
+                # run's peak so far
+                seen = torch.cuda.max_memory_allocated() if cuda else 0
+                logits, cache = _analysis_serve_decode(fns, params, tok,
+                                                       cache, dev)
             if cuda:
                 torch.cuda.synchronize()
             out["ms"].append((time.perf_counter() - t0) * 1e3)
             out["logits"].append(logits)
         out["launches"] = dispatch.launch_counts()
-        out["peak"] = torch.cuda.max_memory_allocated() if cuda else 0
+        out["peak"] = max(seen, torch.cuda.max_memory_allocated()) if cuda \
+            else 0
     path.check("serve_mesh_one_rank")
     out.update(cache=cache, prefill_ms=prefill_ms)
     return out
@@ -4418,6 +4443,146 @@ def phase_serve_mesh(dev):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the analysis suite on the card
+# ---------------------------------------------------------------------------
+
+#: what phase 12's audits inside phases 5, 10 and 11 leave: each site's
+#: report, their seconds and their launches
+ANALYSIS = {"donation": [], "seconds": 0.0, "launches": {}}
+#: the memcheck contract run over two gloo ranks on the card
+MEMCHECK_CARD = dict(aggregator="rfa", K=8, ranks=2)
+
+
+def _audit(name, kind, call, dev):
+    """One state contract of phase 12 (``repro_torch.analysis.donation``)
+    on a call of an earlier phase at full width: a finding raises, the
+    report (the bytes allocated during the call, its bound) joins
+    ANALYSIS."""
+    from repro_torch.analysis import donation
+    from repro_torch.analysis.findings import render
+    t0 = time.perf_counter()
+    findings, report = donation.check_call(name, kind, call, dev)
+    ANALYSIS["seconds"] += time.perf_counter() - t0
+    if findings:
+        raise AssertionError(f"phase 12 donation {name}:\n"
+                             f"{render(findings)}")
+    ANALYSIS["donation"].append(report)
+
+
+def _analysis_serving(engine, dev):
+    """Phase 12 on phase 5's Llama-3.2-1B engine (full width and depth, 8
+    slots, a 544-entry ring): an insert and a tick on a fresh slot state,
+    each in place (every cache buffer at its address, no allocation of a
+    buffer's size). The request's prefill launches flash 16 times."""
+    import numpy as np
+    from repro_torch.analysis.donation import (IN_PLACE, Call, buffers,
+                                               smallest_block)
+    from repro_torch.kernels import dispatch
+    from repro_torch.serving.request import Request
+    t0 = time.perf_counter()
+    dispatch.reset_launches()
+    state = engine.init_state()
+    first, row, total = engine.prefill_request(Request(
+        uid=0, max_new=8, tokens=np.arange(1, 17, dtype=np.int32)))
+    bound = smallest_block(state.cache)
+    ANALYSIS["seconds"] += time.perf_counter() - t0
+    _audit("serving_insert", IN_PLACE, Call(
+        lambda: engine.insert(state, 0, row, first, total, 8),
+        buffers(state.cache), lambda r: buffers(r.cache), bound), dev)
+    _audit("serving_tick", IN_PLACE, Call(
+        lambda: engine.tick(state), buffers(state.cache),
+        lambda r: buffers(r[0].cache), bound), dev)
+    _add(ANALYSIS["launches"], dispatch.launch_counts())
+
+
+def _analysis_fed_step(cfg, fed, state, batch, mask, dev):
+    """Phase 12 on phase 10's tree state at full width (the window's last
+    state: K = 4, 2 layers, 26 GB): one step of ``make_fed_step`` on a
+    one-rank (1, 1) mesh (c = 0, which reads every field), its result let
+    go: no input's ``_version`` moved and every leaf's checksum, summed on
+    the card (no host copy of the state), unchanged."""
+    from repro_torch.analysis.donation import FUNCTIONAL, Call
+    from repro_torch.core.engine import seed_generator
+    from repro_torch.distributed.fed_trainer import fed_noise, make_fed_step
+    from repro_torch.launch.mesh import make_debug_mesh
+    t0 = time.perf_counter()
+    noise = fed_noise(seed_generator(FED_SEED + 1, dev), fed, state, FED_BYZ)
+    with _one_rank_group():
+        mesh = make_debug_mesh(1, 1, device_type=dev.type)
+        step = make_fed_step(cfg, fed, mesh, large=False,
+                             per_agent_batch=FED_BATCH, seq_len=FED_SEQ)[0]
+        ANALYSIS["seconds"] += time.perf_counter() - t0
+        _audit("make_fed_step", FUNCTIONAL, Call(
+            lambda: step(state, batch, mask, noise),
+            (state, batch, mask, noise)), dev)
+
+
+def _analysis_serve_decode(fns, params, tok, cache, dev):
+    """Phase 12 on phase 11 (a)'s last decode step (Llama-3.2-1B at full
+    width and depth through ``make_serve_fns`` on a one-rank mesh): the
+    step itself, in place. Returns its (logits, cache)."""
+    from repro_torch.analysis.donation import (IN_PLACE, Call, buffers,
+                                               smallest_block)
+    out = []
+
+    def decode():
+        out.append(fns.decode(params, tok, cache))
+        return out[0]
+    _audit("serving_decode", IN_PLACE, Call(
+        decode, buffers(cache), lambda r: buffers(r[1]),
+        smallest_block(cache)), dev)
+    return out[0]
+
+
+def phase_analysis(dev):
+    """Phase 12: the passes that mean something on the card, in process
+    (``repro_torch.analysis``, ``--device cuda``): keycheck's entry points on
+    the CUDA generator ((seed, offset) states), retrace's config audit
+    and its swept grid's build-once, the donation sites at their small
+    sizes (the full-width ones ran inside phases 5, 10 and 11), and one
+    memcheck contract over two gloo ranks on the card (gathers staged
+    through the host). A finding raises. Returns the launches of phase
+    12, its audits in the earlier phases included."""
+    from repro_torch.analysis import donation, keycheck, memcheck, retrace
+    from repro_torch.analysis.findings import render
+    from repro_torch.kernels import dispatch
+    t_all = time.perf_counter()
+    dispatch.reset_launches()
+    found, secs = [], {}
+    small, ranks = [], []
+    for name, run in (
+            ("keycheck", lambda: keycheck.run(dev)),
+            ("retrace", lambda: retrace.run(dev)),
+            ("donation", lambda: donation.run(dev, report=small)),
+            ("memcheck", lambda: memcheck.run(
+                dev, table=[memcheck.MemContract(**MEMCHECK_CARD)],
+                report=ranks))):
+        t0 = time.perf_counter()
+        found += run()
+        secs[name] = round(time.perf_counter() - t0, 1)
+    _add(ANALYSIS["launches"], dispatch.launch_counts())
+    if found:
+        raise AssertionError(f"phase 12 analysis:\n{render(found)}")
+    for where, reports in (("full width", ANALYSIS["donation"]),
+                           ("small", small)):
+        for r in reports:
+            bound = "" if r["bound"] is None else f" < bound {r['bound']}"
+            log(f"[analysis] {card()}: donation {r['site']} ({r['kind']}, "
+                f"{where}): allocated during the call {r['peak']} bytes"
+                f"{bound}")
+    for r in ranks:
+        log(f"[analysis] {card()}: memcheck {r['contract']} rank "
+            f"{r['rank']}: arguments {r['args']} <= {r['arg_bound']}, peak "
+            f"{r['peak']} <= {r['temp_bound']}, all_gathers {r['gathers']}"
+            f" <= {r['gather_bound']} bytes each")
+    here = time.perf_counter() - t_all
+    log(f"[time] phase 12 analysis {here + ANALYSIS['seconds']:.1f} s "
+        f"(here {here:.1f}: {secs}; audits in phases 5, 10 and 11 "
+        f"{ANALYSIS['seconds']:.1f})")
+    return ANALYSIS["launches"]
+
+
 def main() -> int:
     try:
         import torch
@@ -4436,6 +4601,8 @@ def main() -> int:
     t_start = time.perf_counter()
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
+    from repro_torch.analysis.retrace import BuildWatch
+    watch = BuildWatch().__enter__()        # build-once, over the script
     phase_card()
     phase_build()
     rows = phase_kernels(dev)
@@ -4477,6 +4644,15 @@ def main() -> int:
     log(f"[time] recurrent card-vs-CPU check {time.perf_counter() - t0:.1f} "
         f"s")
     _add(totals, phase_checkpoint(dev, byzpg_out))
+    _add(totals, phase_analysis(dev))
+    watch.__exit__(None, None, None)
+    found = watch.findings(dev, "chip_smoke.py")
+    if found:
+        from repro_torch.analysis.findings import render
+        raise AssertionError(f"phase 12 build-once:\n{render(found)}")
+    log(f"[analysis] build-once over the script: build() calls "
+        f"{watch.builds} (seconds of nvcc each, 0.0 where the library was "
+        f"found built), library loads {watch.loads}")
     from repro_torch.kernels import dispatch
     missing = [name for name in dispatch.kernels()
                if totals.get(name, 0) <= 0]

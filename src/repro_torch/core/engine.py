@@ -78,6 +78,7 @@ def history(ys, names) -> dict:
     """A run's per-step outputs as numpy histories: column i of the
     steps' tuples under ``names[i]`` (names beyond the tuples' length are
     left out)."""
+    # analysis: host-side (histories leave the device once, per window)
     return {name: torch.stack(col).cpu().numpy()
             for name, col in zip(names, zip(*ys))}
 
@@ -265,6 +266,7 @@ def seed_batch(a: AlgoDef, env, cfg, T: int, seeds, device=None) -> dict:
             for s in seeds]
     hist = {k: np.stack([r[k] for r in runs]) for k in _HIST_KEYS
             if k in runs[0]}
+    # analysis: host-side (the grid's summaries are numpy, per scenario)
     hist[a.carry_hist] = torch.stack(
         [r[a.carry_hist] for r in runs]).cpu().numpy()
     return hist
@@ -347,6 +349,7 @@ def assemble_hist(carry, chunks, algo="decbyzpg") -> dict:
     concatenated along time plus the algorithm's ``carry_hist`` (the
     rows' ``carry[0]``), bit-identical to the uninterrupted runs."""
     a = _algo(Spec.of(algo))
+    # analysis: host-side (the sweep's histories are numpy, once at its end)
     hist = {a.carry_hist: carry[0].cpu().numpy()}
     for k in chunks[0]:
         hist[k] = np.concatenate([np.asarray(c[k]) for c in chunks], axis=1)
@@ -473,10 +476,13 @@ class ExperimentResult:
                 v.canonical() if isinstance(v, Spec) else v for v in scn])),
                 **summ[self.scenario_name(scn)]}
             if curves:
+                # analysis: host-side (numpy summaries to JSON lists)
                 entry["returns_mean"] = np.asarray(
                     r["returns_mean"]).tolist()
+                # analysis: host-side
                 entry["returns_ci95"] = np.asarray(
                     r["returns_ci95"]).tolist()
+                # analysis: host-side
                 entry["samples_mean"] = np.asarray(
                     r["samples"]).mean(axis=0).tolist()
             doc["scenarios"].append(entry)

@@ -106,4 +106,5 @@ def draw_fed_coins(generator: torch.Generator, ts, p: float) -> list:
     """The PAGE coins of a window's steps ``ts``: c_t = (t == 0) or
     u_t < p, the uniforms drawn in one call and read to the host once."""
     u = torch.rand((len(ts),), generator=generator, device=generator.device)
+    # analysis: host-side (the coins pick each step's branch on the host)
     return [int(t) == 0 or bool(c) for t, c in zip(ts, (u < p).tolist())]

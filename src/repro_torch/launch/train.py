@@ -8,7 +8,8 @@ trainer of :mod:`repro_torch.distributed.fed_trainer`.
 
 By default steps run in windows of ``--window`` (``fed_train_window``):
 each window draws its PAGE coins at its start, one read to the host, and
-every step's noise from the run's generator (seeded by ``--seed``).
+every step's noise from the run's generator (seeded by ``--seed``),
+which first draws θ₀.
 ``--no-fused`` runs the per-step loop instead, its coin from
 ``common_sample_coin`` (the reference's numpy coin, bit for bit).
 
@@ -96,10 +97,13 @@ def main(argv=None):
                     optimizer=args.optimizer, page_p=args.page_p,
                     seed=args.seed, telemetry=telemetry_on)
     K = args.agents
+    # one generator draws θ₀ and then every coin and noise, in order: a
+    # second generator seeded alike would start the run's draws from the
+    # state the init drew from (keycheck's key-reuse)
+    gen = seed_generator(fed.seed, dev)
     # the state is handed to each step or window from this list, so that
     # no variable here keeps a spent state alive while the next is made
-    held = [init_fed_state(cfg, fed, K, args.seed, device=dev)]
-    gen = seed_generator(fed.seed, dev)
+    held = [init_fed_state(cfg, fed, K, gen, device=dev)]
 
     pipe = TokenPipeline(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq,

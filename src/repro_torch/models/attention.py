@@ -200,10 +200,12 @@ def check_positions(positions, S: int) -> None:
     sides, so its route takes no other positions."""
     if positions is None:
         return
+    # analysis: host-side (checks caller-given positions, before any kernel)
     pos = torch.as_tensor(positions).cpu()
     if not torch.equal(pos, torch.arange(S, dtype=pos.dtype)):
         raise ValueError(f"the flash route takes positions arange({S}) "
                          f"only (the kernel's absolute indices), got "
+                         # analysis: host-side (the error's message)
                          f"{pos.tolist()[:8]}...; attention='chunked' takes "
                          f"any")
 

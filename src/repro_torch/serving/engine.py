@@ -216,6 +216,7 @@ class DecodeEngine:
             new = SlotState(cache=cache, tokens=nxt, steps=steps,
                             budget=state.budget,
                             active=state.active & ~done)
+            # analysis: host-side (the tick's one read: the scheduler's view)
             host = torch.stack([nxt, done.long(),
                                 state.active.long()]).cpu().numpy()
         return new, TickOut(tokens=host[0], done=host[1].astype(bool),

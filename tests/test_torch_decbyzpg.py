@@ -149,9 +149,9 @@ def test_default_device_is_cuda():
 def test_port_imports_no_jax():
     """Every module of the port imports without ``jax`` or ``repro``, the
     serving slice's and the ByzPG, engine, obs and checkpoint modules
-    among them, and no import statement in the port, in
-    ``chip_smoke.py`` or in ``tools/`` names either (the smoke script and
-    the profilers import the port inside their functions)."""
+    among them (the analysis suite too), and no import statement in the
+    port, in ``chip_smoke.py`` or in ``tools/`` names either (the smoke
+    script and the profilers import the port inside their functions)."""
     serving = ["repro_torch.configs.base", "repro_torch.configs.qwen2_7b",
                "repro_torch.models.layers", "repro_torch.models.attention",
                "repro_torch.models.model",
@@ -166,7 +166,13 @@ def test_port_imports_no_jax():
                "repro_torch.core.engine", "repro_torch.obs",
                "repro_torch.obs.metrics", "repro_torch.obs.sinks",
                "repro_torch.obs.trace", "repro_torch.obs.manifest",
-               "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt"]
+               "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
+               "repro_torch.analysis", "repro_torch.analysis.findings",
+               "repro_torch.analysis.lint", "repro_torch.analysis.keycheck",
+               "repro_torch.analysis.retrace",
+               "repro_torch.analysis.donation",
+               "repro_torch.analysis.memcheck",
+               "repro_torch.analysis.__main__"]
     code = (
         "import pkgutil, importlib, sys, repro_torch\n"
         "names = [m.name for m in pkgutil.walk_packages("

@@ -172,7 +172,7 @@ def main(argv=None) -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"[bench] {args.label}: {card}; repro_torch from "
           f"{sys.modules['repro_torch'].__file__}", flush=True)
-    _build.library()
+    _build.build()
     print(f"[bench] {args.label}: build {_build.BUILD_INFO['seconds']:.2f} s",
           flush=True)
     dev = torch.device("cuda")

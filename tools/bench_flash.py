@@ -110,7 +110,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    _build.library()
+    _build.build()
     print(f"[bench] {args.label}: {card}; repro_torch from "
           f"{sys.modules['repro_torch'].__file__}; build "
           f"{_build.BUILD_INFO['seconds']:.2f} s", flush=True)

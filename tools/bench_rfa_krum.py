@@ -209,7 +209,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     print(f"[bench] {args.label}: repro_torch from "
           f"{sys.modules['repro_torch'].__file__}", flush=True)
-    _build.library()
+    _build.build()
     print(f"[bench] {args.label}: build {_build.BUILD_INFO['seconds']:.2f} s",
           flush=True)
     dev = torch.device("cuda")
