@@ -190,8 +190,9 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    sites at their small sizes and, at full width where the state already
    exists, phase 5's Llama-3.2-1B engine (insert and tick, in place),
    phase 10's tree state (one ``make_fed_step`` step: no input written,
-   every leaf's checksum summed on the card unchanged) and phase 11
-   (a)'s last decode step (in place), each site's allocated bytes
+   every leaf's checksum summed on the card unchanged) and one more
+   decode step on phase 11 (a)'s kept cache after its comparisons (in
+   place), each site's allocated bytes
    against its bound; one memcheck contract (``MEMCHECK_CARD``) over two
    gloo ranks on the card; and build-once over the whole script (one
    ``nvcc``, one load of the library). A finding raises; ``[analysis]``
@@ -2799,8 +2800,9 @@ def phase_cpu_agreement(dev):
 #: at K = 4 hold D = 384,313,344 (the embedding 262,668,288 of it)
 FED_ARCH, FED_LAYERS, FED_D = "llama3.2-1b", 2, 384313344
 FED_K, FED_BYZ, FED_BATCH, FED_SEQ = 4, 1, 2, 128
-#: the tree run's seed: its window's coins hold a c = 1 (t = 0) and a c = 0
-FED_SEED, FED_TREE_T, FED_FLAT_T = 0, 5, 3
+#: the tree run's seed: its window's coins, drawn on the card after θ₀,
+#: hold a c = 1 (t = 0) and a c = 0 ([1, 0, 1, 0, 0]; seed 0's are all 1)
+FED_SEED, FED_TREE_T, FED_FLAT_T = 1, 5, 3
 FED_KW = dict(n_byz=FED_BYZ, attack="large_noise(sigma=10)", kappa=3,
               lr=1e-3, page_p=0.25, seed=FED_SEED)
 #: the flat runs' coins: a large step, then two PAGE steps
@@ -2892,50 +2894,33 @@ class _FedTimer:
 def _fed_tree_run(cfg, fed, dev, batches, mask):
     """One seeded ``fed_train_window`` of FED_TREE_T steps from the common
     init, which nothing here keeps (the window lets go of each spent
-    state); returns (state, metrics)."""
+    state); returns (state, metrics). One generator draws θ₀, then the
+    window's coins and noise, as the training CLI does."""
     from repro_torch.core.engine import seed_generator
     from repro_torch.distributed.fed_trainer import (fed_train_window,
                                                      init_fed_state)
     gen = seed_generator(fed.seed, dev)
     return fed_train_window(
-        cfg, fed, init_fed_state(cfg, fed, FED_K, FED_SEED, device=dev),
+        cfg, fed, init_fed_state(cfg, fed, FED_K, gen, device=dev),
         batches, mask, range(FED_TREE_T), gen)
-
-
-@contextlib.contextmanager
-def _one_rank_group():
-    """A gloo process group of this one process on a free localhost
-    port, for a one-rank mesh; destroyed on exit."""
-    import socket
-    import torch.distributed as dist
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            world_size=1, rank=0)
-    try:
-        yield
-    finally:
-        dist.destroy_process_group()
 
 
 def _fed_mesh_repeat(cfg, fed, dev, batches, mask):
     """The window's FED_TREE_T steps again through ``make_fed_step`` on a
     one-rank ("data", "model") = (1, 1) mesh: the seeded generator's
-    coins and draws in the window's order, each step the step of its
+    θ₀, coins and draws in the window's order, each step the step of its
     coin, the placed state made from the common init without a copy.
     Returns (state, metrics stacked, coins, ms per step, peak bytes,
     bytes allocated when the peak was reset: the mesh made)."""
     import torch
+    from repro_torch.analysis.donation import one_rank_mesh
     from repro_torch.core.engine import seed_generator
     from repro_torch.core.noise import draw_fed_coins
     from repro_torch.distributed.fed_trainer import (fed_noise,
                                                      init_fed_state,
                                                      make_fed_step,
                                                      place_fed_state)
-    from repro_torch.launch.mesh import make_debug_mesh
-    with _one_rank_group():
-        mesh = make_debug_mesh(1, 1, device_type=dev.type)
+    with one_rank_mesh(dev.type) as mesh:
         steps = {c: make_fed_step(cfg, fed, mesh, large=c,
                                   per_agent_batch=FED_BATCH,
                                   seq_len=FED_SEQ)[0] for c in (True, False)}
@@ -2943,9 +2928,9 @@ def _fed_mesh_repeat(cfg, fed, dev, batches, mask):
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         gen = seed_generator(fed.seed, dev)
-        coins = draw_fed_coins(gen, range(FED_TREE_T), fed.page_p)
         state = place_fed_state(
-            init_fed_state(cfg, fed, FED_K, FED_SEED, device=dev), mesh, cfg)
+            init_fed_state(cfg, fed, FED_K, gen, device=dev), mesh, cfg)
+        coins = draw_fed_coins(gen, range(FED_TREE_T), fed.page_p)
         rows, ms = [], []
         for t, coin in enumerate(coins):
             batch = {k: v[t] for k, v in batches.items()}
@@ -3195,11 +3180,10 @@ def _fed_flat_steps(cfg, fed, dev, sharded=None, record=False):
     from repro_torch.kernels import dispatch
     pipe = _fed_pipe(cfg, dev)
     mask = torch.arange(FED_K, device=dev) < FED_BYZ
-    state, unravel = init_flat_fed_state(cfg, fed, FED_K, FED_SEED,
-                                         device=dev)
+    gen = seed_generator(fed.seed, dev)      # θ₀, then every step's noise
+    state, unravel = init_flat_fed_state(cfg, fed, FED_K, gen, device=dev)
     if state.theta.shape != (FED_K, FED_D):
         raise AssertionError(f"flat state theta {tuple(state.theta.shape)}")
-    gen = seed_generator(fed.seed, dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     dispatch.reset_launches()
@@ -4113,54 +4097,42 @@ def _plain_serve(cfg, params, tokens, steps, keep=()):
     return out
 
 
-def _serve_one_rank(cfg, params, tokens, dev):
-    """Phase 11 (a)'s mesh run: ``make_serve_fns`` on a one-rank (1, 1)
-    mesh, a prefill and SERVE_MESH_STEPS greedy decode steps, with the
-    launches counted (zeroed just before) and the flash launches held
-    against the plain version on their own inputs. Returns the logits,
-    the tokens, the cache, the launches, ms and the peak bytes."""
+def _serve_one_rank(cfg, params, tokens, dev, mesh):
+    """Phase 11 (a)'s mesh run: ``make_serve_fns`` on the one-rank (1, 1)
+    ``mesh``, a prefill and SERVE_MESH_STEPS greedy decode steps, with
+    the launches counted (zeroed just before) and the flash launches held
+    against the plain version on their own inputs. Returns the serving
+    functions, the logits, the tokens, the cache, the launches, ms and
+    the peak bytes."""
     import torch
     from repro_torch.distributed.serving import make_serve_fns
     from repro_torch.kernels import dispatch
-    from repro_torch.launch.mesh import make_debug_mesh
     cuda = dev.type == "cuda"
-    with _one_rank_group():
-        fns = make_serve_fns(cfg, make_debug_mesh(1, 1,
-                                                  device_type=dev.type),
-                             SERVE_MESH_B, SERVE_MESH_S)
+    fns = make_serve_fns(cfg, mesh, SERVE_MESH_B, SERVE_MESH_S)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    with _PathInputs() as path:
+        t0 = time.perf_counter()
+        logits, cache = fns.prefill(params, tokens)
         if cuda:
             torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-        dispatch.reset_launches()
-        with _PathInputs() as path:
-            t0 = time.perf_counter()
-            logits, cache = fns.prefill(params, tokens)
-            if cuda:
-                torch.cuda.synchronize()
-            prefill_ms = (time.perf_counter() - t0) * 1e3
-        out = {"logits": [logits], "tokens": [], "ms": []}
-        seen = 0
-        for i in range(SERVE_MESH_STEPS):
-            tok = _greedy(logits)
-            out["tokens"].append(tok)
-            t0 = time.perf_counter()
-            if i + 1 < SERVE_MESH_STEPS:
-                logits, cache = fns.decode(params, tok, cache)
-            else:
-                # phase 12's in-place audit resets the peak: keep the
-                # run's peak so far
-                seen = torch.cuda.max_memory_allocated() if cuda else 0
-                logits, cache = _analysis_serve_decode(fns, params, tok,
-                                                       cache, dev)
-            if cuda:
-                torch.cuda.synchronize()
-            out["ms"].append((time.perf_counter() - t0) * 1e3)
-            out["logits"].append(logits)
-        out["launches"] = dispatch.launch_counts()
-        out["peak"] = max(seen, torch.cuda.max_memory_allocated()) if cuda \
-            else 0
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+    out = {"logits": [logits], "tokens": [], "ms": []}
+    for _ in range(SERVE_MESH_STEPS):
+        tok = _greedy(logits)
+        out["tokens"].append(tok)
+        t0 = time.perf_counter()
+        logits, cache = fns.decode(params, tok, cache)
+        if cuda:
+            torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["logits"].append(logits)
+    out["launches"] = dispatch.launch_counts()
+    out["peak"] = torch.cuda.max_memory_allocated() if cuda else 0
     path.check("serve_mesh_one_rank")
-    out.update(cache=cache, prefill_ms=prefill_ms)
+    out.update(fns=fns, cache=cache, prefill_ms=prefill_ms)
     return out
 
 
@@ -4171,9 +4143,11 @@ def phase_serve_mesh_one_rank(dev):
     every cache leaf bit for bit, the prefill's flash launches those of
     the plain route; the dry run's ``argument_bytes`` for this (cfg, B,
     S, (1, 1)) equal to the bytes the params and tokens hold, printed
-    with its ``peak_per_device_gb`` beside the measured peak. Returns the
+    with its ``peak_per_device_gb`` beside the measured peak. Then phase
+    12's audit of one more decode step on the kept cache. Returns the
     mesh run's launches."""
     import torch
+    from repro_torch.analysis.donation import one_rank_mesh
     from repro_torch.carriers import placed
     from repro_torch.core.tree import tree_paths
     from repro_torch.distributed.sharding import AbstractMesh
@@ -4184,19 +4158,25 @@ def phase_serve_mesh_one_rank(dev):
     params = init_params(cfg, SERVE_MESH_SEED, device=dev)
     tokens = _serve_mesh_tokens(cfg, dev)
     held = sum(x.nbytes for _, x in tree_paths(params)) + tokens.nbytes
-    mesh = _serve_one_rank(cfg, params, tokens, dev)
-    dispatch.reset_launches()
-    plain = _plain_serve(cfg, params, tokens, SERVE_MESH_STEPS)
-    plain_flash = dispatch.launch_counts()["flash_attention"]
-    bad = [i for i, (a, b) in enumerate(zip(mesh["logits"],
-                                            plain["logits"]))
-           if not torch.equal(placed.local(a), b)]
-    bad += [f"token {i}" for i, (a, b) in enumerate(zip(mesh["tokens"],
-                                                        plain["tokens"]))
+    with one_rank_mesh(dev.type) as one:
+        mesh = _serve_one_rank(cfg, params, tokens, dev, one)
+        dispatch.reset_launches()
+        plain = _plain_serve(cfg, params, tokens, SERVE_MESH_STEPS)
+        plain_flash = dispatch.launch_counts()["flash_attention"]
+        bad = [i for i, (a, b) in enumerate(zip(mesh["logits"],
+                                                plain["logits"]))
+               if not torch.equal(placed.local(a), b)]
+        bad += [f"token {i}" for i, (a, b) in enumerate(
+            zip(mesh["tokens"], plain["tokens"]))
             if not torch.equal(placed.local(a), b)]
-    bad += [p for (p, a), (_, b) in zip(tree_paths(mesh["cache"]),
-                                        tree_paths(plain["cache"]))
-            if not torch.equal(placed.local(a), b)]
+        bad += [p for (p, a), (_, b) in zip(tree_paths(mesh["cache"]),
+                                            tree_paths(plain["cache"]))
+                if not torch.equal(placed.local(a), b)]
+        del plain
+        # after the comparisons: the audited step writes the kept cache
+        _analysis_serve_decode(mesh["fns"], params,
+                               _greedy(mesh["logits"][-1]), mesh["cache"],
+                               dev)
     flash = mesh["launches"]["flash_attention"]
     amesh = AbstractMesh((1, 1), ("data", "model"))
     mem = {mode: dryrun.memory(dryrun.serve_program(
@@ -4502,14 +4482,12 @@ def _analysis_fed_step(cfg, fed, state, batch, mask, dev):
     one-rank (1, 1) mesh (c = 0, which reads every field), its result let
     go: no input's ``_version`` moved and every leaf's checksum, summed on
     the card (no host copy of the state), unchanged."""
-    from repro_torch.analysis.donation import FUNCTIONAL, Call
+    from repro_torch.analysis.donation import FUNCTIONAL, Call, one_rank_mesh
     from repro_torch.core.engine import seed_generator
     from repro_torch.distributed.fed_trainer import fed_noise, make_fed_step
-    from repro_torch.launch.mesh import make_debug_mesh
     t0 = time.perf_counter()
     noise = fed_noise(seed_generator(FED_SEED + 1, dev), fed, state, FED_BYZ)
-    with _one_rank_group():
-        mesh = make_debug_mesh(1, 1, device_type=dev.type)
+    with one_rank_mesh(dev.type) as mesh:
         step = make_fed_step(cfg, fed, mesh, large=False,
                              per_agent_batch=FED_BATCH, seq_len=FED_SEQ)[0]
         ANALYSIS["seconds"] += time.perf_counter() - t0
@@ -4519,20 +4497,17 @@ def _analysis_fed_step(cfg, fed, state, batch, mask, dev):
 
 
 def _analysis_serve_decode(fns, params, tok, cache, dev):
-    """Phase 12 on phase 11 (a)'s last decode step (Llama-3.2-1B at full
-    width and depth through ``make_serve_fns`` on a one-rank mesh): the
-    step itself, in place. Returns its (logits, cache)."""
+    """Phase 12 on phase 11 (a)'s kept cache (Llama-3.2-1B at full width
+    and depth through ``make_serve_fns`` on a one-rank mesh, after its
+    comparisons): one more decode step, in place, its result let go."""
     from repro_torch.analysis.donation import (IN_PLACE, Call, buffers,
                                                smallest_block)
-    out = []
-
-    def decode():
-        out.append(fns.decode(params, tok, cache))
-        return out[0]
+    from repro_torch.kernels import dispatch
+    dispatch.reset_launches()
     _audit("serving_decode", IN_PLACE, Call(
-        decode, buffers(cache), lambda r: buffers(r[1]),
-        smallest_block(cache)), dev)
-    return out[0]
+        lambda: fns.decode(params, tok, cache), buffers(cache),
+        lambda r: buffers(r[1]), smallest_block(cache)), dev)
+    _add(ANALYSIS["launches"], dispatch.launch_counts())
 
 
 def phase_analysis(dev):

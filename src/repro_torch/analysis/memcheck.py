@@ -10,8 +10,11 @@ reference spawns a forced-device subprocess), and each rank resolves
 its :class:`~repro_torch.carriers.columns.Shards` block of a (K, D)
 stack and measures the call. Per rank, with shard = K·D·4 / ranks:
 
-* ``argument-footprint`` — its arguments (the block and the receivers'
-  permutation) ≤ shard + ``arg_slack``: the stack stays split;
+* ``argument-footprint`` — its arguments as the route reads them (the
+  block ``local_columns`` takes from the ``Shards`` carrier and the
+  receivers' permutation, each counted by the whole storage it holds)
+  ≤ shard + ``arg_slack``: the rank holds its columns of the stack and
+  no more, not a view into a whole (K, D) stack;
 * ``temp-footprint`` — the peak live bytes allocated during the call
   (:class:`LiveBytes`) ≤ ``temp_factor`` · (shard + K²·4);
 * ``gather-footprint`` — no ``all_gather`` receives more than K²·4·ranks
@@ -40,6 +43,7 @@ import os
 import socket
 import subprocess
 import sys
+import threading
 import weakref
 from pathlib import Path
 from typing import Optional
@@ -68,10 +72,13 @@ class _Tally(TorchDispatchMode):
         super().__init__()
         self.device, self.live, self.peak = device, 0, 0
         self._tracked: set = set()
+        # a storage may be freed on a collective's thread
+        self._lock = threading.RLock()
 
     def _free(self, key, n) -> None:
-        self._tracked.discard(key)
-        self.live -= n
+        with self._lock:
+            self._tracked.discard(key)
+            self.live -= n
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -87,9 +94,10 @@ class _Tally(TorchDispatchMode):
             if key in inputs or key in self._tracked:
                 continue
             n = st.nbytes()
-            self._tracked.add(key)
-            self.live += n
-            self.peak = max(self.peak, self.live)
+            with self._lock:
+                self._tracked.add(key)
+                self.live += n
+                self.peak = max(self.peak, self.live)
             weakref.finalize(st, self._free, key, n)
         return out
 
@@ -191,19 +199,42 @@ def param_count() -> int:
 
 def check_rank(c: MemContract, D: int, device) -> tuple:
     """One rank's check of contract ``c`` in a joined gloo group of
-    ``c.ranks`` processes: ``(findings as dicts, measured bytes)``."""
+    ``c.ranks`` processes, on its own block of a (K, D) stack:
+    ``(findings as dicts, measured bytes)``."""
     import torch.distributed as dist
     from repro_torch.carriers.columns import Shards, _chunk
     from repro_torch.core.engine import seed_generator
-    from repro_torch.core.registry import resolve
     from repro_torch.launch.mesh import make_debug_mesh
     dev = torch.device(device)
     mesh = make_debug_mesh(1, c.ranks, device_type=dev.type)
     rank = dist.get_rank()
     lo, hi = _chunk(D, c.ranks, rank)
-    gen = seed_generator(rank, dev)
-    local = torch.randn((c.K, hi - lo), generator=gen, device=dev)
-    x = Shards(mesh, 1, D, lo, hi).wrap(local)
+    local = torch.randn((c.K, hi - lo), generator=seed_generator(rank, dev),
+                        device=dev)
+    return check_call(c, D, Shards(mesh, 1, D, lo, hi).wrap(local), dev)
+
+
+def _storage_bytes(*tensors) -> int:
+    """The bytes of the distinct storages behind ``tensors``: a view
+    counts the whole storage it keeps alive."""
+    seen = {t.untyped_storage()._cdata: t.untyped_storage().nbytes()
+            for t in tensors}
+    return sum(seen.values())
+
+
+def check_call(c: MemContract, D: int, x, device) -> tuple:
+    """Contract ``c`` on one sharded call of its aggregator on ``x``, this
+    rank's D-sharded stack: the arguments are what the route reads,
+    ``local_columns(x)``'s block and the receivers' permutation, each
+    counted by the storage it holds (a block that is a view of a whole
+    (K, D) stack holds the stack). ``(findings as dicts, measured
+    bytes)``."""
+    import torch.distributed as dist
+    from repro_torch.carriers.columns import local_columns
+    from repro_torch.core.engine import seed_generator
+    from repro_torch.core.registry import resolve
+    dev = torch.device(device)
+    rank = dist.get_rank()
     perm = torch.argsort(torch.rand((1, c.K), generator=seed_generator(
         0, dev), device=dev), dim=1)
     agg = resolve("aggregator", c.aggregator, K=c.K, n_byz=1, sharded=True)
@@ -212,7 +243,7 @@ def check_rank(c: MemContract, D: int, device) -> tuple:
         out = agg(x, perm)
     del out
     shard = c.K * D * 4 // c.ranks
-    args = local.nbytes + perm.nbytes
+    args = _storage_bytes(local_columns(x)[0], perm)
     measured = dict(contract=c.name, rank=rank, args=args, peak=mem.peak,
                     gathers=watch.gathers, arg_bound=shard + c.arg_slack,
                     temp_bound=c.temp_factor * (shard + c.K * c.K * 4),
@@ -223,7 +254,8 @@ def check_rank(c: MemContract, D: int, device) -> tuple:
             rule="argument-footprint",
             message=f"[{c.name}] rank {rank}'s arguments occupy {args} bytes "
                     f"> bound {measured['arg_bound']} (one K·D/ranks shard "
-                    f"+ {c.arg_slack}) — the stack is not split"))
+                    f"+ {c.arg_slack}) — the rank holds more than its "
+                    f"columns of the stack"))
     if mem.peak > measured["temp_bound"]:
         found.append(dict(
             rule="temp-footprint",

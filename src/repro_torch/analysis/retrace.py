@@ -220,8 +220,5 @@ def audit_builds(device="cpu", T: int = 2) -> list:
     return watch.findings(device, "run_grid over K, eta and the attack")
 
 
-def run(device="cpu", dynamic: bool = True) -> list:
-    findings = audit_static()
-    if dynamic:
-        findings.extend(audit_builds(device))
-    return findings
+def run(device="cpu") -> list:
+    return audit_static() + audit_builds(device)

@@ -1,7 +1,9 @@
 """The port's memory contracts (``repro_torch.analysis.memcheck``): on two
 gloo ranks started once for the module, a sharded aggregator that gathers
-whole rows breaks ``gather-footprint`` and impossible bounds break
-``argument-footprint`` and ``temp-footprint``, each beside a clean twin;
+whole rows breaks ``gather-footprint``, a block handed to rfa as a view
+of the whole (K, D) stack breaks ``argument-footprint`` (its copy is
+clean), and impossible bounds break ``argument-footprint`` and
+``temp-footprint``, each beside a clean twin;
 a contract of too many ranks is ``mesh-unavailable``; the real table runs
 clean through its own rank processes; the table and D equal the
 reference's (exact)."""
@@ -42,6 +44,21 @@ def _gather_rows_factory(K, n_byz, sharded=None):
     return Aggregator(fn)
 
 
+def _unsplit_block(copy):
+    """rfa handed this rank's columns of a whole (K, D) stack: a view
+    (the rank holds the whole stack) or, the clean twin, a copy."""
+    import torch.distributed as dist
+    from repro_torch.carriers.columns import Shards, _chunk
+    from repro_torch.launch.mesh import make_debug_mesh
+    c = MemContract("rfa", K=8, ranks=2)
+    lo, hi = _chunk(D_FIXTURE, c.ranks, dist.get_rank())
+    gen = torch.Generator().manual_seed(0)
+    block = torch.randn((c.K, D_FIXTURE), generator=gen)[:, lo:hi]
+    x = Shards(make_debug_mesh(1, c.ranks, device_type="cpu"), 1,
+               D_FIXTURE, lo, hi).wrap(block.clone() if copy else block)
+    return memcheck.check_call(c, D_FIXTURE, x, "cpu")
+
+
 def _rank_main(rank, world, port, kind, inp, dst):
     import pickle
 
@@ -54,6 +71,7 @@ def _rank_main(rank, world, port, kind, inp, dst):
         with open(inp, "rb") as f:
             table = pickle.load(f)
         out = [memcheck.check_rank(c, D_FIXTURE, "cpu") for c in table]
+        out += [_unsplit_block(copy) for copy in (False, True)]
     finally:
         dist.destroy_process_group()
     torch.save(out, dst)
@@ -91,6 +109,17 @@ def test_impossible_argument_bound_flagged(ranks):
     fixtures, _, _ = ranks
     for rank_out in fixtures:
         assert _rules(rank_out, 2) == {"argument-footprint"}
+
+
+def test_unsplit_block_flagged_its_copy_clean(ranks):
+    fixtures, _, _ = ranks
+    n = len(FIXTURES)
+    for rank_out in fixtures:
+        assert _rules(rank_out, n) == {"argument-footprint"}
+        assert _rules(rank_out, n + 1) == set()
+        # the view holds the whole stack, the copy its columns (exact)
+        assert rank_out[n][1]["args"] == 8 * D_FIXTURE * 4 + 8 * 8
+        assert rank_out[n + 1][1]["args"] == 8 * D_FIXTURE * 4 // 2 + 8 * 8
 
 
 def test_impossible_temp_bound_flagged_krum_clean(ranks):
