@@ -112,8 +112,8 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    launches counted. Then a checkpoint round trip: ``byzpg_cartpole``'s
    parameters saved and restored onto the card bit for bit, and one
    request served through ``policy_params(checkpoint=)``.
-   Phases 3b, 6–8 (6b and 7b included), 10 (10c included), 11 and 12
-   are driven with the launch counts set to 0 just before each run and
+   Phases 3b, 6–8 (6b and 7b included), 10 (10c included), 11, 12 and
+   13 are driven with the launch counts set to 0 just before each run and
    read just after; their launches join the totals.
 10. Federated LLM training (``phase_fed``, run after phase 3b):
    Llama-3.2-1B at full width cut to 2 layers, K = 4 agents (D =
@@ -131,8 +131,8 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    ragged ``gram`` chunk included) and timed beside its bound; the two
    trainers against each other (mean, no attack); the reduced model on
    the card against the CPU; ``python -m repro_torch.launch.train`` in
-   fresh processes, windowed and ``--no-fused``, its checkpoint against
-   the same run in this process.
+   fresh processes, windowed and ``--no-fused`` started at once, each
+   checkpoint against the same run in this process.
 10c. The D-sharded flat trainer (``fed_train_step_flat(sharded=True)``):
    (a) after each full-width flat run of phase 10, the same 3 steps with
    ``sharded=True`` on one process (the sharded flat layer with one
@@ -158,7 +158,8 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    "model") = (2, 2) mesh: ``fed_axis="data"`` (K = 2 over "data", the
    leaves split over "model") with mean and RFA, and ``fed_axis="all"``
    (K = 4, one agent a rank) with Krum and the trimmed mean under
-   ``large_noise(sigma=10)``, 2 steps each, against the one-process
+   ``large_noise(sigma=10)``, 2 steps each on "data" (coin 1, then 0) and
+   the coin-1 step on "all", against the one-process
    tree step on the card from the same init and draws: θ within
    ``FED_RANK_TOL`` of max|θ|, the losses within ``FED_LOSS_TOL``,
    Krum's margins, no kernel launch, each rank's allocation across a
@@ -197,14 +198,25 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    gloo ranks on the card; and build-once over the whole script (one
    ``nvcc``, one load of the library). A finding raises; ``[analysis]``
    lines and a ``[time]`` line.
+13. The examples (``EXAMPLES``): the seven scripts of ``examples_torch/``
+   through their ``main`` in this process on the card, each at its own
+   widths with only its depth cut (``--iters 3 --seeds 1`` for the five
+   ``Experiment`` examples, ``--sigmas 10,200`` for the sweep,
+   ``serve_decode.py`` at its defaults realtime and ``--offline``,
+   ``federated_llm.py --steps 4`` flat and ``--steps 2 --tree``): each
+   report printed with an ``[examples]`` prefix and its wall, every
+   returned number finite, every served request given its budget, and
+   ``gram``, ``weiszfeld``, ``wsum`` and ``flash_attention`` each
+   launched inside the phase; a ``[time]`` line. Its launches join the
+   totals.
 9. The kernel table as one JSON line (``device_ms`` and
    ``library_device_ms`` beside the issue-bound ``ms`` and
    ``library_ms``), then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports nothing of JAX or of the JAX package ``repro``. Without a CUDA
-device, or outside a checkout that holds ``src/repro_torch``, it exits 2
-and prints no result.
+device, or outside a checkout that holds ``src/repro_torch`` and
+``examples_torch/``, it exits 2 and prints no result.
 """
 from __future__ import annotations
 
@@ -2674,17 +2686,55 @@ def phase_recurrent_cpu_agreement(dev):
 POLICY_HD48 = "transformer(d_model=96, n_heads=2)"
 
 
+def hold_policy_streams(label, cfg, cpu_params, env, traffic, cpu_streams,
+                        card_streams, tol) -> int:
+    """The margin rule for a transformer policy's served action streams:
+    the CPU's equal each request's unbatched greedy stream on the CPU
+    (the observation in the first prefix embedding, one prompt token),
+    and the card's equal it up to the request's first step whose top-1
+    margin is within ``tol``. Returns the tokens compared."""
+    import numpy as np
+    import torch
+    from repro_torch.models.model import decode_step, prefill
+    compared = 0
+    for req in traffic:
+        pe = torch.zeros((1, cfg.n_prefix_embeds, cfg.d_model))
+        pe[0, 0, :req.obs.shape[0]] = torch.from_numpy(req.obs)
+        logits, cache = prefill(cfg, cpu_params, torch.zeros(
+            (1, 1), dtype=torch.long), pe, cache_len=cfg.n_prefix_embeds
+            + 1 + req.max_new)
+        row, margins, want = logits[0, -1, :env.n_actions], [], []
+        for i in range(req.max_new):
+            top = torch.topk(row, 2).values
+            margins.append((top[0] - top[1]).item())
+            tok = torch.argmax(row)
+            want.append(int(tok))
+            if i + 1 < req.max_new:
+                logits, cache = decode_step(cfg, cpu_params, tok[None],
+                                            cache)
+                row = logits[0, 0, :env.n_actions]
+        m = next((i for i, x in enumerate(margins) if x <= tol),
+                 len(margins))
+        cpu_s, card_s = cpu_streams[req.uid], card_streams[req.uid]
+        if cpu_s != want or card_s[:m] != want[:m] \
+                or len(card_s) != len(want):
+            raise AssertionError(f"{label} request {req.uid}: card "
+                                 f"{card_s}, CPU {cpu_s}, unbatched {want}, "
+                                 f"margins {np.round(margins, 6).tolist()}")
+        compared += m
+    return compared
+
+
 def phase_policy_cpu_agreement(dev, tol):
     """``serve()`` with the :data:`POLICY_HD48` policy on the card and on
     the CPU, the same weights (drawn on the CPU): the card's prefills must
     go through the flash kernel, and the greedy streams must equal the
     CPU's unbatched ones up to each request's first step whose top-1
     margin is within ``tol``."""
-    import numpy as np
     import torch
     from repro_torch.core.registry import resolve
     from repro_torch.kernels import dispatch
-    from repro_torch.models.model import decode_step, prefill, tree_map
+    from repro_torch.models.model import tree_map
     from repro_torch.serving import make_traffic, serve
     env = resolve("env", "cartpole(horizon=32)")
     pol = resolve("policy", POLICY_HD48, env=env)
@@ -2710,34 +2760,11 @@ def phase_policy_cpu_agreement(dev, tol):
     if launched != {"cpu": 0, str(dev): cfg.n_layers * n}:
         raise AssertionError(f"{POLICY_HD48}: flash launches {launched}, "
                              f"expected {cfg.n_layers * n} on the card")
-    compared = 0
     traffic = make_traffic(n, seed=0, rate_rps=50.0, max_new=max_new,
                            obs_dim=env.obs_dim)
-    for req in traffic:
-        pe = torch.zeros((1, cfg.n_prefix_embeds, cfg.d_model))
-        pe[0, 0, :req.obs.shape[0]] = torch.from_numpy(req.obs)
-        logits, cache = prefill(cfg, cpu_params, torch.zeros(
-            (1, 1), dtype=torch.long), pe, cache_len=cfg.n_prefix_embeds
-            + 1 + req.max_new)
-        row, margins, want = logits[0, -1, :env.n_actions], [], []
-        for i in range(req.max_new):
-            top = torch.topk(row, 2).values
-            margins.append((top[0] - top[1]).item())
-            tok = torch.argmax(row)
-            want.append(int(tok))
-            if i + 1 < req.max_new:
-                logits, cache = decode_step(cfg, cpu_params, tok[None],
-                                            cache)
-                row = logits[0, 0, :env.n_actions]
-        m = next((i for i, x in enumerate(margins) if x <= tol),
-                 len(margins))
-        cpu_s, card_s = streams["cpu"][req.uid], streams[str(dev)][req.uid]
-        if cpu_s != want or card_s[:m] != want[:m] \
-                or len(card_s) != len(want):
-            raise AssertionError(f"{POLICY_HD48} request {req.uid}: card "
-                                 f"{card_s}, CPU {cpu_s}, unbatched {want}, "
-                                 f"margins {np.round(margins, 6).tolist()}")
-        compared += m
+    compared = hold_policy_streams(POLICY_HD48, cfg, cpu_params, env,
+                                   traffic, streams["cpu"],
+                                   streams[str(dev)], tol)
     log(f"[check] card vs CPU, {POLICY_HD48} (head dim 48 on the hd 64 "
         f"kernel, {launched[str(dev)]} flash launches on the card): greedy "
         f"streams equal over {compared} of "
@@ -3571,19 +3598,21 @@ def phase_fed_two_ranks(dev):
 
 
 #: phase 10d: the tree trainer over four gloo ranks on the one card, one
-#: ("data", "model") = (2, 2) mesh: (fed_axis, aggregator, attack). With
-#: fed_axis "data" K = 2 agents over "data", each leaf split over "model"
-#: (RFA without the attack, as in 10c b); with "all" K = 4, one agent a
-#: rank, leaves whole
-FED_TREE_RANKS, FED_TREE_RANK_T = 4, 2
-FED_TREE_RANK_CASES = (("data", "mean", "none"), ("data", "rfa", "none"),
-                       ("all", "krum", "large_noise(sigma=10)"),
-                       ("all", "trimmed_mean", "large_noise(sigma=10)"))
+#: ("data", "model") = (2, 2) mesh: (fed_axis, aggregator, attack, steps).
+#: With fed_axis "data" K = 2 agents over "data", each leaf split over
+#: "model" (RFA without the attack, as in 10c b), coin 1 then 0; with
+#: "all" K = 4, one agent a rank, leaves whole, the coin-1 step only (its
+#: steps spend 1.2-1.4 s in host-staged gathers; the PAGE step's reads
+#: and memory bound are the "data" cases')
+FED_TREE_RANKS = 4
+FED_TREE_RANK_CASES = (("data", "mean", "none", 2), ("data", "rfa", "none", 2),
+                       ("all", "krum", "large_noise(sigma=10)", 1),
+                       ("all", "trimmed_mean", "large_noise(sigma=10)", 1))
 
 
 def _fed_tree_rank_runs(dev, mesh=None, krum_stacks=None):
-    """FED_TREE_RANK_T tree steps (coin 1, then 0) of the reduced model
-    per FED_TREE_RANK_CASES case, from the seed-1 init with draws from a
+    """Each FED_TREE_RANK_CASES case's tree steps (coin 1, then 0) of the
+    reduced model, from the seed-1 init with draws from a
     generator on ``dev`` seeded 2: through ``make_fed_step`` on ``mesh``
     (the placed state), or ``fed_train_step`` on one process. Each step's
     peak (``max_memory_allocated`` after a reset at its start), the bytes
@@ -3619,7 +3648,7 @@ def _fed_tree_rank_runs(dev, mesh=None, krum_stacks=None):
         return agg_krum(tree, n_byz)
 
     out = {}
-    for axis, agg, attack in FED_TREE_RANK_CASES:
+    for axis, agg, attack, n_steps in FED_TREE_RANK_CASES:
         cfg = dataclasses.replace(cfg0, fed_axis=axis)
         K = n_agents(cfg, shape)
         fed = ft.FedConfig(aggregator=agg, **dict(FED_KW, attack=attack))
@@ -3638,7 +3667,7 @@ def _fed_tree_rank_runs(dev, mesh=None, krum_stacks=None):
         if krum_stacks is not None:
             agg_lib.agg_krum = recorded
         try:
-            for t in range(FED_TREE_RANK_T):
+            for t in range(n_steps):
                 nz = ft.fed_noise(gen, fed, state, FED_BYZ)
                 batch = pipe.batch(t)
                 if cuda:
@@ -3781,7 +3810,7 @@ def phase_fed_tree_ranks(dev):
         above = [p - b for r in ranks for p, b in
                  zip(r[axis, agg]["peaks"], r[axis, agg]["starts"])]
         bounds = [_tree_rank_bound(r[axis, agg], t == 0) for r in ranks
-                  for t in range(FED_TREE_RANK_T)]
+                  for t in range(len(one["losses"]))]
         one_above = [p - b for p, b in zip(one["peaks"], one["starts"])]
         memory = dev.type != "cuda" or all(
             a <= b < a + stack for a, b in zip(above, bounds))
@@ -3801,7 +3830,7 @@ def phase_fed_tree_ranks(dev):
             f"reduced {FED_ARCH}, D={one['D']}, fed_axis {axis}, K="
             f"{one['K']} over {FED_TREE_RANKS} gloo ranks on the one card, "
             f"(data, model) = (2, 2), attack {one['attack']}, "
-            f"{FED_TREE_RANK_T} steps through make_fed_step): theta max "
+            f"{len(one['losses'])} step(s) through make_fed_step): theta max "
             f"abs err {err:.3e} = {err / scale:.3e} of max|theta| (tol "
             f"{FED_RANK_TOL}) against the one-process tree step on the "
             f"card, loss |diff| {loss_err:.3e} (tol {FED_LOSS_TOL}), 0 "
@@ -3875,59 +3904,18 @@ def phase_fed_cpu_agreement(dev):
     weights differ between any two summation orders. θ's tolerance is
     wider than v's: Adam's update lr·m̂/(√v̂ + 1e-8) turns a rounding
     difference in a coordinate whose aggregate is near 1e-8 into a share
-    of lr; a wrong route would move θ by about lr = 1e-3."""
-    import torch
-    from repro_torch.configs import get_config, reduced
-    from repro_torch.core.tree import tree_map, tree_paths
-    from repro_torch.data import DataConfig, TokenPipeline
-    from repro_torch.distributed import fed_trainer as ft
-    cfg = reduced(get_config(FED_ARCH))
-    fed = ft.FedConfig(aggregator="trimmed_mean", **FED_KW)
-    pipe = TokenPipeline(DataConfig(cfg.vocab_size, 32, 2, FED_K, seed=1),
-                         device="cpu")
-    cpu_mask = torch.arange(FED_K) < FED_BYZ
+    of lr; a wrong route would move θ by about lr = 1e-3.
 
-    def gap(a_tree, b_tree):
-        pairs = list(zip(tree_paths(a_tree), tree_paths(b_tree)))
-        scale = max(a.abs().max().item() for (_, a), _ in pairs)
-        err = max((b.cpu() - a).abs().max().item()
-                  for (_, a), (_, b) in pairs)
-        return err, scale
-
+    One run has read θ 3.49e-4 of max|θ| here, where every other read
+    7.325e-05; which side moved is not known (``tools/fed_cpu_repeat.py``
+    repeats each side to look for it)."""
     for flat in (False, True):
-        if flat:
-            cpu, unravel = ft.init_flat_fed_state(cfg, fed, FED_K, 1,
-                                                  device="cpu")
-        else:
-            cpu = ft.init_fed_state(cfg, fed, FED_K, 1, device="cpu")
-        gpu = tree_map(lambda x: x.to(dev), cpu)
-        gen = torch.Generator()
-        gen.manual_seed(2)
-        loss_err = v_err = 0.0
-        for t, coin in enumerate((True, False)):
-            b = pipe.batch(t)
-            nz = ft.fed_noise(gen, fed, cpu, FED_BYZ)
-            nz_dev = type(nz)(*(None if x is None else x.to(dev)
-                                for x in nz))
-            b_dev = {k: v.to(dev) for k, v in b.items()}
-            if flat:
-                cpu, cm = ft.fed_train_step_flat(cfg, fed, cpu, unravel, b,
-                                                 cpu_mask, nz, large=coin)
-                gpu, gm = ft.fed_train_step_flat(cfg, fed, gpu, unravel,
-                                                 b_dev, cpu_mask.to(dev),
-                                                 nz_dev, large=coin)
-            else:
-                cpu, cm = ft.fed_train_step(cfg, fed, cpu, b, cpu_mask, nz,
-                                            large=coin)
-                gpu, gm = ft.fed_train_step(cfg, fed, gpu, b_dev,
-                                            cpu_mask.to(dev), nz_dev,
-                                            large=coin)
-            loss_err = max(loss_err, abs(cm["loss"].item()
-                                         - gm["loss"].item()))
-            e, v_scale = gap(cpu.v, gpu.v)
-            v_err = max(v_err, e / v_scale)
-        err, scale = gap(cpu.theta if flat else cpu.params,
-                         gpu.theta if flat else gpu.params)
+        cpu_theta, cpu_vs, cpu_losses = fed_two_steps("cpu", flat)
+        gpu_theta, gpu_vs, gpu_losses = fed_two_steps(dev, flat)
+        loss_err = max(abs(a - b) for a, b in zip(cpu_losses, gpu_losses))
+        v_err = max(e / v_scale for e, v_scale in
+                    (tree_gap(a, b) for a, b in zip(cpu_vs, gpu_vs)))
+        err, scale = tree_gap(cpu_theta, gpu_theta)
         label = ("flat (the trimmed_mean kernel)" if flat
                  else "tree (fed trimmed_mean)")
         if not (v_err <= FED_CPU_V_TOL and err <= FED_CPU_TOL * scale
@@ -3942,11 +3930,62 @@ def phase_fed_cpu_agreement(dev):
             f"{FED_CPU_TOL}), loss |diff| {loss_err:.3e} (tol 1e-5)")
 
 
+def fed_two_steps(dev, flat: bool):
+    """One side of ``phase_fed_cpu_agreement``: the reduced model's 2 steps
+    on ``dev`` from the CPU's weights and noise. Returns θ (the flat
+    stack, or the params tree), each step's v and each step's loss, all
+    on the CPU."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.distributed import fed_trainer as ft
+    cfg = reduced(get_config(FED_ARCH))
+    fed = ft.FedConfig(aggregator="trimmed_mean", **FED_KW)
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, 32, 2, FED_K, seed=1),
+                         device="cpu")
+    mask = (torch.arange(FED_K) < FED_BYZ).to(dev)
+    if flat:
+        state, unravel = ft.init_flat_fed_state(cfg, fed, FED_K, 1,
+                                                device="cpu")
+    else:
+        state = ft.init_fed_state(cfg, fed, FED_K, 1, device="cpu")
+    state = tree_map(lambda x: x.to(dev), state)
+    gen = torch.Generator()
+    gen.manual_seed(2)
+    vs, losses = [], []
+    for t, coin in enumerate((True, False)):
+        nz = ft.fed_noise(gen, fed, state, FED_BYZ)
+        nz = type(nz)(*(None if x is None else x.to(dev) for x in nz))
+        b = {k: v.to(dev) for k, v in pipe.batch(t).items()}
+        if flat:
+            state, m = ft.fed_train_step_flat(cfg, fed, state, unravel, b,
+                                              mask, nz, large=coin)
+        else:
+            state, m = ft.fed_train_step(cfg, fed, state, b, mask, nz,
+                                         large=coin)
+        vs.append(tree_map(lambda x: x.cpu(), state.v))
+        losses.append(m["loss"].item())
+    theta = tree_map(lambda x: x.cpu(),
+                     state.theta if flat else state.params)
+    return theta, vs, losses
+
+
+def tree_gap(a_tree, b_tree):
+    """max |b − a| over the leaves of two trees, and max |a|."""
+    from repro_torch.core.tree import tree_paths
+    pairs = list(zip(tree_paths(a_tree), tree_paths(b_tree)))
+    scale = max(a.abs().max().item() for (_, a), _ in pairs)
+    err = max((b - a).abs().max().item() for (_, a), (_, b) in pairs)
+    return err, scale
+
+
 def phase_fed_cli(dev):
     """``python -m repro_torch.launch.train`` in fresh processes on the
-    card, windowed and ``--no-fused``: exit 0, one ``fed`` record per step
-    in ``metrics.jsonl``, a manifest, and a checkpoint that restores to
-    agent 0's θ of the same run repeated in this process (bit for bit)."""
+    card, windowed and ``--no-fused``, both started at once: exit 0, one
+    ``fed`` record per step in ``metrics.jsonl``, a manifest, and a
+    checkpoint that restores to agent 0's θ of the same run repeated in
+    this process (bit for bit) while they run."""
     import os
     import tempfile
     import torch
@@ -3958,22 +3997,38 @@ def phase_fed_cli(dev):
             "--attack", "large_noise(sigma=10)", "--steps", str(steps),
             "--window", "3"]
     env = dict(os.environ, PYTHONPATH=str(SRC))
+    modes = {"fused": [], "legacy": ["--no-fused"]}
     with tempfile.TemporaryDirectory() as tmp:
-        for mode in ("fused", "legacy"):
-            extra = [] if mode == "fused" else ["--no-fused"]
+        procs = {}
+        try:
+            for mode, extra in modes.items():
+                tele = os.path.join(tmp, mode)
+                ckpt = os.path.join(tmp, f"{mode}.npz")
+                args = base + ["--telemetry-out", tele, "--ckpt", ckpt] \
+                    + extra
+                procs[mode] = (time.perf_counter(), subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.train",
+                     *args], env=env, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True))
+            # the same runs in this process while the fresh ones run
+            agent0 = {mode: train._agent0(train.main(
+                base + extra + ["--device", dev.type]).params)
+                for mode, extra in modes.items()}
+            secs = {}
+            for mode, (t0, proc) in procs.items():
+                _, err = proc.communicate(timeout=FED_CLI_TIMEOUT_S)
+                secs[mode] = time.perf_counter() - t0
+                if proc.returncode != 0:
+                    raise AssertionError(f"train CLI ({mode}) exited "
+                                         f"{proc.returncode}:\n"
+                                         f"{err[-3000:]}")
+        finally:
+            for _, proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        for mode in modes:
             tele = os.path.join(tmp, mode)
-            ckpt = os.path.join(tmp, f"{mode}.npz")
-            args = base + ["--telemetry-out", tele, "--ckpt", ckpt] + extra
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, "-m", "repro_torch.launch.train", *args],
-                env=env, capture_output=True, text=True,
-                timeout=FED_CLI_TIMEOUT_S)
-            secs = time.perf_counter() - t0
-            if proc.returncode != 0:
-                raise AssertionError(f"train CLI ({mode}) exited "
-                                     f"{proc.returncode}:\n"
-                                     f"{proc.stderr[-3000:]}")
             with open(os.path.join(tele, "metrics.jsonl")) as f:
                 recs = [json.loads(ln) for ln in f]
             fed_rows = [r for r in recs if r.get("stream") == "fed"]
@@ -3985,17 +4040,17 @@ def phase_fed_cli(dev):
             if manifest["mode"] != mode or manifest["device"] != dev.type:
                 raise AssertionError(f"train CLI ({mode}): manifest "
                                      f"{manifest}")
-            state = train.main(base + extra + ["--device", dev.type])
-            agent0 = train._agent0(state.params)
-            back = restore(agent0, ckpt, device=dev)
+            back = restore(agent0[mode], os.path.join(tmp, f"{mode}.npz"),
+                           device=dev)
             same = all(torch.equal(a, b) for (_, a), (_, b) in
-                       zip(tree_paths(agent0), tree_paths(back)))
+                       zip(tree_paths(agent0[mode]), tree_paths(back)))
             if not same:
                 raise AssertionError(f"train CLI ({mode}): the checkpoint "
                                      f"is not agent 0's theta of the same "
                                      f"run in this process")
-            log(f"[fed] train CLI ({mode}) in a fresh process on the card: "
-                f"exit 0 in {secs:.1f} s, {len(fed_rows)} fed records, "
+            log(f"[fed] train CLI ({mode}) in a fresh process on the card "
+                f"(both modes at once): exit 0 in {secs[mode]:.1f} s, "
+                f"{len(fed_rows)} fed records, "
                 f"losses {[round(r['loss'], 6) for r in fed_rows]}, "
                 f"manifest mode {manifest['mode']}; its checkpoint restores "
                 f"to agent 0's theta of the same run in this process, bit "
@@ -4558,6 +4613,137 @@ def phase_analysis(dev):
     return ANALYSIS["launches"]
 
 
+#: phase 13: the seven scripts of ``examples_torch/`` as a user runs them,
+#: each at its own widths (K, N, B, horizon, policy, model configuration)
+#: with only its depth cut: (script, arguments before ``--device``)
+EXAMPLES = (
+    ("quickstart", ["--iters", "3", "--seeds", "1"]),
+    ("byzpg_centralized", ["--iters", "3", "--seeds", "1"]),
+    ("federation_speedup", ["--iters", "3", "--seeds", "1"]),
+    ("topology_resilience", ["--iters", "3", "--seeds", "1"]),
+    ("attack_strength_sweep", ["--iters", "3", "--seeds", "1",
+                               "--sigmas", "10,200"]),
+    ("serve_decode", []),
+    ("serve_decode", ["--offline"]),
+    # Common-Sample's coins at seed 0, p 0.25: 1 0 0 1, so both PAGE
+    # branches run on each trainer (phase 13 asserts it)
+    ("federated_llm", ["--steps", "4"]),
+    ("federated_llm", ["--steps", "2", "--tree"]),
+)
+#: the kernels the examples' paths must launch inside phase 13: RFA's
+#: (examples 1-5 and 7) and the serving prefill's flash attention
+EXAMPLE_KERNELS = ("gram", "weiszfeld", "wsum", "flash_attention")
+
+
+def _load_example(name: str):
+    import importlib.util
+    path = ROOT / "examples_torch" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{name}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _example_values(out) -> list:
+    """The numbers an example's ``main`` returns: every float array of an
+    ``ExperimentResult``'s summaries, a ``ServeReport``'s summary, or the
+    federated run's (coin, loss, diameter) rows."""
+    import numpy as np
+    from repro_torch.serving import ServeReport
+    if isinstance(out, ServeReport):
+        return [float(v) for v in out.summary().values()]
+    if isinstance(out, list):                               # federated_llm
+        return [x for _, loss, diam in out for x in (loss, diam)]
+    vals = []
+    for _, summary in out.items():
+        for v in summary.values():
+            a = np.asarray(v)
+            if a.dtype.kind == "f":
+                vals.extend(a.ravel().tolist())
+    return vals
+
+
+def phase_examples(dev):
+    """Phase 13: each of :data:`EXAMPLES` through its ``main`` in this
+    process on ``dev``, its report printed with an ``[examples]`` prefix
+    and its wall: every number it returns finite, every request of a
+    serving run given its budget, each federated run's coins both PAGE
+    branches, and :data:`EXAMPLE_KERNELS` each launched inside the phase
+    (the counts set to 0 just before it and read just after). The
+    ``--offline`` serving run serves the seed's parameters drawn on the
+    CPU, and the same run on the CPU (outside the counted launches) holds
+    its streams under the margin rule (``hold_policy_streams``). Returns
+    the phase's launches."""
+    import io
+    import math
+    from repro_torch import make_env, obs, resolve
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels import dispatch
+    from repro_torch.serving import make_traffic, policy_params
+    t_all = time.perf_counter()
+    serve_mod = _load_example("serve_decode")
+    env = make_env("cartpole(horizon=32)")
+    policy = resolve("policy", serve_mod.policy_spec("llama3.2-1b"),
+                     env=env)
+    cpu_params = policy_params(policy, key=0, device="cpu")
+    # the example's traffic at its defaults: 32 requests, seed 0, 200
+    # req/s, budgets up to 16, CartPole's 4-float observations
+    traffic = make_traffic(32, seed=0, rate_rps=200.0, max_new=16,
+                           obs_dim=env.obs_dim)
+    card_offline = None
+    dispatch.reset_launches()
+    for name, argv in EXAMPLES:
+        offline = name == "serve_decode" and "--offline" in argv
+        params = tree_map(lambda t: t.to(dev), cpu_params) if offline \
+            else None
+        buf = io.StringIO()
+        obs.get_recorder().clear()     # each starts as a fresh process
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = _load_example(name).main(argv + ["--device", dev.type],
+                                           **({"params": params} if offline
+                                              else {}))
+        secs = time.perf_counter() - t0
+        label = " ".join([f"examples_torch/{name}.py", *argv])
+        for line in buf.getvalue().splitlines():
+            log(f"[examples] {label}: {line}")
+        vals = _example_values(out)
+        if not vals or not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"phase 13 {label}: non-finite output "
+                                 f"{vals}")
+        if name == "serve_decode":
+            _check_served(f"phase 13 {label}", out, traffic, env.n_actions)
+        if name == "federated_llm" and {c for c, _, _ in out} != {True,
+                                                                  False}:
+            raise AssertionError(f"phase 13 {label}: coins "
+                                 f"{[c for c, _, _ in out]} miss a PAGE "
+                                 f"branch")
+        log(f"[examples] {card()}: {label} --device {dev.type}: wall "
+            f"{secs:.1f} s")
+        if offline:
+            card_offline = out
+    counts = dispatch.launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu_report = serve_mod.main(["--offline", "--device", "cpu"],
+                                    params=cpu_params)
+    compared = hold_policy_streams(
+        "phase 13 serve_decode.py --offline", policy.model_cfg, cpu_params,
+        env, traffic, {r.uid: r.tokens for r in cpu_report.results},
+        {r.uid: r.tokens for r in card_offline.results}, 1e-4)
+    log(f"[check] card vs CPU, examples_torch/serve_decode.py --offline "
+        f"(seed 0's parameters drawn on the CPU): streams equal over "
+        f"{compared} of {sum(r.max_new for r in traffic)} tokens under the "
+        f"margin rule (tol 1e-4)")
+    missing = [k for k in EXAMPLE_KERNELS if counts.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"phase 13: {missing} never launched by the "
+                             f"examples; launches {counts}")
+    log(f"[examples] launches in the phase {counts}")
+    log(f"[time] phase 13 examples {time.perf_counter() - t_all:.1f} s")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -4567,9 +4753,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if not (SRC / "repro_torch" / "__init__.py").is_file():
-        print(f"chip_smoke: {SRC / 'repro_torch'} is missing; run from a "
-              f"checkout of the repository", file=sys.stderr)
+    if not (SRC / "repro_torch" / "__init__.py").is_file() \
+            or not (ROOT / "examples_torch").is_dir():
+        print(f"chip_smoke: {SRC / 'repro_torch'} or "
+              f"{ROOT / 'examples_torch'} is missing; run from a checkout "
+              f"of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
     dev = torch.device("cuda")
@@ -4620,6 +4808,7 @@ def main() -> int:
         f"s")
     _add(totals, phase_checkpoint(dev, byzpg_out))
     _add(totals, phase_analysis(dev))
+    _add(totals, phase_examples(dev))
     watch.__exit__(None, None, None)
     found = watch.findings(dev, "chip_smoke.py")
     if found:

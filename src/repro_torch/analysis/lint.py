@@ -6,8 +6,8 @@ to a set of paths; the runner parses each python file (and each fenced
 ``python`` block of README.md that imports ``repro_torch``) once into a
 :class:`FileCtx` and hands it to the rules that claim it. A ``#
 analysis: <tag>`` comment on the flagged line or the line above is the
-escape hatch. It scans ``src/repro_torch/``, ``chip_smoke.py`` and
-``tools/``. Rules:
+escape hatch. It scans ``src/repro_torch/``, ``examples_torch/``,
+``chip_smoke.py`` and ``tools/``. Rules:
 
 * ``spec-strings`` — every literal component-spec string at the
   reference's sites (spec-valued keyword arguments, dict keys and
@@ -31,13 +31,16 @@ escape hatch. It scans ``src/repro_torch/``, ``chip_smoke.py`` and
   device; each sanctioned read carries ``# analysis: host-side`` and a
   reason.
 * ``reference-import`` — no ``jax`` and nothing of ``repro`` is imported
-  by the port, ``chip_smoke.py`` or ``tools/`` (the static half of the
-  tests' import check).
+  by the port, its examples, ``chip_smoke.py`` or ``tools/`` (the static
+  half of the tests' import check).
+* ``deep-import`` — an example (``examples_torch/``) imports a name the
+  public surface exports (``repro_torch._EXPORTS``) from its defining
+  submodule (``from repro_torch.core.engine import Experiment``) rather
+  than from ``repro_torch``, or imports from a module outside the
+  surface's namespaces (``repro_torch._MODULES``). Hatch:
+  ``deep-import``.
 * ``tracked-smoke-file`` — no ``benchmarks/*_smoke.json`` committed, as
   the reference has it.
-
-The reference's ``deep-import`` has no counterpart until the examples
-are ported: it guards ``examples/``, and no example imports the port.
 """
 
 from __future__ import annotations
@@ -83,13 +86,15 @@ INPLACE_DRAWS = frozenset({
 GLOBAL_SEEDS = frozenset({"manual_seed", "manual_seed_all", "seed"})
 #: reads that wait for the device
 HOST_SYNCS = frozenset({"item", "tolist", "cpu", "numpy"})
+#: the examples, which import only the public surface
+EXAMPLE_PREFIX = "examples_torch/"
 
 
 @dataclasses.dataclass
 class LintConfig:
     root: Path
     lib_prefixes: tuple = ("src/repro_torch/",)
-    scan_prefixes: tuple = ("src/repro_torch/", "tools/")
+    scan_prefixes: tuple = ("src/repro_torch/", EXAMPLE_PREFIX, "tools/")
     scan_files: tuple = ("chip_smoke.py",)
     doc_files: tuple = ("README.md",)
     kernel_prefix: str = "src/repro_torch/kernels/"
@@ -437,6 +442,60 @@ class ReferenceImport(Rule):
 
 
 # ---------------------------------------------------------------------------
+# deep-import
+# ---------------------------------------------------------------------------
+
+
+class DeepImport(Rule):
+    name = "deep-import"
+
+    def wants(self, ctx, cfg):
+        return not ctx.is_doc_fence and ctx.rel.startswith(EXAMPLE_PREFIX)
+
+    @staticmethod
+    def _public_names() -> dict:
+        """name -> defining submodule, from the public surface itself (so
+        this rule can never drift from ``repro_torch/__init__``)."""
+        import repro_torch
+        return dict(repro_torch._EXPORTS)
+
+    def visit(self, ctx, cfg):
+        import repro_torch
+        public = self._public_names()
+        for node in ast.walk(ctx.tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and not node.level:
+                mods = [node.module or ""]
+            else:
+                continue
+            mods = [m for m in mods if m.startswith("repro_torch.")]
+            if not mods or ctx.has_hatch(node, "deep-import"):
+                continue
+            outside = [m for m in mods
+                       if m.split(".")[1] not in repro_torch._MODULES]
+            if outside:
+                yield self.finding(
+                    ctx, node,
+                    f"imports {outside[0]!r}, outside the surface's "
+                    f"namespaces (repro_torch._MODULES); mark a deliberate "
+                    f"internal demo with '# analysis: deep-import'")
+                continue
+            if isinstance(node, ast.Import):
+                continue
+            mod = mods[0]
+            covered = [a.name for a in node.names if a.name in public]
+            if covered:
+                yield self.finding(
+                    ctx, node,
+                    f"deep import from {mod!r} of public name(s) "
+                    f"{covered} — examples use the public surface (from "
+                    f"repro_torch import {', '.join(covered)}); mark a "
+                    f"deliberate internal demo with "
+                    f"'# analysis: deep-import'")
+
+
+# ---------------------------------------------------------------------------
 # tracked-smoke-file (repo-level, no AST)
 # ---------------------------------------------------------------------------
 
@@ -464,7 +523,7 @@ def check_tracked_smoke(cfg: LintConfig) -> list:
 # ---------------------------------------------------------------------------
 
 RULES = (SpecStrings(), GlobalGenerator(), KernelLocation(), HostSync(),
-         ReferenceImport())
+         ReferenceImport(), DeepImport())
 
 _FENCE_RE = re.compile(r"^```(\w*)\s*$")
 

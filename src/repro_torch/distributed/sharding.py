@@ -27,7 +27,8 @@ one GPU.
 from __future__ import annotations
 
 import contextlib
-from typing import NamedTuple, Tuple
+import datetime
+from typing import NamedTuple, Optional, Tuple
 
 import torch.distributed as dist
 
@@ -37,15 +38,20 @@ from repro_torch.core.tree import tree_map, tree_paths
 
 
 def init_distributed(coordinator: str, num_processes: int,
-                     process_id: int) -> None:
+                     process_id: int,
+                     timeout_s: Optional[float] = None) -> None:
     """Join a gloo process group of ``num_processes`` ranks through the
-    TCP store at ``coordinator`` (``HOST:PORT``, served by rank 0). No-op
-    for a single process."""
+    TCP store at ``coordinator`` (``HOST:PORT``, served by rank 0). With
+    ``timeout_s``, joining and every collective raise after that many
+    seconds without their peers (torch's default: 30 minutes). No-op for
+    a single process."""
     if num_processes <= 1:
         return
+    kw = {} if timeout_s is None else {
+        "timeout": datetime.timedelta(seconds=timeout_s)}
     dist.init_process_group(backend="gloo",
                             init_method=f"tcp://{coordinator}",
-                            world_size=num_processes, rank=process_id)
+                            world_size=num_processes, rank=process_id, **kw)
 
 
 def process_count() -> int:

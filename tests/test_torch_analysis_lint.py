@@ -247,6 +247,77 @@ def test_port_imports_and_tests_clean(tmp_path):
     assert _lint(tmp_path) == []
 
 
+# -- deep-import --------------------------------------------------------------
+
+
+def test_deep_import_of_public_names_flagged_in_examples(tmp_path):
+    _write(tmp_path, "examples_torch/demo.py", """\
+        from repro_torch.core.engine import Experiment, seed_generator
+        from repro_torch.serving import serve, policy_params
+        """)
+    hits = [f for f in _lint(tmp_path) if f.rule == "deep-import"]
+    assert [(f.path, f.line) for f in hits] == \
+        [("examples_torch/demo.py", 1), ("examples_torch/demo.py", 2)]
+    assert "['Experiment']" in hits[0].message
+    assert "['serve']" in hits[1].message
+
+
+def test_public_surface_imports_and_hatch_clean(tmp_path):
+    """The clean twin: the same names through the surface, internal names
+    from their submodules, and a deliberate deep import under the hatch."""
+    _write(tmp_path, "examples_torch/demo.py", """\
+        from repro_torch import Experiment, serve
+        from repro_torch.core.engine import seed_generator
+        from repro_torch.serving import policy_params
+        # analysis: deep-import
+        from repro_torch.core.engine import Experiment as E
+        """)
+    assert _lint(tmp_path) == []
+
+
+@pytest.mark.parametrize("line", ["from repro_torch.convert import x\n",
+                                  "import repro_torch.convert\n"])
+def test_import_outside_the_namespaces_flagged_in_examples(tmp_path, line):
+    """A module outside ``repro_torch._MODULES`` is not on the surface,
+    whatever name it is asked for."""
+    _write(tmp_path, "examples_torch/demo.py", line)
+    _write(tmp_path, "examples_torch/hatched.py",
+           "# analysis: deep-import\n" + line)
+    hits = [f for f in _lint(tmp_path) if f.rule == "deep-import"]
+    assert [(f.path, f.line) for f in hits] == [("examples_torch/demo.py", 1)]
+    assert "'repro_torch.convert'" in hits[0].message
+
+
+@pytest.mark.parametrize("rel", ["src/repro_torch/launch/x.py",
+                                 "tools/bench.py", "examples/demo.py"])
+def test_deep_import_is_examples_scoped(tmp_path, rel):
+    """Library code, tools and the reference's own examples may import
+    from the defining submodule, as the reference's rule leaves src/
+    alone (tests/test_serving.py's deep-import test)."""
+    _write(tmp_path, rel, "from repro_torch.core.engine import Experiment\n")
+    assert [f for f in _lint(tmp_path) if f.rule == "deep-import"] == []
+
+
+def test_deep_import_names_follow_the_reference_rule():
+    """The rule's public names are the port's surface, a superset of the
+    reference rule's (each name from the submodule that mirrors the
+    reference's)."""
+    port = lint.DeepImport._public_names()
+    ref = ref_lint.DeepImport._public_names()
+    assert {k: v.replace("repro_torch.", "repro.", 1)
+            for k, v in port.items() if k in ref} == ref
+
+
+def test_examples_in_scope_of_the_other_rules(tmp_path):
+    _write(tmp_path, "examples_torch/demo.py", """\
+        import jax
+        from repro_torch import Experiment
+        Experiment(aggregator="not_an_aggregator")
+        """)
+    found = {f.rule for f in _lint(tmp_path)}
+    assert found == {"reference-import", "spec-strings"}
+
+
 # -- tracked-smoke-file -------------------------------------------------------
 
 

@@ -36,7 +36,8 @@ from repro_torch.models import model as tm  # noqa: E402
 from repro_torch.serving import (DecodeEngine, PolicyServer,  # noqa: E402
                                  Request, SlotScheduler, engine_for_policy,
                                  make_traffic, policy_params, serve)
-from torch_parity import routing_margins  # noqa: E402
+from torch_parity import (assert_streams_agree,  # noqa: E402
+                          routing_margins)
 
 torch.set_num_threads(2)
 
@@ -48,9 +49,6 @@ POLICY_HD48 = ("transformer(arch='qwen2.5-3b', n_layers=2, d_model=96, "
                "n_heads=2)")
 LOGIT_TOL = 2e-5
 ROUTE_MARGIN = 1e-5
-J_PREFILL = jax.jit(jm.prefill, static_argnums=0,
-                    static_argnames=("cache_len", "last_only"))
-J_DECODE = jax.jit(jm.decode_step, static_argnums=0)
 
 
 @pytest.fixture(scope="module")
@@ -246,62 +244,6 @@ def test_slot_cache_ops_and_cache_len_match_the_reference():
                                   np.asarray(want["blocks"]["kv"]["k"]))
 
 
-def _reference_margins(cfg, params, req, n_logits, bucket=None):
-    """The reference's unbatched greedy stream for ``req`` and each
-    token's top-1 margin over the runner-up. With ``bucket``, the prompt
-    is right-padded to it as the engines pad it (the first token read at
-    the true last position, the padded ring entries emptied): an MoE
-    model routes pad tokens too, and the capacity follows the bucket."""
-    toks = req.tokens if req.tokens is not None else np.zeros(1, np.int32)
-    pe = None
-    if cfg.frontend != "none":
-        pe = np.zeros((1, cfg.n_prefix_embeds, cfg.d_model), np.float32)
-        if req.obs is not None:
-            pe[0, 0, :req.obs.shape[0]] = req.obs
-        pe = jnp.asarray(pe)
-    if bucket is None:
-        W = cfg.n_prefix_embeds + len(toks) + req.max_new
-        logits, cache = J_PREFILL(cfg, params, jnp.asarray(toks[None]), pe,
-                                  cache_len=W)
-        row = logits[0, -1]
-    else:
-        true_len = cfg.n_prefix_embeds + len(toks)
-        W = cfg.n_prefix_embeds + bucket + req.max_new
-        padded = np.pad(toks, (0, bucket - len(toks)))[None]
-        logits, cache = J_PREFILL(cfg, params, jnp.asarray(padded), pe,
-                                  cache_len=W, last_only=False)
-        row = logits[0, true_len - 1]
-        sp = cache["slot_pos"]
-        cache = dict(cache, pos=jnp.asarray(true_len, jnp.int32),
-                     slot_pos=jnp.where(sp < true_len, sp, -1))
-    out, margins = [], []
-    for i in range(req.max_new):
-        top = np.sort(np.asarray(row[:n_logits]))[::-1]
-        margins.append(float(top[0] - top[1]))
-        tok = jnp.argmax(row[:n_logits])
-        out.append(int(tok))
-        if i + 1 < req.max_new:
-            logits, cache = J_DECODE(cfg, params, tok[None], cache)
-            row = logits[0, 0]
-    return out, margins
-
-
-def _assert_streams_agree(mine, ref, cfg, jparams, traffic, n_logits,
-                          bucket_for=None):
-    compared = 0
-    for req in traffic:
-        want, margins = _reference_margins(
-            cfg, jparams, req, n_logits,
-            None if bucket_for is None else bucket_for(len(req.tokens)))
-        assert ref[req.uid] == want            # the reference's engine
-        n = next((i for i, m in enumerate(margins) if m <= LOGIT_TOL),
-                 len(margins))
-        assert len(mine[req.uid]) == len(want)
-        assert mine[req.uid][:n] == want[:n]
-        compared += n
-    assert compared >= len(traffic)            # the rule left work to do
-
-
 @pytest.mark.parametrize("spec", [POLICY, POLICY_HD48],
                          ids=["hd32", "hd48"])
 def test_policy_streams_match_the_reference(spec, env):
@@ -318,7 +260,7 @@ def test_policy_streams_match_the_reference(spec, env):
     jeng = j_engine_for(jpol, jparams, slots=2, max_new=8, max_prompt=4)
     ref = {r.uid: r.tokens for r in
            JServer(jeng, warmup=False).run_offline(traffic).results}
-    _assert_streams_agree(mine, ref, jpol.model_cfg, jparams, traffic,
+    assert_streams_agree(mine, ref, jpol.model_cfg, jparams, traffic,
                           env.n_actions)
 
 
@@ -342,7 +284,7 @@ def test_lm_streams_match_the_reference():
     jeng = JEngine(cfg, jparams, slots=2, max_new=5, max_prompt=8)
     ref = {r.uid: r.tokens for r in
            JServer(jeng, warmup=False).run_offline(traffic).results}
-    _assert_streams_agree(mine, ref, cfg, jparams, traffic, None)
+    assert_streams_agree(mine, ref, cfg, jparams, traffic, None)
 
 
 def test_moe_mla_streams_match_the_reference():
@@ -373,7 +315,7 @@ def test_moe_mla_streams_match_the_reference():
     assert jeng.prompt_buckets == engine.prompt_buckets
     ref = {r.uid: r.tokens for r in
            JServer(jeng, warmup=False).run_offline(traffic).results}
-    _assert_streams_agree(mine, ref, cfg, jparams, traffic, None,
+    assert_streams_agree(mine, ref, cfg, jparams, traffic, None,
                           bucket_for=engine.bucket_for)
 
 
@@ -550,7 +492,7 @@ def test_recurrent_streams_match_the_reference(arch):
     jeng = JEngine(cfg, jparams, slots=2, max_new=5, max_prompt=12)
     ref = {r.uid: r.tokens for r in
            JServer(jeng, warmup=False).run_offline(traffic).results}
-    _assert_streams_agree(mine, ref, cfg, jparams, traffic, None)
+    assert_streams_agree(mine, ref, cfg, jparams, traffic, None)
 
 
 @pytest.mark.parametrize("arch", RECURRENT_ARCHS)

@@ -8,7 +8,8 @@ federated LLM step's as a ``FedNoise``).
 :func:`routing_margins` records how close the port's MoE layers came to a
 discontinuity in their routing; :func:`shared_loss_trace` lets the
 federated reference programs of a test module share one trace of the
-model's loss.
+model's loss. :func:`assert_streams_agree` holds the port's greedy token
+streams to the reference's unbatched ones under the margin rule.
 """
 from __future__ import annotations
 
@@ -16,11 +17,13 @@ import contextlib
 import functools
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
 from repro.core import engine
 from repro.distributed import fed_trainer as jft
+from repro.models import model as jm
 from repro_torch.core.noise import FedNoise, StepNoise
 from repro_torch.core.registry import resolve as torch_resolve
 
@@ -211,3 +214,73 @@ def replay_fed_noise(key, stacks, byz_mask, fed, flat: bool) -> FedNoise:
         perm = to_torch(jax.random.permutation(
             jax.random.split(k_agg)[0], K))[None].long()
     return FedNoise(attack, perm)
+
+
+# ---------------------------------------------------------------------------
+# Greedy streams against the reference (the margin rule)
+# ---------------------------------------------------------------------------
+
+#: the two packages' f32 logits sum in other orders and differ by up to
+#: this much; a greedy token whose top-1 margin is smaller may flip
+STREAM_LOGIT_TOL = 2e-5
+
+
+_J_PREFILL = jax.jit(jm.prefill, static_argnums=0,
+                     static_argnames=("cache_len", "last_only"))
+_J_DECODE = jax.jit(jm.decode_step, static_argnums=0)
+
+
+def reference_margins(cfg, params, req, n_logits, bucket=None):
+    """The reference's unbatched greedy stream for ``req`` and each
+    token's top-1 margin over the runner-up. With ``bucket``, the prompt
+    is right-padded to it as the engines pad it (the first token read at
+    the true last position, the padded ring entries emptied): an MoE
+    model routes pad tokens too, and the capacity follows the bucket."""
+    toks = req.tokens if req.tokens is not None else np.zeros(1, np.int32)
+    pe = None
+    if cfg.frontend != "none":
+        pe = np.zeros((1, cfg.n_prefix_embeds, cfg.d_model), np.float32)
+        if req.obs is not None:
+            pe[0, 0, :req.obs.shape[0]] = req.obs
+        pe = jnp.asarray(pe)
+    if bucket is None:
+        W = cfg.n_prefix_embeds + len(toks) + req.max_new
+        logits, cache = _J_PREFILL(cfg, params, jnp.asarray(toks[None]), pe,
+                                  cache_len=W)
+        row = logits[0, -1]
+    else:
+        true_len = cfg.n_prefix_embeds + len(toks)
+        W = cfg.n_prefix_embeds + bucket + req.max_new
+        padded = np.pad(toks, (0, bucket - len(toks)))[None]
+        logits, cache = _J_PREFILL(cfg, params, jnp.asarray(padded), pe,
+                                  cache_len=W, last_only=False)
+        row = logits[0, true_len - 1]
+        sp = cache["slot_pos"]
+        cache = dict(cache, pos=jnp.asarray(true_len, jnp.int32),
+                     slot_pos=jnp.where(sp < true_len, sp, -1))
+    out, margins = [], []
+    for i in range(req.max_new):
+        top = np.sort(np.asarray(row[:n_logits]))[::-1]
+        margins.append(float(top[0] - top[1]))
+        tok = jnp.argmax(row[:n_logits])
+        out.append(int(tok))
+        if i + 1 < req.max_new:
+            logits, cache = _J_DECODE(cfg, params, tok[None], cache)
+            row = logits[0, 0]
+    return out, margins
+
+
+def assert_streams_agree(mine, ref, cfg, jparams, traffic, n_logits,
+                         bucket_for=None):
+    compared = 0
+    for req in traffic:
+        want, margins = reference_margins(
+            cfg, jparams, req, n_logits,
+            None if bucket_for is None else bucket_for(len(req.tokens)))
+        assert ref[req.uid] == want            # the reference's engine
+        n = next((i for i, m in enumerate(margins) if m <= STREAM_LOGIT_TOL),
+                 len(margins))
+        assert len(mine[req.uid]) == len(want)
+        assert mine[req.uid][:n] == want[:n]
+        compared += n
+    assert compared >= len(traffic)            # the rule left work to do
