@@ -92,9 +92,11 @@ Phases, each of which raises on failure (so the exit code is non-zero):
 7. ``Experiment(...).run()``, the front door of the paper's figures
    (``experiment_cells()``): the reference's fig5 cell (ByzPG, attack ×
    aggregator, 3 seeds, T=15) and fig1's DecByzPG K axis with its κ
-   override, with exact launches, each scenario's final return ± CI, the
-   wall per iteration, and each seed's history bit-equal to its single
-   run in the first scenario.
+   override, run as lane groups (the default) with exact launches from
+   the group structure (a group launches per iteration one run's
+   kernels), each scenario's final return ± CI, the wall per iteration,
+   and each seed's row in the first scenario within the lane tolerances
+   of its single run (bit-equal rows counted).
 7b. Sweeps (``repro_torch.sweep``): the fig5 cell through
    ``SweepRunner(windows=3)``, preempted after 5 windows and resumed from
    its manifest, bit-equal to phase 7's result with exactly its launches
@@ -106,13 +108,25 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    exact launches read from the processes' run manifests; a sweep
    started on the CPU refused on the card. Prints the walls and the
    window commits' times.
+7c. Lane batching at full width (``phase_lanes``, ``LANE_*``): the paper's
+   Fig. 3 ladder (DecByzPG, K=13, n_byz=3, d=386, horizon 200,
+   ``large_noise`` over five sigmas × {bucketed RFA + MDA κ=5, mean κ=0},
+   3 seeds, T=5) through ``run_grid`` with ``lanes=True`` (two groups of
+   15 rows) and ``lanes=False``, each with exact launches from the group
+   structure; every row's returns, samples, Δ₂ and θ within the
+   reference's lane tolerances of ``lanes=False`` (largest gaps and
+   bit-equal rows printed) and both walls; the lane run's ``gram``,
+   ``weiszfeld`` and ``wsum`` launches against their plain versions on
+   their own inputs; an ``rfa(nu=...)`` sweep as one group, its per-row
+   ``nu`` weiszfeld bit-equal; the grid through ``SweepRunner(windows=3)``
+   preempted and resumed, bit-equal to the lane run with its launches.
 8. Telemetry: three of the runs above at T=4 with ``telemetry=True``
    under an ``obs.MemorySink``: returns, coins, Δ₂ and θ bit-identical
    to the run without it, one tap per iteration, the rejection mask's
    launches counted. Then a checkpoint round trip: ``byzpg_cartpole``'s
    parameters saved and restored onto the card bit for bit, and one
    request served through ``policy_params(checkpoint=)``.
-   Phases 3b, 6–8 (6b and 7b included), 10 (10c included), 11, 12 and
+   Phases 3b, 6–8 (6b, 7b and 7c included), 10 (10c included), 11, 12 and
    13 are driven with the launch counts set to 0 just before each run and
    read just after; their launches join the totals.
 10. Federated LLM training (``phase_fed``, run after phase 3b):
@@ -753,8 +767,9 @@ def phase_k_edges(dev):
     their instances (``K_EDGES``), on the Gram matrices of 13 stacks of
     (K, 386): normal rows, a duplicated row, an outlier row, and NaN and
     infinite entries in G. Bit for bit against the plain versions (NaN in
-    the same places), weiszfeld at 0, 1 and 32 steps and krum_score at
-    three n_near; reruns bit-identical."""
+    the same places), weiszfeld at 0, 1 and 32 steps with one ``nu`` and
+    with another ``nu`` in every batch element, and krum_score at three
+    n_near; reruns bit-identical."""
     import torch
     from repro_torch.kernels.gossip_reduce import cw_reduce
     from repro_torch.kernels.krum_score import krum_score, krum_score_plain
@@ -781,17 +796,22 @@ def phase_k_edges(dev):
         specials[4, k - 1, k // 2] = float("inf")
         specials[5, k // 2, k // 2] = float("inf")
         specials[6, 0, k - 1] = specials[6, k - 1, 0] = float("-inf")
+        # a lane group sweeping rfa(nu=...): another nu in every row
+        nus = NU * torch.logspace(0, 6, 13, device=dev)
         for gg in (g, specials):
             for n_iter in (0, 1, N_ITER):
                 same("weiszfeld", weiszfeld_weights, weiszfeld_plain, gg, NU,
                      n_iter)
+                same("weiszfeld", weiszfeld_weights, weiszfeld_plain, gg,
+                     nus, n_iter)
             for n_near in sorted({1, max(k // 2, 1), max(k - 1, 1)}):
                 same("krum_score", krum_score, krum_score_plain, gg, n_near)
         log(f"[edges] K={k} (weiszfeld height {weiszfeld_instance(k)}, "
             f"krum_score rank network height {cw_reduce.cw_instance(k)}): "
             f"both bit-equal to their plain versions on normal, duplicated "
-            f"and outlier rows and on G with NaN and infinite entries, "
-            f"reruns bit-identical")
+            f"and outlier rows and on G with NaN and infinite entries "
+            f"(weiszfeld with one nu and with a nu per row), reruns "
+            f"bit-identical")
 
 
 def _flash_pairs(S: int, window) -> int:
@@ -1329,17 +1349,20 @@ def experiment_cells():
 
 
 def phase_experiment(dev):
-    """The paper's figure front door, ``Experiment(...).run()``: every
-    scenario's (3, 15) seed histories, mean ± CI of the final return, wall
-    per iteration, exact launches, and each seed's history bit-equal to
-    the single run for that seed in the first scenario. Returns the
+    """The paper's figure front door, ``Experiment(...).run()`` (lane
+    groups): every scenario's (3, 15) seed histories, mean ± CI of the
+    final return, wall per iteration, exact launches from the group
+    structure, and each seed's row within the lane tolerances of the
+    single run for that seed in the first scenario (bit-equal rows
+    counted). Returns the
     launches per kernel of the Experiment runs (the checks' single runs
     left out) and, by cell, its result, launches and wall in s."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch import Experiment
-    from repro_torch.core.engine import ScenarioGrid, grid_scenarios
+    from repro_torch.core.engine import (ScenarioGrid, grid_scenarios,
+                                         lane_groups)
     from repro_torch.core.registry import resolve
     from repro_torch.kernels import dispatch
 
@@ -1355,9 +1378,18 @@ def phase_experiment(dev):
         counts = dispatch.launch_counts()
         S = len(FIG_SEEDS)
         n_scn = int(np.prod([len(v) for v in kw["axes"].values()]))
+        base = {k: v for k, v in kw.items() if k not in (
+            "algo", "env", "T", "seeds", "axes", "override")}
+        _, scenarios = grid_scenarios(
+            ScenarioGrid(seeds=FIG_SEEDS, axes=kw["axes"]), algo=kw["algo"],
+            override=kw.get("override"), base=base)
+        groups = lane_groups(scenarios, algo=kw["algo"])
+        # one lane group launches per iteration one run's kernels, for
+        # all its lanes × seeds rows
         want = {}
-        for scn in res:
-            _add(want, {k: n * S * FIG_T for k, n in per_iter(scn).items()})
+        for members in groups.values():
+            _add(want, {k: n * FIG_T
+                        for k, n in per_iter(members[0][0]).items()})
         if len(res) != n_scn:
             raise AssertionError(f"{label}: {len(res)} scenarios, expected "
                                  f"{n_scn}")
@@ -1373,29 +1405,31 @@ def phase_experiment(dev):
                 f"return {out['final_return_mean']:.3f} ± "
                 f"{out['final_return_ci95']:.3f} (95% CI, {S} seeds)")
         log(f"[experiment] {label}: {n_scn} scenarios x {S} seeds x T="
-            f"{FIG_T} in {secs:.3f} s: {secs / FIG_T * 1e3:.3f} ms per "
-            f"iteration of the whole grid, {secs / (n_scn * FIG_T) * 1e3:.3f}"
-            f" ms per iteration of one scenario's seed batch, "
-            f"{secs / (n_scn * S * FIG_T) * 1e3:.3f} ms per single-run "
-            f"iteration; launches {counts}")
-        # the first scenario's config, as run_grid builds it
-        base = {k: v for k, v in kw.items() if k not in (
-            "algo", "env", "T", "seeds", "axes", "override")}
-        _, ((scn, cfg), *_) = grid_scenarios(
-            ScenarioGrid(seeds=FIG_SEEDS, axes=kw["axes"]), algo=kw["algo"],
-            override=kw.get("override"), base=base)
+            f"{FIG_T} in {len(groups)} lane groups, {secs:.3f} s: "
+            f"{secs / FIG_T * 1e3:.3f} ms per iteration of the whole grid, "
+            f"{secs / (len(groups) * FIG_T) * 1e3:.3f} ms per iteration of "
+            f"one lane group; launches {counts}")
+        # the first scenario's rows against its single runs
+        scn, cfg = scenarios[0]
         out, a = res[scn], resolve("algo", kw["algo"])
+        equal = 0
         for i, s in enumerate(FIG_SEEDS):
             one = a.run(exp.env, dataclasses.replace(cfg, seed=s), FIG_T,
                         device=dev)
-            same = np.array_equal(one["returns"], out["returns"][i]) and \
-                np.array_equal(one[a.carry_hist].cpu().numpy(),
-                               out[a.carry_hist][i])
-            if not same:
+            theta = one[a.carry_hist].cpu().numpy()
+            gap_r = float(np.abs(one["returns"] - out["returns"][i]).max())
+            gap_t = float(np.abs(theta - out[a.carry_hist][i]).max())
+            if not (gap_r <= LANE_TOL["returns"]
+                    and gap_t <= LANE_TOL["theta"]
+                    and np.array_equal(one["samples"], out["samples"][i])):
                 raise AssertionError(f"{label} {scn} seed {s}: the grid's "
-                                     f"history differs from the single run")
+                                     f"row is {gap_r} (returns), {gap_t} "
+                                     f"(θ) from the single run")
+            equal += bool(np.array_equal(one["returns"], out["returns"][i])
+                          and np.array_equal(theta, out[a.carry_hist][i]))
         log(f"[experiment] {label} {res.scenario_name(scn)}: each seed's "
-            f"returns and final iterate bit-equal to its single run")
+            f"row within the lane tolerances of its single run, {equal} of "
+            f"{S} bit-equal")
     return totals, cells
 
 
@@ -1432,15 +1466,18 @@ def cli_per_iter(scn) -> dict:
     return {**agg, agree: 6}
 
 
-def cli_launches(windows) -> dict:
+def cli_launches(windows, processes: int = 1) -> dict:
     """Launches of the CLI grid's (group, t0, t1) windows, all seeds; the
-    groups are the grid's scenarios in order."""
+    groups are the grid's scenarios in order (no axis of the grid is
+    traced, so each is a lane group of one lane), and a group's rows
+    launch per iteration one run's kernels on each of the ``processes``
+    that hold some of them (``span``)."""
     import itertools
     scns = [dict(zip(CLI_AXES, combo))
             for combo in itertools.product(*CLI_AXES.values())]
     out = {}
     for g, t0, t1 in windows:
-        _add(out, {k: n * (t1 - t0) * len(CLI_SEEDS)
+        _add(out, {k: n * (t1 - t0) * processes
                    for k, n in cli_per_iter(scns[g]).items()})
     return out
 
@@ -1583,7 +1620,7 @@ def sweep_cli(dev, tmp):
     full = [(g, 0, CLI_T) for g in range(4)]
     totals = {}
 
-    def check(tag, outs, sweep_dir, parts):
+    def check(tag, outs, sweep_dir, parts, summed_want=None):
         """The finished processes' lines (the paused ones print none)."""
         done = [text for text, _ in outs if "sweep paused" not in text]
         if not done:
@@ -1604,7 +1641,8 @@ def sweep_cli(dev, tmp):
         summed = {}
         for _, launches in outs:
             _add(summed, launches)
-        _check_launches(f"{tag} (all processes)", summed, cli_launches(full))
+        _check_launches(f"{tag} (all processes)", summed,
+                        summed_want or cli_launches(full))
         _add(totals, summed)
 
     def launch(args, tag):
@@ -1653,13 +1691,19 @@ def sweep_cli(dev, tmp):
     local = _cli_wait([launch(["--resume", d4, "--mode", "local"], "t3l")],
                       "span resume")
     walls["span, 2 processes, + local resume"] = time.perf_counter() - t0
+    # under span both processes step group 0's rows for its first two
+    # windows, one row each
+    rest = cli_launches([(0, 2 * w1, CLI_T)] + full[1:])
+    both = cli_launches([(0, 0, 2 * w1)], processes=2)
+    _add(both, rest)
     check("two-process span + one-process resume", span + local, d4,
-          [None, None, cli_launches([(0, 2 * w1, CLI_T)] + full[1:])])
+          [None, None, rest], both)
     log(f"[sweep] two processes on the card: shard (both print the lines; "
         f"launches by process {[c for _, c in shard]}), and span stopped "
         f"after 2 windows then resumed by one local process (launches by "
         f"process {[c for _, c in span + local]}): the same lines and "
-        f"summary, launches summing to the grid's")
+        f"summary, launches summing to the grid's (the span windows' on "
+        f"each process)")
     log(f"[sweep] CLI walls (s, fresh processes included): "
         + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
     return totals
@@ -1702,6 +1746,225 @@ def phase_sweep(dev, fig5):
         _add(totals, sweep_cli(dev, tmp))
         sweep_device_mismatch(dev, tmp)
     log(f"[sweep] launches in the phase {totals}")
+    return totals
+
+
+#: phase 7c (lane batching): the paper's Fig. 3 ladder at its full width,
+#: examples_torch/attack_strength_sweep.py's defaults: DecByzPG on
+#: CartPole (horizon 200), K=13, n_byz=3, N=20, B=4, eta 2e-2, MLP (16, 16)
+#: relu (d = 386), large_noise over five sigmas × {bucketed RFA with MDA
+#: κ=5, the mean with κ=0}, 3 seeds: two lane groups of 15 rows
+LANE_ENV = "cartpole(horizon=200)"
+LANE_SIGMAS = (1.0, 10.0, 50.0, 100.0, 200.0)
+LANE_AXES = {"attack": tuple(f"large_noise(sigma={s})" for s in LANE_SIGMAS),
+             "aggregator": ("rfa", "mean")}
+LANE_BASE = dict(K=13, n_byz=3, N=20, B=4, eta=2e-2)
+LANE_T, LANE_SEEDS = 5, (0, 1, 2)
+#: the rfa(nu=...) sweep of phase 7c: one group, T and seeds
+LANE_NUS = (1e-6, 1e-3, 1e-1)
+LANE_NU_T = 2
+#: the reference's lane tolerances: returns, the diameter, θ (samples exact)
+LANE_TOL = {"returns": 1e-5, "diameter": 1e-3, "theta": 1e-5}
+
+
+def _lane_override(c):
+    import dataclasses
+    return dataclasses.replace(c, kappa=0 if c.aggregator.name == "mean"
+                               else 5)
+
+
+def lane_per_iter(cfg) -> dict:
+    """Launches per iteration of one run of a Fig. 3 config (a lane group
+    launches the same for all its rows): bucketed RFA's gram, weiszfeld
+    and wsum for all receivers at once, κ MDA grams, Δ₂'s gram; the mean
+    and κ = 0 only Δ₂'s gram."""
+    if cfg.aggregator.name == "mean":
+        return {"gram": 1 + cfg.kappa}
+    return {"gram": 2 + cfg.kappa, "weiszfeld": 1, "wsum": 1}
+
+
+def _lane_groups(axes, base, seeds):
+    from repro_torch.core.engine import (ScenarioGrid, grid_scenarios,
+                                         lane_groups)
+    _, scenarios = grid_scenarios(ScenarioGrid(seeds=seeds, axes=axes),
+                                  override=_lane_override, base=base)
+    return lane_groups(scenarios)
+
+
+def _lane_launches(groups, T: int, rows_run: bool) -> dict:
+    """What a grid launches: each group's one-run launches per iteration
+    × T, or with ``rows_run`` (lanes=False) × its lanes × seeds as
+    well."""
+    want = {}
+    for (static_cfg, _), members in groups.items():
+        for _, cfg, _ in members if rows_run else members[:1]:
+            n = len(LANE_SEEDS) if rows_run else 1
+            _add(want, {k: v * T * n for k, v in lane_per_iter(cfg).items()})
+    return want
+
+
+def _row_gaps(lanes, per) -> dict:
+    """The largest gap of each history between two results of one grid,
+    and how many rows are bit-equal in all of them."""
+    import numpy as np
+    gaps = {k: 0.0 for k in ("returns", "samples", "diameter", "theta")}
+    equal = rows = 0
+    for scn, want in per.items():
+        got = lanes[tuple(scn)]
+        for i in range(want["returns"].shape[0]):
+            rows += 1
+            same = True
+            for k in gaps:
+                a = np.asarray(got[k][i], np.float64)
+                b = np.asarray(want[k][i], np.float64)
+                gaps[k] = max(gaps[k], float(np.abs(a - b).max()))
+                same &= bool(np.array_equal(got[k][i], want[k][i]))
+            equal += same
+    return {"gaps": gaps, "equal": equal, "rows": rows}
+
+
+def phase_lanes(dev):
+    """Phase 7c, lane batching at full width (``LANE_*``): the Fig. 3
+    grid through ``run_grid`` with ``lanes=True`` (two groups of 15 rows)
+    and ``lanes=False`` (30 scenarios' seeds one at a time), each with
+    exact launches from the group structure (a group launches per
+    iteration one run's kernels), every row's returns, samples, Δ₂ and θ
+    held to the reference's lane tolerances (largest gaps and bit-equal
+    rows printed) and both walls; the lane run's own ``gram``,
+    ``weiszfeld`` and ``wsum`` launches held against their plain versions
+    on their inputs; an ``rfa(nu=...)`` sweep as one group, its per-row
+    ``nu`` weiszfeld bit-equal to the plain version; and the grid through
+    ``SweepRunner(windows=3)``, preempted and resumed, bit-equal to the
+    lane run with its launches. Returns the phase's launches."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import ScenarioGrid, run_grid
+    from repro_torch.kernels import dispatch
+    from repro_torch.rl.envs import make_env
+    from repro_torch.sweep import SweepRunner
+
+    t_all = time.perf_counter()
+    env = make_env(LANE_ENV)
+    grid = ScenarioGrid(seeds=LANE_SEEDS, axes=LANE_AXES)
+    groups = _lane_groups(LANE_AXES, LANE_BASE, LANE_SEEDS)
+    if [len(m) * len(LANE_SEEDS) for m in groups.values()] != [15, 15]:
+        raise AssertionError(f"phase 7c: groups of "
+                             f"{[len(m) for m in groups.values()]} lanes, "
+                             f"expected two of 5")
+    totals, walls, results = {}, {}, {}
+    paths = _PathInputs()
+    for lanes in (True, False):
+        torch.cuda.synchronize()
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        with paths if lanes else contextlib.nullcontext():
+            res = run_grid(env, grid, LANE_T, algo="decbyzpg",
+                           override=_lane_override, lanes=lanes, device=dev,
+                           **LANE_BASE)
+        torch.cuda.synchronize()
+        walls[lanes] = time.perf_counter() - t0
+        counts = dispatch.launch_counts()
+        want = _lane_launches(groups, LANE_T, rows_run=not lanes)
+        _check_launches(f"phase 7c lanes={lanes}", counts, want)
+        _add(totals, counts)
+        results[lanes] = (res, counts)
+        for scn, out in res.items():
+            if not (np.isfinite(out["returns"]).all()
+                    and np.isfinite(out["theta"]).all()):
+                raise AssertionError(f"phase 7c lanes={lanes} {scn}: "
+                                     f"non-finite output")
+    paths.check("phase 7c Fig. 3 lanes")
+    lane_res, lane_counts = results[True]
+    per_res, per_counts = results[False]
+    cmp = _row_gaps(lane_res, per_res)
+    log(f"[lanes] {card()}: every row against lanes=False: largest gaps "
+        + ", ".join(f"{k} {v:.3e}" for k, v in cmp["gaps"].items())
+        + f"; {cmp['equal']} of {cmp['rows']} rows bit-equal in all four")
+    for k, tol in LANE_TOL.items():
+        if not cmp["gaps"][k] <= tol:
+            raise AssertionError(f"phase 7c: {k} of the lane route "
+                                 f"{cmp['gaps'][k]} from lanes=False, "
+                                 f"tolerance {tol}")
+    if cmp["gaps"]["samples"] != 0:
+        raise AssertionError("phase 7c: samples differ between the routes")
+    for (static_cfg, names), members in groups.items():
+        log(f"[lanes] {card()}: group {static_cfg.aggregator.canonical()} "
+            f"(kappa={members[0][1].kappa}): {len(members)} lanes x "
+            f"{len(LANE_SEEDS)} seeds = {len(members) * len(LANE_SEEDS)} "
+            f"rows, traced {list(names)}; launches per iteration "
+            f"{lane_per_iter(members[0][1])}, one run's")
+    log(f"[lanes] {card()}: Fig. 3 grid, K=13, d=386, T={LANE_T}: "
+        f"lanes=True wall {walls[True]:.3f} s, launches {lane_counts}; "
+        f"lanes=False wall {walls[False]:.3f} s, launches {per_counts}; "
+        f"ratio {walls[False] / walls[True]:.3f}")
+
+    # an rfa(nu=...) sweep: one group whose rows carry three nu values
+    nu_axes = {"aggregator": tuple(f"rfa(nu={v})" for v in LANE_NUS)}
+    nu_base = dict(LANE_BASE, attack="large_noise(sigma=10)")
+    nu_groups = _lane_groups(nu_axes, nu_base, LANE_SEEDS)
+    if len(nu_groups) != 1:
+        raise AssertionError(f"phase 7c: the nu sweep is {len(nu_groups)} "
+                             f"groups, expected 1")
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    with paths:
+        nu_res = run_grid(env, ScenarioGrid(seeds=LANE_SEEDS, axes=nu_axes),
+                          LANE_NU_T, algo="decbyzpg",
+                          override=_lane_override, device=dev, **nu_base)
+    torch.cuda.synchronize()
+    nu_secs = time.perf_counter() - t0
+    nu_counts = dispatch.launch_counts()
+    _check_launches("phase 7c nu sweep", nu_counts,
+                    _lane_launches(nu_groups, LANE_NU_T, rows_run=False))
+    _add(totals, nu_counts)
+    per_row = [k for k in paths.seen if k[0] == "weiszfeld"
+               and k[1][1] == (len(LANE_NUS) * len(LANE_SEEDS)
+                               * LANE_BASE["K"],)]
+    if not per_row:
+        raise AssertionError(f"phase 7c: no per-row nu weiszfeld launch "
+                             f"among {list(paths.seen)}")
+    paths.check("phase 7c rfa(nu) sweep")
+    log(f"[lanes] {card()}: rfa(nu in {list(LANE_NUS)}) x "
+        f"{len(LANE_SEEDS)} seeds as one group of "
+        f"{len(LANE_NUS) * len(LANE_SEEDS)} rows, T={LANE_NU_T}: launches "
+        f"{nu_counts}, one run's per iteration; wall {nu_secs:.3f} s; the "
+        f"per-row nu weiszfeld bit-equal to its plain version; final "
+        f"returns {[round(r['final_return_mean'], 3) for r in nu_res.values()]}")
+
+    # the grid as a sweep: preempted inside group 1, resumed
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(algo="decbyzpg", env=LANE_ENV, T=LANE_T, seeds=LANE_SEEDS,
+                  axes=LANE_AXES, override=_lane_override, windows=3,
+                  out_dir=tmp, device=dev, **LANE_BASE)
+        torch.cuda.synchronize()
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        paused = SweepRunner(**kw).run(max_windows=4)
+        swept = SweepRunner.resume(tmp, override=_lane_override,
+                                   device=dev).run()
+        torch.cuda.synchronize()
+        sweep_secs = time.perf_counter() - t0
+        sweep_counts = dispatch.launch_counts()
+    if paused is not None:
+        raise AssertionError("phase 7c: the sweep finished in 4 windows")
+    if sweep_counts != lane_counts:
+        raise AssertionError(f"phase 7c sweep: launches {sweep_counts}, the "
+                             f"lane run's {lane_counts}")
+    _add(totals, sweep_counts)
+    for scn, want in lane_res.items():
+        got = swept[tuple(scn)]
+        for k in ("returns", "samples", "diameter", "theta",
+                  "returns_mean", "returns_ci95"):
+            if not np.array_equal(got[k], want[k]):
+                raise AssertionError(f"phase 7c sweep {scn}: {k} differs "
+                                     f"from the lane run")
+    log(f"[lanes] {card()}: the grid through SweepRunner(windows=3), "
+        f"preempted after 4 windows (inside group 1) and resumed: every "
+        f"row bit-equal to the lane run, launches {sweep_counts} equal its "
+        f"launches; wall {sweep_secs:.3f} s")
+    log(f"[time] phase 7c lanes {time.perf_counter() - t_all:.1f} s")
     return totals
 
 
@@ -4793,6 +5056,7 @@ def main() -> int:
     exp_totals, exp_cells = phase_experiment(dev)
     _add(totals, exp_totals)
     _add(totals, phase_sweep(dev, exp_cells["fig5_byzpg"]))
+    _add(totals, phase_lanes(dev))
     _add(totals, phase_telemetry(dev))
     t0 = time.perf_counter()
     _add(totals, phase_serving(dev))

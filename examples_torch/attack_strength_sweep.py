@@ -2,10 +2,12 @@
 PyTorch/CUDA port.
 
 DecByzPG vs the naive Dec-PAGE-PG baseline over a ladder of LargeNoise
-sigmas: one declarative Experiment over attack × aggregator. The port
-has no compiled lane programs: its scenarios, and each scenario's seeds,
-run one after another. Runs on CUDA; ``--device cpu`` runs the plain
-PyTorch versions.
+sigmas: one declarative Experiment over attack × aggregator. ``sigma`` is
+a traced attack kwarg, so each aggregator arm (all its sigma points × all
+seeds) runs as one lane group: one batched step per iteration over its
+rows, launching what one run launches. The whole figure is two lane
+groups where the reference compiles two programs. Runs on CUDA;
+``--device cpu`` runs the plain PyTorch versions.
 
   python examples_torch/attack_strength_sweep.py \
       [--iters 40] [--seeds 3] [--sigmas 1,10,50,100,200] [--device cpu]
@@ -18,6 +20,7 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 from repro_torch import Experiment, obs, resolve_device  # noqa: E402
+from repro_torch.core import engine  # noqa: E402
 
 
 def main(argv=None):
@@ -32,20 +35,26 @@ def main(argv=None):
     dev = resolve_device(args.device)
     sigmas = tuple(float(s) for s in args.sigmas.split(","))
 
+    axes = {"attack": tuple(f"large_noise(sigma={s})" for s in sigmas),
+            "aggregator": ("rfa", "mean")}
+    base = dict(K=13, n_byz=3, N=20, B=4, eta=2e-2)
+
+    def override(c):
+        return dataclasses.replace(
+            c, kappa=0 if c.aggregator.name == "mean" else 5)
+
     exp = Experiment(
         algo="decbyzpg", env="cartpole(horizon=200)", T=args.iters,
-        seeds=args.seeds,
-        axes={"attack": tuple(f"large_noise(sigma={s})" for s in sigmas),
-              "aggregator": ("rfa", "mean")},
-        K=13, n_byz=3, N=20, B=4, eta=2e-2,
-        override=lambda c: dataclasses.replace(
-            c, kappa=0 if c.aggregator.name == "mean" else 5),
-        device=dev)
+        seeds=args.seeds, axes=axes, override=override, device=dev, **base)
     res = exp.run()
+    _, scenarios = engine.grid_scenarios(
+        engine.ScenarioGrid(seeds=exp.seeds, axes=axes), override=override,
+        base=base)
+    n_groups = len(engine.lane_groups(scenarios))
 
     obs.progress(f"== LargeNoise strength sweep, 3/13 Byzantine, "
-                 f"{args.seeds} seeds; {len(res)} scenarios, run one "
-                 f"after another ==")
+                 f"{args.seeds} seeds; {len(res)} scenarios in "
+                 f"{n_groups} lane groups ==")
     obs.progress(f"{'sigma':>8s} {'DecByzPG (rfa)':>18s} "
                  f"{'Dec-PAGE-PG (mean)':>20s}")
     for s in sigmas:

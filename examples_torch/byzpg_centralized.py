@@ -2,7 +2,7 @@
 port: the warm-up method — trusted server, robust aggregation of worker PG
 estimates, PAGE small-batch steps at the server only. Both arms run as one
 declarative Experiment with the aggregator axis swept, each scenario's
-seeds one after another. Runs on CUDA; ``--device cpu`` runs the plain
+seeds one lane group's rows, stepped together. Runs on CUDA; ``--device cpu`` runs the plain
 PyTorch versions.
 
   python examples_torch/byzpg_centralized.py [--iters 30] [--device cpu]

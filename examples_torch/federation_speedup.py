@@ -1,8 +1,8 @@
 """Paper Fig. 1 on the PyTorch/CUDA port: speed-up of DecByzPG with
 federation size K (honest case).
 
-One declarative Experiment over the K axis, each scenario's seeds one
-after another; K=1 recovers PAGE-PG. Runs on CUDA; ``--device cpu`` runs
+One declarative Experiment over the K axis (K is static: one lane group
+per K, its seeds stepped together as rows); K=1 recovers PAGE-PG. Runs on CUDA; ``--device cpu`` runs
 the plain PyTorch versions.
 
   python examples_torch/federation_speedup.py [--iters 30] [--device cpu]

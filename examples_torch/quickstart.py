@@ -4,7 +4,7 @@ on the PyTorch/CUDA port.
 13 agents, 3 Byzantine running the AvgZero attack; DecByzPG (bucketed RFA
 aggregation + GDA averaging agreement) vs the naive Dec-PAGE-PG baseline.
 One declarative Experiment sweeps the aggregator axis, each scenario's
-seeds run one after another, and any ``--attack`` value may be a
+seeds run together as one lane group's rows, and any ``--attack`` value may be a
 parameterized component spec, e.g. ``--attack "large_noise(sigma=10)"``.
 Runs on CUDA; ``--device cpu`` runs the plain PyTorch versions.
 

@@ -24,7 +24,8 @@ each run's step records the noise each step consumes. Contracts:
   noise drawn once outside the loop (the reference's
   ``scan-invariant-sample``);
 * ``per-agent-fanout`` — a step's ``gumbel`` or ``s0`` is not one K-wide
-  draw, or two agents' rows of it are bit-equal.
+  draw (one per row of a lane group, which stacks its rows' draws), or
+  two agents' rows of it are bit-equal.
 
 The reference's ``sample-then-derive`` has no counterpart: a generator is
 not split, it advances.
@@ -204,8 +205,8 @@ class Tap:
 @dataclasses.dataclass
 class Recording:
     """What :func:`record` saw: every :class:`Draw`, and per step call
-    ``{field: (origin draw indices, shape, first pair of equal rows)}``
-    for each tensor field of the noise it consumed."""
+    ``{field: (origin draw indices, shape, first pair of equal rows, lane
+    rows or 0)}`` for each tensor field of the noise it consumed."""
     draws: list
     steps: list
 
@@ -220,12 +221,20 @@ class _Steps:
             t = getattr(noise, name)
             if not isinstance(t, torch.Tensor):
                 continue
-            equal = None
+            equal, rows = None, 0
             if name in ("gumbel", "s0") and t.dim() >= 1:
-                equal = next(((i, j) for i in range(t.shape[0])
-                              for j in range(i + 1, t.shape[0])
-                              if torch.equal(t[i], t[j])), None)
-            fields[name] = (self.rec.origins(t), tuple(t.shape), equal)
+                # a lane group's noise leads with its rows: the agents of
+                # each row are compared among themselves
+                lead = t.dim() - (3 if name == "s0" else 4)
+                rows = t.shape[0] if lead > 0 else 0
+                blocks = t.reshape(-1, *t.shape[lead:]) if lead > 0 \
+                    else t[None]
+                equal = next(((i, j) for b in blocks
+                              for i in range(b.shape[0])
+                              for j in range(i + 1, b.shape[0])
+                              if torch.equal(b[i], b[j])), None)
+            fields[name] = (self.rec.origins(t), tuple(t.shape), equal,
+                            rows)
         self.steps.append(fields)
 
     def wrap(self, tap: Tap, fn):
@@ -300,7 +309,7 @@ def check(rec: Recording, program: str) -> list:
     names = sorted({n for s in rec.steps for n in s})
     for name in names:
         seen = [s[name] for s in rec.steps if name in s]
-        used = set().union(*(o for o, _, _ in seen))
+        used = set().union(*(o for o, _, _, _ in seen))
         if len(used) < len(seen):
             anchor = rec.draws[min(used)] if used else None
             bad("step-invariant-draw", anchor,
@@ -311,13 +320,16 @@ def check(rec: Recording, program: str) -> list:
         for name in ("gumbel", "s0"):
             if name not in s:
                 continue
-            origins, shape, equal = s[name]
+            origins, shape, equal, rows = s[name]
             wide = [rec.draws[o] for o in origins]
-            if len(wide) != 1 or wide[0].shape[:1] != shape[:1]:
+            agents = shape[1:2] if rows else shape[:1]
+            if len(wide) != max(rows, 1) \
+                    or any(w.shape[:1] != agents for w in wide):
                 bad("per-agent-fanout", wide[0] if wide else None,
                     f"step {i}: {name} {shape} comes from draws "
-                    f"{[w.shape for w in wide]}, not one {shape[0]}-wide "
-                    f"draw of the K agents' rows")
+                    f"{[w.shape for w in wide]}, not one {agents[0]}-wide "
+                    f"draw of the K agents' rows"
+                    + (f" for each of {rows} lane rows" if rows else ""))
             if equal is not None:
                 bad("per-agent-fanout", wide[0] if wide else None,
                     f"step {i}: agents {equal[0]} and {equal[1]} have "

@@ -1,10 +1,11 @@
-"""Config hygiene and build-once: the counterpart of the JAX package's
-``analysis/retrace.py``.
+"""Config hygiene, lane groups, build-once and launch counts: the
+counterpart of the JAX package's ``analysis/retrace.py``.
 
 The reference counts XLA compiles: one per (algo, static signature),
 none for a re-sweep of traced values or seeds. The port compiles no
-program; what a sweep must not pay per value is the kernels' build, and
-what its scenario keys rely on is config hygiene. Two layers:
+program; what a sweep must not pay per value is the kernels' build and
+their launches, and what its scenario keys and lane groups rely on is
+config hygiene. Three layers:
 
 * :func:`audit_static_config` — per registered algorithm
   (``REGISTRY.names("algo")``): the default config must construct
@@ -17,7 +18,13 @@ what its scenario keys rely on is config hygiene. Two layers:
   signature sets it (``seed-in-static-key``);
   and two spellings of one spec, such as ``large_noise(sigma=10)`` and
   ``large_noise(sigma=10.0)``, must give one config
-  (``spec-normalization``: ``normalize_spec_fields``).
+  (``spec-normalization``: ``normalize_spec_fields``). The lane rules are
+  the reference's: every name of the algorithm's ``traced_fields`` must
+  be a dataclass field or a derived property (``traced-field-missing``),
+  and sweeping one must leave :func:`~repro_torch.core.engine.lane_split`'s
+  static representative, its hash and its traced names unchanged
+  (``traced-leaks-into-static``), or the sweep would split into one lane
+  group per value.
 * :func:`audit_builds` — ``build-once`` over a grid that sweeps K (up to
   ``_build.KMAX``), eta and the attack: the CPU route never calls
   ``_build.build()``; on the card the library is loaded at most once per
@@ -26,10 +33,13 @@ what its scenario keys rely on is config hygiene. Two layers:
   ``BUILD_INFO["seconds"]`` 0.0). :class:`BuildWatch` counts them, also
   over a whole script.
 
-The reference's lane rules (``traced-field-missing``,
-``traced-leaks-into-static``) have no counterpart: the port has no lanes,
-and ``run_grid`` runs one seed at a time (``core/engine.py``), so no
-field is ever traced.
+* :func:`audit_launches` — ``launch-count``, in place of the
+  reference's compile count: a ``run_grid(lanes=True)`` over G lane
+  groups launches, per iteration, exactly what single runs of the G
+  groups' static configs launch (:class:`LaunchWatch` counts every
+  kernel call, on the CPU's plain route as on the card), and a re-sweep
+  with other traced values and seeds launches the same; more would mean
+  a component ran its rows one at a time.
 """
 
 from __future__ import annotations
@@ -72,8 +82,9 @@ def _signature(cfg) -> str:
     return repr(dataclasses.replace(cfg, seed=0))
 
 
-def audit_static_config(algo: str, config_cls) -> list:
-    """Config hygiene findings for one algorithm config class."""
+def audit_static_config(algo: str, config_cls, traced_fields=()) -> list:
+    """Config hygiene findings for one algorithm config class, with the
+    lane rules for its ``traced_fields``."""
     path, line = _anchor(config_cls)
     findings = []
 
@@ -122,6 +133,33 @@ def audit_static_config(algo: str, config_cls) -> list:
                 f"{name}={a!r} and {name}={b!r} spell one spec but give "
                 f"two configs — normalize the spec fields "
                 f"(registry.normalize_spec_fields)")
+    present = []
+    for name in traced_fields:
+        if hasattr(cfg, name):
+            present.append(name)
+        else:
+            bad("traced-field-missing",
+                f"traced field {name!r} is neither a dataclass field nor "
+                f"a derived property — lane_split would crash on it")
+    if not present:
+        return findings
+    from repro_torch.core import engine
+    base_static, base_names, _ = engine.lane_split(cfg, tuple(present))
+    for name in present:
+        field = name if name in fields \
+            else ("p" if name == "switch_p" and "p" in fields else None)
+        if field is None:
+            continue
+        old = getattr(cfg, field)
+        new = 0.375 if not isinstance(old, float) else old + 0.125
+        static, names, _ = engine.lane_split(
+            dataclasses.replace(cfg, **{field: new}), tuple(present))
+        if static != base_static or hash(static) != hash(base_static) \
+                or names != base_names:
+            bad("traced-leaks-into-static",
+                f"sweeping traced field {name!r} (via {field!r}) changes "
+                f"the lane group's static representative — the sweep "
+                f"would run one lane group per value")
     return findings
 
 
@@ -129,8 +167,9 @@ def audit_static() -> list:
     from repro_torch.core.registry import REGISTRY, resolve
     findings = []
     for algo in REGISTRY.names("algo"):
-        findings.extend(audit_static_config(
-            algo, resolve("algo", algo).config_cls))
+        a = resolve("algo", algo)
+        findings.extend(audit_static_config(algo, a.config_cls,
+                                            a.traced_fields))
     return findings
 
 
@@ -220,5 +259,69 @@ def audit_builds(device="cpu", T: int = 2) -> list:
     return watch.findings(device, "run_grid over K, eta and the attack")
 
 
+class LaunchWatch:
+    """While active, counts every call of every registered kernel
+    (:class:`~repro_torch.kernels.dispatch.Kernel`), on the CPU's plain
+    route as on the card: ``counts`` by kernel name."""
+
+    def __enter__(self):
+        from repro_torch.kernels import dispatch
+        self._cls, self._saved = dispatch.Kernel, dispatch.Kernel.__call__
+        self.counts: dict = {}
+        call = self._saved
+
+        def counted(kernel, *a, **k):
+            self.counts[kernel.name] = self.counts.get(kernel.name, 0) + 1
+            return call(kernel, *a, **k)
+
+        dispatch.Kernel.__call__ = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.__call__ = self._saved
+        return False
+
+
+def _launch_grid(etas, sigmas, seeds):
+    from repro_torch.core.engine import ScenarioGrid
+    return ScenarioGrid(seeds=seeds, axes={
+        "eta": tuple(etas), "attack": tuple(
+            f"large_noise(sigma={s})" for s in sigmas) + ("sign_flip",)})
+
+
+def audit_launches(device="cpu", T: int = 2) -> list:
+    """``launch-count``: a lane-grouped grid (a traced eta and sigma sweep
+    over two attacks, so two groups) launches exactly what one single run
+    of each group's static config launches, T iterations each; so does a
+    re-sweep with other traced values and seeds."""
+    from repro_torch.core import engine
+    from repro_torch.core.registry import resolve
+    from repro_torch.rl.envs import make_env
+    env = make_env("cartpole(horizon=8)")
+    base = dict(K=3, **_grid_base())
+    a = resolve("algo", "decbyzpg")
+    findings = []
+    for etas, sigmas, seeds in (((5e-3, 1e-2), (1.0, 5.0), (0, 1)),
+                                ((2e-2,), (3.0,), (2, 3, 4))):
+        grid = _launch_grid(etas, sigmas, seeds)
+        _, scenarios = engine.grid_scenarios(grid, base=base)
+        groups = engine.lane_groups(scenarios)
+        with LaunchWatch() as single:
+            for members in groups.values():
+                a.run(env, members[0][1], T, device=device)
+        with LaunchWatch() as lanes:
+            engine.run_grid(env, grid, T, algo="decbyzpg", device=device,
+                            **base)
+        if lanes.counts != single.counts:
+            findings.append(Finding(
+                "retrace", "launch-count",
+                inspect.getsourcefile(engine.lane_batch_loop) or "<unknown>",
+                0, f"a grid of {len(groups)} lane group(s) x {len(seeds)} "
+                f"seed(s) launched {lanes.counts}, {len(groups)} single "
+                f"runs {single.counts} — a component runs its rows one at "
+                f"a time"))
+    return findings
+
+
 def run(device="cpu") -> list:
-    return audit_static() + audit_builds(device)
+    return audit_static() + audit_builds(device) + audit_launches(device)

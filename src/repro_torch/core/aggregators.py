@@ -12,6 +12,14 @@ the receivers' bucketing permutations:
   averages buckets, and aggregates the bucket means; all R go through the
   base rule in one batched call, and the result is (R, d).
 
+Lane batching adds a leading row axis: messages (L, K, d) and
+permutations (L, R, K) give (L, 1, d) or (L, R, d), the L rows' batches
+folded into the base rule's one batched call. A factory kwarg registered
+as ``traced_kwargs`` (``rfa``'s ``nu``, ``centered_clip``'s ``tau``) may
+then be an (L,) tensor, one value per row, which each row's batch
+elements share; the other numeric kwargs are ``static_kwargs``, part of
+the rule's structure.
+
 RFA runs the Gram-space kernels of :mod:`repro_torch.kernels.rfa`, Krum
 the ``gram`` and ``krum_score`` kernels, the trimmed mean the
 ``trimmed_mean`` kernel. ``suspicion_scores`` and ``rejection_mask`` are
@@ -63,6 +71,18 @@ def mean(x: torch.Tensor) -> torch.Tensor:
     return on_columns(lambda t: t.mean(-2), x)
 
 
+def per_batch(value, bt: int):
+    """A traced kwarg for a batch of ``bt`` elements: a number as it is,
+    or an (L,) tensor of the rows' values repeated for each row's
+    ``bt / L`` consecutive batch elements."""
+    if not isinstance(value, torch.Tensor):
+        return value
+    if bt % value.numel():
+        raise ValueError(f"{value.numel()} per-row values cannot cover a "
+                         f"batch of {bt}")
+    return value.reshape(-1).repeat_interleave(bt // value.numel())
+
+
 def rfa(x: torch.Tensor, n_iter: int = 32, nu: float = 1e-6,
         sharded: Optional[bool] = None, *, gram_of=combined_gram
         ) -> torch.Tensor:
@@ -70,9 +90,11 @@ def rfa(x: torch.Tensor, n_iter: int = 32, nu: float = 1e-6,
     Gram space: ``weiszfeld`` on the Gram matrices
     (``gram_of(local, shards)``, :func:`combined_gram` unless the flat
     layer's blocked route passes its own), then ``wsum`` on the local
-    columns."""
+    columns. ``nu`` is a number or one value per row
+    (:func:`per_batch`)."""
     local, sh = local_columns(x)
-    w = weiszfeld_weights(gram_of(local, sh), nu, n_iter)
+    w = weiszfeld_weights(gram_of(local, sh),
+                          per_batch(nu, local.shape[0]), n_iter)
     out = weighted_sum(local, w) if local.shape[-1] else \
         local.new_zeros((local.shape[0], 0))
     return rewrap(out, sh)
@@ -123,8 +145,12 @@ def centered_clip(x: torch.Tensor, tau: float = 1.0, n_iter: int = 5,
                   center: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Centered clipping: v <- v + mean_i clip(x_i - v, tau), started at
     the coordinate-wise median (or ``center``, in ``x``'s form). The
-    norms of x_i - v sum the ranks' partials; the rest is local."""
+    norms of x_i - v sum the ranks' partials; the rest is local. ``tau``
+    is a number or one value per row (:func:`per_batch`)."""
     local, sh = local_columns(x)
+    tau = per_batch(tau, local.shape[0])
+    if isinstance(tau, torch.Tensor):
+        tau = tau[:, None, None]
     v = _median(local) if center is None else local_columns(center)[0]
     for _ in range(n_iter):
         diff = local - v[..., None, :]
@@ -136,45 +162,47 @@ def centered_clip(x: torch.Tensor, tau: float = 1.0, n_iter: int = 5,
 
 
 def suspicion_scores(spec, x: torch.Tensor, n_byz: int) -> torch.Tensor:
-    """Per-sender Byzantine-suspicion scores (K,) of one round x (K, d):
-    Krum's score, the trimmed-mean family's share of coordinates in which
-    the sender was trimmed, and otherwise the distance from the
-    coordinate-wise median. A diagnostic view, not the aggregation
-    (bucketed variants score the raw messages). On a D-sharded x the
-    Krum scores come from the combined Gram matrix, the trim share from
-    the ranks' counts and the distance from their sums of squares."""
+    """Per-sender Byzantine-suspicion scores (K,) of one round x (K, d),
+    or (L, K) of L rows' rounds (L, K, d): Krum's score, the trimmed-mean
+    family's share of coordinates in which the sender was trimmed, and
+    otherwise the distance from the coordinate-wise median. A diagnostic
+    view, not the aggregation (bucketed variants score the raw messages).
+    On a D-sharded x the Krum scores come from the combined Gram matrix,
+    the trim share from the ranks' counts and the distance from their
+    sums of squares."""
     spec = Spec.of(spec)
-    K = x.shape[0]
+    K = x.shape[-2]
     local, sh = local_columns(x)
     if spec.name == "krum":
         n_near = max(K - max(n_byz, 1) - 2, 1)
+        if local.dim() == 3:
+            return krum_score(combined_gram(local), n_near)
         return krum_score(combined_gram(local[None], sh), n_near)[0]
     if spec.name in ("trimmed_mean", "cwtm"):
         nt = max(n_byz, 1)
         # rank of each sender per coordinate; trimmed = in either tail
-        ranks = torch.argsort(torch.argsort(local, dim=0, stable=True),
-                              dim=0, stable=True)
+        ranks = torch.argsort(torch.argsort(local, dim=-2, stable=True),
+                              dim=-2, stable=True)
         trimmed = (ranks < nt) | (ranks >= K - nt)
         if sh is None:
-            return trimmed.to(x.dtype).mean(1)
+            return trimmed.to(x.dtype).mean(-1)
         return sh.sum(trimmed.sum(1)).to(x.dtype) / sh.D
     med = _median(local)
-    sq = ((local - med[None]) ** 2).sum(1)
+    sq = ((local - med[..., None, :]) ** 2).sum(-1)
     return torch.sqrt(sq if sh is None else sh.sum(sq))
 
 
 def rejection_mask(spec, x: torch.Tensor, n_byz: int) -> torch.Tensor:
-    """(K,) bool: the n_byz most suspicious senders of the round, per
-    :func:`suspicion_scores` (the lower index first on ties, as
-    ``lax.top_k``); all False when n_byz == 0."""
-    K = x.shape[0]
-    mask = torch.zeros(K, dtype=torch.bool, device=x.device)
+    """(K,) bool, or (L, K) for L rows: the n_byz most suspicious senders
+    of the round, per :func:`suspicion_scores` (the lower index first on
+    ties, as ``lax.top_k``); all False when n_byz == 0."""
+    mask = torch.zeros(x.shape[:-1], dtype=torch.bool, device=x.device)
     if n_byz <= 0:
         return mask
     scores = suspicion_scores(spec, x, n_byz)
-    idx = torch.sort(scores, descending=True, stable=True).indices[:n_byz]
-    mask[idx] = True
-    return mask
+    idx = torch.sort(scores, dim=-1, descending=True,
+                     stable=True).indices[..., :n_byz]
+    return mask.scatter(-1, idx, True)
 
 
 def resilient_momentum_update(agg: Callable, momenta: torch.Tensor,
@@ -193,21 +221,27 @@ def resilient_momentum_update(agg: Callable, momenta: torch.Tensor,
 
 def _bucket_means(x: torch.Tensor, perm: torch.Tensor,
                   bucket_size: int) -> torch.Tensor:
-    K, d = x.shape
+    K, d = x.shape[-2:]
     n_buckets = -(-K // bucket_size)
     pad = n_buckets * bucket_size - K
-    idx = torch.cat([perm, perm[:, :pad]], dim=1) if pad else perm
-    R = perm.shape[0]
-    return x[idx].reshape(R, n_buckets, bucket_size, d).mean(2)
+    idx = torch.cat([perm, perm[..., :pad]], dim=-1) if pad else perm
+    if x.dim() == 3:            # rows: each gathers from its own messages
+        rows = torch.arange(x.shape[0], device=x.device)[:, None, None]
+        picked = x[rows, idx]
+    else:
+        picked = x[idx]
+    n = idx[..., 0].numel()     # receivers, over all rows
+    return picked.reshape(n, n_buckets, bucket_size, d).mean(2)
 
 
 def bucket_means(x: torch.Tensor, perm: torch.Tensor,
                  bucket_size: int) -> torch.Tensor:
     """x (K, d), perm (R, K) -> (R, n_buckets, d): each receiver permutes
     the inputs, pads by repeating its first permuted entries so every
-    bucket is full, and averages buckets of ``bucket_size``. Bucketing
-    commutes with a split of d: a D-sharded x buckets its local
-    columns."""
+    bucket is full, and averages buckets of ``bucket_size``. With a row
+    axis, x (L, K, d) and perm (L, R, K) give the rows' receivers
+    (L·R, n_buckets, d), row-major. Bucketing commutes with a split of d:
+    a D-sharded x buckets its local columns."""
     return on_columns(_bucket_means, x, perm, bucket_size)
 
 
@@ -219,13 +253,18 @@ class Aggregator(NamedTuple):
 
     def __call__(self, x: torch.Tensor,
                  perm: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x (K, d) messages -> (1, d), or (R, d) for R permutations."""
+        """x (K, d) messages -> (1, d), or (R, d) for R permutations; with
+        a row axis, x (L, K, d) and perm (L, R, K) -> (L, 1, d) or
+        (L, R, d), in one call of the base rule."""
+        rows = x.dim() == 3
         if not self.bucket_size:
-            return self.fn(on_columns(lambda t: t[None], x))
+            return self.fn(x)[:, None] if rows else \
+                self.fn(on_columns(lambda t: t[None], x))
         if perm is None:
             raise ValueError("a bucketing aggregator needs the receivers' "
                              "permutations")
-        return self.fn(bucket_means(x, perm, self.bucket_size))
+        out = self.fn(bucket_means(x, perm, self.bucket_size))
+        return out.reshape(x.shape[0], perm.shape[-2], -1) if rows else out
 
 
 def _lemma3_bucket_size(K: int, n_byz: int, alpha_max: float) -> int:
@@ -241,7 +280,7 @@ def _mean_factory():
     return Aggregator(mean)
 
 
-@register("aggregator", "krum")
+@register("aggregator", "krum", static_kwargs=("m", "alpha_max"))
 def _krum_factory(K, n_byz, m: int = 1, alpha_max: float = 0.25,
                   sharded: Optional[bool] = None):
     """Lemma-3 bucketing ∘ Krum (alpha_max 1/4); the inner Krum tolerates
@@ -255,7 +294,8 @@ def _krum_factory(K, n_byz, m: int = 1, alpha_max: float = 0.25,
                                      sharded=sharded), bs)
 
 
-@register("aggregator", "rfa")
+@register("aggregator", "rfa", traced_kwargs=("nu",),
+          static_kwargs=("n_iter", "alpha_max"))
 def _rfa_factory(K, n_byz, n_iter: int = 32, nu=1e-6,
                  alpha_max: float = 0.5, sharded: Optional[bool] = None):
     bs = _lemma3_bucket_size(K, n_byz, alpha_max)
@@ -275,12 +315,13 @@ def _trimmed_mean_factory(n_byz, sharded: Optional[bool] = None):
                                              sharded=sharded))
 
 
-@register("aggregator", "centered_clip")
+@register("aggregator", "centered_clip", traced_kwargs=("tau",),
+          static_kwargs=("n_iter",))
 def _centered_clip_factory(tau=1.0, n_iter: int = 5):
     return Aggregator(lambda x: centered_clip(x, tau=tau, n_iter=n_iter))
 
 
-@register("aggregator", "bucketing")
+@register("aggregator", "bucketing", static_kwargs=("s",))
 def _bucketing_factory(K, n_byz, inner, s: int = 2,
                        sharded: Optional[bool] = None):
     """Explicit bucketing with a fixed bucket size ``s`` around an inner
@@ -293,3 +334,16 @@ def _bucketing_factory(K, n_byz, inner, s: int = 2,
         raise ValueError(f"bucketing: inner aggregator {inner} buckets "
                          f"again; nest one bucketing only")
     return Aggregator(inner_agg.fn, s)
+
+
+def get_aggregator(name, K: int, n_byz: int,
+                   alpha_max: Optional[float] = None) -> Aggregator:
+    """Resolve an aggregator spec (name, spec string, or Spec) against the
+    federation shape: the reference's entry point, returning the port's
+    :class:`Aggregator` (called with the receivers' permutations where
+    the reference takes a key). ``alpha_max`` is context, ignored by the
+    factories that take none; explicit spec kwargs win."""
+    ctx = {"K": K, "n_byz": n_byz}
+    if alpha_max is not None:
+        ctx["alpha_max"] = alpha_max
+    return resolve("aggregator", Spec.of(name), **ctx)

@@ -16,6 +16,12 @@ matrix is shared (an honest round, or a consistent attack), and
 ``neighbor_reduce`` reduces the gathered (K, P, d) tensor when the
 Byzantine senders equivocate per receiver.
 
+Lane batching adds a leading row axis, θ (L, K, d): the L rows' K
+receivers select together (MDA's ``gram`` over (L·K, P, d)), and the
+coordinate-wise reduces take the rows folded into the coordinate axis,
+(K, L·d), which gives each coordinate the bits of its own row's reduce.
+Each launch serves every row.
+
 A D-sharded θ (a DTensor split along d, :mod:`repro_torch.distributed.
 columns`) runs the same kernels on each rank's columns: the cw
 reduces are coordinate-wise, MDA's distances are the local ``gram``
@@ -148,21 +154,23 @@ def avg_agree(theta: torch.Tensor, kappa: int, n_byz: int,
     """Simulate Avg-Agree_κ over K agents (paper Algorithm 3 on a gossip
     graph).
 
-    theta: (K, d) current parameters. attack: ``fn(broadcast (K, d),
-    byz_mask, noise) -> (K_send, d)`` or, per receiver, ``(K_recv, K_send,
-    d)``; None is an honest broadcast. noise: the attack's draws for all
-    rounds, (κ, ...) with the attack's own noise shape per round, or None
-    when it draws none. Returns the (K, d) parameters after κ rounds
-    (Byzantine rows carry what an honest agent in that slot would compute;
-    callers mask them).
+    theta: (K, d) current parameters, or (L, K, d) for L rows. attack:
+    ``fn(broadcast (K, d), byz_mask, noise) -> (K_send, d)`` or, per
+    receiver, ``(K_recv, K_send, d)`` (with the row axis in front when
+    there are rows); None is an honest broadcast. noise: the attack's
+    draws for all rounds, (κ, ...) with the attack's own noise shape per
+    round ((L, κ, ...) for rows), or None when it draws none. Returns the
+    parameters after κ rounds, in θ's shape (Byzantine rows carry what an
+    honest agent in that slot would compute; callers mask them).
 
     A D-sharded θ runs every round on the rank's columns and returns a
     DTensor of the same placement. ``sharded=True`` on a plain tensor is
     that route with one shard: the same kernels, bit for bit (the
     reference's flag only swapped its kernels for their ``jnp`` oracles).
     """
-    K, d = theta.shape
+    K = theta.shape[-2]
     theta, sh = local_columns(theta)
+    lanes = theta.dim() == 3
     if sh is not None and sharded is False:
         raise ValueError("avg_agree: a D-sharded theta takes the sharded "
                          "route; sharded=False cannot gather it")
@@ -188,30 +196,57 @@ def avg_agree(theta: torch.Tensor, kappa: int, n_byz: int,
     for r in range(kappa):
         sent, recv = theta, None
         if attack is not None:
-            a = attack(theta, byz_mask, None if noise is None else noise[r])
-            if a.dim() == 3:
+            a = attack(theta, byz_mask, None if noise is None
+                       else noise[:, r] if lanes else noise[r])
+            if a.dim() > theta.dim():
                 # receiver r sees its own adversarial slice a[r] along its
                 # in-edges; honest senders deliver their true value
-                recv = torch.where(byz_mask[nbr][:, :, None], a[rows, nbr],
-                                   theta[nbr])
+                recv = torch.where(byz_mask[nbr][:, :, None],
+                                   a[..., rows, nbr, :], theta[..., nbr, :])
             else:
                 sent = torch.where(byz_mask[:, None], a, theta)
         if m.reduce is None:
-            theta = m.select(sent[nbr] if recv is None else recv, theta,
-                             n_keep, combine)
+            received = sent[..., nbr, :] if recv is None else recv
+            if lanes:                    # the rows' receivers together
+                d = theta.shape[-1]
+                theta = m.select(received.reshape(-1, P, d),
+                                 theta.reshape(-1, d), n_keep,
+                                 combine).reshape(theta.shape)
+            else:
+                theta = m.select(received, theta, n_keep, combine)
         elif not theta.shape[-1]:
             pass                         # an empty shard reduces nothing
         elif recv is None:
             # one message matrix for all receivers: gather + reduce fused
-            theta = gossip_reduce(sent, nbr, m.reduce, m.n_trim)
+            theta = _unfold(gossip_reduce(_fold(sent), nbr, m.reduce,
+                                          m.n_trim), theta) if lanes \
+                else gossip_reduce(sent, nbr, m.reduce, m.n_trim)
         else:
-            theta = neighbor_reduce(recv, m.reduce, m.n_trim)
+            theta = _unfold(neighbor_reduce(_fold(recv), m.reduce,
+                                            m.n_trim), theta) if lanes \
+                else neighbor_reduce(recv, m.reduce, m.n_trim)
     return theta if sh is None else sh.wrap(theta)
+
+
+def _fold(x: torch.Tensor) -> torch.Tensor:
+    """Rows folded into the coordinate axis: (L, K, d) -> (K, L·d), or
+    (L, K, P, d) -> (K, P, L·d)."""
+    return x.movedim(0, -2).reshape(*x.shape[1:-1], -1)
+
+
+def _unfold(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """(K, L·d) back to ``like``'s (L, K, d), contiguous as the kernels
+    take it."""
+    L, K, d = like.shape
+    return y.reshape(K, L, d).transpose(0, 1).contiguous()
 
 
 def honest_diameter(theta: torch.Tensor,
                     honest_mask: torch.Tensor) -> torch.Tensor:
-    """max_{i,l honest} ||θ_i - θ_l||, the paper's Δ₂ diagnostic."""
-    d2 = pairwise_sq_dists(theta[None])[0]
+    """max_{i,l honest} ||θ_i - θ_l||, the paper's Δ₂ diagnostic: a
+    scalar for θ (K, d), (L,) for L rows' θ (L, K, d) (one ``gram``
+    launch either way)."""
+    d2 = pairwise_sq_dists(theta if theta.dim() == 3 else theta[None])
     m = honest_mask[:, None] & honest_mask[None, :]
-    return torch.sqrt(torch.where(m, d2, 0.0).amax())
+    out = torch.sqrt(torch.where(m, d2, 0.0).amax((-2, -1)))
+    return out if theta.dim() == 3 else out[0]

@@ -9,6 +9,12 @@ tensor of the messages' shape; the others ignore ``noise``.
 ``per_receiver(attack, K)`` sends every receiver its own value, a
 (K, K, d) tensor, from noise of shape (K, K, d).
 
+Every attack also takes a leading row axis (lane batching): honest
+(R, K, d) and noise (R, K, d), each row attacked on its own. The kwargs
+registered as ``traced_kwargs`` (``sigma``, ``scale``, ``z``: multipliers
+in the attack's arithmetic) may then be (R, 1, 1) tensors, one value per
+row.
+
 ``random_action`` is environment-level: the agent acts uniformly at random
 but reports its gradient honestly; the DecByzPG step zeroes its logits.
 """
@@ -37,16 +43,16 @@ def avg_zero(honest, byz_mask, noise=None):
     """Colluding omniscient attack: Byzantine values are chosen so the
     average over all K messages is (close to) zero (paper: AvgZero)."""
     n_byz = torch.clamp_min(byz_mask.sum(), 1)
-    honest_sum = torch.where(byz_mask[:, None], 0.0, honest).sum(0)
+    honest_sum = torch.where(byz_mask[:, None], 0.0, honest).sum(-2)
     byz_val = -honest_sum / n_byz
-    return torch.where(byz_mask[:, None], byz_val[None], honest)
+    return torch.where(byz_mask[:, None], byz_val[..., None, :], honest)
 
 
 def sign_flip(honest, byz_mask, noise=None, scale: float = 3.0):
     """Byzantines send the negated (scaled) honest mean (IPM-style)."""
     n_h = torch.clamp_min((~byz_mask).sum(), 1)
-    mu = torch.where(byz_mask[:, None], 0.0, honest).sum(0) / n_h
-    return torch.where(byz_mask[:, None], -scale * mu[None], honest)
+    mu = torch.where(byz_mask[:, None], 0.0, honest).sum(-2) / n_h
+    return torch.where(byz_mask[:, None], -scale * mu[..., None, :], honest)
 
 
 def alie(honest, byz_mask, noise=None, z: float = 1.5):
@@ -54,27 +60,27 @@ def alie(honest, byz_mask, noise=None, z: float = 1.5):
     crafted to hide inside the honest spread."""
     n_h = torch.clamp_min((~byz_mask).sum(), 1)
     w = (~byz_mask).to(honest.dtype)[:, None]
-    mu = (w * honest).sum(0) / n_h
-    var = (w * (honest - mu) ** 2).sum(0) / n_h
+    mu = (w * honest).sum(-2, keepdim=True) / n_h
+    var = (w * (honest - mu) ** 2).sum(-2, keepdim=True) / n_h
     byz_val = mu - z * torch.sqrt(var + 1e-12)
-    return torch.where(byz_mask[:, None], byz_val[None], honest)
+    return torch.where(byz_mask[:, None], byz_val, honest)
 
 
 register("attack", "none")(lambda: none_attack)
 register("attack", "avg_zero")(lambda: avg_zero)
 
 
-@register("attack", "large_noise", noise=True)
+@register("attack", "large_noise", noise=True, traced_kwargs=("sigma",))
 def _large_noise_factory(sigma: float = 100.0):
     return functools.partial(large_noise, sigma=sigma)
 
 
-@register("attack", "sign_flip")
+@register("attack", "sign_flip", traced_kwargs=("scale",))
 def _sign_flip_factory(scale: float = 3.0):
     return functools.partial(sign_flip, scale=scale)
 
 
-@register("attack", "alie")
+@register("attack", "alie", traced_kwargs=("z",))
 def _alie_factory(z: float = 1.5):
     return functools.partial(alie, z=z)
 
@@ -103,11 +109,13 @@ def get_attack(name, **kw) -> Callable:
 
 def per_receiver(attack: Callable, K: int) -> Callable:
     """Lift an attack to send each receiver its own value: noise (K, K, d)
-    or None -> messages (K_recv, K_send, d)."""
+    or None -> messages (K_recv, K_send, d); with a row axis, honest
+    (R, K, d) and noise (R, K, K, d) -> (R, K_recv, K_send, d)."""
 
     def fn(honest, byz_mask, noise=None):
         return torch.stack([
-            attack(honest, byz_mask, None if noise is None else noise[r])
-            for r in range(K)])
+            attack(honest, byz_mask,
+                   None if noise is None else noise[..., r, :, :])
+            for r in range(K)], dim=-3)
 
     return fn

@@ -46,8 +46,10 @@ from repro_torch import obs, resolve_device
 from repro_torch.core import attacks as attacks_lib
 from repro_torch.core.aggregators import rejection_mask
 from repro_torch.core.engine import (AlgoDef, add_telemetry, history,
-                                     seed_generator)
-from repro_torch.core.noise import StepNoise, draw_byzpg_noise
+                                     lane_rows, seed_generator,
+                                     traced_spec_kwargs, traced_value)
+from repro_torch.core.noise import (StepNoise, draw_byzpg_noise, draw_rows,
+                                    stack_noise)
 from repro_torch.core.registry import (normalize_spec_fields, register,
                                        resolve)
 from repro_torch.optim.optimizers import get_optimizer
@@ -115,63 +117,86 @@ def init_byzpg_carry(env, cfg: ByzPGConfig,
     return ByzPGCarry(vec, vec.clone(), torch.zeros_like(vec), opt.init(vec))
 
 
-def build_byzpg_step(env, cfg: ByzPGConfig, device):
+def build_byzpg_step(env, cfg: ByzPGConfig, device, traced=None):
     """One iteration ``step(carry, noise, t) -> (carry, (ret, coin))`` with
     the iteration's return (the honest mean on large steps, the server's
     on small ones) and the coin as device tensors (no host sync). With
     ``cfg.telemetry`` the outputs gain the honest mean message norm and
-    the rejected-agent mask (K,), tapped to the ``"byzpg"`` stream."""
+    the rejected-agent mask (K,), tapped to the ``"byzpg"`` stream.
+
+    ``traced`` (lane batching, as ``build_decbyzpg_step``'s) takes a carry
+    with a leading row axis (θ (R, d)) and the rows' stacked StepNoise;
+    the R·K workers fold into the agent axis."""
     dev = torch.device(device)
+    lanes = traced is not None
+    eta = traced_value(traced, "eta", cfg.eta)
+    gamma = traced_value(traced, "gamma", cfg.gamma)
+    baseline = traced_value(traced, "baseline", cfg.baseline)
     policy = resolve_policy(cfg, env)
     K, d = cfg.K, policy.d
     byz_mask = torch.arange(K, device=dev) < cfg.n_byz
     n_honest = max(K - cfg.n_byz, 1)
-    attack = resolve("attack", cfg.attack)
-    agg = resolve("aggregator", cfg.aggregator, K=K, n_byz=cfg.n_byz)
+    attack = resolve("attack", cfg.attack,
+                     **traced_spec_kwargs(traced, "attack", (-1, 1, 1)))
+    agg = resolve("aggregator", cfg.aggregator, K=K, n_byz=cfg.n_byz,
+                  **traced_spec_kwargs(traced, "aggregator"))
     env_level = attacks_lib.is_env_level(cfg.attack)
     scales = torch.where(byz_mask & env_level, 0.0, 1.0)
-    opt = get_optimizer(cfg.optimizer, cfg.eta)
+    opt = get_optimizer(cfg.optimizer, eta)
 
     M = max(cfg.N, cfg.B)
     idx = torch.arange(M, device=dev)
     w_large = torch.where(idx < cfg.N, 1.0 / cfg.N, 0.0)
     w_small = torch.where(idx < cfg.B, 1.0 / cfg.B, 0.0)
     server = K - 1              # honest slot backing the server's stream
+    if lanes:
+        R = eta.shape[0]
+        gamma = gamma.repeat_interleave(K)
+        baseline = baseline.repeat_interleave(K)
+        scales = scales.repeat(R)
 
     def step(carry: ByzPGCarry, noise: StepNoise, t: int):
         vec, prev_vec, v_prev, opt_state = carry
         coin = noise.coin
-        w = torch.where(coin, w_large, w_small)
+        w = torch.where(coin[..., None], w_large, w_small)
+        wa = w[:, None].expand(-1, K, -1).reshape(-1, M) if lanes else w
         # every worker (and the server, in slot K−1) samples at θ_t
-        theta = vec.expand(K, d)
+        theta = vec[..., None, :].expand(*vec.shape[:-1], K, d)
+        agents = theta.reshape(-1, d)
         with record_function("byzpg.rollout"):
-            traj = rollout(env, policy, theta, noise.s0, noise.gumbel,
+            traj = rollout(env, policy, agents,
+                           noise.s0.reshape(-1, *noise.s0.shape[-2:]),
+                           noise.gumbel.reshape(-1,
+                                                *noise.gumbel.shape[-3:]),
                            scales)
         with record_function("byzpg.estimate"):
-            g = grad_estimate(policy, theta, traj, cfg.gamma, cfg.baseline,
-                              cfg.estimator, sample_weights=w)
-            g_old = weighted_grad_estimate(policy, prev_vec.expand(K, d),
-                                           theta, traj, cfg.gamma,
-                                           cfg.baseline, cfg.estimator,
-                                           sample_weights=w_small)
-            rets = (w * batch_return(traj)).sum(-1)              # (K,)
+            g = grad_estimate(policy, agents, traj, gamma, baseline,
+                              cfg.estimator, sample_weights=wa
+                              ).reshape(theta.shape)
+            g_old = weighted_grad_estimate(
+                policy, prev_vec[..., None, :].expand(theta.shape).reshape(
+                    -1, d), agents, traj, gamma, baseline, cfg.estimator,
+                sample_weights=w_small).reshape(theta.shape)
+            rets = (wa * batch_return(traj)).sum(-1).reshape(
+                theta.shape[:-1])                                # (…, K)
         with record_function("byzpg.aggregate"):
             msgs = attack(g, byz_mask, noise.attack)
-            v_large = agg(msgs, noise.perm)[0]
+            v_large = agg(msgs, noise.perm)[..., 0, :]
         # small step: w == w_small, so g[server] is exactly ĝ_B(θ_t) on the
         # server's fresh batch and g_old[server] the IS estimate at θ_prev
-        v_page = g[server] + v_prev - g_old[server]
-        v = torch.where(coin, v_large, v_page)
+        v_page = g[..., server, :] + v_prev - g_old[..., server, :]
+        c = coin[..., None] if lanes else coin
+        v = torch.where(c, v_large, v_page)
         new_vec, opt_state = opt.update(v, opt_state, vec)
-        honest_ret = torch.where(byz_mask, 0.0, rets).sum() / n_honest
-        ret = torch.where(coin, honest_ret, rets[server])
+        honest_ret = torch.where(byz_mask, 0.0, rets).sum(-1) / n_honest
+        ret = torch.where(coin, honest_ret, rets[..., server])
         carry = ByzPGCarry(new_vec, vec, v, opt_state)
         if not cfg.telemetry:
             return carry, (ret, coin)
         # observers only: the aggregation is live on large rounds; small
         # rounds still score the attacked messages the server would get
-        norms = torch.linalg.vector_norm(g, dim=1)
-        grad_norm = torch.where(byz_mask, 0.0, norms).sum() / n_honest
+        norms = torch.linalg.vector_norm(g, dim=-1)
+        grad_norm = torch.where(byz_mask, 0.0, norms).sum(-1) / n_honest
         rejected = rejection_mask(cfg.aggregator, msgs, cfg.n_byz)
         obs.tap("byzpg", t=np.int32(t), coin=coin, honest_return=ret,
                 grad_norm=grad_norm, rejected=rejected)
@@ -181,26 +206,33 @@ def build_byzpg_step(env, cfg: ByzPGConfig, device):
 
 
 def window_byzpg(env, cfg: ByzPGConfig, carry: ByzPGCarry,
-                 generator: Optional[torch.Generator], t0: int, t1: int,
-                 noise: Optional[Sequence[StepNoise]] = None):
+                 generator, t0: int, t1: int,
+                 noise: Optional[Sequence] = None, traced=None):
     """Iterations ``[t0, t1)`` from ``carry``: ``(carry, chunk)`` with the
     chunk's histories (numpy, time axis 0). Each step's draws come from
     ``generator`` in order, so chaining windows over ``[0, T)`` with one
     generator is the uninterrupted run; ``noise`` (the whole run's T
-    StepNoise) replaces the draws with ``noise[t0:t1]``."""
+    StepNoise) replaces the draws with ``noise[t0:t1]``. ``traced`` runs
+    a lane group's rows, as ``window_decbyzpg``'s does."""
     dev = carry.theta.device
     policy = resolve_policy(cfg, env)
-    step = build_byzpg_step(env, cfg, dev)
+    lanes = traced is not None
+    if lanes:
+        cfgs, traced = lane_rows(cfg, traced, dev)
+    step = build_byzpg_step(env, cfg, dev, traced)
     ys: List[tuple] = []
     for t in range(t0, t1):
         if noise is not None:
-            nz = noise[t]
+            nz = stack_noise([n[t] for n in noise]) if lanes else noise[t]
         else:
             with record_function("byzpg.noise"):
-                nz = draw_byzpg_noise(generator, cfg, env, policy.d, t)
+                nz = draw_rows(draw_byzpg_noise, generator, cfgs, env,
+                               policy.d, t) if lanes else \
+                    draw_byzpg_noise(generator, cfg, env, policy.d, t)
         carry, y = step(carry, nz, t)
         ys.append(y)
-    return carry, history(ys, ("returns", "coins", "grad_norm", "rejected"))
+    return carry, history(ys, ("returns", "coins", "grad_norm", "rejected"),
+                          rows=lanes)
 
 
 def finish_byzpg(env, cfg: ByzPGConfig, carry: ByzPGCarry,
@@ -241,4 +273,5 @@ def run_byzpg(env, cfg: ByzPGConfig, T: int, *, device=None, theta0=None,
 
 register("algo", "byzpg")(
     lambda: AlgoDef(ByzPGConfig, run_byzpg, init_byzpg_carry, window_byzpg,
-                    finish_byzpg, carry_hist="vec"))
+                    finish_byzpg, carry_hist="vec",
+                    traced_fields=("eta", "gamma", "baseline", "switch_p")))

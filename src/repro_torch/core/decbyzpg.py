@@ -43,9 +43,11 @@ from repro_torch import obs, resolve_device
 from repro_torch.core import attacks as attacks_lib
 from repro_torch.core.aggregators import rejection_mask
 from repro_torch.core.agreement import avg_agree, honest_diameter
-from repro_torch.core.engine import (AlgoDef, add_telemetry, history,
-                                     seed_generator)
-from repro_torch.core.noise import StepNoise, draw_step_noise
+from repro_torch.core.engine import (AlgoDef, add_telemetry, div_rows,
+                                     history, lane_rows, seed_generator,
+                                     traced_spec_kwargs, traced_value)
+from repro_torch.core.noise import (StepNoise, draw_rows, draw_step_noise,
+                                    stack_noise)
 from repro_torch.core.registry import (normalize_spec_fields, register,
                                        resolve)
 from repro_torch.optim.optimizers import get_optimizer
@@ -120,69 +122,101 @@ def init_decbyzpg_carry(env, cfg: DecByzPGConfig,
     return Carry(theta, theta.clone(), opt.init(theta))
 
 
-def build_decbyzpg_step(env, cfg: DecByzPGConfig, device):
+def build_decbyzpg_step(env, cfg: DecByzPGConfig, device, traced=None):
     """One iteration ``step(carry, noise, t) -> (carry, (ret, coin,
     diam))`` with the honest mean return, the coin and the honest diameter
     as device tensors (no host sync). With ``cfg.telemetry`` the outputs
     gain the honest mean message norm and the rejected-agent mask (K,),
-    tapped to the ``"decbyzpg"`` stream."""
+    tapped to the ``"decbyzpg"`` stream.
+
+    ``traced`` (lane batching) maps the registered ``traced_fields`` and
+    the traced spec kwargs (``"attack.sigma"``, ``"aggregator.nu"``) to
+    (R,) float32 tensors on ``device``, one value per row, overriding the
+    config's numbers. The step then takes a carry with a leading row axis
+    (θ (R, K, d)) and the rows' stacked StepNoise, folds the R·K agents
+    into the agent axis of the rollout and the estimators, and every
+    output gains the row axis; each kernel launches once for all rows."""
     dev = torch.device(device)
+    lanes = traced is not None
+    eta = traced_value(traced, "eta", cfg.eta)
+    gamma = traced_value(traced, "gamma", cfg.gamma)
+    baseline = traced_value(traced, "baseline", cfg.baseline)
     policy = resolve_policy(cfg, env)
-    byz_mask = torch.arange(cfg.K, device=dev) < cfg.n_byz
+    K, d = cfg.K, policy.d
+    byz_mask = torch.arange(K, device=dev) < cfg.n_byz
     honest = ~byz_mask
-    n_honest = max(cfg.K - cfg.n_byz, 1)
-    attack = resolve("attack", cfg.attack)
-    agr_attack = (attacks_lib.per_receiver(attack, cfg.K)
+    n_honest = max(K - cfg.n_byz, 1)
+    attack = resolve("attack", cfg.attack,
+                     **traced_spec_kwargs(traced, "attack", (-1, 1, 1)))
+    agr_attack = (attacks_lib.per_receiver(attack, K)
                   if cfg.per_receiver else attack)
-    agg = resolve("aggregator", cfg.aggregator, K=cfg.K, n_byz=cfg.n_byz)
+    agg = resolve("aggregator", cfg.aggregator, K=K, n_byz=cfg.n_byz,
+                  **traced_spec_kwargs(traced, "aggregator"))
     env_level = attacks_lib.is_env_level(cfg.attack)
     scales = torch.where(byz_mask & env_level, 0.0, 1.0)
-    opt = get_optimizer(cfg.optimizer, cfg.eta)
-    topo = resolve_topology(cfg.topology, cfg.K)
+    opt = get_optimizer(cfg.optimizer, eta)
+    topo = resolve_topology(cfg.topology, K)
 
     M = max(cfg.N, cfg.B)
     idx = torch.arange(M, device=dev)
     w_large = torch.where(idx < cfg.N, 1.0 / cfg.N, 0.0)
     w_small = torch.where(idx < cfg.B, 1.0 / cfg.B, 0.0)
+    if lanes:
+        # the rows' agents fold into the agent axis, each taking its row's
+        # discount, baseline and logit scale
+        R = eta.shape[0]
+        gamma = gamma.repeat_interleave(K)
+        baseline = baseline.repeat_interleave(K)
+        scales = scales.repeat(R)
 
     def step(carry: Carry, noise: StepNoise, t: int):
         theta, theta_prev, opt_state = carry
         coin = noise.coin
-        w = torch.where(coin, w_large, w_small)
+        w = torch.where(coin[..., None], w_large, w_small)
+        # per agent: the (R, M) row weights over the rows' agents
+        wa = w[:, None].expand(-1, K, -1).reshape(-1, M) if lanes else w
+        agents = theta.reshape(-1, d)
         with record_function("decbyzpg.rollout"):
-            traj = rollout(env, policy, theta, noise.s0, noise.gumbel,
+            traj = rollout(env, policy, agents,
+                           noise.s0.reshape(-1, *noise.s0.shape[-2:]),
+                           noise.gumbel.reshape(-1,
+                                                *noise.gumbel.shape[-3:]),
                            scales)
         with record_function("decbyzpg.estimate"):
-            g = grad_estimate(policy, theta, traj, cfg.gamma, cfg.baseline,
-                              cfg.estimator, sample_weights=w)
+            g = grad_estimate(policy, agents, traj, gamma, baseline,
+                              cfg.estimator, sample_weights=wa
+                              ).reshape(theta.shape)
             # IS-corrected estimate at θ_prev on the small-batch slice; the
             # coin select drops it on large steps
-            g_old = weighted_grad_estimate(policy, theta_prev, theta, traj,
-                                           cfg.gamma, cfg.baseline,
+            g_old = weighted_grad_estimate(policy, theta_prev.reshape(-1, d),
+                                           agents, traj, gamma, baseline,
                                            cfg.estimator,
-                                           sample_weights=w_small)
-            rets = (w * batch_return(traj)).sum(-1)              # (K,)
-            page = (theta - theta_prev) / cfg.eta - g_old
-            tilde_v = torch.where(coin, g, g + page)
+                                           sample_weights=w_small
+                                           ).reshape(theta.shape)
+            rets = (wa * batch_return(traj)).sum(-1).reshape(
+                theta.shape[:-1])                                # (…, K)
+            page = div_rows(theta - theta_prev, eta) - g_old
+            tilde_v = torch.where(coin[..., None, None] if lanes else coin,
+                                  g, g + page)
         with record_function("decbyzpg.aggregate"):
             msgs = attack(tilde_v, byz_mask, noise.attack)
             # one aggregate shared by all receivers, or one per receiver
             # when each buckets with its own permutation
-            v = agg(msgs, noise.perm).expand(cfg.K, -1)
+            v = agg(msgs, noise.perm).expand(theta.shape)
             theta_tilde, opt_state = opt.update(v, opt_state, theta)
         with record_function("decbyzpg.agree"):
             theta_new = theta_tilde if cfg.kappa == 0 else avg_agree(
                 theta_tilde, cfg.kappa, cfg.n_byz, byz_mask, cfg.agreement,
                 agr_attack, noise.agree_attack, topology=topo)
         with record_function("decbyzpg.diameter"):
-            honest_ret = torch.where(byz_mask, 0.0, rets).sum() / n_honest
+            honest_ret = torch.where(byz_mask, 0.0, rets).sum(-1) / n_honest
             diam = honest_diameter(theta_new, honest)
         carry = Carry(theta_new, theta, opt_state)
         if not cfg.telemetry:
             return carry, (honest_ret, coin, diam)
         # observers only: nothing drawn, nothing the run's outputs read
-        norms = torch.linalg.vector_norm(tilde_v, dim=1)
-        grad_norm = torch.where(byz_mask, 0.0, norms).sum() / n_honest
+        norms = torch.linalg.vector_norm(tilde_v, dim=-1)
+        grad_norm = torch.where(byz_mask, 0.0, norms).sum(-1) / n_honest
         rejected = rejection_mask(cfg.aggregator, msgs, cfg.n_byz)
         obs.tap("decbyzpg", t=np.int32(t), coin=coin,
                 honest_return=honest_ret, diameter=diam, grad_norm=grad_norm,
@@ -193,27 +227,39 @@ def build_decbyzpg_step(env, cfg: DecByzPGConfig, device):
 
 
 def window_decbyzpg(env, cfg: DecByzPGConfig, carry: Carry,
-                    generator: Optional[torch.Generator], t0: int, t1: int,
-                    noise: Optional[Sequence[StepNoise]] = None):
+                    generator, t0: int, t1: int,
+                    noise: Optional[Sequence] = None, traced=None):
     """Iterations ``[t0, t1)`` from ``carry``: ``(carry, chunk)`` with the
     chunk's histories (numpy, time axis 0). Each step's draws come from
     ``generator`` in order, so chaining windows over ``[0, T)`` with one
     generator is the uninterrupted run; ``noise`` (the whole run's T
-    StepNoise) replaces the draws with ``noise[t0:t1]``."""
+    StepNoise) replaces the draws with ``noise[t0:t1]``.
+
+    ``traced`` (lane batching: ``{name: (R,) float32 host tensor}``, see
+    :func:`build_decbyzpg_step`) runs a lane group's R rows: ``carry`` has
+    a leading row axis, ``generator`` is the rows' generators, each row
+    draws from its own with its own ``switch_p``
+    (:func:`~repro_torch.core.noise.draw_rows`), ``noise`` holds each
+    row's T StepNoise, and the histories are (R, t1 - t0, ...)."""
     dev = carry.theta.device
     policy = resolve_policy(cfg, env)
-    step = build_decbyzpg_step(env, cfg, dev)
+    lanes = traced is not None
+    if lanes:
+        cfgs, traced = lane_rows(cfg, traced, dev)
+    step = build_decbyzpg_step(env, cfg, dev, traced)
     ys: List[tuple] = []
     for t in range(t0, t1):
         if noise is not None:
-            nz = noise[t]
+            nz = stack_noise([n[t] for n in noise]) if lanes else noise[t]
         else:
             with record_function("decbyzpg.noise"):
-                nz = draw_step_noise(generator, cfg, env, policy.d, t)
+                nz = draw_rows(draw_step_noise, generator, cfgs, env,
+                               policy.d, t) if lanes else \
+                    draw_step_noise(generator, cfg, env, policy.d, t)
         carry, y = step(carry, nz, t)
         ys.append(y)
     return carry, history(ys, ("returns", "coins", "diameter", "grad_norm",
-                               "rejected"))
+                               "rejected"), rows=lanes)
 
 
 def finish_decbyzpg(env, cfg: DecByzPGConfig, carry: Carry,
@@ -259,4 +305,5 @@ def run_decbyzpg(env, cfg: DecByzPGConfig, T: int, *, device=None,
 
 register("algo", "decbyzpg")(
     lambda: AlgoDef(DecByzPGConfig, run_decbyzpg, init_decbyzpg_carry,
-                    window_decbyzpg, finish_decbyzpg, carry_hist="theta"))
+                    window_decbyzpg, finish_decbyzpg, carry_hist="theta",
+                    traced_fields=("eta", "gamma", "baseline", "switch_p")))

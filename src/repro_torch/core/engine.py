@@ -13,15 +13,30 @@ door. The port of the JAX package's ``core/engine.py``.
 * Windows: ``window_slices`` cuts ``[0, T)`` as the reference does, and
   each algorithm's ``init``/``window``/``finish`` (its ``run`` is one
   window over ``[0, T)``) let the sweep service (``repro_torch.sweep``)
-  run T a slice at a time; ``carry_struct`` and ``assemble_hist`` are the
-  reference's ``lane_carry_struct`` and ``assemble_hist`` over a seed
-  batch's rows.
+  run T a slice at a time; ``lane_carry_struct`` and ``assemble_hist``
+  are the reference's, over a lane group's rows.
+
+Lane batching (``run_grid(lanes=True)``, the default, as in the
+reference): :func:`lane_split` splits a config into its static
+representative and its traced scalars (the algorithm's
+``traced_fields``, and the ``traced_kwargs`` of its attack and
+aggregator specs); :func:`lane_groups` groups the scenarios that share a
+static representative; each group runs as one program over its flattened
+lanes × seeds rows (:func:`lane_batch_loop`, :func:`lane_init_loop`,
+:func:`lane_window_loop`): the algorithm's step on tensors with a leading
+row axis, every kernel launched once a step for all rows. A row keeps its
+own generator (``seed_generator(seed, device)``), and each step's draws
+are made per row, in the single run's order, then stacked, so a row
+draws the bits of ``run_*(cfg(seed=s))`` on the same device; only the
+arithmetic is batched. Where the reference counts compiles
+(``compile_count``), the port counts launches: a lane group launches per
+iteration what one run of its static config launches. ``lanes=False``
+runs each scenario's seeds one at a time through the algorithm's own
+``run``.
 
 What the reference has for managing XLA compiles (the compiled-loop
-cache, lane batching of scalar axes, ``static_key``, carry donation) has
-no counterpart: the port compiles nothing. Each scenario's seeds run one
-at a time through the algorithm's own ``run``, so every seed's history is
-bit-identical to the single run for that seed. A seed ``s`` means
+cache, ``static_key``, carry donation) has no counterpart: the port
+compiles nothing. A seed ``s`` means
 ``torch.Generator(device).manual_seed(s)`` (:func:`seed_generator`): a
 run draws θ₀ and then every step's noise from it in order, so results
 repeat per seed on one device, and match neither JAX's numbers nor
@@ -38,7 +53,7 @@ from typing import Callable, Mapping, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import obs
+from repro_torch import obs, resolve_device
 from repro_torch.core.registry import Spec, resolve
 from repro_torch.core.tree import tree_map
 
@@ -54,13 +69,22 @@ class AlgoDef(NamedTuple):
     T) -> (carry, chunk)``, then ``finish(env, cfg, carry, [chunk]) ->
     output``; windows over consecutive slices with one generator chain to
     the same bits. Algorithm modules register one under
-    ``register("algo", name)``."""
+    ``register("algo", name)``.
+
+    ``traced_fields`` names the config scalars the algorithm's step takes
+    per row (its ``traced=`` mapping) instead of from the config: the
+    static/traced split behind lane batching. Entries may be derived
+    properties (``switch_p``); only real dataclass fields are blanked in
+    the static representative. ``window(..., traced=)`` is the lane form:
+    the carry has a leading row axis, ``generator`` is the rows' list of
+    generators, and the chunk's histories are (R, W, ...)."""
     config_cls: type
     run: Callable
     init: Callable
     window: Callable
     finish: Callable
     carry_hist: str = "theta"
+    traced_fields: Tuple[str, ...] = ()
 
 
 def _algo(name) -> AlgoDef:
@@ -74,13 +98,110 @@ def seed_generator(seed: int, device) -> torch.Generator:
     return gen
 
 
-def history(ys, names) -> dict:
+def history(ys, names, rows: bool = False) -> dict:
     """A run's per-step outputs as numpy histories: column i of the
     steps' tuples under ``names[i]`` (names beyond the tuples' length are
-    left out)."""
+    left out), time on axis 0, or on axis 1 behind a lane group's row axis
+    (``rows``)."""
     # analysis: host-side (histories leave the device once, per window)
-    return {name: torch.stack(col).cpu().numpy()
+    return {name: torch.stack(col, dim=int(rows)).cpu().numpy()
             for name, col in zip(names, zip(*ys))}
+
+
+# ---------------------------------------------------------------------------
+# Static/traced config split (lane batching)
+# ---------------------------------------------------------------------------
+
+
+def traced_value(traced, name: str, default):
+    """The per-row value of ``name`` when lane batching supplies one (an
+    (R,) tensor), else the config's plain value (the steps call this for
+    every scalar of their algorithm's ``traced_fields``)."""
+    if traced is None:
+        return default
+    return traced.get(name, default)
+
+
+def traced_spec_kwargs(traced, namespace: str, shape=(-1,)) -> dict:
+    """The traced kwargs of ``namespace``'s component (stored under
+    ``"<namespace>.<kwarg>"``), each reshaped to ``shape``, ready to pass
+    as ``resolve`` context: an attack takes (R, 1, 1) multipliers, an
+    aggregator (R,) values. A kwarg the rows share arrives as that one
+    float32 value, a number (:func:`shared_values`)."""
+    prefix = namespace + "."
+    return {k[len(prefix):]: v if not isinstance(v, torch.Tensor)
+            else v.reshape(shape)
+            for k, v in (traced or {}).items() if k.startswith(prefix)}
+
+
+def shared_values(traced: dict) -> dict:
+    """A lane group's traced values (host tensors), with each component
+    kwarg (``"attack.sigma"``, ``"aggregator.nu"``) that every row shares
+    as a number, the float32 value the rows hold: the same bits in the
+    component's arithmetic, and no per-row tensor where none is needed
+    (``rfa``'s per-row ``nu`` is read to the host once a call)."""
+    out = {}
+    for k, v in traced.items():
+        if "." in k and v.numel() and bool((v == v[0]).all()):
+            out[k] = float(v[0])
+        else:
+            out[k] = v
+    return out
+
+
+def div_rows(x: torch.Tensor, s) -> torch.Tensor:
+    """``x / s`` for a number ``s``; for an (R,) tensor, each row of ``x``
+    over its own value with the bits that ``x / float(s_r)`` gives on
+    ``x``'s device: PyTorch divides by a Python number through its
+    float32 reciprocal on CUDA, and divides truly on the CPU."""
+    if not isinstance(s, torch.Tensor):
+        return x / s
+    s = s.reshape(-1, *(1,) * (x.dim() - 1))
+    return x * (1.0 / s) if x.is_cuda else x / s
+
+
+def lane_rows(cfg, traced: dict, device):
+    """A lane window's set-up from its traced values (host tensors): the
+    rows' configs for their draws (each with its row's ``switch_p`` as
+    ``p``, the float32 value the step compares its coin draw with, as a
+    single run does) and the traced values for the step, on ``device``
+    (:func:`shared_values`)."""
+    # analysis: host-side (the traced values are host tensors)
+    ps = traced["switch_p"].tolist()
+    cfgs = [dataclasses.replace(cfg, p=p) for p in ps]
+    return cfgs, {k: v.to(device) if isinstance(v, torch.Tensor) else v
+                  for k, v in shared_values(traced).items()}
+
+
+def lane_split(cfg, traced_fields):
+    """Split a config into ``(static_cfg, traced_names, traced_values)``.
+
+    ``static_cfg`` is the lane-group representative: the config with its
+    seed zeroed, every traced dataclass field blanked, and the traced
+    kwargs stripped from its attack and aggregator specs, so two scenarios
+    that differ only in traced scalars map to the same (hashable)
+    representative and run as one group. ``traced_names`` /
+    ``traced_values`` are the matching flat vector: the algorithm's
+    ``traced_fields`` (derived properties like ``switch_p`` read but not
+    blanked), then each spec field's traced kwargs as
+    ``"<namespace>.<kwarg>"`` (``attack.sigma``, ``aggregator.nu``)."""
+    from repro_torch.core.registry import REGISTRY
+    traced = {name: float(getattr(cfg, name)) for name in traced_fields}
+    fields = {f.name for f in dataclasses.fields(cfg)}
+    repl = {name: 0.0 for name in traced_fields if name in fields}
+    if "switch_p" in traced and "p" in fields:
+        # p reaches the step only through the traced switch_p, so p=None
+        # (default B/N) and an explicit equal p share a group
+        repl["p"] = None
+    for ns in ("attack", "aggregator"):
+        if ns in fields:
+            static_spec, kw = REGISTRY.split_traced(ns, getattr(cfg, ns))
+            repl[ns] = static_spec
+            for k, v in sorted(kw.items()):
+                traced[f"{ns}.{k}"] = v
+    static_cfg = dataclasses.replace(cfg, seed=0, **repl)
+    names = tuple(traced)
+    return static_cfg, names, tuple(traced[n] for n in names)
 
 
 def add_telemetry(out: dict, hist: dict, n_byz: int) -> dict:
@@ -273,8 +394,8 @@ def seed_batch(a: AlgoDef, env, cfg, T: int, seeds, device=None) -> dict:
 
 
 def run_grid(env, grid: ScenarioGrid, T: int, algo="decbyzpg",
-             override: Optional[Callable] = None, device=None,
-             **base) -> dict:
+             override: Optional[Callable] = None, lanes: bool = True,
+             device=None, **base) -> dict:
     """Run every scenario in ``grid`` for ``T`` iterations on ``device``
     (default CUDA).
 
@@ -285,20 +406,53 @@ def run_grid(env, grid: ScenarioGrid, T: int, algo="decbyzpg",
     silently diverge from its Scenario key. Returns ``{Scenario: summary
     dict}`` with per-seed histories plus mean ± 95% CI curves, keyed by
     the grid's keyed tuple over its axis names.
+
+    With ``lanes=True`` (the default) the scenarios are grouped by static
+    representative (:func:`lane_groups`) and each group runs as one
+    lane-batched program over its lanes × seeds rows
+    (:func:`lane_batch_loop`): an L-point scalar sweep (eta, gamma, an
+    attack's sigma, rfa's nu, ...) launches per iteration what one run
+    launches, instead of L × S times that. On a lane mesh the rows are
+    padded to a multiple of its size (:func:`_pad_rows`; the pad rows are
+    sliced off before the summaries). ``lanes=False`` runs each scenario's
+    seeds one at a time through the algorithm's ``run``.
     """
     _, scenarios = grid_scenarios(grid, algo=algo, override=override,
                                   base=base)
     a = _algo(Spec.of(algo))
     results = {}
-    for si, (scn, cfg) in enumerate(scenarios):
+    if not lanes:
+        for si, (scn, cfg) in enumerate(scenarios):
+            if obs.enabled():
+                obs.progress(f"run_grid {si + 1}/{len(scenarios)}: "
+                             f"{dict(scn._asdict())}",
+                             scenario=si, total=len(scenarios))
+            with obs.host_span("run_grid.scenario", scenario=si):
+                hist = seed_batch(a, env, cfg, T, grid.seeds, device)
+            results[scn] = summarize(hist, cfg)
+        return results
+    from repro_torch.distributed.sharding import lane_mesh, padded_rows
+    groups = lane_groups(scenarios, algo=algo)
+    mesh = lane_mesh()
+    S = len(grid.seeds)
+    for gi, ((static_cfg, names), members) in enumerate(groups.items()):
+        L = len(members)
+        rows = L * S
+        n_pad = padded_rows(mesh, rows)
         if obs.enabled():
-            obs.progress(f"run_grid {si + 1}/{len(scenarios)}: "
-                         f"{dict(scn._asdict())}",
-                         scenario=si, total=len(scenarios))
-        with obs.host_span("run_grid.scenario", scenario=si):
-            hist = seed_batch(a, env, cfg, T, grid.seeds, device)
-        results[scn] = summarize(hist, cfg)
-    return results
+            obs.progress(f"run_grid group {gi + 1}/{len(groups)}: "
+                         f"{L} lane(s) x {S} seed(s)",
+                         group=gi, lanes=L, seeds=S)
+        loop = lane_batch_loop(env, static_cfg, T, names, n_pad, algo,
+                               device)
+        vals, seeds = lane_operands(members, grid.seeds, n_pad)
+        with obs.host_span("run_grid.group", group=gi, lanes=L, rows=rows):
+            hist = loop(vals, seeds)
+        for i, (scn, cfg, _) in enumerate(members):
+            # the per-scenario slice never reaches the pad rows (i < L)
+            lane = {k: v[i * S:(i + 1) * S] for k, v in hist.items()}
+            results[scn] = summarize(lane, cfg)
+    return {scn: results[scn] for scn, _ in scenarios}
 
 
 # ---------------------------------------------------------------------------
@@ -332,10 +486,11 @@ def stack_rows(trees):
     return tree_map(stack, *trees)
 
 
-def carry_struct(env, cfg, n_rows: int, algo="decbyzpg"):
+def lane_carry_struct(env, cfg, n_rows: int, algo="decbyzpg"):
     """The shapes and dtypes of ``n_rows`` stacked carries as tensors on
     the ``meta`` device, drawn from no generator: the restore template of
-    a sweep's carry archive (the reference's ``lane_carry_struct``)."""
+    a sweep's carry archive (a lane group's rows, :func:`lane_init_loop`'s
+    carry)."""
     from repro_torch.rl.policy import resolve_policy
     a = _algo(Spec.of(algo))
     d = resolve_policy(cfg, env).d
@@ -345,15 +500,163 @@ def carry_struct(env, cfg, n_rows: int, algo="decbyzpg"):
 
 def assemble_hist(carry, chunks, algo="decbyzpg") -> dict:
     """Stitch window chunks (leading row axis, time axis 1) and the final
-    stacked carry into :func:`seed_batch`'s history dict: the histories
-    concatenated along time plus the algorithm's ``carry_hist`` (the
-    rows' ``carry[0]``), bit-identical to the uninterrupted runs."""
+    stacked carry into :func:`lane_batch_loop`'s history dict: the
+    histories concatenated along time plus the algorithm's ``carry_hist``
+    (the rows' ``carry[0]``), bit-identical to the uninterrupted run."""
     a = _algo(Spec.of(algo))
     # analysis: host-side (the sweep's histories are numpy, once at its end)
     hist = {a.carry_hist: carry[0].cpu().numpy()}
     for k in chunks[0]:
         hist[k] = np.concatenate([np.asarray(c[k]) for c in chunks], axis=1)
     return hist
+
+
+# ---------------------------------------------------------------------------
+# Lane groups: one program over a group's lanes × seeds rows
+# ---------------------------------------------------------------------------
+
+
+def lane_groups(scenarios, algo="decbyzpg") -> dict:
+    """Group ``(scenario, cfg)`` pairs by their static representative
+    (:func:`lane_split`): ``{(static_cfg, names): [(scn, cfg, vals)]}`` in
+    first-appearance order. A group is both what one lane-batched program
+    runs and what the sweep service checkpoints."""
+    a = _algo(Spec.of(algo))
+    groups: dict = {}
+    for scn, cfg in scenarios:
+        static_cfg, names, vals = lane_split(cfg, a.traced_fields)
+        groups.setdefault((static_cfg, names), []).append((scn, cfg, vals))
+    return groups
+
+
+def _pad_rows(x, n_pad: int):
+    """Pad a leading row axis to ``n_pad`` by repeating the last row: pad
+    rows are valid, redundant runs whose outputs are sliced off before
+    the summaries, so an uneven group still splits evenly over the lane
+    mesh's processes."""
+    n = x.shape[0]
+    if n == n_pad:
+        return x
+    return torch.cat([x, x[-1:].expand(n_pad - n, *x.shape[1:])])
+
+
+def lane_operands(members, seeds, n_pad: int):
+    """The flattened ``(vals (n_pad, n), seeds (n_pad,))`` of one lane
+    group's members × the seed batch (row ``i·S + j`` is member i under
+    seed j), padded by :func:`_pad_rows`. The traced values go float64 on
+    the host and are rounded to float32 once, as ``lanes=False`` rounds
+    the Python numbers it computes with; both stay on the host (the
+    draws read the rows' ``switch_p`` there)."""
+    S = len(seeds)
+    vals = np.asarray([m[2] for m in members], np.float64).reshape(
+        len(members), -1)
+    vals_flat = torch.as_tensor(np.repeat(vals, S, axis=0),
+                                dtype=torch.float32)
+    seeds_flat = torch.as_tensor(np.tile(np.asarray(seeds, np.int64),
+                                         len(members)))
+    return _pad_rows(vals_flat, n_pad), _pad_rows(seeds_flat, n_pad)
+
+
+def _traced(names, vals) -> dict:
+    return {n: vals[:, i].contiguous() for i, n in enumerate(names)}
+
+
+def lane_init_loop(env, static_cfg, n_rows: int, algo="decbyzpg",
+                   device=None):
+    """``init(seeds (R,), theta0=None) -> (carry, generators)``: each
+    row's carry from its own ``seed_generator(seed, device)``, as the
+    single run for that seed builds it, stacked along a leading row axis,
+    and the rows' generators, advanced past θ₀'s draws. ``theta0``
+    (test-only, (R, d), as ``run_decbyzpg(theta0=)``) replaces the rows'
+    θ₀ draws."""
+    a = _algo(Spec.of(algo))
+    dev = resolve_device(device)
+
+    def init(seeds, theta0=None):
+        seeds = [int(s) for s in seeds]
+        if len(seeds) != n_rows:
+            raise ValueError(f"lane init: {len(seeds)} seeds for "
+                             f"{n_rows} rows")
+        gens = [seed_generator(s, dev) for s in seeds]
+        carry = stack_rows([
+            a.init(env, static_cfg, g, None if theta0 is None
+                   else theta0[r], device=dev)
+            for r, g in enumerate(gens)])
+        return carry, gens
+
+    return init
+
+
+def lane_window_loop(env, static_cfg, T: int, traced_names, W: int,
+                     n_rows: int, algo="decbyzpg", device=None):
+    """``window(carry, generators, vals (R, n), ts (W,), noise=None) ->
+    (carry, chunk)``: iterations ``ts`` (contiguous, absolute, inside
+    ``[0, T)``) of a lane group's R rows as one batched step each, the
+    rows' traced values taken from ``vals`` and their draws from their
+    generators. Chaining the windows of :func:`window_slices` over one
+    carry and one set of generators is :func:`lane_batch_loop`, bit for
+    bit. ``noise`` (test-only) gives each row its whole run's T
+    StepNoise, replacing the draws."""
+    a = _algo(Spec.of(algo))
+    names = tuple(traced_names)
+
+    def window(carry, gens, vals, ts, noise=None):
+        t0 = int(ts[0])
+        if [int(t) for t in ts] != list(range(t0, t0 + W)) or t0 + W > T:
+            raise ValueError(f"lane window: ts must be {W} consecutive "
+                             f"iterations inside [0, {T})")
+        if len(gens) != n_rows or vals.shape[0] != n_rows:
+            raise ValueError(f"lane window: {len(gens)} generators and "
+                             f"{vals.shape[0]} rows of values for "
+                             f"{n_rows} rows")
+        return a.window(env, static_cfg, carry, gens, t0, t0 + W, noise,
+                        traced=_traced(names, vals))
+
+    return window
+
+
+def lane_batch_loop(env, static_cfg, T: int, traced_names, n_rows: int,
+                    algo="decbyzpg", device=None):
+    """``loop(vals (R, n), seeds (R,), noise=None) -> history dict``: one
+    lane group's R = lanes × seeds rows for T iterations, histories (R, T,
+    ...) and the rows' final ``carry_hist``. One program serves every
+    scenario sharing ``static_cfg``: each row starts from its seed's
+    generator and takes its traced scalars (eta, gamma, switch_p, an
+    attack's sigma, rfa's nu, ...) from its row of ``vals``, and each step
+    launches every kernel once for all rows.
+
+    On a lane mesh (:func:`repro_torch.distributed.sharding.lane_mesh`,
+    a process group) whose size divides R, each process runs its block of
+    rows and every process ends with every row
+    (:func:`~repro_torch.distributed.sharding.lane_out_sharding`).
+    ``noise`` and ``theta0`` (test-only, as ``run_decbyzpg(noise=,
+    theta0=)``) give each row its whole run's T StepNoise and its θ₀,
+    replacing the draws."""
+    from repro_torch.distributed.sharding import (gather_rows, lane_mesh,
+                                                  lane_sharding)
+    a = _algo(Spec.of(algo))
+    names = tuple(traced_names)
+    mesh = lane_mesh()
+    block = lane_sharding(mesh, n_rows)
+    mine = range(n_rows) if block is None else block
+    init = lane_init_loop(env, static_cfg, len(mine), algo, device)
+    window = lane_window_loop(env, static_cfg, T, names, T, len(mine), algo,
+                              device)
+
+    def loop(vals, seeds, noise=None, theta0=None):
+        if len(seeds) != n_rows:
+            raise ValueError(f"lane batch: {len(seeds)} seeds for {n_rows} "
+                             f"rows")
+        rows = slice(mine.start, mine.stop)
+        carry, gens = init(seeds[rows],
+                           None if theta0 is None else theta0[rows])
+        carry, chunk = window(carry, gens, vals[rows], range(T),
+                              None if noise is None else noise[rows])
+        # analysis: host-side (histories leave the device once, per group)
+        hist = {a.carry_hist: carry[0].cpu().numpy(), **chunk}
+        return hist if block is None else gather_rows(mesh, hist)
+
+    return loop
 
 
 # ---------------------------------------------------------------------------
@@ -508,14 +811,15 @@ class Experiment:
     ``env`` is an ``Env`` or an env spec resolved through the registry.
     ``override(cfg) -> cfg`` derives non-axis fields per scenario and is
     validated against axis mutation exactly like :func:`run_grid` (it is
-    the same check: ``run()`` executes through ``run_grid``). ``device``
-    (default CUDA) is where every run goes.
+    the same check: ``run()`` executes through ``run_grid``). ``lanes``
+    (default True) is :func:`run_grid`'s. ``device`` (default CUDA) is
+    where every run goes.
     """
 
     def __init__(self, algo="decbyzpg", env="cartpole", T: int = 50,
                  seeds=(0, 1, 2), axes: Optional[Mapping] = None,
-                 override: Optional[Callable] = None, device=None,
-                 **base):
+                 override: Optional[Callable] = None, lanes: bool = True,
+                 device=None, **base):
         self.algo = Spec.of(algo)
         self.env_spec = env
         self.T = int(T)
@@ -523,6 +827,7 @@ class Experiment:
             else tuple(seeds)
         self.axes = {k: _as_axis(v) for k, v in dict(axes or {}).items()}
         self.override = override
+        self.lanes = lanes
         self.device = device
         self.base = base
         self._result: Optional[ExperimentResult] = None
@@ -540,8 +845,8 @@ class Experiment:
         env = self.env
         grid = ScenarioGrid(seeds=self.seeds, axes=self.axes)
         results = run_grid(env, grid, self.T, algo=self.algo,
-                           override=self.override, device=self.device,
-                           **self.base)
+                           override=self.override, lanes=self.lanes,
+                           device=self.device, **self.base)
         meta = {"algo": self.algo.canonical(),
                 "env": (Spec.of(self.env_spec).canonical()
                         if isinstance(self.env_spec, (str, Spec))

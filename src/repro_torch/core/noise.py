@@ -18,12 +18,32 @@ from repro_torch.core.registry import resolve
 
 
 class StepNoise(NamedTuple):
+    """One step's draws; a lane group's rows stack along a leading row
+    axis (:func:`stack_noise`)."""
     coin: torch.Tensor                    # () bool, PAGE coin, 1 at t=0
     s0: torch.Tensor                      # (K, M, obs_dim) reset states
     gumbel: torch.Tensor                  # (K, M, H, A) action noise
     attack: Optional[torch.Tensor]        # (K, d) message-attack normals
     agree_attack: Optional[torch.Tensor]  # (κ, K, d) or (κ, K, K, d)
     perm: Optional[torch.Tensor]          # (R, K) bucketing permutations
+
+
+def stack_noise(noises) -> StepNoise:
+    """The rows' StepNoise of one step stacked along a new leading row
+    axis (lane batching): each field (R, ...), a field that no row draws
+    None."""
+    return StepNoise(*(None if f[0] is None else torch.stack(f)
+                       for f in zip(*noises)))
+
+
+def draw_rows(draw, generators, cfgs, env, d: int, t: int) -> StepNoise:
+    """Step ``t``'s noise of a lane group: ``draw(generator, cfg, env, d,
+    t)`` (:func:`draw_step_noise` or :func:`draw_byzpg_noise`) for each
+    row from the row's own generator and config, in the single run's
+    order, then stacked (:func:`stack_noise`). So a row's draws are the
+    bits of the single run for its seed on the same device."""
+    return stack_noise([draw(g, c, env, d, t)
+                        for g, c in zip(generators, cfgs)])
 
 
 def _gumbel(generator, shape) -> torch.Tensor:

@@ -32,9 +32,20 @@ def page_direction(grad_fn: Callable, params, state: PageState, batch,
     use_large=True: v = ĝ(θ_t) (fresh large-batch estimate).
     use_large=False: v = ĝ_B(θ_t) − ĝ_B(θ_{t-1}) + v_{t-1} (the PAGE
     correction, both estimates on the SAME small batch).
+    ``use_large`` may also be a bool tensor of a lane group's rows, one
+    coin per row on each leaf's leading axis: both estimates are then
+    computed and each row's coin selects its direction.
     Returns the new state; the direction is ``state.v``.
     """
     g_new = grad_fn(params, batch)
+    if isinstance(use_large, torch.Tensor):
+        g_old = grad_fn(state.prev_params, batch)
+
+        def pick(a, b, c):
+            coin = use_large.reshape(-1, *(1,) * (a.dim() - 1))
+            return torch.where(coin, a, a - b + c)
+
+        return PageState(tree_map(pick, g_new, g_old, state.v), params)
     if use_large:
         v = g_new
     else:

@@ -203,6 +203,65 @@ class Registry:
         self._factory(namespace, name)          # raises on unknown
         return self._meta[(namespace, name)]
 
+    def split_traced(self, namespace: str, spec):
+        """Split ``spec`` into its static form and its traced scalars (lane
+        batching, :func:`repro_torch.core.engine.lane_split`).
+
+        A factory registered with ``traced_kwargs=("sigma", ...)`` marks
+        those kwargs as batchable: numbers the component takes per row
+        (a float, or one value per row as a tensor) rather than as part
+        of its structure. Returns ``(static_spec, traced)``: the spec with
+        every traced kwarg stripped, and each traced kwarg's float value
+        (the spec's when given, else the factory's default), so every
+        spec of one component has one static form and one set of traced
+        names whichever kwargs were spelled out. A non-numeric (or bool)
+        value of a traced kwarg stays static."""
+        spec = Spec.of(spec)
+        marked = self.meta(namespace, spec).get("traced_kwargs", ())
+        if not marked:
+            return spec, {}
+        factory = self._factory(namespace, spec.name)
+        defaults = {n: p.default
+                    for n, p in inspect.signature(factory).parameters.items()
+                    if p.default is not inspect.Parameter.empty}
+        kwargs = dict(spec.kwargs)
+        traced = {}
+        for name in marked:
+            value = kwargs.get(name, defaults.get(name))
+            if isinstance(value, (int, float)) \
+                    and not isinstance(value, bool):
+                traced[name] = float(value)
+                kwargs.pop(name, None)
+        return Spec(spec.name, **kwargs), traced
+
+    #: factory parameters exempt from the traced/static audit: federation
+    #: shape (K, n_byz), nested component specs, and the ``sharded`` flag
+    AUDIT_EXEMPT = ("K", "n_byz", "inner", "sharded")
+
+    def unclassified_kwargs(self, namespace: str) -> Dict[str, tuple]:
+        """The traced/static audit: every factory kwarg with a numeric
+        default must be classified ``traced_kwargs`` (taken per row, so a
+        sweep over it stays one lane group) or ``static_kwargs`` (part of
+        the component's structure: loop trip counts, top-k and reshape
+        sizes, bucket arithmetic). Returns ``{component: (kwarg, ...)}``
+        for every kwarg in neither set; the audit test keeps it empty."""
+        self._ensure_loaded(namespace)
+        out: Dict[str, tuple] = {}
+        for (ns, name), factory in sorted(self._factories.items()):
+            if ns != namespace:
+                continue
+            meta = self._meta[(ns, name)]
+            classified = (set(meta.get("traced_kwargs", ()))
+                          | set(meta.get("static_kwargs", ())))
+            missing = tuple(
+                n for n, p in inspect.signature(factory).parameters.items()
+                if n not in self.AUDIT_EXEMPT and n not in classified
+                and isinstance(p.default, (int, float))
+                and not isinstance(p.default, bool))
+            if missing:
+                out[name] = missing
+        return out
+
     def _factory(self, namespace: str, name: str) -> Callable:
         self._ensure_loaded(namespace)
         try:
@@ -239,6 +298,7 @@ class Registry:
 REGISTRY = Registry()
 register = REGISTRY.register
 resolve = REGISTRY.resolve
+split_traced = REGISTRY.split_traced
 
 
 def normalize_spec_fields(cfg, fields) -> None:

@@ -391,7 +391,7 @@ register("fed_aggregator", "krum")(lambda: agg_krum)
 register("fed_aggregator", "trimmed_mean")(lambda: agg_trimmed_mean)
 
 
-@register("fed_aggregator", "rfa")
+@register("fed_aggregator", "rfa", static_kwargs=("n_iter", "nu"))
 def _fed_rfa_factory(n_iter: int = 8, nu: float = 1e-6):
     return functools.partial(agg_rfa, n_iter=n_iter, nu=nu)
 
@@ -451,7 +451,8 @@ def _fed_none_factory():
     return lambda tree, byz_mask, noise=None: tree
 
 
-@register("fed_attack", "large_noise", noise=True)
+@register("fed_attack", "large_noise", noise=True,
+          static_kwargs=("sigma",))
 def _fed_large_noise_factory(sigma: float = 100.0):
     def fn(tree, byz_mask, noise):
         if noise is None:
@@ -499,7 +500,7 @@ def _fed_avg_zero_factory():
     return fn
 
 
-@register("fed_attack", "sign_flip")
+@register("fed_attack", "sign_flip", static_kwargs=("scale",))
 def _fed_sign_flip_factory(scale: float = 3.0):
     def fn(tree, byz_mask, noise=None):
         n_h = torch.clamp_min((~byz_mask).sum(), 1)

@@ -1,6 +1,6 @@
-"""Placement rules for the ("pod", "data", "model") mesh and the host-side
-process helpers of the sweep service: the port of the JAX package's
-``repro/distributed/sharding.py`` (all but its lane functions).
+"""Placement rules for the ("pod", "data", "model") mesh, the lane mesh of
+scenario grids, and the host-side process helpers of the sweep service:
+the port of the JAX package's ``repro/distributed/sharding.py``.
 
 Parameters are placed by leaf-path rules on their *trailing* dimensions,
 so one table serves plain trees, layer-stacked trees (leading L) and
@@ -23,6 +23,14 @@ The processes of the sweep service exchange only host objects (carries,
 generator states and history chunks, pickled), so the process group is
 gloo on the CPU and on CUDA alike: NCCL would also refuse two ranks on
 one GPU.
+
+The lane mesh (:func:`lane_mesh`) lays out the flattened lanes × seeds
+rows of ``run_grid(lanes=True)``. The reference's is a 1-D mesh of
+devices; the port's is the process group's ranks, one device each
+(:class:`LaneMesh`), and on one process it is None, the identity layout.
+Each rank runs its block of rows (:func:`lane_sharding`), and after a
+lane program every rank holds every row (:func:`lane_out_sharding`,
+:func:`gather_rows`).
 """
 from __future__ import annotations
 
@@ -30,6 +38,8 @@ import contextlib
 import datetime
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
+import torch
 import torch.distributed as dist
 
 from repro_torch.carriers import columns, placed
@@ -79,6 +89,105 @@ def host_assignment(costs, n_hosts: int) -> list:
         assign[i] = h
         loads[h] += costs[i]
     return assign
+
+
+# ---------------------------------------------------------------------------
+# Lane mesh: the rows of the engine's scenario groups over the processes
+# ---------------------------------------------------------------------------
+
+
+class LaneMesh(NamedTuple):
+    """The ranks of the process group as a 1-D ("lane",) mesh: its size
+    and this process's rank."""
+    size: int
+    rank: int
+
+
+#: lane-mesh override stack (:func:`use_lane_mesh`); the top entry, which
+#: may be None (no layout), replaces the default everywhere the engine
+#: asks for a lane mesh
+_LANE_MESH: list = []
+
+
+@contextlib.contextmanager
+def use_lane_mesh(mesh: Optional[LaneMesh]):
+    """Install ``mesh`` as the engine's lane mesh for the extent of the
+    context: how the sweep's ``span`` mode points the lane machinery at
+    the process-spanning mesh without passing a mesh through every layer.
+    None turns the layout off."""
+    _LANE_MESH.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _LANE_MESH.pop()
+
+
+def lane_mesh(spanning: bool = False) -> Optional[LaneMesh]:
+    """The lane mesh: the one :func:`use_lane_mesh` installed, else None
+    (one device per process: the identity layout), or with ``spanning``
+    the process group's ranks (None on one process)."""
+    if _LANE_MESH:
+        return _LANE_MESH[-1]
+    if not spanning or process_count() <= 1:
+        return None
+    return LaneMesh(process_count(), process_index())
+
+
+def lane_sharding(mesh: Optional[LaneMesh], n_rows: int) -> Optional[range]:
+    """This rank's block of ``n_rows`` rows on the lane mesh; None (every
+    rank runs every row) without a mesh or when the rows do not divide
+    over it (the engine pads them to :func:`padded_rows` so they do)."""
+    if mesh is None or n_rows % mesh.size:
+        return None
+    return row_block(n_rows, mesh.size, mesh.rank)
+
+
+def spans_processes(mesh: Optional[LaneMesh]) -> bool:
+    """True when the mesh holds more than one process."""
+    return mesh is not None and mesh.size > 1
+
+
+def lane_out_sharding(mesh: Optional[LaneMesh],
+                      n_rows: int) -> Optional[range]:
+    """The rows a rank holds after a lane program: every row on a
+    process-spanning mesh (gathered, so any rank can summarize and
+    checkpoint), its own block otherwise, None without a layout."""
+    block = lane_sharding(mesh, n_rows)
+    if block is not None and spans_processes(mesh):
+        return range(n_rows)
+    return block
+
+
+def padded_rows(mesh: Optional[LaneMesh], n_rows: int) -> int:
+    """The smallest multiple of the mesh's size >= ``n_rows`` (``n_rows``
+    without a mesh): the engine pads a group's rows to it with copies of
+    the last row, sliced off before the summaries."""
+    if mesh is None or n_rows % mesh.size == 0:
+        return n_rows
+    return -(-n_rows // mesh.size) * mesh.size
+
+
+def global_rows(mesh: Optional[LaneMesh], arr):
+    """This rank's rows of an ``(R, ...)`` array every process holds
+    whole (the sweep's operands derive from the grid alike on every
+    rank): the reference assembles a global array from such copies; here
+    each rank keeps its block (all of it without a layout)."""
+    block = lane_sharding(mesh, len(arr))
+    return arr if block is None else arr[block.start:block.stop]
+
+
+def gather_rows(mesh: LaneMesh, tree):
+    """Every rank's block of rows, concatenated in rank order on every
+    rank: ``tree``'s leaves (numpy arrays, or tensors, moved to the host)
+    hold this rank's rows on their leading axis."""
+    # analysis: host-side (gloo exchanges the rows as host objects)
+    part = tree_map(lambda x: x.cpu() if isinstance(x, torch.Tensor)
+                    else x, tree)
+    parts = [None] * mesh.size
+    dist.all_gather_object(parts, part)
+    return tree_map(lambda *xs: torch.cat(xs)
+                    if isinstance(xs[0], torch.Tensor)
+                    else np.concatenate(xs), *parts)
 
 
 def row_block(n_rows: int, n_proc: int, pid: int) -> range:

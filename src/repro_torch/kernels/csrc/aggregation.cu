@@ -368,12 +368,15 @@ int gram_for_k(const float* x, float* g, float* ws, int bt, int k,
 }
 
 // ---------------------------------------------------------------------------
-// weiszfeld: g (bt, k, k), nu, n_iter -> w (bt, k)
+// weiszfeld: g (bt, k, k), nu (bt,), n_iter -> w (bt, k)
 //
 // Replaces src/repro/kernels/rfa/rfa.py::rfa_pallas, first pallas_call
 // (_weiszfeld_kernel): n_iter smoothed-Weiszfeld steps in weight space,
 //   gw = G w,  d2 = max(diag - 2 gw + w^T gw, 0),  iw = 1 / sqrt(d2 + nu),
-//   w  = iw / sum(iw),                              from w0 = 1/k.
+//   w  = iw / sum(iw),                              from w0 = 1/k,
+// with the smoothing floor nu of batch element b read from nu[b]: one
+// value for a whole batch (the caller fills the array), or one per row of
+// a lane group that sweeps rfa(nu=...).
 //
 // Bound on the H100: k <= 32 and n_iter of about 32 make this a chain of
 // n_iter dependent steps of one warp, each a few hundred cycles of latency
@@ -400,13 +403,14 @@ int gram_for_k(const float* x, float* g, float* ws, int bt, int k,
 // ---------------------------------------------------------------------------
 template <int H>
 __global__ void __launch_bounds__(32)
-weiszfeld_kernel(const float* __restrict__ g, float* __restrict__ w_out,
-                 int k, float nu, int n_iter) {
+weiszfeld_kernel(const float* __restrict__ g, const float* __restrict__ nus,
+                 float* __restrict__ w_out, int k, int n_iter) {
     static_assert(H == pow2_at_least(H), "a height is a power of two");
     const long long b = blockIdx.x;
     const int j = threadIdx.x;
     const bool valid = j < k;
     const float* gb = g + b * k * k;
+    const float nu = __ldg(nus + b);
     // pad entries (columns >= k of a row, and pad rows) hold -0.0: a pad
     // lane's weight is +0, so every product with a pad is -0.0, which adds
     // exactly, and no step needs a per-slot test of k
@@ -561,20 +565,20 @@ int repro_gram_f32(const float* x, float* g, float* ws, int bt, int k,
 }
 
 // `height` is the instance (rfa.py::weiszfeld_instance(k)): 8, 16 or 32,
-// holding k.
-int repro_weiszfeld_f32(const float* g, float* w, int bt, int k, float nu,
-                        int n_iter, int height, cudaStream_t stream) {
+// holding k. `nu` holds bt floats, one per batch element.
+int repro_weiszfeld_f32(const float* g, const float* nu, float* w, int bt,
+                        int k, int n_iter, int height, cudaStream_t stream) {
     if (bt < 1 || n_iter < 0 || k < 1 || k > height)
         return (int)cudaErrorInvalidValue;
     switch (height) {
         case 8:
-            weiszfeld_kernel<8><<<bt, 32, 0, stream>>>(g, w, k, nu, n_iter);
+            weiszfeld_kernel<8><<<bt, 32, 0, stream>>>(g, nu, w, k, n_iter);
             break;
         case 16:
-            weiszfeld_kernel<16><<<bt, 32, 0, stream>>>(g, w, k, nu, n_iter);
+            weiszfeld_kernel<16><<<bt, 32, 0, stream>>>(g, nu, w, k, n_iter);
             break;
         case 32:
-            weiszfeld_kernel<32><<<bt, 32, 0, stream>>>(g, w, k, nu, n_iter);
+            weiszfeld_kernel<32><<<bt, 32, 0, stream>>>(g, nu, w, k, n_iter);
             break;
         default: return (int)cudaErrorInvalidValue;
     }

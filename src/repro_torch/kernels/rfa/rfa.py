@@ -10,7 +10,9 @@ for ``z = wᵀ X``. This is the algorithm of the JAX package's
 ``kernels/rfa/rfa.py::rfa_pallas``. Its two kernels are ported here:
 
 * ``weiszfeld_weights``: (Bt, K, K) Gram matrices -> (Bt, K) weights after
-  ``n_iter`` steps from w₀ = 1/K (``_weiszfeld_kernel``);
+  ``n_iter`` steps from w₀ = 1/K (``_weiszfeld_kernel``), with one
+  smoothing floor ``nu`` for the batch or one per batch element (the rows
+  of a lane group sweeping ``rfa(nu=...)``);
 * ``weighted_sum``: (Bt, K, d) stack and (Bt, K) weights -> (Bt, d)
   (``_wsum_kernel``).
 
@@ -26,6 +28,8 @@ IEEE operations in the same order (every sum a halving tree, see
 launch takes.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -53,11 +57,36 @@ def weiszfeld_instance(k: int) -> int:
                      f"{WEISZFELD_HEIGHTS[-1]})")
 
 
-def _check_iter(nu: float, n_iter: int) -> None:
+def _check_iter(nu, n_iter: int) -> None:
+    """``n_iter >= 0`` and every ``nu > 0``: a number, or one value per
+    batch element (read to the host: on a card, one synchronization; the
+    lane route passes a number whenever its rows share one)."""
     if n_iter < 0:
         raise ValueError(f"n_iter must be >= 0, got {n_iter}")
-    if not nu > 0:
-        raise ValueError(f"nu must be > 0, got {nu}")
+    if not isinstance(nu, torch.Tensor):
+        if not nu > 0:
+            raise ValueError(f"nu must be > 0, got {nu}")
+    elif not bool(torch.all(nu > 0)):
+        raise ValueError(f"every nu must be > 0, got {nu.tolist()}")
+
+
+@functools.lru_cache(maxsize=64)
+def _filled(nu: float, bt: int, device: torch.device) -> torch.Tensor:
+    """One number's (bt,) array, made once per (value, batch, device):
+    the main path calls with the same few every step. Read-only."""
+    return torch.full((bt,), nu, dtype=torch.float32, device=device)
+
+
+def nu_rows(nu, bt: int, device) -> torch.Tensor:
+    """``nu`` as the (bt,) float32 array the kernel reads, one value per
+    batch element: a number filled in, or a (bt,) tensor rounded to
+    float32."""
+    if isinstance(nu, torch.Tensor):
+        if nu.shape != (bt,):
+            raise ValueError(f"weiszfeld: nu must be a number or a ({bt},) "
+                             f"tensor, got shape {tuple(nu.shape)}")
+        return nu.to(device=device, dtype=torch.float32).contiguous()
+    return _filled(float(nu), bt, torch.device(device))
 
 
 def tree_sum(v: torch.Tensor) -> torch.Tensor:
@@ -83,7 +112,7 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).to(x.dtype)
 
 
-def weiszfeld_plain(g: torch.Tensor, nu: float = 1e-6,
+def weiszfeld_plain(g: torch.Tensor, nu=1e-6,
                     n_iter: int = 32) -> torch.Tensor:
     """(Bt, K, K) -> (Bt, K) smoothed-Weiszfeld weights, in PyTorch, in
     the kernel's order: per step ``gw_j = tree_sum_l(g_jl w_l)``, ``wgw =
@@ -91,11 +120,14 @@ def weiszfeld_plain(g: torch.Tensor, nu: float = 1e-6,
     kept), ``iw = 1 / sqrt(d2 + nu)`` (``sqrt_rn``) and ``w = iw /
     tree_sum(iw)``. Every division is tensor by tensor (a Python number
     over a tensor goes through a reciprocal on CUDA) and ``nu`` is rounded
-    to the tensor's type first, as the kernel takes it."""
+    to the tensor's type first, as the kernel takes it. ``nu`` is a
+    number or a (Bt,) tensor, one value per batch element."""
     _check_iter(nu, n_iter)
     k = g.shape[-1]
     like = dict(dtype=g.dtype, device=g.device)
-    one, nu_t = torch.tensor(1.0, **like), torch.tensor(nu, **like)
+    one = torch.tensor(1.0, **like)
+    nu_t = nu.to(**like)[:, None] if isinstance(nu, torch.Tensor) \
+        else torch.tensor(nu, **like)
     diag = torch.diagonal(g, dim1=-2, dim2=-1)
     w = torch.full(g.shape[:-1], 1.0 / k, **like)
     for _ in range(n_iter):
@@ -111,16 +143,17 @@ _WEISZFELD = _build.CFunction("repro_weiszfeld_f32", "weiszfeld")
 _WSUM = _build.CFunction("repro_wsum_f32", "wsum")
 
 
-def _weiszfeld_cuda(g: torch.Tensor, nu: float = 1e-6,
+def _weiszfeld_cuda(g: torch.Tensor, nu=1e-6,
                     n_iter: int = 32) -> torch.Tensor:
     _check_iter(nu, n_iter)
     bt, k, k2 = check_stack(g, "weiszfeld", _build.KMAX)
     if k2 != k:
         raise ValueError(f"weiszfeld: expected square Gram matrices, got "
                          f"shape {tuple(g.shape)}")
+    nus = nu_rows(nu, bt, g.device)
     w = torch.empty((bt, k), device=g.device, dtype=torch.float32)
-    _WEISZFELD(g.data_ptr(), w.data_ptr(), bt, k, float(nu), int(n_iter),
-               weiszfeld_instance(k), stream_of(g))
+    _WEISZFELD(g.data_ptr(), nus.data_ptr(), w.data_ptr(), bt, k,
+               int(n_iter), weiszfeld_instance(k), stream_of(g))
     return w
 
 

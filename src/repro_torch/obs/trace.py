@@ -8,8 +8,8 @@ Two layers:
   ``jax.named_scope``) when its ``enabled`` flag is on.
 * :class:`Tracer`, a host-side wall-clock tracer emitting Chrome-trace
   JSON (``{"traceEvents": [...]}``), loadable in Perfetto or
-  ``chrome://tracing``. ``engine.run_grid`` wraps each scenario's runs in
-  :func:`host_span`. Host spans also enter ``record_function`` (the
+  ``chrome://tracing``. ``engine.run_grid`` wraps each lane group's run
+  (each scenario's runs with ``lanes=False``) in :func:`host_span`. Host spans also enter ``record_function`` (the
   reference's ``jax.profiler.TraceAnnotation``), so they line up with the
   device's events when a ``torch.profiler`` session is active.
 

@@ -6,6 +6,9 @@ estimate, and the importance-weighted estimator used by the PAGE
 correction, with clipped weights that carry no gradient. Trajectories are
 (K, M, H, ...) and θ is (K, d); agent k's surrogate depends on row k alone,
 so one backward pass over the sum across agents gives all K gradients.
+``gamma`` and ``baseline`` are numbers, or (K,) tensors with one value per
+agent: the rows of a lane group fold into the agent axis, each row's
+agents taking the row's value.
 """
 from __future__ import annotations
 
@@ -26,21 +29,30 @@ def step_log_probs(policy, theta: torch.Tensor,
     return lp * traj.mask
 
 
-def _discounts(traj: Trajectory, gamma: float) -> torch.Tensor:
+def per_agent(value, ndim: int):
+    """A number as it is, or a (K,) tensor shaped (K, 1, ...) to broadcast
+    over ``ndim`` dimensions led by the agents'."""
+    if isinstance(value, torch.Tensor):
+        return value.reshape(-1, *(1,) * (ndim - 1))
+    return value
+
+
+def _discounts(traj: Trajectory, gamma) -> torch.Tensor:
     H = traj.rewards.shape[-1]
-    return gamma ** torch.arange(H, dtype=traj.rewards.dtype,
-                                 device=traj.rewards.device)
+    return per_agent(gamma, 3) ** torch.arange(
+        H, dtype=traj.rewards.dtype, device=traj.rewards.device)
 
 
 def _gpomdp_surrogate(lp, traj, gamma, baseline):
     """Σ_h (Σ_{t<=h} log π_t) (γ^h r_h − b_h): gradient = GPOMDP."""
-    disc_r = traj.rewards * _discounts(traj, gamma) - baseline * traj.mask
+    disc_r = traj.rewards * _discounts(traj, gamma) \
+        - per_agent(baseline, 3) * traj.mask
     return (torch.cumsum(lp, -1) * disc_r.detach()).sum(-1)
 
 
 def _reinforce_surrogate(lp, traj, gamma, baseline):
     g_return = (traj.rewards * _discounts(traj, gamma)).sum(-1)
-    return lp.sum(-1) * (g_return - baseline).detach()
+    return lp.sum(-1) * (g_return - per_agent(baseline, 2)).detach()
 
 
 register("estimator", "gpomdp")(lambda: _gpomdp_surrogate)
@@ -54,7 +66,7 @@ def _weighted_mean(s: torch.Tensor, sample_weights) -> torch.Tensor:
 
 
 def grad_estimate(policy, theta: torch.Tensor, traj: Trajectory,
-                  gamma: float, baseline: float = 0.0,
+                  gamma, baseline=0.0,
                   estimator="gpomdp",
                   sample_weights: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
@@ -85,7 +97,7 @@ def importance_weights(policy, theta_old: torch.Tensor,
 
 def weighted_grad_estimate(policy, theta_old: torch.Tensor,
                            theta_new: torch.Tensor, traj: Trajectory,
-                           gamma: float, baseline: float = 0.0,
+                           gamma, baseline=0.0,
                            estimator="gpomdp",
                            sample_weights: Optional[torch.Tensor] = None,
                            self_normalized: bool = False) -> torch.Tensor:

@@ -23,6 +23,36 @@ from repro_torch.core import tree
 from repro_torch.core.registry import register, resolve
 
 
+def column_tree_sum(g: torch.Tensor) -> torch.Tensor:
+    """(A, n, o) -> (A, o): the sum over n as a halving tree of
+    elementwise adds (n padded with zeros to a power of two), whose bits
+    do not depend on A. A library reduction picks its split of n by the
+    tensor's size, so on a card the same agent's sum could take other
+    bits in a lane group of R·K agents than in a run of K."""
+    n = g.shape[1]
+    p = 1 << max(n - 1, 0).bit_length()
+    if p > n:
+        g = torch.cat([g, g.new_zeros((g.shape[0], p - n, g.shape[2]))], 1)
+    while g.shape[1] > 1:
+        h = g.shape[1] // 2
+        g = g[:, :h] + g[:, h:]
+    return g[:, 0]
+
+
+class _BiasAdd(torch.autograd.Function):
+    """``x + b[:, None, :]``, with b's gradient summed by
+    :func:`column_tree_sum`: each agent's bias gradient has the same bits
+    whatever the number of agents (x's gradient is the incoming one)."""
+
+    @staticmethod
+    def forward(ctx, x, b):
+        return x + b[:, None, :]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, column_tree_sum(grad)
+
+
 class MLPPolicy(nn.Module):
     """Logits of K agents' MLPs from θ (K, d): ``forward(theta, obs)``
     with obs (K, ..., obs_dim) -> logits (K, ..., n_actions)."""
@@ -50,7 +80,7 @@ class MLPPolicy(nn.Module):
         act = torch.tanh if self.activation == "tanh" else torch.relu
         layers = self.layers(theta)
         for i, layer in enumerate(layers):
-            x = torch.bmm(x, layer["w"]) + layer["b"][:, None, :]
+            x = _BiasAdd.apply(torch.bmm(x, layer["w"]), layer["b"])
             if i < len(layers) - 1:
                 x = act(x)
         return x.reshape(K, *lead, x.shape[-1])
@@ -71,6 +101,17 @@ def init_mlp(generator: torch.Generator, sizes: Sequence[int]) -> List[dict]:
             * (din ** -0.5)
         params.append({"w": w, "b": torch.zeros(dout, device=dev)})
     return params
+
+
+def mlp_logits(params, obs: torch.Tensor,
+               activation: str = "tanh") -> torch.Tensor:
+    """One MLP's logits, the reference's function over :func:`init_mlp`'s
+    layer dicts: obs (..., obs_dim) -> (..., n_actions)."""
+    act = torch.tanh if activation == "tanh" else torch.relu
+    x = obs
+    for layer in params[:-1]:
+        x = act(x @ layer["w"] + layer["b"])
+    return x @ params[-1]["w"] + params[-1]["b"]
 
 
 def mlp_sizes(env, hidden) -> tuple:

@@ -52,6 +52,21 @@ def rollout(env, policy, theta: torch.Tensor, s0: torch.Tensor,
                       torch.stack(rewards, 2), torch.stack(masks, 2))
 
 
+def sample_batch(env, policy, theta: torch.Tensor,
+                 generator: torch.Generator, n: int,
+                 logit_scale: Optional[torch.Tensor] = None) -> Trajectory:
+    """A (K, n, H) batch: n trajectories of each of the K agents' policies
+    θ (K, d), their reset states and then their action noise drawn from
+    ``generator`` (in the steps' order, ``core/noise.py``): the
+    reference's ``sample_batch`` in the port's form (a generator and a
+    flat θ stack where it vmaps one parameter tree over keys)."""
+    from repro_torch.core.noise import _gumbel
+    K = theta.shape[0]
+    s0 = env.reset(generator, (K, n))
+    gumbel = _gumbel(generator, (K, n, env.horizon, env.n_actions))
+    return rollout(env, policy, theta, s0, gumbel, logit_scale)
+
+
 def batch_return(traj: Trajectory, gamma: float = 1.0) -> torch.Tensor:
     """(K, M) discounted returns."""
     H = traj.rewards.shape[-1]

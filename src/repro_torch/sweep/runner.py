@@ -17,18 +17,23 @@ long-running job built from the algorithms' windows:
   carries and generator states;
 * with several processes (a gloo process group from
   :func:`repro_torch.distributed.init_distributed`) a group's rows are
-  split over the processes in ``mode="span"``, or whole groups are
+  split over the processes' lane mesh in ``mode="span"``, or whole groups are
   assigned to processes by greedy longest-processing-time in
   ``mode="shard"`` and merged through the shared sweep directory;
 * partial summaries stream through ``repro_torch.obs`` sinks as windows
   and groups finish (``sweep.window`` / ``sweep.partial`` records); each
   window's commit is a ``sweep.commit`` host span.
 
-A group is one scenario's seed batch: the reference groups scenarios by
-their lane-static signature because a group is what it compiles and
-``vmap``s, and the port batches nothing. So every group has one lane, its
-rows are the seeds (no pad rows), the groups follow the grid's scenario
-order, and a window runs each row's window in turn. A row's random
+A group is a lane group (:func:`repro_torch.core.engine.lane_groups`):
+the scenarios that differ only in traced scalars, whose lanes × seeds
+rows a window advances as one batched step per iteration
+(:func:`~repro_torch.core.engine.lane_window_loop`), and whose manifest
+entry carries ``lanes``, ``rows``, ``n_pad`` and the signature
+``f"{static_cfg!r}|{names!r}"``, as the reference writes them. A
+manifest written with other groups (one group per scenario, say) is
+refused with :class:`SweepMismatch`. In ``span``
+mode the rows are padded to a multiple of the process count and each
+process advances its block, gathered after every window. A row's random
 stream is its ``torch.Generator``'s state, not a key: the carry archive
 holds each row's state, and a seed's numbers differ between device types,
 so the manifest records the device type and a resume on another raises
@@ -39,7 +44,7 @@ DIR``, ``--processes``, ``--device``).
 """
 from __future__ import annotations
 
-import dataclasses
+import contextlib
 import os
 import time
 from typing import Callable, Mapping, Optional
@@ -53,9 +58,11 @@ from repro_torch.checkpoint import restore, save
 from repro_torch.core import engine
 from repro_torch.core.registry import Spec, resolve
 from repro_torch.core.tree import tree_map
-from repro_torch.distributed.sharding import (host_assignment,
-                                              process_count, process_index,
-                                              row_block)
+from repro_torch.distributed.sharding import (gather_rows, host_assignment,
+                                              lane_mesh, lane_sharding,
+                                              padded_rows, process_count,
+                                              process_index, spans_processes,
+                                              use_lane_mesh)
 from repro_torch.rl.envs import make_env
 from repro_torch.sweep import manifest as mf
 
@@ -215,18 +222,25 @@ class SweepRunner:
         if mode == "shard" and n_proc > 1 and self.out_dir is None:
             raise SweepError(
                 "mode='shard' needs a shared out_dir to merge groups")
-        return self._run(env, scenarios, slices, mode, n_proc, pid,
-                         max_windows)
+        ctx = use_lane_mesh(lane_mesh(spanning=True)) \
+            if mode == "span" and n_proc > 1 else contextlib.nullcontext()
+        with ctx:
+            return self._run(env, scenarios, slices, mode, n_proc, pid,
+                             max_windows)
 
     def _run(self, env, scenarios, slices, mode, n_proc, pid, max_windows):
-        a = resolve("algo", self.algo)
+        groups = list(engine.lane_groups(scenarios, algo=self.algo).items())
+        mesh = lane_mesh()
         S = len(self.seeds)
-        entries = [{"gid": gi,
-                    "signature": repr(dataclasses.replace(cfg, seed=0)),
-                    "lanes": 1, "rows": S, "n_pad": S,
-                    "scenarios": [
-                        engine.ExperimentResult.scenario_name(scn)]}
-                   for gi, (scn, cfg) in enumerate(scenarios)]
+        entries = []
+        for gi, ((static_cfg, names), members) in enumerate(groups):
+            rows = len(members) * S
+            entries.append({
+                "gid": gi, "signature": f"{static_cfg!r}|{names!r}",
+                "lanes": len(members), "rows": rows,
+                "n_pad": padded_rows(mesh, rows),
+                "scenarios": [engine.ExperimentResult.scenario_name(scn)
+                              for scn, _, _ in members]})
         persist = self.out_dir is not None
         # manifest writer: rank 0 creates it, everyone validates theirs
         # against it (a mismatched resume dir fails before any compute)
@@ -243,26 +257,25 @@ class SweepRunner:
         owners = host_assignment(
             [e["rows"] * self.T for e in entries], n_proc) \
             if mode == "shard" else None
-        span = mode == "span" and n_proc > 1
         budget = [max_windows] if max_windows is not None else None
         results: dict = {}
         pending = []
-        for gi, (scn, cfg) in enumerate(scenarios):
+        for gi, ((static_cfg, names), members) in enumerate(groups):
             if owners is not None and owners[gi] != pid:
-                pending.append((gi, scn, cfg))
+                pending.append((gi, static_cfg, members))
                 continue
             writer = persist and (pid == 0 if mode == "span" else True)
             gp = mf.GroupPaths(self.out_dir, gi) if persist else None
-            hist = self._run_group(env, a, cfg, gi, gp, slices, budget,
-                                   writer, span, n_proc, pid)
+            hist = self._run_group(env, static_cfg, names, members, gi, gp,
+                                   slices, entries[gi]["n_pad"], budget,
+                                   writer, mesh)
             if hist is None:        # max_windows exhausted mid-sweep
                 return None
-            self._summarize_group(hist, scn, cfg, results, gi,
-                                  len(scenarios))
+            self._summarize_group(hist, members, results, gi, len(groups))
         # shard mode: groups owned by other processes arrive through the
         # shared sweep dir once their state says every window committed
         deadline = time.time() + self.timeout_s
-        for gi, scn, cfg in pending:
+        for gi, static_cfg, members in pending:
             gp = mf.GroupPaths(self.out_dir, gi)
             while mf.windows_done(gp) < len(slices):
                 if time.time() > deadline:
@@ -270,19 +283,20 @@ class SweepRunner:
                         f"timed out waiting for group {gi} (owner "
                         f"process {owners[gi]}) to finish")
                 time.sleep(self.poll_s)
-            hist = self._load_group(env, cfg, gp, len(slices))
-            self._summarize_group(hist, scn, cfg, results, gi,
-                                  len(scenarios))
+            hist = self._load_group(env, static_cfg, gp, len(slices),
+                                    entries[gi]["n_pad"])
+            self._summarize_group(hist, members, results, gi, len(groups))
         ordered = {scn: results[scn] for scn, _ in scenarios}
         result = engine.ExperimentResult(self._meta(), self.axes, ordered)
         if persist and pid == 0:
             result.to_json(os.path.join(self.out_dir, mf.SUMMARY))
         return result
 
-    def _run_group(self, env, a, cfg, gi, gp, slices, budget, writer, span,
-                   n_proc, pid):
+    def _run_group(self, env, static_cfg, names, members, gi, gp, slices,
+                   n_pad, budget, writer, mesh):
         W = len(slices)
         wdone = mf.windows_done(gp) if gp is not None else 0
+        span = spans_processes(mesh)
         if span:
             # rank 0's reading decides, so every rank takes the same path
             box = [wdone]
@@ -290,79 +304,65 @@ class SweepRunner:
             wdone = box[0]
         if wdone >= W:
             # fully committed: reload artifacts, no draw, no launch
-            return self._load_group(env, cfg, gp, W)
+            return self._load_group(env, static_cfg, gp, W, n_pad)
         dev = self.device
-        mine = row_block(len(self.seeds), n_proc, pid) if span \
-            else range(len(self.seeds))
+        vals, seeds = engine.lane_operands(members, self.seeds, n_pad)
+        block = lane_sharding(mesh, n_pad)
+        mine = range(n_pad) if block is None else block
+        rows = slice(mine.start, mine.stop)
         if wdone == 0:
-            gens = [engine.seed_generator(self.seeds[r], dev) for r in mine]
-            carries = [a.init(env, cfg, g, device=dev) for g in gens]
+            carry, gens = engine.lane_init_loop(
+                env, static_cfg, len(mine), self.algo, dev)(seeds[rows])
         else:
-            stacked, states = self._load_carry(env, cfg, gp)
-            carries = [tree_map(lambda x: x[r].to(dev, copy=True), stacked)
-                       for r in mine]
+            stacked, states = self._load_carry(env, static_cfg, gp, n_pad)
+            carry = tree_map(lambda x: x[rows].to(dev, copy=True), stacked)
             gens = [_generator(states[r], dev) for r in mine]
         chunks = [self._load_chunk(gp.window(w)) for w in range(wdone)]
         for w in range(wdone, W):
             if budget is not None and budget[0] <= 0:
                 return None
             start, stop = slices[w]
-            outs = [a.window(env, cfg, c, g, start, stop)
-                    for c, g in zip(carries, gens)]
-            carries = [c for c, _ in outs]
-            rows = (carries, [g.get_state() for g in gens],
-                    [ch for _, ch in outs])
-            if span:
-                rows = self._gather_rows(mine, *rows, n_proc)
-            all_carries, states, row_chunks = rows
-            chunk = engine.stack_rows(row_chunks)
-            chunks.append(chunk)
+            window = engine.lane_window_loop(env, static_cfg, self.T, names,
+                                             stop - start, len(mine),
+                                             self.algo, dev)
+            carry, chunk = window(carry, gens, vals[rows],
+                                  range(start, stop))
+            done = {"carry": carry, "chunk": chunk, "generator":
+                    torch.stack([g.get_state() for g in gens])}
+            if span:                # every rank ends with every row
+                done = gather_rows(mesh, done)
+            chunks.append(done["chunk"])
             if budget is not None:
                 budget[0] -= 1
             if writer and gp is not None:
                 # carry + chunk first, progress record last: a crash
                 # between the writes re-runs window w, never skips it
                 with obs.host_span("sweep.commit", group=gi, window=w):
-                    save({"carry": engine.stack_rows(all_carries),
-                          "generator": torch.stack(states)}, gp.carry)
-                    save(chunk, gp.window(w))
+                    save({"carry": done["carry"],
+                          "generator": done["generator"]}, gp.carry)
+                    save(done["chunk"], gp.window(w))
                     mf.commit_window(gp, w + 1, stop)
             if obs.enabled():
                 obs.record("sweep.window", group=gi, window=w,
                            t_done=stop, T=self.T)
                 obs.progress(f"sweep group {gi}: window {w + 1}/{W} "
                              f"(t={stop}/{self.T})", group=gi, window=w)
-        return engine.assemble_hist(engine.stack_rows(all_carries), chunks,
-                                    self.algo)
+        return engine.assemble_hist(done["carry"], chunks, self.algo)
 
-    @staticmethod
-    def _gather_rows(mine, carries, states, chunks, n_proc):
-        """Every process's rows (carries on the host, generator states,
-        chunks), gathered to every process in row order."""
-        part = {"rows": list(mine),
-                "carries": [tree_map(lambda x: x.cpu(), c) for c in carries],
-                "states": states, "chunks": chunks}
-        parts = [None] * n_proc
-        dist.all_gather_object(parts, part)
-        by_row = {r: (p["carries"][i], p["states"][i], p["chunks"][i])
-                  for p in parts for i, r in enumerate(p["rows"])}
-        return tuple(list(col) for col in zip(*(by_row[r]
-                                                for r in sorted(by_row))))
-
-    def _load_carry(self, env, cfg, gp):
+    def _load_carry(self, env, static_cfg, gp, n_pad):
         """The group's stacked carries and generator states, on the host,
         validated against the carries' shapes and dtypes."""
-        S = len(self.seeds)
         n_state = torch.Generator(device=self.device).get_state().numel()
-        template = {"carry": engine.carry_struct(env, cfg, S, self.algo),
-                    "generator": torch.empty((S, n_state),
+        template = {"carry": engine.lane_carry_struct(env, static_cfg,
+                                                      n_pad, self.algo),
+                    "generator": torch.empty((n_pad, n_state),
                                              dtype=torch.uint8,
                                              device="meta")}
         tree = restore(template, gp.carry, device="cpu")
         return tree["carry"], tree["generator"]
 
-    def _load_group(self, env, cfg, gp, W):
-        carry, _ = self._load_carry(env, cfg, gp)
+    def _load_group(self, env, static_cfg, gp, W, n_pad):
+        carry, _ = self._load_carry(env, static_cfg, gp, n_pad)
         chunks = [self._load_chunk(gp.window(w)) for w in range(W)]
         return engine.assemble_hist(carry, chunks, self.algo)
 
@@ -371,13 +371,18 @@ class SweepRunner:
         with np.load(path) as data:
             return {k: data[k] for k in data.files}
 
-    def _summarize_group(self, hist, scn, cfg, results, gi, n_groups):
-        results[scn] = r = engine.summarize(hist, cfg)
+    def _summarize_group(self, hist, members, results, gi, n_groups):
+        S = len(self.seeds)
+        for i, (scn, cfg, _) in enumerate(members):
+            # pad rows (if any) sit past the last member's: never read
+            lane = {k: v[i * S:(i + 1) * S] for k, v in hist.items()}
+            results[scn] = r = engine.summarize(lane, cfg)
+            if obs.enabled():
+                obs.record(
+                    "sweep.partial",
+                    scenario=engine.ExperimentResult.scenario_name(scn),
+                    final_return_mean=r["final_return_mean"],
+                    final_return_ci95=r["final_return_ci95"])
         if obs.enabled():
-            obs.record(
-                "sweep.partial",
-                scenario=engine.ExperimentResult.scenario_name(scn),
-                final_return_mean=r["final_return_mean"],
-                final_return_ci95=r["final_return_ci95"])
             obs.progress(f"sweep group {gi + 1}/{n_groups} complete",
-                         group=gi, scenarios=1)
+                         group=gi, scenarios=len(members))

@@ -100,7 +100,9 @@ def test_gathered_rows_flagged_sharded_rfa_clean(ranks):
     fixtures, _, _ = ranks
     for rank_out in fixtures:
         assert _rules(rank_out, 0) == {"gather-footprint"}
-        assert _rules(rank_out, 1) == set()
+        # the clean rank's findings, whole, if it has any: a failure keeps
+        # its text (the contract, the bytes, the message)
+        assert _rules(rank_out, 1) == set(), rank_out[1]
         # a row crossed the ranks: D·4 bytes against K²·4·ranks
         assert max(rank_out[0][1]["gathers"]) >= D_FIXTURE * 4
 

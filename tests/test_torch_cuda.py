@@ -365,6 +365,24 @@ def test_cuda_weiszfeld_bit_equal_at_every_k(cuda, k):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", SWEEP_K)
+def test_cuda_weiszfeld_per_row_nu_bit_equal(cuda, k):
+    """A (Bt,) ``nu``, another in every batch element (a lane group
+    sweeping ``rfa(nu=...)``): bit-equal to the plain version and to each
+    element's scalar call; a non-positive entry raises."""
+    g = _gram_cases(k, 300 + k)[0][1].repeat(3, 1, 1).to(cuda)
+    nus = torch.tensor([1e-6, 1e-3, 1e-1, 2.0, 5e-5, 7.0][:g.shape[0]],
+                       device=cuda)
+    w = weiszfeld_weights(g, nus, 32)
+    _same_bits(w, weiszfeld_plain(g, nus, 32), f"K={k} per-row nu")
+    for b in range(g.shape[0]):
+        _same_bits(w[b], weiszfeld_weights(g[b:b + 1], float(nus[b]), 32)[0],
+                   f"K={k} row {b} scalar nu")
+    with pytest.raises(ValueError, match="every nu"):
+        weiszfeld_weights(g, torch.zeros_like(nus), 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", SWEEP_K)
 def test_cuda_krum_score_bit_equal_at_every_k(cuda, k):
     """The kernel at every instance edge equals its plain version bit for
     bit at several n_near, on duplicated rows (tied distances), an outlier
@@ -638,11 +656,12 @@ def test_cuda_windowed_sweep_equals_run_grid(cuda, tmp_path):
             np.testing.assert_array_equal(got[k], want[k])
         assert got["final_return_mean"] == want["final_return_mean"]
     # Krum: gram 2, krum_score 1; the trimmed mean: gram 1, trimmed_mean 1;
-    # cwtm's κ = 6 rounds each (consistent attack)
+    # cwtm's κ = 6 rounds each (consistent attack); each aggregator is a
+    # lane group whose two seed rows launch one run's kernels a step
     per_iter = {"gram": 3, "krum_score": 1, "trimmed_mean": 1,
                 "gossip_reduce": 12}
     assert {k: after[k] - before[k] for k in per_iter} == \
-        {k: n * T * len(seeds) for k, n in per_iter.items()}
+        {k: n * T for k, n in per_iter.items()}
     cpu_dir = str(tmp_path / "cpu")
     SweepRunner(out_dir=cpu_dir, device="cpu", **dict(
         sweep, T=2, seeds=(0,), axes={"aggregator": ("trimmed_mean",)})

@@ -31,6 +31,7 @@ import contextlib
 import dataclasses
 import importlib
 import importlib.util
+import inspect
 import io
 import math
 import os
@@ -224,6 +225,29 @@ def test_surface_holds_the_reference_surface():
     assert set(repro.__all__) <= set(repro_torch.__all__)
     assert {"SweepError", "SweepMismatch", "resolve_device"} <= \
         set(repro_torch.__all__)
+    # the namespaces' own names: the reference's core (its jit-dispatch
+    # harnesses left out, on purpose), rl and optim
+    ref = {ns: importlib.import_module(f"repro.{ns}")
+           for ns in ("core", "rl", "optim")}
+    names = {"core": set(ref["core"].__all__) - {"run_byzpg_legacy",
+                                                 "run_decbyzpg_legacy"}}
+    for ns in ("rl", "optim"):
+        names[ns] = {n for n, v in vars(ref[ns]).items()
+                     if not n.startswith("_") and not inspect.ismodule(v)}
+    assert len(names["core"]) == 22 and len(names["rl"]) == 13 \
+        and names["optim"] == {"adam", "sgd", "get_optimizer",
+                               "cosine_schedule"}
+    for ns, want in names.items():
+        port = importlib.import_module(f"repro_torch.{ns}")
+        assert want <= set(port.__all__), (ns, want - set(port.__all__))
+        for name in want:
+            assert getattr(port, name) is not None, (ns, name)
+    import repro_torch.core as tcore
+    assert not {"run_byzpg_legacy", "run_decbyzpg_legacy"} & \
+        set(tcore.__all__)
+    assert not [n for ns in ("core", "rl", "optim") for n in
+                importlib.import_module(f"repro_torch.{ns}").__all__
+                if n.startswith("lane_")]
 
 
 def test_public_api_surface():
@@ -430,8 +454,7 @@ def test_example_runs_with_finite_report(runs, name):
                             "(avg_zero, per-receiver equivocation), 1 seeds "
                             "=="),
     ("attack_strength_sweep", "== LargeNoise strength sweep, 3/13 Byzantine, "
-                              "1 seeds; 4 scenarios, run one after another "
-                              "=="),
+                              "1 seeds; 4 scenarios in 2 lane groups =="),
     ("serve_decode", "8 requests on 4 slots (offline): p50="),
     ("federated_llm", "qwen2.5-3b-reduced: K=6, 1 Byzantine (LargeNoise), "
                       "RFA + GDA(kappa=3), PAGE p=0.25 — flat (K, D=")])
@@ -451,6 +474,31 @@ def test_experiment_results_cover_the_grid(runs):
         for _, out in res.items():
             assert out["returns"].shape == (1, 2), name
             assert np.isfinite(out["final_return_mean"]), name
+
+
+def test_attack_sweep_lanes_equal_the_per_scenario_route(runs):
+    """The sweep's two lane groups give what ``lanes=False`` gives, within
+    the reference's lane tolerances (returns 1e-5, samples exact, Δ₂
+    1e-3, θ 1e-5)."""
+    res = runs["attack_strength_sweep",
+               tuple(SMALL["attack_strength_sweep"])][0]
+    per = teng.Experiment(
+        algo="decbyzpg", env="cartpole(horizon=200)", T=2, seeds=1,
+        axes={"attack": ("large_noise(sigma=10.0)",
+                         "large_noise(sigma=200.0)"),
+              "aggregator": ("rfa", "mean")},
+        K=13, n_byz=3, N=20, B=4, eta=2e-2, lanes=False, device="cpu",
+        override=lambda c: dataclasses.replace(
+            c, kappa=0 if c.aggregator.name == "mean" else 5)).run()
+    assert list(map(tuple, res)) == list(map(tuple, per))
+    for scn, want in per.items():
+        got = res[scn]
+        np.testing.assert_allclose(got["returns"], want["returns"],
+                                   atol=1e-5)
+        np.testing.assert_array_equal(got["samples"], want["samples"])
+        np.testing.assert_allclose(got["diameter"], want["diameter"],
+                                   atol=1e-3)
+        np.testing.assert_allclose(got["theta"], want["theta"], atol=1e-5)
 
 
 @pytest.mark.parametrize("K", [13, 9])

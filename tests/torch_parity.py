@@ -109,6 +109,34 @@ def agreement_draws(key, kappa: int, K: int, d: int, per_receiver: bool):
     return jax.vmap(lambda k: jax.random.normal(k, (K, d)))(rounds)
 
 
+#: jitted draw programs of :func:`replay_step_noise`, by their shape, so
+#: the rows of a lane group (one config, several seeds) share one
+_STEP_DRAWS: dict = {}
+
+
+def _step_draws(env, K, M, d, noisy, bucketed, kappa, per_receiver):
+    key = (id(env), K, M, d, noisy, bucketed, kappa, per_receiver)
+    if key in _STEP_DRAWS:
+        return _STEP_DRAWS[key][1]
+
+    @jax.jit
+    def draws(step_key):
+        k_traj, k_att, k_agg, k_agr = jax.random.split(step_key, 4)
+        s0, gumbel = jax.vmap(lambda k: trajectory_draws(env, k, M))(
+            jax.random.split(k_traj, K))
+        attack = agree = perm = None
+        if noisy:
+            attack = jax.random.normal(k_att, (K, d))
+            agree = agreement_draws(k_agr, kappa, K, d, per_receiver)
+        if bucketed:
+            perm = bucket_perms(k_agg, K)
+        return s0, gumbel, attack, agree, perm
+
+    # the env is kept alive with its program, so its id is not reused
+    _STEP_DRAWS[key] = (env, draws)
+    return draws
+
+
 def replay_step_noise(env, cfg, d: int, T: int):
     """The T StepNoise of ``decbyzpg.run_decbyzpg(env, cfg, T)``, replayed
     from ``engine.seed_keys(cfg.seed)``: ``split(loop, T)``, then
@@ -121,19 +149,8 @@ def replay_step_noise(env, cfg, d: int, T: int):
     # the port's aggregator buckets exactly when the reference's does
     bucketed = torch_resolve("aggregator", str(cfg.aggregator), K=K,
                              n_byz=cfg.n_byz).bucket_size > 0
-
-    @jax.jit
-    def draws(step_key):
-        k_traj, k_att, k_agg, k_agr = jax.random.split(step_key, 4)
-        s0, gumbel = jax.vmap(lambda k: trajectory_draws(env, k, M))(
-            jax.random.split(k_traj, K))
-        attack = agree = perm = None
-        if noisy:
-            attack = jax.random.normal(k_att, (K, d))
-            agree = agreement_draws(k_agr, cfg.kappa, K, d, cfg.per_receiver)
-        if bucketed:
-            perm = bucket_perms(k_agg, K)
-        return s0, gumbel, attack, agree, perm
+    draws = _step_draws(env, K, M, d, noisy, bucketed, cfg.kappa,
+                        cfg.per_receiver)
 
     out = []
     for t in range(T):
@@ -145,6 +162,30 @@ def replay_step_noise(env, cfg, d: int, T: int):
             None if agree is None else to_torch(agree),
             None if perm is None else to_torch(perm).long()))
     return out
+
+
+_BYZPG_DRAWS: dict = {}
+
+
+def _byzpg_draws(env, K, M, d, noisy, bucketed):
+    key = (id(env), K, M, d, noisy, bucketed)
+    if key in _BYZPG_DRAWS:
+        return _BYZPG_DRAWS[key][1]
+
+    @jax.jit
+    def draws(step_key):
+        k_traj, k_att, k_agg = jax.random.split(step_key, 3)
+        s0, gumbel = jax.vmap(lambda k: trajectory_draws(env, k, M))(
+            jax.random.split(k_traj, K))
+        attack = perm = None
+        if noisy:
+            attack = jax.random.normal(k_att, (K, d))
+        if bucketed:
+            perm = jax.random.permutation(jax.random.split(k_agg)[0], K)[None]
+        return s0, gumbel, attack, perm
+
+    _BYZPG_DRAWS[key] = (env, draws)
+    return draws
 
 
 def replay_byzpg_noise(env, cfg, d: int, T: int):
@@ -159,18 +200,7 @@ def replay_byzpg_noise(env, cfg, d: int, T: int):
     noisy = cfg.attack.name == "large_noise"
     bucketed = torch_resolve("aggregator", str(cfg.aggregator), K=K,
                              n_byz=cfg.n_byz).bucket_size > 0
-
-    @jax.jit
-    def draws(step_key):
-        k_traj, k_att, k_agg = jax.random.split(step_key, 3)
-        s0, gumbel = jax.vmap(lambda k: trajectory_draws(env, k, M))(
-            jax.random.split(k_traj, K))
-        attack = perm = None
-        if noisy:
-            attack = jax.random.normal(k_att, (K, d))
-        if bucketed:
-            perm = jax.random.permutation(jax.random.split(k_agg)[0], K)[None]
-        return s0, gumbel, attack, perm
+    draws = _byzpg_draws(env, K, M, d, noisy, bucketed)
 
     out = []
     for t in range(T):
