@@ -111,7 +111,7 @@ Phases, each of which raises on failure (so the exit code is non-zero):
 7c. Lane batching at full width (``phase_lanes``, ``LANE_*``): the paper's
    Fig. 3 ladder (DecByzPG, K=13, n_byz=3, d=386, horizon 200,
    ``large_noise`` over five sigmas × {bucketed RFA + MDA κ=5, mean κ=0},
-   3 seeds, T=5) through ``run_grid`` with ``lanes=True`` (two groups of
+   3 seeds, T=3) through ``run_grid`` with ``lanes=True`` (two groups of
    15 rows) and ``lanes=False``, each with exact launches from the group
    structure; every row's returns, samples, Δ₂ and θ within the
    reference's lane tolerances of ``lanes=False`` (largest gaps and
@@ -146,7 +146,8 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    trainers against each other (mean, no attack); the reduced model on
    the card against the CPU; ``python -m repro_torch.launch.train`` in
    fresh processes, windowed and ``--no-fused`` started at once, each
-   checkpoint against the same run in this process.
+   checkpoint against the same run in this process; at its end the
+   tree trainer's card-vs-CPU check once more, both readings printed.
 10c. The D-sharded flat trainer (``fed_train_step_flat(sharded=True)``):
    (a) after each full-width flat run of phase 10, the same 3 steps with
    ``sharded=True`` on one process (the sharded flat layer with one
@@ -194,10 +195,26 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    ``peak_per_device_gb`` beside the measured peak; (b) its width cut to
    2 layers over two gloo ranks on the one card (``chip_smoke.py
    --serve-rank``, fresh processes), on (1, 2) and (2, 1) meshes, 3
-   greedy steps: each rank's logit rows, tokens and cache blocks after
-   the prefill and after the last step bit-equal to the one-process
-   route on its own rows and within ``SERVE_RANK_TOL`` of the route on
-   the whole batch. ``[serve-mesh]`` lines and a ``[time]`` line; the
+   greedy steps: each rank's logit rows and cache blocks after the
+   prefill and after the last step within ``SERVE_RANK_TOL`` of the
+   route on the whole batch; on (2, 1) (rows only) bit-equal to the
+   one-process route on its own rows, tokens included; on (1, 2) (each
+   rank on its head, column, row and vocabulary blocks) the greedy
+   tokens equal wherever the route's top-1 margin exceeds twice the
+   tolerance and the two ranks bit-identical; (c) Grok-1 at full width
+   cut to 1 layer over two gloo ranks on the one card (``chip_smoke.py
+   --serve-tp-rank``), (data, model) = (1, 2): expert-, head- (24/4
+   heads of hd 128, G = 6) and vocab-parallel, each rank drawing only
+   its blocks (``_serve_tp_params``), 2 prompts of 128 tokens and 8
+   greedy steps against the one-process route on the card: logits
+   within ``SERVE_RANK_TOL`` of max|logit| while the streams agree, the
+   streams equal under the margin rule, the ranks bit-identical, the
+   smallest routing margin, each rank's flash launch held against the
+   plain version on its own input, and each rank's
+   ``max_memory_allocated`` printed beside the dry run's reckoning for
+   its blocks and the whole layer's bytes, held within the reckoning
+   plus the route's activations and under the whole layer.
+   ``[serve-mesh]`` and ``[serve-tp]`` lines and ``[time]`` lines; the
    launches join the totals.
 12. The analysis suite (``repro_torch.analysis``) on the card:
    keycheck's entry points on the CUDA generator ((seed, offset) states),
@@ -1759,7 +1776,7 @@ LANE_SIGMAS = (1.0, 10.0, 50.0, 100.0, 200.0)
 LANE_AXES = {"attack": tuple(f"large_noise(sigma={s})" for s in LANE_SIGMAS),
              "aggregator": ("rfa", "mean")}
 LANE_BASE = dict(K=13, n_byz=3, N=20, B=4, eta=2e-2)
-LANE_T, LANE_SEEDS = 5, (0, 1, 2)
+LANE_T, LANE_SEEDS = 3, (0, 1, 2)
 #: the rfa(nu=...) sweep of phase 7c: one group, T and seeds
 LANE_NUS = (1e-6, 1e-3, 1e-1)
 LANE_NU_T = 2
@@ -2757,11 +2774,11 @@ class _RoutingMargins:
         from repro_torch.models import moe
         self.moe, self.orig = moe, moe.moe_forward
 
-        def recorded(p, cfg, x):
+        def recorded(p, cfg, x, **kw):
             with torch.no_grad():
                 self.margins.append(moe.top_k_margin(
                     moe.router_probs(p, x), cfg.moe.top_k).item())
-            return self.orig(p, cfg, x)
+            return self.orig(p, cfg, x, **kw)
 
         moe.moe_forward = recorded
         return self
@@ -4171,7 +4188,10 @@ def phase_fed_cpu_agreement(dev):
 
     One run has read θ 3.49e-4 of max|θ| here, where every other read
     7.325e-05; which side moved is not known (``tools/fed_cpu_repeat.py``
-    repeats each side to look for it)."""
+    repeats each side to look for it; :func:`phase_fed_cpu_repeat` reads
+    the tree trainer again at the end of phase 10). Returns the tree
+    trainer's CPU θ, its card θ and the reading (θ's gap over max|θ|)."""
+    tree = None
     for flat in (False, True):
         cpu_theta, cpu_vs, cpu_losses = fed_two_steps("cpu", flat)
         gpu_theta, gpu_vs, gpu_losses = fed_two_steps(dev, flat)
@@ -4191,6 +4211,32 @@ def phase_fed_cpu_agreement(dev):
             f"{v_err:.3e} of max|v| (tol {FED_CPU_V_TOL}), theta max abs "
             f"err {err:.3e} = {err / scale:.3e} of max|theta| (tol "
             f"{FED_CPU_TOL}), loss |diff| {loss_err:.3e} (tol 1e-5)")
+        if not flat:
+            tree = (cpu_theta, gpu_theta, err / scale)
+    return tree
+
+
+def phase_fed_cpu_repeat(dev, tree):
+    """The tree trainer's card-vs-CPU θ check again, at the end of phase
+    10 (after its full-width states, the ranks and the CLI, with the
+    allocator's cache as they left it), against the same CPU θ: both
+    readings printed, the card's two θ compared bit for bit, and the
+    same tolerance held."""
+    import torch
+    cpu_theta, first_theta, first = tree
+    reserved = torch.cuda.memory_reserved()
+    gpu_theta, _, _ = fed_two_steps(dev, False)
+    err, scale = tree_gap(cpu_theta, gpu_theta)
+    same = tree_gap(first_theta, gpu_theta)[0] == 0.0
+    log(f"[check] {card()}: card vs CPU, fed tree (fed trimmed_mean) at "
+        f"the end of phase 10, the allocator holding {reserved / 2**30:.3f} "
+        f"GiB: theta max abs err {err:.3e} = {err / scale:.3e} of "
+        f"max|theta| (the first reading {first:.3e}; tol {FED_CPU_TOL}); "
+        f"the card's two theta {'bit-equal' if same else 'DIFFER'}")
+    if not err <= FED_CPU_TOL * scale:
+        raise AssertionError(f"fed card vs CPU, tree, at the end of phase "
+                             f"10: theta max abs err {err} (max {scale}); "
+                             f"the first reading {first} of max|theta|")
 
 
 def fed_two_steps(dev, flat: bool):
@@ -4340,8 +4386,9 @@ def phase_fed(dev):
     phase_fed_tree_ranks(dev)
     log(f"[time] phase 10d tree ranks {time.perf_counter() - t0:.1f} s")
     phase_fed_tree_vs_flat(dev)
-    phase_fed_cpu_agreement(dev)
+    tree = phase_fed_cpu_agreement(dev)
     phase_fed_cli(dev)
+    phase_fed_cpu_repeat(dev, tree)
     return totals
 
 
@@ -4353,13 +4400,14 @@ SERVE_MESH_ARCH, SERVE_MESH_SEED = "llama3.2-1b", 0
 SERVE_MESH_B, SERVE_MESH_S, SERVE_MESH_STEPS = 4, 512, 8
 SERVE_RANKS, SERVE_RANK_LAYERS, SERVE_RANK_STEPS = 2, 2, 3
 SERVE_RANK_MESHES = ((1, 2), (2, 1))
-#: (b): each rank against the one-process route on its own rows bit for
-#: bit (the same operations on the same shapes), and against the
-#: one-process route on the whole batch within this share of its largest
-#: logit and of its largest cache entry: where a rank serves a subset of
-#: the rows ((2, 1)) its matmuls are other shapes, so f32 sums over d =
-#: 2048 run in other orders (√2048 · 2⁻²³ ≈ 5.4e-6 of an entry's scale;
-#: the CPU tests' gaps at d 256 are below 2.4e-6)
+#: (b) and (c): a rank against the one-process route within this share of
+#: its largest logit and of its largest cache entry: where a rank serves
+#: a subset of the rows ((2, 1)) or runs on its blocks ((1, 2): column
+#: and row blocks, partial products summed over the ranks) its matmuls
+#: are other shapes, so f32 sums over d = 2048 (Grok-1: 6144) run in
+#: other orders (√2048 · 2⁻²³ ≈ 5.4e-6 of an entry's scale; the CPU
+#: tests' gaps at d 256 are below 2.4e-6). Where "model" has one rank
+#: ((2, 1)) a rank also matches the route on its own rows bit for bit
 SERVE_RANK_TOL = 1e-5
 SERVE_RANK_TIMEOUT_S = 600
 
@@ -4622,13 +4670,16 @@ def phase_serve_mesh_ranks(dev):
     over SERVE_RANKS gloo ranks on the one card (fresh processes, one
     group; small collectives staged through the host), on each mesh of
     SERVE_RANK_MESHES, against the one-process route on the card from the
-    same weights and prompts: each rank's logit rows and greedy tokens
-    after the prefill and every step, and its cache blocks after the
-    prefill and after the last step, bit for bit against the route on
-    the rank's own rows, and within SERVE_RANK_TOL of the largest entry
-    against the route on the whole batch (0 on (1, 2), where each rank
-    runs the whole batch on whole leaves); each rank's launches the
-    one-process route's. Returns the ranks' launches."""
+    same weights and prompts: each rank's logit rows after the prefill
+    and every step, and its cache blocks after the prefill and after the
+    last step, within SERVE_RANK_TOL of the largest entry against the
+    route on the whole batch, and where "model" has one rank ((2, 1))
+    bit for bit against the route on the rank's own rows, greedy tokens
+    included; on (1, 2), where each rank runs on its head, column, row
+    and vocabulary blocks, the greedy tokens equal wherever the route's
+    top-1 margin exceeds twice the tolerance, and the two ranks' logits
+    and tokens bit-identical; each rank's launches the one-process
+    route's. Returns the ranks' launches."""
     import os
     import socket
     import tempfile
@@ -4674,6 +4725,7 @@ def phase_serve_mesh_ranks(dev):
     for shape in SERVE_RANK_MESHES:
         gaps = {"logits": 0.0, "cache": 0.0}
         bad = []
+        exact = shape[1] == 1              # whole leaves, the rank's rows
         for r, res in enumerate(ranks):
             got = res[shape]
             _add(totals, got["launches"])
@@ -4681,15 +4733,23 @@ def phase_serve_mesh_ranks(dev):
             own = one[lo, hi]
             if got["launches"] != own["launches"]:
                 bad.append(f"rank {r} launches {got['launches']}")
+            if not exact and any(
+                    not torch.equal(a, b) for key in ("logits", "tokens")
+                    for a, b in zip(got[key], ranks[0][shape][key])):
+                bad.append(f"rank {r} differs from rank 0")
             for i, (a, b, w) in enumerate(zip(got["logits"], own["logits"],
                                               whole["logits"])):
                 gaps["logits"] = max(gaps["logits"],
                                      (a - w[lo:hi]).abs().max().item())
-                if not torch.equal(a, b):
+                if exact and not torch.equal(a, b):
                     bad.append(f"rank {r} logits {i}")
             for i, (a, b, w) in enumerate(zip(got["tokens"], own["tokens"],
                                               whole["tokens"])):
-                if not (torch.equal(a, b) and torch.equal(a, w[lo:hi])):
+                top = torch.topk(own["logits"][i][:, -1], 2).values
+                sure = (top[:, 0] - top[:, 1] > 2 * SERVE_RANK_TOL
+                        * lscale).all()
+                if (exact or sure) and not (torch.equal(a, b)
+                                            and torch.equal(a, w[lo:hi])):
                     bad.append(f"rank {r} token {i}")
             for step, blks in got["caches"].items():
                 for path, blk, idx in blks:
@@ -4700,8 +4760,8 @@ def phase_serve_mesh_ranks(dev):
                     at = [slice(*i) for i in idx]
                     w = whole["caches"][step][path][tuple(at)]
                     at[1] = slice(None)           # the rank's own rows
-                    if not torch.equal(blk, own["caches"][step][path][
-                            tuple(at)]):
+                    if exact and not torch.equal(
+                            blk, own["caches"][step][path][tuple(at)]):
                         bad.append(f"rank {r} step {step} {path}")
                     if blk.is_floating_point():
                         gaps["cache"] = max(
@@ -4715,7 +4775,7 @@ def phase_serve_mesh_ranks(dev):
             f"the one card, (data, model) = {shape}, B={SERVE_MESH_B} x "
             f"S={SERVE_MESH_S}, {SERVE_RANK_STEPS} greedy steps: against "
             f"the one-process route on the card on each rank's own rows "
-            f"{'bit for bit' if not bad else 'NOT bit for bit'}; against "
+            f"{('bit for bit' if exact else 'on its blocks, the two ranks bit-identical') if not bad else 'NOT as required'}; against "
             f"it on the whole batch logits max abs gap "
             f"{gaps['logits']:.3e} = {gaps['logits'] / lscale:.3e} of "
             f"max|logit| and cache blocks {gaps['cache']:.3e} of the "
@@ -4729,13 +4789,328 @@ def phase_serve_mesh_ranks(dev):
     return totals
 
 
+#: phase 11 (c): Grok-1 at full width cut to 1 layer through
+#: make_serve_fns over two gloo ranks on the card, (data, model) = (1, 2):
+#: expert-parallel (4 of the 8 experts a rank), head-parallel (24 query
+#: over 4 KV heads, hd 128, G = 6) and vocab-parallel (65,536 of the
+#: 131,072 rows and logit columns a rank). B prompts of S tokens into a
+#: ring of W, greedy steps
+SERVE_TP_ARCH, SERVE_TP_MESH = "grok-1-314b", (1, 2)
+SERVE_TP_B, SERVE_TP_S, SERVE_TP_W, SERVE_TP_STEPS = 2, 128, 256, 8
+#: what a rank may allocate beyond the dry run's reckoning and the
+#: one-process route's activations for the same call: cuBLAS's
+#: workspaces, made once a process
+SERVE_TP_SLACK = 64 << 20
+
+
+def _serve_tp_cfg():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(SERVE_TP_ARCH), n_layers=1)
+
+
+def _serve_tp_params(cfg, dev, mesh=None):
+    """Phase 11 (c)'s seeded weights, drawn block by block on the (1, 2)
+    mesh's "model" split (one generator per leaf and block: norms ones,
+    the embedding 0.02 N(0, 1), the others N(0, 1) over the root of
+    their contraction width), so a rank draws only its own blocks and no
+    rank builds the layer whole. ``mesh`` None: every block, written into
+    the whole leaf (the one-process route's tree); else this rank's
+    blocks as placed leaves of ``mesh``."""
+    import torch
+    from repro_torch.carriers import placed
+    from repro_torch.core.tree import tree_map, tree_paths
+    from repro_torch.distributed.sharding import (AbstractMesh,
+                                                  param_shardings,
+                                                  placements)
+    from repro_torch.models.model import init_params
+    shapes = init_params(cfg, 0, device="meta")
+    specs = param_shardings(cfg, shapes, AbstractMesh(SERVE_TP_MESH, (
+        "data", "model")))
+    m = SERVE_TP_MESH[1]
+    leaves = []
+    for j, ((path, t), (_, spec)) in enumerate(zip(tree_paths(shapes),
+                                                    tree_paths(specs))):
+        name = path.split("/")[-1]
+        split = [d for d, e in enumerate(spec) if e == "model"]
+        d, n = (split[0], m) if split else (0, 1)
+        blk = list(t.shape)
+        blk[d] //= n
+
+        def draw(b):
+            if name.startswith("norm") or name == "final_norm":
+                return torch.ones(blk, dtype=t.dtype, device=dev)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(SERVE_MESH_SEED + 1000 * j + b)
+            x = torch.randn(blk, generator=gen, device=dev, dtype=t.dtype)
+            return x.mul_(0.02 if name == "embed" else t.shape[-2] ** -0.5)
+        if mesh is None:
+            x = torch.empty(t.shape, dtype=t.dtype, device=dev)
+            for b in range(n):
+                x.narrow(d, b * blk[d], blk[d]).copy_(draw(b))
+        else:
+            b = mesh.get_coordinate()[1] if split else 0
+            x = placed.Layout.of(t.shape, mesh, placements(
+                spec, mesh)).wrap(draw(b))
+        leaves.append(x)
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), shapes)
+
+
+def _serve_tp_tokens(cfg, dev):
+    """The seeded (B, S) int32 prompts of phase 11 (c)."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SERVE_MESH_SEED + 2)
+    return torch.randint(0, cfg.vocab_size, (SERVE_TP_B, SERVE_TP_S),
+                         generator=gen, device=dev, dtype=torch.int32)
+
+
+def _serve_tp_rank_run(dev, mesh):
+    """Phase 11 (c) on this rank: its blocks drawn, then a prefill and
+    SERVE_TP_STEPS greedy decode steps through ``make_serve_fns`` with the
+    launches counted (zeroed just before, read just after) and each
+    launch held against its plain version on its own input. Returns the
+    logits and tokens (host copies), the launches, the smallest routing
+    margin, the peaks (after drawing, and over the run), the bytes of
+    the rank's blocks, ms per call."""
+    import torch
+    from repro_torch.carriers import placed
+    from repro_torch.core.tree import tree_paths
+    from repro_torch.distributed.serving import make_serve_fns
+    from repro_torch.kernels import dispatch
+    cfg = _serve_tp_cfg()
+    torch.cuda.reset_peak_memory_stats()
+    params = _serve_tp_params(cfg, dev, mesh)
+    torch.cuda.synchronize()
+    out = {"built_peak": torch.cuda.max_memory_allocated(),
+           "held": sum(placed.local(x).nbytes
+                       for _, x in tree_paths(params)),
+           "logits": [], "tokens": [], "ms": []}
+    tokens = _serve_tp_tokens(cfg, dev)
+    fns = make_serve_fns(cfg, mesh, SERVE_TP_B, SERVE_TP_W)
+    dispatch.reset_launches()
+    with _PathInputs() as path, _RoutingMargins() as margins:
+        t0 = time.perf_counter()
+        logits, cache = fns.prefill(params, tokens)
+        for i in range(SERVE_TP_STEPS + 1):
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["logits"].append(placed.local(logits).cpu())
+            if i == SERVE_TP_STEPS:
+                break
+            tok = _greedy(logits)
+            out["tokens"].append(placed.local(tok).cpu())
+            t0 = time.perf_counter()
+            logits, cache = fns.decode(params, tok, cache)
+    out["launches"] = dispatch.launch_counts()
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["margin"] = margins.smallest()
+    path.check(f"serve_tp rank {mesh.get_rank()}")
+    return out
+
+
+def serve_tp_rank_main(argv) -> int:
+    """``chip_smoke.py --serve-tp-rank RANK WORLD PORT OUT DEVICE``: one
+    rank of phase 11 (c), in a gloo group on localhost:PORT, on DEVICE's
+    type (``cuda``: the card), on the SERVE_TP_MESH mesh; writes its
+    results to OUT."""
+    rank, world, port, dst, dev = argv
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=int(world), rank=int(rank))
+    try:
+        mesh = make_debug_mesh(*SERVE_TP_MESH, device_type=dev)
+        torch.save(_serve_tp_rank_run(torch.device(dev), mesh), dst)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _serve_tp_one_process(cfg, dev):
+    """Phase 11 (c)'s one-process route on the card from the whole tree:
+    ``model.prefill`` and SERVE_TP_STEPS greedy ``decode_step``s. Returns
+    the logits and tokens of each call (host copies), each call's
+    activations (its peak above what it started with and returns new),
+    the tree's bytes."""
+    import torch
+    from repro_torch.core.tree import tree_paths
+    from repro_torch.models import model as tm
+    params = _serve_tp_params(cfg, dev)
+    tree = sum(x.nbytes for _, x in tree_paths(params))
+    tokens = _serve_tp_tokens(cfg, dev)
+    out = {"logits": [], "tokens": [], "act": [], "tree": tree}
+
+    def call(fn, *args):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        logits, cache = fn(*args)
+        torch.cuda.synchronize()
+        new = torch.cuda.memory_allocated() - base
+        out["act"].append(torch.cuda.max_memory_allocated() - base - new)
+        out["logits"].append(logits.cpu())
+        return logits, cache
+
+    logits, cache = call(lambda: tm.prefill(cfg, params, tokens,
+                                            cache_len=SERVE_TP_W))
+    for _ in range(SERVE_TP_STEPS):
+        tok = _greedy(logits)
+        out["tokens"].append(tok.cpu())
+        logits, cache = call(tm.decode_step, cfg, params, tok, cache)
+    del params, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_mesh_tp(dev):
+    """Phase 11 (c): Grok-1 at full width cut to 1 layer over two gloo
+    ranks on the one card (fresh processes, one group), (data, model) =
+    (1, 2), each rank holding only its blocks (drawn as blocks), against
+    the one-process route on the card from the whole tree: each rank's
+    logits after the prefill and every step within SERVE_RANK_TOL of
+    max|logit| while its greedy stream is the route's, the streams equal
+    wherever the route's top-1 margin exceeds twice that tolerance, the
+    two ranks' logits and tokens bit-identical, the smallest top-2
+    routing margin printed; each rank's flash launch held against the
+    plain version on its own input (inside the rank); each rank's peak
+    allocation within the dry run's reckoning for its (1, 2) blocks plus
+    the route's activations (and SERVE_TP_SLACK), and under the whole
+    tree's bytes. Returns the ranks' launches."""
+    import os
+    import socket
+    import tempfile
+    import torch
+    cfg = _serve_tp_cfg()
+    torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    world = SERVE_TP_MESH[0] * SERVE_TP_MESH[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        dsts = [os.path.join(tmp, f"rank{r}.pt") for r in range(world)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--serve-tp-rank",
+             str(r), str(world), str(port), dsts[r], dev.type],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for r in range(world)]
+        try:
+            one = _serve_tp_one_process(cfg, dev)
+            outs = []
+            for p in procs:
+                out, err = p.communicate(timeout=SERVE_RANK_TIMEOUT_S)
+                if p.returncode != 0:
+                    raise AssertionError(f"serve tp rank exited "
+                                         f"{p.returncode}:\n{err[-3000:]}")
+                outs.append(out)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        secs = time.perf_counter() - t0
+        ranks = [torch.load(d, weights_only=False) for d in dsts]
+    for r, out in enumerate(outs):
+        for line in out.splitlines():
+            if line.startswith("["):
+                log(f"[serve-tp] rank {r}: {line}")
+    return _serve_tp_check(cfg, one, ranks, secs)
+
+
+def _serve_tp_check(cfg, one, ranks, secs):
+    """Phase 11 (c)'s comparisons of the ranks' results with the
+    one-process route's (:func:`phase_serve_mesh_tp`); logs them and
+    returns the ranks' launches."""
+    import torch
+    from repro_torch.distributed.sharding import AbstractMesh
+    from repro_torch.launch import dryrun
+    world = len(ranks)
+    amesh = AbstractMesh(SERVE_TP_MESH, ("data", "model"))
+    mem = {mode: dryrun.memory(dryrun.serve_program(
+        cfg, mode, SERVE_TP_B, SERVE_TP_W, amesh, torch.float32), amesh)
+        for mode in ("prefill", "decode")}
+    reckon = max(m["peak_per_device_gb"] for m in mem.values()) * 2**30
+    bound = reckon + max(one["act"]) + SERVE_TP_SLACK
+    scale = max(x.abs().max().item() for x in one["logits"])
+    tol = SERVE_RANK_TOL * scale
+    bad, totals, gap, compared = [], {}, 0.0, 0
+    for r, res in enumerate(ranks):
+        _add(totals, res["launches"])
+        if res["launches"].get("flash_attention", 0) != cfg.n_layers:
+            bad.append(f"rank {r} launches {res['launches']}")
+        for key in ("logits", "tokens"):
+            if any(not torch.equal(a, b) for a, b in zip(res[key],
+                                                          ranks[0][key])):
+                bad.append(f"rank {r} {key} differ from rank 0's")
+        if not res["peak"] <= bound or not res["peak"] < one["tree"]:
+            bad.append(f"rank {r} peak {res['peak']} (bound {bound}, tree "
+                       f"{one['tree']})")
+    res = ranks[0]
+    # row by row: logits while the streams agree; tokens while the
+    # route's top-1 margin exceeds twice the tolerance
+    for row in range(SERVE_TP_B):
+        for i, (a, w) in enumerate(zip(res["logits"], one["logits"])):
+            if i and not torch.equal(res["tokens"][i - 1][row],
+                                     one["tokens"][i - 1][row]):
+                break
+            gap = max(gap, (a[row] - w[row]).abs().max().item())
+            compared += 1
+            if i == SERVE_TP_STEPS:
+                break
+            top = torch.topk(w[row, -1], 2).values
+            if (top[0] - top[1]).item() > 2 * tol and not torch.equal(
+                    res["tokens"][i][row], one["tokens"][i][row]):
+                bad.append(f"row {row} token {i} differs above the margin")
+    if gap > tol:
+        bad.append(f"logits gap {gap} > {tol}")
+    gb = 2**30
+    log(f"[serve-tp] {card()}: {SERVE_TP_ARCH} full width, 1 layer, "
+        f"through make_serve_fns over {world} gloo ranks on the one card, "
+        f"(data, model) = {SERVE_TP_MESH} (4 experts, 24/4 heads and "
+        f"65,536 vocabulary rows a rank), B={SERVE_TP_B} x S={SERVE_TP_S}, "
+        f"W={SERVE_TP_W}, {SERVE_TP_STEPS} greedy steps: logits max abs gap "
+        f"{gap:.3e} = {gap / scale:.3e} of max|logit| over {compared} "
+        f"compared row-calls (tol {SERVE_RANK_TOL}); greedy streams "
+        f"{'equal' if not bad else 'compared'} under the margin rule; the "
+        f"ranks' logits and tokens bit-identical; smallest top-2 routing "
+        f"margin {min(r['margin'] for r in ranks):.3e}; flash launches a "
+        f"rank {[r['launches'].get('flash_attention', 0) for r in ranks]}; "
+        f"rank ms prefill {res['ms'][0]:.3f}, decode "
+        f"{[round(x, 3) for x in res['ms'][1:]]}; the ranks' wall "
+        f"{secs:.1f} s")
+    for r, res in enumerate(ranks):
+        log(f"[serve-tp] {card()}: rank {r} max_memory_allocated "
+            f"{res['peak']} bytes ({res['peak'] / gb:.3f} GiB; after "
+            f"drawing its blocks {res['built_peak'] / gb:.3f} GiB, its "
+            f"blocks {res['held'] / gb:.3f} GiB); the dry run's (1, 2) "
+            f"reckoning {reckon / gb:.3f} GiB (prefill "
+            f"{mem['prefill']['peak_per_device_gb']}, decode "
+            f"{mem['decode']['peak_per_device_gb']}) + the one-process "
+            f"route's activations {max(one['act']) / gb:.3f} GiB + "
+            f"{SERVE_TP_SLACK >> 20} MiB = bound {bound / gb:.3f} GiB; "
+            f"the whole layer's tree {one['tree'] / gb:.3f} GiB (rank at "
+            f"{res['peak'] / one['tree']:.3f} of it)")
+    if bad:
+        raise AssertionError(f"serve tp ranks: {bad[:8]}")
+    return totals
+
+
 def phase_serve_mesh(dev):
-    """Phase 11, serving under a mesh: (a) and (b). Returns the
+    """Phase 11, serving under a mesh: (a), (b) and (c). Returns the
     launches."""
     totals = {}
     t0 = time.perf_counter()
     _add(totals, phase_serve_mesh_one_rank(dev))
     _add(totals, phase_serve_mesh_ranks(dev))
+    log(f"[time] phase 11 (a, b) {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    _add(totals, phase_serve_mesh_tp(dev))
+    log(f"[time] phase 11 (c) {time.perf_counter() - t1:.1f} s")
     log(f"[time] phase 11 serving under a mesh "
         f"{time.perf_counter() - t0:.1f} s")
     return totals
@@ -5119,4 +5494,6 @@ if __name__ == "__main__":
         sys.exit(fed_tree_rank_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--serve-rank"]:
         sys.exit(serve_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--serve-tp-rank"]:
+        sys.exit(serve_tp_rank_main(sys.argv[2:]))
     sys.exit(main())

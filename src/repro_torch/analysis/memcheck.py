@@ -44,6 +44,7 @@ import socket
 import subprocess
 import sys
 import threading
+import time
 import weakref
 from pathlib import Path
 from typing import Optional
@@ -58,7 +59,7 @@ _AGG_PATH = "src/repro_torch/core/aggregators.py"
 _MARK = "MEMCHECK_JSON:"
 #: the most ranks a contract may spawn on one machine
 MAX_RANKS = 8
-#: each rank's wall limit
+#: a contract's wall limit, all its ranks together
 TIMEOUT_S = 300
 
 
@@ -324,25 +325,42 @@ def _spawn(c: MemContract, D: int, device) -> list:
         stderr=subprocess.PIPE, text=True) for r in range(c.ranks)]
 
 
-def _collect(c: MemContract, procs) -> tuple:
+def _wait(procs) -> list:
+    """Each rank's (stdout, stderr, return code), in rank order, within
+    TIMEOUT_S for all of them. A rank that fails leaves its peers
+    waiting on it in a collective, so once one has failed the others are
+    stopped, not waited for."""
+    deadline = time.monotonic() + TIMEOUT_S
+    outs = {}
+    try:
+        for r, p in enumerate(procs):
+            if any(q.poll() not in (None, 0) for q in procs):
+                break
+            try:
+                outs[r] = p.communicate(timeout=max(
+                    deadline - time.monotonic(), 0)) + (p.returncode,)
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        stopped = [p.poll() is None for p in procs]
+        for p, stop in zip(procs, stopped):
+            if stop:
+                p.kill()
+    for r, p in enumerate(procs):
+        if r not in outs:
+            out, err = p.communicate()
+            note = "\nstopped: a peer failed or the contract timed out"
+            outs[r] = (out, err + note if stopped[r] else err,
+                       p.returncode)
+    return [outs[r] for r in range(len(procs))]
+
+
+def _collect(c: MemContract, outs) -> tuple:
     findings, measured = [], []
 
     def bad(rule, msg):
         findings.append(Finding("memcheck", rule, _AGG_PATH, 0, msg))
 
-    try:
-        outs = []
-        for p in procs:
-            try:
-                outs.append(p.communicate(timeout=TIMEOUT_S) + (
-                    p.returncode,))
-            except subprocess.TimeoutExpired:
-                outs.append(("", "timed out", -1))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
     for r, (out, err, rc) in enumerate(outs):
         lines = [ln for ln in out.splitlines() if ln.startswith(_MARK)]
         if rc != 0 or not lines:
@@ -375,7 +393,11 @@ def run(device="cpu", table: Optional[list] = None,
                 continue
             started.append((c, _spawn(c, D, device)))
         for c, procs in started:
-            found, measured = _collect(c, procs)
+            outs = _wait(procs)
+            if any("EADDRINUSE" in err for _, err, _ in outs):
+                # the port was taken between choosing it and binding it
+                outs = _wait(_spawn(c, D, device))
+            found, measured = _collect(c, outs)
             findings.extend(found)
             if report is not None:
                 report.extend(measured)

@@ -14,8 +14,10 @@ Code that takes such a leaf works on its local block
 (``DTensor.to_local()``; no DTensor operator runs) and wraps a result of
 the same layout back (:meth:`Layout.wrap`). What needs more than the
 block gathers it: :func:`gather` puts dimensions back together, inner
-mesh dimension first, by ``all_gather`` in rank order; :func:`rank_sum`
-adds partials over mesh dimensions in rank order, so every rank holds the
+mesh dimension first, by ``all_gather`` in rank order; :func:`layer_block`
+takes one layer of a layer-stacked leaf as the rank holds it (from the
+rank that holds it, where the layers are split); :func:`rank_sum` adds
+partials over mesh dimensions in rank order, so every rank holds the
 same bits (``all_reduce`` promises no order). A mesh dimension of size 1
 costs no collective, so on a one-rank mesh every function here is the
 plain tensor's operation. The D-sharded bare stack of the flat trainer is
@@ -158,6 +160,29 @@ def gather(block: torch.Tensor, lay: Layout, dims: Sequence[int]
     return out.to(block.device)
 
 
+def layer_block(x, i: int) -> Tuple[torch.Tensor, Optional[Layout]]:
+    """Layer ``i`` of a layer-stacked leaf (dimension 0 the layers) as
+    this rank holds it: its block past dimension 0, and the
+    :class:`Layout` of one layer (None for a plain tensor). Where mesh
+    dimensions split the layers (FSDP over "data"), every rank of their
+    groups gathers the slice at the same place in its block, one
+    ``all_gather`` per mesh dimension, and keeps the one of the rank
+    that holds layer ``i`` (the other ranks' slices go)."""
+    t, lay = local(x), layout(x)
+    if lay is None:
+        return t[i], None
+    per = lay.shape[0] // lay.parts(0)
+    out, owner = t[i % per], i // per
+    # per mesh dimension, inner first: every rank's slice, of which the
+    # one at the holder's coordinate stays (the others go with the list)
+    for m in reversed(lay.splits[0]):
+        n = lay.mesh.size(m)
+        if n > 1:
+            out = gather_over(out, lay.mesh, m)[owner % n].to(t.device)
+        owner //= n
+    return out, lay.without_first()
+
+
 def rank_sum(partial: torch.Tensor, mesh, dims: Sequence[int]
              ) -> torch.Tensor:
     """Σ of each rank's ``partial`` over the mesh dimensions ``dims``, one
@@ -167,9 +192,9 @@ def rank_sum(partial: torch.Tensor, mesh, dims: Sequence[int]
     for m in dims:
         if mesh.size(m) > 1:
             parts = gather_over(out, mesh, m)
-            out = parts[0]
+            out = parts[0]             # a buffer of the gather: added into
             for p in parts[1:]:
-                out = out + p
+                out += p
     return out.to(partial.device)
 
 

@@ -12,19 +12,36 @@ not divide; MLA's latent on W). ``long_500k``'s decode shapes take a
 sliding-window ring of ``cfg.long_context_window`` (:func:`serve_cache_len`)
 and the recurrent families carry O(1) state.
 
-Each rank runs the forward on whole leaves: every split parameter leaf is
-gathered whole over the mesh (:func:`repro_torch.carriers.placed.gather`,
-``all_gather``s in rank order; no DTensor operator runs), and the rank
-computes its own rows of the batch. A tensor-parallel forward on the
-blocks is not written (it changes speed, not results). On a one-rank
-mesh every split has size 1 and the route runs ``model.prefill`` and
-``decode_step`` on the caller's tensors, bit for bit.
+Each rank computes its own rows of the batch on its blocks, one layer at
+a time (``model.prefill`` and ``decode_step`` with a
+:class:`~repro_torch.models.model.Parallel`): how it uses each leaf is
+:func:`~repro_torch.distributed.sharding.serve_use`'s rule. A "model"
+split leaf is used where it lies when its block holds whole heads,
+experts, ``d_ff`` columns or a vocabulary block: column-parallel
+projections, row-parallel ``wo`` and ``w_down`` whose partial products
+are summed in rank order (:func:`repro_torch.carriers.placed.rank_sum`,
+``all_gather``s, so every rank of a "model" group holds the same bits),
+expert blocks that run every token and sum likewise, a vocabulary-
+parallel embedding (exact: one rank adds a value that is not zero) and
+logits gathered along the vocabulary. The other split leaves (a split
+through a head, MLA's projections) are gathered whole for their layer
+and let go before the next, as a layer split over "data" (FSDP) is
+gathered from the rank that holds it. A rank so holds its blocks, one
+layer's gathered leaves and its activations, never the model whole.
+The decode cache stays in the rank's blocks: K and V split on their
+heads are read and written in place; a ring split on W (and MLA's
+latent) is gathered whole for its layer, and the new entry written back
+into the block that holds it. No DTensor operator runs. Where no mesh
+dimension of more than one rank splits a leaf (a one-rank mesh, or rows
+alone) the route runs ``model.prefill`` and ``decode_step`` on the
+caller's tensors, bit for bit.
 
 ``slot_cache_insert`` and ``slot_cache_evict`` write the per-slot cache
 in place and return it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import warnings
 from typing import Any, Callable
@@ -38,9 +55,10 @@ from repro_torch.distributed.sharding import (PartitionSpec,
                                               cache_shardings,
                                               mesh_axis_size,
                                               param_shardings, place_tree,
-                                              placements)
-from repro_torch.models.model import (decode_step, init_cache, init_params,
-                                      prefill)
+                                              placements, serve_uses)
+from repro_torch.models.attention import kv_heads_for
+from repro_torch.models.model import (Parallel, decode_step, init_cache,
+                                      init_params, prefill)
 
 
 def serve_cache_len(cfg: ModelConfig, seq_len: int) -> int:
@@ -100,15 +118,11 @@ def _rows(x, lay: placed.Layout):
     return x[slice(*lay.block(0))]
 
 
-def _whole(tree):
-    """A placed tree's leaves gathered whole on every rank, in leaf
-    order (a leaf no mesh dimension of more than one rank splits is its
-    block itself)."""
-    def whole(x):
-        lay = placed.layout(x)
-        return x if lay is None else placed.gather(placed.local(x), lay,
-                                                   range(x.dim()))
-    return tree_map(whole, tree)
+def _split(spec, mesh) -> bool:
+    """Whether a mesh dimension of more than one rank splits a leaf
+    placed by ``spec``."""
+    return any(mesh_axis_size(mesh, a) > 1 for e in spec if e is not None
+               for a in (e if isinstance(e, tuple) else (e,)))
 
 
 def make_serve_fns(cfg: ModelConfig, mesh, batch: int, seq_len: int,
@@ -127,19 +141,18 @@ def make_serve_fns(cfg: ModelConfig, mesh, batch: int, seq_len: int,
     whole on every rank (placed first, :func:`~repro_torch.distributed.
     sharding.place_tree`); ``tokens`` (B, S_text) int and
     ``prefix_embeds`` (B, P, d), whole or placed on the batch spec. Each
-    rank gathers the split leaves whole and runs ``model.prefill(...,
-    cache_len=W)`` on its rows; returns the logits placed on the batch
-    spec and the cache on the cache specs, each rank keeping its block
-    of the cache it computed (no collective; ``pos`` and ``slot_pos``
-    plain, the same on every rank).
+    rank runs ``model.prefill(..., cache_len=W)`` on its rows and its
+    blocks (module docstring), keeping each layer's cache as its block
+    of the cache specs as the layer ends; returns the logits placed on
+    the batch spec and the cache on the cache specs (``pos`` and
+    ``slot_pos`` plain, the same on every rank).
 
     ``decode(params, token, cache)``: ``token`` (B,) or (B, 1); a cache
-    every rank holds whole is placed first. Each rank gathers its rows
-    of the cache whole over the dimensions past the batch, runs
-    ``decode_step`` and writes the new ring entry back into its blocks
-    (the recurrent states, never split past the rows, are written in
-    place): the counterpart of the reference's ``donate_argnums=(2,)``,
-    the cache written in place.
+    every rank holds whole is placed first. Each rank runs
+    ``decode_step`` on its rows and blocks, its cache blocks written in
+    place (a ring split on W gathered for its layer and the new entry
+    written back): the counterpart of the reference's
+    ``donate_argnums=(2,)``, the cache written in place.
     Returns ``(logits, cache)``.
     """
     del key
@@ -156,47 +169,45 @@ def make_serve_fns(cfg: ModelConfig, mesh, batch: int, seq_len: int,
     params_shape = init_params(cfg, 0, dtype, device="meta")
     psh = param_shardings(cfg, params_shape, mesh, stacked=False)
     b_places = placements(b_spec, mesh)
+    uses = serve_uses(cfg, params_shape, psh, mesh)
+    on_blocks = mesh_axis_size(mesh, "model") > 1 or any(
+        _split(spec, mesh) for _, spec in tree_paths(psh))
 
-    def params_whole(params):
-        if placed.tree_layouts([x for _, x in tree_paths(params)]) is None:
-            params = place_tree(params, psh, mesh)
-        return _whole(params)
+    def placed_tree(tree, specs):
+        if placed.tree_layouts([x for _, x in tree_paths(tree)]) is None:
+            tree = place_tree(tree, specs, mesh)
+        return tree
 
     def rows_layout(shape):
         return placed.Layout.of(shape, mesh, b_places)
 
     def _prefill(params, tokens, prefix_embeds=None):
-        whole = params_whole(params)
+        params = placed_tree(params, psh)
+        c_lays = _layouts(c_sh["blocks"], cache_shape["blocks"], mesh)
+        par = _parallel(cfg, mesh, params, uses, c_lays) if on_blocks \
+            else None
         lay = rows_layout((batch,) + tuple(tokens.shape[1:]))
-        logits, cache = prefill(cfg, whole, _rows(tokens, lay),
-                                _rows(prefix_embeds, lay), cache_len=W)
-        del whole
-        blocks = tree_map(_keep_block, cache["blocks"],
-                          _layouts(c_sh["blocks"], cache_shape["blocks"],
-                                   mesh))
+        logits, cache = prefill(cfg, tree_map(placed.local, params),
+                                _rows(tokens, lay), _rows(prefix_embeds, lay),
+                                cache_len=W, par=par)
+        blocks = tree_map(lambda t, lay: lay.wrap(t), cache["blocks"], c_lays)
         logits = rows_layout((batch,) + tuple(logits.shape[1:])).wrap(logits)
         return logits, {"pos": cache["pos"], "slot_pos": cache["slot_pos"],
                         "blocks": blocks}
 
     def _decode(params, token, cache):
-        whole = params_whole(params)
+        params = placed_tree(params, psh)
+        blocks = placed_tree(cache["blocks"], c_sh["blocks"])
+        c_lays = tree_map(placed.layout, blocks)
+        par = _parallel(cfg, mesh, params, uses, c_lays, cache["pos"]) \
+            if on_blocks else None
         lay = rows_layout((batch,) + tuple(token.shape[1:]))
-        blocks = cache["blocks"]
-        if placed.tree_layouts([x for _, x in tree_paths(blocks)]) is None:
-            blocks = place_tree(blocks, c_sh["blocks"], mesh)
-        rows = tree_map(_gather_rows, blocks)
-        logits, new = decode_step(cfg, whole, _rows(token, lay),
+        logits, new = decode_step(cfg, tree_map(placed.local, params),
+                                  _rows(token, lay),
                                   {"pos": cache["pos"],
                                    "slot_pos": cache["slot_pos"],
-                                   "blocks": rows})
-        del whole
-        moved = [(blk, row) for (_, blk), (_, row) in
-                 zip(tree_paths(blocks), tree_paths(rows))
-                 if row is not placed.local(blk)]
-        if moved:                      # one host read, only when needed
-            slot = int(cache["pos"]) % cache["slot_pos"].shape[0]
-            for blk, row in moved:
-                _write_back(blk, row, slot)
+                                   "blocks": tree_map(placed.local, blocks)},
+                                  par)
         logits = rows_layout((batch,) + tuple(logits.shape[1:])).wrap(logits)
         return logits, {"pos": new["pos"], "slot_pos": new["slot_pos"],
                         "blocks": blocks}
@@ -215,47 +226,105 @@ def _layouts(specs, shapes, mesh):
         t.shape, mesh, placements(spec, mesh)), specs, shapes)
 
 
-def _past_rows(lay: placed.Layout) -> list:
-    """The dimensions of a cache leaf past its batch rows (dimension 1 of
-    every stacked (L, B, ...) leaf)."""
-    return [d for d in range(len(lay.shape)) if d != 1]
+def _parallel(cfg: ModelConfig, mesh, params, uses, c_lays,
+              pos=None) -> Parallel:
+    """This rank's :class:`~repro_torch.models.model.Parallel` for one
+    call: ``params`` placed, ``uses`` their :func:`~repro_torch.
+    distributed.sharding.serve_use` tree, ``c_lays`` the cache blocks'
+    layouts and, for a decode, the cache's ``pos`` (read on the host
+    only where a ring split on W takes the new entry)."""
+    names = tuple(mesh.mesh_dim_names)
+    mdim = names.index("model") if "model" in names else None
+    m = mesh_axis_size(mesh, "model")
+    c = 0 if mdim is None else mesh.get_coordinate()[mdim]
+    blk = uses["blocks"]
+    a_use, f_use = blk.get("attn", {}), blk.get("mlp", {})
 
+    def psum(t):
+        return t if mdim is None else placed.rank_sum(t, mesh, [mdim])
 
-def _keep_block(rows: torch.Tensor, lay: placed.Layout):
-    """The rank's rows of a cache leaf, computed whole past the rows ->
-    the DTensor of its block (a copy, so the whole rows go with the
-    caller's reference; the rows themselves where they are the block)."""
-    idx = [slice(None)] * rows.dim()
-    for d in _past_rows(lay):
-        idx[d] = slice(*lay.block(d))
-    whole = all(s == slice(None) or s == slice(0, n)
-                for s, n in zip(idx, rows.shape))
-    return lay.wrap(rows if whole else rows[tuple(idx)].clone())
+    def layer(i):
+        def one(x, use):
+            t, lay = placed.layer_block(x, i)
+            return placed.gather(t, lay, range(t.dim())) if use == "gather" \
+                else t
+        return tree_map(one, params["blocks"], blk)
 
+    def gather_vocab(t):
+        lay = placed.Layout(mesh, tuple(t.shape[:-1]) + (cfg.vocab_size,),
+                            ((),) * (t.dim() - 1) + ((mdim,),))
+        return placed.gather(t, lay, [t.dim() - 1])
 
-def _gather_rows(x):
-    """A cache leaf's block -> the rank's rows of it, whole past the rows
-    (the block itself where nothing past the rows is split)."""
-    return placed.gather(placed.local(x), placed.layout(x),
-                         _past_rows(placed.layout(x)))
+    kv_block = a_use.get("wk") == "cols"
 
+    def whole_dims(one: placed.Layout) -> list:
+        # the dimensions of a layer's cache leaf that the layer computes
+        # whole though they are split: the ring W, and K's and V's heads
+        # where the layer runs every KV head
+        return [d for d in (1, 2) if d < len(one.shape) and one.parts(d) > 1
+                and not (d == 2 and kv_block)]
 
-def _write_back(x, rows: torch.Tensor, slot: int) -> None:
-    """After a decode step on ``rows`` (the rank's rows of a cache leaf,
-    gathered whole past them), write the ring entry ``slot`` it wrote
-    (dimension 2) into the leaf's block ``x``, where the block holds it.
-    Only the ring leaves (K and V, MLA's latent and RoPE key) are split
-    past the rows (``cache_shardings``); the others are gathered as
-    their blocks themselves and written in place."""
-    block, lay = placed.local(x), placed.layout(x)
-    lo, hi = lay.block(2)
-    if lo <= slot < hi:
-        src = [slice(None)] * rows.dim()
-        for d in _past_rows(lay):
-            src[d] = slice(*lay.block(d))
-        dst = [slice(None)] * rows.dim()
-        src[2], dst[2] = slot, slot - lo
-        block[tuple(dst)] = rows[tuple(src)]
+    def keep(i, parts):
+        def cut(t, lay):
+            one = lay.without_first()
+            dims = whole_dims(one)
+            if not dims:
+                return t
+            idx = [slice(None)] * t.dim()
+            for d in dims:
+                idx[d] = slice(*one.block(d))
+            return t[tuple(idx)].clone()
+        return tree_map(cut, parts, c_lays)
+
+    slot = []                          # pos % W, read once, when needed
+
+    @contextlib.contextmanager
+    def cache(i, blocks):
+        # such a leaf is gathered for the layer and the new ring entry
+        # written back into the block; the others are read and written
+        # in place
+        moved = []
+
+        def rows(t, lay):
+            view, one = t[i], lay.without_first()
+            dims = whole_dims(one)
+            if not dims:
+                return view
+            whole = placed.gather(view, one, dims)
+            moved.append((view, whole, one, dims))
+            return whole
+        yield tree_map(rows, blocks, c_lays)
+        for view, whole, one, dims in moved:
+            if not slot:
+                slot.append(int(pos) % whole.shape[1])
+            lo, hi = one.block(1)
+            if lo <= slot[0] < hi:
+                idx = [slice(None)] * whole.dim()
+                for d in dims:
+                    idx[d] = slice(*one.block(d))
+                idx[1] = slot[0]
+                view[:, slot[0] - lo] = whole[tuple(idx)]
+
+    kw = {}
+    if a_use.get("wq") == "cols":
+        hb = cfg.n_heads // m
+        kw["attn_cfg"] = dataclasses.replace(
+            cfg, n_heads=hb, head_dim=cfg.resolved_head_dim,
+            n_kv_heads=cfg.n_kv_heads // m if kv_block else cfg.n_kv_heads)
+        if not kv_block:
+            kw["kv_heads"] = kv_heads_for(cfg, c * hb, (c + 1) * hb)
+    if f_use.get("w_down") == "experts":
+        eb = cfg.moe.n_experts // m
+        kw["experts"] = (c * eb, (c + 1) * eb)
+    if uses["embed"] == "vocab":       # and lm_head "cols": the same V
+        vb = cfg.vocab_size // m
+        kw.update(vocab=(c * vb, (c + 1) * vb), gather_vocab=gather_vocab)
+    return Parallel(
+        layer=layer, psum=psum, attn_cfg=kw.pop("attn_cfg", cfg),
+        attn_partial=a_use.get("wo") == "rows",
+        mlp_partial=f_use.get("w_down") in ("rows", "experts"),
+        shared_partial=f_use.get("shared", {}).get("w_down") == "rows",
+        keep=keep, cache=cache, **kw)
 
 
 # ---------------------------------------------------------------------------

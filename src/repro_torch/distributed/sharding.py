@@ -416,6 +416,53 @@ def param_shardings(cfg: ModelConfig, params_shape, mesh,
     return tree_map(lambda _: next(specs), params_shape)
 
 
+#: how the serving route uses a parameter leaf (:func:`serve_use`)
+SERVE_USES = ("whole", "cols", "rows", "vocab", "experts", "gather")
+
+
+def serve_use(cfg: ModelConfig, path, spec, mesh) -> str:
+    """How :func:`repro_torch.distributed.serving.make_serve_fns` uses a
+    parameter leaf at ``path`` placed by ``spec`` (its
+    :func:`param_spec`, ``stacked=False``) on ``mesh``, one layer at a
+    time. The serving route, the dry run's reckoning and the tests read
+    this one rule:
+
+    * ``"whole"``: "model" does not split it; used as the rank holds it;
+    * ``"cols"``: column-parallel on its last dimension (whole heads of
+      ``wq`` and the biases, and of ``wk``/``wv`` where the KV heads
+      divide too; ``d_ff`` columns of ``w_gate``/``w_up``; the
+      vocabulary columns of ``lm_head``);
+    * ``"rows"``: row-parallel on dimension -2 (``wo`` on whole heads,
+      ``w_down``): partial products, summed in rank order;
+    * ``"vocab"``: the embedding's rows, a vocabulary block;
+    * ``"experts"``: an expert block (dimension -3);
+    * ``"gather"``: gathered whole for its layer, the split cutting what
+      a rank cannot use alone: a head (query heads that do not divide,
+      or ``wk``/``wv`` whose KV heads do not), and MLA's projections."""
+    names = _path_names(path)
+    name = names[-1] if names else ""
+    m = mesh_axis_size(mesh, "model")
+    split = [d - len(spec) for d, e in enumerate(spec) if "model" in _axes(e)]
+    if m == 1 or not split:
+        return "whole"
+    if name == "embed":
+        return "vocab"
+    if split[0] == -3:
+        return "experts"
+    if "attn" in names and (cfg.mla is not None or cfg.n_heads % m or (
+            name in ("wk", "wv", "bk", "bv") and cfg.n_kv_heads % m)):
+        return "gather"
+    return "cols" if split[0] == -1 else "rows"
+
+
+def serve_uses(cfg: ModelConfig, params_shape, specs, mesh):
+    """:func:`serve_use` of every leaf of a parameter tree (its specs
+    ``specs``), as a tree of the same structure."""
+    uses = iter([serve_use(cfg, path, spec, mesh)
+                 for path, spec in tree_paths(specs)])
+    return tree_map(lambda _: next(uses), params_shape)
+
+
 def batch_spec(cfg: ModelConfig, mesh, stacked: bool = True) -> PartitionSpec:
     """The spec of token batches: (K, b, S) when ``stacked``, else the
     serving batch (B, S) over every non-"model" dimension."""

@@ -17,13 +17,20 @@ Every collective of the port's mesh routes is an ``all_gather`` through
 :func:`repro_torch.carriers.placed.rank_sum` included (each rank's
 partial gathered, then added in rank order). Each is counted with the
 reference's ring formula, (g−1)/g × out, g the ranks of its group and out
-the bytes it gathers. :func:`serve_gathers` and :func:`fed_step_gathers`
-list them in the order the route issues them:
+the bytes it gathers. :func:`serve_gathers` (each labelled with what it
+gathers) and :func:`fed_step_gathers` list them in the order the route
+issues them:
 
-* each split leaf gathered whole for a prefill, a decode or one agent's
-  loss (every mesh dimension of more than one rank that splits it, inner
-  first, as ``placed.gather`` does), and a decode's cache rows gathered
-  whole past the batch;
+* a serving call's rank-order sums of partial activations (the
+  vocabulary-parallel embedding, each layer's head-parallel attention
+  and its d_ff- or expert-parallel MLP), its logits gathered along the
+  vocabulary, and per layer the leaves it cannot use on their blocks
+  gathered whole, a layer split over "data" gathered from its rank, and
+  a decode's ring split on W gathered for the layer
+  (:func:`serve_gathers`);
+* each split leaf gathered whole for one agent's loss (every mesh
+  dimension of more than one rank that splits it, inner first, as
+  ``placed.gather`` does);
 * a federated step's batch rows, its losses and Adam's counters gathered
   over the federation dimensions, the leaves' K rows gathered for the
   aggregation, the attacks' honest sums and GDA's mix, and the (K, K)
@@ -41,6 +48,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core.tree import tree_paths
+from repro_torch.distributed.sharding import mesh_axis_size, serve_use
 from repro_torch.launch.mesh import HBM_BW, NVLINK_BW_PER_LINK, PEAK_FLOPS_BF16
 
 #: one collective: the bytes it gathers (its output, all parts) and its
@@ -174,21 +182,81 @@ def _leaves(tree, specs, mesh) -> List[Leaf]:
             in zip(tree_paths(tree), tree_paths(specs))]
 
 
-def serve_gathers(params_shape, param_specs, mesh, cache_shape=None,
-                  cache_specs=None) -> List[Gather]:
-    """The collectives of one prefill (``cache_shape`` None) or decode of
-    :func:`repro_torch.distributed.serving.make_serve_fns` on ``mesh``
-    (any mesh with ``mesh_dim_names`` and ``size``), in order: every
-    parameter leaf gathered whole, then for a decode every cache block
-    leaf gathered whole past its batch dimension (1)."""
+def serve_gathers(cfg, params_shape, param_specs, mesh, rows: int,
+               text: int, prefix: int = 0, cache_shape=None,
+               cache_specs=None) -> List[Tuple[Tuple[str, str], int, int]]:
+    """The collectives of one prefill (``cache_shape`` None: ``text``
+    tokens and ``prefix`` embeddings a row) or decode (one token a row)
+    of :func:`repro_torch.distributed.serving.make_serve_fns` on
+    ``mesh`` (any mesh with ``mesh_dim_names`` and ``size``), on a rank
+    of ``rows`` batch rows, in the order the route issues them, each as
+    ((kind, leaf path), bytes gathered, group size), by
+    :func:`~repro_torch.distributed.sharding.serve_use`'s rule:
+
+    * ``("sum", "embed")``: the vocabulary-parallel lookups' rank-order
+      sum, (rows, text, d);
+    * per layer: ``("layer", path)``, the layer's slice of a leaf whose
+      layers "data" splits, gathered from every rank of the group;
+      ``("whole", path)``, a leaf used whole, gathered over "model"; for
+      a decode, ``("cache", path)``, a cache leaf gathered for the layer
+      past its rows where the layer does not compute on its block (a
+      ring split on W; K and V split on heads the layer runs whole);
+      ``("sum", "attn")`` and ``("sum", "mlp")``, the rank-order sums of
+      the partial outputs (rows, positions, d);
+    * ``("logits", "")``: the logits' vocabulary columns (rows, 1, V).
+
+    A route that no mesh dimension of more than one rank splits issues
+    none."""
+    P = dict(zip([p for p, _ in tree_paths(params_shape)],
+                 _leaves(params_shape, param_specs, mesh)))
+    m = mesh_axis_size(mesh, "model")
+    if m == 1 and not any(leaf.trailing or leaf.parts(0) > 1
+                          for leaf in P.values()):
+        return []
+    uses = {p: serve_use(cfg, p, s, mesh)
+            for p, s in tree_paths(param_specs)}
+
+    def use(path):
+        return uses.get(path, "whole")
+    isz = P["embed"].itemsize
+    decode = cache_shape is not None
+    act = rows * (1 if decode else text + prefix) * cfg.d_model * isz
     out = []
-    for leaf in _leaves(params_shape, param_specs, mesh):
-        out += leaf.gather(range(len(leaf.shape)))
-    if cache_shape is not None:
-        for leaf in _leaves(cache_shape["blocks"], cache_specs["blocks"],
-                            mesh):
-            out += leaf.gather([d for d in range(len(leaf.shape))
-                                if d != 1])
+    if use("embed") == "vocab":
+        out.append((("sum", "embed"),
+                    m * rows * (1 if decode else text) * cfg.d_model * isz,
+                    m))
+    cache = []
+    if decode:
+        kv_block = use("blocks/attn/wk") == "cols"
+        for (path, _), leaf in zip(tree_paths(cache_shape["blocks"]),
+                                   _leaves(cache_shape["blocks"],
+                                           cache_specs["blocks"], mesh)):
+            dims = [d for d in (2, 3) if d < len(leaf.shape)
+                    and leaf.parts(d) > 1 and not (d == 3 and kv_block)]
+            cache.append((path, leaf, dims))
+    blocks = [(p, leaf) for p, leaf in P.items() if p.startswith("blocks/")]
+    for _ in range(blocks[0][1].shape[0]):
+        for path, leaf in blocks:
+            one = [1] + leaf.block[1:]
+            slice_bytes = math.prod(one) * leaf.itemsize
+            out += [(("layer", path), leaf.sizes[m] * slice_bytes,
+                     leaf.sizes[m]) for m in reversed(leaf.splits[0])
+                    if leaf.sizes[m] > 1]
+            if uses[path] == "gather":
+                out += [(("whole", path), b, g) for b, g in
+                        leaf.gather(range(1, len(leaf.shape)), one)]
+        for path, leaf, dims in cache:
+            out += [(("cache", path), b, g) for b, g in
+                    leaf.gather(dims, [1] + leaf.block[1:])]
+        if use("blocks/attn/wo") == "rows":
+            out.append((("sum", "attn"), m * act, m))
+        if use("blocks/mlp/w_down") in ("rows", "experts") \
+                or use("blocks/mlp/shared/w_down") == "rows":
+            out.append((("sum", "mlp"), m * act, m))
+    if (use("embed") if cfg.tie_embeddings else use("lm_head")) \
+            in ("vocab", "cols"):
+        out.append((("logits", ""), rows * cfg.vocab_size * isz, m))
     return out
 
 

@@ -23,14 +23,17 @@ lowered that way, so each record departs from the reference's:
 * ``memory``: ``argument_bytes`` and ``output_bytes`` are the bytes of
   each argument (output) leaf's block under its spec on one device;
   ``alias_bytes`` the decode cache's ring, states and ``slot_pos``,
-  written in place (0 for the train step, which writes no input); ``gathered_bytes`` stands in for the
-  compiler's ``temp_bytes``: the largest set of tensors the route holds
-  whole on one rank at once (for serving, the split parameter leaves
-  gathered whole and the cache rows gathered, or computed, whole past
-  the batch; for training, one agent's split leaves gathered whole for
-  its loss and its whole gradients). ``peak_per_device_gb`` = (argument
-  + output − alias + gathered) / 2³⁰. Activations and workspaces are not
-  counted.
+  written in place (0 for the train step, which writes no input);
+  ``gathered_bytes`` stands in for the compiler's ``temp_bytes``: the
+  largest set of tensors the route holds whole on one rank at once. For
+  serving that is one layer's: the leaves it gathers for the layer (a
+  layer split over "data" copied from its rank, a leaf used whole
+  gathered over "model") and, for a decode, the layer's ring rows
+  gathered whole over W, plus the largest ``all_gather`` output of the
+  call (a rank-order sum's parts, or a layer gather's). For training:
+  one agent's split leaves gathered whole for its loss and its whole
+  gradients. ``peak_per_device_gb`` = (argument + output − alias +
+  gathered) / 2³⁰. Activations and workspaces are not counted.
 * ``roofline``: ``flops_per_device`` is ``model_flops_global / n_chips``
   (no HLO FLOPs; ``compute_hlo_s`` is then the same term), the bytes
   accessed are the device's argument and output bytes (each read or
@@ -95,16 +98,23 @@ def _bytes(tree, specs, mesh) -> int:
                in zip(tree_paths(tree), tree_paths(specs)))
 
 
-def _whole_bytes(leaf: Leaf, dims) -> int:
-    """A leaf's rank block with ``dims`` put back together."""
-    blk = leaf.block
-    for d in dims:
-        blk[d] = leaf.shape[d]
-    return math.prod(blk) * leaf.itemsize
-
-
 def _split(leaf: Leaf, dims) -> bool:
     return any(leaf.sizes[m] > 1 for d in dims for m in leaf.splits[d])
+
+
+def gathered_bytes(plan) -> int:
+    """The most a serving call (its :func:`~repro_torch.launch.analysis.
+    serve_gathers`) holds whole at once: one layer's slices copied from the
+    "data" rank that holds them, its leaves gathered whole (each one's
+    last gather) and a decode's cache rows gathered whole, plus the
+    call's largest ``all_gather`` output."""
+    held = {}
+    for (kind, path), b, g in plan:
+        if kind == "layer":
+            held.setdefault(path, b // g)
+        elif kind in ("whole", "cache"):
+            held[path] = b
+    return sum(held.values()) + max((b for _, b, _ in plan), default=0)
 
 
 def serve_program(cfg, mode: str, batch: int, seq_len: int, mesh,
@@ -118,18 +128,15 @@ def serve_program(cfg, mode: str, batch: int, seq_len: int, mesh,
                          fns.batch_spec)
     logits = torch.empty((batch, 1, cfg.vocab_size), dtype=dtype,
                          device="meta")
-    cache_rows = 0
-    for (_, t), (_, s) in zip(tree_paths(fns.cache_shape["blocks"]),
-                              tree_paths(c_sh["blocks"])):
-        leaf = Leaf.of(t, s, mesh)
-        past = [d for d in range(t.dim()) if d != 1]
-        if _split(leaf, past):
-            cache_rows += _whole_bytes(leaf, past)
-    leaves = [Leaf.of(t, s, mesh) for (_, t), (_, s) in
-              zip(tree_paths(fns.params_shape), tree_paths(psh))]
-    gathered = cache_rows + sum(
-        math.prod(leaf.shape) * leaf.itemsize for leaf in leaves
-        if _split(leaf, range(len(leaf.shape))))
+    decode = mode != "prefill"
+    P = cfg.n_prefix_embeds if cfg.frontend != "none" else 0
+    plan = serve_gathers(
+        cfg, fns.params_shape, psh, mesh, Leaf.of(logits, b_spec,
+                                                  mesh).block[0],
+        1 if decode else seq_len - cfg.n_prefix_embeds, 0 if decode else P,
+        fns.cache_shape if decode else None, c_sh)
+    gathers = [(b, g) for _, b, g in plan]
+    gathered = gathered_bytes(plan)
     outs, out_specs = (logits, fns.cache_shape), (b_spec, c_sh)
     if mode == "prefill":
         S_text = seq_len - cfg.n_prefix_embeds
@@ -140,16 +147,14 @@ def serve_program(cfg, mode: str, batch: int, seq_len: int, mesh,
             pe = torch.empty((batch, cfg.n_prefix_embeds, cfg.d_model),
                              dtype=dtype, device="meta")
             args, specs = args + (pe,), specs + (b_spec,)
-        return Program(args, specs, outs, out_specs, 0, gathered,
-                       serve_gathers(fns.params_shape, psh, mesh))
+        return Program(args, specs, outs, out_specs, 0, gathered, gathers)
     tok = torch.empty((batch, 1), dtype=torch.int32, device="meta")
     in_place = ("blocks", "slot_pos")       # the new pos is a new tensor
     return Program(
         (fns.params_shape, tok, fns.cache_shape),
         (psh, b_spec, c_sh), outs, out_specs,
         _bytes([fns.cache_shape[k] for k in in_place],
-               [c_sh[k] for k in in_place], mesh), gathered,
-        serve_gathers(fns.params_shape, psh, mesh, fns.cache_shape, c_sh))
+               [c_sh[k] for k in in_place], mesh), gathered, gathers)
 
 
 def train_program(cfg, shape, mesh, fed: FedConfig,

@@ -216,12 +216,40 @@ def check_route(attention: str) -> None:
                          f"got {attention!r}")
 
 
+def kv_heads_for(cfg, lo: int, hi: int) -> torch.Tensor:
+    """The KV heads that query heads ``[lo, hi)`` read, as an index into
+    all ``cfg.n_kv_heads`` in GQA's grouping: with n entries, local query
+    head j reads entry j // ((hi − lo) / n). The heads themselves where
+    each serves the same number of the block's query heads, else one
+    entry per query head (n = hi − lo), where the block starts or ends
+    inside a KV group."""
+    G = cfg.n_heads // cfg.n_kv_heads
+    need = [h // G for h in range(lo, hi)]
+    heads = sorted(set(need))
+    g = len(need) // len(heads)
+    if len(need) % len(heads) or need != [h for h in heads
+                                          for _ in range(g)]:
+        heads = need
+    return torch.tensor(heads, dtype=torch.long)
+
+
+def _read(k: torch.Tensor, v: torch.Tensor, kv_heads):
+    """The KV heads (dimension 2) that the query heads read."""
+    if kv_heads is None:
+        return k, v
+    idx = kv_heads.to(k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
 def gqa_forward(p: dict, cfg, x: torch.Tensor, positions=None,
-                window: Optional[int] = None, attention: str = "flash"):
+                window: Optional[int] = None, attention: str = "flash",
+                kv_heads: Optional[torch.Tensor] = None):
     """x: (B,S,D) -> ((B,S,D), (k, v)). No cache. ``attention="flash"``
     runs the flash op on positions None or ``arange(S)``;
     ``attention="chunked"`` runs :func:`chunked_causal_attention` on any
-    ``positions`` (default ``arange(S)``)."""
+    ``positions`` (default ``arange(S)``). ``kv_heads``
+    (:func:`kv_heads_for`): the query heads attend to these of the
+    ``cfg.n_kv_heads`` computed, and (k, v) keep them all."""
     check_route(attention)
     B, S, _ = x.shape
     if attention == "flash":
@@ -233,19 +261,22 @@ def gqa_forward(p: dict, cfg, x: torch.Tensor, positions=None,
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     window = window or cfg.sliding_window
+    ka, va = _read(k, v, kv_heads)
     if attention == "flash":
-        out = flash_attention(q, k, v, window=window)
+        out = flash_attention(q, ka, va, window=window)
     else:
-        out = chunked_causal_attention(q, k, v, pos, pos, window=window)
+        out = chunked_causal_attention(q, ka, va, pos, pos, window=window)
     return out.reshape(B, S, -1) @ p["wo"], (k, v)
 
 
 def gqa_decode(p: dict, cfg, x: torch.Tensor, pos: torch.Tensor,
                cache_kv: dict, slot_pos: torch.Tensor,
-               window: Optional[int] = None):
+               window: Optional[int] = None,
+               kv_heads: Optional[torch.Tensor] = None):
     """x: (B,1,D); cache_kv: dict(k=(B,W,Hkv,hd), v=...), written in place
     at entry ``pos % W`` of each row; ``pos`` is a scalar or (B,), and
-    ``slot_pos`` ((W,) or (B, W)) already includes ``pos``."""
+    ``slot_pos`` ((W,) or (B, W)) already includes ``pos``. ``kv_heads``
+    as in :func:`gqa_forward`."""
     B = x.shape[0]
     q, k, v = _qkv(p, cfg, x)
     pos_arr = pos.reshape(-1, 1) if pos.dim() else pos.reshape(1)
@@ -256,8 +287,8 @@ def gqa_decode(p: dict, cfg, x: torch.Tensor, pos: torch.Tensor,
     idx = (pos % W).expand(B)
     cache_kv["k"][rows, idx] = k[:, 0]
     cache_kv["v"][rows, idx] = v[:, 0]
-    out = cache_attention(q, cache_kv["k"], cache_kv["v"], pos, slot_pos,
-                          window=window or cfg.sliding_window)
+    out = cache_attention(q, *_read(cache_kv["k"], cache_kv["v"], kv_heads),
+                          pos, slot_pos, window=window or cfg.sliding_window)
     return out.reshape(B, 1, -1) @ p["wo"], cache_kv
 
 

@@ -33,7 +33,9 @@ returns that cache with the position advanced.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+import contextlib
+import dataclasses
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -181,24 +183,83 @@ def init_params(cfg: ModelConfig, key, dtype=torch.float32,
 
 
 # ---------------------------------------------------------------------------
+# A rank's part in a tensor-parallel pass
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Parallel:
+    """What the serving route on a mesh
+    (:func:`repro_torch.distributed.serving.make_serve_fns`) hands
+    :func:`prefill` and :func:`decode_step` so that their layer loops run
+    on one rank's blocks; the plain route passes None.
+
+    * ``layer(i)``: layer i's parameters: the rank's blocks, and the
+      leaves gathered whole for the layer;
+    * ``psum(t)``: Σ of every rank's partial ``t`` over the "model"
+      group, in rank order (the same bits on every rank);
+    * ``attn_cfg``: the config GQA runs under: the rank's query heads,
+      and its KV heads or, with ``kv_heads``, all of them, of which the
+      queries read those (:func:`repro_torch.models.attention.
+      kv_heads_for`);
+    * ``attn_partial``, ``mlp_partial``, ``shared_partial``: the
+      attention's, the MLP's (the routed experts') and the shared
+      experts' outputs are the rank's part of a sum;
+    * ``experts``: the rank's ``(lo, hi)`` of the experts, or None;
+    * ``vocab``: the rank's ``(lo, hi)`` of the vocabulary (the
+      embedding's rows, the logits' columns), or None, and
+      ``gather_vocab`` puts the logits' columns together;
+    * ``keep(i, parts)``: a prefill layer's cache parts, fit to the ring
+      -> what the rank keeps of them;
+    * ``cache(i, blocks)``: a context that gives decode layer i's cache
+      as the layer reads it and writes the new ring entry back on exit.
+    """
+    layer: Callable
+    psum: Callable
+    attn_cfg: ModelConfig
+    kv_heads: Optional[torch.Tensor] = None
+    attn_partial: bool = False
+    mlp_partial: bool = False
+    shared_partial: bool = False
+    experts: Optional[Tuple[int, int]] = None
+    vocab: Optional[Tuple[int, int]] = None
+    gather_vocab: Optional[Callable] = None
+    keep: Optional[Callable] = None
+    cache: Optional[Callable] = None
+
+
+# ---------------------------------------------------------------------------
 # Embedding / head
 # ---------------------------------------------------------------------------
 
 def embed_inputs(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-                 prefix_embeds: Optional[torch.Tensor] = None
-                 ) -> torch.Tensor:
-    """tokens: (B, S_text) int; prefix_embeds: (B, P, D) or None."""
-    x = params["embed"][tokens]
+                 prefix_embeds: Optional[torch.Tensor] = None,
+                 par: Optional[Parallel] = None) -> torch.Tensor:
+    """tokens: (B, S_text) int; prefix_embeds: (B, P, D) or None. Under
+    ``par`` with a vocabulary block, ``params["embed"]`` is that block:
+    each rank looks up the tokens inside it (zero for the others) and the
+    ranks' rows are summed, exactly (one rank adds a value not zero)."""
+    if par is None or par.vocab is None:
+        x = params["embed"][tokens]
+    else:
+        lo, hi = par.vocab
+        mine = (tokens >= lo) & (tokens < hi)
+        x = params["embed"][torch.where(mine, tokens - lo, 0)]
+        x = par.psum(torch.where(mine[..., None], x, 0.0))
     if prefix_embeds is not None:
         pe = prefix_embeds.to(x.dtype) @ params["frontend_proj"]
         x = torch.cat([pe, x], dim=1)
     return x
 
 
-def lm_logits(cfg: ModelConfig, params: dict, x: torch.Tensor
-              ) -> torch.Tensor:
+def lm_logits(cfg: ModelConfig, params: dict, x: torch.Tensor,
+              par: Optional[Parallel] = None) -> torch.Tensor:
+    """x @ the head. Under ``par`` with a vocabulary block the rank's
+    columns, gathered along the vocabulary."""
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ w
+    out = x @ w
+    if par is not None and par.vocab is not None:
+        out = par.gather_vocab(out)
+    return out
 
 
 def _layer(blocks: dict, i: int) -> dict:
@@ -225,8 +286,47 @@ def _xlstm_pair_seq(cfg: ModelConfig, p: dict, x: torch.Tensor,
     return x + h, {"m": new_m, "s": new_s}
 
 
+def _gqa_args(cfg: ModelConfig, par: Optional[Parallel]):
+    """The config and keywords GQA runs under: the rank's heads under
+    ``par``."""
+    if par is None:
+        return cfg, {}
+    return par.attn_cfg, {"kv_heads": par.kv_heads}
+
+
+def _attn_sum(a_out: torch.Tensor, par: Optional[Parallel]):
+    return par.psum(a_out) if par is not None and par.attn_partial \
+        else a_out
+
+
+def _mlp(cfg: ModelConfig, p: dict, h: torch.Tensor,
+         par: Optional[Parallel] = None):
+    """The block's SwiGLU or MoE on ``h`` -> (out, aux). Under ``par``
+    the partial terms (d_ff columns, expert blocks, the shared experts'
+    columns) are summed over the ranks in rank order, once, and a term
+    the rank computes whole is added after."""
+    if cfg.moe is None:
+        out = swiglu(h, **p)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        return (par.psum(out) if par is not None and par.mlp_partial
+                else out), aux
+    if par is None:
+        return moe_lib.moe_forward(p, cfg, h)
+    out, aux = moe_lib.moe_forward(p, cfg, h, experts=par.experts,
+                                   shared=False)
+    shared = swiglu(h, **p["shared"]) if cfg.moe.n_shared_experts else None
+    if shared is not None and par.shared_partial == par.mlp_partial:
+        out, shared = out + shared, None         # one sum for both
+    if par.mlp_partial:
+        out = par.psum(out)
+    if shared is not None:
+        out = out + (par.psum(shared) if par.shared_partial else shared)
+    return out, aux
+
+
 def _block_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
-               window: Optional[int], attention: str):
+               window: Optional[int], attention: str,
+               par: Optional[Parallel] = None):
     """One block (or xLSTM pair) over a full sequence. Returns (x,
     cache_parts, aux)."""
     if cfg.family == "ssm":
@@ -239,9 +339,12 @@ def _block_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
                                      window=window)
         cache = {"c": kv[0], "k_rope": kv[1]}
     else:
-        a_out, kv = attn.gqa_forward(p["attn"], cfg, h, positions,
-                                     window=window, attention=attention)
+        acfg, kw = _gqa_args(cfg, par)
+        a_out, kv = attn.gqa_forward(p["attn"], acfg, h, positions,
+                                     window=window, attention=attention,
+                                     **kw)
         cache = {"k": kv[0], "v": kv[1]}
+    a_out = _attn_sum(a_out, par)
     cache = {"kv": cache}
     if cfg.family == "hybrid":
         # attention and Mamba heads in parallel on the same normed input
@@ -249,18 +352,16 @@ def _block_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
         a_out = (a_out + s_out) * 0.5
     x = x + a_out
     h = rms_norm(x, p["norm_mlp"], cfg.norm_eps, cfg.fused_rmsnorm)
-    if cfg.moe is not None:
-        m_out, aux = moe_lib.moe_forward(p["mlp"], cfg, h)
-    else:
-        m_out = swiglu(h, **p["mlp"])
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    m_out, aux = _mlp(cfg, p["mlp"], h, par)
     return x + m_out, cache, aux
 
 
 def forward(cfg: ModelConfig, params: dict, tokens=None, prefix_embeds=None,
             positions=None, window: Optional[int] = None,
             collect_cache: bool = False, remat: bool = True,
-            last_only: bool = False, attention: str = "flash"):
+            last_only: bool = False, attention: str = "flash",
+            keep: Optional[Callable] = None,
+            par: Optional[Parallel] = None):
     """Full-sequence forward. Returns (logits, aux, cache_parts|None);
     cache_parts are stacked over layers, ``{"kv": {"k": (L, B, S, Hkv,
     hd), "v": ...}}`` (GQA) or ``{"kv": {"c": (L, B, S, r), "k_rope": (L,
@@ -276,30 +377,37 @@ def forward(cfg: ModelConfig, params: dict, tokens=None, prefix_embeds=None,
     (DeepSeek-V2-Lite's q/k 192, v 128). ``remat`` checkpoints each
     layer while autograd records (recomputed in the backward, as the
     reference's ``jax.checkpoint`` of its layer scan); when it does not
-    record, it changes nothing."""
+    record, it changes nothing. ``keep(i, parts)`` maps each layer's
+    cache parts as they come (the stack holds what it returns);
+    ``par``: a rank's part in a tensor-parallel pass (:class:`Parallel`,
+    no autograd)."""
     attn.check_route(attention)
-    x = embed_inputs(cfg, params, tokens, prefix_embeds)
+    x = embed_inputs(cfg, params, tokens, prefix_embeds, par)
     if attention == "flash":
         attn.check_positions(positions, x.shape[1])
         positions = None
-    recording = remat and torch.is_grad_enabled() and (
+    recording = par is None and remat and torch.is_grad_enabled() and (
         x.requires_grad
         or any(t.requires_grad for _, t in tree_paths(params["blocks"])))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     layers = []
     for i in range(n_block_stacks(cfg)):
-        args = (cfg, _layer(params["blocks"], i), x, positions, window,
-                attention)
+        if par is None:
+            args = (cfg, _layer(params["blocks"], i), x, positions, window,
+                    attention)
+        else:
+            args = (cfg, par.layer(i), x, positions, window, attention, par)
         x, cache, a = (checkpoint(_block_seq, *args, use_reentrant=False)
                        if recording else _block_seq(*args))
+        del args                       # a layer's gathered leaves go now
         aux = aux + a
         if collect_cache:
-            layers.append(cache)
+            layers.append(cache if keep is None else keep(i, cache))
     caches = _stack(layers) if collect_cache else None
     if last_only:
         x = x[:, -1:]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.fused_rmsnorm)
-    return lm_logits(cfg, params, x), aux, caches
+    return lm_logits(cfg, params, x, par), aux, caches
 
 
 # ---------------------------------------------------------------------------
@@ -345,46 +453,49 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                                block)}
 
 
+def _fit_ring(x: torch.Tensor, S: int, W: int) -> torch.Tensor:
+    """One layer's ring leaf over a prompt, (B, S, ...) -> (B, W, ...):
+    its last W positions, or zero padded to W. Ring alignment: the next
+    write goes to S % W, which must be the oldest entry, so a full ring
+    is rolled by S % W."""
+    if S < W:
+        pad = torch.zeros(x.shape[:1] + (W - S,) + x.shape[2:],
+                          dtype=x.dtype, device=x.device)
+        return torch.cat([x, pad], dim=1)
+    return torch.roll(x[:, S - W:], S % W, dims=1)
+
+
 def prefill(cfg: ModelConfig, params: dict, tokens=None, prefix_embeds=None,
             cache_len: Optional[int] = None, window: Optional[int] = None,
-            last_only: bool = True):
+            last_only: bool = True, par: Optional[Parallel] = None):
     """Run the prompt, build the decode cache. Returns (logits, cache).
-    The attention ring is cut or padded to ``cache_len``; recurrent
-    states are the prompt's final ones, untouched."""
-    logits, _, caches = forward(cfg, params, tokens, prefix_embeds,
-                                window=window, collect_cache=True,
-                                last_only=last_only)
+    The attention ring is cut or padded to ``cache_len``, layer by layer;
+    recurrent states are the prompt's final ones, untouched. ``par``: a
+    rank's part in a tensor-parallel pass (:class:`Parallel`), whose
+    ``keep`` cuts each layer's cache to the rank's blocks."""
     S = (tokens.shape[1] if tokens is not None else 0) + \
         (prefix_embeds.shape[1] if prefix_embeds is not None else 0)
     cache_len = cache_len or S
+
+    def keep(i, parts):
+        if cfg.family != "ssm":
+            parts = dict(parts, kv=tree_map(
+                lambda x: _fit_ring(x, S, cache_len), parts["kv"]))
+        return parts if par is None else par.keep(i, parts)
+
+    logits, _, blocks = forward(cfg, params, tokens, prefix_embeds,
+                                window=window, collect_cache=True,
+                                last_only=last_only, keep=keep, par=par)
     dev = logits.device
     pos = torch.tensor(S, dtype=torch.long, device=dev)
     if cfg.family == "ssm":
         return logits, {"pos": pos, "slot_pos": torch.zeros(
-            (cache_len,), dtype=torch.long, device=dev), "blocks": caches}
-
-    def fit(x):
-        # the sequence axis is axis 2 of every stacked (L, B, S, ...) ring
-        # leaf; only caches["kv"] holds such leaves
-        if S >= cache_len:
-            return x[:, :, S - cache_len:]
-        pad = torch.zeros(x.shape[:2] + (cache_len - S,) + x.shape[3:],
-                          dtype=x.dtype, device=x.device)
-        return torch.cat([x, pad], dim=2)
-
-    kv = tree_map(fit, caches["kv"])
-    keep = min(S, cache_len)
+            (cache_len,), dtype=torch.long, device=dev), "blocks": blocks}
+    held = min(S, cache_len)
     slot_pos = torch.full((cache_len,), -1, dtype=torch.long, device=dev)
-    slot_pos[:keep] = torch.arange(S - keep, S, device=dev)
-    # ring alignment: the next write goes to S % cache_len, which must be
-    # the oldest entry, so a full ring is rolled by S % cache_len
-    if keep == cache_len:
-        roll = S % cache_len
-        kv = tree_map(lambda x: torch.roll(x, roll, dims=2), kv)
-        slot_pos = torch.roll(slot_pos, roll)
-    blocks = {"kv": kv}
-    if cfg.family == "hybrid":
-        blocks["ssm"] = caches["ssm"]
+    slot_pos[:held] = torch.arange(S - held, S, device=dev)
+    if held == cache_len:
+        slot_pos = torch.roll(slot_pos, S % cache_len)
     return logits, {"pos": pos, "slot_pos": slot_pos, "blocks": blocks}
 
 
@@ -400,7 +511,8 @@ def _write_state(cache: dict, state: dict) -> None:
 
 
 def _block_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                  pos: torch.Tensor, slot_pos: torch.Tensor, cache: dict):
+                  pos: torch.Tensor, slot_pos: torch.Tensor, cache: dict,
+                  par: Optional[Parallel] = None):
     """One block's (or xLSTM pair's) decode step: writes ``cache`` in
     place and returns the new x."""
     if cfg.family == "ssm":
@@ -413,46 +525,54 @@ def _block_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
         a_out, _ = attn.mla_decode(p["attn"], cfg, h, pos, cache["kv"],
                                    slot_pos, absorb=cfg.mla_absorb)
     else:
-        a_out, _ = attn.gqa_decode(p["attn"], cfg, h, pos, cache["kv"],
-                                   slot_pos)
+        acfg, kw = _gqa_args(cfg, par)
+        a_out, _ = attn.gqa_decode(p["attn"], acfg, h, pos, cache["kv"],
+                                   slot_pos, **kw)
+    a_out = _attn_sum(a_out, par)
     if cfg.family == "hybrid":
         s_out, state = ssm_lib.mamba_decode(p["ssm"], cfg, h, cache["ssm"])
         _write_state(cache["ssm"], state)
         a_out = (a_out + s_out) * 0.5
     x = x + a_out
     h = rms_norm(x, p["norm_mlp"], cfg.norm_eps, cfg.fused_rmsnorm)
-    if cfg.moe is not None:
-        # each batch row (each slot) routes its one token alone
-        m_out, _ = moe_lib.moe_forward(p["mlp"], cfg, h)
-    else:
-        m_out = swiglu(h, **p["mlp"])
+    # each batch row (each slot) routes its one token alone
+    m_out, _ = _mlp(cfg, p["mlp"], h, par)
     return x + m_out
 
 
 def _decode_layers(cfg: ModelConfig, params: dict, x: torch.Tensor,
                    pos: torch.Tensor, slot_pos: torch.Tensor,
-                   blocks: dict) -> torch.Tensor:
+                   blocks: dict, par: Optional[Parallel] = None
+                   ) -> torch.Tensor:
     for i in range(n_block_stacks(cfg)):
-        x = _block_decode(cfg, _layer(params["blocks"], i), x, pos,
-                          slot_pos, _layer(blocks, i))
+        if par is None:
+            p, rows = _layer(params["blocks"], i), contextlib.nullcontext(
+                _layer(blocks, i))
+        else:
+            p, rows = par.layer(i), par.cache(i, blocks)
+        with rows as c:
+            x = _block_decode(cfg, p, x, pos, slot_pos, c, par)
+        del p, rows, c                 # a layer's gathered leaves go now
     x = rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.fused_rmsnorm)
-    return lm_logits(cfg, params, x)
+    return lm_logits(cfg, params, x, par)
 
 
 def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
-                cache: dict):
+                cache: dict, par: Optional[Parallel] = None):
     """token: (B,) or (B,1) int. Returns (logits (B,1,V), cache): the
     cache's ring, recurrent states and ``slot_pos`` are written in place
     (xLSTM's ``slot_pos`` stays as it is, as in the reference), ``pos``
-    is a new tensor one further."""
+    is a new tensor one further. ``par``: a rank's part in a
+    tensor-parallel pass (:class:`Parallel`)."""
     if token.dim() == 1:
         token = token[:, None]
-    x = params["embed"][token]
+    x = embed_inputs(cfg, params, token, par=par)
     pos = cache["pos"]
     slot_pos = cache["slot_pos"]
     if cfg.family != "ssm":
         slot_pos[pos % slot_pos.shape[0]] = pos
-    logits = _decode_layers(cfg, params, x, pos, slot_pos, cache["blocks"])
+    logits = _decode_layers(cfg, params, x, pos, slot_pos, cache["blocks"],
+                            par)
     return logits, {"pos": pos + 1, "slot_pos": slot_pos,
                     "blocks": cache["blocks"]}
 

@@ -80,10 +80,17 @@ def top_k_margin(probs: torch.Tensor, k: int) -> torch.Tensor:
     return (top[..., k - 1] - top[..., k]).min()
 
 
-def moe_forward(p: dict, cfg, x: torch.Tensor):
+def moe_forward(p: dict, cfg, x: torch.Tensor, experts=None,
+                shared: bool = True):
     """x: (B, T, D) -> (y (B, T, D), aux): per-row routing (module doc);
     ``aux`` is the mean over rows of the Switch-style load-balance term,
-    in f32."""
+    in f32.
+
+    ``experts`` ``(lo, hi)``: ``p``'s expert weights are experts lo..hi-1
+    of the ``n_experts`` (an expert block of the serving route); every
+    token routes over all of them as before, only these experts' buffers
+    run, and a pick of another expert adds zero, so ``y`` is this block's
+    part of the sum. ``shared=False`` leaves the shared experts out."""
     m = cfg.moe
     B, T, D = x.shape
     E, k = m.n_experts, m.top_k
@@ -119,6 +126,13 @@ def moe_forward(p: dict, cfg, x: torch.Tensor):
     slot = torch.empty_like(slot_s).scatter_(1, order, slot_s
                                              ).reshape(B, T, k)
 
+    if experts is not None:
+        # the block's slots; every other slot reads the zero row
+        lo, hi = experts
+        mine = (slot >= lo * cap) & (slot < hi * cap)
+        slot = torch.where(mine, slot - lo * cap, (hi - lo) * cap)
+        buf_tok, E = buf_tok[:, lo * cap:hi * cap], hi - lo
+
     xpad = torch.cat([x, x.new_zeros((B, 1, D))], dim=1)
     xe = xpad[rows[:, None], buf_tok]                     # (B, E·cap, D)
     xe = xe.reshape(B, E, cap, D).transpose(0, 1).reshape(E, B * cap, D)
@@ -134,6 +148,6 @@ def moe_forward(p: dict, cfg, x: torch.Tensor):
     for j in range(1, k):
         y = y + picked[:, :, j] * w[:, :, j, None]
 
-    if m.n_shared_experts:
+    if m.n_shared_experts and shared:
         y = y + swiglu(x, **p["shared"])
     return y, aux.mean()

@@ -102,6 +102,23 @@ def test_all_pairs_on_both_production_meshes(capsys, tmp_path):
              + m["gathered_bytes"]) / 2**30, 3)
 
 
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_serving_fits_a_card_on_the_production_meshes(multi_pod):
+    """Every serving program on (16, 16) and (2, 16, 16) reckons under
+    the H100's 80 GB a device: the route holds a rank's blocks and one
+    layer's gathered leaves, never the model whole (Grok-1's decode_32k
+    659.995 GB a device when every split leaf was gathered whole)."""
+    fed = ft.FedConfig()
+    for arch in ARCH_IDS:
+        for name, shape in INPUT_SHAPES.items():
+            if shape.mode == "train":
+                continue
+            rec = dryrun.run_one(arch, name, multi_pod, fed)
+            assert rec["ok"], rec.get("error")
+            assert rec["memory"]["peak_per_device_gb"] * 2**30 < 80e9, \
+                (arch, name, rec["memory"])
+
+
 def test_model_flops_matches_the_reference():
     """``model_flops`` on every config and shape, and an explicit token
     count."""

@@ -12,11 +12,18 @@
   (2, 1) over two ranks and (2, 2) over four. Every rank prefills B = 2
   prompts of 11 positions into a ring of W = 24 and takes 3 decode
   steps (seeded tokens) for reduced Llama-3.2-1B, DeepSeek-V2-Lite (MLA,
-  MoE), Hymba-1.5B (hybrid), xLSTM-350M (SSM), Pixtral-12B (a frontend,
-  with ``prefix_embeds``) and Llama with one KV head (K and V split on
-  the ring W), from weights made by the reference and carried over by
+  MoE with experts that divide: expert-parallel), Hymba-1.5B (hybrid),
+  xLSTM-350M (SSM), Pixtral-12B (a frontend, with ``prefix_embeds``),
+  Grok-1 (expert-parallel, its layers split over "data") and the
+  variants of :data:`VARIANTS`: Llama with one KV head (``wk``/``wv``
+  gathered per layer, K and V split on the ring W), Grok-1 with 3
+  experts (split on ``d_ff``: column- then row-parallel), Llama with 6
+  query heads over 3 KV heads (a block of 3 query heads straddles a KV
+  group) and with 3 query heads (cut by the split: attention whole),
+  from weights made by the reference and carried over by
   ``convert.model_params_from_jax``. Decode steps write ring slots 11,
-  12 and 13, on both sides of a W split in two.
+  12 and 13, on both sides of a W split in two. Between them the cases
+  reach every use of ``sharding.serve_use``.
 
   - The one-rank mesh against the reference's ``make_serve_fns`` on a
     (1, 1) JAX mesh: logits within ``LOGIT_TOL``, the caches within
@@ -26,14 +33,28 @@
     ``decode_step`` (one thread, as the ranks): its logit rows and its
     cache blocks after the prefill and after decode step 3 within
     ``RANK_TOL`` of their largest entry (the matmuls of a rank's rows
-    are other shapes than the whole batch's); on the (1, 1) and (1, 2)
-    meshes, where each rank runs the whole batch on whole leaves, bit
-    for bit.
-  - Only ``all_gather``s (none where "model" has one rank), and no
+    and blocks are other shapes than the whole batch's, and partial
+    products are summed over the ranks); on the one-rank mesh bit for
+    bit.
+  - Every rank of a "model" group holds the same bits: its logits and
+    every cache leaf "model" does not split; a repeated run on the
+    meshes where "model" splits is bit-identical.
+  - Only ``all_gather``s, each the one ``analysis.serve_gathers`` reckons
+    for the call, in order, its bytes and group size (none where no
+    mesh dimension of more than one rank splits a leaf); none gathers a
+    parameter leaf that ``serve_use`` marks as used on blocks; no
     operator dispatched on a DTensor.
+  - Each rank's peak of new bytes (``analysis.memcheck.LiveBytes``)
+    across each call within what the call returns new, the dry run's
+    ``gathered_bytes`` of its plan and an allowance (the activations the
+    one-process route holds across the same call, and one more of the
+    call's largest gathers), and under the whole parameter tree's
+    bytes.
 """
+import contextlib
 import dataclasses
 import functools
+import gc
 import warnings
 
 import numpy as np
@@ -52,12 +73,14 @@ from repro.configs.base import reduced as jreduced  # noqa: E402
 from repro.distributed import serving as jserving  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
 
+from repro_torch.analysis.memcheck import LiveBytes  # noqa: E402
 from repro_torch.carriers import placed  # noqa: E402
 from repro_torch.configs.base import get_config, reduced  # noqa: E402
 from repro_torch.convert import model_params_from_jax  # noqa: E402
 from repro_torch.core.tree import tree_paths  # noqa: E402
 from repro_torch.distributed import serving as tserving  # noqa: E402
 from repro_torch.distributed import sharding as tsh  # noqa: E402
+from repro_torch.launch import analysis, dryrun  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 
 from torch_parity import routing_margins  # noqa: E402
@@ -68,13 +91,24 @@ torch.set_num_threads(2)
 #: the model tests' tolerances (tests/test_torch_models.py)
 LOGIT_TOL, CACHE_TOL, ROUTE_MARGIN = 2e-5, 5e-5, 1e-5
 #: a rank's logits and cache blocks against the one-process route, as a
-#: share of the largest entry, where a rank runs its rows only: the
-#: matmuls of fewer rows sum in other orders (the reduced configs' gaps
-#: measured 1.1e-06 to 2.4e-06 on (2, 1) and (2, 2))
+#: share of the largest entry: a rank's matmuls run on its rows and its
+#: blocks, other shapes than the whole batch's and whole leaves, and
+#: partial products are summed over the ranks, so f32 sums run in other
+#: orders (the reduced configs' gaps measured 1.1e-06 to 2.4e-06 on
+#: (2, 1) and (2, 2) with whole leaves)
 RANK_TOL = 1e-5
-#: the served configs: reduced, and "llama_ring": Llama with one KV head
+#: the variants: (the reduced config they change, the fields replaced;
+#: "moe" replaces fields of the MoE config)
+VARIANTS = {"llama_ring": ("llama3_2_1b", {"n_kv_heads": 1}),
+            "grok_odd": ("grok_1_314b", {"moe": {"n_experts": 3}}),
+            "heads_straddle": ("llama3_2_1b", {"n_heads": 6,
+                                               "n_kv_heads": 3,
+                                               "head_dim": 32}),
+            "heads_cut": ("llama3_2_1b", {"n_heads": 3, "n_kv_heads": 1,
+                                          "head_dim": 64})}
+#: the served configs: reduced, and the variants
 CASES = ["llama3_2_1b", "deepseek_v2_lite_16b", "hymba_1_5b", "xlstm_350m",
-         "pixtral_12b", "llama_ring"]
+         "pixtral_12b", "grok_1_314b"] + list(VARIANTS)
 B, PROMPT, W, STEPS = 2, 11, 24, 3
 #: the rank meshes: (data, model) shape; the process group each runs in
 MESHES = {"one": (1, 1), "d12": (1, 2), "d21": (2, 1), "d22": (2, 2)}
@@ -149,17 +183,71 @@ def test_specs_match_the_reference(arch):
                 jserving.serve_cache_len(jc, seq)
 
 
+#: serve_use at the published widths: (arch, mesh shape, {leaf path: use})
+USE_CASES = [
+    ("grok_1_314b", (16, 16), {
+        "blocks/attn/wq": "cols", "blocks/attn/wk": "gather",
+        "blocks/attn/wo": "rows", "blocks/mlp/w_gate": "cols",
+        "blocks/mlp/w_down": "rows", "blocks/mlp/router": "whole",
+        "embed": "vocab", "lm_head": "cols", "final_norm": "whole"}),
+    ("grok_1_314b", (1, 2), {
+        "blocks/attn/wk": "cols", "blocks/mlp/w_gate": "experts",
+        "blocks/mlp/w_down": "experts"}),
+    ("qwen2_7b", (16, 16), {
+        "blocks/attn/wq": "gather", "blocks/attn/bq": "gather",
+        "blocks/attn/wo": "gather", "blocks/mlp/w_up": "cols",
+        "blocks/mlp/w_down": "rows"}),
+    ("deepseek_v2_lite_16b", (16, 16), {
+        "blocks/attn/w_uk": "gather", "blocks/attn/wo": "gather",
+        "blocks/attn/w_dkv": "whole", "blocks/mlp/w_gate": "experts",
+        "blocks/mlp/shared/w_gate": "cols",
+        "blocks/mlp/shared/w_down": "rows"}),
+    ("xlstm_350m", (16, 16), {"embed": "whole", "blocks/m/w_up": "whole"}),
+    ("llama3_2_1b", (1, 1), {"embed": "whole", "blocks/attn/wq": "whole"}),
+]
+
+
+@pytest.mark.parametrize("arch,shape,want", USE_CASES)
+def test_serve_use_at_published_widths(arch, shape, want):
+    """``serve_use``'s rule on the full configs: head-, expert-, d_ff- and
+    vocab-parallel leaves, and the ones gathered whole (KV heads or
+    query heads that do not divide, MLA's projections)."""
+    cfg = get_config(arch)
+    mesh = tsh.AbstractMesh(shape, ("data", "model"))
+    shapes = tmodel.init_params(cfg, 0, device="meta")
+    specs = tsh.param_shardings(cfg, shapes, mesh)
+    uses = dict(tree_paths(tsh.serve_uses(cfg, shapes, specs, mesh)))
+    assert set(uses.values()) <= set(tsh.SERVE_USES)
+    assert {p: uses[p] for p in want} == want
+
+
+@pytest.mark.parametrize("H,Hkv,lo,hi,want", [
+    (48, 8, 0, 3, [0]), (48, 8, 3, 6, [0]), (48, 8, 45, 48, [7]),
+    (6, 3, 0, 3, [0, 0, 1]), (6, 3, 3, 6, [1, 2, 2]), (4, 1, 2, 4, [0]),
+    (8, 4, 0, 4, [0, 1]), (32, 8, 8, 16, [2, 3])])
+def test_kv_heads_for_a_block_of_query_heads(H, Hkv, lo, hi, want):
+    """The KV heads a block of query heads reads: whole groups (or a part
+    of one) as the heads themselves, a block across groups one per query
+    head."""
+    from repro_torch.models.attention import kv_heads_for
+    cfg = dataclasses.replace(reduced(get_config("llama3_2_1b")),
+                              n_heads=H, n_kv_heads=Hkv)
+    assert kv_heads_for(cfg, lo, hi).tolist() == want
+
+
 # ---------------------------------------------------------------------------
 # Ranks
 # ---------------------------------------------------------------------------
 
 def _cfgs(case):
-    arch = "llama3_2_1b" if case == "llama_ring" else case
-    jc, tc = jreduced(jget_config(arch)), reduced(get_config(arch))
-    if case == "llama_ring":
-        jc = dataclasses.replace(jc, n_kv_heads=1)
-        tc = dataclasses.replace(tc, n_kv_heads=1)
-    return jc, tc
+    arch, fields = VARIANTS.get(case, (case, {}))
+    out = []
+    for c in (jreduced(jget_config(arch)), reduced(get_config(arch))):
+        kw = dict(fields)
+        if "moe" in kw:
+            kw["moe"] = dataclasses.replace(c.moe, **kw["moe"])
+        out.append(dataclasses.replace(c, **kw))
+    return tuple(out)
 
 
 _J_INIT = jax.jit(jmodel.init_params, static_argnums=0)
@@ -192,28 +280,85 @@ def _blocks(cache):
     return out
 
 
+@contextlib.contextmanager
+def _measured(out, key="peak"):
+    """``LiveBytes`` on the CPU over the block, ``out[key]`` its peak, with
+    Python's cycle collector off inside (a collection at a random moment
+    would free cyclic garbage early in one run and not in another)."""
+    gc.collect()
+    gc.disable()
+    try:
+        with LiveBytes("cpu") as live:
+            yield
+    finally:
+        gc.enable()
+    out[key] = live.peak
+
+
+def _new_bytes(*trees) -> int:
+    """The bytes of the tensors a call returns new (each placed leaf's
+    block)."""
+    return sum(placed.local(x).nbytes for t in trees
+               for _, x in tree_paths(t))
+
+
 def _serve(tcfg, mesh, inp, out):
     """Prefill then STEPS decode steps through ``make_serve_fns`` on
-    ``mesh``, under ``CollectiveWatch``: the rank's logit rows, its cache
+    ``mesh``, the params placed first: the rank's logit rows, its cache
     blocks after the prefill and after the last step, the smallest
-    routing margin."""
+    routing margin and, per call, its ``all_gather``s (under
+    ``CollectiveWatch``, whose counts join ``out``), its peak of new
+    bytes (``LiveBytes``) and the bytes it returns new."""
     fns = tserving.make_serve_fns(tcfg, mesh, B, W)
-    params = model_params_from_jax(inp["params"], tcfg, device="cpu")
+    params = tsh.place_tree(model_params_from_jax(inp["params"], tcfg,
+                                                  device="cpu"),
+                            fns.shardings["params"], mesh)
     args = [torch.from_numpy(inp["tokens"])]
     if inp["prefix"] is not None:
         args.append(torch.from_numpy(inp["prefix"]))
-    res = {"logits": []}
-    with routing_margins() as margins, CollectiveWatch(out):
-        logits, cache = fns.prefill(params, *args)
+    res = {"logits": [], "calls": []}
+
+    def call(fn, *a):
+        rec = {}
+        with _measured(rec), CollectiveWatch(rec):
+            logits, cache = fn(*a)
+        for k in ("comm", "dtensor_ops"):
+            if k == "comm":
+                for op, n in rec[k].items():
+                    out[k][op] = out[k].get(op, 0) + n
+            else:
+                out[k] += rec[k]
+        res["calls"].append(rec)
         res["logits"].append(placed.local(logits).clone())
+        return logits, cache
+
+    out.setdefault("comm", {})
+    out.setdefault("dtensor_ops", [])
+    with routing_margins() as margins:
+        logits, cache = call(fns.prefill, params, *args)
+        res["calls"][0]["new"] = _new_bytes(logits, cache)
         res["prefill"] = _blocks(cache)
         for tok in inp["steps"]:
-            logits, cache = fns.decode(params, torch.from_numpy(tok), cache)
-            res["logits"].append(placed.local(logits).clone())
+            logits, cache = call(fns.decode, params, torch.from_numpy(tok),
+                                 cache)
+            res["calls"][-1]["new"] = _new_bytes(logits, cache["pos"])
     res["rows"] = placed.layout(logits).block(0)
+    res["coord"] = tuple(mesh.get_coordinate())
     res["last"] = _blocks(cache)
     res["margin"] = min(margins, default=1.0)
     return res
+
+
+def _same_bits(a, b) -> list:
+    """Where two runs' results differ: logits, cache blocks."""
+    bad = [f"logits {i}" for i, (x, y) in enumerate(zip(a["logits"],
+                                                        b["logits"]))
+           if not torch.equal(x, y)]
+    for step in ("prefill", "last"):
+        bad += [f"{step} {p}" for (p, x, _), (_, y, _) in zip(a[step],
+                                                             b[step])
+                if not torch.equal(x, y)]
+    return bad
 
 
 def _rank_main(rank, world, port, group, inp, dst):
@@ -230,10 +375,15 @@ def _rank_main(rank, world, port, group, inp, dst):
         out = {}
         for kind in GROUPS[group]:
             mesh = make_debug_mesh(*MESHES[kind], device_type="cpu")
-            res = {"comm": {}, "dtensor_ops": []}
-            res["cases"] = {case: _serve(_cfgs(case)[1], mesh,
-                                         inputs[case], res)
-                            for case in CASES}
+            res = {"comm": {}, "dtensor_ops": [], "cases": {},
+                   "repeat": {}}
+            for case in CASES:
+                tcfg = _cfgs(case)[1]
+                got = res["cases"][case] = _serve(tcfg, mesh, inputs[case],
+                                                  res)
+                if MESHES[kind][1] > 1:
+                    res["repeat"][case] = _same_bits(
+                        got, _serve(tcfg, mesh, inputs[case], {}))
             out[kind] = res
         torch.save(out, dst)
     finally:
@@ -276,14 +426,20 @@ def _one_process(case):
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        logits, cache = tmodel.prefill(
-            tcfg, params, torch.from_numpy(inp["tokens"]), pe,
-            cache_len=tserving.serve_cache_len(tcfg, W))
+        peak = {}
+        with _measured(peak):
+            logits, cache = tmodel.prefill(
+                tcfg, params, torch.from_numpy(inp["tokens"]), pe,
+                cache_len=tserving.serve_cache_len(tcfg, W))
         out = {"logits": [logits.clone()],
-               "prefill": dict((p, x.clone()) for p, x in tree_paths(cache))}
+               "prefill": dict((p, x.clone()) for p, x in tree_paths(cache)),
+               "act": [peak["peak"] - _new_bytes(logits, cache)]}
         for tok in inp["steps"]:
-            logits, cache = tmodel.decode_step(tcfg, params,
-                                               torch.from_numpy(tok), cache)
+            with _measured(peak):
+                logits, cache = tmodel.decode_step(
+                    tcfg, params, torch.from_numpy(tok), cache)
+            out["act"].append(peak["peak"] - _new_bytes(logits,
+                                                        cache["pos"]))
             out["logits"].append(logits.clone())
         out["last"] = dict(tree_paths(cache))
     finally:
@@ -291,7 +447,7 @@ def _one_process(case):
     return out
 
 
-@pytest.mark.parametrize("case", [c for c in CASES if c != "llama_ring"])
+@pytest.mark.parametrize("case", [c for c in CASES if c not in VARIANTS])
 def test_one_rank_mesh_matches_the_reference(ranks, case):
     """The one-rank mesh's prefill and 3 decode steps against the
     reference's ``make_serve_fns`` on a (1, 1) JAX mesh, the same weights
@@ -344,10 +500,9 @@ def _check_blocks(kind, case, blocks, want, exact):
 def test_ranks_match_one_process(ranks, kind, case):
     """Each rank's logit rows after the prefill and every step, and its
     cache blocks after the prefill and after decode step 3, against the
-    one-process route (bit for bit on (1, 1) and (1, 2), where each rank
-    runs the whole batch on whole leaves)."""
+    one-process route (bit for bit on the one-rank mesh)."""
     want = _one_process(case)
-    exact = MESHES[kind][0] == 1
+    exact = kind == "one"
     for res in ranks[kind]:
         got = res["cases"][case]
         lo, hi = got["rows"]
@@ -363,21 +518,51 @@ def test_ranks_match_one_process(ranks, kind, case):
         _check_blocks(kind, case, got["last"], want["last"], exact)
 
 
+def _plans(tcfg, mesh):
+    """The reckoned collectives of the prefill and of one decode step of
+    a case on ``mesh``: ``analysis.serve_gathers``'s entries."""
+    fns = tserving.make_serve_fns(tcfg, mesh, B, W)
+    P = tcfg.n_prefix_embeds if tcfg.frontend != "none" else 0
+    rows = B // mesh.shape[0]
+    args = (tcfg, fns.params_shape, fns.shardings["params"], mesh, rows)
+    return (analysis.serve_gathers(*args, PROMPT - P, P),
+            analysis.serve_gathers(*args, 1, 0, fns.cache_shape,
+                                fns.shardings["cache"]))
+
+
 @pytest.mark.parametrize("kind", list(MESHES))
 def test_collectives_and_placements(ranks, kind):
-    """Only ``all_gather``s (none where "model" has one rank: the
-    leaves are whole and each rank serves its rows) and no DTensor
-    operator;
+    """Only ``all_gather``s, each call's the ones ``serve_gathers`` reckons
+    in order, bytes and group size (none where no mesh dimension of more
+    than one rank splits a leaf), none of a parameter leaf that
+    ``serve_use`` marks as used on blocks, and no DTensor operator;
     every cache block the shape of ``cache_shardings``' placements (K
     and V of one KV head, and MLA's latent, split on the ring W)."""
     mesh = tsh.AbstractMesh(MESHES[kind], ("data", "model"))
     for res in ranks[kind]:
         assert res["dtensor_ops"] == []
-        if MESHES[kind][1] == 1:
-            # nothing is split past the batch rows: no collective
-            assert res["comm"] == {} and res["gathers"] == []
-        else:
-            assert set(res["comm"]) == {"c10d.allgather_"}, res["comm"]
+        assert set(res["comm"]) <= {"c10d.allgather_"}, res["comm"]
+        for case in CASES:
+            tcfg = _cfgs(case)[1]
+            prefill, decode = _plans(tcfg, mesh)
+            calls = res["cases"][case]["calls"]
+            assert [tuple(g) for g in calls[0]["gathers"]] == \
+                [(b, g) for _, b, g in prefill], (kind, case, "prefill")
+            for i, c in enumerate(calls[1:]):
+                assert [tuple(g) for g in c["gathers"]] == \
+                    [(b, g) for _, b, g in decode], (kind, case, i)
+            fns = tserving.make_serve_fns(tcfg, mesh, B, W)
+            uses = dict(zip([p for p, _ in tree_paths(fns.params_shape)],
+                            [u for _, u in tree_paths(tsh.serve_uses(
+                                tcfg, fns.params_shape,
+                                fns.shardings["params"], mesh))]))
+            for (what, path), _, g in prefill + decode:
+                if what == "whole":
+                    assert uses[path] == "gather", (kind, case, path)
+                elif what == "layer":    # FSDP: the layers over "data"
+                    assert tcfg.fsdp_layers and g == MESHES[kind][0]
+            if MESHES[kind] == (1, 1):
+                assert prefill == decode == []
         for case in CASES:
             tcfg = _cfgs(case)[1]
             cshape = tmodel.init_cache(tcfg, B, W, device="meta")
@@ -397,3 +582,58 @@ def test_collectives_and_placements(ranks, kind):
                 assert tuple(block.shape) == tuple(
                     n // lay.parts(d) for d, n in enumerate(t.shape)), \
                     (kind, case, path)
+
+
+@pytest.mark.parametrize("kind", list(MESHES))
+def test_model_group_holds_the_same_bits(ranks, kind):
+    """The ranks of each "model" group (one data coordinate) hold
+    bit-identical logits after every call and bit-identical cache leaves
+    wherever "model" does not split them; on the meshes where "model"
+    splits, each case's repeated run is bit-identical."""
+    mesh = tsh.AbstractMesh(MESHES[kind], ("data", "model"))
+    for case in CASES:
+        tcfg = _cfgs(case)[1]
+        specs = tsh.cache_shardings(tcfg, tmodel.init_cache(
+            tcfg, B, W, device="meta"), mesh)
+        split = {p for p, s in tree_paths(specs)
+                 if any("model" in (e if isinstance(e, tuple) else (e,))
+                        for e in s)}
+        groups = {}
+        for res in ranks[kind]:
+            groups.setdefault(res["cases"][case]["coord"][0], []).append(
+                res["cases"][case])
+        for members in groups.values():
+            first = members[0]
+            for other in members[1:]:
+                bad = [b for b in _same_bits(first, other)
+                       if b.split(" ")[-1] not in split
+                       or b.startswith("logits")]
+                assert bad == [], (kind, case, bad)
+        for res in ranks[kind]:
+            assert res["repeat"].get(case, []) == [], (kind, case)
+
+
+@pytest.mark.parametrize("kind", list(MESHES))
+def test_peak_bytes_within_the_reckoning(ranks, kind):
+    """Each rank's peak of new bytes across each call within what the
+    call returns new, the dry run's ``gathered_bytes`` of its plan and
+    the activation allowance: the one-process route's own peak across
+    the same call on the whole batch, less what that call returns new,
+    and the call's largest ``all_gather`` once more (gloo's worker thread
+    may drop a finished gather's buffers only after the next begins, a
+    race seen under load); and under the whole parameter tree's
+    bytes."""
+    mesh = tsh.AbstractMesh(MESHES[kind], ("data", "model"))
+    for case in CASES:
+        tcfg = _cfgs(case)[1]
+        tree = sum(x.nbytes for _, x in tree_paths(tmodel.init_params(
+            tcfg, 0, device="meta")))
+        plans = _plans(tcfg, mesh)
+        act = _one_process(case)["act"]
+        for res in ranks[kind]:
+            for i, c in enumerate(res["cases"][case]["calls"]):
+                plan = plans[min(i, 1)]
+                bound = c["new"] + dryrun.gathered_bytes(plan) + act[i] \
+                    + max((b for _, b, _ in plan), default=0)
+                assert c["peak"] <= bound, (kind, case, i, c["peak"], bound)
+                assert c["peak"] < tree, (kind, case, i, c["peak"], tree)

@@ -41,11 +41,11 @@ def routing_margins():
     from repro_torch.models import moe
     margins, orig = [], moe.moe_forward
 
-    def recorded(p, cfg, x):
+    def recorded(p, cfg, x, **kw):
         with torch.no_grad():
             margins.append(moe.top_k_margin(moe.router_probs(p, x),
                                             cfg.moe.top_k).item())
-        return orig(p, cfg, x)
+        return orig(p, cfg, x, **kw)
 
     moe.moe_forward = recorded
     try:
