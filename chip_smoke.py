@@ -168,21 +168,40 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    the aggregate call below its whole stack. Their launches join the
    totals.
 10d. The tree trainer under a mesh (``make_fed_step``): the reduced
-   model over four gloo ranks on the one card (``chip_smoke.py
+   models over four gloo ranks on the one card (``chip_smoke.py
    --fed-tree-rank``, fresh processes, one process group), a ("data",
-   "model") = (2, 2) mesh: ``fed_axis="data"`` (K = 2 over "data", the
-   leaves split over "model") with mean and RFA, and ``fed_axis="all"``
-   (K = 4, one agent a rank) with Krum and the trimmed mean under
-   ``large_noise(sigma=10)``, 2 steps each on "data" (coin 1, then 0) and
-   the coin-1 step on "all", against the one-process
-   tree step on the card from the same init and draws: θ within
-   ``FED_RANK_TOL`` of max|θ|, the losses within ``FED_LOSS_TOL``,
-   Krum's margins, no kernel launch, each rank's allocation across a
-   step within what its own blocks and one agent's whole leaves explain
-   (``_tree_rank_bound``, a bound that one gathered field of the stack
-   would cross), the ranks' wall.
+   "model") = (2, 2) mesh: Llama-3.2-1B with ``fed_axis="data"`` (K = 2
+   over "data", each agent's loss and gradient on the rank's "model"
+   blocks) with mean and RFA, and ``fed_axis="all"`` (K = 4, one agent a
+   rank, the plain loss) with Krum and the trimmed mean under
+   ``large_noise(sigma=10)``; Grok-1 with its ``fed_axis="pod"`` (K = 1,
+   the rows and the layer stack over "data", the experts over "model");
+   2 steps each (coin 1, then 0), the coin-1 step on "all", each step
+   from the one-process chain's state (``_fed_chain``), against the
+   one-process tree step on the card from the same state and draws: on
+   the rows and blocks v within ``FED_BLOCK_V_TOL`` of max|v| and θ by
+   ``_fed_step_gaps``' Adam-aware rule, on "all" θ within
+   ``FED_RANK_TOL``; the losses within ``FED_LOSS_TOL``, Krum's margins,
+   no kernel launch, each rank's allocation across a step within
+   ``_tree_rank_bound`` (its blocks and, on the rows and blocks, the dry
+   run's reckoning of its estimate and the one-process activations; a
+   bound one agent's whole leaves tighter than the whole-leaf route's,
+   or that one gathered field of the stack would cross), the ranks'
+   wall.
+10e. The tree trainer's step on each rank's blocks at Llama-3.2-1B's
+   full width cut to 2 layers (D = 384,313,344, f32) over two gloo ranks
+   on the one card (``chip_smoke.py --fed-block-rank``), (data, model) =
+   (1, 2), K = 1: every leaf a column, row or vocabulary block, none
+   gathered; 2 × 128 tokens, coin 1 then coin 0, each step from the
+   one-process chain's state, against the one-process step on the card:
+   the same tolerances as 10d, the two ranks' losses bit-identical, each
+   rank's allocation across the estimate within its reckoning (its
+   direction blocks, ``train_gathered_bytes`` and the one-process
+   activations), which lies one agent's whole leaves below the
+   whole-leaf route's estimate term; each rank's
+   ``max_memory_allocated`` logged beside the card's name and limit.
    ``[time]`` lines give phase 10's tree runs, its flat runs with 10c
-   (a), 10c (b) and 10d.
+   (a), 10c (b), 10d and 10e.
 11. Serving under a mesh (``make_serve_fns``, after phase 5): (a)
    Llama-3.2-1B at full width and depth on a one-rank ("data", "model")
    = (1, 1) mesh in a gloo group of this process, 4 prompts of 512
@@ -3878,31 +3897,41 @@ def phase_fed_two_ranks(dev):
 
 
 #: phase 10d: the tree trainer over four gloo ranks on the one card, one
-#: ("data", "model") = (2, 2) mesh: (fed_axis, aggregator, attack, steps).
-#: With fed_axis "data" K = 2 agents over "data", each leaf split over
-#: "model" (RFA without the attack, as in 10c b), coin 1 then 0; with
-#: "all" K = 4, one agent a rank, leaves whole, the coin-1 step only (its
-#: steps spend 1.2-1.4 s in host-staged gathers; the PAGE step's reads
-#: and memory bound are the "data" cases')
+#: ("data", "model") = (2, 2) mesh: (arch, fed_axis, aggregator, attack,
+#: steps). With fed_axis "data" K = 2 agents over "data", each leaf split
+#: over "model" (RFA without the attack, as in 10c b), coin 1 then 0, each
+#: agent's loss and gradient on the rank's blocks; with "all" K = 4, one
+#: agent a rank, leaves whole, the coin-1 step only (its steps spend
+#: 1.2-1.4 s in host-staged gathers; the PAGE step's reads and memory
+#: bound are the "data" cases'); reduced Grok-1 with its fed_axis "pod":
+#: K = 1, the rows and the layer stack over "data", the experts over
+#: "model", coin 1 then 0
 FED_TREE_RANKS = 4
-FED_TREE_RANK_CASES = (("data", "mean", "none", 2), ("data", "rfa", "none", 2),
-                       ("all", "krum", "large_noise(sigma=10)", 1),
-                       ("all", "trimmed_mean", "large_noise(sigma=10)", 1))
+#: an agent's batch rows and tokens
+FED_TREE_RANK_B, FED_TREE_RANK_S = 2, 32
+FED_TREE_RANK_CASES = (
+    ("llama3.2-1b", "data", "mean", "none", 2),
+    ("llama3.2-1b", "data", "rfa", "none", 2),
+    ("llama3.2-1b", "all", "krum", "large_noise(sigma=10)", 1),
+    ("llama3.2-1b", "all", "trimmed_mean", "large_noise(sigma=10)", 1),
+    ("grok-1-314b", "pod", "mean", "none", 2))
 
 
 def _fed_tree_rank_runs(dev, mesh=None, krum_stacks=None):
     """Each FED_TREE_RANK_CASES case's tree steps (coin 1, then 0) of the
-    reduced model, from the seed-1 init with draws from a
-    generator on ``dev`` seeded 2: through ``make_fed_step`` on ``mesh``
-    (the placed state), or ``fed_train_step`` on one process. Each step's
-    peak (``max_memory_allocated`` after a reset at its start), the bytes
-    allocated at its start and its launches are recorded, the cuBLAS
-    workspaces of both autograd threads made first (64 MiB, more than
-    this model's state); ``krum_stacks`` collects the (K, D) stacks Krum
-    scores. Returns {case: parameter blocks (path, block on the host,
-    its index), losses, peaks, starts, launches, ms per step, and the
-    byte counts of :func:`_tree_rank_bound`: one field's blocks, its
-    leaves gathered whole for a loss and the largest leaf's K rows}."""
+    reduced model by :func:`_fed_chain` from the seed-1 init, the draws
+    from a generator on ``dev`` seeded 1 after θ₀: through
+    ``make_fed_step`` on ``mesh`` (each step from the one-process chain's
+    state, placed), or the one-process chain itself. Each step is
+    recorded by :func:`_fed_recorder` (peaks after a reset at its start,
+    the estimate's peak, launches, v and θ), the cuBLAS workspaces of
+    both autograd threads made first (64 MiB, more than this model's
+    state); ``krum_stacks`` collects the (K, D) stacks Krum scores.
+    Returns {case: those records and the byte counts of
+    :func:`_tree_rank_bound`: one field's blocks, its leaves gathered
+    whole for a loss, the largest leaf's K rows, whether the estimate ran
+    on the rows and blocks and, for each coin, the dry run's
+    ``train_gathered_bytes`` of its plan}."""
     import dataclasses
     import math
     import torch
@@ -3911,13 +3940,10 @@ def _fed_tree_rank_runs(dev, mesh=None, krum_stacks=None):
     from repro_torch.data import DataConfig, TokenPipeline
     from repro_torch.distributed import aggregation as agg_lib
     from repro_torch.distributed import fed_trainer as ft
-    from repro_torch.carriers import placed
     from repro_torch.distributed.sharding import AbstractMesh, n_agents
-    from repro_torch.kernels import dispatch
-    cfg0 = reduced(get_config(FED_ARCH))
+    from repro_torch.launch import analysis, dryrun
     shape = AbstractMesh((2, 2), ("data", "model"))
     agg_krum = agg_lib.agg_krum
-    cuda = dev.type == "cuda"
     w = torch.ones((2, 2), device=dev, requires_grad=True)
     (w @ w).sum().backward()
     del w
@@ -3928,81 +3954,146 @@ def _fed_tree_rank_runs(dev, mesh=None, krum_stacks=None):
         return agg_krum(tree, n_byz)
 
     out = {}
-    for axis, agg, attack, n_steps in FED_TREE_RANK_CASES:
-        cfg = dataclasses.replace(cfg0, fed_axis=axis)
+    for arch, axis, agg, attack, n_steps in FED_TREE_RANK_CASES:
+        cfg = dataclasses.replace(reduced(get_config(arch)), fed_axis=axis)
         K = n_agents(cfg, shape)
         fed = ft.FedConfig(aggregator=agg, **dict(FED_KW, attack=attack))
-        pipe = TokenPipeline(DataConfig(cfg.vocab_size, 32, 2, K, seed=1),
+        pipe = TokenPipeline(DataConfig(cfg.vocab_size, FED_TREE_RANK_S,
+                                        FED_TREE_RANK_B, K, seed=1),
                              device=dev)
-        mask = torch.arange(K, device=dev) < FED_BYZ
-        state = ft.init_fed_state(cfg, fed, K, 1, device=dev)
-        if mesh is not None:
-            state = ft.place_fed_state(state, mesh, cfg)
-            steps = {c: ft.make_fed_step(cfg, fed, mesh, large=c)[0]
-                     for c in (True, False)}
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(2)
-        rec = {"losses": [], "peaks": [], "starts": [], "launches": [],
-               "ms": []}
+        mask = torch.arange(K, device=dev) < min(FED_BYZ, K - 1)
+        rec = {}
         if krum_stacks is not None:
             agg_lib.agg_krum = recorded
         try:
-            for t in range(n_steps):
-                nz = ft.fed_noise(gen, fed, state, FED_BYZ)
-                batch = pipe.batch(t)
-                if cuda:
-                    torch.cuda.synchronize()
-                    torch.cuda.reset_peak_memory_stats()
-                rec["starts"].append(torch.cuda.memory_allocated()
-                                     if cuda else 0)
-                dispatch.reset_launches()
-                t0 = time.perf_counter()
-                if mesh is None:
-                    state, m = ft.fed_train_step(cfg, fed, state, batch,
-                                                 mask, nz, large=t == 0)
-                else:
-                    state, m = steps[t == 0](state, batch, mask, nz)
-                if cuda:
-                    torch.cuda.synchronize()
-                rec["ms"].append((time.perf_counter() - t0) * 1e3)
-                rec["peaks"].append(torch.cuda.max_memory_allocated()
-                                    if cuda else 0)
-                rec["launches"].append(dispatch.launch_counts())
-                rec["losses"].append(m["loss"].item())
+            _fed_chain(cfg, fed, dev, K, mesh, (True, False)[:n_steps],
+                       pipe.batch, mask, 1, _fed_recorder(
+                           dev, rec, "_estimate" if mesh is None
+                           else "_estimate_placed"))
         finally:
             agg_lib.agg_krum = agg_krum
-        rec["blocks"] = []
+        _, shapes, bshape, (specs, bspecs, _) = ft.make_fed_step(
+            cfg, fed, shape, large=True, per_agent_batch=FED_TREE_RANK_B,
+            seq_len=FED_TREE_RANK_S)
+        whole = dict(tree_paths(shapes.params))
         field = gathered = rows = 0
-        for path, x in tree_paths(state.params):
-            lay, blk = placed.layout(x), placed.local(x)
-            rec["blocks"].append((path, blk.cpu(), None if lay is None
-                                  else lay.index()))
-            field += blk.numel() * blk.element_size()
-            rows = max(rows, K * blk[0].numel() * blk.element_size())
-            if lay is not None and lay.trailing:
-                gathered += math.prod(x.shape[1:]) * blk.element_size()
+        for path, blk, _ in rec["theta"][-1]:
+            field += blk.nbytes
+            rows = max(rows, K * blk[0].nbytes)
+            if blk.shape[1:] != whole[path].shape[1:]:
+                gathered += 4 * math.prod(whole[path].shape[1:])
+        plan = analysis.estimate_plan(cfg, shape, shapes, specs, bshape,
+                                      bspecs)
+        grads = sum(math.prod(leaf.block[1:]) * leaf.itemsize
+                    for leaf in (analysis.Leaf.of(t, sp, shape) for
+                                 (_, t), (_, sp) in zip(
+                                     tree_paths(shapes.params),
+                                     tree_paths(specs.params))))
         rec.update(K=K, attack=attack, field=field, gathered=gathered,
-                   rows=rows, D=sum(math.prod(x.shape[1:])
-                                    for _, x in tree_paths(state.params)))
-        out[axis, agg] = rec
+                   rows=rows, blocks_route=bool(plan), lr=fed.lr,
+                   reckoned={c: dryrun.train_gathered_bytes(
+                       plan, grads * (1 if c else 2)) for c in (True, False)},
+                   D=sum(math.prod(x.shape[1:]) for x in whole.values()))
+        out[arch, axis, agg] = rec
     return out
 
 
-def _tree_rank_bound(rank: dict, large: bool) -> int:
+#: the ranks' aggregated directions v against the one-process step's
+#: from the same state: a rounding bound of max|v| (the blocks sum the
+#: partial products of a split leaf, and a split batch's rows, in another
+#: order than the whole leaf and batch)
+FED_BLOCK_V_TOL = 1e-5
+#: where Adam's update is not clear of v's rounding (below), θ within
+#: this many lr: two updates of opposite sign, each at most 1.45·lr at
+#: Adam's steps 1 and 2 (|m̂|/√v̂ with the bias corrections)
+FED_ADAM_FLIP_LR = 3.0
+
+
+def _fed_step_gaps(one, recs, t, lr, b2=0.999):
+    """The ranks' step ``t`` (their records ``recs``) against the
+    one-process chain's (``one``), from the same state and draws: v's
+    largest gap over max|v|; θ's largest gap over max|θ| on the entries
+    whose Adam update is clear of v's rounding, and elsewhere over lr,
+    with the count of those entries beyond FED_CPU_TOL of max|θ|; the
+    losses' largest gap. An entry is
+    clear where √v̂ (Adam's bias-corrected second moment after the step,
+    at its step t + 1) is at least 2·lr·FED_BLOCK_V_TOL·max|v| /
+    (FED_CPU_TOL·max|θ|): there a rounding of v within FED_BLOCK_V_TOL of
+    max|v| moves lr·m̂/(√v̂ + eps) by at most half of FED_CPU_TOL·max|θ|;
+    elsewhere (a gradient entry within its rounding of zero, whose first
+    Adam update is lr times its sign) it may move θ by up to
+    FED_ADAM_FLIP_LR·lr."""
+    import torch
+    wv = {p: x for p, x, _ in one["v"][t]}
+    wt = {p: x for p, x, _ in one["theta"][t]}
+    wa = {p: x for p, x, _ in one["adam_v"][t]}
+    v_scale = max(x.abs().max().item() for x in wv.values())
+    th_scale = max(x.abs().max().item() for x in wt.values())
+    thr = 2 * lr * FED_BLOCK_V_TOL * v_scale / (FED_CPU_TOL * th_scale)
+    bc2 = 1 - b2 ** (t + 1)
+    v_err = clear = other = 0.0
+    n_other = 0
+    for rec in recs:
+        for p, blk, idx in rec["v"][t]:
+            w = wv[p] if idx is None else wv[p][idx]
+            v_err = max(v_err, (blk - w).abs().max().item())
+        for p, blk, idx in rec["theta"][t]:
+            w = wt[p] if idx is None else wt[p][idx]
+            a = wa[p] if idx is None else wa[p][idx]
+            gap = (blk - w).abs()
+            ok = torch.sqrt(a / bc2) >= thr
+            if ok.any():
+                clear = max(clear, gap[ok].max().item())
+            if not ok.all():
+                other = max(other, gap[~ok].max().item())
+                n_other += int((gap[~ok] > FED_CPU_TOL * th_scale).sum())
+    return {"v": v_err / v_scale, "theta": clear / th_scale,
+            "theta_lr": other / lr, "n_other": n_other,
+            "loss": max(abs(r["losses"][t] - one["losses"][t])
+                        for r in recs)}
+
+
+def _fed_gaps_ok(g) -> bool:
+    return (g["v"] <= FED_BLOCK_V_TOL and g["theta"] <= FED_CPU_TOL
+            and g["theta_lr"] <= FED_ADAM_FLIP_LR
+            and g["loss"] <= FED_LOSS_TOL)
+
+
+def _fed_gaps_text(g) -> str:
+    return (f"v max abs err {g['v']:.3e} of max|v| (tol {FED_BLOCK_V_TOL}), "
+            f"theta {g['theta']:.3e} of max|theta| where Adam's update is "
+            f"clear of v's rounding (tol {FED_CPU_TOL}), {g['theta_lr']:.3e} "
+            f"lr where it is not ({g['n_other']} entries beyond "
+            f"{FED_CPU_TOL} of max|theta|; tol {FED_ADAM_FLIP_LR}), loss "
+            f"|diff| {g['loss']:.3e} (tol "
+            f"{FED_LOSS_TOL})")
+
+
+def _tree_rank_bound(rank: dict, large: bool, act: int = 0,
+                     estimate_only: bool = False) -> int:
     """The most a rank of phase 10d may allocate across a step above its
     start, from its own byte counts (``_fed_tree_rank_runs``): its
-    estimate holds its block of the directions, the fields its loss reads
-    gathered whole (params on a large step; params, prev and v on a PAGE
-    step, one at a time, so this also covers the whole direction buffer)
-    and its whole gradients (one, or two on a PAGE step); after the
+    estimate holds its block of the directions and, on its rows and
+    blocks, the dry run's ``train_gathered_bytes`` of its plan (its
+    gradient blocks, one layer's gathered leaves and their gradients, the
+    largest all-gather) and ``act``, the one-process estimate's
+    activations; where nothing splits an agent's leaves or rows, the
+    agent's whole gradients (one, or two on a PAGE step); after the
     estimate it holds at most seven fields at its block (the directions,
     their attacked copy, the aggregate, Adam's two new moments and new
     parameters, one agreement round's mix); the larger of the two, plus
     one leaf's K rows gathered for the aggregation. W is one agent's
-    whole leaves, 4 D bytes."""
+    whole leaves, 4 D bytes. ``estimate_only``: the estimate's term
+    alone (with ``blocks_route`` False, the whole-leaf route's: the
+    fields its loss reads gathered whole and the whole gradients)."""
     w = 4 * rank["D"]
-    reads, grads = (1, 1) if large else (3, 2)
-    estimate = rank["field"] + reads * rank["gathered"] + grads * w
+    if rank["blocks_route"]:
+        estimate = rank["field"] + rank["reckoned"][large] + act
+    else:
+        reads, grads = (1, 1) if large else (3, 2)
+        estimate = rank["field"] + reads * rank["gathered"] + grads * w
+    if estimate_only:
+        return estimate
     return max(estimate, 7 * rank["field"]) + rank["rows"]
 
 
@@ -4031,15 +4122,25 @@ def phase_fed_tree_ranks(dev):
     one card (fresh processes, one process group for every case), each
     case of FED_TREE_RANK_CASES through ``make_fed_step`` on the (2, 2)
     mesh against the one-process ``fed_train_step`` on the card from the
-    same init and draws: every rank's parameter blocks within
-    FED_RANK_TOL of max|θ|, the losses within FED_LOSS_TOL, Krum's margins
-    above 1e-4, no kernel launch, and what each rank allocates across a
-    step above its start (its peak less its resident blocks, batch and
-    cuBLAS workspaces) within :func:`_tree_rank_bound`. The bound must
-    lie below the rank's reading plus one whole field of the stack (K
-    agents' whole leaves, 4 K D bytes), so a rank that gathered a field
-    would cross it; the one-process step's allocation above its start is
-    logged beside it. On the CPU (a rehearsal) no allocation is read."""
+    same init and draws: where nothing splits an agent's leaves or rows
+    ("all"), every rank's parameter blocks within FED_RANK_TOL of max|θ|;
+    on the rows and blocks ("data", "pod"), within FED_CPU_TOL (the
+    blocks sum in another order, and Adam's first step from the common
+    init turns a rounding of a gradient entry near its eps into a share
+    of lr); the losses within FED_LOSS_TOL, Krum's margins above 1e-4, no
+    kernel launch, and what each rank allocates across a step above its
+    start (its peak less its resident blocks, batch and cuBLAS
+    workspaces) within :func:`_tree_rank_bound`, the activations those of
+    the one-process estimate (its peak above the step's start less its
+    whole directions and gradients). Where nothing is split, the bound
+    must lie below the rank's reading plus one whole field of the stack
+    (K agents' whole leaves, 4 K D bytes), so a rank that gathered a
+    field would cross it; on the rows and blocks, its estimate term must
+    lie at least one agent's whole leaves below the whole-leaf route's
+    (:func:`_tree_rank_bound` with ``estimate_only``, neither counting
+    the activations). The one-process
+    step's allocation above its start is logged beside it.
+    On the CPU (a rehearsal) no allocation is read."""
     import os
     import socket
     import tempfile
@@ -4075,52 +4176,402 @@ def phase_fed_tree_ranks(dev):
     margins = [_krum_gap(x, max(FED_K - FED_BYZ - 2, 1)) for x in stacks]
     if not min(margins) > 1e-4:
         raise AssertionError(f"fed tree ranks: Krum margins {margins}")
-    for (axis, agg), one in want.items():
-        whole = {path: x for path, x, _ in one["blocks"]}
-        scale = max(x.abs().max().item() for x in whole.values())
-        err = max((block - whole[path][idx]).abs().max().item()
-                  for r in ranks
-                  for path, block, idx in r[axis, agg]["blocks"])
-        loss_err = max(abs(a - b) for r in ranks for a, b in
-                       zip(r[axis, agg]["losses"], one["losses"]))
-        launches = [c for r in [one, *(r[axis, agg] for r in ranks)]
-                    for c in r["launches"] if any(c.values())]
+    for key, one in want.items():
+        arch, axis, agg = key
+        recs = [r[key] for r in ranks]
+        n = len(one["losses"])
+        blocks_route = recs[0]["blocks_route"]
+        if blocks_route:
+            gaps = [_fed_step_gaps(one, recs, t, one["lr"]) for t in range(n)]
+            close = all(_fed_gaps_ok(g) for g in gaps)
+            text = "; ".join(f"step {t}: {_fed_gaps_text(g)}"
+                             for t, g in enumerate(gaps))
+        else:
+            whole = {p: x for p, x, _ in one["theta"][-1]}
+            scale = max(x.abs().max().item() for x in whole.values())
+            err = max((blk - whole[p][idx]).abs().max().item()
+                      for r in recs for p, blk, idx in r["theta"][-1])
+            loss_err = max(abs(a - b) for r in recs for a, b in
+                           zip(r["losses"], one["losses"]))
+            close = err <= FED_RANK_TOL * scale and loss_err <= FED_LOSS_TOL
+            text = (f"theta max abs err {err:.3e} = {err / scale:.3e} of "
+                    f"max|theta| (tol {FED_RANK_TOL}), loss |diff| "
+                    f"{loss_err:.3e} (tol {FED_LOSS_TOL})")
+        launches = [c for r in [one, *recs] for c in r["launches"]
+                    if any(c.values())]
         stack = 4 * one["K"] * one["D"]
-        peaks = [p for r in ranks for p in r[axis, agg]["peaks"]]
-        above = [p - b for r in ranks for p, b in
-                 zip(r[axis, agg]["peaks"], r[axis, agg]["starts"])]
-        bounds = [_tree_rank_bound(r[axis, agg], t == 0) for r in ranks
-                  for t in range(len(one["losses"]))]
+        w = 4 * one["D"]
+        peaks = [p for r in recs for p in r["peaks"]]
+        above = [p - b for r in recs for p, b in zip(r["peaks"],
+                                                     r["starts"])]
+        act = [max(one["est_peaks"][t] - one["starts"][t]
+                   - (one["K"] + (1 if t == 0 else 2)) * w, 0)
+               for t in range(n)]
+        bounds = [_tree_rank_bound(r, t == 0, act[t]) for r in recs
+                  for t in range(n)]
         one_above = [p - b for p, b in zip(one["peaks"], one["starts"])]
-        memory = dev.type != "cuda" or all(
-            a <= b < a + stack for a, b in zip(above, bounds))
-        if not (err <= FED_RANK_TOL * scale and loss_err <= FED_LOSS_TOL
-                and not launches and memory):
+        if blocks_route:
+            # the estimate's term at least one agent's whole leaves below
+            # the whole-leaf route's (its gathered leaves and gradients)
+            # (reckonings compared alike: neither counts the activations)
+            tight = all(
+                _tree_rank_bound(r, t == 0, estimate_only=True) + w
+                <= _tree_rank_bound(dict(r, blocks_route=False), t == 0,
+                                    estimate_only=True)
+                for r in recs for t in range(n))
+            memory = dev.type != "cuda" or (tight and all(
+                a <= b for a, b in zip(above, bounds)))
+        else:
+            memory = dev.type != "cuda" or all(
+                a <= b < a + stack for a, b in zip(above, bounds))
+        if not (close and not launches and memory):
             raise AssertionError(
-                f"fed tree ranks, {axis}/{agg}: theta max abs err {err} "
-                f"(max|theta| {scale}), loss |diff| {loss_err}, launches "
+                f"fed tree ranks, {arch}/{axis}/{agg}: {text}, launches "
                 f"{launches}, step peaks {peaks}, above their starts "
-                f"{above} against the bounds {bounds} (each must lie "
-                f"below its reading plus one field of the stack, {stack} "
-                f"bytes)")
-        gaps = (f"; Krum margins {[round(m, 6) for m in margins]}"
+                f"{above} against the bounds {bounds} (each must lie below "
+                f"its reading plus one field of the stack, {stack} bytes)")
+        krum = (f"; Krum margins {[round(m, 6) for m in margins]}"
                 if agg == "krum" else "")
-        ms = [[round(x, 3) for x in r[axis, agg]["ms"]] for r in ranks]
+        ms = [[round(x, 3) for x in r["ms"]] for r in recs]
+        route = ("on each rank's rows and blocks" if blocks_route
+                 else "plain")
+        est = [p - b for r in recs for p, b in zip(r["est_peaks"],
+                                                   r["starts"])]
         log(f"[fed] {card()}: fed_tree_ranks_{axis}_{agg} (phase 10d: "
-            f"reduced {FED_ARCH}, D={one['D']}, fed_axis {axis}, K="
+            f"reduced {arch}, D={one['D']}, fed_axis {axis}, K="
             f"{one['K']} over {FED_TREE_RANKS} gloo ranks on the one card, "
-            f"(data, model) = (2, 2), attack {one['attack']}, "
-            f"{len(one['losses'])} step(s) through make_fed_step): theta max "
-            f"abs err {err:.3e} = {err / scale:.3e} of max|theta| (tol "
-            f"{FED_RANK_TOL}) against the one-process tree step on the "
-            f"card, loss |diff| {loss_err:.3e} (tol {FED_LOSS_TOL}), 0 "
-            f"kernel launches, each rank's allocation across a step above "
-            f"its start {above} bytes (peaks {peaks}) within the bounds "
-            f"{bounds}, each below its reading plus one field of the stack "
-            f"({stack}); the one-process step's {one_above}; "
-            f"ms/step per rank {ms}, one process "
-            f"{[round(x, 3) for x in one['ms']]}{gaps}; the ranks' wall "
-            f"{secs:.1f} s")
+            f"(data, model) = (2, 2), attack {one['attack']}, {n} step(s) "
+            f"through make_fed_step, each from the one-process chain's "
+            f"state, the estimate {route}): {text} against the "
+            f"one-process tree step on the card, 0 kernel launches, each "
+            f"rank's allocation across a step above its start {above} "
+            f"bytes (peaks {peaks}; across the estimate {est}) within the "
+            f"bounds {bounds}, each below its reading plus one field of "
+            f"the stack ({stack}); the one-process step's {one_above}, its "
+            f"estimate's activations {act}; ms/step per rank {ms}, one "
+            f"process {[round(x, 3) for x in one['ms']]}{krum}; the ranks' "
+            f"wall {secs:.1f} s")
+
+
+#: phase 10e: the tree trainer's step at Llama-3.2-1B's full width cut to
+#: FED_LAYERS layers (phase 10's model, D = FED_D, f32) over two gloo
+#: ranks on the card, (data, model) = (1, 2), fed_axis "data": K = 1,
+#: every leaf a column, row or vocabulary block (the norms whole), none
+#: gathered; FED_BATCH x FED_SEQ tokens; the coin-1 step, then coin 0
+FED_BLOCK_MESH = (1, 2)
+FED_BLOCK_KW = dict(aggregator="mean", attack="none", n_byz=0, kappa=1,
+                    lr=1e-3)
+#: what a rank may allocate beyond its reckoning: cuBLAS's workspaces,
+#: made once a process, and the allocator's rounding
+FED_BLOCK_SLACK = 64 << 20
+
+
+def _fed_blocks_of(tree) -> list:
+    """(path, the rank's block on the host, its index) of a tree."""
+    from repro_torch.carriers import placed
+    from repro_torch.core.tree import tree_paths
+    return [(p, placed.local(x).cpu(), None if placed.layout(x) is None
+             else placed.layout(x).index()) for p, x in tree_paths(tree)]
+
+
+def _fed_chain(cfg, fed, dev, K, mesh, coins, batch_of, mask, seed,
+               record):
+    """The steps of ``coins`` from the common init (``seed``), each from
+    the one-process chain's state: on one process (``mesh`` None) the
+    chain itself; on a rank, each step through ``make_fed_step`` on
+    ``mesh`` from that state placed, then the one-process step that
+    carries the chain on (not recorded). Every process draws θ₀ and each
+    step's noise from one generator on ``dev`` in the same order, so a
+    rank's step and the one-process step start from the same state and
+    draws. ``record(t, run)`` runs a step and records it."""
+    from repro_torch.core.engine import seed_generator
+    from repro_torch.distributed import fed_trainer as ft
+    gen = seed_generator(seed, dev)
+    state = ft.init_fed_state(cfg, fed, K, gen, device=dev)
+    n_byz = int(mask.sum())
+    if mesh is not None:
+        steps = {c: ft.make_fed_step(cfg, fed, mesh, large=c)[0]
+                 for c in set(coins)}
+    for t, coin in enumerate(coins):
+        nz = ft.fed_noise(gen, fed, state, n_byz)
+        batch = batch_of(t)
+        if mesh is None:
+            state, _ = record(t, lambda: ft.fed_train_step(
+                cfg, fed, state, batch, mask, nz, large=coin))
+            continue
+        placed_state = ft.place_fed_state(state, mesh, cfg)
+        record(t, lambda: steps[coin](placed_state, batch, mask, nz))
+        del placed_state
+        if t + 1 < len(coins):
+            state, _ = ft.fed_train_step(cfg, fed, state, batch, mask, nz,
+                                         large=coin)
+
+
+def _fed_recorder(dev, rec, estimate_name):
+    """``record(t, run)`` for :func:`_fed_chain`: runs the step with the
+    peak reset at its start, recording its ms, loss, the bytes allocated
+    at its start, its peak across the estimate (``estimate_name``, the
+    fed trainer's function, wrapped) and across the step, its launches
+    and its v and θ blocks (and, for the one-process chain's
+    ``"_estimate"``, Adam's second moment)."""
+    import torch
+    from repro_torch.distributed import fed_trainer as ft
+    from repro_torch.kernels import dispatch
+    cuda = dev.type == "cuda"
+    for k in ("ms", "losses", "starts", "est_peaks", "peaks", "launches",
+              "v", "theta", "adam_v"):
+        rec.setdefault(k, [])
+
+    def record(t, run):
+        est = getattr(ft, estimate_name)
+
+        def measured(*args, **kw):
+            out = est(*args, **kw)
+            if cuda:
+                torch.cuda.synchronize()
+            rec["est_peaks"].append(torch.cuda.max_memory_allocated()
+                                    if cuda else 0)
+            return out
+
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        rec["starts"].append(torch.cuda.memory_allocated() if cuda else 0)
+        dispatch.reset_launches()
+        setattr(ft, estimate_name, measured)
+        try:
+            t0 = time.perf_counter()
+            state, m = run()
+            if cuda:
+                torch.cuda.synchronize()
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        finally:
+            setattr(ft, estimate_name, est)
+        rec["peaks"].append(torch.cuda.max_memory_allocated() if cuda
+                            else 0)
+        rec["launches"].append(dispatch.launch_counts())
+        rec["losses"].append(m["loss"].item())
+        rec["v"].append(_fed_blocks_of(state.v))
+        rec["theta"].append(_fed_blocks_of(state.params))
+        if estimate_name == "_estimate":
+            rec["adam_v"].append(_fed_blocks_of(state.opt_state.v))
+        return state, m
+
+    return record
+
+
+def _fed_block_run(dev, mesh=None):
+    """Phase 10e's two steps (K = 1, coins 1 then 0) of
+    :func:`_fed_chain`, on one process (``mesh`` None) or this rank's
+    blocks of ``mesh``, recorded by :func:`_fed_recorder`; then the
+    rank's byte counts."""
+    import math
+    import torch
+    from repro_torch.core.tree import tree_paths
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.distributed import fed_trainer as ft
+    cfg = _fed_cfg()
+    fed = ft.FedConfig(**FED_BLOCK_KW)
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, FED_SEQ, FED_BATCH, 1,
+                                    seed=FED_SEED), device=dev)
+    mask = torch.zeros((1,), dtype=torch.bool, device=dev)
+    w = torch.ones((2, 2), device=dev, requires_grad=True)
+    (w @ w).sum().backward()             # cuBLAS's workspaces, made once
+    del w
+    rec = {}
+    _fed_chain(cfg, fed, dev, 1, mesh, (True, False), pipe.batch, mask,
+               FED_SEED, _fed_recorder(dev, rec, "_estimate_placed"
+                                       if mesh is not None else
+                                       "_estimate"))
+    shapes = dict(tree_paths(ft.init_fed_state(cfg, fed, 1, 0,
+                                                device="meta").params))
+    field = largest = gathered = 0
+    for path, blk, _ in rec["theta"][-1]:
+        field += blk.nbytes
+        largest = max(largest, blk.nbytes)
+        if blk.shape[1:] != shapes[path].shape[1:]:
+            gathered += 4 * math.prod(shapes[path].shape[1:])
+    rec.update(field=field, largest=largest, gathered=gathered,
+               whole=4 * sum(math.prod(x.shape[1:])
+                             for x in shapes.values()))
+    return rec
+
+
+def fed_block_rank_main(argv) -> int:
+    """``chip_smoke.py --fed-block-rank RANK WORLD PORT OUT DEVICE``: one
+    rank of phase 10e, in a gloo group on localhost:PORT, on DEVICE's type
+    (``cuda``: the card), on the FED_BLOCK_MESH mesh; writes its results
+    to OUT."""
+    rank, world, port, dst, dev = argv
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=int(world), rank=int(rank))
+    try:
+        mesh = make_debug_mesh(*FED_BLOCK_MESH, device_type=dev)
+        torch.save(_fed_block_run(torch.device(dev), mesh), dst)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _fed_block_reckoning(large: bool) -> dict:
+    """Phase 10e's rank as the dry run reckons it (``AbstractMesh`` of
+    FED_BLOCK_MESH, f32): the estimate's plan, its largest gather and
+    ``train_gathered_bytes`` of one step of the coin (one agent's
+    gradient blocks, two on a PAGE step)."""
+    import math
+    import torch
+    from repro_torch.core.tree import tree_paths
+    from repro_torch.distributed import fed_trainer as ft
+    from repro_torch.distributed.sharding import AbstractMesh
+    from repro_torch.launch import analysis, dryrun
+    cfg = _fed_cfg()
+    mesh = AbstractMesh(FED_BLOCK_MESH, ("data", "model"))
+    _, shape, batch, (specs, batch_sh, _) = ft.make_fed_step(
+        cfg, ft.FedConfig(**FED_BLOCK_KW), mesh, large=True,
+        dtype=torch.float32, per_agent_batch=FED_BATCH, seq_len=FED_SEQ)
+    plan = analysis.estimate_plan(cfg, mesh, shape, specs, batch, batch_sh)
+    grads = sum(math.prod(leaf.block[1:]) * leaf.itemsize for leaf in (
+        analysis.Leaf.of(t, s, mesh) for (_, t), (_, s) in zip(
+            tree_paths(shape.params), tree_paths(specs.params))))
+    return {"plan": plan, "big": max((b for _, b, _ in plan), default=0),
+            "whole": [path for (kind, path), _, _ in plan
+                      if kind == "whole"],
+            "gathered": dryrun.train_gathered_bytes(
+                plan, grads * (1 if large else 2))}
+
+
+def phase_fed_blocks(dev):
+    """Phase 10e: the tree trainer's step on each rank's blocks at
+    Llama-3.2-1B's full width (FED_LAYERS layers, D = FED_D, f32), over
+    two gloo ranks on the one card (fresh processes, one group), (data,
+    model) = (1, 2), K = 1, the coin-1 step then the coin-0 step, against
+    the one-process ``fed_train_step`` on the card from the same init and
+    batches: each rank's v blocks within FED_CPU_V_TOL of max|v| and its
+    θ blocks within FED_CPU_TOL of max|θ| (phase 10's card-vs-CPU
+    tolerances: the blocks sum in another order, and Adam's first step
+    from the common init turns a rounding of a gradient entry near its
+    eps into a share of lr, which the PAGE step's gradients then read),
+    the losses within FED_LOSS_TOL,
+    the two ranks' losses bit-identical, no kernel launch, no leaf
+    gathered whole (the dry run's plan). Each rank's allocation across
+    each estimate above the step's start within its reckoning: its
+    direction blocks, ``train_gathered_bytes`` (its gradient blocks, one
+    layer's gathered leaves and their gradients, the largest all-gather)
+    and the one-process estimate's activations, plus FED_BLOCK_SLACK;
+    its reckoning (without the activations) lies at least one agent's
+    whole leaves below the estimate's term of :func:`_tree_rank_bound`
+    for the same rank (which counts none either). Each rank's step
+    allocation and max_memory_allocated (which also holds the one-process
+    chain's whole state that the rank carries) are logged beside the
+    card's name and power limit."""
+    import os
+    import socket
+    import tempfile
+    import torch
+    torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    world = FED_BLOCK_MESH[0] * FED_BLOCK_MESH[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        dsts = [os.path.join(tmp, f"rank{r}.pt") for r in range(world)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--fed-block-rank",
+             str(r), str(world), str(port), dsts[r], dev.type],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for r in range(world)]
+        try:
+            one = _fed_block_run(dev)
+            for p in procs:
+                _, err = p.communicate(timeout=FED_RANK_TIMEOUT_S)
+                if p.returncode != 0:
+                    raise AssertionError(f"fed block rank exited "
+                                         f"{p.returncode}:\n{err[-3000:]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        secs = time.perf_counter() - t0
+        ranks = [torch.load(d, weights_only=False) for d in dsts]
+    torch.cuda.empty_cache()
+    return _fed_block_check(one, ranks, secs, dev)
+
+
+def _fed_block_check(one, ranks, secs, dev):
+    """Phase 10e's comparisons (:func:`phase_fed_blocks`); logs them."""
+    bad, lines = [], []
+    cuda = dev.type == "cuda"
+    W = ranks[0]["whole"]
+    lr = FED_BLOCK_KW["lr"]
+    gb = 2 ** 30
+    for t in range(2):
+        large = t == 0
+        rk = _fed_block_reckoning(large)
+        if rk["whole"]:
+            bad.append(f"the plan gathers leaves whole: {rk['whole']}")
+        g = _fed_step_gaps(one, ranks, t, lr)
+        if not _fed_gaps_ok(g):
+            bad.append(f"step {t}: {_fed_gaps_text(g)}")
+        if any(r["losses"][t] != ranks[0]["losses"][t] for r in ranks):
+            bad.append(f"step {t}: the ranks' losses differ")
+        if any(any(r["launches"][t].values()) for r in [one, *ranks]):
+            bad.append(f"step {t}: kernel launches")
+        # the one-process estimate's activations: its peak above the
+        # step's start less its whole directions and gradients
+        grads = 1 if large else 2
+        act = max(one["est_peaks"][t] - one["starts"][t] - (1 + grads) * W,
+                  0)
+        est = [r["est_peaks"][t] - r["starts"][t] for r in ranks]
+        step = [r["peaks"][t] - r["starts"][t] for r in ranks]
+        bound = ranks[0]["field"] + rk["gathered"] + act + FED_BLOCK_SLACK
+        # _tree_rank_bound's estimate term for the same rank: its
+        # direction blocks, the fields its loss read gathered whole and
+        # the agent's whole gradients
+        old = ranks[0]["field"] + (1 if large else 3) \
+            * ranks[0]["gathered"] + grads * W
+        if cuda and not (max(est) <= bound
+                         and bound - act - FED_BLOCK_SLACK + W <= old):
+            bad.append(f"step {t}: estimate allocations {est} against "
+                       f"the bound {bound} (the present estimate term "
+                       f"{old}, one agent {W})")
+        lines.append(
+            f"[fed] {card()}: fed_blocks step {t} (coin {int(large)}, from "
+            f"the one-process chain's state): {_fed_gaps_text(g)}; ms/step "
+            f"per rank {[round(r['ms'][t], 3) for r in ranks]}, one "
+            f"process {one['ms'][t]:.3f}; each rank's allocation above "
+            f"the step's start across the estimate "
+            f"{[round(x / gb, 3) for x in est]} GiB within the bound "
+            f"{bound / gb:.3f} GiB (its direction blocks "
+            f"{ranks[0]['field'] / gb:.3f}, train_gathered_bytes "
+            f"{rk['gathered'] / gb:.3f} with the largest all-gather "
+            f"{rk['big'] / 2**20:.3f} MiB, the one-process activations "
+            f"{act / gb:.3f}, slack {FED_BLOCK_SLACK >> 20} MiB), the "
+            f"present estimate term {old / gb:.3f} GiB, one agent's whole "
+            f"leaves {W / gb:.3f} GiB; across the whole step "
+            f"{[round(x / gb, 3) for x in step]} GiB (one process "
+            f"{(one['peaks'][t] - one['starts'][t]) / gb:.3f}); "
+            f"max_memory_allocated per rank "
+            f"{[round(r['peaks'][t] / gb, 3) for r in ranks]} GiB (at "
+            f"the step's start "
+            f"{[round(r['starts'][t] / gb, 3) for r in ranks]} GiB: the "
+            f"rank's blocks and the one-process chain's whole state it "
+            f"carries), one process {one['peaks'][t] / gb:.3f} GiB")
+    lines.append(f"[fed] {card()}: fed_blocks (phase 10e: {FED_ARCH} full "
+                 f"width, {FED_LAYERS} layers, D={FED_D}, K=1 over "
+                 f"{len(ranks)} gloo ranks on the one card, (data, model) = "
+                 f"{FED_BLOCK_MESH}, {FED_BATCH} x {FED_SEQ} tokens, coins "
+                 f"1 then 0); the ranks' wall {secs:.1f} s")
+    for line in lines:
+        log(line)
+    if bad:
+        raise AssertionError(f"fed blocks: {bad}")
 
 
 def phase_fed_tree_vs_flat(dev):
@@ -4385,6 +4836,10 @@ def phase_fed(dev):
     t0 = time.perf_counter()
     phase_fed_tree_ranks(dev)
     log(f"[time] phase 10d tree ranks {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_fed_blocks(dev)
+    log(f"[time] phase 10e blocks at full width "
+        f"{time.perf_counter() - t0:.1f} s")
     phase_fed_tree_vs_flat(dev)
     tree = phase_fed_cpu_agreement(dev)
     phase_fed_cli(dev)
@@ -5492,6 +5947,8 @@ if __name__ == "__main__":
         sys.exit(fed_rank_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--fed-tree-rank"]:
         sys.exit(fed_tree_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--fed-block-rank"]:
+        sys.exit(fed_block_rank_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--serve-rank"]:
         sys.exit(serve_rank_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--serve-tp-rank"]:

@@ -20,7 +20,16 @@ rank that holds it, where the layers are split); :func:`rank_sum` adds
 partials over mesh dimensions in rank order, so every rank holds the
 same bits (``all_reduce`` promises no order). A mesh dimension of size 1
 costs no collective, so on a one-rank mesh every function here is the
-plain tensor's operation. The D-sharded bare stack of the flat trainer is
+plain tensor's operation.
+
+Autograd goes through each of them, so that a rank's forward and
+backward run on its blocks: :func:`rank_sum`'s backward is the identity
+and its conjugate :func:`enter` (the identity forward) sums the ranks'
+partial gradients in rank order; :func:`gather`'s backward keeps the
+rank's block of the whole gradient; :func:`layer_block`'s brings a
+layer's gradient to the rank that holds it. Every one stays an
+``all_gather`` summed in rank order, so a rank's bits do not depend on
+its rank. The D-sharded bare stack of the flat trainer is
 :mod:`repro_torch.carriers.columns`' carrier; this one is the tree
 trainer's.
 """
@@ -151,7 +160,17 @@ def gather(block: torch.Tensor, lay: Layout, dims: Sequence[int]
     """``block`` (laid out as ``lay`` on the given dimensions; the others
     may be cut) with ``dims`` put back together: per split dimension, an
     ``all_gather`` over each of its mesh dimensions, inner first, the
-    parts concatenated in rank order; on the block's device."""
+    parts concatenated in rank order; on the block's device. Under
+    autograd the backward keeps this rank's block of the gradient
+    (:class:`_Gather`)."""
+    dims = tuple(dims)
+    if not any(lay.mesh.size(m) > 1 for d in dims for m in lay.splits[d]):
+        return block
+    return _Gather.apply(block, lay, dims)
+
+
+def _gather(block: torch.Tensor, lay: Layout, dims: Sequence[int]
+            ) -> torch.Tensor:
     out = block
     for d in dims:
         for m in reversed(lay.splits[d]):
@@ -160,34 +179,61 @@ def gather(block: torch.Tensor, lay: Layout, dims: Sequence[int]
     return out.to(block.device)
 
 
-def layer_block(x, i: int) -> Tuple[torch.Tensor, Optional[Layout]]:
+def layer_block(t: torch.Tensor, lay: Optional[Layout], i: int,
+                rows: Sequence[int] = ()
+                ) -> Tuple[torch.Tensor, Optional[Layout]]:
     """Layer ``i`` of a layer-stacked leaf (dimension 0 the layers) as
-    this rank holds it: its block past dimension 0, and the
+    this rank holds it: ``t`` its block, laid out as ``lay`` (None: a
+    plain tensor). Returns its block past dimension 0 and the
     :class:`Layout` of one layer (None for a plain tensor). Where mesh
     dimensions split the layers (FSDP over "data"), every rank of their
     groups gathers the slice at the same place in its block, one
-    ``all_gather`` per mesh dimension, and keeps the one of the rank
-    that holds layer ``i`` (the other ranks' slices go)."""
-    t, lay = local(x), layout(x)
+    ``all_gather`` per mesh dimension, and keeps the one of the rank that
+    holds layer ``i`` (the other ranks' slices go).
+
+    Under autograd the backward brings the layer's gradient to the rank
+    that holds it: summed in rank order over the mesh dimensions in
+    ``rows`` (each rank of such a group computed its own rows, so each
+    holds a part of the gradient), as is over the others (every rank of
+    the group computed the same); the other ranks' slices get zeros."""
     if lay is None:
         return t[i], None
     per = lay.shape[0] // lay.parts(0)
-    out, owner = t[i % per], i // per
-    # per mesh dimension, inner first: every rank's slice, of which the
-    # one at the holder's coordinate stays (the others go with the list)
-    for m in reversed(lay.splits[0]):
-        n = lay.mesh.size(m)
-        if n > 1:
-            out = gather_over(out, lay.mesh, m)[owner % n].to(t.device)
-        owner //= n
-    return out, lay.without_first()
+    piece, owner = t[i % per], i // per
+    dims = [m for m in reversed(lay.splits[0]) if lay.mesh.size(m) > 1]
+    if dims:
+        piece = _LayerSlice.apply(piece, lay.mesh, tuple(dims), owner,
+                                  tuple(rows))
+    return piece, lay.without_first()
 
 
-def rank_sum(partial: torch.Tensor, mesh, dims: Sequence[int]
-             ) -> torch.Tensor:
-    """Σ of each rank's ``partial`` over the mesh dimensions ``dims``, one
-    dimension after another in the given order, each in rank order: the
-    same bits on every rank."""
+class _LayerSlice(torch.autograd.Function):
+    """:func:`layer_block`'s gather of the holder's slice (``dims`` inner
+    first, ``owner`` the holder's index over them)."""
+
+    @staticmethod
+    def forward(ctx, piece, mesh, dims, owner, rows):
+        ctx.mesh, ctx.dims, ctx.rows = mesh, dims, rows
+        coord, held = mesh.get_coordinate(), True
+        out = piece
+        for m in dims:
+            n = mesh.size(m)
+            out = gather_over(out, mesh, m)[owner % n].to(piece.device)
+            held &= coord[m] == owner % n
+            owner //= n
+        ctx.held = held
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        for m in ctx.dims:
+            if m in ctx.rows:
+                grad = _sum(grad, ctx.mesh, [m])
+        return (grad if ctx.held else torch.zeros_like(grad),
+                None, None, None, None)
+
+
+def _sum(partial: torch.Tensor, mesh, dims: Sequence[int]) -> torch.Tensor:
     out = partial
     for m in dims:
         if mesh.size(m) > 1:
@@ -196,6 +242,85 @@ def rank_sum(partial: torch.Tensor, mesh, dims: Sequence[int]
             for p in parts[1:]:
                 out += p
     return out.to(partial.device)
+
+
+class _RankSum(torch.autograd.Function):
+    """:func:`rank_sum` under autograd: the gradient that reaches a sum
+    is the same on every rank of its groups (what follows the sum runs
+    alike on each), so it passes through as it is."""
+
+    @staticmethod
+    def forward(ctx, partial, mesh, dims):
+        return _sum(partial, mesh, dims)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _Enter(torch.autograd.Function):
+    """:func:`enter`: the identity, whose backward is the rank-order sum
+    of each rank's partial gradient (the conjugate of :class:`_RankSum`)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dims):
+        ctx.mesh, ctx.dims = mesh, dims
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum(grad, ctx.mesh, ctx.dims), None, None
+
+
+class _Gather(torch.autograd.Function):
+    """:func:`gather` under autograd: the backward keeps this rank's block
+    of the whole gradient (the gathered tensor is used alike on every
+    rank of the groups, so each holds the same whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, block, lay, dims):
+        ctx.lay, ctx.dims = lay, dims
+        return _gather(block, lay, dims)
+
+    @staticmethod
+    def backward(ctx, grad):
+        idx = [slice(None)] * grad.dim()
+        for d in ctx.dims:
+            idx[d] = slice(*ctx.lay.block(d))
+        return grad[tuple(idx)], None, None
+
+
+def _split_over(mesh, dims: Sequence[int]) -> list:
+    return [m for m in dims if mesh.size(m) > 1]
+
+
+def rank_sum(partial: torch.Tensor, mesh, dims: Sequence[int]
+             ) -> torch.Tensor:
+    """Σ of each rank's ``partial`` over the mesh dimensions ``dims``, one
+    dimension after another in the given order, each in rank order: the
+    same bits on every rank. Under autograd its backward is the identity
+    (:class:`_RankSum`)."""
+    dims = _split_over(mesh, dims)
+    return _RankSum.apply(partial, mesh, tuple(dims)) if dims else partial
+
+
+def enter(x: torch.Tensor, mesh, dims: Sequence[int]) -> torch.Tensor:
+    """``x`` itself, where a tensor that every rank of the groups over
+    ``dims`` holds alike enters compute split over them (a column-
+    parallel projection, an expert block, a vocabulary block of the
+    head): its backward sums each rank's partial gradient in rank order,
+    so every rank gets the same whole gradient."""
+    dims = _split_over(mesh, dims)
+    return _Enter.apply(x, mesh, tuple(dims)) if dims else x
+
+
+def rank_max(x: torch.Tensor, mesh, dims: Sequence[int]) -> torch.Tensor:
+    """The elementwise max of each rank's ``x`` over the mesh dimensions
+    ``dims`` (exact in any order; no gradient)."""
+    out = x.detach()
+    for m in _split_over(mesh, dims):
+        out = torch.stack(gather_over(out, mesh, m)).amax(0)
+    return out.to(x.device)
 
 
 def owns(lay: Optional[Layout], dims: Sequence[int]) -> bool:

@@ -48,12 +48,19 @@ reference's rules (:func:`fed_state_shardings`, :func:`place_fed_state`:
 K over the federation dimensions, trailing dimensions over "model", a
 layer stack over "data" with ``fsdp_layers``; DTensors of
 :mod:`repro_torch.carriers.placed`). ``fed_train_step`` on such a
-state runs the rank's own agents only: each agent's leaves gathered whole
-for its loss (and its batch, where "data" splits it), the rank keeping
-its block of every gradient; the aggregation and agreement on the placed
-tree; Adam on the blocks. :func:`make_fed_step` gives the step, its
-state and batch shapes (on the ``meta`` device) and their specs. On a
-one-rank mesh the step is the plain step, bit for bit and byte for byte.
+state runs the rank's own agents only: each agent's loss and gradient on
+the rank's rows and blocks (:func:`_estimate_blocks`: the rank's
+:class:`~repro_torch.models.model.Parallel` of
+:mod:`repro_torch.distributed.tensor_parallel`, autograd through every
+rank-order sum and gather, one layer's leaves gathered at a time where
+they must be, never an agent's whole leaves, its directions or its
+logits), the gradient coming out at the rank's block; the aggregation
+and agreement on the placed tree; Adam on the blocks. Where no mesh
+dimension of more than one rank splits an agent's leaves or rows
+(``fed_axis="all"``) each agent's loss is the plain one.
+:func:`make_fed_step` gives the step, its state and batch shapes (on
+the ``meta`` device) and their specs. On a one-rank mesh the step is the
+plain step, bit for bit and byte for byte.
 """
 from __future__ import annotations
 
@@ -74,10 +81,12 @@ from repro_torch.core.tree import (ravel_tree, tree_map, tree_paths,
                                    unravel_tree)
 from repro_torch.distributed import aggregation as agg_lib
 from repro_torch.carriers import columns, placed
-from repro_torch.distributed.sharding import (PartitionSpec, batch_spec,
-                                              mesh_axis_size, n_agents,
-                                              param_shardings, place_tree,
-                                              placements)
+from repro_torch.distributed.sharding import (PartitionSpec, batch_axes,
+                                              batch_spec, mesh_axis_size,
+                                              n_agents, param_shardings,
+                                              place_tree, placements,
+                                              serve_uses)
+from repro_torch.distributed.tensor_parallel import rank_parallel
 from repro_torch.models.model import (init_params, lm_loss, lm_loss_labeled,
                                       param_shapes)
 from repro_torch.optim.optimizers import get_optimizer
@@ -344,12 +353,13 @@ def init_flat_fed_state(cfg: ModelConfig, fed: FedConfig, K: int, key,
 # The step
 # ---------------------------------------------------------------------------
 
-def _loss(cfg, params, batch):
+def _loss(cfg, params, batch, par=None):
     if "labels" in batch:
         return lm_loss_labeled(cfg, params, batch["tokens"],
-                               batch["labels"], batch.get("prefix_embeds"))
+                               batch["labels"], batch.get("prefix_embeds"),
+                               par)
     return lm_loss(cfg, params, batch["tokens"],
-                   batch.get("prefix_embeds"))
+                   batch.get("prefix_embeds"), par)
 
 
 def _agent_grad(cfg, params_k, batch_k):
@@ -418,47 +428,110 @@ def _estimate_sharded(cfg, K, sh, state, unravel, batch, large: bool):
 def _estimate_placed(cfg, state: FedState, batch: dict, large: bool,
                      lays: list):
     """:func:`_estimate` on a placed state: the rank's own agents only.
-    An agent's leaves split past their first dimension are gathered whole
-    for its loss, and the rank keeps its block of each direction; its
-    batch rows are gathered whole where the batch spec splits them.
-    Returns ``(tilde_v, losses)``: the directions placed like
-    ``state.params``, the (K,) losses gathered over the federation
-    dimensions in rank order, the same on every rank."""
+    Where no mesh dimension of more than one rank splits an agent's leaves
+    or its rows (``fed_axis="all"``, a one-rank mesh) each agent runs the
+    plain loss on its leaves; else on the rank's rows and blocks
+    (:func:`_estimate_blocks`). Returns ``(tilde_v, losses)``: the
+    directions placed like ``state.params``, the (K,) losses gathered
+    over the federation dimensions in rank order, the same on every
+    rank."""
     lo, hi = lays[0].block(0)
-    trees = {"params": state.params, "prev": state.prev_params,
-             "v": state.v}
-    blocks = {name: [placed.local(x) for x in _leaves(tree)]
-              for name, tree in trees.items()}
-    out = [torch.empty_like(x) for x in blocks["params"]]
-    bufs = []
+    mesh = lays[0].mesh
+    rows = {key: _batch_rows(val, cfg, mesh) for key, val in batch.items()}
+    row_dims = _row_dims(cfg, mesh)
+    if row_dims or any(mesh.size(m) > 1 for lay in lays
+                       for m in lay.trailing):
+        out, losses = _estimate_blocks(cfg, state, rows, large, lays,
+                                       row_dims)
+    else:
+        blocks = {name: [placed.local(x) for x in _leaves(tree)]
+                  for name, tree in (("params", state.params),
+                                     ("prev", state.prev_params),
+                                     ("v", state.v))}
+        out = [torch.empty_like(x) for x in blocks["params"]]
 
-    def whole(x, lay):
-        return placed.gather(x, lay, range(1, len(lay.shape)))[0]
+        def agent(name, k):
+            src = blocks[name] if isinstance(name, str) else name
+            return _unflat(state.params, [x[k] for x in src])
 
-    def agent(name, k):
-        nonlocal bufs
-        if isinstance(name, str):
-            return _unflat(state.params, [
-                whole(x[k:k + 1], lay) if lay.trailing else x[k]
-                for x, lay in zip(blocks[name], lays)])
-        bufs = [torch.empty(lay.shape[1:], dtype=o.dtype, device=o.device)
-                if lay.trailing else o[k] for o, lay in zip(out, lays)]
-        return _unflat(state.params, bufs)
-
-    def written(k):
-        for o, b, lay in zip(out, bufs, lays):
-            if lay.trailing:
-                o[k].copy_(b[lay.index(1)])
-
-    rows = {}
-    for key, val in batch.items():
-        lay = placed.layout(val)
-        rows[key] = val[lo:hi] if lay is None \
-            else placed.gather(placed.local(val), lay, [1])
-    losses = _estimate(cfg, hi - lo, agent, None, rows, large, written)
+        losses = _estimate(cfg, hi - lo, agent, out, rows, large)
     tilde_v = _unflat(state.params,
                       [lay.wrap(o) for o, lay in zip(out, lays)])
     return tilde_v, lays[0].agents(losses)
+
+
+def _row_dims(cfg, mesh) -> list:
+    """The mesh dimensions of more than one rank that split an agent's
+    batch rows."""
+    names = tuple(mesh.mesh_dim_names)
+    return [names.index(a) for a in batch_axes(cfg, mesh)
+            if a in names and mesh_axis_size(mesh, a) > 1]
+
+
+def _batch_rows(val, cfg, mesh) -> torch.Tensor:
+    """The rank's block of a batch leaf ((K, b, ...), placed by
+    :func:`~repro_torch.distributed.sharding.batch_spec`): a DTensor's
+    block, or that block of a tensor every rank holds whole."""
+    if placed.layout(val) is not None:
+        return placed.local(val)
+    lay = placed.Layout.of(val.shape, mesh, placements(
+        batch_spec(cfg, mesh, stacked=True), mesh))
+    return val[lay.index()[:2]]
+
+
+def _estimate_blocks(cfg, state: FedState, rows: dict, large: bool,
+                     lays: list, row_dims: list):
+    """The rank's agents' directions on its rows and blocks: each pass
+    (``params``, and on a PAGE step ``prev``) runs the model through the
+    rank's :func:`~repro_torch.distributed.tensor_parallel.rank_parallel`
+    on its rows, with autograd through every collective, so the gradient
+    comes out at the rank's block of each leaf. Summed over the row
+    dimensions in rank order (a layer split over them is summed at its
+    holder in the backward), it is the agent's gradient of the mean loss
+    over all its rows; ``a − b + c`` is elementwise on the blocks.
+    Returns the direction blocks and the rank's agents' losses, each the
+    rank-order mean of its row ranks' losses."""
+    mesh = lays[0].mesh
+    n = math.prod(mesh.size(m) for m in row_dims)
+    per = [lay.without_first() for lay in lays]     # one agent's leaves
+    one = _unflat(state.params, per)
+    shapes = init_params(cfg, 0, device="meta")
+    uses = serve_uses(cfg, shapes, param_shardings(cfg, shapes, mesh), mesh)
+    blocks = {name: [placed.local(x) for x in _leaves(tree)]
+              for name, tree in (("params", state.params),
+                                 ("prev", state.prev_params),
+                                 ("v", state.v))}
+    sums = [[m for m in row_dims if m not in lay.splits[0]] for lay in per]
+    out = [torch.empty_like(x) for x in blocks["params"]]
+
+    def grad(name, k, b):
+        leaves = [x[k].detach().requires_grad_() for x in blocks[name]]
+        params = _unflat(state.params, leaves)
+        par = rank_parallel(cfg, mesh, params, one, uses, rows=row_dims)
+        with torch.enable_grad():
+            loss = _loss(cfg, params, b, par)
+            gs = torch.autograd.grad(loss / n if n > 1 else loss, leaves,
+                                     allow_unused=True)
+        gs = [placed.rank_sum(torch.zeros_like(t) if g is None else g,
+                              mesh, dims)
+              for t, g, dims in zip(leaves, gs, sums)]
+        return loss.detach(), gs
+
+    losses = []
+    for k in range(out[0].shape[0]):
+        b = {key: val[k] for key, val in rows.items()}
+        loss, g_new = grad("params", k, b)
+        losses.append(loss)
+        if large:
+            for o, g in zip(out, g_new):
+                o[k].copy_(g)
+        else:
+            _, g_old = grad("prev", k, b)
+            for o, a, b_old, c in zip(out, g_new, g_old, blocks["v"]):
+                o[k].copy_(a - b_old + c[k])
+            del g_old
+        del g_new
+    return out, placed.rank_sum(torch.stack(losses), mesh, row_dims) / n
 
 
 def _opt_update_placed(opt, v, opt_state, params, lays):

@@ -13,8 +13,10 @@ sliding-window ring of ``cfg.long_context_window`` (:func:`serve_cache_len`)
 and the recurrent families carry O(1) state.
 
 Each rank computes its own rows of the batch on its blocks, one layer at
-a time (``model.prefill`` and ``decode_step`` with a
-:class:`~repro_torch.models.model.Parallel`): how it uses each leaf is
+a time (``model.prefill`` and ``decode_step`` with the
+:class:`~repro_torch.models.model.Parallel` of
+:func:`~repro_torch.distributed.tensor_parallel.rank_parallel`, which the
+tree trainer's step on a mesh builds too): how it uses each leaf is
 :func:`~repro_torch.distributed.sharding.serve_use`'s rule. A "model"
 split leaf is used where it lies when its block holds whole heads,
 experts, ``d_ff`` columns or a vocabulary block: column-parallel
@@ -41,7 +43,6 @@ in place and return it.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import warnings
 from typing import Any, Callable
@@ -56,9 +57,9 @@ from repro_torch.distributed.sharding import (PartitionSpec,
                                               mesh_axis_size,
                                               param_shardings, place_tree,
                                               placements, serve_uses)
-from repro_torch.models.attention import kv_heads_for
-from repro_torch.models.model import (Parallel, decode_step, init_cache,
-                                      init_params, prefill)
+from repro_torch.distributed.tensor_parallel import rank_parallel
+from repro_torch.models.model import (decode_step, init_cache, init_params,
+                                      prefill)
 
 
 def serve_cache_len(cfg: ModelConfig, seq_len: int) -> int:
@@ -181,11 +182,15 @@ def make_serve_fns(cfg: ModelConfig, mesh, batch: int, seq_len: int,
     def rows_layout(shape):
         return placed.Layout.of(shape, mesh, b_places)
 
+    def _parallel(params, c_lays, pos=None):
+        return rank_parallel(cfg, mesh, tree_map(placed.local, params),
+                             tree_map(placed.layout, params), uses,
+                             c_lays=c_lays, pos=pos)
+
     def _prefill(params, tokens, prefix_embeds=None):
         params = placed_tree(params, psh)
         c_lays = _layouts(c_sh["blocks"], cache_shape["blocks"], mesh)
-        par = _parallel(cfg, mesh, params, uses, c_lays) if on_blocks \
-            else None
+        par = _parallel(params, c_lays) if on_blocks else None
         lay = rows_layout((batch,) + tuple(tokens.shape[1:]))
         logits, cache = prefill(cfg, tree_map(placed.local, params),
                                 _rows(tokens, lay), _rows(prefix_embeds, lay),
@@ -199,8 +204,8 @@ def make_serve_fns(cfg: ModelConfig, mesh, batch: int, seq_len: int,
         params = placed_tree(params, psh)
         blocks = placed_tree(cache["blocks"], c_sh["blocks"])
         c_lays = tree_map(placed.layout, blocks)
-        par = _parallel(cfg, mesh, params, uses, c_lays, cache["pos"]) \
-            if on_blocks else None
+        par = _parallel(params, c_lays, cache["pos"]) if on_blocks \
+            else None
         lay = rows_layout((batch,) + tuple(token.shape[1:]))
         logits, new = decode_step(cfg, tree_map(placed.local, params),
                                   _rows(token, lay),
@@ -224,107 +229,6 @@ def _layouts(specs, shapes, mesh):
     cache tree on ``mesh`` by its spec."""
     return tree_map(lambda spec, t: placed.Layout.of(
         t.shape, mesh, placements(spec, mesh)), specs, shapes)
-
-
-def _parallel(cfg: ModelConfig, mesh, params, uses, c_lays,
-              pos=None) -> Parallel:
-    """This rank's :class:`~repro_torch.models.model.Parallel` for one
-    call: ``params`` placed, ``uses`` their :func:`~repro_torch.
-    distributed.sharding.serve_use` tree, ``c_lays`` the cache blocks'
-    layouts and, for a decode, the cache's ``pos`` (read on the host
-    only where a ring split on W takes the new entry)."""
-    names = tuple(mesh.mesh_dim_names)
-    mdim = names.index("model") if "model" in names else None
-    m = mesh_axis_size(mesh, "model")
-    c = 0 if mdim is None else mesh.get_coordinate()[mdim]
-    blk = uses["blocks"]
-    a_use, f_use = blk.get("attn", {}), blk.get("mlp", {})
-
-    def psum(t):
-        return t if mdim is None else placed.rank_sum(t, mesh, [mdim])
-
-    def layer(i):
-        def one(x, use):
-            t, lay = placed.layer_block(x, i)
-            return placed.gather(t, lay, range(t.dim())) if use == "gather" \
-                else t
-        return tree_map(one, params["blocks"], blk)
-
-    def gather_vocab(t):
-        lay = placed.Layout(mesh, tuple(t.shape[:-1]) + (cfg.vocab_size,),
-                            ((),) * (t.dim() - 1) + ((mdim,),))
-        return placed.gather(t, lay, [t.dim() - 1])
-
-    kv_block = a_use.get("wk") == "cols"
-
-    def whole_dims(one: placed.Layout) -> list:
-        # the dimensions of a layer's cache leaf that the layer computes
-        # whole though they are split: the ring W, and K's and V's heads
-        # where the layer runs every KV head
-        return [d for d in (1, 2) if d < len(one.shape) and one.parts(d) > 1
-                and not (d == 2 and kv_block)]
-
-    def keep(i, parts):
-        def cut(t, lay):
-            one = lay.without_first()
-            dims = whole_dims(one)
-            if not dims:
-                return t
-            idx = [slice(None)] * t.dim()
-            for d in dims:
-                idx[d] = slice(*one.block(d))
-            return t[tuple(idx)].clone()
-        return tree_map(cut, parts, c_lays)
-
-    slot = []                          # pos % W, read once, when needed
-
-    @contextlib.contextmanager
-    def cache(i, blocks):
-        # such a leaf is gathered for the layer and the new ring entry
-        # written back into the block; the others are read and written
-        # in place
-        moved = []
-
-        def rows(t, lay):
-            view, one = t[i], lay.without_first()
-            dims = whole_dims(one)
-            if not dims:
-                return view
-            whole = placed.gather(view, one, dims)
-            moved.append((view, whole, one, dims))
-            return whole
-        yield tree_map(rows, blocks, c_lays)
-        for view, whole, one, dims in moved:
-            if not slot:
-                slot.append(int(pos) % whole.shape[1])
-            lo, hi = one.block(1)
-            if lo <= slot[0] < hi:
-                idx = [slice(None)] * whole.dim()
-                for d in dims:
-                    idx[d] = slice(*one.block(d))
-                idx[1] = slot[0]
-                view[:, slot[0] - lo] = whole[tuple(idx)]
-
-    kw = {}
-    if a_use.get("wq") == "cols":
-        hb = cfg.n_heads // m
-        kw["attn_cfg"] = dataclasses.replace(
-            cfg, n_heads=hb, head_dim=cfg.resolved_head_dim,
-            n_kv_heads=cfg.n_kv_heads // m if kv_block else cfg.n_kv_heads)
-        if not kv_block:
-            kw["kv_heads"] = kv_heads_for(cfg, c * hb, (c + 1) * hb)
-    if f_use.get("w_down") == "experts":
-        eb = cfg.moe.n_experts // m
-        kw["experts"] = (c * eb, (c + 1) * eb)
-    if uses["embed"] == "vocab":       # and lm_head "cols": the same V
-        vb = cfg.vocab_size // m
-        kw.update(vocab=(c * vb, (c + 1) * vb), gather_vocab=gather_vocab)
-    return Parallel(
-        layer=layer, psum=psum, attn_cfg=kw.pop("attn_cfg", cfg),
-        attn_partial=a_use.get("wo") == "rows",
-        mlp_partial=f_use.get("w_down") in ("rows", "experts"),
-        shared_partial=f_use.get("shared", {}).get("w_down") == "rows",
-        keep=keep, cache=cache, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -28,10 +28,13 @@ issues them:
   gathered whole, a layer split over "data" gathered from its rank, and
   a decode's ring split on W gathered for the layer
   (:func:`serve_gathers`);
-* each split leaf gathered whole for one agent's loss (every mesh
-  dimension of more than one rank that splits it, inner first, as
-  ``placed.gather`` does);
-* a federated step's batch rows, its losses and Adam's counters gathered
+* one agent's loss and gradient on a rank's rows and blocks
+  (:func:`train_gathers`): the forward's rank-order sums and layer
+  gathers, remat's recompute of each layer, the backward's conjugate
+  sums and layer gradients brought to their holders, the vocabulary-
+  parallel loss's block sums, and the gradients' sums over the batch
+  dimensions;
+* a federated step's losses and Adam's counters gathered
   over the federation dimensions, the leaves' K rows gathered for the
   aggregation, the attacks' honest sums and GDA's mix, and the (K, K)
   Gram partials (and the telemetry's squared norms) summed over the
@@ -48,7 +51,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core.tree import tree_paths
-from repro_torch.distributed.sharding import mesh_axis_size, serve_use
+from repro_torch.distributed.sharding import (PartitionSpec,
+                                              mesh_axis_size, serve_use)
 from repro_torch.launch.mesh import HBM_BW, NVLINK_BW_PER_LINK, PEAK_FLOPS_BF16
 
 #: one collective: the bytes it gathers (its output, all parts) and its
@@ -177,6 +181,18 @@ class Leaf:
         return out
 
 
+def _tree(pairs):
+    """A nested dict from ``(path, leaf)`` pairs."""
+    out: dict = {}
+    for path, leaf in pairs:
+        node = out
+        *head, last = path.split("/")
+        for key in head:
+            node = node.setdefault(key, {})
+        node[last] = leaf
+    return out
+
+
 def _leaves(tree, specs, mesh) -> List[Leaf]:
     return [Leaf.of(t, s, mesh) for (_, t), (_, s)
             in zip(tree_paths(tree), tree_paths(specs))]
@@ -260,15 +276,150 @@ def serve_gathers(cfg, params_shape, param_specs, mesh, rows: int,
     return out
 
 
+def train_gathers(cfg, params_shape, param_specs, mesh, rows: int,
+                  text: int, prefix: int = 0, row_dims=()
+                  ) -> List[Tuple[Tuple[str, str], int, int]]:
+    """The collectives of one agent's loss and gradient on a rank's rows
+    and blocks (the tree trainer's step on a placed state:
+    :func:`repro_torch.distributed.fed_trainer._estimate_blocks`), in
+    the order the route issues them, each ((kind, what), bytes gathered,
+    group size): ``params_shape`` one agent's leaves and
+    ``param_specs`` their specs (``stacked=False``), ``rows`` the rank's
+    batch rows of ``text`` tokens (the loss's positions) and ``prefix``
+    embeddings, ``row_dims`` the mesh dimensions that split the rows.
+
+    * the forward: ``("sum", "embed")``; per layer the entries of
+      :func:`serve_gathers` (its ``"layer"`` slices over "data", its
+      ``"whole"`` leaves, the attention's and the MLP's rank-order sums);
+      the loss's ``("max", "logits")``, ``("sum", "lse")`` and
+      ``("sum", "label")`` over the vocabulary blocks (f32, a row and
+      position each);
+    * the backward: ``("enter", "head")``, the head's input's partial
+      gradients summed; per layer, last first, the layer's forward
+      again (remat's recompute), then its conjugate sums in the order
+      autograd reaches them (``("enter", "shared")``, ``("enter",
+      "router")`` the routing weights, ``("enter", "mlp")``; ``("enter",
+      "v")``, ``("enter", "k")`` where K and V are computed for every KV
+      head, ``("enter", "attn")``) and ``("layer-grad", path)``, each
+      layer slice's gradient brought to its holder over the row
+      dimensions, last leaf first;
+    * ``("grad", path)``: each leaf's gradient block summed over the row
+      dimensions that do not split its layers.
+
+    A rank whose leaves and rows no mesh dimension of more than one rank
+    splits runs the plain loss: none."""
+    P = dict(zip([p for p, _ in tree_paths(params_shape)],
+                 _leaves(params_shape, param_specs, mesh)))
+    sizes = next(iter(P.values())).sizes
+    row_dims = [d for d in row_dims if sizes[d] > 1]
+    if not row_dims and not any(
+            sizes[m] > 1 for leaf in P.values() for ms in leaf.splits
+            for m in ms):
+        return []
+    uses = {p: serve_use(cfg, p, s, mesh)
+            for p, s in tree_paths(param_specs)}
+
+    def use(path):
+        return uses.get(path, "whole")
+    m = mesh_axis_size(mesh, "model")
+    isz = P["embed"].itemsize
+    T = text + prefix
+    act = rows * T * cfg.d_model * isz
+    fwd, out = [], []
+    if use("embed") == "vocab":
+        fwd.append((("sum", "embed"), m * rows * text * cfg.d_model * isz,
+                    m))
+    blocks = [(p, leaf) for p, leaf in P.items() if p.startswith("blocks/")]
+    layer, back = [], []
+    for path, leaf in blocks:
+        one = [1] + leaf.block[1:]
+        slice_bytes = math.prod(one) * leaf.itemsize
+        split = [d for d in reversed(leaf.splits[0]) if leaf.sizes[d] > 1]
+        layer += [(("layer", path), leaf.sizes[d] * slice_bytes,
+                   leaf.sizes[d]) for d in split]
+        if uses[path] == "gather":
+            layer += [(("whole", path), b, g) for b, g in
+                      leaf.gather(range(1, len(leaf.shape)), one)]
+        back = [(("layer-grad", path), leaf.sizes[d] * slice_bytes,
+                 leaf.sizes[d]) for d in split if d in row_dims] + back
+    attn_partial = use("blocks/attn/wo") == "rows"
+    mlp_partial = use("blocks/mlp/w_down") in ("rows", "experts")
+    shared_partial = use("blocks/mlp/shared/w_down") == "rows"
+    if attn_partial:
+        layer.append((("sum", "attn"), m * act, m))
+    if mlp_partial or shared_partial:
+        layer.append((("sum", "mlp"), m * act, m))
+    enters = []
+    if cfg.moe is not None:
+        if shared_partial:
+            enters.append((("enter", "shared"), m * act, m))
+        if mlp_partial:
+            enters.append((("enter", "router"),
+                           m * rows * T * cfg.moe.top_k * 4, m))
+            enters.append((("enter", "mlp"), m * act, m))
+    elif mlp_partial:
+        enters.append((("enter", "mlp"), m * act, m))
+    if attn_partial:
+        if use("blocks/attn/wk") != "cols":
+            kv = m * rows * T * cfg.n_kv_heads * cfg.resolved_head_dim * isz
+            enters += [(("enter", "v"), kv, m), (("enter", "k"), kv, m)]
+        enters.append((("enter", "attn"), m * act, m))
+    n_layers = blocks[0][1].shape[0] if blocks else 0
+    vocab = use("embed") == "vocab"
+    loss = [(("max", "logits"), m * rows * text * 4, m),
+            (("sum", "lse"), m * rows * text * 4, m),
+            (("sum", "label"), m * rows * text * 4, m)] if vocab else []
+    out = fwd + layer * n_layers + loss
+    if vocab:
+        out.append((("enter", "head"), m * rows * text * cfg.d_model * isz,
+                    m))
+    out += (layer + enters + back) * n_layers
+    for path, leaf in P.items():
+        if not path.startswith("blocks/"):
+            dims = row_dims
+        else:
+            dims = [d for d in row_dims if d not in leaf.splits[0]]
+        out += [(("grad", path), sizes[d] * leaf.block_bytes, sizes[d])
+                for d in dims]
+    return out
+
+
+def _row_dims(batch, batch_specs, mesh) -> list:
+    tok = Leaf.of(batch["tokens"], batch_specs["tokens"], mesh)
+    return [m for m in tok.splits[1] if tok.sizes[m] > 1]
+
+
+def estimate_plan(cfg, mesh, state_shape, state_specs, batch, batch_specs
+                  ) -> List[Tuple[Tuple[str, str], int, int]]:
+    """:func:`train_gathers` of one agent's pass in a step of
+    ``make_fed_step`` (its shapes and specs as :func:`fed_step_gathers`
+    takes them): the agent's leaves, the rank's rows."""
+    tok = Leaf.of(batch["tokens"], batch_specs["tokens"], mesh)
+    one = [(p, t[0]) for p, t in tree_paths(state_shape.params)]
+    specs = [PartitionSpec(*tuple(s)[1:])
+             for _, s in tree_paths(state_specs.params)]
+    text = batch["tokens"].shape[-1] - ("labels" not in batch)
+    prefix = batch["prefix_embeds"].shape[2] if "prefix_embeds" in batch \
+        else 0
+    return train_gathers(cfg, _tree(one),
+                         _tree(list(zip([p for p, _ in one], specs))), mesh,
+                         tok.block[1], text, prefix,
+                         _row_dims(batch, batch_specs, mesh))
+
+
 def fed_step_gathers(fed, mesh, state_shape, state_specs, batch,
-                     batch_specs, large: bool, coord=None) -> List[Gather]:
+                     batch_specs, large: bool, coord=None, *, cfg
+                     ) -> List[Gather]:
     """The collectives of one step of
     :func:`repro_torch.distributed.fed_trainer.make_fed_step` (``large``
-    its PAGE coin) on the rank at mesh coordinate ``coord`` (default all
-    0: the rank that enters every leaf's Gram partial), in order.
-    ``state_shape`` and ``batch`` as tensors on any device (``meta``),
-    ``state_specs`` from ``fed_state_shardings`` and ``batch_specs`` from
-    ``batch_spec(stacked=True)``."""
+    its PAGE coin) of ``cfg`` on the rank at mesh coordinate ``coord``
+    (default all 0: the rank that enters every leaf's Gram partial), in
+    order. ``state_shape`` and ``batch`` as tensors on any device
+    (``meta``), ``state_specs`` from ``fed_state_shardings`` and
+    ``batch_specs`` from ``batch_spec(stacked=True)``. The estimate's are
+    :func:`train_gathers`' for each of the rank's agents (its ``params``
+    pass, and on a PAGE step its ``prev`` pass), then its agents' losses
+    summed over the row dimensions."""
     P = _leaves(state_shape.params, state_specs.params, mesh)
     coord = tuple(coord) if coord is not None else (0,) * len(P[0].sizes)
     K = P[0].shape[0]
@@ -282,8 +433,8 @@ def fed_step_gathers(fed, mesh, state_shape, state_specs, batch,
     def rows(leaf):
         return leaf.gather([0])
 
-    def rank_sum(nbytes):
-        for m in dims:
+    def rank_sum(nbytes, over=dims):
+        for m in over:
             g = P[0].sizes[m]
             if g > 1:
                 out.append((nbytes * g, g))
@@ -302,16 +453,14 @@ def fed_step_gathers(fed, mesh, state_shape, state_specs, batch,
         for leaf in P:
             out.extend(rows(leaf))
 
-    # the estimate: the batch rows, then each of the rank's agents' split
-    # leaves gathered whole for its loss (params; prev and v at c = 0)
-    for (_, t), (_, s) in zip(tree_paths(batch), tree_paths(batch_specs)):
-        out.extend(Leaf.of(t, s, mesh).gather([1]))
+    # the estimate: each of the rank's agents' passes on its rows and
+    # blocks, then the losses summed over the row dimensions
+    plan = [(b, g) for _, b, g in estimate_plan(
+        cfg, mesh, state_shape, state_specs, batch, batch_specs)]
     for _ in range(Kb):
-        for _ in range(1 if large else 3):
-            for leaf in P:
-                if leaf.trailing:
-                    out.extend(leaf.gather(range(1, len(leaf.shape)),
-                                           [1] + leaf.block[1:]))
+        out.extend(plan * (1 if large else 2))
+    if plan:
+        rank_sum(Kb * 4, _row_dims(batch, batch_specs, mesh))
     agents(4)                                   # the f32 losses
     if K > 1:
         if fed.attack.name in ("avg_zero", "sign_flip"):

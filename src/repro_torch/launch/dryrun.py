@@ -30,10 +30,13 @@ lowered that way, so each record departs from the reference's:
   layer split over "data" copied from its rank, a leaf used whole
   gathered over "model") and, for a decode, the layer's ring rows
   gathered whole over W, plus the largest ``all_gather`` output of the
-  call (a rank-order sum's parts, or a layer gather's). For training:
-  one agent's split leaves gathered whole for its loss and its whole
-  gradients. ``peak_per_device_gb`` = (argument + output − alias +
-  gathered) / 2³⁰. Activations and workspaces are not counted.
+  call (a rank-order sum's parts, or a layer gather's). For training
+  (each agent's loss and gradient on the rank's rows and blocks):
+  the agent's gradient blocks, one layer's gathered leaves and their
+  whole gradients, and the call's largest ``all_gather`` output
+  (:func:`train_gathered_bytes`). ``peak_per_device_gb`` = (argument
+  + output − alias + gathered) / 2³⁰. Activations and workspaces are
+  not counted.
 * ``roofline``: ``flops_per_device`` is ``model_flops_global / n_chips``
   (no HLO FLOPs; ``compute_hlo_s`` is then the same term), the bytes
   accessed are the device's argument and output bytes (each read or
@@ -64,9 +67,10 @@ from repro_torch.core.tree import tree_paths
 from repro_torch.distributed.fed_trainer import FedConfig, make_fed_step
 from repro_torch.distributed.serving import make_serve_fns
 from repro_torch.distributed.sharding import AbstractMesh, n_agents
-from repro_torch.launch.analysis import (Leaf, fed_step_gathers,
-                                         model_flops, roofline_terms,
-                                         route_wire_bytes, serve_gathers)
+from repro_torch.launch.analysis import (Leaf, estimate_plan,
+                                         fed_step_gathers, model_flops,
+                                         roofline_terms, route_wire_bytes,
+                                         serve_gathers)
 
 
 def production_mesh(multi_pod: bool = False) -> AbstractMesh:
@@ -96,10 +100,6 @@ def _bytes(tree, specs, mesh) -> int:
     """The bytes one device holds of ``tree`` laid out by ``specs``."""
     return sum(Leaf.of(t, s, mesh).block_bytes for (_, t), (_, s)
                in zip(tree_paths(tree), tree_paths(specs)))
-
-
-def _split(leaf: Leaf, dims) -> bool:
-    return any(leaf.sizes[m] > 1 for d in dims for m in leaf.splits[d])
 
 
 def gathered_bytes(plan) -> int:
@@ -157,6 +157,25 @@ def serve_program(cfg, mode: str, batch: int, seq_len: int, mesh,
                [c_sh[k] for k in in_place], mesh), gathered, gathers)
 
 
+def train_gathered_bytes(plan, grad_bytes: int) -> int:
+    """The most a training step's estimate (its one pass's
+    :func:`~repro_torch.launch.analysis.train_gathers` ``plan``) holds
+    whole at once beside its blocks: one layer's gathered leaves (its
+    slices copied from the "data" rank that holds them and its leaves
+    gathered whole) and their whole gradients, the call's largest
+    ``all_gather`` output, and ``grad_bytes``, the agent's gradient
+    blocks. A step that runs the plain loss (an empty plan, no leaf or
+    row split) holds the agent's whole gradients, ``grad_bytes``."""
+    held = {}
+    for (kind, path), b, g in plan:
+        if kind == "layer":
+            held.setdefault(path, b // g)
+        elif kind == "whole":
+            held[path] = b
+    return grad_bytes + 2 * sum(held.values()) + max(
+        (b for _, b, _ in plan), default=0)
+
+
 def train_program(cfg, shape, mesh, fed: FedConfig,
                   dtype=torch.bfloat16) -> Program:
     """The tree trainer's step of ``make_fed_step`` (coin 1) with K =
@@ -175,14 +194,16 @@ def train_program(cfg, shape, mesh, fed: FedConfig,
     leaves = [Leaf.of(t, s, mesh) for (_, t), (_, s) in
               zip(tree_paths(state_shape.params),
                   tree_paths(state_sh.params))]
-    agent = [math.prod(leaf.shape[1:]) * leaf.itemsize for leaf in leaves]
-    gathered = sum(a for a, leaf in zip(agent, leaves)
-                   if _split(leaf, range(1, len(leaf.shape)))) + sum(agent)
+    grads = sum(math.prod(leaf.block[1:]) * leaf.itemsize
+                for leaf in leaves)
+    gathered = train_gathered_bytes(
+        estimate_plan(cfg, mesh, state_shape, state_sh, batch, batch_sh),
+        grads)
     return Program(
         (state_shape, batch, mask), (state_sh, batch_sh, rep),
         (state_shape, metrics), (state_sh, {k: rep for k in metrics}), 0,
         gathered, fed_step_gathers(fed, mesh, state_shape, state_sh, batch,
-                                   batch_sh, large=True))
+                                   batch_sh, large=True, cfg=cfg))
 
 
 def build_program(arch: str, shape_name: str, mesh, fed: FedConfig,

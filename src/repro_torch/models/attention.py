@@ -28,7 +28,7 @@ keeps one copy of the ring instead of a new one per step.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -123,12 +123,15 @@ def cache_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, 1, H, hd)
 
 
-def _qkv(p: dict, cfg, x: torch.Tensor):
+def _qkv(p: dict, cfg, x: torch.Tensor, x_kv: Optional[torch.Tensor] = None):
+    """The projections: q from ``x``, k and v from ``x_kv`` (default
+    ``x``)."""
     hd = cfg.resolved_head_dim
     B, S, _ = x.shape
+    x_kv = x if x_kv is None else x_kv
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    k = x_kv @ p["wk"]
+    v = x_kv @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(B, S, cfg.n_heads, hd)
@@ -243,13 +246,21 @@ def _read(k: torch.Tensor, v: torch.Tensor, kv_heads):
 
 def gqa_forward(p: dict, cfg, x: torch.Tensor, positions=None,
                 window: Optional[int] = None, attention: str = "flash",
-                kv_heads: Optional[torch.Tensor] = None):
+                kv_heads: Optional[torch.Tensor] = None,
+                enter: Optional[Callable] = None):
     """x: (B,S,D) -> ((B,S,D), (k, v)). No cache. ``attention="flash"``
     runs the flash op on positions None or ``arange(S)``;
     ``attention="chunked"`` runs :func:`chunked_causal_attention` on any
     ``positions`` (default ``arange(S)``). ``kv_heads``
     (:func:`kv_heads_for`): the query heads attend to these of the
-    ``cfg.n_kv_heads`` computed, and (k, v) keep them all."""
+    ``cfg.n_kv_heads`` computed, and (k, v) keep them all.
+
+    ``enter`` (a rank's block of the heads under autograd, whose output
+    is its part of a sum): what every rank holds alike enters the
+    rank's heads through it, so that the backward sums the ranks'
+    partial gradients: ``x`` before the projections of the rank's heads
+    and, where K and V are computed for every KV head (``kv_heads``),
+    those K and V."""
     check_route(attention)
     B, S, _ = x.shape
     if attention == "flash":
@@ -257,11 +268,19 @@ def gqa_forward(p: dict, cfg, x: torch.Tensor, positions=None,
         positions = None
     pos = torch.arange(S, device=x.device) if positions is None \
         else torch.as_tensor(positions, device=x.device)
-    q, k, v = _qkv(p, cfg, x)
+    if enter is None:
+        q, k, v = _qkv(p, cfg, x)
+    elif kv_heads is None:
+        q, k, v = _qkv(p, cfg, enter(x))
+    else:
+        q, k, v = _qkv(p, cfg, enter(x), x)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     window = window or cfg.sliding_window
-    ka, va = _read(k, v, kv_heads)
+    if enter is not None and kv_heads is not None:
+        ka, va = _read(enter(k), enter(v), kv_heads)
+    else:
+        ka, va = _read(k, v, kv_heads)
     if attention == "flash":
         out = flash_attention(q, ka, va, window=window)
     else:

@@ -186,17 +186,28 @@ def init_params(cfg: ModelConfig, key, dtype=torch.float32,
 # A rank's part in a tensor-parallel pass
 # ---------------------------------------------------------------------------
 
+def _identity(t):
+    return t
+
+
 @dataclasses.dataclass(frozen=True)
 class Parallel:
-    """What the serving route on a mesh
-    (:func:`repro_torch.distributed.serving.make_serve_fns`) hands
-    :func:`prefill` and :func:`decode_step` so that their layer loops run
-    on one rank's blocks; the plain route passes None.
+    """What a route on a mesh hands :func:`forward`, :func:`prefill`,
+    :func:`decode_step` and the losses so that their layer loops run on
+    one rank's blocks (:func:`repro_torch.distributed.tensor_parallel.
+    rank_parallel`: serving's ``make_serve_fns`` and the tree trainer's
+    step); the plain route passes None. Autograd goes through every
+    collective (:mod:`repro_torch.carriers.placed`).
 
     * ``layer(i)``: layer i's parameters: the rank's blocks, and the
       leaves gathered whole for the layer;
     * ``psum(t)``: Σ of every rank's partial ``t`` over the "model"
-      group, in rank order (the same bits on every rank);
+      group, in rank order (the same bits on every rank); its backward
+      is the identity;
+    * ``enter(t)``: ``t``, which every rank of the group holds alike,
+      entering compute split over the group; its backward sums the
+      ranks' partial gradients in rank order (psum's conjugate);
+    * ``pmax(t)``: the elementwise max over the group (no gradient);
     * ``attn_cfg``: the config GQA runs under: the rank's query heads,
       and its KV heads or, with ``kv_heads``, all of them, of which the
       queries read those (:func:`repro_torch.models.attention.
@@ -216,6 +227,8 @@ class Parallel:
     layer: Callable
     psum: Callable
     attn_cfg: ModelConfig
+    enter: Callable = _identity
+    pmax: Optional[Callable] = None
     kv_heads: Optional[torch.Tensor] = None
     attn_partial: bool = False
     mlp_partial: bool = False
@@ -251,12 +264,21 @@ def embed_inputs(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     return x
 
 
+def _head(cfg: ModelConfig, params: dict, x: torch.Tensor,
+          par: Optional[Parallel] = None) -> torch.Tensor:
+    """x @ the head: under ``par`` with a vocabulary block the rank's
+    columns of the logits (x enters the block through ``par.enter``)."""
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if par is not None and par.vocab is not None:
+        x = par.enter(x)
+    return x @ w
+
+
 def lm_logits(cfg: ModelConfig, params: dict, x: torch.Tensor,
               par: Optional[Parallel] = None) -> torch.Tensor:
     """x @ the head. Under ``par`` with a vocabulary block the rank's
     columns, gathered along the vocabulary."""
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    out = x @ w
+    out = _head(cfg, params, x, par)
     if par is not None and par.vocab is not None:
         out = par.gather_vocab(out)
     return out
@@ -286,12 +308,17 @@ def _xlstm_pair_seq(cfg: ModelConfig, p: dict, x: torch.Tensor,
     return x + h, {"m": new_m, "s": new_s}
 
 
-def _gqa_args(cfg: ModelConfig, par: Optional[Parallel]):
+def _gqa_args(cfg: ModelConfig, par: Optional[Parallel],
+              seq: bool = True):
     """The config and keywords GQA runs under: the rank's heads under
-    ``par``."""
+    ``par`` (a sequence pass entering them through ``par.enter`` where
+    their outputs are partial)."""
     if par is None:
         return cfg, {}
-    return par.attn_cfg, {"kv_heads": par.kv_heads}
+    kw = {"kv_heads": par.kv_heads}
+    if seq and par.attn_partial:
+        kw["enter"] = par.enter
+    return par.attn_cfg, kw
 
 
 def _attn_sum(a_out: torch.Tensor, par: Optional[Parallel]):
@@ -304,17 +331,21 @@ def _mlp(cfg: ModelConfig, p: dict, h: torch.Tensor,
     """The block's SwiGLU or MoE on ``h`` -> (out, aux). Under ``par``
     the partial terms (d_ff columns, expert blocks, the shared experts'
     columns) are summed over the ranks in rank order, once, and a term
-    the rank computes whole is added after."""
+    the rank computes whole is added after; ``h`` enters each partial
+    term through ``par.enter``."""
     if cfg.moe is None:
-        out = swiglu(h, **p)
-        aux = torch.zeros((), dtype=torch.float32, device=h.device)
-        return (par.psum(out) if par is not None and par.mlp_partial
-                else out), aux
+        if par is None or not par.mlp_partial:
+            return swiglu(h, **p), torch.zeros((), dtype=torch.float32,
+                                               device=h.device)
+        return par.psum(swiglu(par.enter(h), **p)), torch.zeros(
+            (), dtype=torch.float32, device=h.device)
     if par is None:
         return moe_lib.moe_forward(p, cfg, h)
-    out, aux = moe_lib.moe_forward(p, cfg, h, experts=par.experts,
-                                   shared=False)
-    shared = swiglu(h, **p["shared"]) if cfg.moe.n_shared_experts else None
+    out, aux = moe_lib.moe_forward(
+        p, cfg, h, experts=par.experts, shared=False,
+        enter=par.enter if par.mlp_partial else None)
+    shared = swiglu(par.enter(h) if par.shared_partial else h,
+                    **p["shared"]) if cfg.moe.n_shared_experts else None
     if shared is not None and par.shared_partial == par.mlp_partial:
         out, shared = out + shared, None         # one sum for both
     if par.mlp_partial:
@@ -356,6 +387,52 @@ def _block_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
     return x + m_out, cache, aux
 
 
+def _par_block_seq(cfg: ModelConfig, par: Parallel, i: int,
+                   x: torch.Tensor, positions, window: Optional[int],
+                   attention: str):
+    """Layer i under ``par``: its parameters are taken (gathered) inside,
+    so a checkpoint's recompute gathers them again and nothing of them
+    stays saved between the forward and the backward."""
+    return _block_seq(cfg, par.layer(i), x, positions, window, attention,
+                      par)
+
+
+def _layers(cfg: ModelConfig, params: dict, tokens, prefix_embeds,
+            positions, window: Optional[int], collect_cache: bool,
+            remat: bool, attention: str, keep: Optional[Callable],
+            par: Optional[Parallel]):
+    """The embedding and the layer loop of :func:`forward`: (x, aux,
+    caches)."""
+    attn.check_route(attention)
+    x = embed_inputs(cfg, params, tokens, prefix_embeds, par)
+    if attention == "flash":
+        attn.check_positions(positions, x.shape[1])
+        positions = None
+    recording = remat and torch.is_grad_enabled() and (
+        x.requires_grad
+        or any(t.requires_grad for _, t in tree_paths(params["blocks"])))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    layers = []
+    for i in range(n_block_stacks(cfg)):
+        if par is None:
+            fn, args, kw = _block_seq, (cfg, _layer(params["blocks"], i), x,
+                                        positions, window, attention), {}
+        else:
+            # a full recompute: it repeats every collective of the layer,
+            # in the same order on every rank
+            fn, args, kw = _par_block_seq, (cfg, par, i, x, positions,
+                                            window, attention), {
+                "early_stop": False}
+        x, cache, a = (checkpoint(fn, *args, use_reentrant=False, **kw)
+                       if recording else fn(*args))
+        del args                       # a layer's gathered leaves go now
+        aux = aux + a
+        if collect_cache:
+            layers.append(cache if keep is None else keep(i, cache))
+    caches = _stack(layers) if collect_cache else None
+    return x, aux, caches
+
+
 def forward(cfg: ModelConfig, params: dict, tokens=None, prefix_embeds=None,
             positions=None, window: Optional[int] = None,
             collect_cache: bool = False, remat: bool = True,
@@ -379,31 +456,11 @@ def forward(cfg: ModelConfig, params: dict, tokens=None, prefix_embeds=None,
     reference's ``jax.checkpoint`` of its layer scan); when it does not
     record, it changes nothing. ``keep(i, parts)`` maps each layer's
     cache parts as they come (the stack holds what it returns);
-    ``par``: a rank's part in a tensor-parallel pass (:class:`Parallel`,
-    no autograd)."""
-    attn.check_route(attention)
-    x = embed_inputs(cfg, params, tokens, prefix_embeds, par)
-    if attention == "flash":
-        attn.check_positions(positions, x.shape[1])
-        positions = None
-    recording = par is None and remat and torch.is_grad_enabled() and (
-        x.requires_grad
-        or any(t.requires_grad for _, t in tree_paths(params["blocks"])))
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    layers = []
-    for i in range(n_block_stacks(cfg)):
-        if par is None:
-            args = (cfg, _layer(params["blocks"], i), x, positions, window,
-                    attention)
-        else:
-            args = (cfg, par.layer(i), x, positions, window, attention, par)
-        x, cache, a = (checkpoint(_block_seq, *args, use_reentrant=False)
-                       if recording else _block_seq(*args))
-        del args                       # a layer's gathered leaves go now
-        aux = aux + a
-        if collect_cache:
-            layers.append(cache if keep is None else keep(i, cache))
-    caches = _stack(layers) if collect_cache else None
+    ``par``: a rank's part in a tensor-parallel pass (:class:`Parallel`;
+    under ``remat`` each layer's recompute gathers its leaves again)."""
+    x, aux, caches = _layers(cfg, params, tokens, prefix_embeds, positions,
+                             window, collect_cache, remat, attention, keep,
+                             par)
     if last_only:
         x = x[:, -1:]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.fused_rmsnorm)
@@ -525,7 +582,7 @@ def _block_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
         a_out, _ = attn.mla_decode(p["attn"], cfg, h, pos, cache["kv"],
                                    slot_pos, absorb=cfg.mla_absorb)
     else:
-        acfg, kw = _gqa_args(cfg, par)
+        acfg, kw = _gqa_args(cfg, par, seq=False)
         a_out, _ = attn.gqa_decode(p["attn"], acfg, h, pos, cache["kv"],
                                    slot_pos, **kw)
     a_out = _attn_sum(a_out, par)
@@ -631,23 +688,62 @@ def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor
     return torch.mean(lse - correct)
 
 
+def _cross_entropy_blocks(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                          labels: torch.Tensor, par: Parallel
+                          ) -> torch.Tensor:
+    """:func:`_cross_entropy` of the head's logits at ``x`` under ``par``,
+    the reference's design for vocabulary-sharded logits, which are never
+    gathered: with a vocabulary block each rank holds its columns; the
+    logsumexp takes the blocks' max (exact) and the rank-order sum of
+    each block's exps, and the label's logit is picked from the block
+    that holds it (one rank adds a value that is not zero, so its sum is
+    exact)."""
+    logits = _head(cfg, params, x, par).float()
+    if par.vocab is None:
+        return _cross_entropy(logits, labels)
+    lo, hi = par.vocab
+    top = par.pmax(logits.detach().amax(-1))
+    lse = top + torch.log(par.psum(
+        torch.exp(logits - top[..., None]).sum(-1)))
+    mine = (labels >= lo) & (labels < hi)
+    picked = torch.gather(logits, -1, torch.where(
+        mine, labels - lo, 0)[..., None].long())[..., 0]
+    correct = par.psum(torch.where(mine, picked, 0.0))
+    return torch.mean(lse - correct)
+
+
+def _loss_on(cfg: ModelConfig, params: dict, tokens, labels, prefix_embeds,
+             par: Optional[Parallel]) -> torch.Tensor:
+    """Cross-entropy (+ aux) of every position past the prefix against
+    ``labels``, on the chunked route."""
+    P = 0 if prefix_embeds is None else prefix_embeds.shape[1]
+    if par is None:
+        logits, aux, _ = forward(cfg, params, tokens, prefix_embeds,
+                                 attention="chunked")
+        return _cross_entropy(logits[:, P:], labels) + aux
+    x, aux, _ = _layers(cfg, params, tokens, prefix_embeds, None, None,
+                        False, True, "chunked", None, par)
+    x = rms_norm(x[:, P:], params["final_norm"], cfg.norm_eps,
+                 cfg.fused_rmsnorm)
+    return _cross_entropy_blocks(cfg, params, x, labels, par) + aux
+
+
 def lm_loss_labeled(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-                    labels: torch.Tensor, prefix_embeds=None
-                    ) -> torch.Tensor:
+                    labels: torch.Tensor, prefix_embeds=None,
+                    par: Optional[Parallel] = None) -> torch.Tensor:
     """Cross-entropy of the logits at every token position against
     ``labels`` (+ the aux term), on the chunked (training) route.
-    Processes exactly ``tokens.shape[1]`` (+ prefix) positions."""
-    logits, aux, _ = forward(cfg, params, tokens, prefix_embeds,
-                             attention="chunked")
-    P = 0 if prefix_embeds is None else prefix_embeds.shape[1]
-    return _cross_entropy(logits[:, P:], labels) + aux
+    Processes exactly ``tokens.shape[1]`` (+ prefix) positions. ``par``:
+    a rank's part in a tensor-parallel pass (:class:`Parallel`): the
+    rank's rows on its blocks, the logits never gathered
+    (:func:`_cross_entropy_blocks`)."""
+    return _loss_on(cfg, params, tokens, labels, prefix_embeds, par)
 
 
 def lm_loss(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-            prefix_embeds=None) -> torch.Tensor:
+            prefix_embeds=None, par: Optional[Parallel] = None
+            ) -> torch.Tensor:
     """Next-token cross-entropy (+ the aux term) on the chunked (training)
-    route. tokens: (B, S_text)."""
-    logits, aux, _ = forward(cfg, params, tokens[:, :-1], prefix_embeds,
-                             attention="chunked")
-    P = 0 if prefix_embeds is None else prefix_embeds.shape[1]
-    return _cross_entropy(logits[:, P:], tokens[:, 1:]) + aux
+    route. tokens: (B, S_text). ``par`` as in :func:`lm_loss_labeled`."""
+    return _loss_on(cfg, params, tokens[:, :-1], tokens[:, 1:],
+                    prefix_embeds, par)

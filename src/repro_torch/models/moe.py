@@ -81,7 +81,7 @@ def top_k_margin(probs: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def moe_forward(p: dict, cfg, x: torch.Tensor, experts=None,
-                shared: bool = True):
+                shared: bool = True, enter=None):
     """x: (B, T, D) -> (y (B, T, D), aux): per-row routing (module doc);
     ``aux`` is the mean over rows of the Switch-style load-balance term,
     in f32.
@@ -90,7 +90,13 @@ def moe_forward(p: dict, cfg, x: torch.Tensor, experts=None,
     of the ``n_experts`` (an expert block of the serving route); every
     token routes over all of them as before, only these experts' buffers
     run, and a pick of another expert adds zero, so ``y`` is this block's
-    part of the sum. ``shared=False`` leaves the shared experts out."""
+    part of the sum. ``shared=False`` leaves the shared experts out.
+
+    ``enter`` (a rank's part of the experts under autograd, whose ``y``
+    is its part of a sum): ``x`` enters the experts' buffers, and the
+    routing weights the combine, through it, so that the backward sums
+    the ranks' partial gradients; the router reads ``x`` as it is (every
+    rank routes alike)."""
     m = cfg.moe
     B, T, D = x.shape
     E, k = m.n_experts, m.top_k
@@ -133,7 +139,11 @@ def moe_forward(p: dict, cfg, x: torch.Tensor, experts=None,
         slot = torch.where(mine, slot - lo * cap, (hi - lo) * cap)
         buf_tok, E = buf_tok[:, lo * cap:hi * cap], hi - lo
 
-    xpad = torch.cat([x, x.new_zeros((B, 1, D))], dim=1)
+    if enter is not None:
+        x_in, top_w = enter(x), enter(top_w)
+    else:
+        x_in = x
+    xpad = torch.cat([x_in, x.new_zeros((B, 1, D))], dim=1)
     xe = xpad[rows[:, None], buf_tok]                     # (B, E·cap, D)
     xe = xe.reshape(B, E, cap, D).transpose(0, 1).reshape(E, B * cap, D)
     h = F.silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])

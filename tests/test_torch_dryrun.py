@@ -311,9 +311,10 @@ def test_route_wire_bytes_match_the_route(ranks, kind):
         for coin in (True, False):
             want["train", coin] = analysis.fed_step_gathers(
                 fed, mesh, state_shape, state_sh, batch, batch_sh,
-                large=coin, coord=res["coord"])
+                large=coin, coord=res["coord"], cfg=_cfg(kind))
         assert progs["train"].gathers == analysis.fed_step_gathers(
-            fed, mesh, state_shape, state_sh, batch, batch_sh, large=True)
+            fed, mesh, state_shape, state_sh, batch, batch_sh, large=True,
+            cfg=_cfg(kind))
         for key, gathers in want.items():
             got = res[key]
             assert got["dtensor_ops"] == [], key
@@ -325,5 +326,5 @@ def test_route_wire_bytes_match_the_route(ranks, kind):
             assert wire["total"] == sum(b * (g - 1) / g
                                         for b, g in got["gathers"])
         if kind == "four":
-            # split leaves: coin 0 gathers prev and v for the loss too
+            # split leaves: coin 0 runs the prev pass on the blocks too
             assert want["train", False] != want["train", True]
