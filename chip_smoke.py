@@ -80,7 +80,7 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    per iteration; then small runs on the card against the CPU's plain
    path (bucketed RFA, Krum, trimmed mean).
 6b. The transformer policy (``transformer_runs()``: reduced Qwen2.5-3B,
-   d=1,378,560, on ``cartpole(horizon=50)``, K=13, n_byz=3, N=20, B=4):
+   d=1,378,560, on ``cartpole(horizon=25)``, K=13, n_byz=3, N=20, B=4):
    DecByzPG with bucketing ∘ RFA and MDA, DecByzPG with Krum and cwtm,
    ByzPG with the trimmed mean, each with exact launches per iteration
    (the policy's passes take the chunked route: no flash launch), the
@@ -200,8 +200,13 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    activations), which lies one agent's whole leaves below the
    whole-leaf route's estimate term; each rank's
    ``max_memory_allocated`` logged beside the card's name and limit.
+10f. 10e's run at MiniCPM3-4B's full width cut to 2 layers (D =
+   501,404,160, f32; its ``fed_axis`` "pod", so K = 1 on (1, 2)): MLA on
+   20 of the 40 heads a rank through ``w_dq`` (whole) -> ``w_uq``,
+   3200 of the 6400 ``d_ff`` columns and 36,724 vocabulary rows a rank,
+   no leaf gathered whole; 10e's checks and tolerances.
    ``[time]`` lines give phase 10's tree runs, its flat runs with 10c
-   (a), 10c (b), 10d and 10e.
+   (a), 10c (b), 10d, 10e and 10f.
 11. Serving under a mesh (``make_serve_fns``, after phase 5): (a)
    Llama-3.2-1B at full width and depth on a one-rank ("data", "model")
    = (1, 1) mesh in a gloo group of this process, 4 prompts of 512
@@ -232,7 +237,12 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    plain version on its own input, and each rank's
    ``max_memory_allocated`` printed beside the dry run's reckoning for
    its blocks and the whole layer's bytes, held within the reckoning
-   plus the route's activations and under the whole layer.
+   plus the route's activations and under the whole layer; (d) (c)'s
+   run of DeepSeek-V2-Lite (``SERVE_TP_ARCHS``) at full width cut to 1
+   layer: MLA on 8 of the 16 heads a rank through ``wq``, 32 of the 64
+   experts, the shared experts' ``d_ff`` columns and 51,200 vocabulary
+   rows a rank, absorbed decode, no leaf gathered whole and no flash
+   launch (MLA is chunked), held as (c) is.
    ``[serve-mesh]`` and ``[serve-tp]`` lines and ``[time]`` lines; the
    launches join the totals.
 12. The analysis suite (``repro_torch.analysis``) on the card:
@@ -2112,16 +2122,19 @@ def phase_byzpg_cpu_agreement(dev):
 #: parameter count of each agent's row of θ, and the reference's tiny one
 TF_POLICY = "transformer(arch='qwen2.5-3b')"
 TF_D = 1378560
+#: phase 6b's CartPole horizon: the paper's 200 cut to keep the phase near
+#: half a minute (the CPU tests hold the policy's runs at horizon 10)
+TF_HORIZON = 25
 TINY_TF = ("transformer(arch='qwen2.5-3b', d_model=32, n_layers=1, "
            "n_heads=2, d_ff=64)")
 
 
 def transformer_runs():
     """(label, algo, T, config, aggregation launches per iteration) of
-    phase 6b: :data:`TF_POLICY` on ``cartpole(horizon=50)``, K=13, n_byz=3
-    ``large_noise(sigma=10)``, N=20, B=4. ``per_receiver`` stays off: its
-    agreement draws would be K = 13 times the (κ, K, d) = 430 MB a step
-    already drawn. The policy's passes take the chunked route, so no run
+    phase 6b: :data:`TF_POLICY` on ``cartpole(horizon=TF_HORIZON)``, K=13,
+    n_byz=3 ``large_noise(sigma=10)``, N=20, B=4. ``per_receiver`` stays
+    off: its agreement draws would be K = 13 times the (κ, K, d) = 430 MB
+    a step already drawn. The policy's passes take the chunked route, so no run
     launches flash attention."""
     from repro_torch.core.byzpg import ByzPGConfig
     from repro_torch.core.decbyzpg import DecByzPGConfig
@@ -2288,7 +2301,7 @@ def phase_transformer_policy(dev):
     from repro_torch.rl.policy import resolve_policy
     from repro_torch.serving import make_traffic, serve
 
-    env = make_cartpole(horizon=50)
+    env = make_cartpole(horizon=TF_HORIZON)
     totals, served_theta = {}, None
     for label, algo, T, cfg, per_iter in transformer_runs():
         run = run_decbyzpg if algo == "decbyzpg" else run_byzpg
@@ -2340,7 +2353,7 @@ def phase_transformer_policy(dev):
     dispatch.reset_launches()
     n = 4
     with _PathInputs() as path:
-        report = serve(TF_POLICY, "cartpole(horizon=50)",
+        report = serve(TF_POLICY, f"cartpole(horizon={TF_HORIZON})",
                        theta=served_theta, n_requests=n, realtime=False,
                        warmup=False, device=dev)
     torch.cuda.synchronize()
@@ -4009,9 +4022,10 @@ FED_BLOCK_V_TOL = 1e-5
 FED_ADAM_FLIP_LR = 3.0
 
 
-def _fed_step_gaps(one, recs, t, lr, b2=0.999):
+def _fed_step_gaps(one, recs, t, lr, b2=0.999, dev=None):
     """The ranks' step ``t`` (their records ``recs``) against the
-    one-process chain's (``one``), from the same state and draws: v's
+    one-process chain's (``one``), from the same state and draws,
+    computed on ``dev`` (None: where the records lie): v's
     largest gap over max|v|; θ's largest gap over max|θ| on the entries
     whose Adam update is clear of v's rounding, and elsewhere over lr,
     with the count of those entries beyond FED_CPU_TOL of max|θ|; the
@@ -4024,9 +4038,12 @@ def _fed_step_gaps(one, recs, t, lr, b2=0.999):
     Adam update is lr times its sign) it may move θ by up to
     FED_ADAM_FLIP_LR·lr."""
     import torch
-    wv = {p: x for p, x, _ in one["v"][t]}
-    wt = {p: x for p, x, _ in one["theta"][t]}
-    wa = {p: x for p, x, _ in one["adam_v"][t]}
+
+    def on(x):
+        return x if dev is None else x.to(dev)
+    wv = {p: on(x) for p, x, _ in one["v"][t]}
+    wt = {p: on(x) for p, x, _ in one["theta"][t]}
+    wa = {p: on(x) for p, x, _ in one["adam_v"][t]}
     v_scale = max(x.abs().max().item() for x in wv.values())
     th_scale = max(x.abs().max().item() for x in wt.values())
     thr = 2 * lr * FED_BLOCK_V_TOL * v_scale / (FED_CPU_TOL * th_scale)
@@ -4036,11 +4053,11 @@ def _fed_step_gaps(one, recs, t, lr, b2=0.999):
     for rec in recs:
         for p, blk, idx in rec["v"][t]:
             w = wv[p] if idx is None else wv[p][idx]
-            v_err = max(v_err, (blk - w).abs().max().item())
+            v_err = max(v_err, (on(blk) - w).abs().max().item())
         for p, blk, idx in rec["theta"][t]:
             w = wt[p] if idx is None else wt[p][idx]
             a = wa[p] if idx is None else wa[p][idx]
-            gap = (blk - w).abs()
+            gap = (on(blk) - w).abs()
             ok = torch.sqrt(a / bc2) >= thr
             if ok.any():
                 clear = max(clear, gap[ok].max().item())
@@ -4253,11 +4270,15 @@ def phase_fed_tree_ranks(dev):
             f"wall {secs:.1f} s")
 
 
-#: phase 10e: the tree trainer's step at Llama-3.2-1B's full width cut to
-#: FED_LAYERS layers (phase 10's model, D = FED_D, f32) over two gloo
-#: ranks on the card, (data, model) = (1, 2), fed_axis "data": K = 1,
-#: every leaf a column, row or vocabulary block (the norms whole), none
-#: gathered; FED_BATCH x FED_SEQ tokens; the coin-1 step, then coin 0
+#: phases 10e and 10f: the tree trainer's step at a model's full width
+#: cut to FED_LAYERS layers (f32) over two gloo ranks on the card, (data,
+#: model) = (1, 2), K = 1, every leaf a column, row or vocabulary block
+#: (the norms, MLA's w_dq and w_dkv whole), none gathered; FED_BATCH x
+#: FED_SEQ tokens; the coin-1 step, then coin 0. 10e: Llama-3.2-1B (phase
+#: 10's model, D = FED_D, fed_axis "data"); 10f: MiniCPM3-4B (D =
+#: 501,404,160, fed_axis "pod"): MLA on 20 of the 40 heads through w_dq ->
+#: w_uq, 3200 of the 6400 d_ff columns and 36,724 vocabulary rows a rank
+FED_BLOCK_ARCHS = {"10e": FED_ARCH, "10f": "minicpm3-4b"}
 FED_BLOCK_MESH = (1, 2)
 FED_BLOCK_KW = dict(aggregator="mean", attack="none", n_byz=0, kappa=1,
                     lr=1e-3)
@@ -4360,8 +4381,15 @@ def _fed_recorder(dev, rec, estimate_name):
     return record
 
 
-def _fed_block_run(dev, mesh=None):
-    """Phase 10e's two steps (K = 1, coins 1 then 0) of
+def _fed_block_cfg(phase):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(FED_BLOCK_ARCHS[phase]),
+                               n_layers=FED_LAYERS)
+
+
+def _fed_block_run(dev, phase, mesh=None):
+    """Phase 10e's or 10f's two steps (K = 1, coins 1 then 0) of
     :func:`_fed_chain`, on one process (``mesh`` None) or this rank's
     blocks of ``mesh``, recorded by :func:`_fed_recorder`; then the
     rank's byte counts."""
@@ -4370,7 +4398,7 @@ def _fed_block_run(dev, mesh=None):
     from repro_torch.core.tree import tree_paths
     from repro_torch.data import DataConfig, TokenPipeline
     from repro_torch.distributed import fed_trainer as ft
-    cfg = _fed_cfg()
+    cfg = _fed_block_cfg(phase)
     fed = ft.FedConfig(**FED_BLOCK_KW)
     pipe = TokenPipeline(DataConfig(cfg.vocab_size, FED_SEQ, FED_BATCH, 1,
                                     seed=FED_SEED), device=dev)
@@ -4398,11 +4426,11 @@ def _fed_block_run(dev, mesh=None):
 
 
 def fed_block_rank_main(argv) -> int:
-    """``chip_smoke.py --fed-block-rank RANK WORLD PORT OUT DEVICE``: one
-    rank of phase 10e, in a gloo group on localhost:PORT, on DEVICE's type
-    (``cuda``: the card), on the FED_BLOCK_MESH mesh; writes its results
-    to OUT."""
-    rank, world, port, dst, dev = argv
+    """``chip_smoke.py --fed-block-rank RANK WORLD PORT OUT DEVICE PHASE``:
+    one rank of phase PHASE (10e or 10f), in a gloo group on
+    localhost:PORT, on DEVICE's type (``cuda``: the card), on the
+    FED_BLOCK_MESH mesh; writes its results to OUT."""
+    rank, world, port, dst, dev, phase = argv
     sys.path.insert(0, str(SRC))
     import torch
     import torch.distributed as dist
@@ -4411,24 +4439,24 @@ def fed_block_rank_main(argv) -> int:
                             world_size=int(world), rank=int(rank))
     try:
         mesh = make_debug_mesh(*FED_BLOCK_MESH, device_type=dev)
-        torch.save(_fed_block_run(torch.device(dev), mesh), dst)
+        torch.save(_fed_block_run(torch.device(dev), phase, mesh), dst)
     finally:
         dist.destroy_process_group()
     return 0
 
 
-def _fed_block_reckoning(large: bool) -> dict:
-    """Phase 10e's rank as the dry run reckons it (``AbstractMesh`` of
-    FED_BLOCK_MESH, f32): the estimate's plan, its largest gather and
-    ``train_gathered_bytes`` of one step of the coin (one agent's
-    gradient blocks, two on a PAGE step)."""
+def _fed_block_reckoning(phase, large: bool) -> dict:
+    """Phase 10e's or 10f's rank as the dry run reckons it
+    (``AbstractMesh`` of FED_BLOCK_MESH, f32): the estimate's plan, its
+    largest gather and ``train_gathered_bytes`` of one step of the coin
+    (one agent's gradient blocks, two on a PAGE step)."""
     import math
     import torch
     from repro_torch.core.tree import tree_paths
     from repro_torch.distributed import fed_trainer as ft
     from repro_torch.distributed.sharding import AbstractMesh
     from repro_torch.launch import analysis, dryrun
-    cfg = _fed_cfg()
+    cfg = _fed_block_cfg(phase)
     mesh = AbstractMesh(FED_BLOCK_MESH, ("data", "model"))
     _, shape, batch, (specs, batch_sh, _) = ft.make_fed_step(
         cfg, ft.FedConfig(**FED_BLOCK_KW), mesh, large=True,
@@ -4444,11 +4472,12 @@ def _fed_block_reckoning(large: bool) -> dict:
                 plan, grads * (1 if large else 2))}
 
 
-def phase_fed_blocks(dev):
-    """Phase 10e: the tree trainer's step on each rank's blocks at
-    Llama-3.2-1B's full width (FED_LAYERS layers, D = FED_D, f32), over
-    two gloo ranks on the one card (fresh processes, one group), (data,
-    model) = (1, 2), K = 1, the coin-1 step then the coin-0 step, against
+def phase_fed_blocks(dev, phase):
+    """Phase 10e (Llama-3.2-1B, D = FED_D) or 10f (MiniCPM3-4B, MLA on
+    blocks of its heads): the tree trainer's step on each rank's blocks
+    at the model's full width (FED_LAYERS layers, f32), over two gloo
+    ranks on the one card (fresh processes, one group), (data, model) =
+    (1, 2), K = 1, the coin-1 step then the coin-0 step, against
     the one-process ``fed_train_step`` on the card from the same init and
     batches: each rank's v blocks within FED_CPU_V_TOL of max|v| and its
     θ blocks within FED_CPU_TOL of max|θ| (phase 10's card-vs-CPU
@@ -4483,11 +4512,11 @@ def phase_fed_blocks(dev):
         t0 = time.perf_counter()
         procs = [subprocess.Popen(
             [sys.executable, str(ROOT / "chip_smoke.py"), "--fed-block-rank",
-             str(r), str(world), str(port), dsts[r], dev.type],
+             str(r), str(world), str(port), dsts[r], dev.type, phase],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True) for r in range(world)]
         try:
-            one = _fed_block_run(dev)
+            one = _fed_block_run(dev, phase)
             for p in procs:
                 _, err = p.communicate(timeout=FED_RANK_TIMEOUT_S)
                 if p.returncode != 0:
@@ -4501,11 +4530,12 @@ def phase_fed_blocks(dev):
         secs = time.perf_counter() - t0
         ranks = [torch.load(d, weights_only=False) for d in dsts]
     torch.cuda.empty_cache()
-    return _fed_block_check(one, ranks, secs, dev)
+    return _fed_block_check(phase, one, ranks, secs, dev)
 
 
-def _fed_block_check(one, ranks, secs, dev):
-    """Phase 10e's comparisons (:func:`phase_fed_blocks`); logs them."""
+def _fed_block_check(phase, one, ranks, secs, dev):
+    """Phase 10e's or 10f's comparisons (:func:`phase_fed_blocks`); logs
+    them."""
     bad, lines = [], []
     cuda = dev.type == "cuda"
     W = ranks[0]["whole"]
@@ -4513,10 +4543,10 @@ def _fed_block_check(one, ranks, secs, dev):
     gb = 2 ** 30
     for t in range(2):
         large = t == 0
-        rk = _fed_block_reckoning(large)
+        rk = _fed_block_reckoning(phase, large)
         if rk["whole"]:
             bad.append(f"the plan gathers leaves whole: {rk['whole']}")
-        g = _fed_step_gaps(one, ranks, t, lr)
+        g = _fed_step_gaps(one, ranks, t, lr, dev=dev)
         if not _fed_gaps_ok(g):
             bad.append(f"step {t}: {_fed_gaps_text(g)}")
         if any(r["losses"][t] != ranks[0]["losses"][t] for r in ranks):
@@ -4542,7 +4572,8 @@ def _fed_block_check(one, ranks, secs, dev):
                        f"the bound {bound} (the present estimate term "
                        f"{old}, one agent {W})")
         lines.append(
-            f"[fed] {card()}: fed_blocks step {t} (coin {int(large)}, from "
+            f"[fed] {card()}: fed_blocks {phase} step {t} (coin "
+            f"{int(large)}, from "
             f"the one-process chain's state): {_fed_gaps_text(g)}; ms/step "
             f"per rank {[round(r['ms'][t], 3) for r in ranks]}, one "
             f"process {one['ms'][t]:.3f}; each rank's allocation above "
@@ -4563,15 +4594,16 @@ def _fed_block_check(one, ranks, secs, dev):
             f"{[round(r['starts'][t] / gb, 3) for r in ranks]} GiB: the "
             f"rank's blocks and the one-process chain's whole state it "
             f"carries), one process {one['peaks'][t] / gb:.3f} GiB")
-    lines.append(f"[fed] {card()}: fed_blocks (phase 10e: {FED_ARCH} full "
-                 f"width, {FED_LAYERS} layers, D={FED_D}, K=1 over "
+    lines.append(f"[fed] {card()}: fed_blocks (phase {phase}: "
+                 f"{FED_BLOCK_ARCHS[phase]} full width, {FED_LAYERS} layers, "
+                 f"D={ranks[0]['whole'] // 4}, K=1 over "
                  f"{len(ranks)} gloo ranks on the one card, (data, model) = "
                  f"{FED_BLOCK_MESH}, {FED_BATCH} x {FED_SEQ} tokens, coins "
                  f"1 then 0); the ranks' wall {secs:.1f} s")
     for line in lines:
         log(line)
     if bad:
-        raise AssertionError(f"fed blocks: {bad}")
+        raise AssertionError(f"fed blocks {phase}: {bad}")
 
 
 def phase_fed_tree_vs_flat(dev):
@@ -4836,10 +4868,11 @@ def phase_fed(dev):
     t0 = time.perf_counter()
     phase_fed_tree_ranks(dev)
     log(f"[time] phase 10d tree ranks {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    phase_fed_blocks(dev)
-    log(f"[time] phase 10e blocks at full width "
-        f"{time.perf_counter() - t0:.1f} s")
+    for phase in FED_BLOCK_ARCHS:
+        t0 = time.perf_counter()
+        phase_fed_blocks(dev, phase)
+        log(f"[time] phase {phase} blocks at full width "
+            f"{time.perf_counter() - t0:.1f} s")
     phase_fed_tree_vs_flat(dev)
     tree = phase_fed_cpu_agreement(dev)
     phase_fed_cli(dev)
@@ -5244,13 +5277,16 @@ def phase_serve_mesh_ranks(dev):
     return totals
 
 
-#: phase 11 (c): Grok-1 at full width cut to 1 layer through
-#: make_serve_fns over two gloo ranks on the card, (data, model) = (1, 2):
-#: expert-parallel (4 of the 8 experts a rank), head-parallel (24 query
-#: over 4 KV heads, hd 128, G = 6) and vocab-parallel (65,536 of the
-#: 131,072 rows and logit columns a rank). B prompts of S tokens into a
-#: ring of W, greedy steps
-SERVE_TP_ARCH, SERVE_TP_MESH = "grok-1-314b", (1, 2)
+#: phase 11 (c) and (d): each model at full width cut to 1 layer through
+#: make_serve_fns over two gloo ranks on the card, (data, model) = (1, 2).
+#: (c) Grok-1: expert-parallel (4 of the 8 experts a rank), head-parallel
+#: (24 query over 4 KV heads, hd 128, G = 6) and vocab-parallel (65,536 of
+#: the 131,072 rows and logit columns a rank); (d) DeepSeek-V2-Lite: MLA
+#: on 8 of the 16 heads through ``wq``, 32 of the 64 experts, the shared
+#: experts' d_ff columns and 51,200 vocabulary rows a rank, absorbed
+#: decode. B prompts of S tokens into a ring of W, greedy steps
+SERVE_TP_ARCHS, SERVE_TP_MESH = ("grok-1-314b", "deepseek-v2-lite-16b"), \
+    (1, 2)
 SERVE_TP_B, SERVE_TP_S, SERVE_TP_W, SERVE_TP_STEPS = 2, 128, 256, 8
 #: what a rank may allocate beyond the dry run's reckoning and the
 #: one-process route's activations for the same call: cuBLAS's
@@ -5258,20 +5294,25 @@ SERVE_TP_B, SERVE_TP_S, SERVE_TP_W, SERVE_TP_STEPS = 2, 128, 256, 8
 SERVE_TP_SLACK = 64 << 20
 
 
-def _serve_tp_cfg():
+def _serve_tp_cfg(arch):
     import dataclasses
     from repro_torch.configs import get_config
-    return dataclasses.replace(get_config(SERVE_TP_ARCH), n_layers=1)
+    return dataclasses.replace(get_config(arch), n_layers=1)
+
+
+def _serve_tp_phase(arch) -> str:
+    """The letter of ``arch``'s run in phase 11."""
+    return "cd"[SERVE_TP_ARCHS.index(arch)]
 
 
 def _serve_tp_params(cfg, dev, mesh=None):
-    """Phase 11 (c)'s seeded weights, drawn block by block on the (1, 2)
-    mesh's "model" split (one generator per leaf and block: norms ones,
-    the embedding 0.02 N(0, 1), the others N(0, 1) over the root of
-    their contraction width), so a rank draws only its own blocks and no
-    rank builds the layer whole. ``mesh`` None: every block, written into
-    the whole leaf (the one-process route's tree); else this rank's
-    blocks as placed leaves of ``mesh``."""
+    """Phase 11 (c)'s and (d)'s seeded weights, drawn block by block on
+    the (1, 2) mesh's "model" split (one generator per leaf and block:
+    norms ones, the embedding 0.02 N(0, 1), the others N(0, 1) over the
+    root of their contraction width), so a rank draws only its own
+    blocks and no rank builds the layer whole. ``mesh`` None: every
+    block, written into the whole leaf (the one-process route's tree);
+    else this rank's blocks as placed leaves of ``mesh``."""
     import torch
     from repro_torch.carriers import placed
     from repro_torch.core.tree import tree_map, tree_paths
@@ -5313,7 +5354,7 @@ def _serve_tp_params(cfg, dev, mesh=None):
 
 
 def _serve_tp_tokens(cfg, dev):
-    """The seeded (B, S) int32 prompts of phase 11 (c)."""
+    """The seeded (B, S) int32 prompts of phase 11 (c) and (d)."""
     import torch
     gen = torch.Generator(device=dev)
     gen.manual_seed(SERVE_MESH_SEED + 2)
@@ -5321,11 +5362,12 @@ def _serve_tp_tokens(cfg, dev):
                          generator=gen, device=dev, dtype=torch.int32)
 
 
-def _serve_tp_rank_run(dev, mesh):
-    """Phase 11 (c) on this rank: its blocks drawn, then a prefill and
-    SERVE_TP_STEPS greedy decode steps through ``make_serve_fns`` with the
-    launches counted (zeroed just before, read just after) and each
-    launch held against its plain version on its own input. Returns the
+def _serve_tp_rank_run(dev, mesh, arch):
+    """Phase 11 (c) or (d), ``arch``'s run, on this rank: its blocks
+    drawn, then a prefill and SERVE_TP_STEPS greedy decode steps through
+    ``make_serve_fns`` with the launches counted (zeroed just before,
+    read just after) and each launch held against its plain version on
+    its own input. Returns the
     logits and tokens (host copies), the launches, the smallest routing
     margin, the peaks (after drawing, and over the run), the bytes of
     the rank's blocks, ms per call."""
@@ -5334,7 +5376,7 @@ def _serve_tp_rank_run(dev, mesh):
     from repro_torch.core.tree import tree_paths
     from repro_torch.distributed.serving import make_serve_fns
     from repro_torch.kernels import dispatch
-    cfg = _serve_tp_cfg()
+    cfg = _serve_tp_cfg(arch)
     torch.cuda.reset_peak_memory_stats()
     params = _serve_tp_params(cfg, dev, mesh)
     torch.cuda.synchronize()
@@ -5366,11 +5408,11 @@ def _serve_tp_rank_run(dev, mesh):
 
 
 def serve_tp_rank_main(argv) -> int:
-    """``chip_smoke.py --serve-tp-rank RANK WORLD PORT OUT DEVICE``: one
-    rank of phase 11 (c), in a gloo group on localhost:PORT, on DEVICE's
-    type (``cuda``: the card), on the SERVE_TP_MESH mesh; writes its
-    results to OUT."""
-    rank, world, port, dst, dev = argv
+    """``chip_smoke.py --serve-tp-rank RANK WORLD PORT OUT DEVICE ARCH``:
+    one rank of phase 11's run of ARCH ((c) or (d)), in a gloo group on
+    localhost:PORT, on DEVICE's type (``cuda``: the card), on the
+    SERVE_TP_MESH mesh; writes its results to OUT."""
+    rank, world, port, dst, dev, arch = argv
     sys.path.insert(0, str(SRC))
     import torch
     import torch.distributed as dist
@@ -5379,15 +5421,16 @@ def serve_tp_rank_main(argv) -> int:
                             world_size=int(world), rank=int(rank))
     try:
         mesh = make_debug_mesh(*SERVE_TP_MESH, device_type=dev)
-        torch.save(_serve_tp_rank_run(torch.device(dev), mesh), dst)
+        torch.save(_serve_tp_rank_run(torch.device(dev), mesh, arch), dst)
     finally:
         dist.destroy_process_group()
     return 0
 
 
 def _serve_tp_one_process(cfg, dev):
-    """Phase 11 (c)'s one-process route on the card from the whole tree:
-    ``model.prefill`` and SERVE_TP_STEPS greedy ``decode_step``s. Returns
+    """Phase 11 (c)'s or (d)'s one-process route on the card from the
+    whole tree: ``model.prefill`` and SERVE_TP_STEPS greedy
+    ``decode_step``s. Returns
     the logits and tokens of each call (host copies), each call's
     activations (its peak above what it started with and returns new),
     the tree's bytes."""
@@ -5421,17 +5464,19 @@ def _serve_tp_one_process(cfg, dev):
     return out
 
 
-def phase_serve_mesh_tp(dev):
-    """Phase 11 (c): Grok-1 at full width cut to 1 layer over two gloo
-    ranks on the one card (fresh processes, one group), (data, model) =
-    (1, 2), each rank holding only its blocks (drawn as blocks), against
+def phase_serve_mesh_tp(dev, arch):
+    """Phase 11 (c) (Grok-1) or (d) (DeepSeek-V2-Lite): ``arch`` at full
+    width cut to 1 layer over two gloo ranks on the one card (fresh
+    processes, one group), (data, model) = (1, 2), each rank holding only
+    its blocks (drawn as blocks) and no leaf gathered whole, against
     the one-process route on the card from the whole tree: each rank's
     logits after the prefill and every step within SERVE_RANK_TOL of
     max|logit| while its greedy stream is the route's, the streams equal
     wherever the route's top-1 margin exceeds twice that tolerance, the
     two ranks' logits and tokens bit-identical, the smallest top-2
-    routing margin printed; each rank's flash launch held against the
-    plain version on its own input (inside the rank); each rank's peak
+    routing margin printed; each rank's flash launch (one a GQA layer,
+    none for MLA) held against the plain version on its own input
+    (inside the rank); each rank's peak
     allocation within the dry run's reckoning for its (1, 2) blocks plus
     the route's activations (and SERVE_TP_SLACK), and under the whole
     tree's bytes. Returns the ranks' launches."""
@@ -5439,7 +5484,7 @@ def phase_serve_mesh_tp(dev):
     import socket
     import tempfile
     import torch
-    cfg = _serve_tp_cfg()
+    cfg = _serve_tp_cfg(arch)
     torch.cuda.empty_cache()
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
@@ -5451,7 +5496,7 @@ def phase_serve_mesh_tp(dev):
         t0 = time.perf_counter()
         procs = [subprocess.Popen(
             [sys.executable, str(ROOT / "chip_smoke.py"), "--serve-tp-rank",
-             str(r), str(world), str(port), dsts[r], dev.type],
+             str(r), str(world), str(port), dsts[r], dev.type, arch],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True) for r in range(world)]
         try:
@@ -5474,18 +5519,28 @@ def phase_serve_mesh_tp(dev):
         for line in out.splitlines():
             if line.startswith("["):
                 log(f"[serve-tp] rank {r}: {line}")
-    return _serve_tp_check(cfg, one, ranks, secs)
+    return _serve_tp_check(arch, cfg, one, ranks, secs)
 
 
-def _serve_tp_check(cfg, one, ranks, secs):
-    """Phase 11 (c)'s comparisons of the ranks' results with the
+def _serve_tp_check(arch, cfg, one, ranks, secs):
+    """Phase 11 (c)'s or (d)'s comparisons of the ranks' results with the
     one-process route's (:func:`phase_serve_mesh_tp`); logs them and
     returns the ranks' launches."""
     import torch
-    from repro_torch.distributed.sharding import AbstractMesh
+    from repro_torch.core.tree import tree_paths
+    from repro_torch.distributed.sharding import (AbstractMesh,
+                                                  param_shardings,
+                                                  serve_uses)
     from repro_torch.launch import dryrun
+    from repro_torch.models.model import init_params
     world = len(ranks)
+    m = SERVE_TP_MESH[1]
     amesh = AbstractMesh(SERVE_TP_MESH, ("data", "model"))
+    shapes = init_params(cfg, 0, device="meta")
+    gathered = [p for p, u in tree_paths(serve_uses(
+        cfg, shapes, param_shardings(cfg, shapes, amesh), amesh))
+        if u == "gather"]
+    flash = 0 if cfg.mla is not None else cfg.n_layers
     mem = {mode: dryrun.memory(dryrun.serve_program(
         cfg, mode, SERVE_TP_B, SERVE_TP_W, amesh, torch.float32), amesh)
         for mode in ("prefill", "decode")}
@@ -5494,9 +5549,11 @@ def _serve_tp_check(cfg, one, ranks, secs):
     scale = max(x.abs().max().item() for x in one["logits"])
     tol = SERVE_RANK_TOL * scale
     bad, totals, gap, compared = [], {}, 0.0, 0
+    if gathered:
+        bad.append(f"leaves gathered whole: {gathered}")
     for r, res in enumerate(ranks):
         _add(totals, res["launches"])
-        if res["launches"].get("flash_attention", 0) != cfg.n_layers:
+        if res["launches"].get("flash_attention", 0) != flash:
             bad.append(f"rank {r} launches {res['launches']}")
         for key in ("logits", "tokens"):
             if any(not torch.equal(a, b) for a, b in zip(res[key],
@@ -5524,17 +5581,25 @@ def _serve_tp_check(cfg, one, ranks, secs):
     if gap > tol:
         bad.append(f"logits gap {gap} > {tol}")
     gb = 2**30
-    log(f"[serve-tp] {card()}: {SERVE_TP_ARCH} full width, 1 layer, "
-        f"through make_serve_fns over {world} gloo ranks on the one card, "
-        f"(data, model) = {SERVE_TP_MESH} (4 experts, 24/4 heads and "
-        f"65,536 vocabulary rows a rank), B={SERVE_TP_B} x S={SERVE_TP_S}, "
-        f"W={SERVE_TP_W}, {SERVE_TP_STEPS} greedy steps: logits max abs gap "
+    heads = f"{cfg.n_heads // m} of {cfg.n_heads} heads " + (
+        "(MLA)" if cfg.mla is not None
+        else f"over {cfg.n_kv_heads // m} of {cfg.n_kv_heads} KV heads")
+    experts = "" if cfg.moe is None else \
+        f"{cfg.moe.n_experts // m} of {cfg.moe.n_experts} experts, "
+    log(f"[serve-tp] {card()}: phase 11 ({_serve_tp_phase(arch)}) {arch} "
+        f"full width, 1 layer, through make_serve_fns over {world} gloo "
+        f"ranks on the one card, (data, model) = {SERVE_TP_MESH} "
+        f"({experts}{heads}, {cfg.vocab_size // m} vocabulary rows a "
+        f"rank), "
+        f"B={SERVE_TP_B} x S={SERVE_TP_S}, W={SERVE_TP_W}, "
+        f"{SERVE_TP_STEPS} greedy steps: logits max abs gap "
         f"{gap:.3e} = {gap / scale:.3e} of max|logit| over {compared} "
         f"compared row-calls (tol {SERVE_RANK_TOL}); greedy streams "
         f"{'equal' if not bad else 'compared'} under the margin rule; the "
         f"ranks' logits and tokens bit-identical; smallest top-2 routing "
         f"margin {min(r['margin'] for r in ranks):.3e}; flash launches a "
-        f"rank {[r['launches'].get('flash_attention', 0) for r in ranks]}; "
+        f"rank {[r['launches'].get('flash_attention', 0) for r in ranks]} "
+        f"(want {flash}); "
         f"rank ms prefill {res['ms'][0]:.3f}, decode "
         f"{[round(x, 3) for x in res['ms'][1:]]}; the ranks' wall "
         f"{secs:.1f} s")
@@ -5551,21 +5616,23 @@ def _serve_tp_check(cfg, one, ranks, secs):
             f"the whole layer's tree {one['tree'] / gb:.3f} GiB (rank at "
             f"{res['peak'] / one['tree']:.3f} of it)")
     if bad:
-        raise AssertionError(f"serve tp ranks: {bad[:8]}")
+        raise AssertionError(f"serve tp ranks {arch}: {bad[:8]}")
     return totals
 
 
 def phase_serve_mesh(dev):
-    """Phase 11, serving under a mesh: (a), (b) and (c). Returns the
+    """Phase 11, serving under a mesh: (a), (b), (c) and (d). Returns the
     launches."""
     totals = {}
     t0 = time.perf_counter()
     _add(totals, phase_serve_mesh_one_rank(dev))
     _add(totals, phase_serve_mesh_ranks(dev))
     log(f"[time] phase 11 (a, b) {time.perf_counter() - t0:.1f} s")
-    t1 = time.perf_counter()
-    _add(totals, phase_serve_mesh_tp(dev))
-    log(f"[time] phase 11 (c) {time.perf_counter() - t1:.1f} s")
+    for arch in SERVE_TP_ARCHS:
+        t1 = time.perf_counter()
+        _add(totals, phase_serve_mesh_tp(dev, arch))
+        log(f"[time] phase 11 ({_serve_tp_phase(arch)}) "
+            f"{time.perf_counter() - t1:.1f} s")
     log(f"[time] phase 11 serving under a mesh "
         f"{time.perf_counter() - t0:.1f} s")
     return totals

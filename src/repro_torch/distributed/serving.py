@@ -20,23 +20,23 @@ tree trainer's step on a mesh builds too): how it uses each leaf is
 :func:`~repro_torch.distributed.sharding.serve_use`'s rule. A "model"
 split leaf is used where it lies when its block holds whole heads,
 experts, ``d_ff`` columns or a vocabulary block: column-parallel
-projections, row-parallel ``wo`` and ``w_down`` whose partial products
-are summed in rank order (:func:`repro_torch.carriers.placed.rank_sum`,
-``all_gather``s, so every rank of a "model" group holds the same bits),
-expert blocks that run every token and sum likewise, a vocabulary-
-parallel embedding (exact: one rank adds a value that is not zero) and
-logits gathered along the vocabulary. The other split leaves (a split
-through a head, MLA's projections) are gathered whole for their layer
-and let go before the next, as a layer split over "data" (FSDP) is
-gathered from the rank that holds it. A rank so holds its blocks, one
-layer's gathered leaves and its activations, never the model whole.
-The decode cache stays in the rank's blocks: K and V split on their
-heads are read and written in place; a ring split on W (and MLA's
-latent) is gathered whole for its layer, and the new entry written back
-into the block that holds it. No DTensor operator runs. Where no mesh
-dimension of more than one rank splits a leaf (a one-rank mesh, or rows
-alone) the route runs ``model.prefill`` and ``decode_step`` on the
-caller's tensors, bit for bit.
+projections (GQA's and MLA's heads alike), row-parallel ``wo`` and
+``w_down`` whose partial products are summed in rank order
+(:func:`repro_torch.carriers.placed.rank_sum`, ``all_gather``s, so every
+rank of a "model" group holds the same bits), expert blocks that run
+every token and sum likewise, a vocabulary-parallel embedding (exact:
+one rank adds a value that is not zero) and logits gathered along the
+vocabulary. The other split leaves (a split through a head) are gathered
+whole for their layer and let go before the next, as a layer split over
+"data" (FSDP) is gathered from the rank that holds it. A rank so holds
+its blocks, one layer's gathered leaves and its activations, never the
+model whole. The decode cache stays in the rank's blocks: K and V split
+on their heads are read and written in place; a ring split on W (and
+MLA's latent, which every head reads) is gathered whole for its layer,
+and the new entry written back into the block that holds it. No DTensor
+operator runs. Where no mesh dimension of more than one rank splits a
+leaf (a one-rank mesh, or rows alone) the route runs ``model.prefill``
+and ``decode_step`` on the caller's tensors, bit for bit.
 
 ``slot_cache_insert`` and ``slot_cache_evict`` write the per-slot cache
 in place and return it.

@@ -430,15 +430,16 @@ def serve_use(cfg: ModelConfig, path, spec, mesh) -> str:
     * ``"whole"``: "model" does not split it; used as the rank holds it;
     * ``"cols"``: column-parallel on its last dimension (whole heads of
       ``wq`` and the biases, and of ``wk``/``wv`` where the KV heads
-      divide too; ``d_ff`` columns of ``w_gate``/``w_up``; the
-      vocabulary columns of ``lm_head``);
+      divide too; MLA's ``wq`` or ``w_uq``, ``w_uk`` and ``w_uv``, head
+      by head; ``d_ff`` columns of ``w_gate``/``w_up``; the vocabulary
+      columns of ``lm_head``);
     * ``"rows"``: row-parallel on dimension -2 (``wo`` on whole heads,
       ``w_down``): partial products, summed in rank order;
     * ``"vocab"``: the embedding's rows, a vocabulary block;
     * ``"experts"``: an expert block (dimension -3);
     * ``"gather"``: gathered whole for its layer, the split cutting what
       a rank cannot use alone: a head (query heads that do not divide,
-      or ``wk``/``wv`` whose KV heads do not), and MLA's projections."""
+      MLA's among them, or ``wk``/``wv`` whose KV heads do not)."""
     names = _path_names(path)
     name = names[-1] if names else ""
     m = mesh_axis_size(mesh, "model")
@@ -449,7 +450,7 @@ def serve_use(cfg: ModelConfig, path, spec, mesh) -> str:
         return "vocab"
     if split[0] == -3:
         return "experts"
-    if "attn" in names and (cfg.mla is not None or cfg.n_heads % m or (
+    if "attn" in names and (cfg.n_heads % m or (
             name in ("wk", "wv", "bk", "bv") and cfg.n_kv_heads % m)):
         return "gather"
     return "cols" if split[0] == -1 else "rows"

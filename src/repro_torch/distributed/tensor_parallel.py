@@ -8,10 +8,11 @@ How the rank uses each parameter leaf is
 :func:`~repro_torch.distributed.sharding.serve_use`'s rule, the one rule
 of both routes and of the dry run's reckoning: a "model"-split leaf whose
 block holds whole heads, experts, ``d_ff`` columns or a vocabulary block
-is used where it lies (column-parallel projections, row-parallel ``wo``
-and ``w_down`` whose partial products are summed in rank order, expert
-blocks, a vocabulary-parallel embedding and head), the other split
-leaves are gathered whole for their layer, and a layer split over "data"
+is used where it lies (column-parallel projections, GQA's and MLA's
+heads alike, row-parallel ``wo`` and ``w_down`` whose partial products
+are summed in rank order, expert blocks, a vocabulary-parallel embedding
+and head), the other split leaves (a split through a head) are gathered
+whole for their layer, and a layer split over "data"
 (FSDP) is gathered from the rank that holds it. Every collective is
 :mod:`repro_torch.carriers.placed`'s, so autograd goes through each: a
 training pass runs its backward on the same blocks.
@@ -75,8 +76,13 @@ def rank_parallel(cfg: ModelConfig, mesh, params, lays, uses, *,
 
     kv_block = a_use.get("wk") == "cols"
     kw = {}
-    if a_use.get("wq") == "cols":
-        hb = cfg.n_heads // m
+    hb = cfg.n_heads // m
+    if cfg.mla is not None:
+        # MLA reads its dims from cfg.mla, and each head its own K and V
+        if a_use.get("w_uk") == "cols":
+            kw["attn_cfg"] = dataclasses.replace(cfg, n_heads=hb,
+                                                 n_kv_heads=hb)
+    elif a_use.get("wq") == "cols":
         kw["attn_cfg"] = dataclasses.replace(
             cfg, n_heads=hb, head_dim=cfg.resolved_head_dim,
             n_kv_heads=cfg.n_kv_heads // m if kv_block else cfg.n_kv_heads)

@@ -300,7 +300,9 @@ def train_gathers(cfg, params_shape, param_specs, mesh, rows: int,
       autograd reaches them (``("enter", "shared")``, ``("enter",
       "router")`` the routing weights, ``("enter", "mlp")``; ``("enter",
       "v")``, ``("enter", "k")`` where K and V are computed for every KV
-      head, ``("enter", "attn")``) and ``("layer-grad", path)``, each
+      head, ``("enter", "attn")``; for MLA ``("enter", "latent")``, ``x
+      @ w_dkv``, then ``("enter", "query")``, ``x @ w_dq``, or
+      ``("enter", "attn")`` for ``wq``) and ``("layer-grad", path)``, each
       layer slice's gradient brought to its holder over the row
       dimensions, last leaf first;
     * ``("grad", path)``: each leaf's gradient block summed over the row
@@ -359,7 +361,14 @@ def train_gathers(cfg, params_shape, param_specs, mesh, rows: int,
             enters.append((("enter", "mlp"), m * act, m))
     elif mlp_partial:
         enters.append((("enter", "mlp"), m * act, m))
-    if attn_partial:
+    if attn_partial and cfg.mla is not None:
+        a = cfg.mla
+        enters.append((("enter", "latent"), m * rows * T * (
+            a.kv_lora_rank + a.qk_rope_head_dim) * isz, m))
+        enters.append((("enter", "query"), m * rows * T * a.q_lora_rank
+                       * isz, m) if a.q_lora_rank
+                      else (("enter", "attn"), m * act, m))
+    elif attn_partial:
         if use("blocks/attn/wk") != "cols":
             kv = m * rows * T * cfg.n_kv_heads * cfg.resolved_head_dim * isz
             enters += [(("enter", "v"), kv, m), (("enter", "k"), kv, m)]

@@ -311,15 +311,21 @@ def gqa_decode(p: dict, cfg, x: torch.Tensor, pos: torch.Tensor,
     return out.reshape(B, 1, -1) @ p["wo"], cache_kv
 
 
-def _mla_q(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor):
+def _identity(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def _mla_q(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
+           enter: Callable = _identity):
     """x (B, S, D) -> q_nope (B, S, H, nope), q_rope (B, S, H, rope)
-    rotated at ``positions``."""
+    rotated at ``positions``; the heads' input (``x``, or ``x @ w_dq``)
+    goes through ``enter``."""
     a = cfg.mla
     B, S, _ = x.shape
     if a.q_lora_rank:
-        q = (x @ p["w_dq"]) @ p["w_uq"]
+        q = enter(x @ p["w_dq"]) @ p["w_uq"]
     else:
-        q = x @ p["wq"]
+        q = enter(x) @ p["wq"]
     q = q.reshape(B, S, cfg.n_heads, a.qk_nope_head_dim + a.qk_rope_head_dim)
     q_nope = q[..., :a.qk_nope_head_dim]
     q_rope = apply_rope(q[..., a.qk_nope_head_dim:], positions,
@@ -327,11 +333,13 @@ def _mla_q(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor):
     return q_nope, q_rope
 
 
-def _mla_latent(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor):
+def _mla_latent(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
+                enter: Callable = _identity):
     """x (B, S, D) -> the latent c (B, S, r) and the shared RoPE key
-    k_rope (B, S, rope) rotated at ``positions``."""
+    k_rope (B, S, rope) rotated at ``positions``; ``x @ w_dkv`` goes
+    through ``enter``."""
     a = cfg.mla
-    ckv = x @ p["w_dkv"]                              # (B, S, r + rope)
+    ckv = enter(x @ p["w_dkv"])                       # (B, S, r + rope)
     c = ckv[..., :a.kv_lora_rank]
     k_rope = apply_rope(ckv[..., None, a.kv_lora_rank:], positions,
                         cfg.rope_theta)               # (B, S, 1, rope)
@@ -339,19 +347,26 @@ def _mla_latent(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor):
 
 
 def mla_forward(p: dict, cfg, x: torch.Tensor, positions=None,
-                window: Optional[int] = None):
+                window: Optional[int] = None,
+                enter: Callable = _identity):
     """x: (B,S,D) -> ((B,S,D), (c, k_rope)). K and V are expanded from
     the latent and attended by :func:`chunked_causal_attention` (q/k head
     dim nope + rope, v head dim ``v_head_dim``). ``window`` alone sets
     the window: as in the reference, ``cfg.sliding_window`` is not read
-    here (:func:`gqa_forward` reads it)."""
+    here (:func:`gqa_forward` reads it).
+
+    ``enter`` (a rank's block of the heads under autograd, as in
+    :func:`gqa_forward`): the heads' query input (``x``, or ``x @
+    w_dq``) and the latent ``x @ w_dkv`` enter the rank's heads through
+    it, so ``w_dq``'s and ``w_dkv``'s gradients, which every rank
+    computes whole, sum the ranks' partial gradients."""
     a = cfg.mla
     B, S, _ = x.shape
     H = cfg.n_heads
     pos = torch.arange(S, device=x.device) if positions is None \
         else torch.as_tensor(positions, device=x.device)
-    q_nope, q_rope = _mla_q(p, cfg, x, pos)
-    c, k_rope = _mla_latent(p, cfg, x, pos)
+    q_nope, q_rope = _mla_q(p, cfg, x, pos, enter)
+    c, k_rope = _mla_latent(p, cfg, x, pos, enter)
     k_nope = (c @ p["w_uk"]).reshape(B, S, H, a.qk_nope_head_dim)
     v = (c @ p["w_uv"]).reshape(B, S, H, a.v_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)

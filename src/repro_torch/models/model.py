@@ -208,10 +208,11 @@ class Parallel:
       entering compute split over the group; its backward sums the
       ranks' partial gradients in rank order (psum's conjugate);
     * ``pmax(t)``: the elementwise max over the group (no gradient);
-    * ``attn_cfg``: the config GQA runs under: the rank's query heads,
-      and its KV heads or, with ``kv_heads``, all of them, of which the
-      queries read those (:func:`repro_torch.models.attention.
-      kv_heads_for`);
+    * ``attn_cfg``: the config attention runs under: the rank's query
+      heads and, for GQA, its KV heads or, with ``kv_heads``, all of
+      them, of which the queries read those (:func:`repro_torch.models.
+      attention.kv_heads_for`); MLA's heads each read their own K and V
+      from the latent, which every rank computes whole;
     * ``attn_partial``, ``mlp_partial``, ``shared_partial``: the
       attention's, the MLP's (the routed experts') and the shared
       experts' outputs are the rank's part of a sum;
@@ -308,14 +309,14 @@ def _xlstm_pair_seq(cfg: ModelConfig, p: dict, x: torch.Tensor,
     return x + h, {"m": new_m, "s": new_s}
 
 
-def _gqa_args(cfg: ModelConfig, par: Optional[Parallel],
-              seq: bool = True):
-    """The config and keywords GQA runs under: the rank's heads under
-    ``par`` (a sequence pass entering them through ``par.enter`` where
-    their outputs are partial)."""
+def _attn_args(cfg: ModelConfig, par: Optional[Parallel],
+               seq: bool = True):
+    """The config and keywords GQA or MLA runs under: the rank's heads
+    under ``par`` (a sequence pass entering them through ``par.enter``
+    where their outputs are partial)."""
     if par is None:
         return cfg, {}
-    kw = {"kv_heads": par.kv_heads}
+    kw = {} if cfg.mla is not None else {"kv_heads": par.kv_heads}
     if seq and par.attn_partial:
         kw["enter"] = par.enter
     return par.attn_cfg, kw
@@ -365,12 +366,12 @@ def _block_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
         return x, state, torch.zeros((), dtype=torch.float32,
                                      device=x.device)
     h = rms_norm(x, p["norm_attn"], cfg.norm_eps, cfg.fused_rmsnorm)
+    acfg, kw = _attn_args(cfg, par)
     if cfg.mla is not None:
-        a_out, kv = attn.mla_forward(p["attn"], cfg, h, positions,
-                                     window=window)
+        a_out, kv = attn.mla_forward(p["attn"], acfg, h, positions,
+                                     window=window, **kw)
         cache = {"c": kv[0], "k_rope": kv[1]}
     else:
-        acfg, kw = _gqa_args(cfg, par)
         a_out, kv = attn.gqa_forward(p["attn"], acfg, h, positions,
                                      window=window, attention=attention,
                                      **kw)
@@ -577,12 +578,12 @@ def _block_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
         _write_state(cache, state)
         return x
     h = rms_norm(x, p["norm_attn"], cfg.norm_eps, cfg.fused_rmsnorm)
+    acfg, kw = _attn_args(cfg, par, seq=False)
     if cfg.mla is not None:
         # no window, as in the reference's MLA decode
-        a_out, _ = attn.mla_decode(p["attn"], cfg, h, pos, cache["kv"],
+        a_out, _ = attn.mla_decode(p["attn"], acfg, h, pos, cache["kv"],
                                    slot_pos, absorb=cfg.mla_absorb)
     else:
-        acfg, kw = _gqa_args(cfg, par, seq=False)
         a_out, _ = attn.gqa_decode(p["attn"], acfg, h, pos, cache["kv"],
                                    slot_pos, **kw)
     a_out = _attn_sum(a_out, par)

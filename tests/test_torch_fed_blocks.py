@@ -13,9 +13,10 @@ round:
   row-parallel projections, a vocabulary-parallel embedding and loss;
 * reduced Grok-1 (its ``fed_axis="pod"``, ``fsdp_layers``: K = 1): the
   experts over "model", the layer stack and the rows over "data";
-* reduced DeepSeek-V2-Lite (its ``fed_axis="pod"``: K = 1): MLA's
-  projections gathered per layer, the experts over "model", the rows
-  over "data";
+* reduced DeepSeek-V2-Lite (its ``fed_axis="pod"``: K = 1): MLA on
+  blocks of its heads, the experts over "model", the rows over "data"
+  (reduced MiniCPM3-4B and the ``wq`` route are in
+  ``test_torch_mla_blocks.py``);
 * reduced Hymba-1.5B, ``fed_axis="data"`` (K = 2): attention heads on
   blocks beside Mamba's whole leaves;
 * reduced xLSTM-350M, ``fed_axis="data"``: nothing split, the plain
@@ -99,11 +100,15 @@ LOSS_TOL = 1e-6
 REF_RTOL, REF_LOSS_RTOL = 2e-6, 1e-6
 
 
-def _cfg(name):
-    arch, over = CASES[name]
+def _cfg(name, cases=CASES):
+    """A case's reduced config, with its overrides ("mla" replaces fields
+    of the MLA config) and experts of width 64."""
+    arch, over = cases[name]
     cfg = reduced(get_config(arch))
     if cfg.moe is not None:
         over = dict(over, moe=dataclasses.replace(cfg.moe, d_ff_expert=64))
+    if "mla" in over:
+        over = dict(over, mla=dataclasses.replace(cfg.mla, **over["mla"]))
     return dataclasses.replace(cfg, **over)
 
 
@@ -112,8 +117,8 @@ def _fed():
                         n_byz=0, lr=1e-3)
 
 
-def _K(name) -> int:
-    return tsh.n_agents(_cfg(name), tsh.AbstractMesh(SHAPE, NAMES))
+def _K(cfg) -> int:
+    return tsh.n_agents(cfg, tsh.AbstractMesh(SHAPE, NAMES))
 
 
 def _mid_state(cfg, K, seed=0):
@@ -139,7 +144,12 @@ def _mid_state(cfg, K, seed=0):
 
 @functools.lru_cache(maxsize=None)
 def _inputs(name):
-    cfg, K = _cfg(name), _K(name)
+    return _inputs_of(_cfg(name))
+
+
+def _inputs_of(cfg):
+    """A mid-run state, a batch and a mask of ``cfg``'s K agents."""
+    K = _K(cfg)
     batch = {k: v.numpy() for k, v in TokenPipeline(DataConfig(
         cfg.vocab_size, S, B, K, seed=3), device="cpu").batch(0).items()}
     return {"state": _mid_state(cfg, K), "batch": batch,
@@ -171,8 +181,11 @@ def _measured(out):
     out["peak"] = live.peak
 
 
-def _rank_case(name, mesh, inp):
-    cfg, fed = _cfg(name), _fed()
+def _rank_case(cfg, mesh, inp):
+    """One case's step of each coin on this rank: its blocks of θ and v,
+    the loss, each estimate's peak and the rows each loss read, under
+    ``CollectiveWatch``."""
+    fed = _fed()
     batch = {k: torch.from_numpy(v) for k, v in inp["batch"].items()}
     mask = torch.from_numpy(inp["mask"])
     est, loss = ft._estimate_placed, ft._loss
@@ -220,7 +233,7 @@ def _rank_main(rank, world, port, kind, inp, dst):
         mesh = make_debug_mesh(*SHAPE, device_type="cpu")
         with open(inp, "rb") as f:
             inputs = pickle.load(f)
-        torch.save({name: _rank_case(name, mesh, inputs[name])
+        torch.save({name: _rank_case(_cfg(name), mesh, inputs[name])
                     for name in CASES}, dst)
     finally:
         dist.destroy_process_group()
@@ -260,8 +273,11 @@ def _one_thread():
 
 @functools.lru_cache(maxsize=None)
 def _one_process(name):
+    return _one_process_of(_cfg(name), _inputs(name))
+
+
+def _one_process_of(cfg, inp):
     """The port's one-process step of each coin from the same inputs."""
-    cfg, inp = _cfg(name), _inputs(name)
     batch = {k: torch.from_numpy(v) for k, v in inp["batch"].items()}
     with _one_thread():
         return {large: ft.fed_train_step(
@@ -297,19 +313,23 @@ def test_blocks_step_matches_one_process(ranks, name):
     V_TOL of max|v|, θ within THETA_TOL of max|θ|, the loss within
     LOSS_TOL; the case with no split bit for bit. Each rank's loss reads
     its own rows only."""
-    want = _one_process(name)
-    plain = name in PLAIN
-    cfg = _cfg(name)
+    _check_steps(ranks[name], name, _cfg(name), _one_process(name),
+                 name in PLAIN)
+
+
+def _check_steps(results, name, cfg, want, plain):
+    """:func:`test_blocks_step_matches_one_process`' check of one case's
+    ranks against ``want``, its :func:`_one_process_of` step."""
     n = math.prod(SHAPE[NAMES.index(a)] for a in tsh.batch_axes(
         cfg, tsh.AbstractMesh(SHAPE, NAMES)))
-    for res in ranks[name]:
+    for res in results:
         for large, got in res["steps"].items():
             if plain:
                 _check(name, got, want[large], None, None, None)
             else:
                 _check(name, got, want[large], V_TOL, THETA_TOL, LOSS_TOL)
-            K_rank = _K(name) // SHAPE[0] if cfg.fed_axis == "data" \
-                else _K(name)
+            K_rank = _K(cfg) // SHAPE[0] if cfg.fed_axis == "data" \
+                else _K(cfg)
             assert got["rows"] == [(B // n, S)] * (
                 K_rank * (1 if large else 2)), (name, large)
 
@@ -318,8 +338,12 @@ def test_blocks_step_matches_one_process(ranks, name):
 def test_model_group_holds_the_same_bits(ranks, name):
     """The ranks of a "model" group (one "data" coordinate) hold the same
     losses and the same bits of every leaf block they share."""
+    _check_same_bits(ranks[name], name)
+
+
+def _check_same_bits(results, name):
     by_data = {}
-    for res in ranks[name]:
+    for res in results:
         by_data.setdefault(res["coord"][0], []).append(res)
     for group in by_data.values():
         first = group[0]
@@ -334,12 +358,11 @@ def test_model_group_holds_the_same_bits(ranks, name):
                             assert torch.equal(a, b), (name, field, path)
 
 
-def _plan(name):
-    cfg = _cfg(name)
+def _plan(cfg):
     mesh = tsh.AbstractMesh(SHAPE, NAMES)
     _, state_shape, batch, (state_sh, batch_sh, _) = ft.make_fed_step(
         cfg, _fed(), mesh, large=True, per_agent_batch=B, seq_len=S)
-    return cfg, mesh, state_shape, state_sh, batch, batch_sh
+    return mesh, state_shape, state_sh, batch, batch_sh
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -350,7 +373,13 @@ def test_only_the_reckoned_gathers(ranks, name):
     marks it "gather" (one layer at a time), no leaf used on blocks, no
     direction and no logits; with no split the estimate gathers
     nothing."""
-    cfg, mesh, state_shape, state_sh, batch, batch_sh = _plan(name)
+    _check_gathers(ranks[name], name, _cfg(name), name in PLAIN)
+
+
+def _check_gathers(results, name, cfg, plain):
+    """:func:`test_only_the_reckoned_gathers`' check of one case's ranks;
+    an MLA leaf is never gathered whole where its heads divide."""
+    mesh, state_shape, state_sh, batch, batch_sh = _plan(cfg)
     plan = analysis.estimate_plan(cfg, mesh, state_shape, state_sh, batch,
                                   batch_sh)
     specs = tsh.param_shardings(cfg, init_params(cfg, 0, device="meta"),
@@ -359,12 +388,13 @@ def test_only_the_reckoned_gathers(ranks, name):
     kinds = {kind for (kind, _), _, _ in plan}
     assert kinds <= {"sum", "layer", "whole", "max", "enter",
                      "layer-grad", "grad"}, kinds
-    for (kind, path), _, _ in plan:
+    for (kind, path), _, g in plan:
         if kind == "whole":
             assert uses[path] == "gather", path
-    if name in PLAIN:
+            assert cfg.mla is None or cfg.n_heads % g, path
+    if plain:
         assert plan == []
-    for res in ranks[name]:
+    for res in results:
         for large, got in res["steps"].items():
             assert got["dtensor_ops"] == []
             assert set(got["comm"]) <= {"c10d.allgather_"}, got["comm"]
@@ -377,9 +407,12 @@ def test_only_the_reckoned_gathers(ranks, name):
 
 @functools.lru_cache(maxsize=None)
 def _activations(name):
+    return _activations_of(_cfg(name), _inputs(name))
+
+
+def _activations_of(cfg, inp):
     """The one-process loss's own bytes: its peak of new bytes across one
     agent's loss and gradient less the whole gradients it returns."""
-    cfg, inp = _cfg(name), _inputs(name)
     state = fed_state_from_jax(inp["state"], "cpu")
     params = tree_map(lambda x: x[0], state.params)
     b = {k: torch.from_numpy(v[0]) for k, v in inp["batch"].items()}
@@ -400,7 +433,13 @@ def test_estimate_peak_within_the_reckoning(ranks, name):
     agent's whole gradients (two at c = 0) and the one-process
     activations: at least one agent's whole leaves below what the route
     on whole leaves held (those and the leaves gathered whole)."""
-    cfg, mesh, state_shape, state_sh, batch, batch_sh = _plan(name)
+    _check_peak(ranks[name], name, _cfg(name), _activations(name))
+
+
+def _check_peak(results, name, cfg, act):
+    """:func:`test_estimate_peak_within_the_reckoning`'s check of one
+    case's ranks, ``act`` its :func:`_activations_of`."""
+    mesh, state_shape, state_sh, batch, batch_sh = _plan(cfg)
     plan = analysis.estimate_plan(cfg, mesh, state_shape, state_sh, batch,
                                   batch_sh)
     leaves = [analysis.Leaf.of(t, s, mesh) for (_, t), (_, s) in zip(
@@ -410,8 +449,7 @@ def test_estimate_peak_within_the_reckoning(ranks, name):
     big = max(b for _, b, _ in plan)
     split = any(x.parts(d) > 1 for x in leaves
                 for d in range(1, len(x.shape)))
-    act = _activations(name)
-    for res in ranks[name]:
+    for res in results:
         for large, got in res["steps"].items():
             for rec in got["estimate"]:
                 bound = rec["new"] + dryrun.train_gathered_bytes(

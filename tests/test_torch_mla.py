@@ -167,6 +167,101 @@ def test_mla_absorbed_equals_naive_decode(mla):
         assert torch.equal(out[True][1][k], out[False][1][k])
 
 
+def _head_block(tp, tc, b, m):
+    """Block ``b`` of ``m`` of MLA's heads, as a rank on a "model" split of
+    size m holds it: the head-major columns of the query projection,
+    ``w_uk`` and ``w_uv``, the rows of ``wo``, ``w_dq`` and ``w_dkv``
+    whole; and the config of its H/m heads."""
+    a, hb = tc.mla, tc.n_heads // m
+    width = {"wq": a.qk_nope_head_dim + a.qk_rope_head_dim,
+             "w_uq": a.qk_nope_head_dim + a.qk_rope_head_dim,
+             "w_uk": a.qk_nope_head_dim, "w_uv": a.v_head_dim,
+             "wo": a.v_head_dim}
+    out = {}
+    for k, v in tp.items():
+        cut = slice(b * hb * width[k], (b + 1) * hb * width[k]) \
+            if k in width else slice(None)
+        out[k] = v[cut] if k == "wo" else v[:, cut]
+    return out, dataclasses.replace(tc, n_heads=hb, n_kv_heads=hb)
+
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_mla_forward_on_head_blocks(mla, m):
+    """m blocks of the heads, each through its rows of ``wo``, summed in
+    block order: the whole call's output and latent. Each block's
+    ``enter`` hands its input on as a fresh leaf; the leaves' gradients
+    summed over the blocks in block order and carried back through what
+    entered give every block ``w_dq``'s, ``w_dkv``'s and ``x``'s whole
+    gradients, and the block's own columns (rows of ``wo``) of the
+    split leaves' gradients."""
+    _, tc, _, tp = mla
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((2, 13, tc.d_model)
+                                             ).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal(tuple(x.shape)
+                                             ).astype(np.float32))
+    whole = {k: v.clone().requires_grad_() for k, v in tp.items()}
+    xw = x.clone().requires_grad_()
+    want, (wc, wk) = tattn.mla_forward(whole, tc, xw)
+    want.backward(g)
+
+    outs, runs = [], []
+    for b in range(m):
+        pb, cb = _head_block(tp, tc, b, m)
+        pb = {k: v.clone().requires_grad_() for k, v in pb.items()}
+        xb, entered = x.clone().requires_grad_(), []
+
+        def enter(t, entered=entered):
+            leaf = t.detach().requires_grad_()
+            entered.append((t, leaf))
+            return leaf
+        out, (c, k_rope) = tattn.mla_forward(pb, cb, xb, enter=enter)
+        assert torch.equal(c, wc) and torch.equal(k_rope, wk)
+        out.backward(g)            # a rank-order sum's backward: identity
+        outs.append(out.detach())
+        runs.append((pb, xb, entered))
+    _close(sum(outs[1:], outs[0]), want.detach(), OUT_TOL)
+    assert len(runs[0][2]) == 2     # the query's input, then the latent
+    sums = [sum(r[2][i][1].grad for r in runs[1:]) + runs[0][2][i][1].grad
+            for i in range(len(runs[0][2]))]
+    for b, (pb, xb, entered) in enumerate(runs):
+        torch.autograd.backward([t for t, _ in entered], sums)
+        _close(xb.grad, xw.grad, OUT_TOL)
+        ref, _ = _head_block({k: v.grad for k, v in whole.items()}, tc, b,
+                             m)
+        assert set(pb) == set(ref)
+        for k, v in pb.items():
+            _close(v.grad, ref[k], OUT_TOL)
+
+
+@pytest.mark.parametrize("absorb", [True, False], ids=["absorb", "naive"])
+@pytest.mark.parametrize("m", [2, 4])
+def test_mla_decode_on_head_blocks(mla, absorb, m):
+    """A decode step at position 11 over a wrapped ring of 8, on m blocks
+    of the heads summed in block order: the whole step's output, and
+    every block writes the whole step's latent entries."""
+    _, tc, _, tp = mla
+    B, W = 3, 8
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (B, 1, tc.d_model)).astype(np.float32))
+    cache = {k: torch.from_numpy(v) for k, v in _cache(tc, B, W, 9).items()}
+    slot_pos = torch.arange(W)
+    slot_pos[3] = 11
+    pos = torch.tensor(11)
+    want, wcache = tattn.mla_decode(tp, tc, x, pos, {
+        k: v.clone() for k, v in cache.items()}, slot_pos, absorb=absorb)
+    outs = []
+    for b in range(m):
+        pb, cb = _head_block(tp, tc, b, m)
+        out, bcache = tattn.mla_decode(pb, cb, x, pos, {
+            k: v.clone() for k, v in cache.items()}, slot_pos,
+            absorb=absorb)
+        outs.append(out)
+        for k in cache:
+            assert torch.equal(bcache[k], wcache[k]), (b, k)
+    _close(sum(outs[1:], outs[0]), want, OUT_TOL)
+
+
 @pytest.mark.parametrize("H,Hkv", [(4, 4), (4, 2)], ids=["G1", "G2"])
 def test_chunked_attention_with_a_narrower_v(H, Hkv):
     """``chunked_causal_attention`` with v's head dim (16) below q/k's

@@ -11,10 +11,12 @@
   module fixture: a one-rank (1, 1) mesh, (data, model) = (1, 2) and
   (2, 1) over two ranks and (2, 2) over four. Every rank prefills B = 2
   prompts of 11 positions into a ring of W = 24 and takes 3 decode
-  steps (seeded tokens) for reduced Llama-3.2-1B, DeepSeek-V2-Lite (MLA,
-  MoE with experts that divide: expert-parallel), Hymba-1.5B (hybrid),
-  xLSTM-350M (SSM), Pixtral-12B (a frontend, with ``prefix_embeds``),
-  Grok-1 (expert-parallel, its layers split over "data") and the
+  steps (seeded tokens) for reduced Llama-3.2-1B, DeepSeek-V2-Lite (MLA
+  on blocks of its heads, MoE with experts that divide: expert-parallel;
+  the MLA variants are in ``test_torch_mla_blocks.py``), Hymba-1.5B
+  (hybrid), xLSTM-350M (SSM), Pixtral-12B (a frontend, with
+  ``prefix_embeds``), Grok-1 (expert-parallel, its layers split over
+  "data") and the
   variants of :data:`VARIANTS`: Llama with one KV head (``wk``/``wv``
   gathered per layer, K and V split on the ring W), Grok-1 with 3
   experts (split on ``d_ff``: column- then row-parallel), Llama with 6
@@ -198,10 +200,15 @@ USE_CASES = [
         "blocks/attn/wo": "gather", "blocks/mlp/w_up": "cols",
         "blocks/mlp/w_down": "rows"}),
     ("deepseek_v2_lite_16b", (16, 16), {
-        "blocks/attn/w_uk": "gather", "blocks/attn/wo": "gather",
+        "blocks/attn/wq": "cols", "blocks/attn/w_uk": "cols",
+        "blocks/attn/w_uv": "cols", "blocks/attn/wo": "rows",
         "blocks/attn/w_dkv": "whole", "blocks/mlp/w_gate": "experts",
         "blocks/mlp/shared/w_gate": "cols",
         "blocks/mlp/shared/w_down": "rows"}),
+    ("minicpm3_4b", (16, 16), {"blocks/attn/w_uq": "gather"}),
+    ("minicpm3_4b", (1, 2), {
+        "blocks/attn/w_uq": "cols", "blocks/attn/wo": "rows",
+        "blocks/attn/w_dq": "whole"}),
     ("xlstm_350m", (16, 16), {"embed": "whole", "blocks/m/w_up": "whole"}),
     ("llama3_2_1b", (1, 1), {"embed": "whole", "blocks/attn/wq": "whole"}),
 ]
@@ -210,8 +217,9 @@ USE_CASES = [
 @pytest.mark.parametrize("arch,shape,want", USE_CASES)
 def test_serve_use_at_published_widths(arch, shape, want):
     """``serve_use``'s rule on the full configs: head-, expert-, d_ff- and
-    vocab-parallel leaves, and the ones gathered whole (KV heads or
-    query heads that do not divide, MLA's projections)."""
+    vocab-parallel leaves, MLA's heads among them, and the ones gathered
+    whole (KV heads or query heads that do not divide: MiniCPM3-4B's 40
+    over 16)."""
     cfg = get_config(arch)
     mesh = tsh.AbstractMesh(shape, ("data", "model"))
     shapes = tmodel.init_params(cfg, 0, device="meta")
@@ -239,13 +247,17 @@ def test_kv_heads_for_a_block_of_query_heads(H, Hkv, lo, hi, want):
 # Ranks
 # ---------------------------------------------------------------------------
 
-def _cfgs(case):
-    arch, fields = VARIANTS.get(case, (case, {}))
+def _cfgs(case, variants=VARIANTS):
+    """(reference config, port config) of a case: reduced, with a
+    variant's fields replaced ("moe" and "mla" replace fields of those
+    configs)."""
+    arch, fields = variants.get(case, (case, {}))
     out = []
     for c in (jreduced(jget_config(arch)), reduced(get_config(arch))):
         kw = dict(fields)
-        if "moe" in kw:
-            kw["moe"] = dataclasses.replace(c.moe, **kw["moe"])
+        for sub in ("moe", "mla"):
+            if sub in kw:
+                kw[sub] = dataclasses.replace(getattr(c, sub), **kw[sub])
         out.append(dataclasses.replace(c, **kw))
     return tuple(out)
 
@@ -255,11 +267,14 @@ _J_INIT = jax.jit(jmodel.init_params, static_argnums=0)
 
 @functools.lru_cache(maxsize=None)
 def _inputs(case):
+    return _inputs_of(_cfgs(case)[0], CASES.index(case))
+
+
+def _inputs_of(jc, seed):
     """The reference's weights (numpy) and the seeded prompt, prefix
-    embeddings and decode tokens of one case."""
-    jc, _ = _cfgs(case)
+    embeddings and decode tokens of one case (reference config ``jc``)."""
     params = jax.tree.map(np.asarray, _J_INIT(jc, jax.random.PRNGKey(5)))
-    rng = np.random.default_rng(CASES.index(case))
+    rng = np.random.default_rng(seed)
     P = jc.n_prefix_embeds if jc.frontend != "none" else 0
     toks = rng.integers(0, jc.vocab_size, (B, PROMPT - P)).astype(np.int32)
     pe = rng.standard_normal((B, P, jc.d_model)).astype(np.float32) \
@@ -361,31 +376,34 @@ def _same_bits(a, b) -> list:
     return bad
 
 
+def _serve_kind(kind, cfgs, inputs):
+    """On a spawned rank: every case of ``cfgs`` (case -> config) served
+    on mesh ``kind`` from ``inputs`` (case -> its inputs), and served
+    again where "model" splits."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    mesh = make_debug_mesh(*MESHES[kind], device_type="cpu")
+    res = {"comm": {}, "dtensor_ops": [], "cases": {}, "repeat": {}}
+    for case, tcfg in cfgs.items():
+        got = res["cases"][case] = _serve(tcfg, mesh, inputs[case], res)
+        if MESHES[kind][1] > 1:
+            res["repeat"][case] = _same_bits(
+                got, _serve(tcfg, mesh, inputs[case], {}))
+    return res
+
+
 def _rank_main(rank, world, port, group, inp, dst):
     """One spawned rank: join the gloo group, build each of the group's
     meshes, serve every case on it, write the results."""
     import pickle
     import torch.distributed as dist
-    from repro_torch.launch.mesh import make_debug_mesh
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=int(world), rank=int(rank))
     try:
         with open(inp, "rb") as f:
             inputs = pickle.load(f)
-        out = {}
-        for kind in GROUPS[group]:
-            mesh = make_debug_mesh(*MESHES[kind], device_type="cpu")
-            res = {"comm": {}, "dtensor_ops": [], "cases": {},
-                   "repeat": {}}
-            for case in CASES:
-                tcfg = _cfgs(case)[1]
-                got = res["cases"][case] = _serve(tcfg, mesh, inputs[case],
-                                                  res)
-                if MESHES[kind][1] > 1:
-                    res["repeat"][case] = _same_bits(
-                        got, _serve(tcfg, mesh, inputs[case], {}))
-            out[kind] = res
-        torch.save(out, dst)
+        cfgs = {case: _cfgs(case)[1] for case in CASES}
+        torch.save({kind: _serve_kind(kind, cfgs, inputs)
+                    for kind in GROUPS[group]}, dst)
     finally:
         dist.destroy_process_group()
 
@@ -416,11 +434,14 @@ def ranks(_started):
 
 @functools.lru_cache(maxsize=None)
 def _one_process(case):
+    return _one_process_of(_cfgs(case)[1], _inputs(case))
+
+
+def _one_process_of(tcfg, inp):
     """The port's one-process route from the same inputs, on one thread
     as the ranks: the logits of the prefill and each step, the cache
-    after the prefill and after the last step."""
-    _, tcfg = _cfgs(case)
-    inp = _inputs(case)
+    after the prefill and after the last step, and each call's
+    activations (its peak of new bytes less what it returns new)."""
     params = model_params_from_jax(inp["params"], tcfg, device="cpu")
     pe = None if inp["prefix"] is None else torch.from_numpy(inp["prefix"])
     threads = torch.get_num_threads()
@@ -501,9 +522,14 @@ def test_ranks_match_one_process(ranks, kind, case):
     """Each rank's logit rows after the prefill and every step, and its
     cache blocks after the prefill and after decode step 3, against the
     one-process route (bit for bit on the one-rank mesh)."""
-    want = _one_process(case)
+    _check_ranks(ranks[kind], kind, case, _one_process(case))
+
+
+def _check_ranks(results, kind, case, want):
+    """:func:`test_ranks_match_one_process`'s check of one case's ranks
+    against ``want``, its :func:`_one_process_of` route."""
     exact = kind == "one"
-    for res in ranks[kind]:
+    for res in results:
         got = res["cases"][case]
         lo, hi = got["rows"]
         for g, w in zip(got["logits"], want["logits"]):
@@ -538,12 +564,29 @@ def test_collectives_and_placements(ranks, kind):
     ``serve_use`` marks as used on blocks, and no DTensor operator;
     every cache block the shape of ``cache_shardings``' placements (K
     and V of one KV head, and MLA's latent, split on the ring W)."""
+    cfgs = {case: _cfgs(case)[1] for case in CASES}
+    _check_gathers(ranks[kind], kind, cfgs)
     mesh = tsh.AbstractMesh(MESHES[kind], ("data", "model"))
-    for res in ranks[kind]:
+    for case in ("llama_ring", "deepseek_v2_lite_16b"):
+        if MESHES[kind][1] > 1:
+            specs = tsh.cache_shardings(cfgs[case], tmodel.init_cache(
+                cfgs[case], B, W, device="meta"), mesh)
+            assert all(s[2] == "model" for _, s in
+                       tree_paths(specs["blocks"]))
+
+
+def _check_gathers(results, kind, cfgs):
+    """:func:`test_collectives_and_placements`' check of the ranks of
+    mesh ``kind`` for the cases of ``cfgs`` (case -> config): only the
+    reckoned ``all_gather``s, a leaf gathered whole only where
+    ``serve_use`` marks it "gather" (never an MLA leaf whose heads the
+    split keeps whole), and every cache block the shape of its
+    placements."""
+    mesh = tsh.AbstractMesh(MESHES[kind], ("data", "model"))
+    for res in results:
         assert res["dtensor_ops"] == []
         assert set(res["comm"]) <= {"c10d.allgather_"}, res["comm"]
-        for case in CASES:
-            tcfg = _cfgs(case)[1]
+        for case, tcfg in cfgs.items():
             prefill, decode = _plans(tcfg, mesh)
             calls = res["cases"][case]["calls"]
             assert [tuple(g) for g in calls[0]["gathers"]] == \
@@ -559,18 +602,15 @@ def test_collectives_and_placements(ranks, kind):
             for (what, path), _, g in prefill + decode:
                 if what == "whole":
                     assert uses[path] == "gather", (kind, case, path)
+                    assert tcfg.mla is None or tcfg.n_heads % g, \
+                        (kind, case, path)
                 elif what == "layer":    # FSDP: the layers over "data"
                     assert tcfg.fsdp_layers and g == MESHES[kind][0]
             if MESHES[kind] == (1, 1):
                 assert prefill == decode == []
-        for case in CASES:
-            tcfg = _cfgs(case)[1]
+        for case, tcfg in cfgs.items():
             cshape = tmodel.init_cache(tcfg, B, W, device="meta")
             specs = tsh.cache_shardings(tcfg, cshape, mesh)
-            if case in ("llama_ring", "deepseek_v2_lite_16b") \
-                    and MESHES[kind][1] > 1:
-                assert all(s[2] == "model" for _, s in
-                           tree_paths(specs["blocks"]))
             for (path, block, idx), (_, t), (_, s) in zip(
                     res["cases"][case]["last"], tree_paths(cshape),
                     tree_paths(specs)):
@@ -590,16 +630,22 @@ def test_model_group_holds_the_same_bits(ranks, kind):
     bit-identical logits after every call and bit-identical cache leaves
     wherever "model" does not split them; on the meshes where "model"
     splits, each case's repeated run is bit-identical."""
+    _check_same_bits(ranks[kind], kind, {case: _cfgs(case)[1]
+                                         for case in CASES})
+
+
+def _check_same_bits(results, kind, cfgs):
+    """:func:`test_model_group_holds_the_same_bits`' check of the ranks of
+    mesh ``kind`` for the cases of ``cfgs`` (case -> config)."""
     mesh = tsh.AbstractMesh(MESHES[kind], ("data", "model"))
-    for case in CASES:
-        tcfg = _cfgs(case)[1]
+    for case, tcfg in cfgs.items():
         specs = tsh.cache_shardings(tcfg, tmodel.init_cache(
             tcfg, B, W, device="meta"), mesh)
         split = {p for p, s in tree_paths(specs)
                  if any("model" in (e if isinstance(e, tuple) else (e,))
                         for e in s)}
         groups = {}
-        for res in ranks[kind]:
+        for res in results:
             groups.setdefault(res["cases"][case]["coord"][0], []).append(
                 res["cases"][case])
         for members in groups.values():
@@ -609,7 +655,7 @@ def test_model_group_holds_the_same_bits(ranks, kind):
                        if b.split(" ")[-1] not in split
                        or b.startswith("logits")]
                 assert bad == [], (kind, case, bad)
-        for res in ranks[kind]:
+        for res in results:
             assert res["repeat"].get(case, []) == [], (kind, case)
 
 
@@ -623,14 +669,22 @@ def test_peak_bytes_within_the_reckoning(ranks, kind):
     may drop a finished gather's buffers only after the next begins, a
     race seen under load); and under the whole parameter tree's
     bytes."""
+    _check_peaks(ranks[kind], kind,
+                 {case: _cfgs(case)[1] for case in CASES},
+                 {case: _one_process(case)["act"] for case in CASES})
+
+
+def _check_peaks(results, kind, cfgs, acts):
+    """:func:`test_peak_bytes_within_the_reckoning`'s check of the ranks
+    of mesh ``kind`` for the cases of ``cfgs`` (case -> config), ``acts``
+    each case's one-process activations per call."""
     mesh = tsh.AbstractMesh(MESHES[kind], ("data", "model"))
-    for case in CASES:
-        tcfg = _cfgs(case)[1]
+    for case, tcfg in cfgs.items():
         tree = sum(x.nbytes for _, x in tree_paths(tmodel.init_params(
             tcfg, 0, device="meta")))
         plans = _plans(tcfg, mesh)
-        act = _one_process(case)["act"]
-        for res in ranks[kind]:
+        act = acts[case]
+        for res in results:
             for i, c in enumerate(res["cases"][case]["calls"]):
                 plan = plans[min(i, 1)]
                 bound = c["new"] + dryrun.gathered_bytes(plan) + act[i] \
