@@ -126,9 +126,9 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    launches counted. Then a checkpoint round trip: ``byzpg_cartpole``'s
    parameters saved and restored onto the card bit for bit, and one
    request served through ``policy_params(checkpoint=)``.
-   Phases 3b, 6–8 (6b, 7b and 7c included), 10 (10c included), 11, 12 and
-   13 are driven with the launch counts set to 0 just before each run and
-   read just after; their launches join the totals.
+   Phases 3b, 6–8 (6b, 7b and 7c included), 10 (10c included), 11, 12,
+   13 and 14 are driven with the launch counts set to 0 just before each
+   run and read just after; their launches join the totals.
 10. Federated LLM training (``phase_fed``, run after phase 3b):
    Llama-3.2-1B at full width cut to 2 layers, K = 4 agents (D =
    384,313,344 each), n_byz = 1 ``large_noise(sigma=10)``, κ = 3, Adam:
@@ -156,7 +156,8 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    field on the card), with the same launches per step, its ms per
    step, phases and peak; (b) the
    reduced model over two gloo ranks on the one card (``chip_smoke.py
-   --fed-rank``, fresh processes; NCCL refuses two ranks on one GPU), D
+   --fed-rank``, fresh processes; NCCL refuses two ranks on one GPU, so
+   ``init_distributed`` picks gloo there), D
    split in two over a ("data", "model") = (1, 2) mesh, RFA without the
    attack and Krum and the trimmed mean with it, 2 steps: every launch of
    each rank and of the one-process run against the kernel's plain
@@ -269,6 +270,24 @@ Phases, each of which raises on failure (so the exit code is non-zero):
    ``gram``, ``weiszfeld``, ``wsum`` and ``flash_attention`` each
    launched inside the phase; a ``[time]`` line. Its launches join the
    totals.
+14. One rank per card over NCCL (``phase_nccl``, ``[nccl]`` lines, after
+   phase 13): (a) a one-rank group joined in this process through
+   ``init_distributed`` (NCCL on cuda:0, both printed), a ("data",
+   "model") = (1, 1) mesh on it: ``columns.gather_over`` on each mesh
+   dimension bit-equal to its input with no copy to the host (a dispatch
+   mode watches), one more from a backward hook on autograd's device
+   thread, and ``gather_rows`` and the sweep's ``broadcast_object`` over
+   the gloo group beside the NCCL world; (b) on that group, 10c (b)'s
+   flat RFA steps (``gram``, ``weiszfeld`` and ``wsum`` counted),
+   ``make_fed_step`` (reduced Llama-3.2-1B, K = 4, from the one-process
+   chain's state) and ``make_serve_fns`` (Llama-3.2-1B at full width, 2
+   layers), each bit-equal to the one-process route; (c) with two cards
+   or more, 10c (b), 10e and 11 (c) with one rank a card, over gloo and
+   over NCCL: every rank bit-equal between the two, both held against
+   the one-process route by the phases' own checks, the ranks' ms beside
+   the one process's; on one card one line says (c) did not run. Every
+   spawned rank of phases 10c–11 joins through ``init_distributed`` too
+   (``_join_rank``): on one card their groups are gloo, as before.
 9. The kernel table as one JSON line (``device_ms`` and
    ``library_device_ms`` beside the issue-bound ``ms`` and
    ``library_ms``), then
@@ -3713,9 +3732,10 @@ def _aggregate_peaks(peaks, dev):
         obs.named_phase = orig
 
 
-def _fed_rank_runs(dev, who, mesh=None, krum_stacks=None):
+def _fed_rank_runs(dev, who, mesh=None, krum_stacks=None,
+                   cases=FED_RANK_CASES):
     """FED_RANK_T flat steps (coin 1, then 0) of the reduced model per
-    FED_RANK_CASES case, from the seed-1 init with draws from a generator
+    case of ``cases`` (aggregator -> attack), from the seed-1 init with draws from a generator
     on ``dev`` seeded 2: on ``mesh`` (D split over its "model" ranks,
     ``sharded=True``) or on one process. Every launch of a case is
     recorded (:class:`_PathInputs`, host copies, so the aggregate peaks
@@ -3723,7 +3743,8 @@ def _fed_rank_runs(dev, who, mesh=None, krum_stacks=None):
     input, logged as ``[path] fed_two_ranks_<aggregator> <who>``.
     ``krum_stacks`` collects the stacks the one-process Krum scores.
     Returns {aggregator: θ's local columns and their first column, the
-    launches per step, each step's aggregate peak and loss}."""
+    launches per step, each step's aggregate peak, loss and ms (to the
+    loss on the host)}."""
     import torch
     from repro_torch.configs import get_config, reduced
     from repro_torch.core import aggregators
@@ -3742,26 +3763,31 @@ def _fed_rank_runs(dev, who, mesh=None, krum_stacks=None):
         return krum(x, n_byz, m, sharded)
 
     out = {}
-    for agg, attack in FED_RANK_CASES.items():
+    for agg, attack in cases.items():
         fed = ft.FedConfig(aggregator=agg, **dict(FED_KW, attack=attack))
         state, unravel = ft.init_flat_fed_state(cfg, fed, FED_K, 1,
                                                 device=dev, mesh=mesh)
         gen = torch.Generator(device=dev)
         gen.manual_seed(2)
-        launches, peaks, losses = [], [], []
+        launches, peaks, losses, ms = [], [], [], []
         if krum_stacks is not None:
             aggregators.krum = recorded
         try:
             with _PathInputs(host=True) as path:
                 for t in range(FED_RANK_T):
                     dispatch.reset_launches()
+                    batch = pipe.batch(t)
+                    nz = ft.fed_noise(gen, fed, state, FED_BYZ)
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize()
+                    t0 = time.perf_counter()
                     with _aggregate_peaks(peaks, dev):
                         state, m = ft.fed_train_step_flat(
-                            cfg, fed, state, unravel, pipe.batch(t), mask,
-                            ft.fed_noise(gen, fed, state, FED_BYZ),
+                            cfg, fed, state, unravel, batch, mask, nz,
                             large=t == 0, sharded=True if mesh else None)
-                    launches.append(dispatch.launch_counts())
                     losses.append(m["loss"].item())
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    launches.append(dispatch.launch_counts())
         finally:
             aggregators.krum = krum
         if not path.seen:
@@ -3770,25 +3796,87 @@ def _fed_rank_runs(dev, who, mesh=None, krum_stacks=None):
         path.check(f"fed_two_ranks_{agg} {who}")
         local, sh = columns.local_columns(state.theta)
         out[agg] = {"theta": local.cpu(), "lo": 0 if sh is None else sh.lo,
-                    "launches": launches, "peaks": peaks, "losses": losses}
+                    "launches": launches, "peaks": peaks, "losses": losses,
+                    "ms": ms}
     return out
+
+
+def _join_rank(rank, world, port, where):
+    """A spawned rank's join, through ``init_distributed`` on
+    localhost:PORT: ``where`` is a device type, or ``cuda/nccl`` and
+    ``cuda/gloo`` naming the backend (else the rule picks it: NCCL where
+    each rank has a card of its own). Returns the rank's device (its
+    card on CUDA)."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.distributed import init_distributed
+    kind, _, backend = where.partition("/")
+    return init_distributed(f"localhost:{port}", int(world), int(rank),
+                            timeout_s=FED_RANK_TIMEOUT_S, device=kind,
+                            backend=backend or None, group_of_one=True)
+
+
+def _rank_where(dev, backend=None) -> str:
+    """The DEVICE argument of a spawned rank (:func:`_join_rank`)."""
+    return dev.type if backend is None else f"{dev.type}/{backend}"
+
+
+def _run_ranks(flag, world, where, extra=(), parent=None,
+               timeout=FED_RANK_TIMEOUT_S):
+    """``world`` fresh ``chip_smoke.py FLAG RANK WORLD PORT OUT WHERE
+    *EXTRA`` ranks on a free localhost port, with ``parent()`` run here
+    meanwhile. Returns (its result, each rank's saved results and
+    standard output, in rank order, and the wall seconds from the start
+    to the last rank's exit). A rank that fails raises with its errors;
+    every rank still running then is stopped."""
+    import os
+    import socket
+    import tempfile
+    import torch
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    with tempfile.TemporaryDirectory() as tmp:
+        dsts = [os.path.join(tmp, f"rank{r}.pt") for r in range(world)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), flag, str(r),
+             str(world), str(port), dsts[r], where, *extra], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(world)]
+        try:
+            mine = None if parent is None else parent()
+            outs = []
+            for p in procs:
+                out, err = p.communicate(timeout=timeout)
+                if p.returncode != 0:
+                    raise AssertionError(f"{flag} rank exited "
+                                         f"{p.returncode}:\n{err[-3000:]}")
+                outs.append(out)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        secs = time.perf_counter() - t0
+        ranks = [torch.load(d, weights_only=False) for d in dsts]
+    return mine, ranks, outs, secs
 
 
 def fed_rank_main(argv) -> int:
     """``chip_smoke.py --fed-rank RANK WORLD PORT OUT DEVICE``: one rank
-    of phase 10c (b), in a gloo group on localhost:PORT, on DEVICE's type
-    (``cuda``: the card); writes its results to OUT."""
-    rank, world, port, dst, dev = argv
-    sys.path.insert(0, str(SRC))
+    of phase 10c (b), joined on localhost:PORT (:func:`_join_rank`),
+    on its card (DEVICE ``cuda``) or the CPU; writes its results to
+    OUT."""
+    rank, world, port, dst, where = argv
+    dev = _join_rank(rank, world, port, where)
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_debug_mesh
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            world_size=int(world), rank=int(rank))
     try:
-        mesh = make_debug_mesh(1, int(world), device_type=dev)
-        torch.save(_fed_rank_runs(torch.device(dev),
-                                  f"rank {rank} of {world}", mesh), dst)
+        mesh = make_debug_mesh(1, int(world), device_type=dev.type)
+        torch.save(_fed_rank_runs(dev, f"rank {rank} of {world}", mesh),
+                   dst)
     finally:
         dist.destroy_process_group()
     return 0
@@ -3814,56 +3902,58 @@ def _krum_gap(x, n_near: int) -> float:
     return ((scores[r] - scores[w]) / max(g[i, i] for i in involved)).item()
 
 
-def phase_fed_two_ranks(dev):
-    """Phase 10c (b): the reduced model's flat steps over FED_RANKS gloo
-    ranks on the one card (fresh processes, D split in two) against the
+def _ranks_on(dev, world, backend=None) -> str:
+    """Where ``world`` spawned ranks run, by ``init_distributed``'s rule:
+    "2 gloo ranks on the one card", "2 nccl ranks on 2 cards"."""
+    import torch
+    from repro_torch.distributed.sharding import choose_backend
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    kind = choose_backend(dev.type, world, cards, backend)
+    if not cards:
+        return f"{world} {kind} ranks on the CPU"
+    used = min(world, cards)
+    return f"{world} {kind} ranks on " + ("the one card" if used == 1
+                                          else f"{used} cards")
+
+
+def _fed_two_ranks_spawn(dev, backend=None, one_process=True):
+    """Phase 10c (b)'s FED_RANKS ranks (``backend`` as
+    :func:`_join_rank` takes it), with the one-process route run here
+    meanwhile unless not ``one_process``: (its results, the stacks its
+    Krum scored, the ranks' results, the ranks' wall seconds). Each
+    rank's ``[path]`` lines are logged."""
+    stacks = []
+    want, ranks, outs, secs = _run_ranks(
+        "--fed-rank", FED_RANKS, _rank_where(dev, backend),
+        parent=(lambda: _fed_rank_runs(dev, "one process",
+                                       krum_stacks=stacks))
+        if one_process else None)
+    for out in outs:
+        paths = [ln for ln in out.splitlines() if ln.startswith("[path] ")]
+        if not paths:
+            raise AssertionError("fed rank: no launch held against its "
+                                 "plain version")
+        for ln in paths:
+            log(ln)
+    return want, stacks, ranks, secs
+
+
+def phase_fed_two_ranks(dev, backend=None, run=None):
+    """Phase 10c (b): the reduced model's flat steps over FED_RANKS ranks
+    (fresh processes, D split in two; gloo on the one card) against the
     one-process route on the card, for FED_RANK_CASES: every launch of
     each rank and of the one-process run held against the kernel's plain
     version on its own input (the ranks' ``[path]`` lines logged), θ
     within FED_RANK_TOL of max|θ|, Krum's margins above 1e-4, the losses within
     FED_LOSS_TOL, each rank's launches per step the one-process run's,
     and each rank's peak across the aggregate call below its whole
-    (K, D) stack (no rank gathers it). Returns the launches of every
-    rank and of the one-process runs."""
-    import os
-    import socket
-    import tempfile
+    (K, D) stack (no rank gathers it). ``run``: the results of
+    :func:`_fed_two_ranks_spawn` to check, else spawned here over
+    ``backend``. Returns the launches of every rank and of the
+    one-process runs."""
     import torch
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    env = dict(os.environ, PYTHONPATH=str(SRC))
+    want, stacks, ranks, secs = run or _fed_two_ranks_spawn(dev, backend)
     totals = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        dsts = [os.path.join(tmp, f"rank{r}.pt") for r in range(FED_RANKS)]
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--fed-rank",
-             str(r), str(FED_RANKS), str(port), dsts[r], dev.type], env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            for r in range(FED_RANKS)]
-        try:
-            stacks = []
-            want = _fed_rank_runs(dev, "one process", krum_stacks=stacks)
-            for p in procs:
-                out, err = p.communicate(timeout=FED_RANK_TIMEOUT_S)
-                if p.returncode != 0:
-                    raise AssertionError(f"fed rank exited {p.returncode}:"
-                                         f"\n{err[-3000:]}")
-                paths = [ln for ln in out.splitlines()
-                         if ln.startswith("[path] ")]
-                if not paths:
-                    raise AssertionError("fed rank: no launch held against "
-                                         "its plain version")
-                for ln in paths:
-                    log(ln)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.communicate()
-        secs = time.perf_counter() - t0
-        ranks = [torch.load(d, weights_only=False) for d in dsts]
     margins = [_krum_gap(x[0], max(FED_K - FED_BYZ - 2, 1))
                for x in stacks]
     if not min(margins) > 1e-4:
@@ -3897,7 +3987,7 @@ def phase_fed_two_ranks(dev):
                 if agg == "krum" else "")
         log(f"[fed] {card()}: fed_two_ranks_{agg} (phase 10c b: reduced "
             f"{FED_ARCH}, D={one['theta'].shape[1]} split over "
-            f"{FED_RANKS} gloo ranks on the one card, K={FED_K}, attack "
+            f"{_ranks_on(dev, FED_RANKS, backend)}, K={FED_K}, attack "
             f"{FED_RANK_CASES[agg]}, {FED_RANK_T} steps, sharded=True): "
             f"theta max abs err {err:.3e} = {err / scale:.3e} of "
             f"max|theta| (tol {FED_RANK_TOL}) against the one-process "
@@ -4116,19 +4206,17 @@ def _tree_rank_bound(rank: dict, large: bool, act: int = 0,
 
 def fed_tree_rank_main(argv) -> int:
     """``chip_smoke.py --fed-tree-rank RANK WORLD PORT OUT DEVICE``: one
-    rank of phase 10d, in a gloo group on localhost:PORT, on DEVICE's type
-    (``cuda``: the card), on a ("data", "model") = (2, 2) mesh; writes its
-    results to OUT."""
-    rank, world, port, dst, dev = argv
-    sys.path.insert(0, str(SRC))
+    rank of phase 10d, joined on localhost:PORT (:func:`_join_rank`), on
+    its card (DEVICE ``cuda``) or the CPU, on a ("data", "model") = (2, 2)
+    mesh; writes its results to OUT."""
+    rank, world, port, dst, where = argv
+    dev = _join_rank(rank, world, port, where)
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_debug_mesh
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            world_size=int(world), rank=int(rank))
     try:
-        mesh = make_debug_mesh(2, 2, device_type=dev)
-        torch.save(_fed_tree_rank_runs(torch.device(dev), mesh), dst)
+        mesh = make_debug_mesh(2, 2, device_type=dev.type)
+        torch.save(_fed_tree_rank_runs(dev, mesh), dst)
     finally:
         dist.destroy_process_group()
     return 0
@@ -4158,38 +4246,10 @@ def phase_fed_tree_ranks(dev):
     the activations). The one-process
     step's allocation above its start is logged beside it.
     On the CPU (a rehearsal) no allocation is read."""
-    import os
-    import socket
-    import tempfile
-    import torch
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    env = dict(os.environ, PYTHONPATH=str(SRC))
-    with tempfile.TemporaryDirectory() as tmp:
-        dsts = [os.path.join(tmp, f"rank{r}.pt")
-                for r in range(FED_TREE_RANKS)]
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--fed-tree-rank",
-             str(r), str(FED_TREE_RANKS), str(port), dsts[r], dev.type],
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True) for r in range(FED_TREE_RANKS)]
-        try:
-            stacks = []
-            want = _fed_tree_rank_runs(dev, krum_stacks=stacks)
-            for p in procs:
-                _, err = p.communicate(timeout=FED_RANK_TIMEOUT_S)
-                if p.returncode != 0:
-                    raise AssertionError(f"fed tree rank exited "
-                                         f"{p.returncode}:\n{err[-3000:]}")
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.communicate()
-        secs = time.perf_counter() - t0
-        ranks = [torch.load(d, weights_only=False) for d in dsts]
+    stacks = []
+    want, ranks, _, secs = _run_ranks(
+        "--fed-tree-rank", FED_TREE_RANKS, dev.type,
+        parent=lambda: _fed_tree_rank_runs(dev, krum_stacks=stacks))
     margins = [_krum_gap(x, max(FED_K - FED_BYZ - 2, 1)) for x in stacks]
     if not min(margins) > 1e-4:
         raise AssertionError(f"fed tree ranks: Krum margins {margins}")
@@ -4427,19 +4487,17 @@ def _fed_block_run(dev, phase, mesh=None):
 
 def fed_block_rank_main(argv) -> int:
     """``chip_smoke.py --fed-block-rank RANK WORLD PORT OUT DEVICE PHASE``:
-    one rank of phase PHASE (10e or 10f), in a gloo group on
-    localhost:PORT, on DEVICE's type (``cuda``: the card), on the
+    one rank of phase PHASE (10e or 10f), joined on localhost:PORT
+    (:func:`_join_rank`), on its card (DEVICE ``cuda``) or the CPU, on the
     FED_BLOCK_MESH mesh; writes its results to OUT."""
-    rank, world, port, dst, dev, phase = argv
-    sys.path.insert(0, str(SRC))
+    rank, world, port, dst, where, phase = argv
+    dev = _join_rank(rank, world, port, where)
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_debug_mesh
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            world_size=int(world), rank=int(rank))
     try:
-        mesh = make_debug_mesh(*FED_BLOCK_MESH, device_type=dev)
-        torch.save(_fed_block_run(torch.device(dev), phase, mesh), dst)
+        mesh = make_debug_mesh(*FED_BLOCK_MESH, device_type=dev.type)
+        torch.save(_fed_block_run(dev, phase, mesh), dst)
     finally:
         dist.destroy_process_group()
     return 0
@@ -4472,11 +4530,11 @@ def _fed_block_reckoning(phase, large: bool) -> dict:
                 plan, grads * (1 if large else 2))}
 
 
-def phase_fed_blocks(dev, phase):
+def phase_fed_blocks(dev, phase, backend=None, run=None):
     """Phase 10e (Llama-3.2-1B, D = FED_D) or 10f (MiniCPM3-4B, MLA on
     blocks of its heads): the tree trainer's step on each rank's blocks
-    at the model's full width (FED_LAYERS layers, f32), over two gloo
-    ranks on the one card (fresh processes, one group), (data, model) =
+    at the model's full width (FED_LAYERS layers, f32), over two ranks
+    (fresh processes, one group; gloo on the one card), (data, model) =
     (1, 2), K = 1, the coin-1 step then the coin-0 step, against
     the one-process ``fed_train_step`` on the card from the same init and
     batches: each rank's v blocks within FED_CPU_V_TOL of max|v| and its
@@ -4496,44 +4554,30 @@ def phase_fed_blocks(dev, phase):
     for the same rank (which counts none either). Each rank's step
     allocation and max_memory_allocated (which also holds the one-process
     chain's whole state that the rank carries) are logged beside the
-    card's name and power limit."""
-    import os
-    import socket
-    import tempfile
+    card's name and power limit. ``run``: the results of
+    :func:`_fed_blocks_spawn` to check, else spawned here over
+    ``backend``."""
     import torch
     torch.cuda.empty_cache()
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    env = dict(os.environ, PYTHONPATH=str(SRC))
-    world = FED_BLOCK_MESH[0] * FED_BLOCK_MESH[1]
-    with tempfile.TemporaryDirectory() as tmp:
-        dsts = [os.path.join(tmp, f"rank{r}.pt") for r in range(world)]
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--fed-block-rank",
-             str(r), str(world), str(port), dsts[r], dev.type, phase],
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True) for r in range(world)]
-        try:
-            one = _fed_block_run(dev, phase)
-            for p in procs:
-                _, err = p.communicate(timeout=FED_RANK_TIMEOUT_S)
-                if p.returncode != 0:
-                    raise AssertionError(f"fed block rank exited "
-                                         f"{p.returncode}:\n{err[-3000:]}")
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.communicate()
-        secs = time.perf_counter() - t0
-        ranks = [torch.load(d, weights_only=False) for d in dsts]
+    one, ranks, secs = run or _fed_blocks_spawn(dev, phase, backend)
     torch.cuda.empty_cache()
-    return _fed_block_check(phase, one, ranks, secs, dev)
+    return _fed_block_check(phase, one, ranks, secs, dev, backend)
 
 
-def _fed_block_check(phase, one, ranks, secs, dev):
+def _fed_blocks_spawn(dev, phase, backend=None, one_process=True):
+    """Phase 10e's or 10f's ranks (``backend`` as :func:`_join_rank`
+    takes it), with the one-process run here meanwhile unless not
+    ``one_process``: (its results, the ranks' results, their wall
+    seconds)."""
+    world = FED_BLOCK_MESH[0] * FED_BLOCK_MESH[1]
+    one, ranks, _, secs = _run_ranks(
+        "--fed-block-rank", world, _rank_where(dev, backend), (phase,),
+        parent=(lambda: _fed_block_run(dev, phase)) if one_process
+        else None)
+    return one, ranks, secs
+
+
+def _fed_block_check(phase, one, ranks, secs, dev, backend=None):
     """Phase 10e's or 10f's comparisons (:func:`phase_fed_blocks`); logs
     them."""
     bad, lines = [], []
@@ -4597,7 +4641,7 @@ def _fed_block_check(phase, one, ranks, secs, dev):
     lines.append(f"[fed] {card()}: fed_blocks (phase {phase}: "
                  f"{FED_BLOCK_ARCHS[phase]} full width, {FED_LAYERS} layers, "
                  f"D={ranks[0]['whole'] // 4}, K=1 over "
-                 f"{len(ranks)} gloo ranks on the one card, (data, model) = "
+                 f"{_ranks_on(dev, len(ranks), backend)}, (data, model) = "
                  f"{FED_BLOCK_MESH}, {FED_BATCH} x {FED_SEQ} tokens, coins "
                  f"1 then 0); the ranks' wall {secs:.1f} s")
     for line in lines:
@@ -5134,20 +5178,18 @@ def _serve_rank_runs(dev, meshes):
 
 def serve_rank_main(argv) -> int:
     """``chip_smoke.py --serve-rank RANK WORLD PORT OUT DEVICE``: one rank
-    of phase 11 (b), in a gloo group on localhost:PORT, on DEVICE's type
-    (``cuda``: the card), over each mesh of SERVE_RANK_MESHES; writes its
-    results to OUT."""
-    rank, world, port, dst, dev = argv
-    sys.path.insert(0, str(SRC))
+    of phase 11 (b), joined on localhost:PORT (:func:`_join_rank`), on its
+    card (DEVICE ``cuda``) or the CPU, over each mesh of SERVE_RANK_MESHES;
+    writes its results to OUT."""
+    rank, world, port, dst, where = argv
+    dev = _join_rank(rank, world, port, where)
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_debug_mesh
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            world_size=int(world), rank=int(rank))
     try:
-        meshes = {s: make_debug_mesh(*s, device_type=dev)
+        meshes = {s: make_debug_mesh(*s, device_type=dev.type)
                   for s in SERVE_RANK_MESHES}
-        torch.save(_serve_rank_runs(torch.device(dev), meshes), dst)
+        torch.save(_serve_rank_runs(dev, meshes), dst)
     finally:
         dist.destroy_process_group()
     return 0
@@ -5168,42 +5210,17 @@ def phase_serve_mesh_ranks(dev):
     top-1 margin exceeds twice the tolerance, and the two ranks' logits
     and tokens bit-identical; each rank's launches the one-process
     route's. Returns the ranks' launches."""
-    import os
-    import socket
-    import tempfile
     import torch
     from repro_torch.distributed.sharding import row_block
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    env = dict(os.environ, PYTHONPATH=str(SRC))
     blocks = {(0, SERVE_MESH_B)} | {
         (r.start, r.stop) for shape in SERVE_RANK_MESHES
         for r in (row_block(SERVE_MESH_B, shape[0], i)
                   for i in range(shape[0]))}
-    with tempfile.TemporaryDirectory() as tmp:
-        dsts = [os.path.join(tmp, f"rank{r}.pt") for r in range(SERVE_RANKS)]
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--serve-rank",
-             str(r), str(SERVE_RANKS), str(port), dsts[r], dev.type],
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True) for r in range(SERVE_RANKS)]
-        try:
-            one = {rows: _serve_one_process(dev, rows)
-                   for rows in sorted(blocks)}
-            for p in procs:
-                _, err = p.communicate(timeout=SERVE_RANK_TIMEOUT_S)
-                if p.returncode != 0:
-                    raise AssertionError(f"serve rank exited {p.returncode}:"
-                                         f"\n{err[-3000:]}")
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.communicate()
-        secs = time.perf_counter() - t0
-        ranks = [torch.load(d, weights_only=False) for d in dsts]
+    one, ranks, _, secs = _run_ranks(
+        "--serve-rank", SERVE_RANKS, dev.type,
+        parent=lambda: {rows: _serve_one_process(dev, rows)
+                        for rows in sorted(blocks)},
+        timeout=SERVE_RANK_TIMEOUT_S)
     whole = one[0, SERVE_MESH_B]
     lscale = max(x.abs().max().item() for x in whole["logits"])
     cscale = {step: max(x.abs().max().item() for x in c.values()
@@ -5409,19 +5426,17 @@ def _serve_tp_rank_run(dev, mesh, arch):
 
 def serve_tp_rank_main(argv) -> int:
     """``chip_smoke.py --serve-tp-rank RANK WORLD PORT OUT DEVICE ARCH``:
-    one rank of phase 11's run of ARCH ((c) or (d)), in a gloo group on
-    localhost:PORT, on DEVICE's type (``cuda``: the card), on the
-    SERVE_TP_MESH mesh; writes its results to OUT."""
-    rank, world, port, dst, dev, arch = argv
-    sys.path.insert(0, str(SRC))
+    one rank of phase 11's run of ARCH ((c) or (d)), joined on
+    localhost:PORT (:func:`_join_rank`), on its card (DEVICE ``cuda``) or
+    the CPU, on the SERVE_TP_MESH mesh; writes its results to OUT."""
+    rank, world, port, dst, where, arch = argv
+    dev = _join_rank(rank, world, port, where)
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_debug_mesh
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            world_size=int(world), rank=int(rank))
     try:
-        mesh = make_debug_mesh(*SERVE_TP_MESH, device_type=dev)
-        torch.save(_serve_tp_rank_run(torch.device(dev), mesh, arch), dst)
+        mesh = make_debug_mesh(*SERVE_TP_MESH, device_type=dev.type)
+        torch.save(_serve_tp_rank_run(dev, mesh, arch), dst)
     finally:
         dist.destroy_process_group()
     return 0
@@ -5432,22 +5447,24 @@ def _serve_tp_one_process(cfg, dev):
     whole tree: ``model.prefill`` and SERVE_TP_STEPS greedy
     ``decode_step``s. Returns
     the logits and tokens of each call (host copies), each call's
-    activations (its peak above what it started with and returns new),
-    the tree's bytes."""
+    activations (its peak above what it started with and returns new)
+    and ms, the tree's bytes."""
     import torch
     from repro_torch.core.tree import tree_paths
     from repro_torch.models import model as tm
     params = _serve_tp_params(cfg, dev)
     tree = sum(x.nbytes for _, x in tree_paths(params))
     tokens = _serve_tp_tokens(cfg, dev)
-    out = {"logits": [], "tokens": [], "act": [], "tree": tree}
+    out = {"logits": [], "tokens": [], "act": [], "tree": tree, "ms": []}
 
     def call(fn, *args):
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
         logits, cache = fn(*args)
         torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
         new = torch.cuda.memory_allocated() - base
         out["act"].append(torch.cuda.max_memory_allocated() - base - new)
         out["logits"].append(logits.cpu())
@@ -5464,10 +5481,10 @@ def _serve_tp_one_process(cfg, dev):
     return out
 
 
-def phase_serve_mesh_tp(dev, arch):
+def phase_serve_mesh_tp(dev, arch, backend=None, run=None):
     """Phase 11 (c) (Grok-1) or (d) (DeepSeek-V2-Lite): ``arch`` at full
-    width cut to 1 layer over two gloo ranks on the one card (fresh
-    processes, one group), (data, model) = (1, 2), each rank holding only
+    width cut to 1 layer over two ranks (fresh processes, one group; gloo
+    on the one card), (data, model) = (1, 2), each rank holding only
     its blocks (drawn as blocks) and no leaf gathered whole, against
     the one-process route on the card from the whole tree: each rank's
     logits after the prefill and every step within SERVE_RANK_TOL of
@@ -5479,50 +5496,34 @@ def phase_serve_mesh_tp(dev, arch):
     (inside the rank); each rank's peak
     allocation within the dry run's reckoning for its (1, 2) blocks plus
     the route's activations (and SERVE_TP_SLACK), and under the whole
-    tree's bytes. Returns the ranks' launches."""
-    import os
-    import socket
-    import tempfile
+    tree's bytes. ``run``: the results of :func:`_serve_tp_spawn` to
+    check, else spawned here over ``backend``. Returns the ranks'
+    launches."""
     import torch
     cfg = _serve_tp_cfg(arch)
     torch.cuda.empty_cache()
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    env = dict(os.environ, PYTHONPATH=str(SRC))
+    one, ranks, secs = run or _serve_tp_spawn(dev, arch, backend)
+    return _serve_tp_check(arch, cfg, one, ranks, secs, dev, backend)
+
+
+def _serve_tp_spawn(dev, arch, backend=None, one_process=True):
+    """Phase 11 (c)'s or (d)'s ranks (``backend`` as :func:`_join_rank`
+    takes it), with the one-process route here meanwhile unless not
+    ``one_process``: (its results, the ranks' results, their wall
+    seconds). The ranks' bracketed lines are logged."""
     world = SERVE_TP_MESH[0] * SERVE_TP_MESH[1]
-    with tempfile.TemporaryDirectory() as tmp:
-        dsts = [os.path.join(tmp, f"rank{r}.pt") for r in range(world)]
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--serve-tp-rank",
-             str(r), str(world), str(port), dsts[r], dev.type, arch],
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True) for r in range(world)]
-        try:
-            one = _serve_tp_one_process(cfg, dev)
-            outs = []
-            for p in procs:
-                out, err = p.communicate(timeout=SERVE_RANK_TIMEOUT_S)
-                if p.returncode != 0:
-                    raise AssertionError(f"serve tp rank exited "
-                                         f"{p.returncode}:\n{err[-3000:]}")
-                outs.append(out)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.communicate()
-        secs = time.perf_counter() - t0
-        ranks = [torch.load(d, weights_only=False) for d in dsts]
+    one, ranks, outs, secs = _run_ranks(
+        "--serve-tp-rank", world, _rank_where(dev, backend), (arch,),
+        parent=(lambda: _serve_tp_one_process(_serve_tp_cfg(arch), dev))
+        if one_process else None, timeout=SERVE_RANK_TIMEOUT_S)
     for r, out in enumerate(outs):
         for line in out.splitlines():
             if line.startswith("["):
                 log(f"[serve-tp] rank {r}: {line}")
-    return _serve_tp_check(arch, cfg, one, ranks, secs)
+    return one, ranks, secs
 
 
-def _serve_tp_check(arch, cfg, one, ranks, secs):
+def _serve_tp_check(arch, cfg, one, ranks, secs, dev, backend=None):
     """Phase 11 (c)'s or (d)'s comparisons of the ranks' results with the
     one-process route's (:func:`phase_serve_mesh_tp`); logs them and
     returns the ranks' launches."""
@@ -5587,8 +5588,8 @@ def _serve_tp_check(arch, cfg, one, ranks, secs):
     experts = "" if cfg.moe is None else \
         f"{cfg.moe.n_experts // m} of {cfg.moe.n_experts} experts, "
     log(f"[serve-tp] {card()}: phase 11 ({_serve_tp_phase(arch)}) {arch} "
-        f"full width, 1 layer, through make_serve_fns over {world} gloo "
-        f"ranks on the one card, (data, model) = {SERVE_TP_MESH} "
+        f"full width, 1 layer, through make_serve_fns over "
+        f"{_ranks_on(dev, world, backend)}, (data, model) = {SERVE_TP_MESH} "
         f"({experts}{heads}, {cfg.vocab_size // m} vocabulary rows a "
         f"rank), "
         f"B={SERVE_TP_B} x S={SERVE_TP_S}, W={SERVE_TP_W}, "
@@ -5904,6 +5905,386 @@ def phase_examples(dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: one rank per card over NCCL
+# ---------------------------------------------------------------------------
+
+#: phase 14 (b): the serving route's depth (Llama-3.2-1B at full width)
+NCCL_SERVE_LAYERS = 2
+#: phase 14 (c): the cards it spreads two ranks over, one rank a card
+NCCL_CARDS = 2
+
+
+class _HostCopies:
+    """While active, records every operator that takes a CUDA tensor and
+    gives a CPU one (``aten::_to_copy`` to the host, ``copy_`` into a
+    host tensor): what a host-staged collective would run."""
+
+    def __enter__(self):
+        import torch
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils._pytree import tree_flatten
+        seen = self.copies = []
+
+        def tensors(tree):
+            return [t for t in tree_flatten(tree)[0]
+                    if isinstance(t, torch.Tensor)]
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                out = func(*args, **kwargs)
+                if any(t.is_cuda for t in tensors((args, kwargs))) and any(
+                        t.device.type == "cpu" for t in tensors(out)):
+                    seen.append(str(func))
+                return out
+
+        self.mode = Mode()
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
+
+
+def _same_bits(a, b) -> bool:
+    """Nested dicts, lists and tuples of tensors and numbers, equal bit for
+    bit (tensors by dtype, shape and every element)."""
+    import torch
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and torch.equal(a, b))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(_same_bits(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(_same_bits(x, y) for x, y in zip(a, b)))
+    return a == b
+
+
+def _nccl_gathers(dev, mesh) -> None:
+    """Phase 14 (a)'s collectives on the joined one-rank group: one
+    ``columns.gather_over`` on each mesh dimension (no size-1 shortcut:
+    the backend runs an ``all_gather`` of one part), bit-equal to its
+    input, on the rank's card, with no copy to the host and each gather
+    seen by ``GatherWatch``; and one ``gather_over`` from a tensor hook in
+    a backward, which on CUDA autograd runs on its device thread."""
+    import threading
+    import torch
+    from repro_torch.analysis.memcheck import GatherWatch
+    from repro_torch.carriers import columns
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    x = torch.randn((13, 386), generator=gen, device=dev)
+    with _HostCopies() as host, GatherWatch() as watch:
+        parts = [columns.gather_over(x, mesh, d) for d in range(mesh.ndim)]
+    bad = [f"dim {d}: {len(p)} parts on {p[0].device}" for d, p in
+           enumerate(parts) if len(p) != 1 or p[0].device != x.device
+           or not torch.equal(p[0], x)]
+    if host.copies or watch.gathers != [x.nbytes] * mesh.ndim:
+        bad.append(f"host copies {host.copies}, gathers {watch.gathers}")
+    seen = {}
+
+    def hook(g):
+        seen["thread"] = threading.current_thread().name
+        seen["device"] = torch.cuda.current_device() if g.is_cuda else None
+        seen["part"] = columns.gather_over(g, mesh, mesh.ndim - 1)[0]
+        return seen["part"]
+
+    w = x.clone().requires_grad_()
+    y = w * 2
+    y.register_hook(hook)
+    y.sum().backward()
+    if not (torch.equal(w.grad, torch.full_like(x, 2.0))
+            and torch.equal(seen["part"], torch.ones_like(x))):
+        bad.append("the backward's gather")
+    if bad:
+        raise AssertionError(f"phase 14 (a) gathers: {bad}")
+    log(f"[nccl] gather_over on each of the {mesh.ndim} mesh dimensions: "
+        f"bit-equal to its (13, 386) input on {parts[0][0].device}, "
+        f"all_gathers seen {watch.gathers} bytes, copies to the host "
+        f"{len(host.copies)}; from a backward hook on thread "
+        f"{seen['thread']!r} (card {seen['device']}): bit-equal")
+
+
+def _nccl_host_objects(dev) -> None:
+    """Phase 14 (a)'s host objects: ``gather_rows`` and the sweep's
+    ``broadcast_object`` over ``host_group()`` (the gloo group beside an
+    NCCL world), their objects intact."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding
+    group = sharding.host_group()
+    want = "nccl" if dev.type == "cuda" else "gloo"
+    if (group is None) != (want == "gloo") or (
+            group is not None and dist.get_backend(group) != "gloo"):
+        raise AssertionError(f"phase 14 (a): host group {group} under "
+                             f"{dist.get_backend()}")
+    used = []
+    orig = dist.all_gather_object, dist.broadcast_object_list
+
+    def spy(fn):
+        def call(*args, **kwargs):
+            used.append(kwargs.get("group"))
+            return fn(*args, **kwargs)
+        return call
+
+    dist.all_gather_object, dist.broadcast_object_list = map(spy, orig)
+    try:
+        rows = {"returns": np.arange(6.0).reshape(3, 2),
+                "theta": torch.arange(12.0, device=dev).reshape(3, 4)}
+        got = sharding.gather_rows(sharding.LaneMesh(1, 0), rows)
+        carry = {"window": 3, "rows": [0, 1, 2], "state": b"\x00\x01"}
+        back = sharding.broadcast_object(carry)
+    finally:
+        dist.all_gather_object, dist.broadcast_object_list = orig
+    if not (np.array_equal(got["returns"], rows["returns"])
+            and torch.equal(got["theta"], rows["theta"].cpu())
+            and back == carry and used == [group, group]):
+        raise AssertionError(f"phase 14 (a) host objects: {got}, {back}, "
+                             f"groups {used}")
+    where = "the gloo world itself" if group is None else \
+        f"the gloo group beside the {dist.get_backend()} world"
+    log(f"[nccl] gather_rows and the sweep's broadcast over {where}: rows "
+        f"and objects intact")
+
+
+def _nccl_flat_rfa(dev, mesh) -> dict:
+    """Phase 14 (b): 10c (b)'s D-sharded flat steps with RFA on the
+    one-rank ``mesh`` against the one-process route from the same state:
+    θ and the losses bit for bit, the same launches per step, ``gram``,
+    ``weiszfeld`` and ``wsum`` among them. Returns both runs' launches."""
+    cases = {"rfa": FED_RANK_CASES["rfa"]}
+    one = _fed_rank_runs(dev, "one process", cases=cases)["rfa"]
+    ranked = _fed_rank_runs(dev, "the one-rank mesh", mesh,
+                            cases=cases)["rfa"]
+    totals = {}
+    for counts in one["launches"] + ranked["launches"]:
+        _add(totals, counts)
+    per_step = [{k: n for k, n in c.items() if n}
+                for c in ranked["launches"]]
+    if not (_same_bits(ranked["theta"], one["theta"])
+            and ranked["losses"] == one["losses"]
+            and ranked["launches"] == one["launches"]
+            and all(set(c) == {"gram", "weiszfeld", "wsum"}
+                    for c in per_step)):
+        raise AssertionError(f"phase 14 (b) flat rfa: launches {per_step} "
+                             f"vs {one['launches']}, losses "
+                             f"{ranked['losses']} vs {one['losses']}")
+    log(f"[nccl] {card()}: 10c (b)'s flat steps with RFA (reduced "
+        f"{FED_ARCH}, D={one['theta'].shape[1]}, K={FED_K}, sharded=True) on "
+        f"the one-rank mesh: theta and losses bit-equal to the one-process "
+        f"route, launches per step {per_step}; ms/step "
+        f"{[round(x, 3) for x in ranked['ms']]} (one process "
+        f"{[round(x, 3) for x in one['ms']]})")
+    return totals
+
+
+def _nccl_fed_step(dev, mesh) -> None:
+    """Phase 14 (b): ``make_fed_step`` on the one-rank mesh (reduced
+    Llama-3.2-1B, K = FED_K, RFA under the attack, coin 1 then 0), each
+    step from the one-process chain's state (``_fed_chain``): losses, v
+    and θ bit-equal to the one-process steps, no kernel launch."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.distributed import fed_trainer as ft
+    cfg = reduced(get_config(FED_ARCH))
+    fed = ft.FedConfig(aggregator="rfa", **FED_KW)
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, 32, 2, FED_K, seed=1),
+                         device=dev)
+    mask = torch.arange(FED_K, device=dev) < FED_BYZ
+    recs = {}
+    for who, m, est in (("one", None, "_estimate"),
+                        ("mesh", mesh, "_estimate_placed")):
+        recs[who] = {}
+        _fed_chain(cfg, fed, dev, FED_K, m, (True, False), pipe.batch, mask,
+                   FED_SEED, _fed_recorder(dev, recs[who], est))
+    one, ranked = recs["one"], recs["mesh"]
+    keys = ("losses", "v", "theta")
+    bad = [k for k in keys if not _same_bits(
+        [[b for _, b, _ in x] for x in ranked[k]] if k != "losses"
+        else ranked[k],
+        [[b for _, b, _ in x] for x in one[k]] if k != "losses"
+        else one[k])]
+    if any(any(c.values()) for c in one["launches"] + ranked["launches"]):
+        bad.append(f"kernel launches {ranked['launches']}")
+    if bad:
+        raise AssertionError(f"phase 14 (b) make_fed_step: {bad} differ")
+    log(f"[nccl] {card()}: make_fed_step on the one-rank mesh (reduced "
+        f"{FED_ARCH}, K={FED_K}, rfa, coins 1 then 0, from the one-process "
+        f"chain's state): losses {ranked['losses']}, v and theta bit-equal "
+        f"to fed_train_step; ms/step {[round(x, 3) for x in ranked['ms']]} "
+        f"(one process {[round(x, 3) for x in one['ms']]})")
+
+
+def _serve_gaps(mesh_out, plain) -> list:
+    """Where the mesh route's logits, tokens and cache differ from
+    ``_plain_serve``'s, bit for bit."""
+    import torch
+    from repro_torch.carriers import placed
+    from repro_torch.core.tree import tree_paths
+    bad = [i for i, (a, b) in enumerate(zip(mesh_out["logits"],
+                                            plain["logits"]))
+           if not torch.equal(placed.local(a), b)]
+    bad += [f"token {i}" for i, (a, b) in enumerate(
+        zip(mesh_out["tokens"], plain["tokens"]))
+        if not torch.equal(placed.local(a), b)]
+    bad += [p for (p, a), (_, b) in zip(tree_paths(mesh_out["cache"]),
+                                        tree_paths(plain["cache"]))
+            if not torch.equal(placed.local(a), b)]
+    return bad
+
+
+def _nccl_serve(dev, mesh) -> dict:
+    """Phase 14 (b): ``make_serve_fns`` on the one-rank mesh for
+    Llama-3.2-1B at full width, NCCL_SERVE_LAYERS layers, against
+    ``model.prefill``/``decode_step``: logits, tokens and every cache leaf
+    bit for bit, one flash launch a layer on each (held against the plain
+    version on its own inputs). Returns the mesh run's launches."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.model import init_params
+    cfg = _serve_mesh_cfg(NCCL_SERVE_LAYERS)
+    params = init_params(cfg, SERVE_MESH_SEED, device=dev)
+    tokens = _serve_mesh_tokens(cfg, dev)
+    out = _serve_one_rank(cfg, params, tokens, dev, mesh)
+    dispatch.reset_launches()
+    plain = _plain_serve(cfg, params, tokens, SERVE_MESH_STEPS)
+    plain_flash = dispatch.launch_counts()["flash_attention"]
+    bad = _serve_gaps(out, plain)
+    flash = out["launches"]["flash_attention"]
+    if bad or not flash == plain_flash == cfg.n_layers:
+        raise AssertionError(f"phase 14 (b) serving: differs at {bad}; "
+                             f"flash {flash}, plain {plain_flash}")
+    log(f"[nccl] {card()}: make_serve_fns on the one-rank mesh "
+        f"({SERVE_MESH_ARCH} full width, {cfg.n_layers} layers, "
+        f"B={SERVE_MESH_B} x S={SERVE_MESH_S}, {SERVE_MESH_STEPS} greedy "
+        f"steps): logits, tokens and every cache leaf bit-equal to "
+        f"model.prefill/decode_step, flash launches {flash}; prefill "
+        f"{out['prefill_ms']:.3f} ms, decode median "
+        f"{_median(out['ms']):.3f} ms")
+    return {k: n for k, n in out["launches"].items() if n}
+
+
+def _flat_bits(r) -> dict:
+    return {a: {k: v[k] for k in ("theta", "losses", "launches")}
+            for a, v in r.items()}
+
+
+def _flat_ms(r) -> list:
+    return [x for v in r.values() for x in v["ms"]]
+
+
+def _flat_launches(r) -> list:
+    return [c for v in r.values() for c in v["launches"]]
+
+
+def _block_bits(r) -> dict:
+    return {"losses": r["losses"], "launches": r["launches"],
+            **{k: [[blk for _, blk, _ in x] for x in r[k]]
+               for k in ("v", "theta")}}
+
+
+def _tp_bits(r) -> dict:
+    return {k: r[k] for k in ("logits", "tokens", "launches")}
+
+
+def _nccl_multi_card(dev) -> dict:
+    """Phase 14 (c): 10c (b), 10e and 11 (c) over NCCL_CARDS cards, one
+    rank a card, over gloo (host-staged) and over NCCL from the same
+    inputs: each rank's results bit-equal between the two, both held
+    against the one-process route (run once, beside the gloo ranks) by
+    the phase's own checks and tolerances, each rank's peak within its
+    reckoning among them; the ranks' ms per step logged beside the one
+    process's. Returns the launches."""
+    routes = {"10c (b)": (_fed_two_ranks_spawn, phase_fed_two_ranks, (),
+                          _flat_bits, _flat_ms, _flat_launches),
+              "10e": (_fed_blocks_spawn, phase_fed_blocks, ("10e",),
+                      _block_bits, lambda r: r["ms"],
+                      lambda r: r["launches"]),
+              "11 (c)": (_serve_tp_spawn, phase_serve_mesh_tp,
+                         (SERVE_TP_ARCHS[0],), _tp_bits, lambda r: r["ms"],
+                         lambda r: [r["launches"]])}
+    totals = {}
+    for label, (spawn, phase, extra, bits, ms, counts) in routes.items():
+        t0 = time.perf_counter()
+        runs = {"gloo": spawn(dev, *extra, "gloo")}
+        # the NCCL ranks are held against the same one-process run
+        runs["nccl"] = runs["gloo"][:-2] + spawn(
+            dev, *extra, "nccl", one_process=False)[-2:]
+        differ = [r for r, (a, b) in enumerate(zip(runs["gloo"][-2],
+                                                   runs["nccl"][-2]))
+                  if not _same_bits(bits(a), bits(b))]
+        if differ:
+            raise AssertionError(f"phase 14 (c) {label}: ranks {differ} "
+                                 f"differ between gloo and NCCL")
+        # the gloo check counts the one-process run's launches and its
+        # ranks'; the NCCL ranks' are added here
+        _add(totals, phase(dev, *extra, "gloo", runs["gloo"]) or {})
+        phase(dev, *extra, "nccl", runs["nccl"])
+        for r in runs["nccl"][-2]:
+            for c in counts(r):
+                _add(totals, c)
+        steps = {b: [[round(x, 3) for x in ms(r)] for r in run[-2]]
+                 for b, run in runs.items()}
+        log(f"[nccl] {card()}: multi-card {label}, one rank a card on "
+            f"{NCCL_CARDS} cards: each rank bit-equal over gloo and NCCL; "
+            f"rank ms per step NCCL {steps['nccl']}, gloo {steps['gloo']}, "
+            f"one process {[round(x, 3) for x in ms(runs['gloo'][0])]}; "
+            f"the ranks' wall NCCL {runs['nccl'][-1]:.1f} s, gloo "
+            f"{runs['gloo'][-1]:.1f} s; {time.perf_counter() - t0:.1f} s")
+    return totals
+
+
+def phase_nccl(dev) -> dict:
+    """Phase 14: (a) a one-rank group joined through ``init_distributed``
+    in this process (NCCL on the card, on cuda:0), a ("data", "model") =
+    (1, 1) mesh on it: ``gather_over`` on each mesh dimension and from a
+    backward, and the host objects over the gloo group beside it; (b) on
+    that group, 10c (b)'s flat RFA steps, ``make_fed_step`` and
+    ``make_serve_fns`` bit-equal to the one-process route; (c) with two
+    cards or more, :func:`_nccl_multi_card`, else one line saying it did
+    not run. Returns the launches."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.analysis.memcheck import free_port
+    from repro_torch.distributed import init_distributed
+    from repro_torch.launch.mesh import make_debug_mesh
+    t0 = time.perf_counter()
+    rank_dev = init_distributed(f"localhost:{free_port()}", 1, 0,
+                                timeout_s=FED_RANK_TIMEOUT_S,
+                                device=dev.type, group_of_one=True)
+    totals = {}
+    try:
+        backend = dist.get_backend()
+        log(f"[nccl] the rank's device: {rank_dev}")
+        log(f"[nccl] the group's backend: {backend}")
+        cuda = dev.type == "cuda"
+        if (backend, rank_dev) != (("nccl", torch.device("cuda", 0)) if cuda
+                                   else ("gloo", torch.device("cpu"))):
+            raise AssertionError(f"phase 14 (a): {backend} on {rank_dev}")
+        mesh = make_debug_mesh(1, 1, device_type=dev.type)
+        _nccl_gathers(rank_dev, mesh)
+        _nccl_host_objects(rank_dev)
+        _add(totals, _nccl_flat_rfa(rank_dev, mesh))
+        _nccl_fed_step(rank_dev, mesh)
+        _add(totals, _nccl_serve(rank_dev, mesh))
+    finally:
+        dist.destroy_process_group()
+    log(f"[time] phase 14 (a, b) {time.perf_counter() - t0:.1f} s")
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if cards < NCCL_CARDS:
+        log(f"[nccl] multi-card: not run ({cards} card"
+            f"{'s' if cards != 1 else ''})")
+        return totals
+    t0 = time.perf_counter()
+    _add(totals, _nccl_multi_card(dev))
+    log(f"[time] phase 14 (c) {time.perf_counter() - t0:.1f} s")
+    return totals
+
+
 def main() -> int:
     try:
         import torch
@@ -5970,6 +6351,7 @@ def main() -> int:
     _add(totals, phase_checkpoint(dev, byzpg_out))
     _add(totals, phase_analysis(dev))
     _add(totals, phase_examples(dev))
+    _add(totals, phase_nccl(dev))
     watch.__exit__(None, None, None)
     found = watch.findings(dev, "chip_smoke.py")
     if found:

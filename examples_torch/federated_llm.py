@@ -6,14 +6,16 @@ via Common-Sample.
 Runs on the flat (K, D) parameter stack (DESIGN.md §3): every agent's
 transformer ravels into one row and robust aggregation goes through the
 registry aggregators (the CUDA kernels on the card). With ``--ranks N``
-the script starts N − 1 more copies of itself as gloo ranks on localhost
-(the counterpart of the reference's ``--fake-devices``): the trailing D
-axis is split over the mesh's "model" dimension and the aggregators
-combine the ranks' Gram partials, with no parameter gather. Rank 0
-prints. Runs on CUDA; ``--device cpu`` runs the plain PyTorch versions.
+the script starts N − 1 more copies of itself as ranks on localhost (the
+counterpart of the reference's ``--fake-devices``; each rank on its card
+over NCCL where the host has a card per rank, else over gloo): the
+trailing D axis is split over the mesh's "model" dimension and the
+aggregators combine the ranks' Gram partials, with no parameter gather.
+Rank 0 prints. Runs on CUDA; ``--device cpu`` runs the plain PyTorch
+versions.
 
   python examples_torch/federated_llm.py --arch qwen2.5-3b [--device cpu]
-  # the D-sharded route over two gloo ranks:
+  # the D-sharded route over two ranks (gloo on the CPU):
   python examples_torch/federated_llm.py --ranks 2 --device cpu
 """
 import argparse
@@ -42,11 +44,11 @@ from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
 RANK_TIMEOUT_S = 600
 
 
-def train(args, rank: int = 0, world: int = 1) -> list:
+def train(args, rank: int = 0, world: int = 1, dev=None) -> list:
     """The run on this process (rank ``rank`` of a joined group of
-    ``world``); rank 0 prints. Returns each step's (coin, honest loss,
-    diameter)."""
-    dev = resolve_device(args.device)
+    ``world``, on its device ``dev``); rank 0 prints. Returns each step's
+    (coin, honest loss, diameter)."""
+    dev = resolve_device(args.device) if dev is None else dev
     cfg = reduced(get_config(args.arch))
     fed = ft.FedConfig(aggregator="rfa", kappa=3, n_byz=args.byz,
                        attack="large_noise", lr=2e-3, page_p=0.25)
@@ -80,7 +82,8 @@ def train(args, rank: int = 0, world: int = 1) -> list:
                                           mask, noise, large=c,
                                           sharded=sharded)
         path = (f"flat (K, D={D}) stack, "
-                + (f"D-sharded over {world} gloo ranks" if sharded
+                + (f"D-sharded over {world} "
+                   f"{torch.distributed.get_backend()} ranks" if sharded
                    else "single device"))
 
     say(f"{cfg.name}: K={K}, {args.byz} Byzantine (LargeNoise), "
@@ -104,14 +107,16 @@ def _free_port() -> int:
 
 
 def run_rank(args, rank: int, world: int, port: int) -> list:
-    """Join the gloo group on localhost:``port`` as ``rank`` of ``world``
+    """Join the group on localhost:``port`` as ``rank`` of ``world``, on
+    the rank's card (NCCL where each rank has one, else gloo) or the CPU,
     and run; a started rank gets the parent's arguments as they were
     parsed, so nothing here starts more ranks. Joining and every
     collective fail after RANK_TIMEOUT_S without the other ranks."""
-    init_distributed(f"localhost:{port}", world, rank,
-                     timeout_s=RANK_TIMEOUT_S)
+    dev = init_distributed(f"localhost:{port}", world, rank,
+                           timeout_s=RANK_TIMEOUT_S,
+                           device=resolve_device(args.device))
     try:
-        return train(args, rank, world)
+        return train(args, rank, world, dev)
     finally:
         torch.distributed.destroy_process_group()
 
@@ -128,7 +133,7 @@ def main(argv=None) -> list:
                     help="legacy tree trainer instead of the flat (K, D) "
                          "stack")
     ap.add_argument("--ranks", type=int, default=1,
-                    help="split D over N gloo ranks on this host: the "
+                    help="split D over N ranks on this host: the "
                          "script starts N - 1 more copies of itself (the "
                          "flat trainer only)")
     ap.add_argument("--device", default=None,

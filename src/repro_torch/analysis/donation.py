@@ -244,14 +244,16 @@ def _fed_window_site(device) -> Call:
 def one_rank_mesh(device_type: str):
     """A one-rank ("data", "model") = (1, 1) mesh: in the process group
     when one is joined, else in a gloo group of this process alone, left
-    on exit."""
+    on exit (gloo: a mesh of one rank launches no collective, and the
+    process keeps its card free of NCCL's buffers)."""
     import torch.distributed as dist
+    from repro_torch.distributed.sharding import init_distributed
     from repro_torch.launch.mesh import make_debug_mesh
     own = not dist.is_initialized()
     if own:
-        dist.init_process_group(
-            "gloo", init_method=f"tcp://localhost:{free_port()}",
-            world_size=1, rank=0)
+        init_distributed(f"localhost:{free_port()}", 1, 0,
+                         device=device_type, backend="gloo",
+                         group_of_one=True)
     try:
         yield make_debug_mesh(1, 1, device_type=device_type)
     finally:

@@ -3,7 +3,7 @@ of the JAX package's ``analysis/memcheck.py``.
 
 The reference compiles the sharded flat aggregators on a faked
 multi-device mesh and bounds each device's ``memory_analysis()``. The
-port has no compiler: each contract spawns its gloo ranks in fresh
+port has no compiler: each contract spawns its ranks in fresh
 processes (``python -m repro_torch.analysis.memcheck --rank ...``, as the
 reference spawns a forced-device subprocess), and each rank resolves
 ``resolve("aggregator", agg, K=K, n_byz=1, sharded=True)``, calls it on
@@ -24,8 +24,11 @@ stack and measures the call. Per rank, with shard = K·D·4 / ranks:
 
 D is the parameter count of reduced Qwen2.5-3B, from the port's
 ``param_shapes`` (1,313,024, the reference's ``jax.eval_shape`` count).
-On the card the ranks place their blocks on the one GPU and gloo stages
-the gathers through the host.
+On one card the ranks place their blocks on it and gloo stages the
+gathers through the host; where each rank has a card of its own they
+join over NCCL (``sharding.init_distributed``) and the gathered parts
+stay on the device, where ``LiveBytes`` counts them (NCCL's own buffers
+it does not).
 
 :class:`LiveBytes` is the suite's one allocation measure (the donation
 pass uses it too): on the CPU a dispatch mode that tallies the live bytes
@@ -50,8 +53,9 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten
+from torch.utils._pytree import tree_flatten, tree_map
 
 from repro_torch.analysis.findings import Finding
 
@@ -83,6 +87,8 @@ class _Tally(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if func.namespace == "c10d":
+            return _on_copies(func, args, kwargs)
         out = func(*args, **kwargs)
         inputs = {t.untyped_storage()._cdata
                   for t in tree_flatten((args, kwargs))[0]
@@ -101,6 +107,33 @@ class _Tally(TorchDispatchMode):
                 self.peak = max(self.peak, self.live)
             weakref.finalize(st, self._free, key, n)
         return out
+
+
+def _on_copies(func, args, kwargs):
+    """A c10d collective run on copies of its tensors, waited for, its
+    results copied back into the caller's tensors. A backend's thread
+    drops its references to a finished collective's tensors only when it
+    is next scheduled (gloo's worker, under load, held an ``all_gather``'s
+    input and parts past the caller's next allocations), so a tally of
+    the caller's own tensors would free them, and peak, as that thread
+    happens to run. The copies are the backend's and are not tallied, as
+    its own buffers are not."""
+    pairs = {}
+
+    def copy(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        c = t.clone()
+        pairs[id(c)] = (t, c)
+        return c
+
+    out = func(*tree_map(copy, args), **tree_map(copy, kwargs))
+    for w in tree_flatten(out)[0]:
+        if not isinstance(w, torch.Tensor) and hasattr(w, "wait"):
+            w.wait()                # the work, boxed as a ScriptObject
+    for t, c in pairs.values():
+        t.copy_(c)
+    return tree_map(lambda x: pairs[id(x)][0] if id(x) in pairs else x, out)
 
 
 class LiveBytes:
@@ -156,7 +189,7 @@ class GatherWatch(TorchDispatchMode):
 
 @dataclasses.dataclass(frozen=True)
 class MemContract:
-    """One per-rank footprint bound on ``ranks`` gloo ranks.
+    """One per-rank footprint bound on ``ranks`` ranks.
 
     Bounds (bytes, per rank, f32 stacks), with shard = K·D·4 / ranks:
 
@@ -199,10 +232,9 @@ def param_count() -> int:
 
 
 def check_rank(c: MemContract, D: int, device) -> tuple:
-    """One rank's check of contract ``c`` in a joined gloo group of
+    """One rank's check of contract ``c`` in a joined group of
     ``c.ranks`` processes, on its own block of a (K, D) stack:
     ``(findings as dicts, measured bytes)``."""
-    import torch.distributed as dist
     from repro_torch.carriers.columns import Shards, _chunk
     from repro_torch.core.engine import seed_generator
     from repro_torch.launch.mesh import make_debug_mesh
@@ -230,7 +262,6 @@ def check_call(c: MemContract, D: int, x, device) -> tuple:
     counted by the storage it holds (a block that is a view of a whole
     (K, D) stack holds the stack). ``(findings as dicts, measured
     bytes)``."""
-    import torch.distributed as dist
     from repro_torch.carriers.columns import local_columns
     from repro_torch.core.engine import seed_generator
     from repro_torch.core.registry import resolve
@@ -275,9 +306,8 @@ def check_call(c: MemContract, D: int, x, device) -> tuple:
 
 
 def child_main(argv=None) -> int:
-    """A rank: join the gloo group, check the contract, print one
+    """A rank: join the group, check the contract, print one
     ``MEMCHECK_JSON:`` line (findings are data, not a crash)."""
-    import torch.distributed as dist
     ap = argparse.ArgumentParser()
     ap.add_argument("--rank", type=int, required=True)
     ap.add_argument("--port", type=int, required=True)
@@ -285,12 +315,12 @@ def child_main(argv=None) -> int:
     ap.add_argument("--D", type=int, required=True)
     ap.add_argument("--device", default="cpu")
     args = ap.parse_args(argv)
+    from repro_torch.distributed.sharding import init_distributed
     c = MemContract(**json.loads(args.contract))
-    dist.init_process_group("gloo",
-                            init_method=f"tcp://localhost:{args.port}",
-                            world_size=c.ranks, rank=args.rank)
+    dev = init_distributed(f"localhost:{args.port}", c.ranks, args.rank,
+                           device=args.device, group_of_one=True)
     try:
-        found, measured = check_rank(c, args.D, args.device)
+        found, measured = check_rank(c, args.D, dev)
     finally:
         dist.destroy_process_group()
     print(_MARK + json.dumps({"findings": found, "measured": measured}),
@@ -304,7 +334,7 @@ def child_main(argv=None) -> int:
 
 
 def free_port() -> int:
-    """A free localhost port, for a gloo group's rendezvous."""
+    """A free localhost port, for a process group's rendezvous."""
     with socket.socket() as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]

@@ -45,11 +45,15 @@ def _chunk(D: int, n: int, i: int) -> tuple:
 
 def gather_over(t: torch.Tensor, mesh, dim: int) -> list:
     """Every rank's ``t`` (the same shape on each), in rank order over the
-    mesh dimension ``dim``: one ``all_gather``. A gloo group takes no
-    CUDA tensor in ``all_gather`` (two ranks on one GPU run gloo: NCCL
-    refuses them), so there ``t`` is staged through the host and the
-    parts stay there; the sums that follow are the same IEEE operations
-    on either device."""
+    mesh dimension ``dim``: one ``all_gather``. Under NCCL (each rank on
+    its own card) the parts are made and gathered on the card, and the
+    call returns once the rank's current stream waits for the gather, so
+    what follows on that stream reads them; no byte crosses the host. A
+    gloo group takes no CUDA tensor in ``all_gather`` (ranks that share
+    a GPU run gloo: NCCL refuses them), so there ``t`` is staged through
+    the host and the parts stay there; the sums that follow are the same
+    IEEE operations on either device, so both routes give the same
+    bits."""
     group = mesh.get_group(dim)
     host = t.is_cuda and dist.get_backend(group) == "gloo"
     src = (t.cpu() if host else t).contiguous()

@@ -149,6 +149,7 @@ def avg_agree(theta: torch.Tensor, kappa: int, n_byz: int,
               byz_mask: Optional[torch.Tensor] = None, method="gda",
               attack: Optional[Callable] = None,
               noise: Optional[torch.Tensor] = None,
+              alpha_bar: Optional[float] = None,
               topology=None, sharded: Optional[bool] = None
               ) -> torch.Tensor:
     """Simulate Avg-Agree_κ over K agents (paper Algorithm 3 on a gossip
@@ -159,7 +160,9 @@ def avg_agree(theta: torch.Tensor, kappa: int, n_byz: int,
     receiver, ``(K_recv, K_send, d)`` (with the row axis in front when
     there are rows); None is an honest broadcast. noise: the attack's
     draws for all rounds, (κ, ...) with the attack's own noise shape per
-    round ((L, κ, ...) for rows), or None when it draws none. Returns the
+    round ((L, κ, ...) for rows), or None when it draws none. alpha_bar:
+    the tolerated Byzantine fraction that sets how many neighbours an
+    agent keeps, in place of the method's own. Returns the
     parameters after κ rounds, in θ's shape (Byzantine rows carry what an
     honest agent in that slot would compute; callers mask them).
 
@@ -182,8 +185,9 @@ def avg_agree(theta: torch.Tensor, kappa: int, n_byz: int,
     nbr = torch.as_tensor(topo.nbr_idx, dtype=torch.int64,
                           device=theta.device)           # (K, P)
     P = topo.deg_max
+    alpha_bar = m.alpha_bar if alpha_bar is None else alpha_bar
     # never forced to include a Byzantine: n_keep <= P - n_byz
-    n_keep = max(min(int(np.ceil((1.0 - m.alpha_bar) * P)), P - n_byz), 1)
+    n_keep = max(min(int(np.ceil((1.0 - alpha_bar) * P)), P - n_byz), 1)
     limit = REGISTRY.meta("agreement", method).get("max_agents")
     if limit is not None and P > limit:
         raise ValueError(

@@ -247,14 +247,17 @@ def finish_byzpg(env, cfg: ByzPGConfig, carry: ByzPGCarry,
     return add_telemetry(out, hist, cfg.n_byz)
 
 
-def run_byzpg(env, cfg: ByzPGConfig, T: int, *, device=None, theta0=None,
+def run_byzpg(env, cfg: ByzPGConfig, T: int, eval_every: int = 1, *,
+              device=None, theta0=None,
               noise: Optional[Sequence[StepNoise]] = None) -> dict:
     """Run T iterations: :func:`init_byzpg_carry`, one
     :func:`window_byzpg` over ``[0, T)``, :func:`finish_byzpg`. Returns
     the returns and coins (numpy), the per-agent sample counts, the final
     θ (d,) as ``vec`` and as the policy's ``params``; with
     ``cfg.telemetry`` also the honest gradient norms (T,), the rejected
-    masks (T, K) and their ``aggregator_confusion`` tally.
+    masks (T, K) and their ``aggregator_confusion`` tally. The returns
+    and sample counts are those of every ``eval_every``-th iteration
+    (0, eval_every, ...), as the reference reports them.
 
     ``device=None`` means CUDA. ``theta0`` (d,) replaces the seeded init;
     ``noise`` (T StepNoise on ``device``) replaces the seeded draws. The
@@ -268,7 +271,10 @@ def run_byzpg(env, cfg: ByzPGConfig, T: int, *, device=None, theta0=None,
     gen = seed_generator(cfg.seed, dev)
     carry = init_byzpg_carry(env, cfg, gen, theta0, dev)
     carry, chunk = window_byzpg(env, cfg, carry, gen, 0, T, noise)
-    return finish_byzpg(env, cfg, carry, [chunk])
+    out = finish_byzpg(env, cfg, carry, [chunk])
+    for k in ("returns", "samples"):
+        out[k] = out[k][::eval_every]
+    return out
 
 
 register("algo", "byzpg")(

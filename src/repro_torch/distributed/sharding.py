@@ -19,10 +19,13 @@ major one), as in the reference. :func:`placements` turns a spec into a
 dimension names and sizes, so they run on an :class:`AbstractMesh` as on
 a ``DeviceMesh`` (:mod:`repro_torch.launch.mesh`).
 
-The processes of the sweep service exchange only host objects (carries,
-generator states and history chunks, pickled), so the process group is
-gloo on the CPU and on CUDA alike: NCCL would also refuse two ranks on
-one GPU.
+Every rank joins through :func:`init_distributed`: on CUDA it takes a
+card of its own where the host has one per rank and joins over NCCL, so
+the tensor collectives of the carriers stay on the device; where ranks
+share a card (NCCL refuses two ranks on one GPU) or run on the CPU they
+join over gloo. Host objects (the sweep's carries, generator states and
+history chunks, pickled; the lane mesh's gathered rows) go over gloo
+either way (:func:`host_group`).
 
 The lane mesh (:func:`lane_mesh`) lays out the flattened lanes × seeds
 rows of ``run_grid(lanes=True)``. The reference's is a 1-D mesh of
@@ -36,6 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import datetime
+import os
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -47,21 +51,112 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import tree_map, tree_paths
 
 
+def rank_card(process_id: int, cards: int,
+              local_rank: Optional[int] = None) -> int:
+    """The card of a rank: its ``local_rank`` (``LOCAL_RANK``) when set,
+    else its rank, modulo the host's ``cards``."""
+    if cards < 1:
+        raise RuntimeError("a rank on CUDA needs a card and the host has "
+                           "none; join with device='cpu'")
+    return (process_id if local_rank is None else local_rank) % cards
+
+
+def choose_backend(device_type: str, ranks_on_host: int, cards: int,
+                   backend: Optional[str] = None) -> str:
+    """The process group's backend: ``nccl`` where the ranks run on CUDA
+    and each rank on the host has a card of its own (``ranks_on_host <=
+    cards``), ``gloo`` on the CPU and where ranks share a card (NCCL
+    refuses two ranks on one GPU). A named ``backend`` is taken as is,
+    but NCCL where it cannot run raises here, before NCCL's own "Duplicate
+    GPU" error."""
+    own = device_type == "cuda" and ranks_on_host <= cards
+    if backend is None:
+        return "nccl" if own else "gloo"
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"backend {backend!r}: the port joins over "
+                         f"'nccl' or 'gloo'")
+    if backend == "nccl" and not own:
+        raise ValueError(
+            f"NCCL needs a card per rank: {ranks_on_host} ranks on this "
+            f"host, {cards} cards, device type {device_type!r}; join over "
+            f"gloo (backend=None picks it)")
+    return backend
+
+
+#: the gloo group made beside an NCCL world for host objects, and the
+#: world it belongs to (:func:`host_group`)
+_HOST_GROUP: list = []
+
+
 def init_distributed(coordinator: str, num_processes: int,
                      process_id: int,
-                     timeout_s: Optional[float] = None) -> None:
-    """Join a gloo process group of ``num_processes`` ranks through the
-    TCP store at ``coordinator`` (``HOST:PORT``, served by rank 0). With
-    ``timeout_s``, joining and every collective raise after that many
-    seconds without their peers (torch's default: 30 minutes). No-op for
-    a single process."""
-    if num_processes <= 1:
-        return
+                     timeout_s: Optional[float] = None, device="cuda",
+                     backend: Optional[str] = None,
+                     group_of_one: bool = False) -> torch.device:
+    """Join a process group of ``num_processes`` ranks through the TCP
+    store at ``coordinator`` (``HOST:PORT``, served by rank 0), the one
+    place where the port joins one. Returns the rank's device.
+
+    On CUDA the rank takes its card (:func:`rank_card`: ``LOCAL_RANK``
+    when set, else the rank modulo the host's cards) and makes it current
+    before it joins; the backend follows :func:`choose_backend` (NCCL
+    where every rank on the host owns its card, initialised eagerly on
+    it; gloo where they share one or run on the CPU), the host's ranks
+    being ``LOCAL_WORLD_SIZE`` when set, else the whole group (the
+    port's launchers start their ranks on one host). Under NCCL a gloo
+    group beside it carries host objects (:func:`host_group`). A failed
+    NCCL join raises; nothing falls back to gloo. With ``timeout_s``,
+    joining and every collective raise after that many seconds without
+    their peers (torch's default: 30 minutes; a backward whose
+    collectives run in another order on two ranks waits that long).
+
+    A single process joins nothing and picks no card (``device`` comes
+    back as given) unless ``group_of_one``: a one-rank mesh needs its
+    group."""
+    dev = torch.device(device)
+    if num_processes <= 1 and not group_of_one:
+        return dev
+    cards = 0
+    if dev.type == "cuda":
+        cards = torch.cuda.device_count()
+        local = os.environ.get("LOCAL_RANK")
+        dev = torch.device("cuda", rank_card(
+            process_id, cards, None if local is None else int(local)))
+        torch.cuda.set_device(dev)
+    backend = choose_backend(
+        dev.type, int(os.environ.get("LOCAL_WORLD_SIZE", num_processes)),
+        cards, backend)
     kw = {} if timeout_s is None else {
         "timeout": datetime.timedelta(seconds=timeout_s)}
-    dist.init_process_group(backend="gloo",
+    dist.init_process_group(backend=backend,
                             init_method=f"tcp://{coordinator}",
-                            world_size=num_processes, rank=process_id, **kw)
+                            world_size=num_processes, rank=process_id,
+                            device_id=dev if backend == "nccl" else None,
+                            **kw)
+    _HOST_GROUP.clear()
+    if backend == "nccl":
+        _HOST_GROUP.extend([dist.group.WORLD,
+                            dist.new_group(backend="gloo", **kw)])
+    return dev
+
+
+def host_group():
+    """The group over which ranks exchange host objects (pickled carries,
+    generator states, rows): the gloo group made beside an NCCL world by
+    :func:`init_distributed`, else None, the world itself (gloo: host
+    objects need no device)."""
+    if _HOST_GROUP and dist.is_initialized() \
+            and _HOST_GROUP[0] is dist.group.WORLD:
+        return _HOST_GROUP[1]
+    return None
+
+
+def broadcast_object(obj, src: int = 0):
+    """Rank ``src``'s host object ``obj`` (pickled) on every rank, over
+    :func:`host_group`: how the sweep's ranks agree on a reading."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=src, group=host_group())
+    return box[0]
 
 
 def process_count() -> int:
@@ -179,12 +274,13 @@ def global_rows(mesh: Optional[LaneMesh], arr):
 def gather_rows(mesh: LaneMesh, tree):
     """Every rank's block of rows, concatenated in rank order on every
     rank: ``tree``'s leaves (numpy arrays, or tensors, moved to the host)
-    hold this rank's rows on their leading axis."""
+    hold this rank's rows on their leading axis. The rows go as host
+    objects over :func:`host_group`."""
     # analysis: host-side (gloo exchanges the rows as host objects)
     part = tree_map(lambda x: x.cpu() if isinstance(x, torch.Tensor)
                     else x, tree)
     parts = [None] * mesh.size
-    dist.all_gather_object(parts, part)
+    dist.all_gather_object(parts, part, group=host_group())
     return tree_map(lambda *xs: torch.cat(xs)
                     if isinstance(xs[0], torch.Tensor)
                     else np.concatenate(xs), *parts)

@@ -7,10 +7,11 @@ reference's dimension names: ("data", "model"), or ("pod", "data",
 "model") with ``multi_pod``. The flat federated trainer splits its (K, D)
 stacks along D over "model" (``fed_trainer.flat_param_sharding``). The
 caller joins the process group first
-(:func:`repro_torch.distributed.init_distributed`, or
-``torch.distributed.init_process_group`` with its address, world size and
-rank): nothing on a machine tells a program of a cluster. Two ranks on
-one GPU need a gloo group, since NCCL refuses them.
+(:func:`repro_torch.distributed.init_distributed`, with its address,
+world size and rank: nothing on a machine tells a program of a cluster).
+It puts each rank on its card and joins over NCCL where every rank has
+one of its own, over gloo where ranks share a GPU (NCCL refuses them) or
+run on the CPU.
 
 The constants are the NVIDIA H100 SXM data sheet's per-GPU figures, for
 rooflines; they are not measurements.

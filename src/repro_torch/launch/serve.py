@@ -17,10 +17,12 @@ The port of the JAX package's ``launch/serve.py``. Two modes share the
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --policy "transformer(arch='llama3.2-1b', n_layers=2, \\
-    d_model=64, n_heads=2)"
+    d_model=64, n_heads=2)" [--checkpoint results/policy.npz]
 
-Weights are random, drawn from ``--seed``. Runs on CUDA; ``--device cpu``
-runs the plain PyTorch versions of the kernels instead.
+Weights are random, drawn from ``--seed``, unless ``--checkpoint`` names
+an aggregated policy's archive (policy mode; either package writes it).
+Runs on CUDA; ``--device cpu`` runs the plain PyTorch versions of the
+kernels instead.
 """
 from __future__ import annotations
 
@@ -33,7 +35,8 @@ from repro_torch.serving import (DecodeEngine, PolicyServer, make_traffic,
                                  progress, serve)
 
 
-def main(argv=None) -> None:
+def main(argv=None):
+    """Serve, print the report's summary and return the report."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="qwen2.5-3b")
     ap.add_argument("--reduced", action="store_true")
@@ -42,6 +45,9 @@ def main(argv=None) -> None:
                          "through repro_torch.serving.serve instead of LM "
                          "token traffic")
     ap.add_argument("--env", default="cartpole(horizon=32)")
+    ap.add_argument("--checkpoint", default=None,
+                    help="aggregated-policy checkpoint (policy mode; an "
+                         "archive of either package)")
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
@@ -55,12 +61,14 @@ def main(argv=None) -> None:
     dev = resolve_device(args.device)
 
     if args.policy is not None:
-        report = serve(policy=args.policy, env=args.env, key=args.seed,
+        # a checkpoint, when given, wins over the seed's fresh init
+        report = serve(policy=args.policy, env=args.env,
+                       checkpoint=args.checkpoint, key=args.seed,
                        n_requests=args.requests, rate_rps=args.rate,
                        slots=args.slots, max_new=args.gen, seed=args.seed,
                        realtime=not args.offline, device=dev)
         progress("policy serve", **report.summary())
-        return
+        return report
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -79,6 +87,7 @@ def main(argv=None) -> None:
     progress(f"lm serve arch={cfg.name}", **report.summary())
     for r in report.results[:2]:
         progress(f"  uid={r.uid}: {r.tokens[:12]}")
+    return report
 
 
 if __name__ == "__main__":

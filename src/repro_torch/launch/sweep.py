@@ -13,7 +13,10 @@ parsed as int/float when they look like numbers, component spec strings
 otherwise); ``--set name=value`` pins base config fields the same way.
 
 Several processes: launch each with ``--processes N --process-id I
---coordinator HOST:PORT`` (a gloo process group, on one card or several):
+--coordinator HOST:PORT`` (each process takes a card, ``LOCAL_RANK`` or
+its id modulo the cards; the group is NCCL where each has a card of its
+own, gloo where they share one, and the sweep's host objects go over
+gloo either way):
 ``--mode span`` (the default then) splits every group's seeds over the
 processes and gathers them after each window, ``--mode shard`` assigns
 whole groups to processes (greedy LPT) and merges results through the
@@ -118,7 +121,8 @@ def main(argv=None) -> None:
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
 
-    init_distributed(args.coordinator, args.processes, args.process_id)
+    init_distributed(args.coordinator, args.processes, args.process_id,
+                     device=args.device)
     try:
         _sweep(args)
     finally:

@@ -15,8 +15,9 @@ long-running job built from the algorithms' windows:
   sweep resumes from its manifest: completed groups are reloaded without
   drawing or launching anything, partial ones restart mid-T from their
   carries and generator states;
-* with several processes (a gloo process group from
-  :func:`repro_torch.distributed.init_distributed`) a group's rows are
+* with several processes (a process group from
+  :func:`repro_torch.distributed.init_distributed`, its host objects
+  over gloo) a group's rows are
   split over the processes' lane mesh in ``mode="span"``, or whole groups are
   assigned to processes by greedy longest-processing-time in
   ``mode="shard"`` and merged through the shared sweep directory;
@@ -51,15 +52,15 @@ from typing import Callable, Mapping, Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch import obs, resolve_device
 from repro_torch.checkpoint import restore, save
 from repro_torch.core import engine
 from repro_torch.core.registry import Spec, resolve
 from repro_torch.core.tree import tree_map
-from repro_torch.distributed.sharding import (gather_rows, host_assignment,
-                                              lane_mesh, lane_sharding,
+from repro_torch.distributed.sharding import (broadcast_object, gather_rows,
+                                              host_assignment, lane_mesh,
+                                              lane_sharding,
                                               padded_rows, process_count,
                                               process_index, spans_processes,
                                               use_lane_mesh)
@@ -299,9 +300,7 @@ class SweepRunner:
         span = spans_processes(mesh)
         if span:
             # rank 0's reading decides, so every rank takes the same path
-            box = [wdone]
-            dist.broadcast_object_list(box, src=0)
-            wdone = box[0]
+            wdone = broadcast_object(wdone)
         if wdone >= W:
             # fully committed: reload artifacts, no draw, no launch
             return self._load_group(env, static_cfg, gp, W, n_pad)

@@ -4,7 +4,9 @@ whole rows breaks ``gather-footprint``, a block handed to rfa as a view
 of the whole (K, D) stack breaks ``argument-footprint`` (its copy is
 clean), and impossible bounds break ``argument-footprint`` and
 ``temp-footprint``, each beside a clean twin;
-a contract of too many ranks is ``mesh-unavailable``; the real table runs
+a collective's tensors leave the tally where the caller drops them,
+whatever the backend's thread keeps; a contract of too many ranks is
+``mesh-unavailable``; the real table runs
 clean through its own rank processes; the table and D equal the
 reference's (exact)."""
 
@@ -130,6 +132,33 @@ def test_impossible_temp_bound_flagged_krum_clean(ranks):
         assert _rules(rank_out, 3) == set()
         assert _rules(rank_out, 4) == {"temp-footprint"}
         assert "krum(K=8)@2rank" in rank_out[4][0][0]["message"]
+
+
+def test_collective_tensors_leave_the_tally_with_the_caller():
+    """A backend that keeps a finished collective's tensors (its work
+    object alive: gloo's worker thread drops its reference only when next
+    scheduled) does not hold them in ``LiveBytes``: they leave the tally
+    where the caller lets them go, so the peak does not depend on that
+    thread. Here the caller keeps the work itself, the latest release."""
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        with memcheck.LiveBytes("cpu") as mem:
+            x = torch.ones(1024)
+            parts = [torch.empty(1024)]
+            work = dist.all_gather(parts, x, async_op=True)
+            work.wait()
+            assert torch.equal(parts[0], x)
+            del x, parts
+            y = torch.ones(1024)
+            del y
+        del work
+    finally:
+        dist.destroy_process_group()
+    # x and its gathered part (4 KiB each), then y in x's place
+    assert (mem.peak, mem.live) == (8192, 0)
 
 
 def test_unavailable_mesh_flagged():

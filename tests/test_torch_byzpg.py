@@ -104,6 +104,28 @@ def test_run_byzpg_matches_jax(kw, monkeypatch):
                        out["vec"])
 
 
+@pytest.mark.parametrize("eval_every", [2, 3])
+def test_run_byzpg_eval_every_matches_jax(eval_every):
+    """``eval_every`` keeps the returns and sample counts of every
+    eval_every-th iteration, as the reference's ``_finalize`` does; the
+    coins and θ are the run's whole."""
+    kw = CONFIGS["trimmed_mean_sign_flip"]
+    jenv = jax_cartpole(horizon=32)
+    jcfg = jbz.ByzPGConfig(**kw)
+    hist, theta0 = _jax_run(jenv, jcfg, T)
+    noise = replay_byzpg_noise(jenv, jcfg, theta0.shape[0], T)
+    out = tbz.run_byzpg(make_cartpole(horizon=32), tbz.ByzPGConfig(**kw), T,
+                        eval_every, device="cpu", theta0=theta0,
+                        noise=noise)
+    unravel = jbz.policy_unraveler(jbz.resolve_policy(jcfg, jenv))[0]
+    want = jbz._finalize(jcfg, unravel, hist, eval_every)
+    assert len(out["returns"]) == len(range(0, T, eval_every))
+    np.testing.assert_allclose(out["returns"], want["returns"], rtol=1e-5)
+    assert out["samples"].tolist() == np.asarray(want["samples"]).tolist()
+    np.testing.assert_array_equal(out["coins"], hist["coins"])
+    np.testing.assert_allclose(out["vec"].numpy(), hist["vec"], atol=1e-5)
+
+
 def test_config_fields_match_reference():
     ours = {f.name: f.default for f in dataclasses.fields(tbz.ByzPGConfig)}
     ref = {f.name: f.default for f in dataclasses.fields(jbz.ByzPGConfig)}

@@ -269,6 +269,33 @@ def test_avg_agree_matches_reference(method, topology, attack,
         atol=1e-4)
 
 
+@pytest.mark.parametrize("method,alpha_bar", [("gda", 0.4), ("mda", 0.5),
+                                              ("gda", 0.6)])
+def test_avg_agree_alpha_bar_matches_reference(method, alpha_bar):
+    """``alpha_bar`` overrides the method's tolerated fraction (how many
+    neighbours an agent keeps): the port against the reference under one
+    ``large_noise`` attack, and unlike the method's own fraction."""
+    theta = _x(12, (K, D))
+    kappa, n_byz = 2, 1
+    byz = np.arange(K) < n_byz
+    key = jax.random.PRNGKey(13)
+    noise = to_torch(agreement_draws(key, kappa, K, D, False))
+    att = "large_noise(sigma=5.0)"
+    want = jagree.avg_agree(jnp.asarray(theta), kappa, n_byz,
+                            jnp.asarray(byz), method,
+                            jattacks.get_attack(att), key,
+                            alpha_bar=alpha_bar)
+    got = tagree.avg_agree(torch.from_numpy(theta), kappa, n_byz,
+                           torch.from_numpy(byz), method,
+                           tattacks.get_attack(att), noise,
+                           alpha_bar=alpha_bar)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    own = tagree.avg_agree(torch.from_numpy(theta), kappa, n_byz,
+                           torch.from_numpy(byz), method,
+                           tattacks.get_attack(att), noise)
+    assert not torch.allclose(got, own, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("sigma,differs", [(5.0, False), (0.3, True)])
 def test_per_receiver_equivocation_against_consistent_attack(sigma,
                                                              differs):

@@ -601,7 +601,8 @@ def _rank_main(rank: int, port: int, out_dir: str) -> None:
     ``run_grid(lanes=True)`` over 3 rows (padded to 4), and a span sweep
     stopped after its first window."""
     torch.set_num_threads(1)
-    sharding.init_distributed(f"localhost:{port}", 2, rank, timeout_s=240)
+    sharding.init_distributed(f"localhost:{port}", 2, rank, timeout_s=240,
+                              device="cpu")
     mesh = sharding.lane_mesh(spanning=True)
     facts = {"mesh": tuple(mesh), "local": sharding.lane_mesh(),
              "padded": sharding.padded_rows(mesh, 3),

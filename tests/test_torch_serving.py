@@ -392,6 +392,32 @@ def test_launch_cli_on_the_cpu(capsys):
     assert "policy serve n_requests=2" in capsys.readouterr().out
 
 
+def test_launch_cli_serves_a_checkpoint(jax_side, env, tmp_path):
+    """``--checkpoint`` (policy mode): the reference's archive of its
+    policy's parameters served by the port's CLI, against the reference's
+    ``serve(checkpoint=)`` on the same archive and traffic (the CLI's
+    defaults: cartpole(horizon=32), 4 slots, prompts of up to 8), under
+    the margin rule."""
+    from repro import checkpoint as jckpt
+    from repro.serving import serve as jserve
+    from repro_torch.launch.serve import main
+    jpol, jparams = jax_side
+    path = str(tmp_path / "policy.npz")
+    jckpt.save(jparams, path)
+    report = main(["--policy", POLICY, "--requests", "5", "--gen", "4",
+                   "--seed", "3", "--offline", "--device", "cpu",
+                   "--checkpoint", path])
+    mine = {r.uid: r.tokens for r in report.results}
+    ref = jserve(policy=POLICY, checkpoint=path, n_requests=5, max_new=4,
+                 seed=3, realtime=False)
+    cli_env = make_env("cartpole(horizon=32)")
+    traffic = make_traffic(5, seed=3, rate_rps=100.0, max_new=4,
+                           obs_dim=cli_env.obs_dim)
+    assert_streams_agree(mine, {r.uid: r.tokens for r in ref.results},
+                         jpol.model_cfg, jparams, traffic,
+                         cli_env.n_actions)
+
+
 def test_entry_points_default_to_cuda(policy, params):
     if torch.cuda.is_available():
         pytest.skip("this checks the error without a CUDA device")
