@@ -376,15 +376,32 @@ FLASH_CASES = [(1, 32, 8, 512, 64, None), (1, 32, 8, 512, 64, 1),
                (1, 25, 5, 16, 64, None), (1, 25, 5, 77, 64, None),
                (1, 25, 5, 128, 64, None), (1, 25, 5, 256, 64, None)]
 #: the flash inputs also timed on the device (CUDA-graph replay): the
-#: headline and Grok-1's and Hymba-1.5B's longest served prefills
+#: headline and Grok-1's, Hymba-1.5B's, DeepSeek-V2-Lite's and
+#: MiniCPM3-4B's longest served prefills
 FLASH_DEVICE = (HEADLINE["flash_attention"],
                 "q (48, 256, 128) kv (8, 256, 128)",
-                "q (25, 256, 64) kv (5, 256, 64)")
+                "q (25, 256, 64) kv (5, 256, 64)",
+                "q (16, 256, 192) kv (16, 256, 192) v 128",
+                "q (40, 256, 96) kv (40, 256, 96) v 64")
 FLASH_LARGE = (1, 32, 8, 8192, 64, None)
-# head dims the kernel is not compiled for (run zero-padded to 64 and 128):
-# a transformer policy's (d_model 96, 2 heads) and a 96-wide head
+# the wide instances and v's own head dim, (B, H, Hkv, S, hd, window,
+# hd_v): DeepSeek-V2-Lite's MLA prefill (16 heads, q/k 192, v 128: the
+# hd-192 instance) at 256 and 1024 tokens, with a window; hd 256 (G = 4)
+# at 256 and 1024 tokens, with a window; MiniCPM3-4B's MLA prefill (40
+# heads, q/k 96 padded to 128, v 64: the (128, 64) instance)
+FLASH_WIDE = [(1, 16, 16, 256, 192, None, 128),
+              (1, 16, 16, 1024, 192, None, 128),
+              (1, 16, 16, 1024, 192, 256, 128),
+              (1, 16, 4, 256, 256, None, 256),
+              (1, 16, 4, 1024, 256, None, 256),
+              (1, 16, 4, 1024, 256, 100, 256),
+              (1, 40, 40, 256, 96, None, 64)]
+# head dims the kernel is not compiled for (run zero-padded to 64, 128 and
+# 192): a transformer policy's (d_model 96, 2 heads), a 96-wide head and a
+# 160-wide one at 256 and 1024 tokens (window 300)
 FLASH_PADDED = [(1, 2, 2, 9, 48, None), (2, 4, 2, 130, 48, 100),
-                (1, 8, 2, 256, 96, None)]
+                (1, 8, 2, 256, 96, None), (1, 8, 2, 256, 160, None),
+                (1, 8, 2, 1024, 160, 300)]
 #: the card against the CPU at DeepSeek-V2-Lite's width: prefill logits
 #: within this share of their largest entry (f32 sums in other orders over
 #: d 2048, 64 experts of width 1408 and a residual stream of O(100); an
@@ -899,19 +916,20 @@ def phase_flash(dev):
     from repro_torch.kernels.flash_attention import (flash_attention_kernel,
                                                      flash_attention_plain)
     from repro_torch.kernels.flash_attention.flash_attention import (
-        KERNEL_HEAD_DIMS, kernel_shared_bytes)
-    log(f"[flash] dynamic shared memory per block: "
-        f"{ {hd: kernel_shared_bytes(hd) for hd in KERNEL_HEAD_DIMS} } "
+        KERNEL_INSTANCES, kernel_shared_bytes)
+    log(f"[flash] dynamic shared memory per block, by (q/k, v) head dim: "
+        f"{ {i: kernel_shared_bytes(*i) for i in KERNEL_INSTANCES} } "
         f"bytes (registers and spills: the build's ptxas lines)")
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     rows = {}
-    for case in FLASH_CASES + [FLASH_LARGE]:
-        B, H, Hkv, S, hd, window = case
+    for case in FLASH_CASES + FLASH_WIDE + [FLASH_LARGE]:
+        B, H, Hkv, S, hd, window = case[:6]
+        hd_v = case[6] if len(case) > 6 else hd
         large = case == FLASH_LARGE
         q = torch.randn((B * H, S, hd), generator=gen, device=dev)
         k = torch.randn((B * Hkv, S, hd), generator=gen, device=dev)
-        v = torch.randn((B * Hkv, S, hd), generator=gen, device=dev)
+        v = torch.randn((B * Hkv, S, hd_v), generator=gen, device=dev)
         out = flash_attention_kernel(q, k, v, H, window)
         if not torch.equal(out, flash_attention_kernel(q, k, v, H, window)):
             raise AssertionError(f"flash_attention {case}: rerun is not "
@@ -925,7 +943,7 @@ def phase_flash(dev):
                                  f"{err} > {tol}")
         q4 = q.reshape(B, H, S, hd)
         k4 = k.reshape(B, Hkv, S, hd)
-        v4 = v.reshape(B, Hkv, S, hd)
+        v4 = v.reshape(B, Hkv, S, hd_v)
         if window is None:
             def sdpa():
                 return F.scaled_dot_product_attention(
@@ -938,12 +956,16 @@ def phase_flash(dev):
             def sdpa():
                 return F.scaled_dot_product_attention(
                     q4, k4, v4, attn_mask=mask, enable_gqa=True)
-        lib_err = (sdpa().reshape(B * H, S, hd) - out).abs().max().item()
+        lib_err = (sdpa().reshape(B * H, S, hd_v) - out).abs().max().item()
         pairs = B * H * _flash_pairs(S, window)
-        b = bound(4 * (2 * B * H * S * hd + 2 * B * Hkv * S * hd),
-                  4 * hd * pairs)
-        reps = 5 if large else 100
+        # q and k read at hd, v read and o written at hd_v; Q K^T and P V
+        b = bound(4 * (B * H * S + B * Hkv * S) * (hd + hd_v),
+                  2 * (hd + hd_v) * pairs)
+        # 1024 tokens and more: fewer calls per timing (each takes 0.1-1
+        # ms, and the plain version's tile loop about 100)
+        reps = 5 if large else 20 if S >= 1024 else 100
         label = f"q {tuple(q.shape)} kv {tuple(k.shape)}" + (
+            f" v {hd_v}" if hd_v != hd else "") + (
             f" window={window}" if window is not None else "")
         rows[("flash_attention", label)] = dict(
             err=err, rel=err / scale, tol=tol, large=large, lib_err=lib_err,
@@ -951,7 +973,7 @@ def phase_flash(dev):
                         sdpa, reps, device=label in FLASH_DEVICE),
             plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, H,
                                                            window),
-                             2 if large else 10, 1),
+                             2 if S >= 1024 else 10, 1),
             bound_ms=b[0], bound_by=b[1])
         del q, k, v, out, ref
         torch.cuda.empty_cache()
@@ -1141,48 +1163,53 @@ def phase_lm_loss_full_width(dev):
 
 
 def phase_flash_padded(dev):
-    """Head dims the kernel is not compiled for (``FLASH_PADDED``): the
-    wrapper zero-pads q, k and v to the next compiled head dim and passes
-    the true scale. Each must launch the kernel (never the plain version),
-    agree with the plain version at the true head dim (2e-5·max|v|),
-    rerun bit-identically, and give the folded launch's bits through the
-    model layout."""
+    """Head dims the kernel is not compiled for (``FLASH_PADDED``) and the
+    wide instances with v's own head dim (``FLASH_WIDE``): the wrapper
+    zero-pads q and k to the instance's q/k head dim and v to its v head
+    dim where they fall short, and passes the true scale. Each must launch
+    the kernel (never the plain version), agree with the plain version at
+    the true head dims (2e-5·max|v|), rerun bit-identically, and give the
+    folded launch's bits through the model layout."""
     import torch
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_kernel,
                                                      flash_attention_plain)
     from repro_torch.kernels.flash_attention.flash_attention import (
-        kernel_head_dim)
+        kernel_instance)
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
-    for B, H, Hkv, S, hd, window in FLASH_PADDED:
+    for case in FLASH_PADDED + FLASH_WIDE:
+        B, H, Hkv, S, hd, window = case[:6]
+        hd_v = case[6] if len(case) > 6 else hd
         q = torch.randn((B * H, S, hd), generator=gen, device=dev)
         k = torch.randn((B * Hkv, S, hd), generator=gen, device=dev)
-        v = torch.randn((B * Hkv, S, hd), generator=gen, device=dev)
+        v = torch.randn((B * Hkv, S, hd_v), generator=gen, device=dev)
         before = dispatch.launch_counts()["flash_attention"]
         out = flash_attention_kernel(q, k, v, H, window)
         rerun = flash_attention_kernel(q, k, v, H, window)
-        layout = flash_attention(*(x.reshape(B, -1, S, hd).transpose(1, 2)
-                                   for x in (q, k, v)), window)
+        layout = flash_attention(*(x.reshape(B, -1, S, x.shape[-1])
+                                   .transpose(1, 2) for x in (q, k, v)),
+                                 window)
         torch.cuda.synchronize()
         launched = dispatch.launch_counts()["flash_attention"] - before
         err = (out - flash_attention_plain(q, k, v, H, window)).abs().max()
         tol = 2e-5 * v.abs().max().item()
-        unfold = out.reshape(B, H, S, hd).transpose(1, 2)
+        unfold = out.reshape(B, H, S, hd_v).transpose(1, 2)
         if not (launched == 3 and err.item() <= tol
                 and torch.equal(out, rerun) and torch.equal(layout, unfold)):
             raise AssertionError(
-                f"flash_attention at head dim {hd} {(B, H, Hkv, S, window)}: "
-                f"{launched} launches of 3, max abs err {err.item()} (tol "
-                f"{tol}), rerun equal {torch.equal(out, rerun)}, layout "
-                f"equal {torch.equal(layout, unfold)}")
+                f"flash_attention at head dims {hd}/{hd_v} "
+                f"{(B, H, Hkv, S, window)}: {launched} launches of 3, max "
+                f"abs err {err.item()} (tol {tol}), rerun equal "
+                f"{torch.equal(out, rerun)}, layout equal "
+                f"{torch.equal(layout, unfold)}")
         ms = time_ms(lambda: flash_attention_kernel(q, k, v, H, window), 50)
-        log(f"[flash] head dim {hd} on the hd {kernel_head_dim(hd)} kernel, "
-            f"q {tuple(q.shape)} kv {tuple(k.shape)} window {window}: max "
-            f"abs err {err.item():.3e} against the plain version (tol "
-            f"{tol:.3e}), rerun and model layout bit-equal, issue-bound "
-            f"{ms:.6f} ms")
+        log(f"[flash] head dims {hd}/{hd_v} on the "
+            f"{kernel_instance(hd, hd_v)} instance, q {tuple(q.shape)} kv "
+            f"{tuple(k.shape)} window {window}: max abs err "
+            f"{err.item():.3e} against the plain version (tol {tol:.3e}), "
+            f"rerun and model layout bit-equal, issue-bound {ms:.6f} ms")
 
 
 def phase_flash_layout(dev):
@@ -2504,8 +2531,10 @@ def serving_runs():
     MoE and MLA families at full width: Grok-1 cut to 1 layer (its 8
     experts of 6144 x 32768 are 19.3 GB a layer in f32, and
     ``init_params`` holds the blocks twice while it stacks them),
-    DeepSeek-V2-Lite to 4 and MiniCPM3-4B whole; MLA layers take the
-    chunked route, so only Grok's GQA prefills launch flash. The
+    DeepSeek-V2-Lite to 4 and MiniCPM3-4B whole; each launches flash
+    once per layer per prefill, as Grok-1's GQA does: DeepSeek-V2-Lite's
+    MLA at q/k 192, v 128 (the kernel's hd-192 instance), MiniCPM3-4B's
+    at 96/64 (the hd-128 instance, v 64). The
     recurrent families at full width and depth, prefilled at exact
     prompt lengths (one warmup prefill of 1 token): Hymba-1.5B launches
     flash once per layer per prefill (25 heads over 5, G = 5), xLSTM-350M
@@ -2530,9 +2559,9 @@ def serving_runs():
          moe_kw, 8, moe_lens, 1 * (len(default_buckets(256)) + 8)),
         ("deepseek-v2-lite_4l_serve",
          dataclasses.replace(get_config("deepseek-v2-lite-16b"), n_layers=4),
-         moe_kw, 8, moe_lens, 0),
+         moe_kw, 8, moe_lens, 4 * (len(default_buckets(256)) + 8)),
         ("minicpm3-4b_serve", get_config("minicpm3-4b"), moe_kw, 8,
-         moe_lens, 0),
+         moe_lens, 62 * (len(default_buckets(256)) + 8)),
         ("hymba-1.5b_serve", get_config("hymba-1.5b"), moe_kw, 8, moe_lens,
          32 * (1 + 8)),
         ("xlstm-350m_serve", get_config("xlstm-350m"), moe_kw, 8, moe_lens,
@@ -3815,6 +3844,12 @@ def _join_rank(rank, world, port, where):
                             backend=backend or None, group_of_one=True)
 
 
+def _leave_rank():
+    """A spawned rank's teardown, through ``leave_distributed``."""
+    from repro_torch.distributed import leave_distributed
+    leave_distributed()
+
+
 def _rank_where(dev, backend=None) -> str:
     """The DEVICE argument of a spawned rank (:func:`_join_rank`)."""
     return dev.type if backend is None else f"{dev.type}/{backend}"
@@ -3871,14 +3906,13 @@ def fed_rank_main(argv) -> int:
     rank, world, port, dst, where = argv
     dev = _join_rank(rank, world, port, where)
     import torch
-    import torch.distributed as dist
     from repro_torch.launch.mesh import make_debug_mesh
     try:
         mesh = make_debug_mesh(1, int(world), device_type=dev.type)
         torch.save(_fed_rank_runs(dev, f"rank {rank} of {world}", mesh),
                    dst)
     finally:
-        dist.destroy_process_group()
+        _leave_rank()
     return 0
 
 
@@ -4212,13 +4246,12 @@ def fed_tree_rank_main(argv) -> int:
     rank, world, port, dst, where = argv
     dev = _join_rank(rank, world, port, where)
     import torch
-    import torch.distributed as dist
     from repro_torch.launch.mesh import make_debug_mesh
     try:
         mesh = make_debug_mesh(2, 2, device_type=dev.type)
         torch.save(_fed_tree_rank_runs(dev, mesh), dst)
     finally:
-        dist.destroy_process_group()
+        _leave_rank()
     return 0
 
 
@@ -4493,13 +4526,12 @@ def fed_block_rank_main(argv) -> int:
     rank, world, port, dst, where, phase = argv
     dev = _join_rank(rank, world, port, where)
     import torch
-    import torch.distributed as dist
     from repro_torch.launch.mesh import make_debug_mesh
     try:
         mesh = make_debug_mesh(*FED_BLOCK_MESH, device_type=dev.type)
         torch.save(_fed_block_run(dev, phase, mesh), dst)
     finally:
-        dist.destroy_process_group()
+        _leave_rank()
     return 0
 
 
@@ -5184,14 +5216,13 @@ def serve_rank_main(argv) -> int:
     rank, world, port, dst, where = argv
     dev = _join_rank(rank, world, port, where)
     import torch
-    import torch.distributed as dist
     from repro_torch.launch.mesh import make_debug_mesh
     try:
         meshes = {s: make_debug_mesh(*s, device_type=dev.type)
                   for s in SERVE_RANK_MESHES}
         torch.save(_serve_rank_runs(dev, meshes), dst)
     finally:
-        dist.destroy_process_group()
+        _leave_rank()
     return 0
 
 
@@ -5432,13 +5463,12 @@ def serve_tp_rank_main(argv) -> int:
     rank, world, port, dst, where, arch = argv
     dev = _join_rank(rank, world, port, where)
     import torch
-    import torch.distributed as dist
     from repro_torch.launch.mesh import make_debug_mesh
     try:
         mesh = make_debug_mesh(*SERVE_TP_MESH, device_type=dev.type)
         torch.save(_serve_tp_rank_run(dev, mesh, arch), dst)
     finally:
-        dist.destroy_process_group()
+        _leave_rank()
     return 0
 
 
@@ -5491,8 +5521,9 @@ def phase_serve_mesh_tp(dev, arch, backend=None, run=None):
     max|logit| while its greedy stream is the route's, the streams equal
     wherever the route's top-1 margin exceeds twice that tolerance, the
     two ranks' logits and tokens bit-identical, the smallest top-2
-    routing margin printed; each rank's flash launch (one a GQA layer,
-    none for MLA) held against the plain version on its own input
+    routing margin printed; each rank's flash launch (one a layer, on
+    its heads: MLA's at q/k 192, v 128) held against the plain version on
+    its own input
     (inside the rank); each rank's peak
     allocation within the dry run's reckoning for its (1, 2) blocks plus
     the route's activations (and SERVE_TP_SLACK), and under the whole
@@ -5541,7 +5572,7 @@ def _serve_tp_check(arch, cfg, one, ranks, secs, dev, backend=None):
     gathered = [p for p, u in tree_paths(serve_uses(
         cfg, shapes, param_shardings(cfg, shapes, amesh), amesh))
         if u == "gather"]
-    flash = 0 if cfg.mla is not None else cfg.n_layers
+    flash = cfg.n_layers
     mem = {mode: dryrun.memory(dryrun.serve_program(
         cfg, mode, SERVE_TP_B, SERVE_TP_W, amesh, torch.float32), amesh)
         for mode in ("prefill", "decode")}
@@ -6272,7 +6303,7 @@ def phase_nccl(dev) -> dict:
         _nccl_fed_step(rank_dev, mesh)
         _add(totals, _nccl_serve(rank_dev, mesh))
     finally:
-        dist.destroy_process_group()
+        _leave_rank()
     log(f"[time] phase 14 (a, b) {time.perf_counter() - t0:.1f} s")
     cards = torch.cuda.device_count() if dev.type == "cuda" else 0
     if cards < NCCL_CARDS:
@@ -6309,9 +6340,14 @@ def main() -> int:
     watch = BuildWatch().__enter__()        # build-once, over the script
     phase_card()
     phase_build()
+    t0 = time.perf_counter()
     rows = phase_kernels(dev)
     rows.update(phase_cw_kernels(dev))
+    log(f"[time] phase 3 aggregation kernels {time.perf_counter() - t0:.1f} "
+        f"s")
+    t0 = time.perf_counter()
     rows.update(phase_flash(dev))
+    log(f"[time] phase 3 flash {time.perf_counter() - t0:.1f} s")
     log_kernel_rows(rows)
     t0 = time.perf_counter()
     phase_train_attention(dev)

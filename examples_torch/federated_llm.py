@@ -36,7 +36,8 @@ from repro_torch import (get_config, obs, reduced,  # noqa: E402
 from repro_torch.core.engine import seed_generator  # noqa: E402
 from repro_torch.data import DataConfig, TokenPipeline  # noqa: E402
 from repro_torch.distributed import fed_trainer as ft  # noqa: E402
-from repro_torch.distributed import init_distributed  # noqa: E402
+from repro_torch.distributed import (init_distributed,  # noqa: E402
+                                      leave_distributed)
 from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
 
 #: each rank's limit, on joining, on every collective and on its exit: a
@@ -118,7 +119,7 @@ def run_rank(args, rank: int, world: int, port: int) -> list:
     try:
         return train(args, rank, world, dev)
     finally:
-        torch.distributed.destroy_process_group()
+        leave_distributed()
 
 
 def main(argv=None) -> list:

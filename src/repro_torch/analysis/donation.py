@@ -247,7 +247,8 @@ def one_rank_mesh(device_type: str):
     on exit (gloo: a mesh of one rank launches no collective, and the
     process keeps its card free of NCCL's buffers)."""
     import torch.distributed as dist
-    from repro_torch.distributed.sharding import init_distributed
+    from repro_torch.distributed.sharding import (init_distributed,
+                                                  leave_distributed)
     from repro_torch.launch.mesh import make_debug_mesh
     own = not dist.is_initialized()
     if own:
@@ -258,7 +259,7 @@ def one_rank_mesh(device_type: str):
         yield make_debug_mesh(1, 1, device_type=device_type)
     finally:
         if own:
-            dist.destroy_process_group()
+            leave_distributed()
 
 
 def _fed_step_site(device) -> Call:

@@ -315,14 +315,15 @@ def child_main(argv=None) -> int:
     ap.add_argument("--D", type=int, required=True)
     ap.add_argument("--device", default="cpu")
     args = ap.parse_args(argv)
-    from repro_torch.distributed.sharding import init_distributed
+    from repro_torch.distributed.sharding import (init_distributed,
+                                                  leave_distributed)
     c = MemContract(**json.loads(args.contract))
     dev = init_distributed(f"localhost:{args.port}", c.ranks, args.rank,
                            device=args.device, group_of_one=True)
     try:
         found, measured = check_rank(c, args.D, dev)
     finally:
-        dist.destroy_process_group()
+        leave_distributed()
     print(_MARK + json.dumps({"findings": found, "measured": measured}),
           flush=True)
     return 0

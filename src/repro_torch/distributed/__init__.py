@@ -15,6 +15,7 @@ from repro_torch.distributed.fed_trainer import (FedConfig, FedState,
                                                  make_fed_step)
 from repro_torch.distributed.sharding import (host_assignment, host_group,
                                               init_distributed,
+                                              leave_distributed,
                                               mesh_axis_size,
                                               process_count, process_index,
                                               row_block)
@@ -22,6 +23,7 @@ from repro_torch.distributed.sharding import (host_assignment, host_group,
 __all__ = ["FedConfig", "FedState", "aggregation", "common_sample_coin",
            "fed_state_shardings", "fed_train_step", "host_assignment",
            "host_group",
-           "init_distributed", "init_fed_state", "make_fed_step",
+           "init_distributed", "init_fed_state", "leave_distributed",
+           "make_fed_step",
            "mesh_axis_size", "process_count", "process_index", "row_block",
            "sharding"]

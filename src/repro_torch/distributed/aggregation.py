@@ -158,6 +158,11 @@ def stacked_gram_blocked(tree, block: int) -> torch.Tensor:
             for i in range(n):
                 cols[i] = cols[i] + r @ r[i * w:(i + 1) * w].T
     g = cols[0] if n == 1 else torch.cat(cols, dim=1)
+    # a host BLAS may sum G_ij and G_ji in different orders (an AMD EPYC
+    # host's did, an ulp apart): the upper triangle mirrored keeps G, and
+    # Krum's ties between the two agents of a pair, symmetric, as the
+    # reference's are
+    g = torch.triu(g) + torch.triu(g, 1).T
     return _summed(g, lays[0], dims)
 
 

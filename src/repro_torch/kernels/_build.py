@@ -48,9 +48,9 @@ _SIGNATURES = {
     "repro_neighbor_reduce_f32": (_VP, _VP, _INT, _INT, _I64, *(_INT,) * 3,
                                   _VP),
     "repro_krum_score_f32": (_VP, _VP, _I64, _INT, _INT, _INT, _VP),
-    "repro_flash_attention_f32": (_VP, _VP, _VP, _VP, *(_I64,) * 9,
-                                  *(_INT,) * 7, _F32, _VP),
-    "repro_flash_attention_shared_bytes": (_INT,),
+    "repro_flash_attention_f32": (_VP, _VP, _VP, _VP, *(_I64,) * 12,
+                                  *(_INT,) * 8, _F32, _VP),
+    "repro_flash_attention_shared_bytes": (_INT, _INT),
 }
 
 _LIB = None

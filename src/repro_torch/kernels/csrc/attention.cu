@@ -11,7 +11,19 @@
 // Layout. q, k, v and o are read and written through their batch,
 // position and head strides (in floats; hd contiguous, rows 16-byte
 // aligned), so one launch serves the model's (B, S, H, hd) tensors and the
-// folded (B*H, S, hd) ones alike, with no copy on either side.
+// folded (B*H, S, hd) ones alike, with no copy on either side. v has a
+// head dim of its own, HDV <= HD (MLA: q/k 192 and v 128 for
+// DeepSeek-V2-Lite, 96 and 64 for MiniCPM3-4B), and strides of its own,
+// so P V runs on v's own columns; the output has v's head dim.
+//
+// Instances (HD, HDV, BK keys per KV tile): (32, 32), (64, 64), (128, 64)
+// and (128, 128) with BK 64, and (192, 128), (192, 192) and (256, 256)
+// with BK 32. The reference pads any head dim to a multiple of 128; the
+// H100 gives a block 232,448 bytes of shared memory, and Q, a two-stage
+// ring of 64-key K/V tiles and P take (64 + 4 * 64) * (HD + 4) * 4 +
+// 64 * 80 * 4 bytes: 271,360 at HD 192. The wide instances halve the KV
+// tile instead: 162,816 bytes at (192, 192), 146,432 at (192, 128) and
+// 211,968 at (256, 256), one block an SM, with the ring kept.
 //
 // Grid. One block (256 threads) owns one tile of FA_ROWS = 64 consecutive
 // query positions of one query head. The grid is (batch x head, position
@@ -27,7 +39,7 @@
 // shorter than the queries (the walks are about equal) and a grid of
 // several waves (the heavy-first order balances it).
 //
-// Ring. The block walks the KV tiles of 64 keys from the first one the
+// Ring. The block walks the KV tiles of BK keys from the first one the
 // window reaches to the one holding its last position's diagonal (tiles
 // wholly outside are skipped: a fully masked tile adds p = 0 and leaves the
 // running max where it was). K and V tiles sit in a ring of two stages of
@@ -35,12 +47,13 @@
 // so tile t + 1 is in flight while tile t is computed; one block barrier
 // per tile hands a stage back to the copies. K is stored as it lies in
 // memory (key-major, rows of hd + 4 floats): thread tx reads keys tx,
-// tx + 16, tx + 32 and tx + 48, so the 16 lanes of a row group read 16
+// tx + 16, ..., tx + BK - 16, so the 16 lanes of a row group read 16
 // rows 4 banks apart and Q K^T runs without bank conflicts.
 //
 // Rows. Thread (ty, tx) of the 16 x 16 grid owns the four query rows
-// ty + 16 i (a warp, ty = 2w and 2w + 1, owns 8 whole rows): their 4 x 4
-// scores with its 4 keys, and hd/16 output columns. The two half-warps
+// ty + 16 i (a warp, ty = 2w and 2w + 1, owns 8 whole rows): their scores
+// with its BK/16 keys, and HDV/16 output columns (64 at HDV 256, within
+// the 255 registers of one block an SM). The two half-warps
 // read rows r and r + 1, 4 banks apart in Q (broadcast within each half)
 // and 16 apart in P. The running max, the denominator (a per-lane partial,
 // summed over the row's 16 lanes once at the end) and the accumulator live
@@ -52,7 +65,7 @@
 //
 // Arithmetic is IEEE f32 on the FMA units: no TF32, no tensor cores and no
 // fast-math exponentials. Every sum runs in a fixed order with no atomics
-// (scores over d in order, P V over the keys 0..63 of each tile in order,
+// (scores over d in order, P V over the keys 0..BK-1 of each tile in order,
 // the denominator's lane partials by a butterfly), so a rerun is
 // bit-identical.
 //
@@ -65,7 +78,10 @@
 // overlap the arithmetic of this one, and the blocks of one wave walk
 // equal lengths. On an H100 it reaches about a third of the bound at
 // Llama-3.2-1B's 512-token prefill and half of it at 8192 tokens
-// (PERF.md). Tensor cores (wgmma, split f32) and bf16 are later work.
+// (PERF.md). At BK 32 a thread does 32 FMAs per six loads in Q K^T, half
+// the narrow instances' ratio, and one block an SM hides less latency:
+// the wide instances are the simple tiling that fits, not a fast one.
+// Tensor cores (wgmma, split f32) and bf16 are later work.
 //
 // Plain C interface (see aggregation.cu): the caller passes the pointers,
 // strides and the stream; the entry point returns cudaGetLastError().
@@ -80,31 +96,41 @@
 namespace {
 
 constexpr int FA_ROWS = 64;        // query rows per tile (BLOCK_Q)
-constexpr int FA_BK = 64;          // keys per KV tile (BLOCK_K)
 constexpr int RPT = 4;             // query rows per thread
 constexpr int FA_GROUPS = FA_ROWS / RPT;   // row groups: ty
 constexpr int FA_THREADS = 16 * FA_GROUPS; // FA_GROUPS x 16: tx key group
-constexpr int FA_LDP = FA_BK + 16; // row stride of P: rows r, r + 1 16
-                                   // banks apart
 constexpr float FA_NEG_INF = -1e30f;
 
 constexpr int STAGES = 2;           // K/V ring depth
 
-template <int HD>
+// keys per KV tile (BLOCK_K) of the instance for q/k head dim HD
+constexpr int fa_block_k(int hd) { return hd <= 128 ? 64 : 32; }
+
+template <int HD, int HDV>
 struct FaTile {
-    static constexpr int LD = HD + 4;               // row stride of Q, K, V
+    static constexpr int BK = fa_block_k(HD);       // keys per KV tile
+    static constexpr int KPT = BK / 16;             // keys per thread
+    static constexpr int LDP = BK + 16;             // row stride of P: rows
+                                                    // r, r + 1 16 banks apart
+    static constexpr int LD = HD + 4;               // row stride of Q, K
+    static constexpr int LDV = HDV + 4;             // row stride of V
     static constexpr int CPR = HD / 4;              // 16-byte chunks per row
-    static constexpr int DPT = HD / 16;             // output columns/thread
+    static constexpr int CPRV = HDV / 4;            // ... of a V row
+    static constexpr int DPT = HDV / 16;            // output columns/thread
     static constexpr int VEC = DPT < 4 ? DPT : 4;   // columns per vector load
     static constexpr int NG = DPT / VEC;            // vector groups/thread
     static constexpr int Q = FA_ROWS * LD;          // Q[r][d]
-    static constexpr int KV = FA_BK * LD;           // K[c][d], then V[c][d]
-    static constexpr int P = FA_ROWS * FA_LDP;      // P[r][c]
+    static constexpr int K = BK * LD;               // K[c][d]
+    static constexpr int V = BK * LDV;              // V[c][d]
+    static constexpr int P = FA_ROWS * LDP;         // P[r][c]
     static constexpr size_t BYTES =
-        sizeof(float) * (Q + 2 * STAGES * KV + P);
+        sizeof(float) * (Q + STAGES * (K + V) + P);
     static constexpr int MIN_BLOCKS = HD <= 64 ? 2 : 1;
+    static_assert(HDV <= HD && HDV % 32 == 0, "v's head dim: 32k, <= HD");
     static_assert(FA_ROWS * CPR % FA_THREADS == 0
-                  && FA_BK * CPR % FA_THREADS == 0, "whole copy rounds");
+                  && BK * CPR % FA_THREADS == 0
+                  && BK * CPRV % FA_THREADS == 0, "whole copy rounds");
+    static_assert(BYTES <= 232448, "one block's shared memory on an H100");
 };
 
 struct FaParams {
@@ -113,7 +139,8 @@ struct FaParams {
     const float* v;
     float* o;
     long long q_sb, q_ss, q_sh;      // strides in floats: batch, position,
-    long long kv_sb, kv_ss, kv_sh;   // head (k and v share theirs)
+    long long k_sb, k_ss, k_sh;      // head
+    long long v_sb, v_ss, v_sh;
     long long o_sb, o_ss, o_sh;
     int sq, sk, n_heads, group, window;
     float scale;
@@ -140,14 +167,15 @@ __device__ __forceinline__ void store_vec(float* p, const float* in) {
         *reinterpret_cast<float2*>(p) = make_float2(in[0], in[1]);
 }
 
-template <int HD>
-__global__ void __launch_bounds__(FA_THREADS, FaTile<HD>::MIN_BLOCKS)
+template <int HD, int HDV>
+__global__ void __launch_bounds__(FA_THREADS, FaTile<HD, HDV>::MIN_BLOCKS)
 flash_attention_kernel(const FaParams a) {
-    using T = FaTile<HD>;
+    using T = FaTile<HD, HDV>;
+    constexpr int BK = T::BK;
     extern __shared__ __align__(16) float smem[];
     float* q_s = smem;                       // Q tile
     float* kv_s = q_s + T::Q;                // ring: K then V per stage
-    float* p_s = kv_s + STAGES * 2 * T::KV;  // probabilities of the tile
+    float* p_s = kv_s + STAGES * (T::K + T::V);  // probabilities of the tile
 
     const int tid = threadIdx.x;
     const int tx = tid & 15;
@@ -156,8 +184,8 @@ flash_attention_kernel(const FaParams a) {
     const long long b = blockIdx.x / a.n_heads;
     const int kvh = h / a.group;
     const float* qb = a.q + b * a.q_sb + h * a.q_sh;
-    const float* kb = a.k + b * a.kv_sb + kvh * a.kv_sh;
-    const float* vb = a.v + b * a.kv_sb + kvh * a.kv_sh;
+    const float* kb = a.k + b * a.k_sb + kvh * a.k_sh;
+    const float* vb = a.v + b * a.v_sb + kvh * a.v_sh;
 
     // one query tile: its KV walk, then its rows of o
     auto run_tile = [&](int qtile) {
@@ -168,8 +196,8 @@ flash_attention_kernel(const FaParams a) {
         const int win = a.window > 0 ? a.window : INT_MAX;
         const int k_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
         const int k_hi = min(q_last, a.sk - 1);
-        const int kt_begin = k_lo / FA_BK;
-        const int n_tiles = k_hi >= k_lo ? k_hi / FA_BK - kt_begin + 1 : 0;
+        const int kt_begin = k_lo / BK;
+        const int n_tiles = k_hi >= k_lo ? k_hi / BK - kt_begin + 1 : 0;
 
         auto load_q = [&]() {
 #pragma unroll
@@ -182,17 +210,24 @@ flash_attention_kernel(const FaParams a) {
             }
         };
         auto load_kv = [&](int kt, int stage) {
-            float* ks = kv_s + stage * 2 * T::KV;
-            float* vs = ks + T::KV;
-            const int k0 = kt * FA_BK;
+            float* ks = kv_s + stage * (T::K + T::V);
+            float* vs = ks + T::K;
+            const int k0 = kt * BK;
 #pragma unroll
-            for (int it = 0; it < FA_BK * T::CPR / FA_THREADS; ++it) {
+            for (int it = 0; it < BK * T::CPR / FA_THREADS; ++it) {
                 const int idx = tid + it * FA_THREADS;
                 const int c = idx / T::CPR, e = idx % T::CPR;
                 const bool in = k0 + c < a.sk;
-                const long long off = in ? (k0 + c) * a.kv_ss + 4 * e : 0;
+                const long long off = in ? (k0 + c) * a.k_ss + 4 * e : 0;
                 cp_async16(ks + c * T::LD + 4 * e, kb + off, in);
-                cp_async16(vs + c * T::LD + 4 * e, vb + off, in);
+            }
+#pragma unroll
+            for (int it = 0; it < BK * T::CPRV / FA_THREADS; ++it) {
+                const int idx = tid + it * FA_THREADS;
+                const int c = idx / T::CPRV, e = idx % T::CPRV;
+                const bool in = k0 + c < a.sk;
+                const long long off = in ? (k0 + c) * a.v_ss + 4 * e : 0;
+                cp_async16(vs + c * T::LDV + 4 * e, vb + off, in);
             }
         };
 
@@ -212,36 +247,37 @@ flash_attention_kernel(const FaParams a) {
         // key is valid for every row
         auto step = [&](const float* ks, const float* vs, int k0, auto mask) {
             constexpr bool MASK = decltype(mask)::value;
-            float s[RPT][4];
+            constexpr int KPT = T::KPT;
+            float s[RPT][KPT];
 #pragma unroll
             for (int i = 0; i < RPT; ++i)
 #pragma unroll
-                for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+                for (int j = 0; j < KPT; ++j) s[i][j] = 0.0f;
 #pragma unroll 4
             for (int d = 0; d < HD; d += 4) {
-                float qa[RPT][4], kc[4][4];
+                float qa[RPT][4], kc[KPT][4];
 #pragma unroll
                 for (int i = 0; i < RPT; ++i)
                     load_vec<4>(q_s + (ty + FA_GROUPS * i) * T::LD + d,
                                 qa[i]);
 #pragma unroll
-                for (int j = 0; j < 4; ++j)
+                for (int j = 0; j < KPT; ++j)
                     load_vec<4>(ks + (tx + 16 * j) * T::LD + d, kc[j]);
 #pragma unroll
                 for (int e = 0; e < 4; ++e)
 #pragma unroll
                     for (int i = 0; i < RPT; ++i)
 #pragma unroll
-                        for (int j = 0; j < 4; ++j)
+                        for (int j = 0; j < KPT; ++j)
                             s[i][j] = fmaf(qa[i][e], kc[j][e], s[i][j]);
             }
 
 #pragma unroll
             for (int i = 0; i < RPT; ++i) {
-                bool valid[4];
+                bool valid[KPT];
                 float mt = FA_NEG_INF;
 #pragma unroll
-                for (int j = 0; j < 4; ++j) {
+                for (int j = 0; j < KPT; ++j) {
                     const int kp = k0 + tx + 16 * j;
                     valid[j] = !MASK || (kp <= qpos[i] && kp < a.sk
                                          && qpos[i] - kp < win);
@@ -254,9 +290,9 @@ flash_attention_kernel(const FaParams a) {
                 const float m_new = fmaxf(m[i], mt);
                 const float alpha = expf(m[i] - m_new);
                 float ls = 0.0f;
-                float* prow = p_s + (ty + FA_GROUPS * i) * FA_LDP + tx;
+                float* prow = p_s + (ty + FA_GROUPS * i) * T::LDP + tx;
 #pragma unroll
-                for (int j = 0; j < 4; ++j) {
+                for (int j = 0; j < KPT; ++j) {
                     const float p = valid[j] ? expf(s[i][j] - m_new) : 0.0f;
                     ls += p;
                     prow[16 * j] = p;
@@ -269,18 +305,18 @@ flash_attention_kernel(const FaParams a) {
             __syncwarp();                        // P rows are the warp's own
 
 #pragma unroll 2
-            for (int c0 = 0; c0 < FA_BK; c0 += 4) {
+            for (int c0 = 0; c0 < BK; c0 += 4) {
                 float p[RPT][4];
 #pragma unroll
                 for (int i = 0; i < RPT; ++i)
-                    load_vec<4>(p_s + (ty + FA_GROUPS * i) * FA_LDP + c0,
+                    load_vec<4>(p_s + (ty + FA_GROUPS * i) * T::LDP + c0,
                                 p[i]);
 #pragma unroll
                 for (int cc = 0; cc < 4; ++cc) {
                     float vv[T::DPT];
 #pragma unroll
                     for (int g = 0; g < T::NG; ++g)
-                        load_vec<T::VEC>(vs + (c0 + cc) * T::LD
+                        load_vec<T::VEC>(vs + (c0 + cc) * T::LDV
                                          + g * 16 * T::VEC + tx * T::VEC,
                                          vv + g * T::VEC);
 #pragma unroll
@@ -307,10 +343,10 @@ flash_attention_kernel(const FaParams a) {
             const int tn = t + STAGES - 1;
             if (tn < n_tiles) load_kv(kt_begin + tn, tn % STAGES);
             cp_async_commit();
-            const int k0 = (kt_begin + t) * FA_BK;
-            const float* ks = kv_s + (t % STAGES) * 2 * T::KV;
-            const float* vs = ks + T::KV;
-            const bool whole = k0 + FA_BK - 1 <= q0 && k0 + FA_BK <= a.sk
+            const int k0 = (kt_begin + t) * BK;
+            const float* ks = kv_s + (t % STAGES) * (T::K + T::V);
+            const float* vs = ks + T::K;
+            const bool whole = k0 + BK - 1 <= q0 && k0 + BK <= a.sk
                                && q_last - k0 < win;
             if (whole)
                 step(ks, vs, k0, std::false_type{});
@@ -363,20 +399,21 @@ int sm_count() {
     return counts[dev];
 }
 
-// blocks of flash_attention_kernel<HD> an SM holds at once, read once
-template <int HD>
+// blocks of flash_attention_kernel<HD, HDV> an SM holds at once, read once
+template <int HD, int HDV>
 int blocks_per_sm() {
     static int n = 0;
     if (n == 0)
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &n, flash_attention_kernel<HD>, FA_THREADS, FaTile<HD>::BYTES);
+            &n, flash_attention_kernel<HD, HDV>, FA_THREADS,
+            FaTile<HD, HDV>::BYTES);
     return n;
 }
 
-template <int HD>
+template <int HD, int HDV>
 int launch_flash(FaParams a, int batch, cudaStream_t stream) {
-    constexpr size_t bytes = FaTile<HD>::BYTES;
-    auto kernel = flash_attention_kernel<HD>;
+    constexpr size_t bytes = FaTile<HD, HDV>::BYTES;
+    auto kernel = flash_attention_kernel<HD, HDV>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
@@ -393,7 +430,7 @@ int launch_flash(FaParams a, int batch, cudaStream_t stream) {
     const int sms = sm_count();
     a.paired = (a.window <= 0 || a.window >= a.sq)
                && blocks > sms
-               && blocks <= (long long)sms * blocks_per_sm<HD>();
+               && blocks <= (long long)sms * blocks_per_sm<HD, HDV>();
     const int ny = a.paired ? (a.n_qt + 1) / 2 : a.n_qt;
     kernel<<<dim3((unsigned)nx, (unsigned)ny), FA_THREADS, bytes,
              stream>>>(a);
@@ -402,39 +439,45 @@ int launch_flash(FaParams a, int batch, cudaStream_t stream) {
 
 }  // namespace
 
+// the compiled (q/k head dim, v head dim) pairs; flash_attention.py's
+// KERNEL_INSTANCES lists the same
+#define FA_INSTANCES(X) \
+    X(32, 32) X(64, 64) X(128, 64) X(128, 128) X(192, 128) X(192, 192) \
+    X(256, 256)
+
 extern "C" {
 
-// Strides are in floats, (batch, position, head) for q, for k and v (which
-// share them) and for o; hd is contiguous. window <= 0 means no window;
-// scale is hd^-0.5 rounded to f32 by the caller, as the reference rounds
-// it. hd must be 32, 64 or 128.
+// Strides are in floats, (batch, position, head) for q, k, v and o; the
+// head dim is contiguous. window <= 0 means no window; scale is hd^-0.5 of
+// the true q/k head dim, rounded to f32 by the caller, as the reference
+// rounds it. (hd, hd_v) must be one of FA_INSTANCES.
 int repro_flash_attention_f32(
         const float* q, const float* k, const float* v, float* o,
-        long long q_sb, long long q_ss, long long q_sh, long long kv_sb,
-        long long kv_ss, long long kv_sh, long long o_sb, long long o_ss,
-        long long o_sh, int batch, int sq, int sk, int hd, int n_heads,
-        int n_kv, int window, float scale, cudaStream_t stream) {
+        long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+        long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+        long long v_sh, long long o_sb, long long o_ss, long long o_sh,
+        int batch, int sq, int sk, int hd, int hd_v, int n_heads, int n_kv,
+        int window, float scale, cudaStream_t stream) {
     if (n_kv < 1 || n_heads % n_kv || batch < 1 || sq < 1 || sk < 1)
         return (int)cudaErrorInvalidValue;
-    const FaParams a{q, k, v, o, q_sb, q_ss, q_sh, kv_sb, kv_ss, kv_sh,
-                     o_sb, o_ss, o_sh, sq, sk, n_heads, n_heads / n_kv,
-                     window, scale, 0, 0};
-    switch (hd) {
-        case 32: return launch_flash<32>(a, batch, stream);
-        case 64: return launch_flash<64>(a, batch, stream);
-        case 128: return launch_flash<128>(a, batch, stream);
-        default: return (int)cudaErrorInvalidValue;
-    }
+    const FaParams a{q, k, v, o, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                     v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, sq, sk, n_heads,
+                     n_heads / n_kv, window, scale, 0, 0};
+#define FA_LAUNCH(HD, HDV) \
+    if (hd == HD && hd_v == HDV) return launch_flash<HD, HDV>(a, batch, stream);
+    FA_INSTANCES(FA_LAUNCH)
+#undef FA_LAUNCH
+    return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory of one block at head dim hd (-1 if not compiled).
-int repro_flash_attention_shared_bytes(int hd) {
-    switch (hd) {
-        case 32: return (int)FaTile<32>::BYTES;
-        case 64: return (int)FaTile<64>::BYTES;
-        case 128: return (int)FaTile<128>::BYTES;
-        default: return -1;
-    }
+// Dynamic shared memory of one block of the (hd, hd_v) instance (-1 if not
+// compiled).
+int repro_flash_attention_shared_bytes(int hd, int hd_v) {
+#define FA_BYTES(HD, HDV) \
+    if (hd == HD && hd_v == HDV) return (int)FaTile<HD, HDV>::BYTES;
+    FA_INSTANCES(FA_BYTES)
+#undef FA_BYTES
+    return -1;
 }
 
 }  // extern "C"

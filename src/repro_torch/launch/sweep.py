@@ -41,7 +41,8 @@ import contextlib
 import os
 
 from repro_torch import obs
-from repro_torch.distributed.sharding import init_distributed
+from repro_torch.distributed.sharding import (init_distributed,
+                                              leave_distributed)
 from repro_torch.sweep import SweepRunner
 
 
@@ -127,8 +128,7 @@ def main(argv=None) -> None:
         _sweep(args)
     finally:
         if args.processes > 1:
-            import torch.distributed as dist
-            dist.destroy_process_group()
+            leave_distributed()
 
 
 def _sweep(args) -> None:

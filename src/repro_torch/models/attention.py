@@ -17,10 +17,13 @@ and (B, W, Hkv, hd) for a layer's ring cache.
 
 MLA (:func:`mla_forward`, :func:`mla_decode`) caches the compressed
 latent ``c`` (B, W, kv_lora_rank) and the shared RoPE key ``k_rope`` (B,
-W, qk_rope_head_dim). Its sequence pass always takes the chunked route,
-as the reference's does: its q/k head dim (qk_nope + qk_rope, 192 for
-DeepSeek-V2-Lite) differs from v's and exceeds the flash kernel's 128
-(ROADMAP, the speed list).
+W, qk_rope_head_dim). Its sequence pass takes the same two routes:
+``attention="flash"`` (serving's prefill) hands q (B, S, H, qk_nope +
+qk_rope) and the K and V expanded from the latent to the flash kernel,
+whose v head dim is its own (DeepSeek-V2-Lite's 192/128 on the kernel's
+hd-192 instance, MiniCPM3-4B's 96/64 on the hd-128 one);
+``attention="chunked"`` (training) is the reference's route. Its decode
+(:func:`mla_decode`) is plain tensor code, as in the reference.
 
 Unlike the reference, the decode steps write the new token's entries
 into the cache they are given, in place, and return that cache: the port
@@ -347,22 +350,29 @@ def _mla_latent(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
 
 
 def mla_forward(p: dict, cfg, x: torch.Tensor, positions=None,
-                window: Optional[int] = None,
+                window: Optional[int] = None, attention: str = "flash",
                 enter: Callable = _identity):
     """x: (B,S,D) -> ((B,S,D), (c, k_rope)). K and V are expanded from
-    the latent and attended by :func:`chunked_causal_attention` (q/k head
-    dim nope + rope, v head dim ``v_head_dim``). ``window`` alone sets
-    the window: as in the reference, ``cfg.sliding_window`` is not read
-    here (:func:`gqa_forward` reads it).
+    the latent and attended with q/k head dim nope + rope and v head dim
+    ``v_head_dim``: ``attention="flash"`` by the flash op on positions
+    None or ``arange(S)`` (forward only), ``attention="chunked"`` by
+    :func:`chunked_causal_attention` on any ``positions`` (default
+    ``arange(S)``). ``window`` alone sets the window: as in the
+    reference, ``cfg.sliding_window`` is not read here
+    (:func:`gqa_forward` reads it).
 
     ``enter`` (a rank's block of the heads under autograd, as in
     :func:`gqa_forward`): the heads' query input (``x``, or ``x @
     w_dq``) and the latent ``x @ w_dkv`` enter the rank's heads through
     it, so ``w_dq``'s and ``w_dkv``'s gradients, which every rank
     computes whole, sum the ranks' partial gradients."""
+    check_route(attention)
     a = cfg.mla
     B, S, _ = x.shape
     H = cfg.n_heads
+    if attention == "flash":
+        check_positions(positions, S)
+        positions = None
     pos = torch.arange(S, device=x.device) if positions is None \
         else torch.as_tensor(positions, device=x.device)
     q_nope, q_rope = _mla_q(p, cfg, x, pos, enter)
@@ -372,7 +382,10 @@ def mla_forward(p: dict, cfg, x: torch.Tensor, positions=None,
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None].expand(
         B, S, H, a.qk_rope_head_dim)], dim=-1)
-    out = chunked_causal_attention(q, k, v, pos, pos, window=window)
+    if attention == "flash":
+        out = flash_attention(q, k, v, window=window)
+    else:
+        out = chunked_causal_attention(q, k, v, pos, pos, window=window)
     return out.reshape(B, S, -1) @ p["wo"], (c, k_rope)
 
 

@@ -19,7 +19,7 @@ A GQA sequence pass takes one of two attention routes
 (:mod:`repro_torch.models.attention`): ``attention="flash"``, the
 forward-only kernel that serving's prefill runs, or
 ``attention="chunked"``, the reference's plain route that autograd
-differentiates. MLA takes the chunked route on both. The losses
+differentiates; MLA's sequence pass takes the same two. The losses
 (:func:`lm_loss`, :func:`lm_loss_labeled`) are the training route and
 run the second.
 
@@ -369,7 +369,8 @@ def _block_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
     acfg, kw = _attn_args(cfg, par)
     if cfg.mla is not None:
         a_out, kv = attn.mla_forward(p["attn"], acfg, h, positions,
-                                     window=window, **kw)
+                                     window=window, attention=attention,
+                                     **kw)
         cache = {"c": kv[0], "k_rope": kv[1]}
     else:
         a_out, kv = attn.gqa_forward(p["attn"], acfg, h, positions,
@@ -450,9 +451,8 @@ def forward(cfg: ModelConfig, params: dict, tokens=None, prefix_embeds=None,
     ``attention="flash"`` (serving's route) takes ``positions`` None or
     ``arange(S)`` only (the kernel's absolute indices) and has no
     backward; ``attention="chunked"`` (the training route) takes any
-    ``positions``. MLA layers take the chunked route on both: the flash
-    kernel needs equal q/k/v head dims up to 128, and MLA's differ
-    (DeepSeek-V2-Lite's q/k 192, v 128). ``remat`` checkpoints each
+    ``positions``. MLA layers take the same route, with v's head dim
+    their own (DeepSeek-V2-Lite's q/k 192, v 128). ``remat`` checkpoints each
     layer while autograd records (recomputed in the backward, as the
     reference's ``jax.checkpoint`` of its layer scan); when it does not
     record, it changes nothing. ``keep(i, parts)`` maps each layer's

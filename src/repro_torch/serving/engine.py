@@ -16,8 +16,8 @@ scheduler round:
 * **prefill** runs one request's prompt right-padded to its length
   *bucket*: causality keeps the real positions exact, the padded ring
   entries are invalidated on insert, and the first token is read at the
-  true last position. Each GQA layer's prefill attention is one launch
-  of the flash-attention kernel (MLA layers take the chunked route). An
+  true last position. Each attention layer's prefill (GQA or MLA) is
+  one launch of the flash-attention kernel. An
   MoE layer routes the pad tokens too: they count in each expert's
   capacity (T is the bucket length) and, the expert sort being stable,
   queue behind the real tokens, as in the reference's engine. The

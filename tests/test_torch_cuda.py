@@ -477,11 +477,11 @@ def test_cuda_flash_attention_model_layout_and_rejects(cuda):
     q2 = torch.zeros((2, 80, 4, 64), device=cuda)
     q2[:, ::2] = q
     assert torch.equal(flash_attention(q2[:, ::2], k, v), out)
-    # above 128 the kernel has no tiling (ROADMAP Queue 1 item 7)
-    with pytest.raises(ValueError, match="head_dim up to 128.*Queue 1 item 7"):
-        flash_attention_kernel(torch.zeros((2, 8, 192), device=cuda),
-                               torch.zeros((2, 8, 192), device=cuda),
-                               torch.zeros((2, 8, 192), device=cuda), 2)
+    # above 256 the kernel has no tiling (ROADMAP, Queue 2)
+    with pytest.raises(ValueError, match="head_dim up to 256.*Queue 2"):
+        flash_attention_kernel(torch.zeros((2, 8, 320), device=cuda),
+                               torch.zeros((2, 8, 320), device=cuda),
+                               torch.zeros((2, 8, 320), device=cuda), 2)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_kernel(torch.zeros((2, 8, 48), device=cuda),
                                torch.zeros((2, 8, 64), device=cuda),
@@ -533,7 +533,7 @@ def test_cuda_flash_attention_strided_layout_equals_folded(cuda, H, Hkv,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [8, 48, 50, 96, 100])
+@pytest.mark.parametrize("hd", [8, 48, 50, 96, 100, 160, 200])
 @pytest.mark.parametrize("window", [None, 20])
 def test_cuda_flash_attention_at_head_dims_it_pads(cuda, hd, window):
     """A head dim the kernel is not compiled for runs on the kernel,
@@ -1066,3 +1066,34 @@ def test_cuda_one_rank_mesh_serving_is_bit_equal(cuda):
             assert torch.equal(placed.local(a), b)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,hd_v", [(192, 128), (192, 192), (256, 256),
+                                     (96, 64), (160, 100), (256, 64)])
+@pytest.mark.parametrize("window", [None, 40])
+def test_cuda_flash_attention_wide_and_a_narrower_v(cuda, hd, hd_v,
+                                                    window):
+    """The wide instances (32-key tiles) and v's own head dim (MLA's 192/128
+    and 96/64), ragged S over several tiles, G = 1 and 4: against the
+    plain version (2e-5·max|v|), rerun bit-identical, the model layout
+    on strided views with the folded launch's bits."""
+    B, S = 2, 150
+    for H, Hkv in ((4, 4), (8, 2)):
+        rng = np.random.default_rng(hd + hd_v + H)
+        q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda) for shape in (
+            (B * H, S, hd), (B * Hkv, S, hd), (B * Hkv, S, hd_v)))
+        before = dispatch.launch_counts()["flash_attention"]
+        out = flash_attention_kernel(q, k, v, H, window)
+        assert out.shape == (B * H, S, hd_v) and out.is_contiguous()
+        assert torch.equal(out, flash_attention_kernel(q, k, v, H, window))
+        torch.testing.assert_close(
+            out, flash_attention_plain(q, k, v, H, window), rtol=0,
+            atol=2e-5 * v.abs().max().item())
+        got = flash_attention(*(x.reshape(B, -1, S, x.shape[-1])
+                                .transpose(1, 2) for x in (q, k, v)),
+                              window)
+        assert torch.equal(got, out.reshape(B, H, S, hd_v).transpose(1, 2))
+        torch.cuda.synchronize()
+        assert dispatch.launch_counts()["flash_attention"] - before == 3

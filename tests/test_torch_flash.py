@@ -3,6 +3,8 @@ kernel's algorithm in PyTorch) against the JAX package's Pallas body in
 interpret mode and its oracle, the model-layout wrapper against the
 reference's, and the op's boundaries. The CUDA kernel itself is held
 against the plain version on a GPU by ``tests/test_torch_cuda.py``."""
+import importlib
+
 import numpy as np
 import pytest
 
@@ -19,7 +21,11 @@ from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_kernel, flash_attention_plain)
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
-    BLOCK_Q)
+    BLOCK_Q, KERNEL_INSTANCES, kernel_head_dim, kernel_instance)
+
+# the kernel's module (the package's ``flash_attention`` is the op)
+fa = importlib.import_module(
+    "repro_torch.kernels.flash_attention.flash_attention")
 
 torch.set_num_threads(2)
 
@@ -27,10 +33,11 @@ torch.set_num_threads(2)
 TOL = 2e-5
 
 
-def _qkv(B, H, Hkv, Sq, Sk, hd, seed=0):
+def _qkv(B, H, Hkv, Sq, Sk, hd, seed=0, hd_v=None):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal(s).astype(np.float32)
-            for s in ((B * H, Sq, hd), (B * Hkv, Sk, hd), (B * Hkv, Sk, hd))]
+            for s in ((B * H, Sq, hd), (B * Hkv, Sk, hd),
+                      (B * Hkv, Sk, hd if hd_v is None else hd_v))]
 
 
 def _t(*arrays):
@@ -184,34 +191,34 @@ def test_model_layout_wrapper_matches_reference():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL)
 
 
-@pytest.mark.parametrize("hd", [8, 48, 50, 96])
+@pytest.mark.parametrize("hd", [8, 48, 50, 96, 160, 200])
 @pytest.mark.parametrize("S", [128, 130])
 def test_plain_on_zero_padded_head_dims_gives_the_same_result(hd, S):
     """What the CUDA route does at a head dim it was not compiled for: q,
     k and v zero-padded to the next compiled head dim, the true
     ``hd**-0.5`` passed in, the output sliced back. Zero columns add
     nothing to q·k and give only output columns that are sliced away, so
-    on whole 64 x 64 tiles the plain version gives the same bits. On a
-    ragged last tile (S = 130: two positions, a 4-row tile against 2
-    keys at G = 2) MKL's small-matrix products sum a short head dim in
-    another order than a padded one (at hd 48 and 50): there it agrees to
-    f32 rounding, 1e-6·max|v|."""
-    from repro_torch.kernels.flash_attention.flash_attention import (
-        kernel_head_dim)
+    the two differ only in how the host BLAS sums each q·k and p·v: a
+    padded product may take another kernel and another summation order
+    than the unpadded one, at any S (MKL on an AMD EPYC host did at hd 8
+    and S 128). Each output row is a convex combination of v's rows, so
+    reordering its f32 sums moves it by a few ulps of max|v|, and the
+    scores' reordering moves p by a few ulps relative: the bound is
+    1e-6·max|v| (about 8 ulps of max|v|), the ragged tile's. The CUDA
+    kernel's own bits under padding are held on the card
+    (``chip_smoke.py`` ``phase_flash_padded``)."""
     H, Hkv, B = 4, 2, 1
     q, k, v = _t(*_qkv(B, H, Hkv, S, S, hd, seed=hd))
     hd_k = kernel_head_dim(hd)
-    assert hd_k == {8: 32, 48: 64, 50: 64, 96: 128}[hd]
+    assert hd_k == {8: 32, 48: 64, 50: 64, 96: 128, 160: 192,
+                    200: 256}[hd]
     pad = (0, hd_k - hd)
     padded = flash_attention_plain(
         *(torch.nn.functional.pad(t, pad) for t in (q, k, v)), H,
         scale=hd ** -0.5)[..., :hd]
     want = flash_attention_plain(q, k, v, H)
-    if S % BLOCK_Q == 0:
-        assert torch.equal(padded, want)
-    else:
-        torch.testing.assert_close(padded, want, rtol=0,
-                                   atol=1e-6 * v.abs().max().item())
+    torch.testing.assert_close(padded, want, rtol=0,
+                               atol=1e-6 * v.abs().max().item())
 
 
 def test_cpu_route_launches_nothing_and_has_no_backward():
@@ -234,9 +241,151 @@ def test_wrapper_rejects_bad_heads_windows_and_devices():
         flash_attention_kernel(q, k, v, 2, 0)
     with pytest.raises(ValueError, match="no route"):
         flash_attention_kernel(q.to("meta"), k.to("meta"), v.to("meta"), 2)
-    from repro_torch.kernels.flash_attention.flash_attention import (
-        kernel_head_dim)
     assert [kernel_head_dim(h) for h in (1, 32, 33, 64, 65, 128)] == [
         32, 32, 64, 64, 128, 128]
-    with pytest.raises(ValueError, match="Queue 1 item 7"):
-        kernel_head_dim(192)
+    with pytest.raises(ValueError, match="Queue 2"):
+        kernel_head_dim(257)
+
+
+# --- head dims 129-256 and a v head dim of its own ----------------------
+
+def test_kernel_head_dim_maps_129_to_256_and_raises_above():
+    """129-192 run on the hd-192 instance, 193-256 on the hd-256 one;
+    above 256 there is no tiling (ROADMAP, Queue 2)."""
+    assert {kernel_head_dim(h) for h in range(129, 193)} == {192}
+    assert {kernel_head_dim(h) for h in range(193, 257)} == {256}
+    for hd in (257, 320, 512):
+        with pytest.raises(ValueError, match="up to 256.*Queue 2"):
+            kernel_head_dim(hd)
+
+
+@pytest.mark.parametrize("hd,hd_v,want", [
+    (192, 128, (192, 128)),         # DeepSeek-V2-Lite's MLA
+    (96, 64, (128, 64)),            # MiniCPM3-4B's
+    (160, 128, (192, 128)), (160, 100, (192, 128)), (192, 160, (192, 192)),
+    (200, 200, (256, 256)), (200, 64, (256, 256)), (256, 256, (256, 256)),
+    (64, 128, (128, 128)),          # a wider v pads q and k up to it
+    (32, 16, (32, 32)), (128, 128, (128, 128)),
+])
+def test_kernel_instance_is_the_smallest_that_holds_both(hd, hd_v, want):
+    assert kernel_instance(hd, hd_v) == want
+    assert want in KERNEL_INSTANCES
+
+
+# f32; G = 1, 2, 4 and 5, ragged S, windows; the Pallas body and the oracle
+# pad nothing of their own beyond the head dim (hp = 256 at all three)
+@pytest.mark.parametrize("B,H,Hkv,S,hd,window", [
+    (1, 4, 2, 100, 160, None),      # G = 2, ragged
+    (2, 2, 2, 70, 192, None),       # batched
+    (1, 4, 1, 77, 192, 20),         # G = 4, window across 32-key tiles
+    (1, 5, 1, 90, 256, None),       # G = 5
+    (1, 2, 1, 66, 256, 33),         # window
+])
+def test_plain_wide_head_dims_match_pallas_and_oracle(B, H, Hkv, S, hd,
+                                                      window):
+    """The plain version at hd 160, 192 and 256 (32-key KV tiles, as the
+    kernel's wide instances walk them) against the Pallas body in
+    interpret mode and the oracle, within the reference's own f32
+    tolerance (2e-5)."""
+    q, k, v = _qkv(B, H, Hkv, S, S, hd, seed=hd + S)
+    got = flash_attention_plain(*_t(q, k, v), H, window).numpy()
+    assert got.shape == (B * H, S, hd)
+    pallas = flash_attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), n_q_heads=H,
+                                    window=window, block_q=32, block_k=32,
+                                    interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas), atol=TOL)
+    oracle = fa_ref.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              n_q_heads=H, window=window)
+    np.testing.assert_allclose(got, np.asarray(oracle), atol=TOL)
+
+
+@pytest.mark.parametrize("hd,hd_v,H,Hkv,S,window", [
+    (192, 128, 4, 4, 80, None),     # DeepSeek-V2-Lite's MLA (G = 1)
+    (192, 128, 4, 2, 97, 40),       # ... with GQA and a window
+    (96, 64, 4, 4, 70, None),       # MiniCPM3-4B's
+    (256, 64, 2, 1, 45, None),
+])
+def test_plain_with_a_narrower_v_matches_the_padded_reference(
+        hd, hd_v, H, Hkv, S, window):
+    """v of its own head dim against the reference, which takes one head
+    dim: v zero-padded to q's, the result sliced to v's (zero columns of
+    v give only the columns sliced away), 2e-5."""
+    B = 2
+    q, k, v = _qkv(B, H, Hkv, S, S, hd, seed=hd_v + S, hd_v=hd_v)
+    got = flash_attention_plain(*_t(q, k, v), H, window).numpy()
+    assert got.shape == (B * H, S, hd_v)
+    vp = np.pad(v, ((0, 0), (0, 0), (0, hd - hd_v)))
+    oracle = fa_ref.attention(jnp.asarray(q), jnp.asarray(k),
+                              jnp.asarray(vp), n_q_heads=H, window=window)
+    np.testing.assert_allclose(got, np.asarray(oracle)[..., :hd_v],
+                               atol=TOL)
+    pallas = flash_attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(vp), n_q_heads=H,
+                                    window=window, block_q=32, block_k=32,
+                                    interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas)[..., :hd_v],
+                               atol=TOL)
+    # the model layout: the reference's wrapper on the padded v, sliced
+    q4, k4, v4 = (x.reshape(B, -1, S, x.shape[-1]).transpose(0, 2, 1, 3)
+                  for x in (q, k, v))
+    layout = flash_attention(*_t(q4.copy(), k4.copy(), v4.copy()), window)
+    assert layout.shape == (B, S, H, hd_v)
+    want = jax_ops.flash_attention(
+        jnp.asarray(q4), jnp.asarray(k4),
+        jnp.asarray(np.pad(v4, ((0, 0),) * 3 + ((0, hd - hd_v),))),
+        window=window, use_pallas=False)
+    np.testing.assert_allclose(layout.numpy(), np.asarray(want)[..., :hd_v],
+                               atol=TOL)
+
+
+@pytest.mark.parametrize("hd,hd_v,layout", [
+    (160, 160, False), (192, 128, True), (96, 64, True), (200, 200, False),
+    (130, 100, True), (48, 48, True),
+])
+def test_cuda_route_pads_to_a_compiled_instance(monkeypatch, hd, hd_v,
+                                                layout):
+    """What the CUDA route hands its launch, with the launch replaced by
+    the plain version on the tensors it is given: a compiled (q/k, v)
+    instance, the true scale, and, once sliced, the plain version's
+    result at the true head dims (the padding bound of
+    :func:`test_plain_on_zero_padded_head_dims_gives_the_same_result`,
+    1e-6·max|v|)."""
+    seen = []
+
+    def launch(q, k, v, n_q_heads, window, scale):
+        seen.append((q.shape[-1], k.shape[-1], v.shape[-1], scale))
+        if n_q_heads is not None:
+            return flash_attention_plain(q, k, v, n_q_heads, window, scale)
+        B, S, H, _ = q.shape
+        out = flash_attention_plain(*(fa._fold(x) for x in (q, k, v)), H,
+                                    window, scale)
+        return fa._unfold(out, B).contiguous()
+
+    monkeypatch.setattr(fa, "_flash_launch", launch)
+    B, H, Hkv, S, window = 1, 4, 2, 75, 30
+    q, k, v = _t(*_qkv(B, H, Hkv, S, S, hd, seed=3, hd_v=hd_v))
+    if layout:
+        q, k, v = (x.reshape(B, -1, S, x.shape[-1]).transpose(1, 2)
+                   for x in (q, k, v))
+        got = fa._flash_cuda(q, k, v, None, window)
+        want = fa._plain(q, k, v, None, window)
+    else:
+        got = fa._flash_cuda(q, k, v, H, window)
+        want = flash_attention_plain(q, k, v, H, window)
+    top, top_v = kernel_instance(hd, hd_v)
+    assert seen == [(top, top, top_v, hd ** -0.5)]
+    assert got.shape == want.shape and got.is_contiguous()
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-6 * v.abs().max().item())
+
+
+def test_k_and_v_must_agree_but_in_the_head_dim():
+    q, k, v = _t(*_qkv(1, 2, 1, 10, 10, 32, seed=5, hd_v=16))
+    assert flash_attention_plain(q, k, v, 2).shape == (2, 10, 16)
+    with pytest.raises(ValueError, match="every axis but the last"):
+        flash_attention_plain(q, k, v[:, :9], 2)
+    with pytest.raises(ValueError, match="every axis but the last"):
+        fa._flash_cuda(q, k, v[:, :9], 2)
+    with pytest.raises(ValueError, match="head_dim for q and k"):
+        fa._flash_cuda(q, k[..., :16], v, 2)

@@ -47,14 +47,19 @@ def _cfgs(name):
     return pair
 
 
-@pytest.fixture(scope="module", params=["minicpm3", "deepseek_wq"])
-def mla(request):
+def _layer(name):
     """(JAX cfg, port cfg, JAX params, port params) of one MLA layer."""
-    jc, tc = _cfgs(request.param)
+    jc, tc = _cfgs(name)
     params = jattn.init_mla(jax.random.PRNGKey(5), jc, jnp.float32)
-    assert ("wq" in params) == (request.param == "deepseek_wq")
+    assert ("wq" in params) == (name == "deepseek_wq")
     tp = {k: torch.tensor(np.asarray(v)) for k, v in params.items()}
     return jc, tc, params, tp
+
+
+@pytest.fixture(scope="module", params=["minicpm3", "deepseek_wq"])
+def mla(request):
+    """See :func:`_layer`."""
+    return _layer(request.param)
 
 
 def _close(got, want, tol):
@@ -74,7 +79,8 @@ def test_init_mla_tree_matches_the_reference(mla):
 
 @pytest.mark.parametrize("window", [None, 5])
 def test_mla_forward_matches_the_reference(mla, window):
-    """Positions offset by 3 and 37 tokens; the window, when given, is
+    """The chunked route (the one that takes any positions) at positions
+    offset by 3 and 37 tokens; the window, when given, is
     ``mla_forward``'s own argument (it does not read
     ``cfg.sliding_window``)."""
     jc, tc, params, tp = mla
@@ -84,7 +90,8 @@ def test_mla_forward_matches_the_reference(mla, window):
     want, (wc, wk) = jattn.mla_forward(params, jc, jnp.asarray(x),
                                        jnp.asarray(pos), window=window)
     got, (gc, gk) = tattn.mla_forward(tp, tc, torch.from_numpy(x),
-                                      torch.from_numpy(pos), window=window)
+                                      torch.from_numpy(pos), window=window,
+                                      attention="chunked")
     assert got.shape == want.shape == x.shape
     _close(got, want, OUT_TOL)
     _close(gc, wc, CACHE_TOL)
@@ -188,7 +195,8 @@ def _head_block(tp, tc, b, m):
 @pytest.mark.parametrize("m", [2, 4])
 def test_mla_forward_on_head_blocks(mla, m):
     """m blocks of the heads, each through its rows of ``wo``, summed in
-    block order: the whole call's output and latent. Each block's
+    block order, on the chunked route (the one autograd
+    differentiates): the whole call's output and latent. Each block's
     ``enter`` hands its input on as a fresh leaf; the leaves' gradients
     summed over the blocks in block order and carried back through what
     entered give every block ``w_dq``'s, ``w_dkv``'s and ``x``'s whole
@@ -202,7 +210,7 @@ def test_mla_forward_on_head_blocks(mla, m):
                                              ).astype(np.float32))
     whole = {k: v.clone().requires_grad_() for k, v in tp.items()}
     xw = x.clone().requires_grad_()
-    want, (wc, wk) = tattn.mla_forward(whole, tc, xw)
+    want, (wc, wk) = tattn.mla_forward(whole, tc, xw, attention="chunked")
     want.backward(g)
 
     outs, runs = [], []
@@ -215,7 +223,8 @@ def test_mla_forward_on_head_blocks(mla, m):
             leaf = t.detach().requires_grad_()
             entered.append((t, leaf))
             return leaf
-        out, (c, k_rope) = tattn.mla_forward(pb, cb, xb, enter=enter)
+        out, (c, k_rope) = tattn.mla_forward(pb, cb, xb, enter=enter,
+                                             attention="chunked")
         assert torch.equal(c, wc) and torch.equal(k_rope, wk)
         out.backward(g)            # a rank-order sum's backward: identity
         outs.append(out.detach())
@@ -282,3 +291,73 @@ def test_chunked_attention_with_a_narrower_v(H, Hkv):
             chunk=8)
         assert got.shape == want.shape == (B, S, H, 16)
         _close(got, want, OUT_TOL)
+
+
+def _deepseek_head_dims():
+    """(JAX cfg, port cfg, JAX params, port params) of a narrow MLA layer
+    at DeepSeek-V2-Lite's head dims: q/k 128 + 64 = 192, v 128 (the flash
+    kernel's hd-192 instance and its 32-key tiles), 3 heads, d 64."""
+    pair = [dataclasses.replace(
+        m.reduced(m.get_config("deepseek-v2-lite-16b")), d_model=64,
+        n_heads=3, n_kv_heads=3, mla=m.MLAConfig(
+            kv_lora_rank=32, q_lora_rank=0, qk_nope_head_dim=128,
+            qk_rope_head_dim=64, v_head_dim=128)) for m in (jcfg, tcfg)]
+    assert dataclasses.asdict(pair[0]) == dataclasses.asdict(pair[1])
+    params = jattn.init_mla(jax.random.PRNGKey(6), pair[0], jnp.float32)
+    tp = {k: torch.tensor(np.asarray(v)) for k, v in params.items()}
+    return (*pair, params, tp)
+
+
+@pytest.mark.parametrize("which", ["minicpm3", "deepseek_wq",
+                                   "deepseek_head_dims"])
+@pytest.mark.parametrize("window", [None, 9])
+def test_mla_forward_flash_route_matches_the_reference(which, window):
+    """``attention="flash"`` (serving's prefill) with v's head dim below
+    q/k's (16 below 32 reduced; 128 below 192 at DeepSeek-V2-Lite's head
+    dims): against the JAX package's ``mla_forward`` at positions
+    ``arange(S)`` and against the port's chunked route, within the MLA
+    tolerances; the latent caches are the same bits as the chunked
+    route's (attention does not touch them). Two blocks of the heads on
+    the flash route, summed in block order, give the whole call's
+    output, as serving on each rank's heads sums them."""
+    jc, tc, params, tp = _deepseek_head_dims() \
+        if which == "deepseek_head_dims" else _layer(which)
+    S = 45
+    x = np.random.default_rng(11).standard_normal(
+        (2, S, jc.d_model)).astype(np.float32)
+    pos = np.arange(S)
+    want, (wc, wk) = jattn.mla_forward(params, jc, jnp.asarray(x),
+                                       jnp.asarray(pos), window=window)
+    got, (gc, gk) = tattn.mla_forward(tp, tc, torch.from_numpy(x),
+                                      window=window, attention="flash")
+    chunked, (cc, ck) = tattn.mla_forward(tp, tc, torch.from_numpy(x),
+                                          window=window,
+                                          attention="chunked")
+    assert got.shape == want.shape == x.shape
+    _close(got, want, OUT_TOL)
+    _close(got, chunked, OUT_TOL)
+    _close(gc, wc, CACHE_TOL)
+    _close(gk, wk, CACHE_TOL)
+    assert torch.equal(gc, cc) and torch.equal(gk, ck)
+    if tc.n_heads % 2 == 0:
+        blocks = [tattn.mla_forward(*_head_block(tp, tc, b, 2),
+                                    torch.from_numpy(x), window=window,
+                                    attention="flash")[0] for b in (0, 1)]
+        _close(blocks[0] + blocks[1], got, OUT_TOL)
+
+
+def test_mla_flash_route_has_no_backward_and_takes_arange_only(mla):
+    """The flash op has no backward (training runs the chunked route), and
+    its kernel attends on absolute indices: other positions raise."""
+    _, tc, _, tp = mla
+    x = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (1, 9, tc.d_model)).astype(np.float32)).requires_grad_()
+    out, _ = tattn.mla_forward(tp, tc, x, torch.arange(9),
+                               attention="flash")
+    with pytest.raises(NotImplementedError, match="backward"):
+        out.sum().backward()
+    with pytest.raises(ValueError, match="arange"):
+        tattn.mla_forward(tp, tc, x.detach(), torch.arange(9) + 3,
+                          attention="flash")
+    with pytest.raises(ValueError, match="attention must be"):
+        tattn.mla_forward(tp, tc, x.detach(), attention="sdpa")

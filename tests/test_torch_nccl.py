@@ -179,6 +179,34 @@ def test_init_distributed_is_the_one_join():
         assert "dist.init_process_group(" in f.read()
 
 
+def test_leave_distributed_is_the_one_teardown():
+    """Every teardown goes through ``leave_distributed``, which drops the
+    host group before it destroys the groups: a host group kept past
+    ``destroy_process_group`` aborts its rank at exit (the gloo group and
+    its store torn down with the interpreter)."""
+    files = (glob.glob(os.path.join(REPO, "src", "repro_torch", "**",
+                                    "*.py"), recursive=True)
+             + glob.glob(os.path.join(REPO, "examples_torch", "*.py"))
+             + [os.path.join(REPO, "chip_smoke.py")])
+    sharding_py = os.path.join(REPO, "src", "repro_torch", "distributed",
+                               "sharding.py")
+    leaves = {os.path.relpath(p, REPO): _calls_outside(
+        p, "destroy_process_group",
+        "leave_distributed" if os.path.samefile(p, sharding_py) else "")
+        for p in files}
+    assert {p: lines for p, lines in leaves.items() if lines} == {}
+    sharding._HOST_GROUP[:] = ["world", "side"]
+    destroyed = []
+    orig = dist.destroy_process_group
+    dist.destroy_process_group = lambda: destroyed.append(
+        list(sharding._HOST_GROUP))
+    try:
+        sharding.leave_distributed()
+    finally:
+        dist.destroy_process_group = orig
+    assert destroyed == [[]] and sharding._HOST_GROUP == []
+
+
 def _rank_main(rank, world, port, kind, inp, dst):
     """A gloo rank: ``host_group()`` is the world under gloo; then a gloo
     group beside the world stands in for an NCCL world's, and
@@ -212,7 +240,7 @@ def _rank_main(rank, world, port, kind, inp, dst):
             dist.all_gather_object, dist.broadcast_object_list = orig
         out["side_used"] = used
     finally:
-        dist.destroy_process_group()
+        sharding.leave_distributed()
     torch.save(out, dst)
 
 

@@ -119,23 +119,39 @@ def _spawn(module, kind, world, inp, tmp, port):
 
 def _finish(procs, dsts, kind):
     """The ranks' results, in rank order; None when rank 0 could not bind
-    its port (taken between choosing it and binding it: spawn again)."""
+    its port (taken between choosing it and binding it: spawn again). A
+    rank that fails leaves its peers waiting on it, so the first failure
+    stops the others; the assertion then carries every rank's return
+    code and the end of each failed rank's stderr."""
+    errs = {}
     try:
-        for p in procs:
-            _, err = p.communicate(timeout=TIMEOUT_S)
-            if p.returncode and "EADDRINUSE" in err:
+        for r, p in enumerate(procs):
+            try:
+                _, errs[r] = p.communicate(timeout=TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                break
+            if p.returncode and "EADDRINUSE" in errs[r]:
                 return None
-            assert p.returncode == 0, f"mesh {kind}: {err[-3000:]}"
+            if p.returncode:
+                break
     finally:
-        stop(procs)
+        errs.update(stop(procs))
+    failed = [r for r, p in enumerate(procs) if p.returncode]
+    assert not failed, f"mesh {kind}: " + "\n".join(
+        f"rank {r} exited {procs[r].returncode}: {errs.get(r, '')[-3000:]}"
+        for r in failed)
     return [torch.load(d, weights_only=False) for d in dsts]
 
 
-def stop(procs):
-    for p in procs:
+def stop(procs) -> dict:
+    """Kill the ranks still running; returns their stderr by rank."""
+    errs = {}
+    for r, p in enumerate(procs):
         if p.poll() is None:
             p.kill()
-            p.communicate()
+            errs[r] = p.communicate()[1] + "\nstopped: a peer failed " \
+                "or the mesh timed out"
+    return errs
 
 
 class Meshes:
